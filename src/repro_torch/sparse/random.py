@@ -1,0 +1,100 @@
+"""Deterministic sparse matrix generators (host-side numpy).
+
+``random_dense_sparse`` / ``random_csr`` are the counterparts of
+``repro.sparse.random`` and give the same bytes from the same seed.  They
+build a dense ``rows x cols`` array first, so they serve small sizes only;
+``random_spd_csr`` and ``stencil27_csr`` build CSR directly and reach the
+sizes sparse solvers run (a symmetric diagonally dominant matrix at the NAS
+CG benchmark's sizes, and HPCG's 27-point operator).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.sparse.formats import CSR, _t, csr_from_dense
+
+
+def random_dense_sparse(rows: int, cols: int, density: float, seed: int = 0,
+                        dtype=np.float32, skew: float = 0.0) -> np.ndarray:
+    """Dense array with ~density nonzeros; ``skew`` > 0 gives power-law rows
+    (graph-like degree distribution, the hard case for padded formats)."""
+    rng = np.random.default_rng(seed)
+    if skew > 0:
+        # per-row density drawn from a Pareto-ish distribution
+        row_density = density * (1.0 + rng.pareto(1.0 + 1.0 / skew, rows))
+        row_density = np.minimum(row_density, 1.0)
+        mask = rng.random((rows, cols)) < row_density[:, None]
+    else:
+        mask = rng.random((rows, cols)) < density
+    vals = rng.standard_normal((rows, cols)).astype(dtype)
+    return np.where(mask, vals, 0).astype(dtype)
+
+
+def random_csr(rows: int, cols: int, density: float = 0.05, seed: int = 0,
+               dtype=np.float32, skew: float = 0.0, device="cpu") -> CSR:
+    return csr_from_dense(
+        random_dense_sparse(rows, cols, density, seed, dtype, skew), device)
+
+
+def _csr_from_triplets(r, c, v, n, device) -> CSR:
+    """Sorted, duplicate-summed CSR from (row, col, val) triplets."""
+    key = r.astype(np.int64) * n + c
+    order = np.argsort(key, kind="stable")
+    key, v = key[order], v[order]
+    first = np.concatenate([[True], key[1:] != key[:-1]])
+    starts = np.flatnonzero(first)
+    val = np.add.reduceat(v, starts).astype(np.float32) if v.size else v
+    key = key[starts]
+    rows = (key // n).astype(np.int64)
+    row_ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(rows, minlength=n))]).astype(np.int32)
+    return CSR(val=_t(val, device), col_ind=_t((key % n).astype(np.int32), device),
+               row_ptr=_t(row_ptr, device), shape=(n, n))
+
+
+def random_spd_csr(n: int, row_nnz: int, seed: int = 0, device="cpu") -> CSR:
+    """Symmetric, strictly diagonally dominant (so positive definite) n x n
+    matrix with about ``row_nnz`` stored entries a row at random columns:
+    ``n*(row_nnz-1)/2`` random off-diagonal pairs mirrored across the
+    diagonal, standard-normal values, and a diagonal of 1 + the row's
+    absolute off-diagonal sum."""
+    rng = np.random.default_rng(seed)
+    m = n * (row_nnz - 1) // 2
+    i = rng.integers(0, n, m)
+    j = rng.integers(0, n, m)
+    keep = i != j
+    i, j = i[keep], j[keep]
+    a = rng.standard_normal(i.shape[0]).astype(np.float32)
+    r = np.concatenate([i, j])
+    c = np.concatenate([j, i])
+    v = np.concatenate([a, a])
+    diag = 1.0 + np.bincount(r, weights=np.abs(v), minlength=n)
+    d = np.arange(n)
+    return _csr_from_triplets(np.concatenate([r, d]), np.concatenate([c, d]),
+                              np.concatenate([v, diag.astype(np.float32)]),
+                              n, device)
+
+
+def stencil27_csr(nx: int, ny: int, nz: int, device="cpu") -> CSR:
+    """HPCG's operator: the 27-point stencil on an nx*ny*nz grid, 26 on the
+    diagonal and -1 for every neighbour inside the grid, rows in HPCG's
+    order (x fastest) and columns ascending within a row."""
+    n = nx * ny * nz
+    ix = np.arange(n) % nx
+    iy = (np.arange(n) // nx) % ny
+    iz = np.arange(n) // (nx * ny)
+    cols, vals, ok = [], [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                inside = ((ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0)
+                          & (iy + dy < ny) & (iz + dz >= 0) & (iz + dz < nz))
+                cols.append(np.arange(n) + dx + nx * (dy + ny * dz))
+                vals.append(26.0 if dx == dy == dz == 0 else -1.0)
+                ok.append(inside)
+    ok = np.stack(ok, axis=1)                                  # (n, 27)
+    col = np.stack(cols, axis=1)[ok].astype(np.int32)          # row-major
+    val = np.broadcast_to(np.asarray(vals, np.float32), ok.shape)[ok]
+    row_ptr = np.concatenate([[0], np.cumsum(ok.sum(axis=1))]).astype(np.int32)
+    return CSR(val=_t(val, device), col_ind=_t(col, device),
+               row_ptr=_t(row_ptr, device), shape=(n, n))
