@@ -29,8 +29,11 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    shapes, with and without the fused epilogues, and times the kernel, the
    plain version and, as a yardstick never called by the port, one
    cuSPARSE SpMV on the same matrix (``torch.sparse_csr_tensor @ vec``),
-   beside the least time the card could take (bytes at 3.35 TB/s, flops at
-   67 TFLOP/s f32);
+   beside the least time the card could take for the SpMV itself: the
+   matrix's stored entries (value and column), the vector, the output and
+   the row permutation, each moved once, at 3.35 TB/s, against 2 flops a
+   stored entry at 67 TFLOP/s f32 (the padded layouts' own bytes are
+   printed beside it);
 5. prints one JSON line with every kernel's numbers and, last, the
    {"ok": true, "device": ...} line; ``--record PATH`` also writes a
    detailed JSON record there.  Any failure exits non-zero.
@@ -211,12 +214,13 @@ def main_path(mats, seed: int, device, iters: int = CG_ITERS):
                                     policy="cuda.ell", device=device)
                 for name in mats}
     layer = lilac.compile(ell_layer, mode="host", device=device)
-    peaks = {}
+    peaks, kept = {}, {}
     K.reset_launches()
     for name, (a, b) in mats.items():
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
         calls: list = []
         t0 = time.perf_counter()
         x = cg(timed(compiled[name], calls, device.type == "cuda"), a, b,
@@ -224,6 +228,8 @@ def main_path(mats, seed: int, device, iters: int = CG_ITERS):
         if device.type == "cuda":
             torch.cuda.synchronize()
             peaks[name] = torch.cuda.max_memory_allocated()
+            # what the data plane keeps on the card for this matrix
+            kept[name] = torch.cuda.memory_allocated() - before
         steady = sorted(calls[1:])
         out[name] = {"x": x, "seconds": time.perf_counter() - t0,
                      "first_call_s": calls[0],
@@ -250,7 +256,7 @@ def main_path(mats, seed: int, device, iters: int = CG_ITERS):
             repack_seconds=fast.cache.plans["csr_binding", "ELL128"]
             .build_seconds, trace_seconds=fast.stats["trace_seconds"],
             detect_seconds=fast.stats["detect_seconds"],
-            peak_bytes=peaks.get(name), x=None)
+            peak_bytes=peaks.get(name), kept_bytes=kept.get(name), x=None)
     (lm,) = layer.last_report.matches
     y_ref = ell_layer(ell.val, ell.col, vec, bias)
     out["ell_layer"] = {
@@ -298,7 +304,7 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
     import torch
     from repro_torch.kernels.spmv_ell import kernel as K
     from repro_torch.kernels.spmv_ell import ref as R
-    from repro_torch.sparse import ell_from_csr
+    from repro_torch.sparse import ell_from_csr, ell_windows
 
     rng = torch.Generator(device="cpu").manual_seed(seed + 1)
     on_card = device.type == "cuda"
@@ -314,7 +320,7 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
             run = lambda **kw: K.spmv_ell_cuda(ell.val, ell.col, vec, **kw)
             plain = lambda **kw: R.spmv_ell_plain(ell.val, ell.col, vec, **kw)
         else:
-            w = ell.windows
+            w = ell_windows(ell.val, ell.col, a.cols, perm=ell.perm)
             ops = (w.val, w.col)
             shape = tuple(w.val.shape)
             run = lambda **kw: K.spmv_ell_windowed_cuda(
@@ -342,8 +348,10 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
             err, scaled = max_err(got, want)
             require(scaled <= 1.0, f"{kernel}/{vname}: max |err| {err:.3g} "
                     f"within atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
-            nb = nbytes(*ops, vec, kw.get("bias"), kw.get("perm"), got)
-            b_ms, b_by = bound_ms(nb, 2 * ops[0].numel())
+            io = nbytes(vec, kw.get("bias"), kw.get("perm"), got)
+            # the stored entries, not the layout's padded slots
+            nb = a.nnz * (a.val.element_size() + a.col_ind.element_size()) + io
+            b_ms, b_by = bound_ms(nb, 2 * a.nnz)
             ms, host_ms = cuda_ms(lambda: run(**kw), reps) if on_card \
                 else (None, None)
             prof_ms = profiled_ms(lambda: run(**kw), reps, kernel + "_kernel") \
@@ -353,7 +361,7 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
                 "max_abs_err": err, "scaled_err": scaled, "ms": ms,
                 "host_ms": host_ms, "profiler_ms": prof_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "bytes": nb}
+                "bytes": nb, "layout_bytes": nbytes(*ops) + io}
             del got, want
         entry["library_ms"] = cuda_ms(lambda: csr_t @ vec, reps)[0] \
             if on_card else None
@@ -424,7 +432,8 @@ def main() -> int:
               f"{r['steady_call_ms']:.3f} ms a call), "
               f"|x-x_naive|/|x_naive| = {r['rel_to_naive']:.3g} "
               f"(tol {CG_RTOL}), residual {r['residual']:.3g}, peak "
-              f"{r['peak_bytes'] / 2**30:.2f} GiB")
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, kept after the CG "
+              f"{r['kept_bytes'] / 2**30:.2f} GiB")
     print(f"main path ELL layer: {res['ell_layer']}")
     print(f"launches on the main path: {res['launches']}")
     check_main_path(res)
@@ -441,7 +450,8 @@ def main() -> int:
                   f"{v['host_ms']:.4f} ms to enqueue; profiler "
                   f"{v['profiler_ms']} ms a launch), plain "
                   f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-                  f"({v['bound_by']}, {v['bytes']} B)")
+                  f"({v['bound_by']}, {v['bytes']} B with the stored "
+                  f"entries; the padded layout moves {v['layout_bytes']} B)")
         print(f"{e['name']} library (cuSPARSE CSR SpMV): "
               f"{e['library_ms']:.4f} ms, max|err| vs plain "
               f"{e['library_err']:.3g}")

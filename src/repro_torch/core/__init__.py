@@ -1,7 +1,7 @@
 """repro_torch.core — the LiLAC pass on FX graphs (host mode).
 
 Public API (prefer the ``repro_torch.lilac`` facade):
-    compile / CompileOptions   the single LiLAC entry point
+    compile                    the single LiLAC entry point
     spec                       HARNESS-descriptor compiler + @harness
     Detector                   backtracking FX-graph detection
     REGISTRY / Harness         LiLAC-How backends (populated from specs)
@@ -14,10 +14,9 @@ from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
                                       Harness, HarnessRegistry)
 from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
-                                      MarshalingCache, MarshalPolicy,
+                                      MarshalingCache,
                                       SparseFormat, fingerprint)
-from repro_torch.core.pass_manager import (CompileOptions, LilacFunction,
-                                           compile)
+from repro_torch.core.pass_manager import LilacFunction, compile
 from repro_torch.core import spec
 from repro_torch.core import what_lang
 
@@ -29,8 +28,8 @@ __all__ = [
     "Detector", "DetectionReport", "Match", "default_detector",
     "REGISTRY", "CallCtx", "DuplicateHarnessError", "Harness",
     "HarnessRegistry",
-    "MarshalingCache", "DataPlane", "MarshalPolicy", "SparseFormat",
+    "MarshalingCache", "DataPlane", "SparseFormat",
     "ConversionEdge", "ConversionGraph", "FORMATS", "GRAPH", "SOURCES",
-    "fingerprint", "CompileOptions", "LilacFunction", "compile", "spec",
+    "fingerprint", "LilacFunction", "compile", "spec",
     "what_lang",
 ]

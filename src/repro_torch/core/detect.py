@@ -380,12 +380,23 @@ class DetectionReport:
 # Semantic validation
 # ---------------------------------------------------------------------------
 
+def _device_fault(e: BaseException) -> bool:
+    """A failure of the card itself (out of memory, a CUDA runtime error),
+    which says nothing of whether a subgraph is row expansion."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return isinstance(e, torch.cuda.OutOfMemoryError) \
+        or (accel is not None and isinstance(e, accel)) \
+        or "CUDA error" in str(e)
+
+
 def _validate_row_expansion(ctx: Ctx, row_node: Node, row_ptr: Node, nnz: int,
                             rows: int, trials: int = 2) -> bool:
     """Check the subgraph row_ptr -> row_ids really is CSR row expansion:
     out == repeat(arange(rows), diff(row_ptr)) for random valid row_ptrs,
-    evaluated on the device the program was traced for.  Verdicts are
-    memoized per (row_node, row_ptr) subgraph."""
+    evaluated and compared on the device the program was traced for.  A
+    subgraph that fails to evaluate on another row_ptr is rejected; a
+    fault of the card raises.  Verdicts are memoized per (row_node,
+    row_ptr) subgraph."""
     key = ("row_expansion", row_node, row_ptr, nnz, rows)
     cached = ctx.validation_cache.get(key)
     if cached is not None:
@@ -395,16 +406,22 @@ def _validate_row_expansion(ctx: Ctx, row_node: Node, row_ptr: Node, nnz: int,
     ok = True
     for _ in range(trials):
         cuts = np.sort(rng.integers(0, nnz + 1, size=max(rows - 1, 0)))
-        rp = np.concatenate([[0], cuts, [nnz]])
-        expect = np.repeat(np.arange(rows), np.diff(rp))
+        rp = torch.as_tensor(np.concatenate([[0], cuts, [nnz]]),
+                             dtype=proto.dtype, device=proto.device)
         try:
-            got = ctx.eval_subgraph(row_node, {row_ptr: torch.as_tensor(
-                rp, dtype=proto.dtype, device=proto.device)})
-        except Exception:   # any failure to evaluate is a rejection
+            got = ctx.eval_subgraph(row_node, {row_ptr: rp})
+        except (RuntimeError, ValueError, TypeError, IndexError) as e:
+            if _device_fault(e):
+                raise
             ok = False
             break
-        if tuple(got.shape) != (nnz,) or not np.array_equal(
-                got.cpu().numpy().astype(np.int64), expect):
+        # slot j belongs to the row whose end is the first one past j
+        expect = torch.searchsorted(
+            rp[1:], torch.arange(nnz, dtype=rp.dtype, device=rp.device),
+            right=True)
+        if not isinstance(got, torch.Tensor) or tuple(got.shape) != (nnz,) \
+                or not torch.equal(got.to(expect.device, torch.int64),
+                                   expect):
             ok = False
             break
     ctx.validation_cache[key] = ok

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.marshal import MarshalingCache
+from repro_torch.core.marshal import DataPlane
 
 Binding = Dict[str, Any]
 
@@ -38,12 +38,9 @@ class DuplicateHarnessError(ValueError):
 @dataclasses.dataclass
 class CallCtx:
     mode: str                      # 'host' (trace mode is a later slice)
-    cache: Optional[MarshalingCache]   # usually a DataPlane
+    cache: DataPlane               # the compiled function's data plane
     format: str                    # match format: CSR/COO/ELL/JDS
     platform: str = "cuda"
-    # Selected schedule variant: tune-param name -> value; None means the
-    # harness's declared default schedule.
-    schedule: Optional[Dict[str, Any]] = None
     # Detected fused epilogue for this call site: 'relu' | 'silu' | 'none'
     # (bias only) | None.  Harnesses declaring ``fuse epilogue`` apply it
     # themselves (reading ``binding['bias']``); for all others the rewriter
@@ -61,21 +58,8 @@ class Harness:
     formats: Tuple[str, ...] = ()                 # () = any
     # declared marshal clauses (what_lang.MarshalClause)
     marshal: Tuple[Any, ...] = ()
-    # declared schedule space (what_lang.TuneClause / Constraint)
-    tune: Tuple[Any, ...] = ()
-    constraints: Tuple[Any, ...] = ()
     # True when the body applies detected epilogues itself
     fuse_epilogue: bool = False
-    _schedules: Optional[Tuple[Dict[str, Any], ...]] = None
-
-    @property
-    def schedules(self) -> Tuple[Dict[str, Any], ...]:
-        """Every constraint-satisfying assignment of the declared tune
-        params, default first.  Empty for untuned harnesses."""
-        if self._schedules is None:
-            from repro_torch.core.what_lang import enumerate_schedules
-            self._schedules = enumerate_schedules(self.tune, self.constraints)
-        return self._schedules
 
     def __call__(self, binding: Binding, ctx: CallCtx):
         return self.fn(binding, ctx)
@@ -138,10 +122,6 @@ class HarnessRegistry:
         cands = self.candidates(comp, fmt, platform, mode)
         if not cands:
             raise KeyError(f"no harness for {comp}/{fmt} on {platform} ({mode})")
-        if policy == "autotune":
-            raise NotImplementedError(
-                "policy='autotune' is not ported yet; use 'default' or a "
-                "harness name")
         if policy != "default":
             return self.get(comp, policy)  # explicit pin by name
         dname = self._defaults.get((comp, platform))

@@ -14,7 +14,7 @@ matrix change?" is answered with content fingerprints at the harness call.
   measured (EWMA) costs; ``plan`` picks the cheapest path from any cached
   intermediate to the requested format.
 * ``MarshalingCache`` — memoizes derived values keyed on the fingerprints
-  of their source arrays, with cost-aware LRU eviction.
+  of their source arrays, least recently used out first.
 * ``DataPlane`` — ``ensure(src, dst, ...)`` walks the conversion graph, so
   harnesses targeting one format share one cached buffer.
 
@@ -201,11 +201,10 @@ GRAPH = ConversionGraph()
 
 
 def edge(src: str, dst: str, *, name: Optional[str] = None,
-         est_cost: float = 1.0, graph: Optional[ConversionGraph] = None,
-         override: bool = False):
-    """Decorator: register a value-level conversion as a graph edge."""
+         est_cost: float = 1.0, override: bool = False):
+    """Decorator: register a value-level conversion as an edge of GRAPH."""
     def deco(fn):
-        (graph or GRAPH).add(
+        GRAPH.add(
             ConversionEdge(src, dst, fn, name or f"{src}->{dst}",
                            est_cost=est_cost), override=override)
         return fn
@@ -248,41 +247,8 @@ def register_source(name: str, fmt: str, fn: Callable, override: bool = False
 
 
 # ---------------------------------------------------------------------------
-# Policy + stats
+# Stats
 # ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class MarshalPolicy:
-    """Knobs for the data plane.
-
-    ``max_entries``  cache capacity (cost-aware LRU beyond it).
-    ``exact``        exact fingerprints (no sampling) for cache keys.
-    ``enabled``      False disables caching entirely (every call repacks —
-                     the paper's "naive library call").
-    """
-    max_entries: int = 64
-    exact: bool = False
-    enabled: bool = True
-
-    @staticmethod
-    def parse(val) -> "MarshalPolicy":
-        if val is None:
-            return MarshalPolicy()
-        if isinstance(val, MarshalPolicy):
-            return val
-        if isinstance(val, str):
-            if val in ("shared", "default", "on"):
-                return MarshalPolicy()
-            if val in ("off", "none", "disabled"):
-                return MarshalPolicy(enabled=False)
-            if val == "exact":
-                return MarshalPolicy(exact=True)
-            raise ValueError(f"unknown marshal_policy {val!r} "
-                             "(use 'shared' | 'off' | 'exact' or a "
-                             "MarshalPolicy instance)")
-        raise TypeError(f"marshal_policy must be str or MarshalPolicy, "
-                        f"got {type(val).__name__}")
-
 
 @dataclasses.dataclass
 class CacheStats:
@@ -315,23 +281,18 @@ class PlanStats:
 # ---------------------------------------------------------------------------
 
 class MarshalingCache:
-    """Memoizes marshaled INPUTs (paper Fig. 8/9/10).  Eviction is
-    cost-aware LRU: among the least-recently-used window, the cheapest
-    entry to recompute goes first."""
+    """Memoizes marshaled INPUTs (paper Fig. 8/9/10), at most
+    ``MAX_ENTRIES`` of them: the least recently used goes first."""
 
-    #: how many LRU-tail entries compete on recompute cost at eviction
-    EVICT_WINDOW = 8
+    MAX_ENTRIES = 64
 
-    def __init__(self, exact: bool = False, max_entries: int = 64):
-        self.exact = exact
-        self.max_entries = max_entries
+    def __init__(self):
         self._store: "OrderedDict[Tuple, Any]" = OrderedDict()
         self._cost: Dict[Tuple, float] = {}
         self.stats = CacheStats()
 
     def _key(self, spec_name: str, key_arrays: Sequence) -> Tuple:
-        return (spec_name,) + tuple(
-            fingerprint(a, self.exact) for a in key_arrays)
+        return (spec_name,) + tuple(fingerprint(a) for a in key_arrays)
 
     def _hit(self, key: Tuple, key_arrays: Sequence):
         self._store.move_to_end(key)
@@ -339,22 +300,14 @@ class MarshalingCache:
         self.stats.bytes_avoided += sum(nbytes_of(a) for a in key_arrays)
         self.stats.recompute_seconds_avoided += self._cost.get(key, 0.0)
 
-    def _evict(self):
-        while len(self._store) > self.max_entries:
-            # the most-recently-used entry is never eligible, so a value
-            # cannot be evicted by its own insert
-            window = min(self.EVICT_WINDOW, len(self._store) - 1)
-            tail = list(itertools.islice(iter(self._store), window))
-            victim = min(tail, key=lambda k: self._cost.get(k, 0.0))
-            self._store.pop(victim)
-            self._cost.pop(victim, None)
-            self.stats.evictions += 1
-
     def _insert(self, key: Tuple, val: Any, cost: float):
         self._store[key] = val
         self._store.move_to_end(key)
         self._cost[key] = cost
-        self._evict()
+        while len(self._store) > self.MAX_ENTRIES:
+            victim, _ = self._store.popitem(last=False)
+            self._cost.pop(victim, None)
+            self.stats.evictions += 1
 
     def get(self, spec_name: str, key_arrays: Tuple, compute: Callable[[], Any]):
         """Cached value for ``spec_name`` derived from ``key_arrays``;
@@ -387,12 +340,8 @@ class DataPlane(MarshalingCache):
     as ONE hit or miss in ``stats``.
     """
 
-    def __init__(self, policy: Optional[MarshalPolicy] = None,
-                 graph: Optional[ConversionGraph] = None):
-        policy = policy or MarshalPolicy()
-        super().__init__(exact=policy.exact, max_entries=policy.max_entries)
-        self.policy = policy
-        self.graph = graph or GRAPH
+    def __init__(self):
+        super().__init__()
         self.plans: Dict[Tuple[str, str], PlanStats] = {}
 
     def _node_key(self, src: str, fmt: str, fps: Tuple) -> Tuple:
@@ -417,7 +366,7 @@ class DataPlane(MarshalingCache):
                                f"format {dst!r} and no fallback repack")
             return self.get(f"{src}->{dst}", tuple(key_arrays), fallback)
 
-        fps = tuple(fingerprint(a, self.exact) for a in key_arrays)
+        fps = tuple(fingerprint(a) for a in key_arrays)
         key = self._node_key(src, dst, fps)
         ps = self._plan_stats(src, dst)
         val = self._store.get(key, _MISSING)
@@ -441,7 +390,7 @@ class DataPlane(MarshalingCache):
                 cached_keys[k[2]] = k
         starts.setdefault(loader.fmt, loader.cost())
 
-        plan = self.graph.plan(starts, dst)
+        plan = GRAPH.plan(starts, dst)
         if plan is None:
             if fallback is None:
                 raise KeyError(f"no conversion path {src}({loader.fmt})"

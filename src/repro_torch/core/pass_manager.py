@@ -26,7 +26,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import detect as D
 from repro_torch.core import harness as H
-from repro_torch.core.marshal import DataPlane, MarshalingCache, MarshalPolicy
+from repro_torch.core.marshal import DataPlane
 from repro_torch.core.rewrite import needed_nodes, run_rewritten
 
 
@@ -67,14 +67,8 @@ class LilacFunction:
     """A function passed through the LiLAC pass (host mode)."""
 
     def __init__(self, fn: Callable, *, mode: str = "host",
-                 policy: str = "default",
-                 registry: Optional[H.HarnessRegistry] = None,
-                 detector: Optional[D.Detector] = None,
-                 platform: Optional[str] = None,
-                 device=None,
-                 cache: Optional[MarshalingCache] = None,
-                 marshal_policy=None,
-                 enabled: bool = True):
+                 policy: str = "default", platform: Optional[str] = None,
+                 device=None):
         if mode != "host":
             raise NotImplementedError(
                 f"mode={mode!r}: only host mode is ported so far")
@@ -85,19 +79,8 @@ class LilacFunction:
         self.fn = fn
         self.mode = mode
         self.policy = policy
-        self.registry = registry or H.REGISTRY
-        self.detector = detector or D.default_detector()
         self.platform = resolve_platform(platform, device)
-        self.marshal_policy = MarshalPolicy.parse(marshal_policy)
-        if cache is not None:
-            # caller-supplied cache, possibly shared with other compiled
-            # functions (cross-function sharing of marshaled buffers)
-            self.cache = cache
-        elif self.marshal_policy.enabled:
-            self.cache = DataPlane(policy=self.marshal_policy)
-        else:
-            self.cache = None       # every call repacks (A/B baseline)
-        self.enabled = bool(enabled)
+        self.cache = DataPlane()
         self._compiled: Dict[Tuple, CompiledEntry] = {}
         # set-up paid per input signature: traces run and the seconds spent
         # tracing and detecting (repacks are the data plane's: cache.plans)
@@ -126,7 +109,7 @@ class LilacFunction:
         t0 = time.perf_counter()
         gm = D.trace(flat_fn, [leaves[i] for i in tensor_pos])
         t1 = time.perf_counter()
-        report = self.detector.detect(gm)
+        report = D.default_detector().detect(gm)
         self.stats["traces"] += 1
         self.stats["trace_seconds"] += t1 - t0
         self.stats["detect_seconds"] += time.perf_counter() - t1
@@ -144,8 +127,8 @@ class LilacFunction:
     # -- execution -----------------------------------------------------------
 
     def _select(self, m: D.Match) -> H.Harness:
-        return self.registry.select(m.computation, m.format, self.platform,
-                                    self.mode, policy=self.policy)
+        return H.REGISTRY.select(m.computation, m.format, self.platform,
+                                 self.mode, policy=self.policy)
 
     def _ctx_factory(self, m: D.Match) -> H.CallCtx:
         return H.CallCtx(mode=self.mode, cache=self.cache, format=m.format,
@@ -159,66 +142,25 @@ class LilacFunction:
                     f"compiled for {self.platform!r} but got a tensor on "
                     f"{x.device}")
         entry = self._entry_for(leaves, spec)
-        matches = entry.report.matches if self.enabled else []
-        needed = entry.needed if self.enabled else None
         selections: List[Tuple[D.Match, str]] = []
         outs = run_rewritten(
-            entry.gm, matches, self._select,
+            entry.gm, entry.report.matches, self._select,
             [leaves[i] for i in entry.tensor_pos], self._ctx_factory,
             on_select=lambda m, h: selections.append((m, h.name)),
-            needed=needed)
+            needed=entry.needed)
         self.last_selections = selections
         return tree_unflatten(outs, entry.out_spec)
 
 
-@dataclasses.dataclass
-class CompileOptions:
-    """Configuration for :func:`compile` (the paper's Fig. 1 pass).
+def compile(fn: Callable, *, mode: str = "host", policy: str = "default",
+            platform: Optional[str] = None, device=None) -> LilacFunction:
+    """The single LiLAC entry point: pass ``fn`` through the pass.
 
     ``mode``      'host' (eager with the data plane — the paper's runtime
                   model); trace mode is not ported yet.
     ``policy``    'default' | an explicit harness name.
     ``platform``  'cuda' (the default; raises without a card) or 'cpu'.
     ``device``    alternative spelling: its type picks the platform.
-    ``enabled``   False runs the original computation (A/B baseline).
-    ``marshal_policy``  a :class:`~repro_torch.core.marshal.MarshalPolicy`
-                  or 'shared' | 'exact' | 'off' (no caching — every call
-                  repacks).
-    ``registry``/``detector``/``cache``  dependency injection; None picks
-                  the global instances.
     """
-    mode: str = "host"
-    policy: str = "default"
-    platform: Optional[str] = None
-    device: Any = None
-    enabled: bool = True
-    marshal_policy: Optional[Any] = None
-    registry: Optional[H.HarnessRegistry] = None
-    detector: Optional[D.Detector] = None
-    cache: Optional[MarshalingCache] = None
-
-
-_OPTION_FIELDS = {f.name for f in dataclasses.fields(CompileOptions)}
-
-
-def compile(fn: Optional[Callable] = None, *,
-            options: Optional[CompileOptions] = None,
-            **overrides) -> LilacFunction:
-    """The single LiLAC entry point: pass a function through the pass.
-
-    Usable directly (``lilac.compile(fn, mode="host")``), with an options
-    dataclass, or as a decorator (``@lilac.compile(policy="cuda.ell")``).
-    """
-    bad = set(overrides) - _OPTION_FIELDS
-    if bad:
-        raise TypeError(f"unknown compile option(s): {sorted(bad)}")
-    opts = options if options is not None else CompileOptions()
-    if overrides:
-        opts = dataclasses.replace(opts, **overrides)
-    if fn is None:
-        return lambda f: compile(f, options=opts)
-    return LilacFunction(fn, mode=opts.mode, policy=opts.policy,
-                         registry=opts.registry, detector=opts.detector,
-                         platform=opts.platform, device=opts.device,
-                         cache=opts.cache, marshal_policy=opts.marshal_policy,
-                         enabled=opts.enabled)
+    return LilacFunction(fn, mode=mode, policy=policy, platform=platform,
+                         device=device)

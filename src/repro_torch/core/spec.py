@@ -14,8 +14,9 @@ HARNESS block and a kernel body; this module does the rest:
   texts plus the HARNESS blocks next to the CUDA kernels.
 
 Not ported yet: persistence hooks (BeforeFirstExecution /
-AfterLastExecution / persistent) and ``vjp`` backward bodies; a HARNESS
-block that declares one is refused.
+AfterLastExecution / persistent), ``vjp`` backward bodies and ``tune``
+schedule spaces (there is no autotuner); a HARNESS block that declares one
+is refused.
 """
 from __future__ import annotations
 
@@ -59,43 +60,23 @@ def _resolve_key(binding: H.Binding, alternatives) -> Any:
 
 def _marshaled_fn(decl: W.HarnessDecl, body: Callable) -> Callable:
     """Generate the execution wrapper for a HARNESS descriptor: marshaled
-    inputs and tuned schedule parameters both arrive at the kernel body as
-    keyword arguments.  A clause with ``from <src> to <dst>`` goes through
-    the data plane's conversion graph, with the clause's repack as the
-    fallback; the body receives the default schedule overlaid with
-    ``ctx.schedule`` (unknown keys raise)."""
+    inputs arrive at the kernel body as keyword arguments.  A clause with
+    ``from <src> to <dst>`` goes through the data plane's conversion graph,
+    with the clause's repack as the fallback."""
     clauses = decl.marshal
-    default_schedule = decl.default_schedule()
-    tune_names = frozenset(default_schedule)
 
     def fn(binding: H.Binding, ctx: H.CallCtx):
         marshaled = {}
-        cache = ctx.cache if ctx is not None else None
         for cl in clauses:
             pack = REPACKS[cl.repack]
             keys = tuple(_resolve_key(binding, alts) for alts in cl.keys)
-            if cache is None:
-                marshaled[cl.name] = pack(binding)
-            elif cl.src and cl.dst and hasattr(cache, "ensure"):
-                marshaled[cl.name] = cache.ensure(
+            if cl.src and cl.dst:
+                marshaled[cl.name] = ctx.cache.ensure(
                     cl.src, cl.dst, keys, binding,
                     fallback=lambda p=pack: p(binding))
             else:
-                marshaled[cl.name] = cache.get(
+                marshaled[cl.name] = ctx.cache.get(
                     cl.repack, keys, lambda p=pack: p(binding))
-        if tune_names:
-            sched = dict(default_schedule)
-            override = getattr(ctx, "schedule", None) if ctx is not None \
-                else None
-            if override:
-                unknown = set(override) - tune_names
-                if unknown:
-                    raise SpecError(
-                        f"harness {decl.name!r}: schedule has unknown "
-                        f"param(s) {sorted(unknown)} "
-                        f"(declared: {sorted(tune_names)})")
-                sched.update(override)
-            marshaled.update(sched)
         return body(binding, ctx, **marshaled)
 
     fn.__name__ = getattr(body, "__name__", decl.name)
@@ -112,28 +93,14 @@ def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
     if decl.vjp is not None:
         raise SpecError(f"harness {decl.name!r}: vjp clauses are not "
                         f"supported by this package yet")
-    schedules = ()
-    if decl.tune:
-        try:
-            schedules = W.enumerate_schedules(decl.tune, decl.constraints)
-        except W.ParseError as e:
-            raise SpecError(f"harness {decl.name!r}: {e}")
-        if not schedules:
-            raise SpecError(
-                f"harness {decl.name!r}: constraints prune every schedule "
-                f"variant")
-        if schedules[0] != decl.default_schedule():
-            raise SpecError(
-                f"harness {decl.name!r}: the default schedule (first "
-                f"declared values) violates a constraint")
-    fn = _marshaled_fn(decl, body) if (decl.marshal or decl.tune) else body
+    if decl.tune or decl.constraints:
+        raise SpecError(f"harness {decl.name!r}: tune clauses are not "
+                        f"supported by this package yet (no autotuner)")
+    fn = _marshaled_fn(decl, body) if decl.marshal else body
     return [
         H.Harness(decl.name, comp, fn, jit_safe=decl.jit_safe,
                   platforms=decl.platforms, formats=decl.formats,
-                  marshal=decl.marshal, tune=decl.tune,
-                  constraints=decl.constraints,
-                  fuse_epilogue=decl.fuse_epilogue,
-                  _schedules=schedules or None)
+                  marshal=decl.marshal, fuse_epilogue=decl.fuse_epilogue)
         for comp in decl.implements
     ]
 
@@ -268,12 +235,8 @@ def _csr_to_ell8(csr):
 
 @M.edge("CSR", "ELL128", name="csr_to_ell128")
 def _csr_to_ell128(csr):
-    from repro_torch.kernels.spmv_ell.ops import RESIDENT_VEC_LIMIT
-    from repro_torch.sparse.convert import csr_to_ell
-    ell = csr_to_ell(csr, lane=128)
-    if csr.cols > RESIDENT_VEC_LIMIT:
-        ell.windows     # the column-window relayout, once per matrix
-    return ell
+    from repro_torch.kernels.spmv_ell.ops import pack_ell128
+    return pack_ell128(csr)
 
 
 @M.edge("CSR", "DENSE", name="csr_todense")

@@ -11,17 +11,21 @@ so row padding sets the launch grid and copies nothing.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.common import apply_epilogue_inregister
 from repro_torch.kernels.spmv_ell.kernel import (spmv_ell_cuda,
                                                  spmv_ell_windowed_cuda)
-from repro_torch.sparse.formats import ELL, WINDOW, WindowedELL, ell_windows
+from repro_torch.sparse.convert import csr_to_ell
+from repro_torch.sparse.formats import (CSR, ELL, WINDOW, WindowedELL,
+                                        ell_windows)
 
 # Vector sizes above this use the column-windowed kernel.
 RESIDENT_VEC_LIMIT = 1 << 20  # 1M elements (4 MiB f32)
+# Rows a thread block covers (the reference's default slab).
+ROWS_PER_SLAB = 32
 
 
 def slab_geometry(rows: int, rows_per_slab: int) -> Tuple[int, int]:
@@ -41,7 +45,7 @@ def _fusable(bias, out_rows: int) -> bool:
 
 
 def spmv_ell(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
-             rows_per_slab: int = 32,
+             rows_per_slab: int = ROWS_PER_SLAB,
              epilogue: Optional[str] = None,
              bias=None,
              perm: Optional[torch.Tensor] = None,
@@ -81,24 +85,33 @@ def _windowed(val, col, vec, rows_per_slab, window: int = WINDOW,
                                   rows_per_slab=rows_per_slab)
 
 
-def spmv_ell_packed(ell: ELL, vec: torch.Tensor, rows_per_slab: int = 32,
+def pack_ell128(csr: CSR) -> Union[ELL, WindowedELL]:
+    """The marshaled form of a CSR matrix that the kernels read: its
+    lane-128 ELL, or, when its vector would exceed ``RESIDENT_VEC_LIMIT``,
+    only that ELL's column-window relayout (the windowed kernel never reads
+    the ELL itself, so it is not kept)."""
+    ell = csr_to_ell(csr, lane=128)
+    if csr.cols <= RESIDENT_VEC_LIMIT:
+        return ell
+    return ell_windows(ell.val, ell.col, csr.cols, perm=ell.perm)
+
+
+def spmv_ell_packed(packed: Union[ELL, WindowedELL], vec: torch.Tensor,
                     epilogue: Optional[str] = None,
                     bias=None) -> torch.Tensor:
-    """SpMV with a marshaled ELL: the kernel un-permutes the JDS row sort
-    in its store, and a long vector runs on the matrix's own column-window
-    relayout (``ELL.windows``, built once per matrix) instead of splitting
-    the slots again on every call."""
-    if bias is not None and not _fusable(bias, ell.shape[0]):
-        out = spmv_ell_packed(ell, vec, rows_per_slab)
+    """SpMV with a :func:`pack_ell128` value: the kernel un-permutes the
+    JDS row sort in its store, and a column-window relayout runs on the
+    windowed kernel as it is, without splitting the slots again."""
+    rows = packed.shape[0]
+    if bias is not None and not _fusable(bias, rows):
+        out = spmv_ell_packed(packed, vec)
         return apply_epilogue_inregister(out, bias, epilogue)
+    if not isinstance(packed, WindowedELL):
+        return spmv_ell(packed.val, packed.col, vec, epilogue=epilogue,
+                        bias=bias, perm=packed.perm, out_rows=rows)
     if bias is not None:
         bias = bias.float().contiguous()
-    rows_per_slab, _ = slab_geometry(ell.val.shape[0], rows_per_slab)
-    if vec.shape[0] <= RESIDENT_VEC_LIMIT:
-        return spmv_ell_cuda(ell.val, ell.col, vec, bias=bias, perm=ell.perm,
-                             out_rows=ell.shape[0], epilogue=epilogue,
-                             rows_per_slab=rows_per_slab)
-    return _windowed(ell.val, ell.col, vec, rows_per_slab, epilogue=epilogue,
-                     bias=bias, perm=ell.perm, out_rows=ell.shape[0],
-                     layout=ell.windows)
-
+    rows_per_slab, _ = slab_geometry(rows, ROWS_PER_SLAB)
+    return _windowed(packed.val, packed.col, vec, rows_per_slab,
+                     epilogue=epilogue, bias=bias, perm=packed.perm,
+                     out_rows=rows, layout=packed)

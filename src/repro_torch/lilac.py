@@ -23,11 +23,10 @@ from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
                                       Harness, HarnessRegistry)
 from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
-                                      MarshalingCache, MarshalPolicy,
+                                      MarshalingCache,
                                       SparseFormat, edge, register_format,
                                       register_source)
-from repro_torch.core.pass_manager import (CompileOptions, LilacFunction,
-                                           compile)
+from repro_torch.core.pass_manager import LilacFunction, compile
 from repro_torch.core.rewrite import apply_epilogue
 from repro_torch.core.spec import (REPACKS, SpecError, build_harnesses,
                                    harness, register_builtins, register_spec,
@@ -40,7 +39,7 @@ from repro_torch.core.what_lang import (BUILTIN_SPECS, BUILTINS, Computation,
 
 __all__ = [
     # entry point
-    "compile", "CompileOptions", "LilacFunction",
+    "compile", "LilacFunction",
     # spec surface
     "harness", "repack", "register_spec", "register_builtins",
     "build_harnesses", "SpecError", "REPACKS",
@@ -54,7 +53,7 @@ __all__ = [
     "REGISTRY", "Harness", "HarnessRegistry", "DuplicateHarnessError",
     "CallCtx", "MarshalingCache",
     # data plane
-    "DataPlane", "MarshalPolicy", "SparseFormat", "ConversionEdge",
+    "DataPlane", "SparseFormat", "ConversionEdge",
     "ConversionGraph", "FORMATS", "GRAPH", "SOURCES", "edge",
     "register_format", "register_source",
 ]

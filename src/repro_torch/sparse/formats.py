@@ -109,13 +109,15 @@ class WindowedELL:
     k-th stored entry of row i whose column lies in window w, with the
     column id local to the window (``col - w*window``).  Unused slots have
     val=0, col=0.  ``width`` is the largest number of entries any row has
-    in one window, rounded up to the lane, not the ELL width.
+    in one window, rounded up to the lane, not the ELL width.  ``perm`` is
+    the row sort of the ELL it came from, if any.
     """
 
     val: torch.Tensor   # (rows, n_windows, width)
     col: torch.Tensor   # (rows, n_windows, width) int32
     window: int
     shape: Tuple[int, int]
+    perm: Optional[torch.Tensor] = None  # (rows,) int32
 
     @property
     def n_windows(self) -> int:
@@ -143,12 +145,6 @@ class ELL:
     @property
     def width(self) -> int:
         return self.val.shape[1]
-
-    @functools.cached_property
-    def windows(self) -> WindowedELL:
-        """The column-windowed relayout at :data:`WINDOW`, built on first
-        use and kept with the matrix, so a marshaled ELL pays it once."""
-        return ell_windows(self.val, self.col, self.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +239,8 @@ def ell_from_csr(csr: CSR, width: Optional[int] = None, sort_rows: bool = True,
 
 
 def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
-                window: int = WINDOW, lane: int = 8) -> WindowedELL:
+                window: int = WINDOW, lane: int = 8,
+                perm: Optional[torch.Tensor] = None) -> WindowedELL:
     """Split ELL slots by column window, on the tensors' device.
 
     A slot's place in its (row, window) group comes from one stable sort of
@@ -270,7 +267,7 @@ def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
     col3[key, pos] = (c[order] % window).to(torch.int32)
     return WindowedELL(val=val3.view(rows, n_windows, width),
                        col=col3.view(rows, n_windows, width),
-                       window=window, shape=(rows, cols))
+                       window=window, shape=(rows, cols), perm=perm)
 
 
 # ---------------------------------------------------------------------------

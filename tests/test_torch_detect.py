@@ -197,3 +197,29 @@ def test_row_expansion_is_validated_not_assumed():
     (m,) = TD.Detector().detect_fn(not_csr, val, col, row_ptr, vec).matches
     assert m.format == "COO"
     assert "rowidx" in m.binding and "rowstr" not in m.binding
+
+
+@pytest.mark.parametrize("error,verdict", [
+    (RuntimeError("shape '[240]' is invalid for input of size 7"), "COO"),
+    (IndexError("index 9 is out of bounds"), "COO"),
+    (torch.cuda.OutOfMemoryError("CUDA out of memory"), "raises"),
+    (RuntimeError("CUDA error: an illegal memory access was encountered"),
+     "raises"),
+])
+def test_row_expansion_validation_rejects_or_raises(monkeypatch, error,
+                                                    verdict):
+    """A row-expansion subgraph that fails to evaluate on a trial row_ptr
+    is not CSR; a fault of the card is no verdict, and raises."""
+    arrs = _arrays()
+    args = [torch.from_numpy(arrs[n]) for n in ("val", "col", "row_ptr", "vec")]
+
+    def fail(self, out, leaf_values):
+        raise error
+
+    monkeypatch.setattr(TD.Ctx, "eval_subgraph", fail)
+    if verdict == "raises":
+        with pytest.raises(type(error)):
+            TD.Detector().detect_fn(csr_torch, *args)
+        return
+    (m,) = TD.Detector().detect_fn(csr_torch, *args).matches
+    assert m.format == verdict and "rowstr" not in m.binding

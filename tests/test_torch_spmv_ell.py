@@ -84,8 +84,9 @@ def test_spmv_ell_windowed_matches_pallas(epilogue):
 @pytest.mark.parametrize("cols", [300, 1_100_000])
 def test_spmv_ell_packed_unpermutes_like_the_reference(cols):
     """Marshaled ELL: the kernel's store un-permutes the row sort and the
-    fused epilogue indexes the bias by output row.  A vector over 1<<20
-    elements takes the windowed kernel on the matrix's own relayout."""
+    fused epilogue indexes the bias by output row.  For a vector over 1<<20
+    elements the marshaled value is the matrix's column-window relayout
+    alone, and the windowed kernel runs on it."""
     rng = np.random.default_rng(7)
     key = np.unique(rng.integers(0, 96 * cols, 900))
     r, c = key // cols, key % cols
@@ -100,11 +101,13 @@ def test_spmv_ell_packed_unpermutes_like_the_reference(cols):
     expect = np.zeros(96, np.float64)
     np.add.at(expect, r, v.astype(np.float64) * vec[c])
     expect = np.maximum(expect + bias, 0)
-    ell = tf.ell_from_csr(csr, lane=128)
-    out = ell_ops.spmv_ell_packed(ell, torch.from_numpy(vec), epilogue="relu",
-                                  bias=torch.from_numpy(bias))
+    packed = ell_ops.pack_ell128(csr)
+    out = ell_ops.spmv_ell_packed(packed, torch.from_numpy(vec),
+                                  epilogue="relu", bias=torch.from_numpy(bias))
     np.testing.assert_allclose(out.numpy(), expect, **TOL)
-    assert ("windows" in ell.__dict__) == (cols > 1 << 20)
+    assert isinstance(packed, tf.WindowedELL) == (cols > 1 << 20)
+    ell = tf.ell_from_csr(csr, lane=128)
+    assert torch.equal(packed.perm, ell.perm)
 
 
 @pytest.mark.parametrize("rows,rps,expect", [

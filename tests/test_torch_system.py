@@ -155,6 +155,22 @@ def test_fingerprint_samples_large_tensors():
     assert fingerprint(big, exact=True)[0] == "full"
 
 
+def test_data_plane_keeps_the_most_recent_entries():
+    """The data plane holds at most MAX_ENTRIES marshaled values and lets
+    the least recently used go first."""
+    plane = lilac.DataPlane()
+    n = plane.MAX_ENTRIES
+    keys = [torch.full((4,), float(i)) for i in range(n + 1)]
+    for i, k in enumerate(keys[:n]):
+        plane.get("pack", (k,), lambda i=i: i)
+    assert plane.get("pack", (keys[0],), lambda: -1) == 0    # a hit: recent
+    plane.get("pack", (keys[n],), lambda: n)                 # evicts keys[1]
+    assert plane.stats.evictions == 1
+    assert plane.get("pack", (keys[0],), lambda: -1) == 0
+    assert plane.get("pack", (keys[1],), lambda: -1) == -1   # rebuilt
+    assert plane.stats.hits == 2 and plane.stats.misses == n + 2
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     root = pathlib.Path(__file__).resolve().parents[1]
     bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)

@@ -66,7 +66,6 @@ def test_registry_holds_the_slice():
     assert host.fuse_epilogue
     assert [(c.repack, c.src, c.dst) for c in host.marshal] == \
         [("ell_pack128", "csr_binding", "ELL128")]
-    assert host.schedules[0] == {"rows_per_slab": 32}
     assert reg.candidates("spmv_csr", "CSR", "cpu", "host")[-1].name \
         == "torch.dense"
 
@@ -82,6 +81,11 @@ HARNESS t.bad implements spmv_csr
 HARNESS t.hooked implements spmv_csr
   BeforeFirstExecution setup;
 """, {"t.hooked": lambda b, c: None}, registry=lilac.HarnessRegistry())
+    with pytest.raises(lilac.SpecError, match="tune clauses"):
+        lilac.register_spec("""
+HARNESS t.tuned implements spmv_csr
+  tune rows_per_slab in {32, 8};
+""", {"t.tuned": lambda b, c: None}, registry=lilac.HarnessRegistry())
     with pytest.raises(lilac.SpecError, match="no kernel body"):
         lilac.register_spec("HARNESS t.nobody implements spmv_csr", {},
                             registry=lilac.HarnessRegistry())
