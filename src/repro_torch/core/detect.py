@@ -12,19 +12,21 @@ What-program's expressions to IR values one by one.  Here:
 * Skeletons — the vectorized realization of a row loop: the scatter-add
   (``index_add`` / ``scatter_add`` / ``index_put(accumulate=True)``) of a
   gathered product for CSR/COO, the row sum of a padded product for
-  ELL/JDS.
+  ELL/JDS, the scatter-add of scaled row windows for SpMM, and the
+  contraction over experts of a one-hot dispatch for the MoE FFN.
 * Backtracking — pattern matching is generator-based: every commutative
   operand order, alternative idiom and candidate assignment is a backtrack
   point; the first complete, semantically validated assignment wins.
-* Semantic validation — the row-pointer expansion subgraph is *executed*
-  on random concrete inputs and checked against the What-semantics, so a
-  structural false positive cannot silently corrupt results; any idiom
-  that computes ``repeat_interleave(arange(rows), diff(row_ptr))`` (a
-  ``searchsorted``, say) is accepted.
+* Semantic validation — the row-pointer expansion subgraph and the MoE
+  dispatch subgraph are *executed* on random concrete inputs and checked
+  against the What-semantics, so a structural false positive cannot
+  silently corrupt results; any idiom that computes
+  ``repeat_interleave(arange(rows), diff(row_ptr))`` (a ``searchsorted``,
+  say) is accepted.
 
-Only the SpMV matchers are ported; a computation whose matcher is not
-(SpMM, dot, gemv, MoE, loop skeletons) is listed in
-``Detector.unmatchable`` and never matches.
+The SpMV, SpMM and MoE matchers are ported; a computation whose matcher is
+not (dot, gemv, loop skeletons) is listed in ``Detector.unmatchable`` and
+never matches.
 """
 from __future__ import annotations
 
@@ -95,7 +97,14 @@ _PASSTHROUGH = {aten._to_copy.default, aten.clone.default, aten.alias.default,
                 aten.detach.default, aten.lift_fresh_copy.default}
 _RESHAPES = {aten.view.default, aten._unsafe_view.default,
              aten.reshape.default, aten.squeeze.default, aten.squeeze.dim,
-             aten.squeeze.dims, aten.unsqueeze.default}
+             aten.squeeze.dims, aten.unsqueeze.default,
+             aten.view_copy.default, aten.unsqueeze_copy.default,
+             aten.squeeze_copy.default, aten.squeeze_copy.dim,
+             aten.squeeze_copy.dims}
+# Layout-only operators an einsum decomposes into around its bmm.
+_LAYOUT = _RESHAPES | {aten.permute.default, aten.permute_copy.default,
+                       aten.expand.default, aten.expand_copy.default,
+                       aten.clone.default, aten.alias.default}
 _ZEROS = {aten.zeros.default, aten.zeros_like.default, aten.new_zeros.default}
 _FULLS = {aten.full.default: 1, aten.full_like.default: 1,
           aten.new_full.default: 2, aten.fill.Scalar: 1}
@@ -428,6 +437,46 @@ def _validate_row_expansion(ctx: Ctx, row_node: Node, row_ptr: Node, nnz: int,
     return ok
 
 
+def _validate_onehot_dispatch(ctx: Ctx, combine: Node, idx: Node, gate: Node,
+                              n_experts: int, trials: int = 2) -> bool:
+    """Check the subgraph (idx, gate) -> combine really is a top-k one-hot
+    dispatch: combine[t, e] == sum_k gate[t, k] * (idx[t, k] == e) for
+    random idx and gate, evaluated on the device the program was traced
+    for.  The trial gates are multiples of 1/8 below 1, so the sums are
+    exact in bf16 as in f32.  A subgraph that fails to evaluate is
+    rejected; a fault of the card raises.  Memoized per subgraph."""
+    key = ("onehot", combine, idx, gate, n_experts)
+    cached = ctx.validation_cache.get(key)
+    if cached is not None:
+        return cached
+    pi, pg = _val(idx), _val(gate)
+    t, k = pi.shape
+    rng = np.random.default_rng(0)
+    ok = True
+    for _ in range(trials):
+        ti = torch.as_tensor(rng.integers(0, n_experts, size=(t, k)),
+                             dtype=pi.dtype, device=pi.device)
+        tg = torch.as_tensor(rng.integers(1, 8, size=(t, k)) / 8.0,
+                             dtype=pg.dtype, device=pg.device)
+        expect = torch.zeros((t, n_experts), dtype=torch.float32,
+                             device=pg.device).scatter_add_(
+            1, ti.long(), tg.float())
+        try:
+            got = ctx.eval_subgraph(combine, {idx: ti, gate: tg})
+        except (RuntimeError, ValueError, TypeError, IndexError) as e:
+            if _device_fault(e):
+                raise
+            ok = False
+            break
+        if not isinstance(got, torch.Tensor) \
+                or tuple(got.shape) != (t, n_experts) \
+                or not torch.equal(got.float(), expect):
+            ok = False
+            break
+    ctx.validation_cache[key] = ok
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # Matchers, generated from What-ASTs.
 # ---------------------------------------------------------------------------
@@ -633,6 +682,227 @@ class PaddedRowMatcher(Matcher):
         return None
 
 
+class RowScale(Pat):
+    """``a[:, None]``: a 1-D array lifted to a (k, 1) column, so that it
+    scales rows (a 1-D ``a`` would broadcast along the last dim)."""
+
+    def __init__(self, inner: Pat):
+        self.inner = inner
+
+    def match(self, ctx, atom, env):
+        s = _shape(atom)
+        if s is None or len(s) != 2 or s[1] != 1 or _ndim(ctx.peel(atom)) != 1:
+            return
+        yield from self.inner.match(ctx, atom, env)
+
+
+class GatherRows(Pat):
+    """``dense[idx]`` on a 2-D ``dense``: rows gathered by a 1-D index
+    (``aten.index`` with one index tensor, or ``index_select`` along 0)."""
+
+    def __init__(self, arr: Pat, idx: Pat):
+        self.arr, self.idx = arr, idx
+
+    def match(self, ctx, atom, env):
+        n = ctx.prod(ctx.peel(atom))
+        if n is None:
+            return
+        if n.target == aten.index.Tensor:
+            indices = n.args[1]
+            if len(indices) != 1 or indices[0] is None:
+                return
+            arr, idx = n.args[0], indices[0]
+        elif n.target == aten.index_select.default and n.args[1] == 0:
+            arr, idx = n.args[0], n.args[2]
+        else:
+            return
+        if _ndim(arr) != 2 or _ndim(idx) != 1:
+            return
+        for e in self.arr.match(ctx, arr, env):
+            yield from self.idx.match(ctx, idx, e)
+
+
+class SpmmMatcher(RaggedRowMatcher):
+    """SpMM (CSR x dense matrix): the doubly-forall What-program realizes
+    as the scatter-add of scaled row windows
+
+        out = index_add(zeros(rows, n), 0, row_ids, a[:, None] * dense[colidx])
+
+    (or ``scatter_add`` with the row ids expanded over the columns, or
+    ``index_put(accumulate=True)``).  The row ids decide CSR or COO as for
+    SpMV."""
+
+    def __init__(self, comp: W.Computation):
+        self.computation = comp.name
+        self.row_ptr_name = "rowstr"
+        self.updates_pat = Comm(aten.mul.Tensor, RowScale(B("a")),
+                                GatherRows(B("dense"), B("colidx")))
+
+    def match_node(self, ctx, node):
+        parts = _row_scatter_add(node)
+        if parts is None:
+            return None
+        operand, indices, updates = parts
+        if _ndim(updates) != 2 or _ndim(node) != 2 \
+                or not ctx.is_zeros(operand):
+            return None
+        if _ndim(indices) == 2:          # scatter_add: ids expanded over n
+            ind = ctx.prod(indices)
+            if ind is None or ind.target not in (aten.expand.default,
+                                                 aten.expand_copy.default):
+                return None
+            indices = ind.args[0]
+        if not _is_int(indices) or _ndim(ctx.peel(indices)) != 1:
+            return None
+        nnz, ncols = _shape(updates)
+        rows = _shape(node)[0]
+        for env in self.updates_pat.match(ctx, updates, {}):
+            if _shape(env["a"]) != (nnz,) or _shape(env["colidx"]) != (nnz,):
+                continue
+            fmt, binding = self._classify_rows(ctx, ctx.peel(indices), nnz,
+                                               rows, env)
+            binding.update(rows=rows, nnz=nnz, ncols=ncols)
+            return Match(self.computation, "vectorized", fmt, node, binding)
+        return None
+
+
+def _layout_chain(ctx: Ctx, atom) -> List[Any]:
+    """``atom`` and the values under it through layout-only operators
+    (views, permutes, expands, copies), down to the first other operator
+    or leaf, which comes last."""
+    chain = [atom]
+    while True:
+        n = ctx.prod(chain[-1])
+        if n is None or n.target not in _LAYOUT:
+            return chain
+        chain.append(n.args[0])
+
+
+def _contraction(ctx: Ctx, atom):
+    """(left, right) operands, seen through layout operators, of the
+    ``bmm`` under ``atom``, or None."""
+    n = ctx.prod(_layout_chain(ctx, atom)[-1])
+    if n is None or n.target != aten.bmm.default:
+        return None
+    return (_layout_chain(ctx, n.args[0])[-1],
+            _layout_chain(ctx, n.args[1])[-1])
+
+
+class MoeMatcher(Matcher):
+    """The MoE expert FFN with one-hot dispatch (naive dense realization):
+
+        combine (T,E) = einsum('tke,tk->te', onehot(idx), gate)
+        g = einsum('td,edf->etf', x, wg); u = einsum('td,edf->etf', x, wu)
+        y = einsum('etf,efd->etd', silu(g)*u, wd)
+        out = einsum('te,etd->td', combine, y)
+
+    An einsum traces to a ``bmm`` between layout operators, so each
+    contraction is recognized by its ``bmm``, the values of the einsum's
+    own shape in the layout chains around it, and the shapes of the leaves
+    it reaches.  Anchored at the (T, D) output of the final contraction;
+    the combine operand is semantically validated to be a top-k one-hot
+    dispatch of (idx, gate)."""
+
+    anchor_targets = frozenset({aten.bmm.default})
+
+    def __init__(self, comp: W.Computation):
+        self.computation = comp.name
+
+    @staticmethod
+    def _expert_mm(ctx, atom, x, w_shape):
+        """The weight leaf of einsum('td,edf->etf', x, w), or None."""
+        ops = _contraction(ctx, atom)
+        if ops is None:
+            return None
+        for a, w in (ops, ops[::-1]):
+            if a is x and _shape(w) == w_shape and ctx.prod(w) is None:
+                return w
+        return None
+
+    @staticmethod
+    def _silu_arg(ctx, n: Node):
+        """g for silu(g) or g * sigmoid(g), else None."""
+        if n.target == aten.silu.default:
+            return n.args[0]
+        if n.target == aten.mul.Tensor:
+            for g, sg in (n.args, n.args[::-1]):
+                p = ctx.prod(sg)
+                if p is not None and p.target == aten.sigmoid.default \
+                        and p.args[0] is g:
+                    return g
+        return None
+
+    def _match_y(self, ctx, y, T, E):
+        """Binding of x, wg, wu, wd for y = einsum('etf,efd->etd',
+        silu(g) * u, wd), or None."""
+        ops = _contraction(ctx, y)
+        if ops is None:
+            return None
+        for h, wd in (ops, ops[::-1]):
+            hn = ctx.prod(h)
+            if hn is None or hn.target != aten.mul.Tensor \
+                    or ctx.prod(wd) is not None or _ndim(wd) != 3:
+                continue
+            _, F, D = _shape(wd)
+            for sg, u in (hn.args, hn.args[::-1]):
+                sn = ctx.prod(sg)
+                g = None if sn is None else self._silu_arg(ctx, sn)
+                if g is None:
+                    continue
+                for x in ctx.provenance(g)[0]:
+                    if _shape(x) != (T, D) or _is_int(x):
+                        continue
+                    wg = self._expert_mm(ctx, g, x, (E, D, F))
+                    wu = self._expert_mm(ctx, u, x, (E, D, F))
+                    if wg is not None and wu is not None:
+                        return dict(x=x, wg=wg, wu=wu, wd=wd)
+        return None
+
+    def match_node(self, ctx, node):
+        # the output chain: the bmm's sole consumers while they are layout
+        # operators
+        out_chain = [node]
+        while len(out_chain[-1].users) == 1 and out_chain[-1] not in ctx.outvars:
+            nxt = next(iter(out_chain[-1].users))
+            if nxt.target not in _LAYOUT:
+                break
+            out_chain.append(nxt)
+        chains = [_layout_chain(ctx, a) for a in node.args[:2]]
+        for cchain, ychain in (chains, chains[::-1]):
+            combine = next((c for c in cchain if _ndim(c) == 2), None)
+            if combine is None:
+                continue
+            T, E = _shape(combine)
+            y = next((v for v in ychain if _ndim(v) == 3
+                      and _shape(v)[:2] == (E, T)), None)
+            if y is None:
+                continue
+            D = _shape(y)[2]
+            outs = [i for i, v in enumerate(out_chain) if _shape(v) == (T, D)]
+            if not outs:
+                continue
+            env = self._match_y(ctx, y, T, E)
+            if env is None or _shape(env["x"])[1] != D:
+                continue
+            leaves, _ = ctx.provenance(combine)
+            ints = [lf for lf in leaves if _is_int(lf)]
+            floats = [lf for lf in leaves if lf not in ints
+                      and lf.op != "get_attr"]
+            if len(ints) != 1 or len(floats) != 1 \
+                    or _shape(ints[0]) != _shape(floats[0]) \
+                    or _ndim(ints[0]) != 2 or _shape(ints[0])[0] != T:
+                continue
+            idx, gate = ints[0], floats[0]
+            if not _validate_onehot_dispatch(ctx, combine, idx, gate, E):
+                continue
+            env.update(idx=idx, gate=gate, experts=E, tokens=T,
+                       topk=_shape(idx)[1])
+            anchor = out_chain[outs[-1]]
+            return Match(self.computation, "vectorized", "MOE", anchor, env,
+                         claimed=tuple(out_chain[:outs[-1]]))
+        return None
+
+
 # ---------------------------------------------------------------------------
 # Matcher generation (What-AST -> detection function) + top-level detect().
 # ---------------------------------------------------------------------------
@@ -640,9 +910,13 @@ class PaddedRowMatcher(Matcher):
 def generate_matcher(comp: W.Computation) -> List[Matcher]:
     """The paper generates C++ detection functions from LiLAC-What at LLVM
     build time; we generate matcher objects from the AST at import time."""
+    if comp.name == "moe_ffn":
+        return [MoeMatcher(comp)]
     foralls = comp.foralls()
     stmt = comp.stmt()
-    if len(foralls) == 1 and comp.name not in ("moe_ffn", "gemv"):
+    if len(foralls) == 2 and _range_is_ragged(stmt.range, foralls[0].range.var):
+        return [SpmmMatcher(comp)]   # doubly-parallel ragged = SpMM
+    if len(foralls) == 1 and comp.name != "gemv":
         # permuted output target (JDS) takes precedence: its inner range is
         # "ragged" in the What-text (nzcnt[i]) but the vectorized
         # realization is the padded 2D layout with a perm scatter.
@@ -652,12 +926,12 @@ def generate_matcher(comp: W.Computation) -> List[Matcher]:
             return [RaggedRowMatcher(comp)]
         # dense inner range with 2D loads -> padded rows
         return [PaddedRowMatcher(comp, jds=False)]
-    # MoE, SpMM, dot, gemv and the loop skeletons are later slices
+    # dot, gemv and the loop skeletons are later slices
     raise NotImplementedError(f"no matcher for {comp.name} in this package")
 
 
 # ---------------------------------------------------------------------------
-# Fused-epilogue extension: grow SpMV matches down their consumer chain
+# Fused-epilogue extension: grow SpMV/SpMM matches down their consumer chain
 # through (+bias) -> (relu | silu), so the harness replaces the whole fused
 # subgraph and the intermediate output-size arrays never round-trip memory.
 # ---------------------------------------------------------------------------
@@ -690,7 +964,7 @@ def _is_relu(ctx: Ctx, n: Node, cur) -> bool:
 
 
 def extend_epilogue(ctx: Ctx, m: Match) -> Match:
-    """Walk the sole-consumer chain of a vectorized SpMV match through an
+    """Walk the sole-consumer chain of a vectorized SpMV/SpMM match through an
     optional bias add and an optional relu/silu activation; on success,
     return a widened match anchored at the chain's last node with the
     original anchor (and intermediates) claimed.  Escaping values (several

@@ -4,7 +4,7 @@ Counterpart of ``repro.core.harness``.  A ``Harness`` is the executable
 form of a spec's HARNESS block: a named implementation of one
 What-computation, with marshaling and platform constraints.  This module
 holds the mechanism (Harness, HarnessRegistry, the global REGISTRY) and the
-builtin ``torch.*`` bodies of the SpMV families; which harness exists, and
+builtin ``torch.*`` bodies; which harness exists, and
 its formats, platforms and marshaled inputs, lives in the spec texts
 (``what_lang.BUILTIN_SPECS`` plus the HARNESS blocks next to the CUDA
 kernels under ``repro_torch/kernels/``).
@@ -13,10 +13,18 @@ Backends of this package:
 
   spmv_csr/coo  torch.segment  index_add segment-sum            (cpu + cuda)
                 torch.ell      marshaled CSR->ELL repack         (host calls)
+                torch.bcsr     marshaled CSR->BCSR8x128 repack   (host calls)
                 torch.dense    marshaled densify                 (host calls)
                 cuda.ell       marshaled CSR->ELL128, CUDA kernel (cuda)
+                cuda.bcsr      marshaled CSR->BCSR128x128, CUDA kernel (cuda)
   spmv_ell/jds  torch.ell      the padded-row sum itself          (cpu)
                 cuda.ell       CUDA kernel                        (cuda)
+  spmm_csr      torch.segment  index_add of row windows           (cpu)
+                torch.bcsr     marshaled CSR->BCSR8x128 repack   (host calls)
+                cuda.bcsr      marshaled CSR->BCSR128x128, CUDA kernel (cuda)
+  moe_ffn       torch.capacity capacity-bucket dispatch           (cpu)
+                cuda.gmm       routed grouped matmul, CUDA kernel (cuda)
+                dense          the naive formulation itself
 """
 from __future__ import annotations
 
@@ -169,10 +177,13 @@ def _spmv_ell_host(b: Binding, ctx: CallCtx, *, ell):
     return _ell_spmv(ell.val, ell.col, ell.perm, b["iv"])
 
 
-def _binding_to_csr(b: Binding):
+def _binding_to_csr(b: Binding, cols: Optional[int] = None):
+    """The matched matrix as a CSR of ``cols`` columns (default: the
+    vector's length)."""
     from repro_torch.sparse.formats import CSR
 
-    cols = int(b["iv"].shape[0])
+    if cols is None:
+        cols = int(b["iv"].shape[0])
     if "rowstr" in b:
         return CSR(val=b["a"], col_ind=b["colidx"], row_ptr=b["rowstr"],
                    shape=(b["rows"], cols))
@@ -190,6 +201,37 @@ def _binding_to_csr(b: Binding):
                shape=(b["rows"], cols))
 
 
+def _binding_to_csr_spmm(b: Binding):
+    """Like _binding_to_csr, but the column count is the dense operand's
+    leading dim (the paper's Fig. 9 ``cols`` invariant)."""
+    return _binding_to_csr(b, cols=int(b["dense"].shape[0]))
+
+
+def _spmv_bcsr_host(b: Binding, ctx: CallCtx, *, bcsr):
+    from repro_torch.sparse.ops import bcsr_spmm_ref
+
+    vec = torch.nn.functional.pad(b["iv"], (0, bcsr.shape[1] - b["iv"].shape[0]))
+    return bcsr_spmm_ref(bcsr, vec[:, None])[: b["rows"], 0]
+
+
+def _spmm_segment(b: Binding, ctx: CallCtx):
+    """CSR/COO x dense matrix by an index_add of row windows."""
+    prod = b["a"][:, None] * b["dense"][b["colidx"]]
+    out = torch.zeros((b["rows"], prod.shape[1]), dtype=prod.dtype,
+                      device=prod.device)
+    return out.index_add_(0, _row_ids(b), prod)
+
+
+def _spmm_bcsr_host(b: Binding, ctx: CallCtx, *, bcsr):
+    """Marshaled CSR->BCSR repack + block SpMM (cuSPARSE csrmm analogue)."""
+    from repro_torch.sparse.ops import bcsr_spmm_ref
+
+    dense = b["dense"]
+    dense = torch.nn.functional.pad(dense,
+                                    (0, 0, 0, bcsr.shape[1] - dense.shape[0]))
+    return bcsr_spmm_ref(bcsr, dense)[: b["rows"]]
+
+
 def _spmv_dense_host(b: Binding, ctx: CallCtx, *, dense):
     return dense @ b["iv"]
 
@@ -205,15 +247,67 @@ def _spmv_ell_direct(b: Binding, ctx: CallCtx):
     return out
 
 
+def _moe_capacity(b: Binding, ctx: CallCtx, capacity_factor: float = 2.0):
+    """Sorted capacity-bucket dispatch: compute only routed tokens.
+
+    Naive dense-dispatch FLOPs  ~ E * T * (3 D F)
+    This implementation        ~ E * C * (3 D F), C = ceil(T*K/E * cf)
+    A pair past its expert's capacity C is dropped, as in the reference.
+    """
+    x, gate, idx = b["x"], b["gate"], b["idx"]
+    wg, wu, wd = b["wg"], b["wu"], b["wd"]
+    T, K = idx.shape
+    E = b["experts"]
+    C = int(np.ceil(T * K / E * capacity_factor))
+    C = max(8, min(C, T * K))
+    flat_e = idx.reshape(-1).long()                             # (T*K,)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    flat_g = gate.reshape(-1)
+    # position of each routed pair within its expert queue
+    onehot = torch.nn.functional.one_hot(flat_e, E)             # (TK, E)
+    pos = (torch.cumsum(onehot, 0) - onehot)[
+        torch.arange(T * K, device=x.device), flat_e]
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos, E * C)           # overflow
+    xb = torch.zeros((E * C + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    xb[slot] = x[flat_t]
+    xb = xb[:-1].reshape(E, C, x.shape[1])
+    g = torch.einsum("ecd,edf->ecf", xb, wg)
+    u = torch.einsum("ecd,edf->ecf", xb, wu)
+    h = torch.nn.functional.silu(g) * u
+    y = torch.einsum("ecf,efd->ecd", h, wd).reshape(E * C, -1)
+    y = torch.cat([y, torch.zeros((1, y.shape[1]), dtype=y.dtype,
+                                  device=y.device)])
+    contrib = y[slot] * flat_g[:, None]
+    out = torch.zeros((T, contrib.shape[1]), dtype=contrib.dtype,
+                      device=x.device).index_add_(0, flat_t, contrib)
+    return out.to(x.dtype)
+
+
+def _moe_dense(b: Binding, ctx: CallCtx):
+    """The naive formulation itself — the paper's '-O2 baseline' harness."""
+    x, gate, idx = b["x"], b["gate"], b["idx"]
+    onehot = torch.nn.functional.one_hot(idx.long(), b["experts"]).to(x.dtype)
+    combine = torch.einsum("tke,tk->te", onehot, gate.to(x.dtype))
+    g = torch.einsum("td,edf->etf", x, b["wg"])
+    u = torch.einsum("td,edf->etf", x, b["wu"])
+    h = torch.nn.functional.silu(g) * u
+    y = torch.einsum("etf,efd->etd", h, b["wd"])
+    return torch.einsum("te,etd->td", combine, y)
+
+
 # Kernel bodies for the builtin spec texts, keyed by spec family then by
 # harness name (repro_torch.core.spec.register_builtins consumes this).
-# A HARNESS block without a body here (torch.bcsr and the SpMM, dot, gemv
-# and MoE families) is not registered yet.
+# The dot and gemv families have no body yet and are not registered.
 BUILTIN_BODIES: Dict[str, Dict[str, Callable]] = {
     "spmv": {
         "torch.segment": _spmv_segment,
         "torch.ell": _spmv_ell_host,
+        "torch.bcsr": _spmv_bcsr_host,
         "torch.dense": _spmv_dense_host,
     },
     "spmv_padded": {"torch.ell": _spmv_ell_direct},
+    "spmm": {"torch.segment": _spmm_segment, "torch.bcsr": _spmm_bcsr_host},
+    "moe_ffn": {"torch.capacity": _moe_capacity},
+    "moe_ffn_baseline": {"dense": _moe_dense},
 }

@@ -12,7 +12,8 @@ matrix change?" is answered with content fingerprints at the harness call.
 * ``SparseFormat`` / ``FORMATS`` — the format names marshal clauses use.
 * ``ConversionGraph`` / ``GRAPH`` — repack functions as edges with
   measured (EWMA) costs; ``plan`` picks the cheapest path from any cached
-  intermediate to the requested format.
+  intermediate to the requested format, never through ``DENSE`` (see
+  ``NO_TRANSIT``).
 * ``MarshalingCache`` — memoizes derived values keyed on the fingerprints
   of their source arrays, least recently used out first.
 * ``DataPlane`` — ``ensure(src, dst, ...)`` walks the conversion graph, so
@@ -101,6 +102,15 @@ for _f in (
     register_format(_f)
 
 
+#: Formats a conversion path may end at, or start from when a source
+#: loader produces them, but never pass through or start from as a cached
+#: intermediate.  The reference routes CSR -> BCSR through DENSE so that
+#: the BCSR repack can ride a densified matrix another harness cached; at
+#: HPCG's 1.1 M rows that matrix would take ~5 TB, so here CSR -> BCSR is a
+#: direct edge and DENSE -> BCSR serves only a source that is dense.
+NO_TRANSIT = frozenset({"DENSE"})
+
+
 # ---------------------------------------------------------------------------
 # Conversion graph
 # ---------------------------------------------------------------------------
@@ -153,7 +163,8 @@ class ConversionGraph:
              ) -> Optional[Tuple[str, List[ConversionEdge], float]]:
         """Dijkstra from a set of start formats (each with an entry cost —
         0.0 for cached intermediates, the loader estimate for the source)
-        to ``dst``.  Returns (chosen start, edge path, total cost)."""
+        to ``dst``, never leaving a ``NO_TRANSIT`` format that is not a
+        start.  Returns (chosen start, edge path, total cost)."""
         if dst in starts:
             return dst, [], starts[dst]
         best: Dict[str, float] = dict(starts)
@@ -170,6 +181,8 @@ class ConversionGraph:
             seen.add(node)
             if node == dst:
                 break
+            if node in NO_TRANSIT and node not in starts:
+                continue
             for e in self._edges.get(node, []):
                 nc = cost + max(e.cost(), 0.0)
                 if e.dst not in best or nc < best[e.dst]:
@@ -385,7 +398,8 @@ class DataPlane(MarshalingCache):
         cached_keys: Dict[str, Tuple] = {}
         for k in self._store:
             if (isinstance(k, tuple) and len(k) == 3 + len(fps)
-                    and k[0] == "node" and k[1] == src and k[3:] == fps):
+                    and k[0] == "node" and k[1] == src and k[3:] == fps
+                    and k[2] not in NO_TRANSIT):
                 starts[k[2]] = 0.0
                 cached_keys[k[2]] = k
         starts.setdefault(loader.fmt, loader.cost())

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Union
 
+import torch
+
 from repro_torch.core import harness as H
 from repro_torch.core import marshal as M
 from repro_torch.core import what_lang as W
@@ -219,12 +221,13 @@ def harness(decl: Union[str, W.HarnessDecl], *,
 
 
 # ---------------------------------------------------------------------------
-# The builtin data plane: the source loader (binding -> CSR) and the
-# conversion edges the SpMV harnesses name; the repack functions below are
-# the single-hop fallbacks.
+# The builtin data plane: the source loaders (binding -> CSR) and the
+# conversion edges the harnesses name; the repack functions below are the
+# single-hop fallbacks.
 # ---------------------------------------------------------------------------
 
 M.register_source("csr_binding", "CSR", H._binding_to_csr)
+M.register_source("csr_binding_mm", "CSR", H._binding_to_csr_spmm)
 
 
 @M.edge("CSR", "ELL8", name="csr_to_ell8")
@@ -250,6 +253,39 @@ def _csr_to_jds(csr):
     return csr_to_jds(csr)
 
 
+@M.edge("CSR", "BCSR8x128", name="csr_to_bcsr8x128")
+def _csr_to_bcsr8(csr):
+    from repro_torch.sparse.convert import csr_to_bcsr
+    return csr_to_bcsr(csr, (8, 128))
+
+
+@M.edge("CSR", "BCSR128x128", name="csr_to_bcsr128x128")
+def _csr_to_bcsr128(csr):
+    from repro_torch.sparse.convert import csr_to_bcsr
+    return csr_to_bcsr(csr, (128, 128))
+
+
+def _dense_to_bcsr(dense, block_shape):
+    """Pad to block multiples and tile: the reference's second hop of
+    CSR -> DENSE -> BCSR, kept for a source that is dense (the planner
+    never densifies a CSR on the way to BCSR, marshal.NO_TRANSIT)."""
+    from repro_torch.sparse.formats import bcsr_from_dense
+    bm, bk = block_shape
+    rows, cols = dense.shape
+    dense = torch.nn.functional.pad(dense, (0, (-cols) % bk, 0, (-rows) % bm))
+    return bcsr_from_dense(dense, block_shape)
+
+
+@M.edge("DENSE", "BCSR8x128", name="dense_to_bcsr8x128")
+def _dense_to_bcsr8(dense):
+    return _dense_to_bcsr(dense, (8, 128))
+
+
+@M.edge("DENSE", "BCSR128x128", name="dense_to_bcsr128x128")
+def _dense_to_bcsr128(dense):
+    return _dense_to_bcsr(dense, (128, 128))
+
+
 @repack("ell_pack")
 def _ell_pack(b: H.Binding):
     return _csr_to_ell8(H._binding_to_csr(b))
@@ -258,6 +294,26 @@ def _ell_pack(b: H.Binding):
 @repack("ell_pack128")
 def _ell_pack128(b: H.Binding):
     return _csr_to_ell128(H._binding_to_csr(b))
+
+
+@repack("bcsr_pack")
+def _bcsr_pack(b: H.Binding):
+    return _csr_to_bcsr8(H._binding_to_csr(b))
+
+
+@repack("bcsr_pack128")
+def _bcsr_pack128(b: H.Binding):
+    return _csr_to_bcsr128(H._binding_to_csr(b))
+
+
+@repack("bcsr_pack_mm")
+def _bcsr_pack_mm(b: H.Binding):
+    return _csr_to_bcsr8(H._binding_to_csr_spmm(b))
+
+
+@repack("bcsr_pack_mm128")
+def _bcsr_pack_mm128(b: H.Binding):
+    return _csr_to_bcsr128(H._binding_to_csr_spmm(b))
 
 
 @repack("densify")
@@ -275,16 +331,28 @@ _builtins_done = False
 def register_builtins() -> H.HarnessRegistry:
     """Populate the global REGISTRY from the builtin spec texts (the
     HARNESS blocks that have a body in ``harness.BUILTIN_BODIES``), then
-    the CUDA kernels' own HARNESS blocks."""
+    the CUDA kernels' own HARNESS blocks, then the families that must come
+    after them (``what_lang.POST_KERNEL_FAMILIES``): candidate order is
+    registration order."""
     global _builtins_done
     if _builtins_done:
         return H.REGISTRY
-    for family, bodies in H.BUILTIN_BODIES.items():
-        spec = W.parse_spec(W.BUILTIN_SPECS[family])
+
+    def family(name):
+        bodies = H.BUILTIN_BODIES[name]
+        spec = W.parse_spec(W.BUILTIN_SPECS[name])
         spec = W.Spec(spec.computations,
                       tuple(h for h in spec.harnesses if h.name in bodies))
         register_spec(spec, bodies, override=True)
+
+    for name in H.BUILTIN_BODIES:
+        if name not in W.POST_KERNEL_FAMILIES:
+            family(name)
     # The cuda.* backends self-register on import via @harness.
     from repro_torch.kernels.spmv_ell import harness as _ell  # noqa: F401
+    from repro_torch.kernels.bsr_spmm import harness as _bsr  # noqa: F401
+    from repro_torch.kernels.moe_gmm import harness as _gmm  # noqa: F401
+    for name in W.POST_KERNEL_FAMILIES:
+        family(name)
     _builtins_done = True
     return H.REGISTRY

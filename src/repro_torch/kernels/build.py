@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[Path, str], Callable] = {}
 
 
 def nvcc() -> str:
@@ -88,3 +89,18 @@ def load(source: Path) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[path] = ctypes.CDLL(str(path))
     return lib
+
+
+def entry_point(source: Path, name: str, n_ptrs: int, n_ints: int):
+    """The C function ``name`` of ``source``'s library, taking ``n_ptrs``
+    pointers, then ``n_ints`` ints, then the stream, and returning the
+    launch's cudaError; built and loaded on first use (later calls cost
+    one dict lookup)."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _ENTRIES[(source, name)] = fn
+    return fn

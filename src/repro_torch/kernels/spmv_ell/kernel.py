@@ -13,14 +13,13 @@ or raises.  ``LAUNCHES`` counts the launches of each kernel.
 """
 from __future__ import annotations
 
-import ctypes
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import EPILOGUE_CODES
+from repro_torch.kernels.common import EPILOGUE_CODES, check_tensor, launched
 from repro_torch.kernels.spmv_ell.ref import (spmv_ell_plain,
                                               spmv_ell_windowed_plain)
 
@@ -30,7 +29,6 @@ SOURCE = Path(__file__).parent / "csrc" / "spmv_ell.cu"
 LAUNCHES = {"spmv_ell": 0, "spmv_ell_windowed": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
@@ -38,36 +36,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_FNS: Dict[str, Callable] = {}
-
-
 def _fn(name: str):
-    """The C entry point ``name``, building and loading the library on
-    first use (later calls cost one dict lookup)."""
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(build.load(SOURCE), name)
-        n_ints = 4 if "windowed" not in name else 6
-        fn.argtypes = [_P] * 6 + [_I] * n_ints + [_P]
-        fn.restype = _I
-        _FNS[name] = fn
-    return fn
+    return build.entry_point(SOURCE, name, 6,
+                             4 if "windowed" not in name else 6)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _check(name, t, device, dtype, shape=None):
-    if not isinstance(t, torch.Tensor) or t.device != device:
-        raise ValueError(f"{name} must be a tensor on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _prepare(val, col, vec, bias, perm, out_rows, epilogue, rows_per_slab):
@@ -82,28 +57,22 @@ def _prepare(val, col, vec, bias, perm, out_rows, epilogue, rows_per_slab):
     if rows_per_slab <= 0:
         raise ValueError(f"rows_per_slab must be positive, got {rows_per_slab}")
     rows = val.shape[0]
-    _check("val", val, dev, val.dtype)
-    _check("col", col, dev, torch.int32, val.shape)
-    _check("vec", vec, dev, val.dtype)
+    check_tensor("val", val, dev, val.dtype)
+    check_tensor("col", col, dev, torch.int32, val.shape)
+    check_tensor("vec", vec, dev, val.dtype)
     if vec.dim() != 1:
         raise ValueError("vec must be 1-D")
     if perm is None:
         out_rows = rows
         out = torch.empty(rows, dtype=torch.float32, device=dev)
     else:
-        _check("perm", perm, dev, torch.int32, (rows,))
+        check_tensor("perm", perm, dev, torch.int32, (rows,))
         out_rows = rows if out_rows is None else out_rows
         # rows no perm entry names must read 0
         out = torch.zeros(out_rows, dtype=torch.float32, device=dev)
     if bias is not None:
-        _check("bias", bias, dev, torch.float32, (out_rows,))
+        check_tensor("bias", bias, dev, torch.float32, (out_rows,))
     return out
-
-
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
 
 
 def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
@@ -129,7 +98,7 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
             val.data_ptr(), col.data_ptr(), vec.data_ptr(), _ptr(bias),
             _ptr(perm), out.data_ptr(), rows, width, rows_per_slab,
             EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream)
-    _launched("spmv_ell", err)
+    launched(LAUNCHES, "spmv_ell", err)
     return out
 
 
@@ -163,5 +132,5 @@ def spmv_ell_windowed_cuda(val: torch.Tensor, col: torch.Tensor,
             _ptr(perm), out.data_ptr(), rows, n_windows, width, window,
             rows_per_slab, EPILOGUE_CODES[epilogue],
             torch.cuda.current_stream().cuda_stream)
-    _launched("spmv_ell_windowed", err)
+    launched(LAUNCHES, "spmv_ell_windowed", err)
     return out

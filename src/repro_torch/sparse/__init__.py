@@ -1,15 +1,17 @@
 """Sparse matrix substrate: formats, conversions, reference ops.
 
-Counterpart of ``repro.sparse`` for the formats the SpMV path uses (CSR,
-COO, ELL, JDS); ``from_numpy`` / ``to_numpy`` carry a matrix between the
+Counterpart of ``repro.sparse`` (CSR, COO, ELL, JDS, BCSR);
+``from_numpy`` / ``to_numpy`` carry a matrix between the
 two packages as numpy arrays.
 """
 from repro_torch.sparse.formats import (
+    BCSR,
     CSR,
     COO,
     ELL,
     JDS,
     WindowedELL,
+    bcsr_from_dense,
     coo_from_dense,
     csr_from_dense,
     ell_from_csr,
@@ -18,13 +20,14 @@ from repro_torch.sparse.formats import (
     jds_from_csr,
     to_numpy,
 )
-from repro_torch.sparse.ops import spmv_coo_ref, spmv_csr_ref, spmv_ell_ref
+from repro_torch.sparse.ops import (bcsr_spmm_ref, spmv_coo_ref, spmv_csr_ref,
+                                    spmv_ell_ref)
 from repro_torch.sparse.random import random_csr, random_spd_csr, stencil27_csr
 
 __all__ = [
-    "CSR", "COO", "ELL", "JDS", "WindowedELL",
+    "CSR", "COO", "ELL", "JDS", "WindowedELL", "BCSR",
     "csr_from_dense", "coo_from_dense", "ell_from_csr", "ell_windows",
-    "jds_from_csr", "from_numpy", "to_numpy",
-    "spmv_csr_ref", "spmv_coo_ref", "spmv_ell_ref",
+    "jds_from_csr", "bcsr_from_dense", "from_numpy", "to_numpy",
+    "spmv_csr_ref", "spmv_coo_ref", "spmv_ell_ref", "bcsr_spmm_ref",
     "random_csr", "random_spd_csr", "stencil27_csr",
 ]

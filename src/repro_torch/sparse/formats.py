@@ -11,6 +11,7 @@ paper's (§3.2 Fig. 4/5):
          lane-aligned width so a row is one contiguous slab
 * WindowedELL — ELL split by column window, with window-local column ids
          (the layout of the windowed SpMV kernel for long vectors)
+* BCSR — block CSR: dense (bm, bk) tiles, CSR structure over tile rows
 
 The host constructors build in numpy, so their arrays are byte-identical
 to the JAX package's, and hand back tensors on the device of their input.
@@ -129,6 +130,48 @@ class WindowedELL:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class BCSR:
+    """Block CSR with dense (bm, bk) tiles.
+
+    blocks:       (nblocks, bm, bk) dense tiles
+    block_col:    (nblocks,) int32 — block-column index of each tile
+    block_rowptr: (block_rows+1,) int32 — CSR structure over tile rows
+    ``shape`` is padded to whole tiles.
+    """
+
+    blocks: torch.Tensor
+    block_col: torch.Tensor
+    block_rowptr: torch.Tensor
+    shape: Tuple[int, int]
+    block_shape: Tuple[int, int]
+
+    @property
+    def nblocks(self) -> int:
+        return self.blocks.shape[0]
+
+    @property
+    def block_rows(self) -> int:
+        return self.shape[0] // self.block_shape[0]
+
+    @functools.cached_property
+    def all_block_rows_nonempty(self) -> bool:
+        """True when every block row owns at least one stored tile; read
+        once per packed matrix (one host sync), not per call."""
+        return bool(torch.all(torch.diff(self.block_rowptr) > 0))
+
+    def todense(self) -> torch.Tensor:
+        bm, bk = self.block_shape
+        rows, cols = self.shape
+        out = torch.zeros((rows // bm, bm, cols // bk, bk),
+                          dtype=self.blocks.dtype, device=self.blocks.device)
+        brow = torch.repeat_interleave(
+            torch.arange(self.block_rows, device=self.blocks.device),
+            torch.diff(self.block_rowptr).long(), output_size=self.nblocks)
+        out.permute(0, 2, 1, 3)[brow, self.block_col.long()] = self.blocks
+        return out.reshape(rows, cols)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class ELL:
     """Row-padded format (JDS rows padded to a lane-aligned width).
 
@@ -238,6 +281,33 @@ def ell_from_csr(csr: CSR, width: Optional[int] = None, sort_rows: bool = True,
                shape=csr.shape)
 
 
+def bcsr_from_dense(dense, block_shape=(8, 128), device=None) -> BCSR:
+    """Tile a dense matrix and keep only its nonzero tiles, in block-row
+    then block-column order; an empty block row keeps one explicit zero
+    tile at block column 0, as the reference does.  Vectorised over the
+    tiles, with the reference's bytes."""
+    d = _np(dense)
+    if device is None:
+        device = dense.device if isinstance(dense, torch.Tensor) else "cpu"
+    bm, bk = block_shape
+    rows, cols = d.shape
+    if rows % bm or cols % bk:
+        raise ValueError(f"shape {d.shape} is not a multiple of {block_shape}")
+    tiles = d.reshape(rows // bm, bm, cols // bk, bk).swapaxes(1, 2)
+    keep = np.any(tiles != 0, axis=(2, 3))             # (block rows, cols)
+    empty = ~keep.any(axis=1)
+    keep[empty, 0] = True
+    br, bc = np.nonzero(keep)                          # row-major order
+    blocks = tiles[br, bc]
+    blocks[empty[br]] = 0                              # the explicit zeros
+    block_rowptr = np.concatenate(
+        [[0], np.cumsum(keep.sum(axis=1))]).astype(np.int32)
+    return BCSR(blocks=_t(blocks, device),
+                block_col=_t(bc.astype(np.int32), device),
+                block_rowptr=_t(block_rowptr, device),
+                shape=(rows, cols), block_shape=(bm, bk))
+
+
 def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
                 window: int = WINDOW, lane: int = 8,
                 perm: Optional[torch.Tensor] = None) -> WindowedELL:
@@ -274,7 +344,8 @@ def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
 # Numpy interchange: the state carried between the two packages.
 # ---------------------------------------------------------------------------
 
-_CONTAINERS = {cls.__name__: cls for cls in (CSR, COO, ELL, JDS)}
+_CONTAINERS = {cls.__name__: cls for cls in (CSR, COO, ELL, JDS, BCSR)}
+_TUPLES = ("shape", "block_shape")
 
 
 def from_numpy(src: Any, kind: Optional[str] = None, device="cpu"):
@@ -290,8 +361,8 @@ def from_numpy(src: Any, kind: Optional[str] = None, device="cpu"):
         functools.partial(getattr, src)
     kw: Dict[str, Any] = {}
     for f in dataclasses.fields(cls):
-        if f.name == "shape":
-            kw["shape"] = tuple(int(s) for s in get("shape"))
+        if f.name in _TUPLES:
+            kw[f.name] = tuple(int(s) for s in get(f.name))
         else:
             kw[f.name] = _t(np.asarray(get(f.name)), device)
     return cls(**kw)
@@ -302,5 +373,5 @@ def to_numpy(c) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for f in dataclasses.fields(c):
         v = getattr(c, f.name)
-        out[f.name] = tuple(v) if f.name == "shape" else _np(v)
+        out[f.name] = tuple(v) if f.name in _TUPLES else _np(v)
     return out

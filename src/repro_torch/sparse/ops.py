@@ -1,13 +1,13 @@
 """Reference sparse ops in plain torch.
 
-Counterpart of ``repro.sparse.ops`` (the SpMV part): the semantic oracles
-for the kernels and for the plain ``torch.*`` harness bodies.
+Counterpart of ``repro.sparse.ops``: the semantic oracles for the kernels
+and for the plain ``torch.*`` harness bodies.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.sparse.formats import COO, CSR, ELL
+from repro_torch.sparse.formats import BCSR, COO, CSR, ELL
 
 
 def row_ids_from_row_ptr(row_ptr: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -38,3 +38,17 @@ def spmv_ell_ref(ell: ELL, vec: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(ell.shape[0], dtype=acc.dtype, device=acc.device)
     out[ell.perm.long()] = acc
     return out
+
+
+def bcsr_spmm_ref(bcsr: BCSR, dense: torch.Tensor) -> torch.Tensor:
+    """(rows, cols) block-sparse @ (cols, n) dense -> (rows, n)."""
+    bm, bk = bcsr.block_shape
+    rows, cols = bcsr.shape
+    n = dense.shape[1]
+    brow = row_ids_from_row_ptr(bcsr.block_rowptr, bcsr.nblocks).long()
+    rhs = dense.reshape(cols // bk, bk, n)[bcsr.block_col.long()]
+    prod = torch.einsum("kij,kjn->kin", bcsr.blocks, rhs)
+    out = torch.zeros((bcsr.block_rows, bm, n), dtype=prod.dtype,
+                      device=prod.device).index_add_(0, brow, prod)
+    return out.reshape(rows, n)
+

@@ -1,7 +1,8 @@
-"""Detection parity: the same naive SpMV written in torch and in JAX must
-give the same computation, format, fused epilogue and binding — each
-binding key naming the same function argument (or the same integer) —
-from the port's FX-graph detector and the JAX package's jaxpr detector."""
+"""Detection parity: the same naive SpMV, SpMM or MoE FFN written in torch
+and in JAX must give the same computation, format, fused epilogue and
+binding — each binding key naming the same function argument (or the same
+integer) — from the port's FX-graph detector and the JAX package's jaxpr
+detector."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +10,11 @@ import pytest
 import torch
 
 from repro.core import detect as JD
+from repro.models import layers as jlayers
 from repro_torch.core import detect as TD
+from repro_torch.models import layers as tlayers
 
-ROWS, COLS, NNZ, W = 16, 8, 40, 8
+ROWS, COLS, NNZ, W, N = 16, 8, 40, 8, 6
 
 
 def _arrays():
@@ -27,6 +30,8 @@ def _arrays():
         col2=rng.integers(0, COLS, (ROWS, W)).astype(np.int32),
         perm=rng.permutation(ROWS).astype(np.int32),
         bias=rng.standard_normal(ROWS).astype(np.float32),
+        dmat=rng.standard_normal((COLS, N)).astype(np.float32),
+        bias_n=rng.standard_normal(N).astype(np.float32),
     )
 
 
@@ -111,6 +116,39 @@ def jds_torch(val2, col2, perm, vec):
     return out
 
 
+def spmm_jax(val, col, row_ptr, dmat):     # benchmarks/tab3_detection.py:70
+    r = jnp.repeat(jnp.arange(ROWS, dtype=jnp.int32), jnp.diff(row_ptr),
+                   total_repeat_length=NNZ)
+    return jax.ops.segment_sum(val[:, None] * dmat[col], r,
+                               num_segments=ROWS)
+
+
+def spmm_torch(val, col, row_ptr, dmat):
+    r = torch.repeat_interleave(torch.arange(ROWS), torch.diff(row_ptr),
+                                output_size=NNZ)
+    return torch.zeros(ROWS, dmat.shape[1]).index_add_(
+        0, r, val[:, None] * dmat[col])
+
+
+def spmm_coo_jax(val, row, col, dmat):
+    return jax.ops.segment_sum(dmat[col] * val[:, None], row,
+                               num_segments=ROWS)
+
+
+def spmm_coo_torch(val, row, col, dmat):
+    upd = dmat.index_select(0, col) * val.unsqueeze(1)
+    return torch.zeros(ROWS, dmat.shape[1]).scatter_add_(
+        0, row.long()[:, None].expand(-1, dmat.shape[1]), upd)
+
+
+def spmm_relu_jax(val, col, row_ptr, dmat, bias_n):
+    return jax.nn.relu(spmm_jax(val, col, row_ptr, dmat) + bias_n)
+
+
+def spmm_relu_torch(val, col, row_ptr, dmat, bias_n):
+    return torch.relu(spmm_torch(val, col, row_ptr, dmat) + bias_n)
+
+
 CASES = [
     (csr_jax, csr_torch, ("val", "col", "row_ptr", "vec")),
     (csr_search_jax, csr_search_torch, ("val", "col", "row_ptr", "vec")),
@@ -120,6 +158,8 @@ CASES = [
     (ell_relu_bias_jax, ell_relu_bias_torch, ("val2", "col2", "vec", "bias")),
     (ell_silu_jax, ell_silu_torch, ("val2", "col2", "vec")),
     (jds_jax, jds_torch, ("val2", "col2", "perm", "vec")),
+    (spmm_jax, spmm_torch, ("val", "col", "row_ptr", "dmat")),
+    (spmm_coo_jax, spmm_coo_torch, ("val", "row", "col", "dmat")),
 ]
 
 
@@ -223,3 +263,130 @@ def test_row_expansion_validation_rejects_or_raises(monkeypatch, error,
         return
     (m,) = TD.Detector().detect_fn(csr_torch, *args).matches
     assert m.format == verdict and "rowstr" not in m.binding
+
+
+def test_spmm_fused_epilogue_binds_the_column_bias():
+    """relu(A @ H + b) with b of shape (N,): both detectors fuse the
+    epilogue.  JAX binds the bias after its broadcast to (rows, N) (its
+    kernel then applies it unfused); the port binds b itself, which its
+    kernel takes as a column bias.  Everything else binds alike."""
+    names = ("val", "col", "row_ptr", "dmat", "bias_n")
+    arrs = _arrays()
+    ncj = JD.normalize_closed_jaxpr(jax.make_jaxpr(spmm_relu_jax)(
+        *[jnp.asarray(arrs[n]) for n in names]))
+    (want,) = _summary(JD.Detector().detect(ncj, normalize=False).matches,
+                       list(ncj.jaxpr.invars))
+    targs = [torch.from_numpy(arrs[n]) for n in names]
+    gm = TD.trace(spmm_relu_torch, targs)
+    (got,) = _summary(TD.Detector().detect(gm).matches,
+                      [n for n in gm.graph.nodes if n.op == "placeholder"])
+    assert got[:3] == want[:3] == ("spmm_csr", "CSR", "relu")
+    assert want[3].pop("bias") == "derived"
+    assert got[3].pop("bias") == ("arg", 4)
+    assert got[3] == want[3]
+
+
+def test_spmm_needs_its_scatter_skeleton():
+    """Negative controls for SpMM: scaled row windows that are never
+    scattered, a scatter-add onto a non-zero operand, and a 1-D weight
+    that broadcasts along the columns instead of scaling rows."""
+    arrs = _arrays()
+    val, row, col, dmat = (torch.from_numpy(arrs[n])
+                           for n in ("val", "row", "col", "dmat"))
+
+    def unscattered(val, col, dmat):
+        return val[:, None] * dmat[col]
+
+    def accumulate_into(val, row, col, dmat):
+        return torch.ones(ROWS, N).index_add_(0, row, val[:, None] * dmat[col])
+
+    def column_weight(val, row, col, dmat):
+        return torch.zeros(ROWS, N).index_add_(0, row, val[:N] * dmat[col])
+
+    det = TD.Detector()
+    assert det.detect_fn(unscattered, val, col, dmat).matches == []
+    assert det.detect_fn(accumulate_into, val, row, col, dmat).matches == []
+    assert det.detect_fn(column_weight, val, row, col, dmat).matches == []
+
+
+T_, D_, F_, E_, K_ = 12, 16, 8, 4, 2
+
+
+def _moe_arrays():
+    rng = np.random.default_rng(1)
+    return [rng.standard_normal((T_, D_)).astype(np.float32),
+            rng.random((T_, K_)).astype(np.float32),
+            rng.integers(0, E_, (T_, K_)).astype(np.int32),
+            rng.standard_normal((E_, D_, F_)).astype(np.float32),
+            rng.standard_normal((E_, D_, F_)).astype(np.float32),
+            rng.standard_normal((E_, F_, D_)).astype(np.float32)]
+
+
+def test_moe_detection_matches_reference():
+    arrs = _moe_arrays()
+    jargs = [jnp.asarray(a) for a in arrs]
+    ncj = JD.normalize_closed_jaxpr(jax.make_jaxpr(jlayers._moe_naive_2d)(
+        *jargs))
+    want = _summary(JD.Detector().detect(ncj, normalize=False).matches,
+                    list(ncj.jaxpr.invars))
+    targs = [torch.from_numpy(a) for a in arrs]
+    gm = TD.trace(tlayers._moe_naive_2d, targs)
+    got = _summary(TD.Detector().detect(gm).matches,
+                   [n for n in gm.graph.nodes if n.op == "placeholder"])
+    assert got == want
+    assert got[0][:2] == ("moe_ffn", "MOE")
+    torch.testing.assert_close(gm(*targs), tlayers._moe_naive_2d(*targs))
+
+
+def _moe_bad_combine(x, gate, idx, wg, wu, wd):
+    onehot = torch.nn.functional.one_hot(idx.long(), E_).to(x.dtype)
+    combine = torch.einsum("tke,tk->te", onehot, gate * gate)
+    h = torch.nn.functional.silu(torch.einsum("td,edf->etf", x, wg)) \
+        * torch.einsum("td,edf->etf", x, wu)
+    y = torch.einsum("etf,efd->etd", h, wd)
+    return torch.einsum("te,etd->td", combine, y)
+
+
+def _moe_shifted_onehot(x, gate, idx, wg, wu, wd):
+    return tlayers._moe_naive_2d(x, gate, (idx + 1) % E_, wg, wu, wd)
+
+
+def _moe_no_silu(x, gate, idx, wg, wu, wd):
+    onehot = torch.nn.functional.one_hot(idx.long(), E_).to(x.dtype)
+    combine = torch.einsum("tke,tk->te", onehot, gate)
+    h = torch.einsum("td,edf->etf", x, wg) * torch.einsum("td,edf->etf", x, wu)
+    return torch.einsum("te,etd->td", combine,
+                        torch.einsum("etf,efd->etd", h, wd))
+
+
+@pytest.mark.parametrize("fn", [_moe_bad_combine, _moe_shifted_onehot,
+                                _moe_no_silu])
+def test_moe_rejects_what_is_not_a_topk_dispatch_ffn(fn):
+    """A combine that is not a top-k one-hot of (idx, gate) fails the
+    executed validation; an FFN without its gated silu fails the
+    structure."""
+    targs = [torch.from_numpy(a) for a in _moe_arrays()]
+    assert TD.Detector().detect_fn(fn, *targs).matches == []
+
+
+@pytest.mark.parametrize("error,verdict", [
+    (RuntimeError("shape '[12, 4]' is invalid for input of size 7"), "none"),
+    (torch.cuda.OutOfMemoryError("CUDA out of memory"), "raises"),
+    (RuntimeError("CUDA error: an illegal memory access was encountered"),
+     "raises"),
+])
+def test_onehot_validation_rejects_or_raises(monkeypatch, error, verdict):
+    """A combine subgraph that fails to evaluate on trial (idx, gate) is no
+    MoE dispatch; a fault of the card is no verdict, and raises."""
+    targs = [torch.from_numpy(a) for a in _moe_arrays()]
+    gm = TD.trace(tlayers._moe_naive_2d, targs)
+
+    def fail(self, out, leaf_values):
+        raise error
+
+    monkeypatch.setattr(TD.Ctx, "eval_subgraph", fail)
+    if verdict == "raises":
+        with pytest.raises(type(error)):
+            TD.Detector().detect(gm)
+        return
+    assert TD.Detector().detect(gm).matches == []

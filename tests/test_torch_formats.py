@@ -26,7 +26,7 @@ def _same(torch_c, jax_c):
     got = tf.to_numpy(torch_c)
     for name, arr in got.items():
         ref = getattr(jax_c, name)
-        if name == "shape":
+        if name in ("shape", "block_shape"):
             assert tuple(arr) == tuple(ref)
             continue
         ref = np.asarray(ref)
@@ -67,8 +67,12 @@ def test_numpy_interchange_round_trip():
     assert csr.val.dtype == torch.float32 and csr.col_ind.dtype == torch.int32
     back = tf.from_numpy(tf.to_numpy(csr), kind="CSR")
     _same(back, ref)
+    bref = jrandom.random_bcsr(256, 384, (128, 128), 0.3, seed=2)
+    bcsr = tf.from_numpy(bref)
+    assert bcsr.block_shape == (128, 128) and bcsr.nblocks == bref.nblocks
+    _same(tf.from_numpy(tf.to_numpy(bcsr), kind="BCSR"), bref)
     with pytest.raises(TypeError):
-        tf.from_numpy(ref, kind="BCSR")
+        tf.from_numpy(ref, kind="DIA")
 
 
 def test_todense_and_reference_spmvs_match_jax():

@@ -1,6 +1,7 @@
-"""The slice end to end: ``repro_torch.lilac.compile`` in host mode against
-``repro.lilac.compile`` on the same CSR and vector, the data plane's
-one-repack contract over a CG loop, the platform rules, and the package's
+"""The slices end to end: ``repro_torch.lilac.compile`` in host mode
+against ``repro.lilac.compile`` on the same CSR and vector (SpMV) or
+dense matrix (SpMM), the data plane's one-repack contract over a CG loop
+and a GNN-style SpMM loop, the platform rules, and the package's
 independence from JAX and from the JAX package."""
 import pathlib
 import re
@@ -126,6 +127,96 @@ def test_direct_ell_with_fused_epilogue_on_cpu():
         assert [n for _, n in fast.last_selections] == [name]
 
 
+SPMM_ROWS, SPMM_COLS, SPMM_NNZ, SPMM_N = 64, 48, 200, 5
+
+
+def spmm_jax(val, col, row_ptr, dmat):     # benchmarks/tab3_detection.py:70
+    r = jnp.repeat(jnp.arange(SPMM_ROWS, dtype=jnp.int32), jnp.diff(row_ptr),
+                   total_repeat_length=SPMM_NNZ)
+    return jax.ops.segment_sum(val[:, None] * dmat[col], r,
+                               num_segments=SPMM_ROWS)
+
+
+def naive_spmm(val, col, row_ptr, dmat):
+    rows = row_ptr.shape[0] - 1
+    r = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                torch.diff(row_ptr), output_size=val.shape[0])
+    out = torch.zeros((rows, dmat.shape[1]), dtype=val.dtype,
+                      device=val.device)
+    return out.index_add_(0, r, val[:, None] * dmat[col])
+
+
+def _spmm_operands():
+    rng = np.random.default_rng(0)
+    cuts = np.sort(rng.integers(0, SPMM_NNZ + 1, SPMM_ROWS - 1))
+    return dict(
+        val=rng.standard_normal(SPMM_NNZ).astype(np.float32),
+        col=rng.integers(0, SPMM_COLS, SPMM_NNZ).astype(np.int32),
+        row_ptr=np.concatenate([[0], cuts, [SPMM_NNZ]]).astype(np.int32),
+        dmat=rng.standard_normal((SPMM_COLS, SPMM_N)).astype(np.float32))
+
+
+def test_spmm_compile_matches_reference_compile():
+    ops = _spmm_operands()
+    names = ("val", "col", "row_ptr", "dmat")
+    want = np.asarray(jlilac.compile(spmm_jax)(*(jnp.asarray(ops[n])
+                                                 for n in names)))
+    fast = lilac.compile(naive_spmm, platform="cpu")
+    got = fast(*(torch.from_numpy(ops[n]) for n in names))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    (m,) = fast.last_report.matches
+    assert (m.computation, m.format) == ("spmm_csr", "CSR")
+    assert [n for _, n in fast.last_selections] == ["torch.segment"]
+
+
+@pytest.mark.parametrize("policy", ["default", "torch.segment", "torch.bcsr",
+                                    "cuda.bcsr"])
+def test_every_spmm_harness_agrees(policy):
+    ops = {k: torch.from_numpy(v) for k, v in _spmm_operands().items()}
+    fast = lilac.compile(naive_spmm, policy=policy, platform="cpu")
+    got = fast(ops["val"], ops["col"], ops["row_ptr"], ops["dmat"])
+    torch.testing.assert_close(got, naive_spmm(ops["val"], ops["col"],
+                                               ops["row_ptr"], ops["dmat"]),
+                               **TOL)
+    expect = "torch.segment" if policy == "default" else policy
+    assert [n for _, n in fast.last_selections] == [expect]
+    assert sorted(h.name for h in lilac.REGISTRY.harnesses_for("spmm_csr")) \
+        == ["cuda.bcsr", "torch.bcsr", "torch.segment"]
+    assert lilac.REGISTRY.default_name("spmm_csr", "cuda") == "cuda.bcsr"
+    assert lilac.REGISTRY.default_name("moe_ffn", "cuda") == "cuda.gmm"
+
+
+@pytest.mark.parametrize("n", [SPMM_N, SPMM_ROWS])
+def test_gnn_loop_on_bcsr_repacks_once(n):
+    """The SpMM main path at a small size: H <- relu(A @ H + b), rescaled,
+    for several steps through cuda.bcsr's plain version — one CSR ->
+    BCSR128x128 repack, a hit on every later step, the relu-bias epilogue
+    fused, and the column bias right also where rows == N."""
+    ops = {k: torch.from_numpy(v) for k, v in _spmm_operands().items()}
+    h0 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (SPMM_COLS, n)).astype(np.float32))
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(n)
+                         .astype(np.float32))
+    val, col, row_ptr = ops["val"], ops["col"], ops["row_ptr"]
+
+    def step(val, col, row_ptr, h, b):
+        return torch.relu(naive_spmm(val, col, row_ptr, h) + b)
+
+    fast = lilac.compile(step, policy="cuda.bcsr", platform="cpu")
+    h, h_ref = h0, h0
+    for _ in range(4):
+        h = fast(val, col, row_ptr, h[:SPMM_COLS], b)
+        h = h / h.abs().max()
+        h_ref = step(val, col, row_ptr, h_ref[:SPMM_COLS], b)
+        h_ref = h_ref / h_ref.abs().max()
+    torch.testing.assert_close(h, h_ref, **TOL)
+    (m,) = fast.last_report.matches
+    assert (m.computation, m.format, m.epilogue) == ("spmm_csr", "CSR", "relu")
+    assert fast.cache.stats.misses == 1 and fast.cache.stats.hits == 3
+    assert fast.cache.plan_stats()["csr_binding_mm->BCSR128x128"][
+        "last_path"] == ("CSR", "BCSR128x128")
+
+
 def test_platform_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -176,7 +267,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     files = sorted((root / "src" / "repro_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
-    assert len(files) > 20
+    names = {f.relative_to(root).as_posix() for f in files}
+    for module in ("sparse/convert.py", "kernels/bsr_spmm/ops.py",
+                   "kernels/bsr_spmm/kernel.py", "kernels/moe_gmm/ops.py",
+                   "kernels/moe_gmm/kernel.py", "models/layers.py",
+                   "configs/base.py", "configs/olmoe_1b_7b.py"):
+        assert f"src/repro_torch/{module}" in names
+    assert len(files) > 30
     for f in files:
         hits = bad.findall(f.read_text())
         assert not hits, f"{f} imports {hits}"

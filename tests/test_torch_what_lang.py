@@ -52,15 +52,30 @@ def test_default_platforms_are_cpu_and_cuda():
 
 def test_registry_holds_the_slice():
     names = {c: [h.name for h in lilac.REGISTRY.harnesses_for(c)]
-             for c in ("spmv_csr", "spmv_coo", "spmv_ell", "spmv_jds")}
-    assert names["spmv_csr"] == ["torch.segment", "torch.ell", "torch.dense",
-                                 "cuda.ell"]
+             for c in ("spmv_csr", "spmv_coo", "spmv_ell", "spmv_jds",
+                       "spmm_csr", "moe_ffn")}
+    assert names["spmv_csr"] == ["torch.segment", "torch.ell", "torch.bcsr",
+                                 "torch.dense", "cuda.ell", "cuda.bcsr"]
     assert names["spmv_coo"] == names["spmv_csr"]
     assert names["spmv_ell"] == names["spmv_jds"] == ["torch.ell", "cuda.ell"]
+    assert names["spmm_csr"] == ["torch.segment", "torch.bcsr", "cuda.bcsr"]
+    # the dense baseline registers after the kernel's block
+    assert names["moe_ffn"] == ["torch.capacity", "cuda.gmm", "dense"]
     reg = lilac.REGISTRY
     assert reg.default_name("spmv_csr", "cuda") == "torch.segment"
     assert reg.default_name("spmv_ell", "cuda") == "cuda.ell"
     assert reg.default_name("spmv_ell", "cpu") == "torch.ell"
+    assert reg.default_name("spmm_csr", "cuda") == "cuda.bcsr"
+    assert reg.default_name("spmm_csr", "cpu") == "torch.segment"
+    assert reg.default_name("moe_ffn", "cuda") == "cuda.gmm"
+    assert reg.default_name("moe_ffn", "cpu") == "torch.capacity"
+    bcsr = reg.get("spmv_csr", "cuda.bcsr")
+    assert bcsr.platforms == ("cuda",) and bcsr.fuse_epilogue
+    assert [(c.repack, c.src, c.dst) for c in bcsr.marshal] == \
+        [("bcsr_pack128", "csr_binding", "BCSR128x128")]
+    assert [(c.repack, c.src, c.dst)
+            for c in reg.get("spmm_csr", "cuda.bcsr").marshal] == \
+        [("bcsr_pack_mm128", "csr_binding_mm", "BCSR128x128")]
     host = reg.get("spmv_csr", "cuda.ell")
     assert host.platforms == ("cuda",) and not host.jit_safe
     assert host.fuse_epilogue
