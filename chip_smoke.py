@@ -8,7 +8,9 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the port from the sources in the checkout
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), prints ptxas's registers
+   and shared memory, and checks with cuobjdump that K4's bf16 body runs
+   on the tensor cores (HGMMA in its SASS);
 3. drives each path through ``repro_torch.lilac.compile`` — the paper's
    Fig. 1 flow — with the kernels' launch counts set to 0 just before the
    path and read just after, and checks what came out:
@@ -42,7 +44,9 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    and one PyTorch call of the same function that the port never calls
    (cuSPARSE SpMV and SpMM, torch._grouped_mm; for K4 also a bf16 GEMM of
    the same flops as a rate yardstick), beside the least time the card
-   could take for the function's own work (bound_ms);
+   could take for the function's own work (bound_ms); prints K2's layout
+   (bytes, segments a slab; at most 0.31 GB at HPCG, a check) and K4's
+   achieved TFLOP/s over the routed and over all padded rows;
 5. prints one JSON line with every kernel's numbers and, last, the
    {"ok": true, "device": ...} line; ``--record PATH`` also writes a
    detailed JSON record there.  Any failure exits non-zero.
@@ -80,6 +84,7 @@ MOE_RTOL = 2e-2
 KERNEL_ATOL = KERNEL_RTOL = 1e-4   # K1-K3 against their plain versions
 # K4: f32 sums of 1,024 or 2,048 products, in another order than cuBLAS's
 GMM_ATOL = GMM_RTOL = 1e-3
+K2_LAYOUT_BYTES = 0.31e9       # K2's compacted layout at HPCG-104^3
 
 
 def require(ok: bool, what: str) -> None:
@@ -423,12 +428,10 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
             plain = lambda **kw: R.spmv_ell_plain(ell.val, ell.col, vec, **kw)
         else:
             w = ell_windows(ell.val, ell.col, a.cols, perm=ell.perm)
-            ops = (w.val, w.col)
+            ops = (w.val, w.col, w.seg_ptr, w.seg_window, w.seg_offset)
             shape = tuple(w.val.shape)
-            run = lambda **kw: K.spmv_ell_windowed_cuda(
-                w.val, w.col, vec, window=w.window, **kw)
-            plain = lambda **kw: R.spmv_ell_windowed_plain(
-                w.val, w.col, vec, window=w.window, **kw)
+            run = lambda **kw: K.spmv_ell_windowed_cuda(w, vec, **kw)
+            plain = lambda **kw: R.spmv_ell_windowed_plain(w, vec, **kw)
         csr_t = sparse_csr(a)
         variants = {
             # as the CG path calls it: the store un-permutes the row sort
@@ -437,12 +440,16 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
             "silu": dict(epilogue="silu"),
         }
         entry = {"name": kernel, "matrix": name, "shape": shape,
-                 "variants": {}}
+                 "layout_bytes": nbytes(*ops), "variants": {}}
+        if kernel == "spmv_ell_windowed":
+            entry.update(segments=w.n_segments, slabs=w.n_slabs,
+                         windows=w.n_windows)
         for vname, kw in variants.items():
             io = nbytes(vec, kw.get("bias"), kw.get("perm"),
                         torch.empty(a.rows, device="meta"))
-            # the stored entries, not the layout's padded slots
-            nb = a.nnz * (a.val.element_size() + a.col_ind.element_size()) + io
+            # the stored entries, not the layout's padded slots, each a
+            # value and a column id at the widths the layout stores them
+            nb = a.nnz * (ops[0].element_size() + ops[1].element_size()) + io
             v = variant_numbers(lambda: run(**kw), lambda: plain(**kw),
                                 kernel + "_kernel", on_card, reps, nb,
                                 2 * a.nnz, a.val.dtype,
@@ -458,6 +465,15 @@ def kernel_phases(mats, seed: int, device, reps: int = 20):
         rows.append(entry)
         del ell, csr_t, ops
     return rows
+
+
+def check_windowed_layout(e) -> None:
+    """K2 reads the slab-compacted layout: at HPCG-104^3 at most 0.31 GB
+    (padding every row to all 18 windows would take 5.18 GB)."""
+    require(e["name"] == "spmv_ell_windowed"
+            and e["layout_bytes"] <= K2_LAYOUT_BYTES,
+            f"K2's layout within {K2_LAYOUT_BYTES} B, got "
+            f"{e['layout_bytes']} B")
 
 
 def sparse_csr(a):
@@ -759,7 +775,7 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
-    from repro_torch.kernels.moe_gmm.ops import _route, _tile
+    from repro_torch.kernels.moe_gmm.ops import _route
     from repro_torch.models import layers as L
 
     on_card = device.type == "cuda"
@@ -770,8 +786,8 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     dest, te, tp = _route(idx[0], T, K, E, tm)
     xs = torch.zeros((tp, D), dtype=x.dtype, device=device)
     xs[dest] = x[0].repeat_interleave(K, dim=0)
-    g = G.gmm_cuda(xs, p["wg"], te, tm, _tile(F))
-    u = G.gmm_cuda(xs, p["wu"], te, tm, _tile(F))
+    g = G.gmm_cuda(xs, p["wg"], te, tm)
+    u = G.gmm_cuda(xs, p["wu"], te, tm)
     hs = (torch.nn.functional.silu(g) * u).to(x.dtype)
     del g, u
     routed = T * K
@@ -785,14 +801,21 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
              "tp": tp, "routed_rows": routed, "variants": {}}
     for vname, (a, w) in calls.items():
         fin, fout = w.shape[1:]
-        run = lambda: G.gmm_cuda(a, w, te, tm, _tile(fout))
+        run = lambda: G.gmm_cuda(a, w, te, tm)
         plain = lambda: GR.gmm_ref(a, w, te, tm)
         # the routed rows, not the padded Tp
         nb = routed * fin * a.element_size() + nbytes(w) + routed * fout * 4
-        entry["variants"][vname] = variant_numbers(
-            run, plain, "gmm_kernel", on_card, reps, nb,
+        v = entry["variants"][vname] = variant_numbers(
+            run, plain, "gmm_tc_kernel" if a.dtype == torch.bfloat16
+            else "gmm_simt_kernel", on_card, reps, nb,
             2 * routed * fin * fout, a.dtype, GMM_ATOL, GMM_RTOL,
             what=f"gmm/{vname}")
+        if v["ms"] is not None:
+            # achieved rates over the routed rows and over all Tp rows
+            v["tflops_routed"] = v["flops"] / v["ms"] / 1e9
+            v["tflops_padded"] = 2 * tp * fin * fout / v["ms"] / 1e9
+        if on_card and a.dtype == torch.bfloat16:
+            v["witness"] = gmm_witnesses(a, w, te, tm)
     # the same grouped product in one PyTorch call, where this PyTorch has
     # one: torch._grouped_mm over each expert's aligned rows (the output in
     # bf16, as that call requires, where K4 writes f32)
@@ -814,7 +837,50 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     return entry
 
 
+def gmm_witnesses(a, w, te, tm) -> dict:
+    """Two other products of the same bf16 operands, each held against
+    ``gmm_ref`` as K4 is: K4's f32 body (exact products, f32 FMAs summed in
+    its own order, no tensor cores) and cuBLAS's bf16 tensor-core GEMM with
+    an f32 output, one call per expert.  If cuBLAS errs as K4 does, K4's
+    error is the tensor cores' accumulation, not a fault of its pipeline.
+    ``terms_max`` is the largest sum of |products| of an output, the scale
+    that the rounding of the sums works on."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+
+    want = GR.gmm_ref(a, w, te, tm)
+    k4 = G.gmm_cuda(a, w, te, tm)
+    simt = G.gmm_cuda(a.float(), w.float(), te, tm)
+    row_e = te.long().repeat_interleave(tm)[:a.shape[0]]
+    try:
+        lib = torch.zeros_like(want)
+        for e in torch.unique(row_e).tolist():
+            rows = torch.nonzero(row_e == e).reshape(-1)
+            lib[rows] = torch.mm(a[rows], w[e], out_dtype=torch.float32)
+        cublas_err = float((lib - want).abs().max())
+        k4_vs_cublas = float((k4 - lib).abs().max())
+    except (RuntimeError, TypeError, NotImplementedError):
+        cublas_err = k4_vs_cublas = None   # no bf16 -> f32 mm here
+    return {"k4_err": float((k4 - want).abs().max()),
+            "f32_simt_err": float((simt - want).abs().max()),
+            "cublas_bf16_f32_err": cublas_err, "k4_vs_cublas": k4_vs_cublas,
+            "ref_max": float(want.abs().max()),
+            "terms_max": float(GR.gmm_ref(a.abs(), w.abs(), te, tm).max())}
+
+
 # ---------------------------------------------------------------------------
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How many SASS instructions of ``opcode`` the library holds
+    (cuobjdump of the CUDA toolkit)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
 
 def smi_line() -> str:
     return subprocess.run(
@@ -860,7 +926,10 @@ def print_variants(e, tol: str) -> None:
               + (f" (>= {v['layout_bound_ms']:.3f} ms) and multiplies "
                  f"{v['layout_flops']:.3g} flops (>= "
                  f"{v['layout_flops_ms']:.3f} ms)"
-                 if "layout_flops" in v else ""))
+                 if "layout_flops" in v else "")
+              + (f"; {v['tflops_routed']:.1f} TFLOP/s over the routed rows, "
+                 f"{v['tflops_padded']:.1f} over all Tp rows"
+                 if "tflops_routed" in v else ""))
 
 
 def main() -> int:
@@ -903,6 +972,9 @@ def main() -> int:
         for line in build.build_log(s).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
+    hgmma = sass_count(build.library_path(G.SOURCE), "HGMMA")
+    print(f"{G.SOURCE.name}: {hgmma} HGMMA instructions in its SASS")
+    require(hgmma > 0, "K4's bf16 body runs on the tensor cores (HGMMA)")
 
     record = {"card": smi}
     t0 = time.perf_counter()
@@ -933,10 +1005,15 @@ def main() -> int:
     record["spmv_path"] = res
     ell_rows = kernel_phases(mats, args.seed, device)
     for e in ell_rows:
+        print(f"{e['name']} layout {e['shape']}: {e['layout_bytes']} B"
+              + (f", {e['segments']} segments over {e['slabs']} slabs "
+                 f"({e['segments'] / e['slabs']:.3f} a slab) of "
+                 f"{e['windows']} windows" if "segments" in e else ""))
         print_variants(e, f"tol atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
         print(f"{e['name']} library (cuSPARSE CSR SpMV): "
               f"{e['library_ms']:.4f} ms, max|err| vs plain "
               f"{e['library_err']:.3g}")
+    check_windowed_layout(ell_rows[1])
     kernels = [kernel_entry(e, "main_path", res["launches"][e["name"]],
                             e["library_ms"]) for e in ell_rows]
     record["kernels"] = ell_rows
@@ -1009,6 +1086,9 @@ def main() -> int:
           f"({gmm['routed_rows']}, {OLMOE.d_model}) x ({OLMOE.d_model}, "
           f"{OLMOE.d_ff}) bf16, not the same function): "
           f"{gmm['gemm_ms']:.4f} ms")
+    for vname, v in gmm["variants"].items():
+        if "witness" in v:
+            print(f"gmm/{vname} witnesses, max|err| vs plain: {v['witness']}")
     kernels.append(kernel_entry(gmm, "gate_up", moe["launches"],
                                 gmm["library_ms"]))
     record["kernels"] += [bsr, gmm]

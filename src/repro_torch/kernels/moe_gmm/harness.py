@@ -3,8 +3,8 @@
 Counterpart of ``repro.kernels.moe_gmm.harness`` (the ``pallas.gmm``
 block), declared for ``cuda``.  The reference's ``tune``, ``constraint``
 and ``vjp`` clauses are left out until the port has an autotuner and a
-backward pass: the kernel runs at tm = fn = 128, with fn clamped by
-``ops._tile`` to divide F and D.
+backward pass: the kernel runs at tm = 128, and its CTA covers 128 x 128
+outputs.
 """
 from __future__ import annotations
 

@@ -56,9 +56,9 @@ def moe_ffn(x: torch.Tensor,      # (T, D)
             wd: torch.Tensor,                     # (E, F, D)
             tm: int = 128) -> torch.Tensor:
     """The routed expert FFN in ``x.dtype``: three grouped matmuls (K4 on
-    CUDA tensors) over the expert-sorted, tile-aligned rows, with column
-    tiles from ``_tile``; ``h = silu(g) * u`` is rounded to ``x.dtype``
-    before the down projection, as in the reference."""
+    CUDA tensors) over the expert-sorted, tile-aligned rows; ``h = silu(g)
+    * u`` is rounded to ``x.dtype`` before the down projection, as in the
+    reference."""
     T, D = x.shape
     K = idx.shape[1]
     E, _, F = wg.shape
@@ -66,23 +66,13 @@ def moe_ffn(x: torch.Tensor,      # (T, D)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     xs = torch.zeros((Tp, D), dtype=x.dtype, device=x.device)
     xs[dest] = x[flat_t]
-    fn_f, fn_d = _tile(F), _tile(D)   # output F (up) / D (down)
-    g = gmm_cuda(xs, wg, tile_expert, tm=tm, fn=fn_f)
-    u = gmm_cuda(xs, wu, tile_expert, tm=tm, fn=fn_f)
+    g = gmm_cuda(xs, wg, tile_expert, tm=tm)
+    u = gmm_cuda(xs, wu, tile_expert, tm=tm)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    y = gmm_cuda(h, wd, tile_expert, tm=tm, fn=fn_d)   # (Tp, D)
+    y = gmm_cuda(h, wd, tile_expert, tm=tm)   # (Tp, D)
     contrib = y[dest] * gate.reshape(-1).float()[:, None]
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     return out.index_add_(0, flat_t, contrib).to(x.dtype)
-
-
-def _tile(n: int) -> int:
-    """Largest aligned tile size up to 128 dividing n (n itself if none
-    does)."""
-    for t in (128, 64, 32, 16, 8):
-        if n % t == 0:
-            return t
-    return n
 
 
 def moe_ffn_oracle(x, gate, idx, wg, wu, wd):

@@ -3,7 +3,8 @@
 Counterpart of ``repro.kernels.spmv_ell.kernel``:
 
   spmv_ell_cuda           <- spmv_ell_pallas           (K1, resident vector)
-  spmv_ell_windowed_cuda  <- spmv_ell_windowed_pallas  (K2, column windows)
+  spmv_ell_windowed_cuda  <- spmv_ell_windowed_pallas  (K2, column windows,
+                                                       slab-compacted)
 
 Both take an optional row permutation (the kernel stores row i at
 ``perm[i]``) and the fused ``(+bias) -> relu|silu`` epilogue (K5).  For
@@ -22,6 +23,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import EPILOGUE_CODES, check_tensor, launched
 from repro_torch.kernels.spmv_ell.ref import (spmv_ell_plain,
                                               spmv_ell_windowed_plain)
+from repro_torch.sparse.formats import WindowedELL
 
 SOURCE = Path(__file__).parent / "csrc" / "spmv_ell.cu"
 
@@ -37,16 +39,17 @@ def reset_launches() -> None:
 
 
 def _fn(name: str):
-    return build.entry_point(SOURCE, name, 6,
-                             4 if "windowed" not in name else 6)
+    if "windowed" in name:
+        return build.entry_point(SOURCE, name, 9, 4)
+    return build.entry_point(SOURCE, name, 6, 4)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _prepare(val, col, vec, bias, perm, out_rows, epilogue, rows_per_slab):
-    """Check the operands of either kernel; allocate the output."""
+def _prepare(val, vec, bias, perm, rows, out_rows, epilogue):
+    """Check the operands both kernels share; allocate the output."""
     dev = val.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
@@ -54,11 +57,7 @@ def _prepare(val, col, vec, bias, perm, out_rows, epilogue, rows_per_slab):
         raise TypeError(f"val must be float32 or bfloat16, got {val.dtype}")
     if epilogue not in EPILOGUE_CODES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    if rows_per_slab <= 0:
-        raise ValueError(f"rows_per_slab must be positive, got {rows_per_slab}")
-    rows = val.shape[0]
     check_tensor("val", val, dev, val.dtype)
-    check_tensor("col", col, dev, torch.int32, val.shape)
     check_tensor("vec", vec, dev, val.dtype)
     if vec.dim() != 1:
         raise ValueError("vec must be 1-D")
@@ -88,9 +87,11 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
                               out_rows=out_rows, epilogue=epilogue)
     if val.dim() != 2:
         raise ValueError(f"val must be (rows, width), got {tuple(val.shape)}")
-    out = _prepare(val, col, vec, bias, perm, out_rows, epilogue,
-                   rows_per_slab)
+    if rows_per_slab <= 0:
+        raise ValueError(f"rows_per_slab must be positive, got {rows_per_slab}")
     rows, width = val.shape
+    out = _prepare(val, vec, bias, perm, rows, out_rows, epilogue)
+    check_tensor("col", col, val.device, torch.int32, val.shape)
     if rows == 0:
         return out
     with torch.cuda.device(val.device):
@@ -102,35 +103,38 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
     return out
 
 
-def spmv_ell_windowed_cuda(val: torch.Tensor, col: torch.Tensor,
-                           vec: torch.Tensor, *, window: int,
+def spmv_ell_windowed_cuda(layout: WindowedELL, vec: torch.Tensor, *,
                            bias: Optional[torch.Tensor] = None,
                            perm: Optional[torch.Tensor] = None,
                            out_rows: Optional[int] = None,
-                           epilogue: Optional[str] = None,
-                           rows_per_slab: int = 32) -> torch.Tensor:
-    """K2: the same sum over val/col ``(rows, n_windows, width)`` whose
-    column ids are local to window w, which starts at ``vec[w*window]``."""
+                           epilogue: Optional[str] = None) -> torch.Tensor:
+    """K2: the same sum over the slab-compacted column-window layout of
+    ``formats.ell_windows``; ``vec`` covers the layout's columns.  The
+    layout bounded its segments when it was built (``WindowedELL``)."""
+    val = layout.val
     if val.device.type == "cpu":
-        return spmv_ell_windowed_plain(val, col, vec, window=window,
-                                       bias=bias, perm=perm,
+        return spmv_ell_windowed_plain(layout, vec, bias=bias, perm=perm,
                                        out_rows=out_rows, epilogue=epilogue)
-    if val.dim() != 3:
-        raise ValueError("val must be (rows, n_windows, width), got "
-                         f"{tuple(val.shape)}")
-    out = _prepare(val, col, vec, bias, perm, out_rows, epilogue,
-                   rows_per_slab)
-    rows, n_windows, width = val.shape
-    if vec.shape[0] <= (n_windows - 1) * window:
-        raise ValueError(f"vec of {vec.shape[0]} elements has no window "
-                         f"{n_windows - 1} of {window}")
+    rows, cols = layout.shape
+    out = _prepare(val, vec, bias, perm, rows, out_rows, epilogue)
+    dev = val.device
+    n_slabs, n_seg = layout.n_slabs, layout.n_segments
+    check_tensor("col", layout.col, dev, torch.uint16, val.shape)
+    check_tensor("seg_ptr", layout.seg_ptr, dev, torch.int32, (n_slabs + 1,))
+    check_tensor("seg_window", layout.seg_window, dev, torch.int32, (n_seg,))
+    check_tensor("seg_offset", layout.seg_offset, dev, torch.int64,
+                 (n_seg + 1,))
+    if vec.shape[0] < cols:
+        raise ValueError(f"vec of {vec.shape[0]} elements does not cover "
+                         f"the layout's {cols} columns")
     if rows == 0:
         return out
-    with torch.cuda.device(val.device):
+    with torch.cuda.device(dev):
         err = _fn(f"spmv_ell_windowed_{_SUFFIX[val.dtype]}")(
-            val.data_ptr(), col.data_ptr(), vec.data_ptr(), _ptr(bias),
-            _ptr(perm), out.data_ptr(), rows, n_windows, width, window,
-            rows_per_slab, EPILOGUE_CODES[epilogue],
+            val.data_ptr(), layout.col.data_ptr(), layout.seg_ptr.data_ptr(),
+            layout.seg_window.data_ptr(), layout.seg_offset.data_ptr(),
+            vec.data_ptr(), _ptr(bias), _ptr(perm), out.data_ptr(), rows,
+            n_slabs, layout.window, EPILOGUE_CODES[epilogue],
             torch.cuda.current_stream().cuda_stream)
     launched(LAUNCHES, "spmv_ell_windowed", err)
     return out

@@ -2,10 +2,10 @@
 
 Counterpart of ``repro.kernels.spmv_ell.ops``: the slab geometry (row
 padding and the clamp for tiny row counts), the resident / column-windowed
-split at ``RESIDENT_VEC_LIMIT``, the relayout into column windows, and the
-unfused fallback for a bias that is not 1-D.  On Hopper the vector needs no
-on-chip residency, but the split stays so the windowed kernel (K2) stays on
-the path for long vectors.  The kernel masks the ragged last slab itself,
+split at ``RESIDENT_VEC_LIMIT``, the slab-compacted column-window layout,
+and the unfused fallback for a bias that is not 1-D.  On Hopper the vector
+needs no on-chip residency, but the split stays so the windowed kernel (K2)
+stays on the path for long vectors.  The kernel masks the ragged last slab itself,
 so row padding sets the launch grid and copies nothing.
 """
 from __future__ import annotations
@@ -60,10 +60,10 @@ def spmv_ell(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
         out = spmv_ell(val, col, vec, rows_per_slab=rows_per_slab, perm=perm,
                        out_rows=out_rows)
         return apply_epilogue_inregister(out, bias, epilogue)
-    rows_per_slab, _ = slab_geometry(rows, rows_per_slab)
     if bias is not None:
         bias = bias.float().contiguous()
     if vec.shape[0] <= RESIDENT_VEC_LIMIT:
+        rows_per_slab, _ = slab_geometry(rows, rows_per_slab)
         return spmv_ell_cuda(val, col, vec, bias=bias, perm=perm,
                              out_rows=out_rows, epilogue=epilogue,
                              rows_per_slab=rows_per_slab)
@@ -75,21 +75,22 @@ def _windowed(val, col, vec, rows_per_slab, window: int = WINDOW,
               epilogue: Optional[str] = None, bias=None, perm=None,
               out_rows: Optional[int] = None,
               layout: Optional[WindowedELL] = None):
-    """Split each row's slots by column window (unless ``layout`` already
-    holds the split) and run the windowed kernel."""
+    """Compact the slots by slab and column window (unless ``layout``
+    already holds them) and run the windowed kernel.  ``rows_per_slab`` is
+    the reference's argument and sets nothing here: the layout's slab is a
+    warp's 32 rows (``formats.SLAB``), and the kernel masks a ragged
+    last slab itself."""
     if layout is None:
         layout = ell_windows(val, col, vec.shape[0], window)
-    return spmv_ell_windowed_cuda(layout.val, layout.col, vec,
-                                  window=layout.window, bias=bias, perm=perm,
-                                  out_rows=out_rows, epilogue=epilogue,
-                                  rows_per_slab=rows_per_slab)
+    return spmv_ell_windowed_cuda(layout, vec, bias=bias, perm=perm,
+                                  out_rows=out_rows, epilogue=epilogue)
 
 
 def pack_ell128(csr: CSR) -> Union[ELL, WindowedELL]:
     """The marshaled form of a CSR matrix that the kernels read: its
     lane-128 ELL, or, when its vector would exceed ``RESIDENT_VEC_LIMIT``,
-    only that ELL's column-window relayout (the windowed kernel never reads
-    the ELL itself, so it is not kept)."""
+    only that ELL's slab-compacted column-window layout (the windowed
+    kernel never reads the ELL itself, so it is not kept)."""
     ell = csr_to_ell(csr, lane=128)
     if csr.cols <= RESIDENT_VEC_LIMIT:
         return ell
@@ -100,8 +101,8 @@ def spmv_ell_packed(packed: Union[ELL, WindowedELL], vec: torch.Tensor,
                     epilogue: Optional[str] = None,
                     bias=None) -> torch.Tensor:
     """SpMV with a :func:`pack_ell128` value: the kernel un-permutes the
-    JDS row sort in its store, and a column-window relayout runs on the
-    windowed kernel as it is, without splitting the slots again."""
+    JDS row sort in its store, and a column-window layout runs on the
+    windowed kernel as it is, without compacting the slots again."""
     rows = packed.shape[0]
     if bias is not None and not _fusable(bias, rows):
         out = spmv_ell_packed(packed, vec)
@@ -111,7 +112,5 @@ def spmv_ell_packed(packed: Union[ELL, WindowedELL], vec: torch.Tensor,
                         bias=bias, perm=packed.perm, out_rows=rows)
     if bias is not None:
         bias = bias.float().contiguous()
-    rows_per_slab, _ = slab_geometry(rows, ROWS_PER_SLAB)
-    return _windowed(packed.val, packed.col, vec, rows_per_slab,
-                     epilogue=epilogue, bias=bias, perm=packed.perm,
-                     out_rows=rows, layout=packed)
+    return spmv_ell_windowed_cuda(packed, vec, bias=bias, perm=packed.perm,
+                                  out_rows=rows, epilogue=epilogue)

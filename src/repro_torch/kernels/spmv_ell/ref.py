@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import apply_epilogue_inregister
+from repro_torch.sparse.formats import SLAB, WindowedELL
 
 
 def spmv_ell_ref(val: torch.Tensor, col: torch.Tensor,
@@ -21,16 +22,25 @@ def spmv_ell_ref(val: torch.Tensor, col: torch.Tensor,
     return torch.sum(val.float() * vec.float()[col.long()], dim=1)
 
 
-def spmv_ell_windowed_ref(val: torch.Tensor, col: torch.Tensor,
-                          vec: torch.Tensor, window: int) -> torch.Tensor:
-    """The same sum over a (rows, n_windows, width) layout whose column ids
-    are local to their window."""
-    n_windows = val.shape[1]
-    v = vec.float()
-    if v.shape[0] < n_windows * window:
-        v = torch.nn.functional.pad(v, (0, n_windows * window - v.shape[0]))
-    base = torch.arange(n_windows, device=val.device)[None, :, None] * window
-    return torch.sum(val.float() * v[base + col.long()], dim=(1, 2))
+def spmv_ell_windowed_ref(layout: WindowedELL,
+                          vec: torch.Tensor) -> torch.Tensor:
+    """The same sum over the slab-compacted column-window layout: slot p of
+    segment s belongs to row ``SLAB * slab(s) + (p - seg_offset[s]) % SLAB``
+    and gathers ``vec[seg_window[s] * window + col[p]]``."""
+    dev = layout.val.device
+    n_slots = layout.val.shape[0]
+    seg = torch.repeat_interleave(
+        torch.arange(layout.n_segments, device=dev),
+        torch.diff(layout.seg_offset), output_size=n_slots)
+    slab = torch.repeat_interleave(
+        torch.arange(layout.n_slabs, device=dev),
+        torch.diff(layout.seg_ptr).long(), output_size=layout.n_segments)
+    slot = torch.arange(n_slots, device=dev) - layout.seg_offset[seg]
+    row = slab[seg] * SLAB + slot % SLAB
+    gcol = layout.seg_window[seg].long() * layout.window + layout.col.long()
+    acc = torch.zeros(layout.n_slabs * SLAB, dtype=torch.float32, device=dev)
+    acc.index_add_(0, row, layout.val.float() * vec.float()[gcol])
+    return acc[:layout.shape[0]]
 
 
 def _store(acc: torch.Tensor, bias, perm, out_rows: Optional[int],
@@ -54,9 +64,9 @@ def spmv_ell_plain(val, col, vec, *, bias=None, perm=None,
     return _store(spmv_ell_ref(val, col, vec), bias, perm, out_rows, epilogue)
 
 
-def spmv_ell_windowed_plain(val, col, vec, *, window: int, bias=None,
+def spmv_ell_windowed_plain(layout: WindowedELL, vec, *, bias=None,
                             perm=None, out_rows: Optional[int] = None,
                             epilogue: Optional[str] = None) -> torch.Tensor:
     """What the windowed kernel (K2) computes."""
-    return _store(spmv_ell_windowed_ref(val, col, vec, window), bias, perm,
-                  out_rows, epilogue)
+    return _store(spmv_ell_windowed_ref(layout, vec), bias, perm, out_rows,
+                  epilogue)

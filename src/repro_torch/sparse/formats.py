@@ -9,8 +9,9 @@ paper's (§3.2 Fig. 4/5):
 * JDS  — perm / nzcnt / jd_ptr / val / col_ind (paper Fig. 5)
 * ELL  — row-padded: after the JDS nnz row sort, rows are padded to a
          lane-aligned width so a row is one contiguous slab
-* WindowedELL — ELL split by column window, with window-local column ids
-         (the layout of the windowed SpMV kernel for long vectors)
+* WindowedELL — ELL compacted by 32-row slab and column window (SELL-32
+         per window), with window-local column ids (the layout of the
+         windowed SpMV kernel for long vectors)
 * BCSR — block CSR: dense (bm, bk) tiles, CSR structure over tile rows
 
 The host constructors build in numpy, so their arrays are byte-identical
@@ -29,6 +30,10 @@ import torch
 
 #: Column window of the windowed ELL layout (vector elements per window).
 WINDOW = 1 << 16
+#: Rows of a slab of the windowed ELL layout (one warp's rows).
+SLAB = 32
+#: A windowed segment's width (slots a row) is a multiple of this.
+SEG_WIDTH = 8
 
 
 def _np(t) -> np.ndarray:
@@ -104,29 +109,86 @@ class JDS:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class WindowedELL:
-    """ELL split by column window.
+    """ELL compacted by slab and column window (SELL-32 per window).
 
-    val/col are ``(rows, n_windows, width)``: slot ``[i, w, k]`` holds the
-    k-th stored entry of row i whose column lies in window w, with the
-    column id local to the window (``col - w*window``).  Unused slots have
-    val=0, col=0.  ``width`` is the largest number of entries any row has
-    in one window, rounded up to the lane, not the ELL width.  ``perm`` is
-    the row sort of the ELL it came from, if any.
+    Rows go in slabs of ``SLAB`` (32).  A slab stores only the column
+    windows its rows touch, each as one segment, in window order:
+
+    * ``seg_ptr`` (n_slabs+1,) int32: slab b owns segments
+      ``seg_ptr[b] .. seg_ptr[b+1]-1``;
+    * ``seg_window`` (n_seg,) int32: the window of each segment;
+    * ``seg_offset`` (n_seg+1,) int64: the first slot of each segment, and
+      the end of the last;
+    * ``val`` / ``col`` (n_slots,): a segment's slots are column-major, slot
+      k of the slab's row i at ``seg_offset[s] + k*SLAB + i``.  Its width
+      (slots a row) is the largest number of entries any of its rows has in
+      the window, rounded up to ``SEG_WIDTH``.  ``col`` holds the window-local id
+      ``col % window`` as uint16 (a window is at most 65,536 ids).  Unused
+      slots have val=0, col=0.
+
+    ``perm`` is the row sort of the ELL it came from, if any.  The kernel
+    follows the segments unchecked, so a layout whose segments would read
+    past its slots or its columns is refused when it is built.
     """
 
-    val: torch.Tensor   # (rows, n_windows, width)
-    col: torch.Tensor   # (rows, n_windows, width) int32
+    val: torch.Tensor         # (n_slots,)
+    col: torch.Tensor         # (n_slots,) uint16
+    seg_ptr: torch.Tensor     # (n_slabs+1,) int32
+    seg_window: torch.Tensor  # (n_seg,) int32
+    seg_offset: torch.Tensor  # (n_seg+1,) int64
     window: int
     shape: Tuple[int, int]
     perm: Optional[torch.Tensor] = None  # (rows,) int32
 
-    @property
-    def n_windows(self) -> int:
-        return self.val.shape[1]
+    def __post_init__(self):
+        rows, cols = self.shape
+        n_seg, n_slots = self.n_segments, self.val.shape[0]
+        if (self.val.dim() != 1 or self.col.shape != self.val.shape
+                or self.seg_window.dim() != 1
+                or self.seg_ptr.shape != (-(-rows // SLAB) + 1,)
+                or self.seg_offset.shape != (n_seg + 1,)):
+            raise ValueError(
+                f"a layout of {rows} rows needs 1-D val and col of one "
+                f"length, {-(-rows // SLAB) + 1} seg_ptr entries and "
+                f"{n_seg + 1} seg_offset entries; got val "
+                f"{tuple(self.val.shape)}, col {tuple(self.col.shape)}, "
+                f"seg_ptr {tuple(self.seg_ptr.shape)}, seg_offset "
+                f"{tuple(self.seg_offset.shape)}")
+        if self.val.device.type == "meta":
+            return                     # shapes only: there are no values
+        ptr, off, win = (self.seg_ptr.long(), self.seg_offset.long(),
+                         self.seg_window.long())
+        size = torch.diff(off)
+        # a segment's columns end at its window's end or at the matrix's
+        limit = torch.clamp(cols - win * self.window, max=self.window)
+        ok = bool(torch.stack([
+            ptr[0] == 0, ptr[-1] == n_seg, (torch.diff(ptr) >= 0).all(),
+            off[0] == 0, off[-1] == n_slots, (size >= 0).all(),
+            (size % SLAB == 0).all(), ((win >= 0) & (limit > 0)).all()]).all())
+        if ok:
+            seg = torch.repeat_interleave(
+                torch.arange(n_seg, device=off.device), size,
+                output_size=n_slots)
+            ok = bool((self.col.long() < limit[seg]).all())
+        if not ok:
+            raise ValueError(
+                "layout segments out of bounds: need seg_ptr to grow from 0 "
+                f"to {n_seg}, seg_offset to grow from 0 to {n_slots} in "
+                f"whole slabs of {SLAB} slots, windows in [0, "
+                f"{self.n_windows}) and local ids within the window and "
+                f"the {cols} columns")
 
     @property
-    def width(self) -> int:
-        return self.val.shape[2]
+    def n_windows(self) -> int:
+        return max(1, -(-self.shape[1] // self.window))
+
+    @property
+    def n_slabs(self) -> int:
+        return self.seg_ptr.shape[0] - 1
+
+    @property
+    def n_segments(self) -> int:
+        return self.seg_window.shape[0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -309,35 +371,58 @@ def bcsr_from_dense(dense, block_shape=(8, 128), device=None) -> BCSR:
 
 
 def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
-                window: int = WINDOW, lane: int = 8,
+                window: int = WINDOW,
                 perm: Optional[torch.Tensor] = None) -> WindowedELL:
-    """Split ELL slots by column window, on the tensors' device.
+    """Compact ELL slots by (slab, column window), on the tensors' device.
 
-    A slot's place in its (row, window) group comes from one stable sort of
-    the stored slots by ``row * n_windows + window``, never from a
-    ``(rows, width, n_windows)`` one-hot.  Slots with val == 0 (the ELL
-    padding, and any stored zero) are dropped: they add nothing to a row's
-    sum, and keeping the padding would pile it all into window 0."""
+    One stable sort of the stored slots by (slab, window, row) places every
+    slot: its segment is its (slab, window) run and its slot within the row
+    its rank in its (row, window) run.  Nothing of size (rows, n_windows,
+    width) is built.  Slots with val == 0 (the ELL padding, and any stored
+    zero) are dropped: they add nothing to a row's sum, and keeping the
+    padding would pile it all into window 0."""
+    if not 0 < window <= 1 << 16:
+        raise ValueError(f"window must be in (0, 65536] for 16-bit local "
+                         f"ids, got {window}")
+    dev = val.device
     rows = val.shape[0]
     n_windows = max(1, -(-cols // window))
+    n_slabs = -(-rows // SLAB)
     r, j = torch.nonzero(val, as_tuple=True)
     c = col[r, j].long()
-    key = r * n_windows + torch.div(c, window, rounding_mode="floor")
+    key = (r // SLAB * n_windows + torch.div(c, window, rounding_mode="floor")
+           ) * SLAB + r % SLAB
     key, order = torch.sort(key, stable=True)
-    counts = torch.bincount(key, minlength=rows * n_windows)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(key.shape[0], device=val.device) - starts[key]
-    most = int(counts.max()) if counts.numel() else 0
-    width = max(lane, -(-most // lane) * lane)
-    val3 = torch.zeros((rows * n_windows, width), dtype=val.dtype,
-                       device=val.device)
-    col3 = torch.zeros((rows * n_windows, width), dtype=torch.int32,
-                       device=val.device)
-    val3[key, pos] = val[r, j][order]
-    col3[key, pos] = (c[order] % window).to(torch.int32)
-    return WindowedELL(val=val3.view(rows, n_windows, width),
-                       col=col3.view(rows, n_windows, width),
-                       window=window, shape=(rows, cols), perm=perm)
+    n = key.shape[0]
+    idx = torch.arange(n, device=dev)
+    new_run = torch.ones(n, dtype=torch.bool, device=dev)
+    new_run[1:] = key[1:] != key[:-1]
+    k = idx - idx[new_run][torch.cumsum(new_run, 0) - 1]
+    seg_key = torch.div(key, SLAB, rounding_mode="floor")
+    new_seg = torch.ones(n, dtype=torch.bool, device=dev)
+    new_seg[1:] = seg_key[1:] != seg_key[:-1]
+    seg = torch.cumsum(new_seg, 0) - 1
+    starts = seg_key[new_seg]
+    n_seg = starts.shape[0]
+    width = torch.zeros(n_seg, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, seg, k + 1, "amax")
+    seg_offset = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    seg_offset[1:] = torch.cumsum((width + SEG_WIDTH - 1) // SEG_WIDTH * SEG_WIDTH * SLAB, 0)
+    seg_ptr = torch.zeros(n_slabs + 1, dtype=torch.int32, device=dev)
+    seg_ptr[1:] = torch.cumsum(torch.bincount(
+        torch.div(starts, n_windows, rounding_mode="floor"),
+        minlength=n_slabs), 0)
+    pos = seg_offset[seg] + k * SLAB + key % SLAB
+    n_slots = int(seg_offset[-1])
+    val_out = torch.zeros(n_slots, dtype=val.dtype, device=dev)
+    val_out[pos] = val[r, j][order]
+    col_out = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+    col_out[pos] = (c[order] % window).to(torch.int32)
+    return WindowedELL(val=val_out, col=col_out.to(torch.uint16),
+                       seg_ptr=seg_ptr,
+                       seg_window=(starts % n_windows).to(torch.int32),
+                       seg_offset=seg_offset, window=window,
+                       shape=(rows, cols), perm=perm)
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 the same numpy inputs must give byte-identical arrays, and the reference
 SpMVs must agree.  Also the CSR generators that build solver-sized
 matrices directly, checked at small sizes."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,26 +97,117 @@ def test_todense_and_reference_spmvs_match_jax():
         np.asarray(jops.spmv_coo_ref(coo_ref, jv)), atol=1e-5, rtol=1e-5)
 
 
+def _check_windowed_layout(w, val, col, window):
+    """The slab-compacted column-window layout against the ELL it came
+    from, in numpy: every stored entry appears once, in its (slab, window)
+    segment, with its window-local id; no empty segment is stored; each
+    segment is as wide as its slab's largest count in the window, rounded
+    up to 8; and the slots are 32 x the sum of the widths."""
+    v, c = val.numpy(), col.numpy()
+    n_slabs = -(-v.shape[0] // 32)
+    seg_ptr, seg_window = w.seg_ptr.numpy(), w.seg_window.numpy()
+    seg_offset = w.seg_offset.numpy()
+    lv, lc = w.val.numpy(), w.col.numpy().astype(np.int64)
+    assert w.col.dtype == torch.uint16 and w.n_slabs == n_slabs
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == w.n_segments
+    assert seg_offset[0] == 0 and seg_offset[-1] == lv.shape[0]
+    r, j = np.nonzero(v)
+    count = {}
+    for ri, wi in zip(r, c[r, j] // window):
+        count[ri, wi] = count.get((ri, wi), 0) + 1
+    most = {}
+    for (ri, wi), n in count.items():
+        most[ri // 32, wi] = max(most.get((ri // 32, wi), 0), n)
+    dense = np.zeros((n_slabs * 32, w.n_windows * window), np.float64)
+    widths = []
+    for b in range(n_slabs):
+        segs = range(seg_ptr[b], seg_ptr[b + 1])
+        assert [seg_window[s] for s in segs] == \
+            sorted(wi for bb, wi in most if bb == b)
+        for s in segs:
+            width = -(-most[b, seg_window[s]] // 8) * 8
+            assert seg_offset[s + 1] - seg_offset[s] == 32 * width
+            widths.append(width)
+            sv = lv[seg_offset[s]:seg_offset[s + 1]].reshape(width, 32)
+            sc = lc[seg_offset[s]:seg_offset[s + 1]].reshape(width, 32)
+            assert sv.any() and (sc < window).all()
+            k, i = np.nonzero(sv)
+            np.add.at(dense, (b * 32 + i, seg_window[s] * window + sc[k, i]),
+                      sv[k, i])
+    assert lv.shape[0] == 32 * sum(widths)
+    assert np.count_nonzero(lv) == r.shape[0]
+    expect = np.zeros_like(dense)
+    np.add.at(expect, (r, c[r, j]), v[r, j])
+    np.testing.assert_array_equal(dense, expect)
+
+
 @pytest.mark.parametrize("window", [8, 16, 128])
 def test_ell_windows_layout(window):
-    """Every stored entry lands once in its column window with a
-    window-local id, and the layout is no wider than needed."""
+    """60 rows (a ragged second slab) of skewed rows over 100 columns, in
+    13, 7 and 1 column windows."""
     ref = jrandom.random_csr(60, 100, 0.15, seed=6, skew=1.0)
     ell = tf.ell_from_csr(tf.from_numpy(ref))
-    w = tf.ell_windows(ell.val, ell.col, 100, window=window)
+    w = tf.ell_windows(ell.val, ell.col, 100, window=window, perm=ell.perm)
     assert w.n_windows == -(-100 // window) and w.window == window
-    dense = np.zeros((60, w.n_windows * window), np.float32)
-    v3, c3 = w.val.numpy(), w.col.numpy()
-    for i, wi, k in zip(*np.nonzero(v3)):
-        dense[i, wi * window + c3[i, wi, k]] += v3[i, wi, k]
-    expect = np.zeros((60, 100), np.float32)
-    rows = np.repeat(np.arange(60), ell.width)
-    np.add.at(expect, (rows, ell.col.numpy().reshape(-1)),
-              ell.val.numpy().reshape(-1))
-    np.testing.assert_array_equal(dense[:, :100], expect)
-    assert not dense[:, 100:].any()
-    per_group = (v3 != 0).sum(axis=2).max()
-    assert w.width == max(8, -(-per_group // 8) * 8)
+    assert w.shape == (60, 100) and w.perm is ell.perm
+    _check_windowed_layout(w, ell.val, ell.col, window)
+
+
+def test_ell_windows_layout_of_the_stencil():
+    """HPCG's operator on an 8^3 grid, marshaled as the SpMV path does it
+    (lane-128 ELL, JDS row sort), in windows of one 8x8 plane: a slab's
+    rows touch the planes of their neighbours, and each slab stores a
+    segment for exactly the windows its rows touch."""
+    from repro_torch.sparse.convert import csr_to_ell
+
+    csr = trandom.stencil27_csr(8, 8, 8)
+    ell = csr_to_ell(csr, lane=128)
+    w = tf.ell_windows(ell.val, ell.col, csr.cols, window=64, perm=ell.perm)
+    _check_windowed_layout(w, ell.val, ell.col, 64)
+    c = ell.col.numpy()
+    touched = [np.unique(c[b * 32:(b + 1) * 32][ell.val.numpy()[
+        b * 32:(b + 1) * 32] != 0] // 64).shape[0] for b in range(16)]
+    assert torch.diff(w.seg_ptr).tolist() == touched
+    assert min(touched) >= 2 and w.n_segments == sum(touched)
+
+
+def _spoil(w, case):
+    """The fields of ``w`` changed so that one segment reads out of bounds."""
+    off, ptr = w.seg_offset.clone(), w.seg_ptr.clone()
+    win, col = w.seg_window.clone(), w.col.clone()
+    if case == "slots_end_past_val":
+        return dict(val=w.val[:-32], col=w.col[:-32])
+    if case == "offsets_shrink":
+        off[1] = off[2] + 32
+        return dict(seg_offset=off)
+    if case == "ptr_ends_short":
+        ptr[-1] -= 1
+        return dict(seg_ptr=ptr)
+    if case == "window_past_the_last":
+        win[0] = w.n_windows
+        return dict(seg_window=win)
+    if case == "id_past_its_window":
+        col[0] = w.window
+        return dict(col=col)
+    # the last window holds columns 96-99: local id 4 is column 100
+    s = int(torch.nonzero(w.seg_window == w.n_windows - 1)[0])
+    col[int(w.seg_offset[s])] = 4
+    return dict(col=col)
+
+
+@pytest.mark.parametrize("case", [
+    "slots_end_past_val", "offsets_shrink", "ptr_ends_short",
+    "window_past_the_last", "id_past_its_window", "id_past_the_columns"])
+def test_windowed_layout_refuses_out_of_bounds_segments(case):
+    """The windowed kernel follows the segments unchecked, so building a
+    layout whose segments would read past its slots, its windows or the
+    matrix's columns raises, on any device."""
+    ref = jrandom.random_csr(60, 100, 0.15, seed=6, skew=1.0)
+    ell = tf.ell_from_csr(tf.from_numpy(ref))
+    w = tf.ell_windows(ell.val, ell.col, 100, window=16, perm=ell.perm)
+    assert dataclasses.replace(w).n_segments == w.n_segments
+    with pytest.raises(ValueError):
+        dataclasses.replace(w, **_spoil(w, case))
 
 
 def test_stencil27_is_hpcg_operator():

@@ -7,12 +7,15 @@ PyTorch and the CUDA toolkit are installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import lilac
 from repro_torch.kernels.bsr_spmm import kernel as K3
+from repro_torch.kernels.common import apply_epilogue_inregister
 from repro_torch.kernels.bsr_spmm import ref as R3
 from repro_torch.kernels.moe_gmm import kernel as K4
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -73,16 +76,47 @@ def test_windowed_kernel_matches_plain(cuda, dtype, epilogue, with_bias,
                                        with_perm):
     val, col, perm, vec, bias = _ell(cuda, dtype)
     w = tf.ell_windows(val, col, 3000, window=512)
-    assert w.n_windows == 6
+    assert w.n_windows == 6 and w.col.dtype == torch.uint16
     kw = dict(bias=bias if with_bias else None,
               perm=perm if with_perm else None, epilogue=epilogue)
     before = K.LAUNCHES["spmv_ell_windowed"]
-    got = K.spmv_ell_windowed_cuda(w.val, w.col, vec, window=512, **kw)
+    got = K.spmv_ell_windowed_cuda(w, vec, **kw)
     torch.cuda.synchronize()
     assert K.LAUNCHES["spmv_ell_windowed"] == before + 1
     torch.testing.assert_close(
-        got, R.spmv_ell_windowed_plain(w.val, w.col, vec, window=512, **kw),
+        got, R.spmv_ell_windowed_plain(w, vec, **kw),
         **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", [None, "none", "relu", "silu"])
+def test_windowed_kernel_edges(cuda, dtype, epilogue):
+    """Rows whose entries straddle two windows (columns 1000-1060 against
+    a window of 1024), an empty slab (rows 32-63, unsorted), a ragged last
+    slab (100 rows), a row permutation and a bias by output row."""
+    rng = np.random.default_rng(8)
+    d = np.zeros((100, 2048), np.float32)
+    d[:, 1000:1061] = rng.standard_normal((100, 61))
+    d[rng.random((100, 2048)) > 0.5] = 0
+    d[32:64] = 0
+    ell = tf.ell_from_csr(tf.csr_from_dense(d), sort_rows=False, lane=8)
+    val, col = ell.val.to(cuda, dtype), ell.col.to(cuda)
+    w = tf.ell_windows(val, col, 2048, window=1024)
+    assert torch.diff(w.seg_ptr).tolist() == [2, 0, 2, 2]
+    vec = torch.from_numpy(rng.standard_normal(2048).astype(np.float32))
+    perm = torch.from_numpy(rng.permutation(100).astype(np.int32))
+    bias = torch.from_numpy(rng.standard_normal(100).astype(np.float32))
+    kw = dict(bias=bias.to(cuda), perm=perm.to(cuda), epilogue=epilogue)
+    vec = vec.to(cuda, dtype)
+    got = K.spmv_ell_windowed_cuda(w, vec, **kw)
+    torch.cuda.synchronize()
+    want = R.spmv_ell_windowed_plain(w, vec, **kw)
+    torch.testing.assert_close(got, want, **(TOL if dtype == torch.float32
+                                             else BF16_TOL))
+    empty = perm[32:64].long()
+    torch.testing.assert_close(
+        got[empty].cpu(), apply_epilogue_inregister(bias[empty], None, epilogue))
 
 
 @pytest.mark.gpu
@@ -98,9 +132,16 @@ def test_wrapper_refuses_bad_operands(cuda):
         K.spmv_ell_cuda(val, col, vec, bias=torch.ones(3, device=cuda))
     with pytest.raises(ValueError):
         K.spmv_ell_cuda(val.t(), col.t(), vec)
+    w = tf.ell_windows(val, col, 4, window=4)
+    with pytest.raises(TypeError):
+        K.spmv_ell_windowed_cuda(dataclasses.replace(w, col=w.col.int()), vec)
     with pytest.raises(ValueError):
-        K.spmv_ell_windowed_cuda(val.view(8, 2, 8), col.view(8, 2, 8), vec,
-                                 window=4)
+        K.spmv_ell_windowed_cuda(w, vec[:3])
+    with pytest.raises(ValueError):     # segments that end past the slots
+        K.spmv_ell_windowed_cuda(dataclasses.replace(
+            w, val=w.val[:-32], col=w.col[:-32]), vec)
+    with pytest.raises(ValueError):
+        K.spmv_ell_windowed_cuda(w, vec, bias=torch.ones(3, device=cuda))
 
 
 @pytest.mark.gpu
@@ -187,46 +228,68 @@ def test_bsr_spmm_kernel_short_tiles(cuda, bm):
     torch.testing.assert_close(got, want, **TOL)
 
 
+GMM_BF16_TOL = dict(atol=1e-3, rtol=1e-3)   # bf16 products are exact in f32
+
+
+def _gmm_operands(cuda, dtype, Tp, D, F, E, tm, seed):
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.standard_normal((Tp, D)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, D, F)).astype(np.float32))
+    te = torch.from_numpy(rng.integers(0, E, Tp // tm).astype(np.int32))
+    return xs.to(cuda, dtype), w.to(cuda, dtype), te.to(cuda)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Tp,D,F,E,tm", [
     (256, 128, 256, 4, 128),
-    (96, 96, 192, 4, 16),       # _tile clamps fn to 64
+    (96, 96, 192, 4, 16),       # D not a multiple of 64, F of 128
     (64, 64, 128, 8, 8),
     (512, 64, 128, 2, 256),     # a tile taller than a CTA
+    (128, 200, 136, 3, 32),     # D and F multiples of 8 only
 ])
 def test_gmm_kernel_matches_plain(cuda, dtype, Tp, D, F, E, tm):
-    rng = np.random.default_rng(Tp + D)
-    xs = torch.from_numpy(rng.standard_normal((Tp, D)).astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((E, D, F)).astype(np.float32))
-    te = torch.from_numpy(rng.integers(0, E, Tp // tm).astype(np.int32))
-    xs, w, te = xs.to(cuda, dtype), w.to(cuda, dtype), te.to(cuda)
+    xs, w, te = _gmm_operands(cuda, dtype, Tp, D, F, E, tm, Tp + D)
     before = K4.LAUNCHES["gmm"]
-    got = K4.gmm_cuda(xs, w, te, tm=tm, fn=gmm_ops._tile(F))
+    got = K4.gmm_cuda(xs, w, te, tm=tm)
     torch.cuda.synchronize()
     assert K4.LAUNCHES["gmm"] == before + 1
     torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, tm),
                                **(TOL if dtype == torch.float32
-                                  else dict(atol=2e-2, rtol=2e-2)))
+                                  else GMM_BF16_TOL))
 
 
 @pytest.mark.gpu
-def test_gmm_kernel_takes_out_of_range_expert_ids_as_plain(cuda):
+@pytest.mark.parametrize("D,F", [(2048, 1024), (1024, 2048)])
+def test_gmm_tensor_core_kernel_at_olmoe_widths(cuda, D, F):
+    """OLMoE's gate/up (D 2048 -> F 1024) and down (1024 -> 2048) widths
+    with 8 experts and tm = 128, in bf16."""
+    xs, w, te = _gmm_operands(cuda, torch.bfloat16, 1024, D, F, 8, 128, D)
+    got = K4.gmm_cuda(xs, w, te, tm=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 128),
+                               **GMM_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_takes_out_of_range_expert_ids_as_plain(cuda, dtype):
     """Expert ids past E or below 0 read no weight past w: the kernel maps
     them as its plain version does (negative from the end, then clamped)."""
     rng = np.random.default_rng(5)
     E = 3
     xs = torch.from_numpy(rng.standard_normal((80, 32)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((E, 32, 64)).astype(np.float32))
-    xs, w = xs.to(cuda), w.to(cuda)
+    xs, w = xs.to(cuda, dtype), w.to(cuda, dtype)
     te = torch.tensor([E, -1, E + 1000, -E - 1000, 1], dtype=torch.int32,
                       device=cuda)
-    got = K4.gmm_cuda(xs, w, te, tm=16, fn=64)
+    got = K4.gmm_cuda(xs, w, te, tm=16)
     torch.cuda.synchronize()
     in_range = torch.tensor([E - 1, E - 1, E - 1, 0, 1], dtype=torch.int32,
                             device=cuda)
-    torch.testing.assert_close(got, R4.gmm_ref(xs, w, in_range, 16), **TOL)
-    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 16), **TOL)
+    tol = TOL if dtype == torch.float32 else GMM_BF16_TOL
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, in_range, 16), **tol)
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 16), **tol)
 
 
 @pytest.mark.gpu
@@ -249,11 +312,22 @@ def test_k3_k4_wrappers_refuse_bad_operands(cuda):
     w = torch.randn(2, 64, 128, device=cuda)
     te = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        K4.gmm_cuda(xs, w, te, tm=128, fn=256)
+        K4.gmm_cuda(xs, w, te, tm=96)
     with pytest.raises(ValueError):
-        K4.gmm_cuda(xs, w, te, tm=96, fn=128)
+        K4.gmm_cuda(xs, w, torch.zeros(1, dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
-        K4.gmm_cuda(xs, w.bfloat16(), te, tm=128, fn=128)
+        K4.gmm_cuda(xs, w.bfloat16(), te, tm=128)
+    # TMA strides are 16-byte multiples: a bf16 D or F that is not a
+    # multiple of 8, or a misaligned operand, raises
+    bw = torch.randn(2, 64, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        K4.gmm_cuda(xs[:, :60].bfloat16().contiguous(),
+                    bw[:, :60].contiguous(), te)
+    with pytest.raises(ValueError):
+        K4.gmm_cuda(xs.bfloat16(), bw[:, :, :100].contiguous(), te)
+    shifted = torch.randn(256 * 64 + 1, device=cuda).bfloat16()[1:]
+    with pytest.raises(ValueError):
+        K4.gmm_cuda(shifted.view(256, 64), bw, te)
 
 
 @pytest.mark.gpu
@@ -296,3 +370,26 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
     assert [n for _, n in fast.last_selections] == ["cuda.gmm"]
     want, _ = tlayers.moe_block(p, x, topk=2, impl="naive")
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_compiled_bf16_moe_runs_the_tensor_core_kernel(cuda):
+    """The MoE path in bf16, as OLMoE runs it: moe_ffn on cuda.gmm, three
+    launches of K4's tensor-core body a sequence, within bf16 rounding of
+    the f32 oracle (relative L2 error, as chip_smoke.py states it)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = tlayers.moe_params(tlayers.moe_spec(64, 32, 8, torch.bfloat16), gen)
+    x = torch.randn(2, 40, 64, generator=gen, device=cuda).bfloat16()
+    before = K4.LAUNCHES["gmm"]
+    got, _ = tlayers.moe_block(p, x, topk=2, impl="lilac")
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["gmm"] == before + 6
+    fast = tlayers._lilac_moe_2d("cuda")
+    assert [n for _, n in fast.last_selections] == ["cuda.gmm"]
+    gate, idx, _ = tlayers.moe_router(p, x, 2)
+    for b in range(2):
+        want = R4.moe_ffn_ref(x[b], gate[b], idx[b], p["wg"], p["wu"],
+                              p["wd"])
+        err = torch.linalg.vector_norm(got[b].float() - want) \
+            / torch.linalg.vector_norm(want)
+        assert got.dtype == torch.bfloat16 and float(err) <= 2e-2

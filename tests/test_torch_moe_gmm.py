@@ -63,7 +63,7 @@ def test_gmm_plain_matches_pallas(Tp, D, F, E, tm, fn, dk):
                       tm=tm, fn=fn, dk=dk, interpret=True)
     before = K.LAUNCHES["gmm"]
     got = K.gmm_cuda(torch.from_numpy(xs), torch.from_numpy(w),
-                     torch.from_numpy(te), tm=tm, fn=fn)
+                     torch.from_numpy(te), tm=tm)
     assert K.LAUNCHES["gmm"] == before          # no launch on the CPU
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=1e-4, rtol=1e-4)
@@ -80,7 +80,7 @@ def test_gmm_plain_maps_out_of_range_expert_ids_as_the_reference():
     te = np.array([E, -1, E + 1000, -E - 1000, 1, -2], np.int32)
     want = ref_gmm(jnp.asarray(xs), jnp.asarray(w), jnp.asarray(te), tm)
     got = K.gmm_cuda(torch.from_numpy(xs), torch.from_numpy(w),
-                     torch.from_numpy(te), tm=tm, fn=24)
+                     torch.from_numpy(te), tm=tm)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=1e-4, rtol=1e-4)
 

@@ -10,6 +10,7 @@ import torch
 
 from repro.kernels.spmv_ell import ops as ref_ops
 from repro.sparse import ell_from_csr, random_csr
+from repro.sparse import formats as jf
 from repro_torch.kernels.spmv_ell import kernel as K
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.kernels.spmv_ell import ref as R
@@ -81,6 +82,39 @@ def test_spmv_ell_windowed_matches_pallas(epilogue):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref)[:128], **TOL)
 
 
+@pytest.mark.parametrize("epilogue,with_bias", [
+    (None, False), ("relu", True), ("silu", True), ("none", True),
+])
+def test_windowed_layout_with_perm_matches_pallas(epilogue, with_bias):
+    """The marshaled call on the compacted layout: a JDS-sorted ELL whose
+    rows straddle 4 windows of 128, with 61 empty rows, so that after the
+    sort slab 2 is empty and slab 3 is empty and ragged (100 rows), and the
+    row permutation and the bias by output row in the store; against the
+    reference's windowed Pallas kernel on the sorted rows."""
+    rng = np.random.default_rng(12)
+    d = rng.standard_normal((100, 512)).astype(np.float32)
+    d[rng.random((100, 512)) > 0.05] = 0
+    d[20:81] = 0
+    ell = ell_from_csr(jf.csr_from_dense(d))
+    vec = rng.standard_normal(512).astype(np.float32)
+    bias = rng.standard_normal(100).astype(np.float32)
+    perm = np.asarray(ell.perm)
+    jb = jnp.asarray(bias[perm]) if with_bias else None
+    tb = torch.from_numpy(bias) if with_bias else None
+    ref = ref_ops._windowed(ell.val, ell.col, jnp.asarray(vec), 4, True,
+                            window=128, epilogue=epilogue, bias=jb)
+    expect = np.zeros(100, np.float32)
+    expect[perm] = np.asarray(ref)[:100]
+    t = tf.from_numpy(ell)
+    layout = tf.ell_windows(t.val, t.col, 512, window=128, perm=t.perm)
+    assert layout.n_slabs == 4 and layout.n_windows == 4
+    assert torch.diff(layout.seg_ptr).tolist()[2:] == [0, 0]
+    out = ell_ops._windowed(t.val, t.col, torch.from_numpy(vec), 32,
+                            window=128, epilogue=epilogue, bias=tb,
+                            perm=t.perm, out_rows=100, layout=layout)
+    np.testing.assert_allclose(out.numpy(), expect, **TOL)
+
+
 @pytest.mark.parametrize("cols", [300, 1_100_000])
 def test_spmv_ell_packed_unpermutes_like_the_reference(cols):
     """Marshaled ELL: the kernel's store un-permutes the row sort and the
@@ -129,6 +163,14 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
     before = dict(K.LAUNCHES)
     out = K.spmv_ell_cuda(t.val, t.col, v)
     torch.testing.assert_close(out, R.spmv_ell_ref(t.val, t.col, v))
+    layout = tf.ell_windows(t.val, t.col, 64, window=16)
+    out = K.spmv_ell_windowed_cuda(layout, v)
+    torch.testing.assert_close(out, R.spmv_ell_windowed_ref(layout, v))
     assert K.LAUNCHES == before          # the plain version is no launch
     with pytest.raises(ValueError):
         K.spmv_ell_cuda(t.val.to("meta"), t.col.to("meta"), v.to("meta"))
+    meta = tf.WindowedELL(*(getattr(layout, f).to("meta") for f in (
+        "val", "col", "seg_ptr", "seg_window", "seg_offset")),
+        window=16, shape=layout.shape)
+    with pytest.raises(ValueError):
+        K.spmv_ell_windowed_cuda(meta, v.to("meta"))
