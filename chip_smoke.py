@@ -16,22 +16,27 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    path and read just after, and checks what came out:
    * SpMV on ELL (K1, K2): 25 CG iterations (NPB CG's cgitmax) on a
      seeded symmetric, diagonally dominant 150,000-row matrix with ~241
-     entries a row (NAS CG class C's na=150000, ~36 M stored entries) and
-     on HPCG's 27-point operator over its default local grid, 104^3 =
-     1,124,864 rows, each calling a naive CSR SpMV compiled with
-     policy="cuda.ell"; then a relu(ELL SpMV + bias) layer under the
-     default policy (K1 with the fused epilogue).  Checks: one
-     spmv_csr/CSR match, cuda.ell, one repack, one launch a call, and the
-     CG iterate against the same CG on the uncompiled naive SpMV;
+     entries a row (NAS CG class C's na=150000, ~36 M stored entries; K1's
+     staged body, the vector in shared memory in 3 windows) and on HPCG's
+     27-point operator over its default local grid, 104^3 = 1,124,864 rows
+     (K2), each calling a naive CSR SpMV compiled with policy="cuda.ell";
+     then a relu(ELL SpMV + bias) layer under the default policy (K1's
+     direct body with the fused epilogue).  Checks: one spmv_csr/CSR
+     match, cuda.ell, one repack, one launch a call of the body the path
+     takes, and the CG iterate against the same CG on the uncompiled naive
+     SpMV;
    * SpMM on BCSR (K3): a mesh-GNN aggregation, 15 steps (MeshGraphNets'
      message-passing steps) of H <- relu(A @ H + b) over the HPCG operator
      with H of 128 columns (MeshGraphNets' latent size), H rescaled by its
      largest magnitude after each step outside the compiled part, under
      the default policy: one spmm_csr/CSR match with the fused relu-bias
-     epilogue, cuda.bcsr, one repack and 14 hits, 15 launches, and the
-     final H against the same loop on the uncompiled naive SpMM;
+     epilogue, cuda.bcsr, one repack into packed 128x128 tiles (each
+     tile's entries only: at most 0.25 GB, no dense tile) and 14 hits, 15
+     launches of K3's wide body, and the final H against the same loop on
+     the uncompiled naive SpMM;
    * SpMV on BCSR (K3 at N = 1): 25 CG iterations on the HPCG operator
-     with policy="cuda.bcsr": 26 launches, one repack, the CG check;
+     with policy="cuda.bcsr": 26 launches of K3's narrow body, one
+     repack, the CG check;
    * MoE (K4): one OLMoE-1B-7B expert layer (d_model 2048, 64 experts of
      d_ff 1024, top-8, bf16; seeded weights) over two sequences of 4,096
      tokens through moe_block(impl="lilac") under the default policy: one
@@ -44,9 +49,12 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    and one PyTorch call of the same function that the port never calls
    (cuSPARSE SpMV and SpMM, torch._grouped_mm; for K4 also a bf16 GEMM of
    the same flops as a rate yardstick), beside the least time the card
-   could take for the function's own work (bound_ms); prints K2's layout
-   (bytes, segments a slab; at most 0.31 GB at HPCG, a check) and K4's
-   achieved TFLOP/s over the routed and over all padded rows;
+   could take for the function's own work at the widths the layout stores
+   (bound_ms); prints the layouts' bytes (checks: K1's staged layout at
+   NPB-C at most 0.33 GB, K2's at HPCG 0.31 GB, K3's packed tiles at HPCG
+   0.25 GB; and the packed tiles cuda.bcsr would build for NPB-C), the L2
+   bytes of K3's operand re-reads, and K4's achieved TFLOP/s over the
+   routed and over all padded rows;
 5. prints one JSON line with every kernel's numbers and, last, the
    {"ok": true, "device": ...} line; ``--record PATH`` also writes a
    detailed JSON record there.  Any failure exits non-zero.
@@ -84,7 +92,9 @@ MOE_RTOL = 2e-2
 KERNEL_ATOL = KERNEL_RTOL = 1e-4   # K1-K3 against their plain versions
 # K4: f32 sums of 1,024 or 2,048 products, in another order than cuBLAS's
 GMM_ATOL = GMM_RTOL = 1e-3
+K1_LAYOUT_BYTES = 0.33e9       # K1's staged layout at NPB-C
 K2_LAYOUT_BYTES = 0.31e9       # K2's compacted layout at HPCG-104^3
+K3_LAYOUT_BYTES = 0.25e9       # K3's packed tiles at HPCG-104^3
 
 
 def require(ok: bool, what: str) -> None:
@@ -215,6 +225,22 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def layout_bytes(layout) -> int:
+    """Bytes of every tensor a layout (a container dataclass) holds."""
+    import dataclasses
+
+    import torch
+
+    return nbytes(*(getattr(layout, f.name) for f in dataclasses.fields(layout)
+                    if isinstance(getattr(layout, f.name), torch.Tensor)))
+
+
+def marshaled(fast, kind):
+    """The values of class ``kind`` that a compiled function's data plane
+    holds (the marshaled layouts)."""
+    return [v for v in fast.cache._store.values() if isinstance(v, kind)]
+
+
 def max_err(got, want, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
     """(max |got - want|, max of that over atol + rtol*|want|)."""
     diff = (got.float() - want.float()).abs()
@@ -296,7 +322,7 @@ def main_path(mats, seed: int, device, iters: int = CG_ITERS):
     import torch
     from repro_torch import lilac
     from repro_torch.kernels.spmv_ell import kernel as K
-    from repro_torch.sparse import ell_from_csr
+    from repro_torch.sparse import WindowedELL, ell_from_csr
 
     rng = torch.Generator(device="cpu").manual_seed(seed)
     a_npb = mats["npb"][0]
@@ -331,7 +357,10 @@ def main_path(mats, seed: int, device, iters: int = CG_ITERS):
             b - naive_spmv(a.val, a.col_ind, a.row_ptr, x))
             / torch.linalg.vector_norm(b))
         (m,) = fast.last_report.matches
+        (layout,) = marshaled(fast, WindowedELL)
         out[name].update(
+            layout_bytes=layout_bytes(layout), window=layout.window,
+            windows=layout.n_windows,
             rows=a.rows, nnz=a.nnz, rel_to_naive=rel_l2(x, x_ref),
             residual=resid, finite=bool(torch.isfinite(x).all()),
             shape=tuple(x.shape), match=(m.computation, m.format),
@@ -374,10 +403,16 @@ def check_main_path(res, iters: int = CG_ITERS) -> None:
             f"ELL layer: cuda.ell under the default policy, got "
             f"{lay['selections']}")
     require(lay["within_tol"], "ELL layer output within tolerance")
+    require(res["npb"]["layout_bytes"] <= K1_LAYOUT_BYTES,
+            f"NPB: K1's staged layout within {K1_LAYOUT_BYTES} B, got "
+            f"{res['npb']['layout_bytes']} B")
     launches = res["launches"]
-    require(launches["spmv_ell"] == calls + 1,
-            f"K1 launched once per NPB SpMV and once for the layer "
-            f"({calls + 1}), got {launches['spmv_ell']}")
+    require(launches["spmv_ell_staged"] == calls,
+            f"K1's staged body launched once per NPB SpMV ({calls}), got "
+            f"{launches['spmv_ell_staged']}")
+    require(launches["spmv_ell"] == 1,
+            f"K1's direct body launched once, for the ELL layer, got "
+            f"{launches['spmv_ell']}")
     require(launches["spmv_ell_windowed"] == calls,
             f"K2 launched once per HPCG SpMV ({calls}), got "
             f"{launches['spmv_ell_windowed']}")
@@ -407,73 +442,102 @@ def variant_numbers(run, plain, kernel_name, on_card, reps, nb, flops,
 
 
 def kernel_phases(mats, seed: int, device, reps: int = 20):
-    """K1 and K2 against their plain versions at the main path's shapes."""
+    """K1's two bodies and K2 against their plain versions at the main
+    path's shapes: the direct body on NPB-C's lane-128 ELL, the staged body
+    on NPB-C's layout as the CG path marshals it, K2 on HPCG's."""
     import torch
     from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.kernels.spmv_ell import ops as O
     from repro_torch.kernels.spmv_ell import ref as R
     from repro_torch.sparse import ell_from_csr, ell_windows
+    from repro_torch.sparse.formats import WINDOW
 
     rng = torch.Generator(device="cpu").manual_seed(seed + 1)
     on_card = device.type == "cuda"
     rows = []
-    for name, kernel, (a, _) in (("npb", "spmv_ell", mats["npb"]),
-                                 ("hpcg", "spmv_ell_windowed", mats["hpcg"])):
+    for name, kernels, (a, _) in (
+            ("npb", ("spmv_ell", "spmv_ell_staged"), mats["npb"]),
+            ("hpcg", ("spmv_ell_windowed",), mats["hpcg"])):
         ell = ell_from_csr(a, lane=128)
         vec = torch.randn(a.cols, generator=rng).to(device)
         bias = torch.randn(a.rows, generator=rng).to(device)
-        if kernel == "spmv_ell":
-            ops = (ell.val, ell.col)
-            shape = tuple(ell.val.shape)
-            run = lambda **kw: K.spmv_ell_cuda(ell.val, ell.col, vec, **kw)
-            plain = lambda **kw: R.spmv_ell_plain(ell.val, ell.col, vec, **kw)
-        else:
-            w = ell_windows(ell.val, ell.col, a.cols, perm=ell.perm)
-            ops = (w.val, w.col, w.seg_ptr, w.seg_window, w.seg_offset)
-            shape = tuple(w.val.shape)
-            run = lambda **kw: K.spmv_ell_windowed_cuda(w, vec, **kw)
-            plain = lambda **kw: R.spmv_ell_windowed_plain(w, vec, **kw)
         csr_t = sparse_csr(a)
-        variants = {
-            # as the CG path calls it: the store un-permutes the row sort
-            "main_path": dict(perm=ell.perm, out_rows=a.rows),
-            "relu_bias": dict(bias=bias, epilogue="relu"),
-            "silu": dict(epilogue="silu"),
-        }
-        entry = {"name": kernel, "matrix": name, "shape": shape,
-                 "layout_bytes": nbytes(*ops), "variants": {}}
-        if kernel == "spmv_ell_windowed":
-            entry.update(segments=w.n_segments, slabs=w.n_slabs,
-                         windows=w.n_windows)
-        for vname, kw in variants.items():
-            io = nbytes(vec, kw.get("bias"), kw.get("perm"),
-                        torch.empty(a.rows, device="meta"))
-            # the stored entries, not the layout's padded slots, each a
-            # value and a column id at the widths the layout stores them
-            nb = a.nnz * (ops[0].element_size() + ops[1].element_size()) + io
-            v = variant_numbers(lambda: run(**kw), lambda: plain(**kw),
-                                kernel + "_kernel", on_card, reps, nb,
-                                2 * a.nnz, a.val.dtype,
-                                what=f"{kernel}/{vname}")
-            v["layout_bytes"] = nbytes(*ops) + io
-            entry["variants"][vname] = v
-        entry["library_ms"] = cuda_ms(lambda: csr_t @ vec, reps)[0] \
-            if on_card else None
+        library_ms = cuda_ms(lambda: csr_t @ vec, reps)[0] if on_card \
+            else None
         # the yardstick computes the same function
-        entry["library_err"] = float((csr_t @ vec - R.spmv_ell_plain(
+        library_err = float((csr_t @ vec - R.spmv_ell_plain(
             ell.val, ell.col, vec, perm=ell.perm, out_rows=a.rows))
             .abs().max())
-        rows.append(entry)
-        del ell, csr_t, ops
+        del csr_t
+        for kernel in kernels:
+            if kernel == "spmv_ell":
+                w = None
+                ops = (ell.val, ell.col)
+                run = lambda **kw: K.spmv_ell_cuda(ell.val, ell.col, vec, **kw)
+                plain = lambda **kw: R.spmv_ell_plain(ell.val, ell.col, vec,
+                                                      **kw)
+            else:
+                window = O.staged_window(a.cols, ell.val.element_size()) \
+                    if kernel == "spmv_ell_staged" else WINDOW
+                w = ell_windows(ell.val, ell.col, a.cols, window=window,
+                                perm=ell.perm)
+                ops = (w.val, w.col, w.seg_ptr, w.seg_window, w.seg_offset)
+                wrapper = getattr(K, kernel + "_cuda")
+                run = lambda **kw: wrapper(w, vec, **kw)
+                plain = lambda **kw: R.spmv_ell_windowed_plain(w, vec, **kw)
+            variants = {
+                # as the CG path calls it: the store un-permutes the sort
+                "main_path": dict(perm=ell.perm, out_rows=a.rows),
+                "relu_bias": dict(bias=bias, epilogue="relu"),
+                "silu": dict(epilogue="silu"),
+            }
+            entry = {"name": kernel, "matrix": name,
+                     "shape": tuple(ops[0].shape),
+                     "layout_bytes": nbytes(*ops), "variants": {},
+                     "library_ms": library_ms, "library_err": library_err}
+            if w is not None:
+                entry.update(segments=w.n_segments, slabs=w.n_slabs,
+                             windows=w.n_windows, window=w.window)
+            for vname, kw in variants.items():
+                io = nbytes(vec, kw.get("bias"), kw.get("perm"),
+                            torch.empty(a.rows, device="meta"))
+                # the stored entries, not the layout's padded slots, each
+                # a value and a column id at the widths the layout stores
+                nb = a.nnz * (ops[0].element_size()
+                              + ops[1].element_size()) + io
+                v = variant_numbers(lambda: run(**kw), lambda: plain(**kw),
+                                    kernel + "_kernel", on_card, reps, nb,
+                                    2 * a.nnz, a.val.dtype,
+                                    what=f"{kernel}/{vname}")
+                v["layout_bytes"] = nbytes(*ops) + io
+                entry["variants"][vname] = v
+            rows.append(entry)
+            del w, ops, run, plain
+        del ell
     return rows
 
 
-def check_windowed_layout(e) -> None:
-    """K2 reads the slab-compacted layout: at HPCG-104^3 at most 0.31 GB
-    (padding every row to all 18 windows would take 5.18 GB)."""
-    require(e["name"] == "spmv_ell_windowed"
-            and e["layout_bytes"] <= K2_LAYOUT_BYTES,
-            f"K2's layout within {K2_LAYOUT_BYTES} B, got "
-            f"{e['layout_bytes']} B")
+def packed_tiles_of(a) -> dict:
+    """What ``cuda.bcsr`` (``default_for cuda`` on SpMM) would marshal for
+    the matrix ``a``: its packed 128x128 tiles, built and measured."""
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
+
+    p = csr_to_packed_bcsr(a, (128, 128))
+    return {"tiles": p.nblocks, "nnz": p.nnz, "bytes": layout_bytes(p),
+            "dense_tile_bytes": p.nblocks * 128 * 128 * a.val.element_size()}
+
+
+def check_layouts(rows) -> None:
+    """K1's staged layout at NPB-C within 0.33 GB (its lane-128 ELL takes
+    0.46 GB) and K2's at HPCG-104^3 within 0.31 GB (padding every row to
+    all 18 windows would take 5.18 GB)."""
+    limits = {"spmv_ell_staged": K1_LAYOUT_BYTES,
+              "spmv_ell_windowed": K2_LAYOUT_BYTES}
+    for e in rows:
+        if e["name"] in limits:
+            require(e["layout_bytes"] <= limits[e["name"]],
+                    f"{e['name']}'s layout within {limits[e['name']]} B, "
+                    f"got {e['layout_bytes']} B")
 
 
 def sparse_csr(a):
@@ -498,6 +562,7 @@ def spmm_path(a, seed: int, device, steps: int = GNN_STEPS,
     import torch
     from repro_torch import lilac
     from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.sparse import BCSR, PackedBCSR
 
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     h0 = torch.randn((a.cols, width), generator=gen, device=device)
@@ -513,12 +578,16 @@ def spmm_path(a, seed: int, device, steps: int = GNN_STEPS,
         h = step(a.val, a.col_ind, a.row_ptr, h, bias)
         h = h / h.abs().max()
     sync(device)
-    launches = B.LAUNCHES["bsr_spmm"]
+    launches = dict(B.LAUNCHES)
     seconds = time.perf_counter() - t0
     peak, kept = memory_read(device, before)
     (m,) = fast.last_report.matches
     plan = fast.cache.plans.get(("csr_binding_mm", "BCSR128x128"))
+    packed = marshaled(fast, PackedBCSR)
     res = {
+        "packed": len(packed), "dense_tiles": len(marshaled(fast, BCSR)),
+        "layout_bytes": packed and layout_bytes(packed[0]),
+        "tiles": packed and packed[0].nblocks,
         "match": (m.computation, m.format, m.epilogue),
         "selections": [n for _, n in fast.last_selections],
         "repacks": fast.cache.stats.misses, "hits": fast.cache.stats.hits,
@@ -558,8 +627,13 @@ def check_spmm_path(res, steps: int = GNN_STEPS) -> None:
     require(res["repack_path"] == ("CSR", "BCSR128x128"),
             f"SpMM: the repack takes CSR -> BCSR128x128 directly, got "
             f"{res['repack_path']}")
-    require(res["launches"] == steps,
-            f"K3 launched once per SpMM step ({steps}), got "
+    require(res["packed"] == 1 and res["dense_tiles"] == 0
+            and res["layout_bytes"] <= K3_LAYOUT_BYTES,
+            f"SpMM: the marshaled value is one packed-tile layout within "
+            f"{K3_LAYOUT_BYTES} B and no dense tiles, got {res['packed']} "
+            f"packed of {res['layout_bytes']} B, {res['dense_tiles']} dense")
+    require(res["launches"] == {"bsr_spmm_wide": steps, "bsr_spmm_narrow": 0},
+            f"K3's wide body launched once per SpMM step ({steps}), got "
             f"{res['launches']}")
     require(res["finite"], "SpMM: finite H")
     require(res["rel_to_naive"] <= GNN_RTOL,
@@ -581,7 +655,7 @@ def bcsr_cg_path(a, b, x_ref, device, iters: int = CG_ITERS):
     B.reset_launches()
     x = cg(timed(fast, calls, device), a, b, iters)
     sync(device)
-    launches = B.LAUNCHES["bsr_spmm"]
+    launches = dict(B.LAUNCHES)
     seconds = time.perf_counter() - t0
     peak, kept = memory_read(device, before)
     (m,) = fast.last_report.matches
@@ -606,8 +680,9 @@ def check_bcsr_cg(res, iters: int = CG_ITERS) -> None:
             f"BCSR CG: spmv_csr/CSR on cuda.bcsr, got {res['match']} "
             f"{res['selections']}")
     require(res["repacks"] == 1, f"BCSR CG: one repack, got {res['repacks']}")
-    require(res["launches"] == iters + 1,
-            f"K3 launched once per CG SpMV ({iters + 1}), got "
+    require(res["launches"] == {"bsr_spmm_wide": 0,
+                                "bsr_spmm_narrow": iters + 1},
+            f"K3's narrow body launched once per CG SpMV ({iters + 1}), got "
             f"{res['launches']}")
     require(res["finite"] and res["rel_to_naive"] <= CG_RTOL,
             f"BCSR CG: iterate within {CG_RTOL} of the naive CG, got "
@@ -615,76 +690,97 @@ def check_bcsr_cg(res, iters: int = CG_ITERS) -> None:
 
 
 def bsr_kernel_phases(a, seed: int, device, reps: int = 5):
-    """K3 against its plain version on the HPCG operator's 128x128 tiles:
-    the SpMM path's call, every epilogue with a row and a column bias, bf16
-    tiles and operand, and the SpMV width N = 1."""
+    """K3's two bodies against the plain version on the HPCG operator's
+    packed 128x128 tiles: the wide body at the SpMM path's call, every
+    epilogue with a row and a column bias, bf16 tiles and operand; the
+    narrow body at the SpMV width N = 1.  Returns an entry per body."""
+    import dataclasses
+
     import torch
     from repro_torch.kernels.bsr_spmm import kernel as B
     from repro_torch.kernels.bsr_spmm import ref as R
-    from repro_torch.sparse.convert import csr_to_bcsr
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
 
     on_card = device.type == "cuda"
+    before = memory_mark(device)
     t0 = time.perf_counter()
-    bc = csr_to_bcsr(a, (128, 128))
+    f32 = csr_to_packed_bcsr(a, (128, 128))
     sync(device)
     repack_s = time.perf_counter() - t0
+    repack_peak = memory_read(device, before)[0]
+    bf16 = dataclasses.replace(f32, val=f32.val.bfloat16())
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     h = torch.randn((a.cols, GNN_WIDTH), generator=gen, device=device)
     vec = torch.randn((a.cols, 1), generator=gen, device=device)
     col_bias = torch.randn(GNN_WIDTH, generator=gen, device=device)
     row_bias = torch.randn(a.rows, generator=gen, device=device)
-    f32 = (bc.blocks, bc.block_col, bc.block_rowptr)
-    bf16 = (bc.blocks.bfloat16(), bc.block_col, bc.block_rowptr)
-    variants = {
-        # as the SpMM path calls it
-        "main_path": (f32, h, dict(bias=col_bias, bias_kind="col",
-                                   epilogue="relu")),
-        "relu_row": (f32, h, dict(bias=row_bias, bias_kind="row",
-                                  epilogue="relu")),
-        "silu_col": (f32, h, dict(bias=col_bias, bias_kind="col",
-                                  epilogue="silu")),
-        "silu_row": (f32, h, dict(bias=row_bias, bias_kind="row",
-                                  epilogue="silu")),
-        "bias_col": (f32, h, dict(bias=col_bias, bias_kind="col",
-                                  epilogue="none")),
-        "bias_row": (f32, h, dict(bias=row_bias, bias_kind="row",
-                                  epilogue="none")),
-        "product": (f32, h, {}),
-        # as the BCSR CG calls it
-        "spmv": (f32, vec, {}),
-        "bf16": (bf16, h.bfloat16(), dict(bias=col_bias, bias_kind="col",
-                                          epilogue="relu")),
+    bodies = {
+        "bsr_spmm_wide": {
+            # as the SpMM path calls it
+            "main_path": (f32, h, dict(bias=col_bias, bias_kind="col",
+                                       epilogue="relu")),
+            "relu_row": (f32, h, dict(bias=row_bias, bias_kind="row",
+                                      epilogue="relu")),
+            "silu_col": (f32, h, dict(bias=col_bias, bias_kind="col",
+                                      epilogue="silu")),
+            "silu_row": (f32, h, dict(bias=row_bias, bias_kind="row",
+                                      epilogue="silu")),
+            "bias_col": (f32, h, dict(bias=col_bias, bias_kind="col",
+                                      epilogue="none")),
+            "bias_row": (f32, h, dict(bias=row_bias, bias_kind="row",
+                                      epilogue="none")),
+            "product": (f32, h, {}),
+            "bf16": (bf16, h.bfloat16(), dict(bias=col_bias, bias_kind="col",
+                                              epilogue="relu")),
+        },
+        "bsr_spmm_narrow": {
+            # as the BCSR CG calls it
+            "main_path": (f32, vec, {}),
+            "relu_row": (f32, vec, dict(bias=row_bias, bias_kind="row",
+                                        epilogue="relu")),
+            "bf16": (bf16, vec.bfloat16(), {}),
+        },
     }
-    entry = {"name": "bsr_spmm", "matrix": "hpcg",
-             "shape": tuple(bc.blocks.shape), "repack_s": repack_s,
-             "variants": {}}
-    stored = a.nnz * (a.val.element_size() + a.col_ind.element_size()) \
-        + nbytes(a.row_ptr)
-    for vname, (tiles, dense, kw) in variants.items():
-        run = lambda: B.bsr_spmm_cuda(*tiles, dense, out_rows=a.rows, **kw)
-        plain = lambda: R.bsr_spmm_plain(*tiles, dense, out_rows=a.rows, **kw)
-        n = dense.shape[1]
-        scale = tiles[0].element_size() / 4
-        nb = int(stored + a.nnz * 4 * (scale - 1)) + nbytes(dense) \
-            + a.rows * n * 4 + nbytes(kw.get("bias"))
-        v = variant_numbers(run, plain, "bsr_spmm_kernel", on_card, reps, nb,
-                            2 * a.nnz * n, tiles[0].dtype,
-                            what=f"bsr_spmm/{vname}")
-        # what the 128x128 tile layout itself moves and multiplies
-        v["layout_bytes"] = nbytes(tiles[0]) + nbytes(dense) + a.rows * n * 4
-        v["layout_bound_ms"] = 1e3 * v["layout_bytes"] / HBM_BYTES_PER_S
-        v["layout_flops"] = 2 * bc.nblocks * 128 * 128 * n
-        v["layout_flops_ms"] = 1e3 * v["layout_flops"] \
-            / PEAK_FLOPS[str(tiles[0].dtype)]
-        entry["variants"][vname] = v
-    del variants, bf16
     csr_t = sparse_csr(a)
-    entry["library_ms"] = cuda_ms(lambda: csr_t @ h, reps)[0] \
-        if on_card else None
-    entry["library_err"] = float((csr_t @ h - R.bsr_spmm_plain(
-        *f32, h, out_rows=a.rows)).abs().max())
-    del bc, csr_t
-    return entry
+    library = {"bsr_spmm_wide": lambda: csr_t @ h,
+               "bsr_spmm_narrow": lambda: csr_t @ vec}
+    entries = []
+    for body, variants in bodies.items():
+        entry = {"name": body, "matrix": "hpcg",
+                 "tiles": f32.nblocks, "nnz": f32.nnz, "repack_s": repack_s,
+                 "repack_peak_bytes": repack_peak,
+                 "layout_bytes": layout_bytes(f32),
+                 # what dense f32 tiles of the same structure would hold
+                 "dense_tile_bytes": f32.nblocks * 128 * 128 * 4,
+                 "variants": {}}
+        for vname, (tiles, dense, kw) in variants.items():
+            run = lambda: B.bsr_spmm_cuda(tiles, dense, out_rows=a.rows, **kw)
+            plain = lambda: R.bsr_spmm_plain(tiles, dense, out_rows=a.rows,
+                                             **kw)
+            n = dense.shape[1]
+            io = nbytes(dense, kw.get("bias")) + a.rows * n * 4
+            # the stored entries at the widths stored: a value, a 16-bit id
+            nb = tiles.nnz * (tiles.val.element_size() + 2) + io
+            v = variant_numbers(run, plain, body + "_kernel", on_card, reps,
+                                nb, 2 * tiles.nnz * n, tiles.val.dtype,
+                                what=f"{body}/{vname}")
+            v["layout_bytes"] = layout_bytes(tiles) + io
+            # L2 reads of the operand: the wide body stages bk rows of 128
+            # columns under every tile; the narrow one reads an operand row
+            # per entry
+            v["operand_l2_bytes"] = (
+                tiles.nblocks * 128 * -(-n // 128) * 128
+                * dense.element_size() if body == "bsr_spmm_wide"
+                else tiles.nnz * n * dense.element_size())
+            entry["variants"][vname] = v
+        entry["library_ms"] = cuda_ms(library[body], reps)[0] \
+            if on_card else None
+        main = bodies[body]["main_path"]
+        entry["library_err"] = float((library[body]() - R.bsr_spmm_plain(
+            main[0], main[1], out_rows=a.rows)).abs().max())
+        entries.append(entry)
+    del bodies, bf16, f32, csr_t, library
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -889,21 +985,25 @@ def smi_line() -> str:
         text=True).stdout.strip()
 
 
-REPLACES = {
+REPLACES = {      # kernel body -> the TPU kernel it replaces
+    "spmv_ell_staged": "src/repro/kernels/spmv_ell/kernel.py:57",
     "spmv_ell": "src/repro/kernels/spmv_ell/kernel.py:57",
     "spmv_ell_windowed": "src/repro/kernels/spmv_ell/kernel.py:125",
-    "bsr_spmm": "src/repro/kernels/bsr_spmm/kernel.py:81",
+    "bsr_spmm_wide": "src/repro/kernels/bsr_spmm/kernel.py:81",
+    "bsr_spmm_narrow": "src/repro/kernels/bsr_spmm/kernel.py:81",
     "gmm": "src/repro/kernels/moe_gmm/kernel.py:53",
 }
 SOURCES = {
+    "spmv_ell_staged": "src/repro_torch/kernels/spmv_ell/csrc/spmv_ell.cu",
     "spmv_ell": "src/repro_torch/kernels/spmv_ell/csrc/spmv_ell.cu",
     "spmv_ell_windowed": "src/repro_torch/kernels/spmv_ell/csrc/spmv_ell.cu",
-    "bsr_spmm": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
+    "bsr_spmm_wide": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
+    "bsr_spmm_narrow": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
     "gmm": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
 }
 
 
-def kernel_entry(e, main: str, launches: int, library_ms):
+def kernel_entry(e, main: str, launches: int):
     m = e["variants"][main]
     return {"name": e["name"], "route": "cuda", "source": SOURCES[e["name"]],
             "replaces": REPLACES[e["name"]], "launches": launches,
@@ -911,7 +1011,7 @@ def kernel_entry(e, main: str, launches: int, library_ms):
                                for v in e["variants"].values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": library_ms}
+            "library_ms": e["library_ms"]}
 
 
 def print_variants(e, tol: str) -> None:
@@ -923,10 +1023,8 @@ def print_variants(e, tol: str) -> None:
               f"({v['bound_by']}: {v['bytes']} B, {v['flops']} flops)"
               + (f"; the layout moves {v['layout_bytes']} B"
                  if "layout_bytes" in v else "")
-              + (f" (>= {v['layout_bound_ms']:.3f} ms) and multiplies "
-                 f"{v['layout_flops']:.3g} flops (>= "
-                 f"{v['layout_flops_ms']:.3f} ms)"
-                 if "layout_flops" in v else "")
+              + (f"; {v['operand_l2_bytes']} B of operand reads from L2"
+                 if "operand_l2_bytes" in v else "")
               + (f"; {v['tflops_routed']:.1f} TFLOP/s over the routed rows, "
                  f"{v['tflops_padded']:.1f} over all Tp rows"
                  if "tflops_routed" in v else ""))
@@ -998,7 +1096,9 @@ def main() -> int:
               f"|x-x_naive|/|x_naive| = {r['rel_to_naive']:.3g} "
               f"(tol {CG_RTOL}), residual {r['residual']:.3g}, peak "
               f"{r['peak_bytes'] / 2**30:.2f} GiB, kept after the CG "
-              f"{r['kept_bytes'] / 2**30:.2f} GiB")
+              f"{r['kept_bytes'] / 2**30:.2f} GiB; marshaled layout "
+              f"{r['layout_bytes']} B in {r['windows']} windows of "
+              f"{r['window']}")
     print(f"SpMV path ELL layer: {res['ell_layer']}")
     print(f"launches on the SpMV paths: {res['launches']}")
     check_main_path(res)
@@ -1008,15 +1108,20 @@ def main() -> int:
         print(f"{e['name']} layout {e['shape']}: {e['layout_bytes']} B"
               + (f", {e['segments']} segments over {e['slabs']} slabs "
                  f"({e['segments'] / e['slabs']:.3f} a slab) of "
-                 f"{e['windows']} windows" if "segments" in e else ""))
+                 f"{e['windows']} windows of {e['window']}"
+                 if "segments" in e else ""))
         print_variants(e, f"tol atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
         print(f"{e['name']} library (cuSPARSE CSR SpMV): "
               f"{e['library_ms']:.4f} ms, max|err| vs plain "
               f"{e['library_err']:.3g}")
-    check_windowed_layout(ell_rows[1])
-    kernels = [kernel_entry(e, "main_path", res["launches"][e["name"]],
-                            e["library_ms"]) for e in ell_rows]
+    check_layouts(ell_rows)
+    kernels = [kernel_entry(e, "main_path", res["launches"][e["name"]])
+               for e in ell_rows]
     record["kernels"] = ell_rows
+    record["npb_packed_tiles"] = t = packed_tiles_of(mats["npb"][0])
+    print(f"npb in cuda.bcsr's packed 128x128 tiles: {t['tiles']} tiles, "
+          f"{t['nnz']} entries, {t['bytes']} B (dense f32 tiles would take "
+          f"{t['dense_tile_bytes']} B)")
     a_hpcg, b_hpcg = mats.pop("hpcg")
     del mats
     release(device)
@@ -1034,8 +1139,10 @@ def main() -> int:
           f"{spmm['rel_to_naive']:.3g} (tol {GNN_RTOL}); peak "
           f"{spmm['peak_bytes'] / 2**30:.2f} GiB (naive "
           f"{spmm['naive_peak_bytes'] / 2**30:.2f} GiB), kept "
-          f"{spmm['kept_bytes'] / 2**30:.2f} GiB; K3 launches "
-          f"{spmm['launches']}")
+          f"{spmm['kept_bytes'] / 2**30:.2f} GiB; marshaled "
+          f"{spmm['packed']} packed layout of {spmm['tiles']} tiles, "
+          f"{spmm['layout_bytes']} B ({spmm['dense_tiles']} dense); K3 "
+          f"launches {spmm['launches']}")
     check_spmm_path(spmm)
     release(device)
     bcg = bcsr_cg_path(a_hpcg, b_hpcg, x_ref, device)
@@ -1050,15 +1157,19 @@ def main() -> int:
     check_bcsr_cg(bcg)
     record.update(spmm_path=spmm, bcsr_cg_path=bcg)
     bsr = bsr_kernel_phases(a_hpcg, args.seed, device)
-    print(f"bsr_spmm tiles {bsr['shape']} (repacked in "
-          f"{bsr['repack_s']:.2f}s)")
-    print_variants(bsr, f"tol atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
-    print(f"bsr_spmm library (cuSPARSE CSR SpMM, N={GNN_WIDTH}): "
-          f"{bsr['library_ms']:.4f} ms, max|err| vs plain "
-          f"{bsr['library_err']:.3g}")
-    kernels.append(kernel_entry(bsr, "main_path",
-                                spmm["launches"] + bcg["launches"],
-                                bsr["library_ms"]))
+    for e in bsr:
+        print(f"{e['name']}: {e['tiles']} packed tiles, {e['nnz']} entries, "
+              f"{e['layout_bytes']} B (dense f32 tiles would take "
+              f"{e['dense_tile_bytes']} B), repacked in {e['repack_s']:.2f}s "
+              f"at a peak of {e['repack_peak_bytes'] / 2**30:.2f} GiB")
+        print_variants(e, f"tol atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
+        print(f"{e['name']} library (cuSPARSE CSR "
+              f"{'SpMM' if e['name'] == 'bsr_spmm_wide' else 'SpMV'}): "
+              f"{e['library_ms']:.4f} ms, max|err| vs plain "
+              f"{e['library_err']:.3g}")
+        kernels.append(kernel_entry(
+            e, "main_path", (spmm if e["name"] == "bsr_spmm_wide"
+                             else bcg)["launches"][e["name"]]))
     del a_hpcg, b_hpcg, x_ref
     release(device)
 
@@ -1089,9 +1200,8 @@ def main() -> int:
     for vname, v in gmm["variants"].items():
         if "witness" in v:
             print(f"gmm/{vname} witnesses, max|err| vs plain: {v['witness']}")
-    kernels.append(kernel_entry(gmm, "gate_up", moe["launches"],
-                                gmm["library_ms"]))
-    record["kernels"] += [bsr, gmm]
+    kernels.append(kernel_entry(gmm, "gate_up", moe["launches"]))
+    record["kernels"] += bsr + [gmm]
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -93,10 +93,11 @@ for _f in (
     SparseFormat("COO", "val/row/col triplets"),
     SparseFormat("DENSE", "densified matrix"),
     SparseFormat("ELL8", "row-padded slabs, lane=8"),
-    SparseFormat("ELL128", "row-padded slabs, lane=128; with the column-"
-                           "window relayout when the vector is long"),
+    SparseFormat("ELL128", "lane-128 ELL, kept as its slab-compacted "
+                           "column-window layout"),
     SparseFormat("BCSR8x128", "block CSR, (8,128) tiles"),
-    SparseFormat("BCSR128x128", "block CSR, (128,128) tiles"),
+    SparseFormat("BCSR128x128", "block CSR, (128,128) tiles, packed: "
+                                "each tile's entries only"),
     SparseFormat("JDS", "jagged diagonal storage (paper Fig. 5)"),
 ):
     register_format(_f)

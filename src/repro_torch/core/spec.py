@@ -261,8 +261,9 @@ def _csr_to_bcsr8(csr):
 
 @M.edge("CSR", "BCSR128x128", name="csr_to_bcsr128x128")
 def _csr_to_bcsr128(csr):
-    from repro_torch.sparse.convert import csr_to_bcsr
-    return csr_to_bcsr(csr, (128, 128))
+    """The packed tiles that ``cuda.bcsr``'s kernel reads."""
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
+    return csr_to_packed_bcsr(csr, (128, 128))
 
 
 def _dense_to_bcsr(dense, block_shape):
@@ -283,7 +284,8 @@ def _dense_to_bcsr8(dense):
 
 @M.edge("DENSE", "BCSR128x128", name="dense_to_bcsr128x128")
 def _dense_to_bcsr128(dense):
-    return _dense_to_bcsr(dense, (128, 128))
+    from repro_torch.sparse.formats import pack_bcsr
+    return pack_bcsr(_dense_to_bcsr(dense, (128, 128)))
 
 
 @repack("ell_pack")

@@ -3,10 +3,13 @@
 Counterpart of ``repro.kernels.bsr_spmm.harness`` (the two ``pallas.bcsr``
 blocks), declared for ``cuda``.  The 128x128 tiling repacks are marshal
 clauses (``bcsr_pack128`` / ``bcsr_pack_mm128``) whose planned path is the
-direct CSR -> BCSR128x128 edge.  As ``default_for cuda`` the SpMM block
-repacks any matrix into 128x128 tiles, as the reference does on the TPU;
-an unstructured matrix can then outgrow the card (PERF.md, open
-questions).  The reference's ``tune``, ``constraint`` and ``vjp`` clauses
+direct CSR -> BCSR128x128 edge, which builds the packed tiles of
+``formats.PackedBCSR`` (each tile's entries only, ~6 B an entry) from the
+CSR's entries, with no dense tile.  As ``default_for cuda`` the SpMM block
+repacks any matrix this way, as the reference tiles any matrix on the TPU;
+at NAS CG class C's 36 M entries that is ~1.37 M tiles in ~0.61 GB (the
+tiles' row starts weigh more than their ~26 entries each).  The
+reference's ``tune``, ``constraint`` and ``vjp`` clauses
 are left out until the port has an autotuner and a backward pass.
 ``fuse epilogue``: the kernel applies a detected ``(+bias) -> relu|silu``
 before its single store.

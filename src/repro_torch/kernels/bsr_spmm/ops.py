@@ -7,18 +7,22 @@ port's kernel masks the ragged N edge and the rows past ``out_rows``
 itself, and writes ``epilogue(0 + bias)`` for a block row without tiles,
 so the epilogue fuses whenever the bias is a row or a column vector, with
 the reference's result.  A bias of any other shape (a scalar, a full
-matrix) applies after the kernel, as in the reference.
+matrix) applies after the kernel, as in the reference.  The kernel reads
+packed tiles (``formats.PackedBCSR``, what the ``cuda.bcsr`` repack
+builds); a caller that holds dense tiles (``formats.BCSR``) has them
+packed on each call.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.kernels.bsr_spmm.kernel import bsr_spmm_cuda
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
 from repro_torch.kernels.common import apply_epilogue_inregister
-from repro_torch.sparse.formats import BCSR
+from repro_torch.sparse.formats import BCSR, PackedBCSR, pack_bcsr
 from repro_torch.sparse.ops import row_ids_from_row_ptr
 
 
@@ -33,7 +37,7 @@ def _bias_kind(bias, rows: int, n: int) -> Optional[str]:
     return None
 
 
-def bsr_spmm(bcsr: BCSR, dense: torch.Tensor,
+def bsr_spmm(bcsr: Union[BCSR, PackedBCSR], dense: torch.Tensor,
              epilogue: Optional[str] = None,
              bias=None,
              bias_kind: Optional[str] = None,
@@ -53,10 +57,11 @@ def bsr_spmm(bcsr: BCSR, dense: torch.Tensor,
         return apply_epilogue_inregister(out, bias, epilogue)
     if bias is not None:
         bias = bias.float().contiguous()
-    blocks = bcsr.blocks
-    dtype = torch.promote_types(blocks.dtype, dense.dtype)
-    return bsr_spmm_cuda(blocks.to(dtype).contiguous(), bcsr.block_col,
-                         bcsr.block_rowptr, dense.to(dtype).contiguous(),
+    packed = pack_bcsr(bcsr) if isinstance(bcsr, BCSR) else bcsr
+    dtype = torch.promote_types(packed.val.dtype, dense.dtype)
+    if packed.val.dtype != dtype:
+        packed = dataclasses.replace(packed, val=packed.val.to(dtype))
+    return bsr_spmm_cuda(packed, dense.to(dtype).contiguous(),
                          out_rows=rows, bias=bias, bias_kind=kind,
                          epilogue=epilogue)
 

@@ -1,9 +1,10 @@
 """Plain torch versions of the BCSR SpMM kernel.
 
-``bsr_spmm_ref`` is the counterpart of ``repro.kernels.bsr_spmm.ref``.
-``bsr_spmm_plain`` computes exactly what the CUDA kernel (K3) computes,
-epilogue included: the wrapper in ``kernel.py`` runs it for CPU tensors,
-and the kernel is held against it on the card.
+``bsr_spmm_ref`` is the counterpart of ``repro.kernels.bsr_spmm.ref``
+(dense tiles).  ``bsr_spmm_plain`` computes exactly what the CUDA kernel
+(K3) computes from the packed tiles, epilogue included: the wrapper in
+``kernel.py`` runs it for CPU tensors, and the kernel is held against it
+on the card.
 """
 from __future__ import annotations
 
@@ -12,10 +13,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.common import apply_epilogue_inregister
+from repro_torch.sparse.formats import PackedBCSR
 
-#: Tiles multiplied at a time by the plain version, so that its
-#: intermediates stay near 0.3 GB at 128x128 tiles and N = 128.
-_CHUNK = 4096
+#: Entries multiplied at a time by the plain version, so that its products
+#: stay near 1 GB at N = 128.
+_CHUNK = 1 << 21
 
 
 def bsr_spmm_ref(blocks: torch.Tensor, block_col: torch.Tensor,
@@ -34,36 +36,39 @@ def bsr_spmm_ref(blocks: torch.Tensor, block_col: torch.Tensor,
     return out.reshape(num_block_rows * bm, n)
 
 
-def bsr_spmm_plain(blocks: torch.Tensor, block_col: torch.Tensor,
-                   block_rowptr: torch.Tensor, dense: torch.Tensor, *,
+def bsr_spmm_plain(packed: PackedBCSR, dense: torch.Tensor, *,
                    out_rows: Optional[int] = None,
                    bias: Optional[torch.Tensor] = None,
                    bias_kind: Optional[str] = None,
                    epilogue: Optional[str] = None) -> torch.Tensor:
-    """What K3 computes: the f32 product of the tiles with ``dense``, whose
-    rows past its end read as zeros, for the first ``out_rows`` rows, then
-    ``epilogue(acc + bias)`` with a row bias (``bias[row]``) or a column
-    bias (``bias[col]``) — on every row, a block row without tiles too."""
-    nnzb, bm, bk = blocks.shape
+    """What K3 computes: the f32 product of the packed tiles with
+    ``dense``, whose rows past its end read as zeros, for the first
+    ``out_rows`` rows, then ``epilogue(acc + bias)`` with a row bias
+    (``bias[row]``) or a column bias (``bias[col]``) — on every row, a
+    block row without entries too."""
+    bm, bk = packed.block_shape
     n = dense.shape[1]
-    block_rows = block_rowptr.shape[0] - 1
+    block_rows = packed.block_rows
     rows = block_rows * bm if out_rows is None else out_rows
-    need = (int(block_col.max()) + 1) * bk if nnzb else 0
-    d = dense.float()
-    if need > d.shape[0]:
-        d = torch.nn.functional.pad(d, (0, 0, 0, need - d.shape[0]))
-    d = d[: d.shape[0] // bk * bk].reshape(-1, bk, n)
+    dev = packed.val.device
+    tile = torch.repeat_interleave(
+        torch.arange(packed.nblocks, device=dev),
+        torch.diff(packed.tile_ptr), output_size=packed.nnz)
     brow = torch.repeat_interleave(
-        torch.arange(block_rows, device=blocks.device),
-        torch.diff(block_rowptr).long(), output_size=nnzb)
-    out = torch.zeros((block_rows, bm, n), dtype=torch.float32,
-                      device=blocks.device)
-    for s in range(0, nnzb, _CHUNK):
-        e = min(s + _CHUNK, nnzb)
-        prod = torch.bmm(blocks[s:e].float(), d[block_col[s:e].long()])
-        out.index_add_(0, brow[s:e], prod)
+        torch.arange(block_rows, device=dev),
+        torch.diff(packed.block_rowptr).long(), output_size=packed.nblocks)
+    d = dense.float()
+    out = torch.zeros((block_rows * bm, n), dtype=torch.float32, device=dev)
+    for s in range(0, packed.nnz, _CHUNK):
+        t = tile[s:s + _CHUNK]
+        loc = packed.local[s:s + _CHUNK].long()
+        k = packed.block_col[t].long() * bk + loc % bk
+        inside = k < d.shape[0]
+        row = brow[t] * bm + torch.div(loc, bk, rounding_mode="floor")
+        prod = packed.val[s:s + _CHUNK].float()[inside, None] * d[k[inside]]
+        out.index_add_(0, row[inside], prod)
         del prod
-    out = out.reshape(block_rows * bm, n)[:rows]
+    out = out[:rows]
     if bias is not None:
         bias = bias[:rows, None] if bias_kind == "row" else bias[None, :]
     return apply_epilogue_inregister(out, bias, epilogue)

@@ -1,8 +1,11 @@
-// ELL SpMV on Hopper: the resident kernel (K1) and the column-windowed
-// kernel (K2), with the fused (+bias) -> relu|silu epilogue (K5).
+// ELL SpMV on Hopper: K1 (vector within RESIDENT_VEC_LIMIT) in two
+// bodies and the column-windowed kernel K2, with the fused
+// (+bias) -> relu|silu epilogue (K5).
 //
 // Replaces the TPU kernels in src/repro/kernels/spmv_ell/kernel.py:
-//   spmv_ell_kernel          <- spmv_ell_pallas (body _spmv_ell_kernel)
+//   spmv_ell_staged_kernel   <- spmv_ell_pallas (body _spmv_ell_kernel), on
+//                               the marshaled path
+//   spmv_ell_kernel          <- spmv_ell_pallas, on a user's ELL/JDS arrays
 //   spmv_ell_windowed_kernel <- spmv_ell_windowed_pallas
 //                               (body _spmv_ell_windowed_kernel)
 //   epilogue_inregister      <- kernels/common.py apply_epilogue_inregister
@@ -12,31 +15,47 @@
 // marshaled ELL: the un-permuting scatter is the kernel's own store), else
 // o(i) = i.  Accumulation is in f32 whatever the storage type.
 //
-// Bound: the kernel reads every ELL slot once, val and col, plus the vector
-// and writes one f32 a row: bytes = R*W*(4+4) + V*4 + R*4 (+ R*4 bias, + R*4
-// perm), against 2*R*W flops, so at 3.35 TB/s it is bound by bytes by two
-// orders of magnitude.  K1's design serves that bound and nothing else:
-//   * one warp owns a row, so its lanes read val and col in consecutive
-//     128-byte lines (coalesced), and no row's sum is ever split across
-//     warps or blocks: no atomics and no second pass;
-//   * the gather vec[col] goes through L1/L2; the NPB-sized vector (0.6 MB)
-//     sits in L2, as does HPCG's (4.5 MB);
-//   * the sum is reduced by warp shuffles and the epilogue runs in
-//     registers before the single store, so no output-sized intermediate
-//     goes to memory.
+// Bound: every stored entry is read once, a value and a column id, plus
+// the vector, and one f32 is written a row; 2 flops an entry, so each body
+// is bound by bytes by two orders of magnitude.  What a body can spend
+// above that bound is padding (slots that hold no entry) and the gathers
+// vec[col], each a 32-byte L2 sector for 4 bytes when the vector is read
+// from memory.
+//
+// The staged body (K1 on the marshaled path) keeps the Pallas kernel's
+// idea, the vector resident on chip: its layout is
+// sparse/formats.py:ell_windows with a window that fits shared memory
+// (50,000 columns at NAS CG class C: 3 windows, 0.28 GB against 0.46 GB of
+// lane-128 ELL slots).  The CTAs are about one per SM (the window takes
+// most of the SM's shared memory), each owning a contiguous range of
+// 32-row slabs.  The loop over windows is the outer loop: the CTA stages
+// vec[w*W, (w+1)*W) into shared memory (cp.async, 16-byte chunks), then
+// its warps walk their slabs' segments for window w, a lane a row,
+// gathering from shared memory; each row's partial sum stays in a register
+// across windows.  To keep the 32 warps evenly loaded, a slab is split
+// into `parts` work items (slots k = p, p+parts, ... of every segment),
+// dealt to the warps in turn; at the end the parts of each row are added
+// in shared memory in a fixed order, and K5 and the un-permuting store run.
+// Every CTA reads the whole vector once from L2 (132 x 0.6 MB at NPB-C).
+//
+// The direct body (K1 on a user's ELL/JDS arrays, which change every call
+// and so are never repacked) is the first port's: one warp owns a row, its
+// lanes read val and col in consecutive 128-byte lines, the gather
+// vec[col] goes through L1/L2, and the sum is reduced by warp shuffles
+// before the epilogue and the single store.
 //
 // K2 reads the slab-compacted column-window layout of
-// sparse/formats.py:ell_windows (SELL-32 per window): a 32-row slab keeps
-// only the windows its rows touch, as segments whose slots are
-// column-major (slot k of row i at seg_offset[s] + 32*k + i), with 16-bit
-// window-local column ids.  At HPCG-104^3 that is 1.33 segments a slab and
-// 0.23 GB; padding every row to all 18 windows would take 5.2 GB.  One warp
-// owns a slab and a lane owns a row: the warp reads a slot's val (128
-// bytes in f32) and col (64 bytes) in one line each, the sum stays in the
-// lane's register
-// across the slab's segments, and K5 runs on it before the one store.  The
-// TPU grid order (windows accumulate in the output block across grid
-// steps) does not carry over: the warp loops over its slab's segments.
+// sparse/formats.py:ell_windows (SELL-32 per window) at windows of 65,536:
+// a 32-row slab keeps only the windows its rows touch, as segments whose
+// slots are column-major (slot k of row i at seg_offset[s] + 32*k + i),
+// with 16-bit window-local column ids.  At HPCG-104^3 that is 1.33
+// segments a slab and 0.23 GB; padding every row to all 18 windows would
+// take 5.2 GB.  One warp owns a slab and a lane owns a row: the warp reads
+// a slot's val (128 bytes in f32) and col (64 bytes) in one line each, the
+// sum stays in the lane's register across the slab's segments, and K5 runs
+// on it before the one store.  The TPU grid order (windows accumulate in
+// the output block across grid steps) does not carry over: the warp loops
+// over its slab's segments.
 //
 // C interface for ctypes: each entry point launches on the given stream
 // and returns cudaGetLastError(), so a refused launch is reported.
@@ -160,6 +179,111 @@ spmv_ell_windowed_kernel(const T* __restrict__ val,
   if (row < rows) store_row(acc, row, bias, perm, out, epilogue);
 }
 
+constexpr int kStagedWarps = 32;  // staged body: 1024 threads, a CTA an SM
+constexpr int kMaxItems = 8;      // work items (slab parts) a warp holds
+constexpr int kMaxParts = 8;      // parts a slab splits into (divides 8)
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// Stage vec[c0, c0+len) into vs: 16-byte cp.async chunks where the source
+// is aligned, element by element otherwise; then wait and sync.
+template <typename T>
+__device__ __forceinline__ void stage_window(T* vs, const T* __restrict__ src,
+                                             int len) {
+  constexpr int kEpc = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    done = len / kEpc * kEpc;
+    for (int e = threadIdx.x * kEpc; e < done; e += blockDim.x * kEpc) {
+      cp_async16(vs + e, src + e);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int e = done + threadIdx.x; e < len; e += blockDim.x) vs[e] = src[e];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// K1, staged: CTA c owns slabs [c*per_cta, (c+1)*per_cta); work item it of
+// the CTA is part (it % parts) of its slab (it / parts), and warp w holds
+// items w, w+32, ... (at most kMaxItems).  A slab's segments come in window
+// order, so each item keeps a cursor into them.
+template <typename T>
+__global__ void __launch_bounds__(kStagedWarps * 32, 1)
+spmv_ell_staged_kernel(const T* __restrict__ val,
+                       const uint16_t* __restrict__ col,
+                       const int* __restrict__ seg_ptr,
+                       const int* __restrict__ seg_window,
+                       const int64_t* __restrict__ seg_offset,
+                       const T* __restrict__ vec,
+                       const float* __restrict__ bias,
+                       const int* __restrict__ perm, float* __restrict__ out,
+                       int rows, int cols, int n_slabs, int window,
+                       int per_cta, int parts, int epilogue) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* vs = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slab0 = blockIdx.x * per_cta;
+  const int slab1 = min(n_slabs, slab0 + per_cta);
+  const int items = (slab1 - slab0) * parts;
+  const int n_windows = (cols + window - 1) / window;
+
+  float acc[kMaxItems];
+  int cur[kMaxItems];  // the item's next segment; its slab's end is read
+                       // when needed, to spare registers
+#pragma unroll
+  for (int j = 0; j < kMaxItems; ++j) {
+    const int it = warp + j * kStagedWarps;
+    acc[j] = 0.0f;
+    cur[j] = it < items ? seg_ptr[slab0 + it / parts] : 0;
+  }
+  for (int w = 0; w < n_windows; ++w) {
+    const int64_t c0 = static_cast<int64_t>(w) * window;
+    const int64_t rest = cols - c0;
+    __syncthreads();  // every gather from the previous window is done
+    stage_window(vs, vec + c0, static_cast<int>(rest < window ? rest : window));
+#pragma unroll
+    for (int j = 0; j < kMaxItems; ++j) {
+      const int it = warp + j * kStagedWarps;
+      if (it < items && cur[j] < seg_ptr[slab0 + it / parts + 1]
+          && seg_window[cur[j]] == w) {
+        const int s = cur[j]++;
+        const int part = it % parts;
+        const int64_t last = seg_offset[s + 1];
+        float a = acc[j];
+#pragma unroll 4
+        for (int64_t k = seg_offset[s] + part * kSlab + lane; k < last;
+             k += parts * kSlab) {
+          a += to_f32(val[k]) * to_f32(vs[col[k]]);
+        }
+        acc[j] = a;
+      }
+    }
+  }
+  // add the parts of each row in a fixed order, then K5 and the store
+  __syncthreads();
+  float* part_sum = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int j = 0; j < kMaxItems; ++j) {
+    const int it = warp + j * kStagedWarps;
+    if (it < items) part_sum[it * kSlab + lane] = acc[j];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < (slab1 - slab0) * kSlab; e += blockDim.x) {
+    const int b = e / kSlab;
+    const int i = e % kSlab;
+    float sum = 0.0f;
+    for (int p = 0; p < parts; ++p) sum += part_sum[(b * parts + p) * kSlab + i];
+    const int64_t row = static_cast<int64_t>(slab0 + b) * kSlab + i;
+    if (row < rows) store_row(sum, row, bias, perm, out, epilogue);
+  }
+}
+
 inline unsigned int blocks_for(int rows, int rows_per_slab) {
   return static_cast<unsigned int>((static_cast<int64_t>(rows)
                                     + rows_per_slab - 1) / rows_per_slab);
@@ -192,6 +316,56 @@ int launch_windowed(const void* val, const void* col, const void* seg_ptr,
       static_cast<const int64_t*>(seg_offset), static_cast<const T*>(vec),
       static_cast<const float*>(bias), static_cast<const int*>(perm),
       static_cast<float*>(out), rows, n_slabs, window, epilogue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of a staged CTA: the window, or the parts' sums at the end.
+template <typename T>
+int staged_smem(int window, int per_cta, int parts) {
+  const int vec_bytes = window * static_cast<int>(sizeof(T));
+  const int sum_bytes = per_cta * parts * kSlab * static_cast<int>(sizeof(float));
+  return vec_bytes > sum_bytes ? vec_bytes : sum_bytes;
+}
+
+template <typename T>
+int launch_staged(const void* val, const void* col, const void* seg_ptr,
+                  const void* seg_window, const void* seg_offset,
+                  const void* vec, const void* bias, const void* perm,
+                  void* out, int rows, int cols, int n_slabs, int window,
+                  int epilogue, void* stream) {
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one CTA an SM, each with an even share of the slabs, unless that share
+  // exceeds what its warps hold; then more CTAs, in waves
+  constexpr int kMaxPerCta = kStagedWarps * kMaxItems;
+  int ctas = n_slabs < sms ? n_slabs : sms;
+  int per_cta = (n_slabs + ctas - 1) / ctas;
+  if (per_cta > kMaxPerCta) per_cta = kMaxPerCta;
+  ctas = (n_slabs + per_cta - 1) / per_cta;
+  int parts = 1;
+  while (parts < kMaxParts && per_cta * parts * 2 <= kMaxPerCta) parts *= 2;
+  const int smem = staged_smem<T>(window, per_cta, parts);
+  static int attribute_bytes = 0;
+  if (smem > attribute_bytes) {
+    err = cudaFuncSetAttribute(spmv_ell_staged_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_bytes = smem;
+  }
+  spmv_ell_staged_kernel<T><<<ctas, kStagedWarps * 32, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(val), static_cast<const uint16_t*>(col),
+      static_cast<const int*>(seg_ptr), static_cast<const int*>(seg_window),
+      static_cast<const int64_t*>(seg_offset), static_cast<const T*>(vec),
+      static_cast<const float*>(bias), static_cast<const int*>(perm),
+      static_cast<float*>(out), rows, cols, n_slabs, window, per_cta, parts,
+      epilogue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,6 +409,27 @@ int spmv_ell_windowed_bf16(const void* val, const void* col,
                                         seg_offset, vec, bias, perm, out,
                                         rows, n_slabs, window, epilogue,
                                         stream);
+}
+
+int spmv_ell_staged_f32(const void* val, const void* col, const void* seg_ptr,
+                        const void* seg_window, const void* seg_offset,
+                        const void* vec, const void* bias, const void* perm,
+                        void* out, int rows, int cols, int n_slabs,
+                        int window, int epilogue, void* stream) {
+  return launch_staged<float>(val, col, seg_ptr, seg_window, seg_offset, vec,
+                              bias, perm, out, rows, cols, n_slabs, window,
+                              epilogue, stream);
+}
+
+int spmv_ell_staged_bf16(const void* val, const void* col,
+                         const void* seg_ptr, const void* seg_window,
+                         const void* seg_offset, const void* vec,
+                         const void* bias, const void* perm, void* out,
+                         int rows, int cols, int n_slabs, int window,
+                         int epilogue, void* stream) {
+  return launch_staged<__nv_bfloat16>(val, col, seg_ptr, seg_window,
+                                      seg_offset, vec, bias, perm, out, rows,
+                                      cols, n_slabs, window, epilogue, stream);
 }
 
 }  // extern "C"

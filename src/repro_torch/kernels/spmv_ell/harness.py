@@ -3,11 +3,16 @@
 Counterpart of ``repro.kernels.spmv_ell.harness`` (the ``pallas.ell``
 blocks), declared for ``cuda``.  "Add a backend" is a HARNESS block plus a
 kernel body: marshaling for the CSR/COO entry point is generated from the
-``ell_pack128`` clause.  The reference's ``tune`` clauses are left out
-until the port has an autotuner: the kernels run at their constant
-``rows_per_slab`` (32).  ``fuse epilogue``: the
-kernels apply a detected ``(+bias) -> relu|silu`` before their single
-store — for the CSR/COO entry too, since the marshaled ELL's row
+``ell_pack128`` clause, whose value is the slab-compacted column-window
+layout of the matrix's lane-128 ELL (``ops.pack_ell128``).  The two
+blocks run different K1 bodies: the direct ELL/JDS block gets the user's
+arrays on every call and cannot amortise a repack, so it runs the direct
+one-warp-a-row body on them; the CSR/COO block runs K1's staged body (the
+vector in shared memory, window by window) on the marshaled layout, or K2
+for a vector past ``RESIDENT_VEC_LIMIT``.  The reference's ``tune``
+clauses are left out until the port has an autotuner.  ``fuse
+epilogue``: the kernels apply a detected ``(+bias) -> relu|silu`` before
+their single store — for the CSR/COO entry too, since the marshaled row
 permutation is a full permutation and the kernel's store un-permutes it.
 """
 from __future__ import annotations
@@ -24,7 +29,7 @@ HARNESS cuda.ell implements spmv_ell, spmv_jds
   fuse epilogue;
 """)
 def spmv_ell_cuda(b, ctx):
-    """Direct ELL/JDS match -> the ELL kernel."""
+    """Direct ELL/JDS match -> K1's direct body on the user's arrays."""
     perm = b.get("perm")
     bias = b.get("bias")
     if perm is None:
@@ -50,7 +55,7 @@ HARNESS cuda.ell implements spmv_csr, spmv_coo
   fuse epilogue;
 """)
 def spmv_ell_cuda_host(b, ctx, *, ell):
-    """CSR/COO match -> marshaled ELL128 (kept on the card) -> the ELL
-    kernel, or the windowed one for a long vector."""
+    """CSR/COO match -> the marshaled layout (kept on the card) -> K1's
+    staged body, or K2 for a long vector."""
     return ell_ops.spmv_ell_packed(ell, b["iv"], epilogue=ctx.epilogue,
                                    bias=b.get("bias"))

@@ -2,15 +2,24 @@
 
 Counterpart of ``repro.kernels.spmv_ell.kernel``:
 
-  spmv_ell_cuda           <- spmv_ell_pallas           (K1, resident vector)
+  spmv_ell_staged_cuda    <- spmv_ell_pallas           (K1 on the marshaled
+                                                       path: the vector
+                                                       staged in shared
+                                                       memory, window by
+                                                       window)
+  spmv_ell_cuda           <- spmv_ell_pallas           (K1 on a user's
+                                                       ELL/JDS arrays)
   spmv_ell_windowed_cuda  <- spmv_ell_windowed_pallas  (K2, column windows,
                                                        slab-compacted)
 
-Both take an optional row permutation (the kernel stores row i at
-``perm[i]``) and the fused ``(+bias) -> relu|silu`` epilogue (K5).  For
-tensors on the CPU a wrapper returns its kernel's plain version
-(``ref.py``); for CUDA tensors it launches the kernel on the current stream
-or raises.  ``LAUNCHES`` counts the launches of each kernel.
+The staged and windowed bodies read the same layout
+(``formats.WindowedELL``): the staged one at a window that fits shared
+memory (``STAGE_BYTES``), K2 at 65,536 columns read from L2.  Each takes
+an optional row permutation (the kernel stores row i at ``perm[i]``) and
+the fused ``(+bias) -> relu|silu`` epilogue (K5).  For tensors on the CPU
+a wrapper returns its kernel's plain version (``ref.py``); for CUDA
+tensors it launches the kernel on the current stream or raises.
+``LAUNCHES`` counts the launches of each body.
 """
 from __future__ import annotations
 
@@ -28,7 +37,11 @@ from repro_torch.sparse.formats import WindowedELL
 SOURCE = Path(__file__).parent / "csrc" / "spmv_ell.cu"
 
 #: kernel name -> launches since the last reset (a plain count).
-LAUNCHES = {"spmv_ell": 0, "spmv_ell_windowed": 0}
+LAUNCHES = {"spmv_ell": 0, "spmv_ell_staged": 0, "spmv_ell_windowed": 0}
+
+#: Shared memory the staged body may fill with a window of the vector (of
+#: the 227 KB a block can have on an H100).
+STAGE_BYTES = 224 * 1024
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -41,6 +54,8 @@ def reset_launches() -> None:
 def _fn(name: str):
     if "windowed" in name:
         return build.entry_point(SOURCE, name, 9, 4)
+    if "staged" in name:
+        return build.entry_point(SOURCE, name, 9, 5)
     return build.entry_point(SOURCE, name, 6, 4)
 
 
@@ -103,6 +118,55 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
     return out
 
 
+def _check_layout(layout: WindowedELL, vec: torch.Tensor) -> None:
+    dev = layout.val.device
+    n_slabs, n_seg = layout.n_slabs, layout.n_segments
+    check_tensor("col", layout.col, dev, torch.uint16, layout.val.shape)
+    check_tensor("seg_ptr", layout.seg_ptr, dev, torch.int32, (n_slabs + 1,))
+    check_tensor("seg_window", layout.seg_window, dev, torch.int32, (n_seg,))
+    check_tensor("seg_offset", layout.seg_offset, dev, torch.int64,
+                 (n_seg + 1,))
+    if vec.shape[0] < layout.shape[1]:
+        raise ValueError(f"vec of {vec.shape[0]} elements does not cover "
+                         f"the layout's {layout.shape[1]} columns")
+
+
+def _layout_ptrs(layout: WindowedELL):
+    return (layout.val.data_ptr(), layout.col.data_ptr(),
+            layout.seg_ptr.data_ptr(), layout.seg_window.data_ptr(),
+            layout.seg_offset.data_ptr())
+
+
+def spmv_ell_staged_cuda(layout: WindowedELL, vec: torch.Tensor, *,
+                         bias: Optional[torch.Tensor] = None,
+                         perm: Optional[torch.Tensor] = None,
+                         out_rows: Optional[int] = None,
+                         epilogue: Optional[str] = None) -> torch.Tensor:
+    """K1 on the marshaled path: the sum of :func:`spmv_ell_windowed_cuda`
+    over a layout whose window of ``vec`` fits ``STAGE_BYTES`` of shared
+    memory; each CTA stages the vector window by window."""
+    val = layout.val
+    if val.device.type == "cpu":
+        return spmv_ell_windowed_plain(layout, vec, bias=bias, perm=perm,
+                                       out_rows=out_rows, epilogue=epilogue)
+    rows, cols = layout.shape
+    out = _prepare(val, vec, bias, perm, rows, out_rows, epilogue)
+    _check_layout(layout, vec)
+    if layout.window * val.element_size() > STAGE_BYTES:
+        raise ValueError(f"a window of {layout.window} {val.dtype} columns "
+                         f"exceeds the {STAGE_BYTES} B the staged body "
+                         f"stages; build the layout with staged_window()")
+    if rows == 0:
+        return out
+    with torch.cuda.device(val.device):
+        err = _fn(f"spmv_ell_staged_{_SUFFIX[val.dtype]}")(
+            *_layout_ptrs(layout), vec.data_ptr(), _ptr(bias), _ptr(perm),
+            out.data_ptr(), rows, cols, layout.n_slabs, layout.window,
+            EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream)
+    launched(LAUNCHES, "spmv_ell_staged", err)
+    return out
+
+
 def spmv_ell_windowed_cuda(layout: WindowedELL, vec: torch.Tensor, *,
                            bias: Optional[torch.Tensor] = None,
                            perm: Optional[torch.Tensor] = None,
@@ -115,26 +179,15 @@ def spmv_ell_windowed_cuda(layout: WindowedELL, vec: torch.Tensor, *,
     if val.device.type == "cpu":
         return spmv_ell_windowed_plain(layout, vec, bias=bias, perm=perm,
                                        out_rows=out_rows, epilogue=epilogue)
-    rows, cols = layout.shape
+    rows = layout.shape[0]
     out = _prepare(val, vec, bias, perm, rows, out_rows, epilogue)
-    dev = val.device
-    n_slabs, n_seg = layout.n_slabs, layout.n_segments
-    check_tensor("col", layout.col, dev, torch.uint16, val.shape)
-    check_tensor("seg_ptr", layout.seg_ptr, dev, torch.int32, (n_slabs + 1,))
-    check_tensor("seg_window", layout.seg_window, dev, torch.int32, (n_seg,))
-    check_tensor("seg_offset", layout.seg_offset, dev, torch.int64,
-                 (n_seg + 1,))
-    if vec.shape[0] < cols:
-        raise ValueError(f"vec of {vec.shape[0]} elements does not cover "
-                         f"the layout's {cols} columns")
+    _check_layout(layout, vec)
     if rows == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(val.device):
         err = _fn(f"spmv_ell_windowed_{_SUFFIX[val.dtype]}")(
-            val.data_ptr(), layout.col.data_ptr(), layout.seg_ptr.data_ptr(),
-            layout.seg_window.data_ptr(), layout.seg_offset.data_ptr(),
-            vec.data_ptr(), _ptr(bias), _ptr(perm), out.data_ptr(), rows,
-            n_slabs, layout.window, EPILOGUE_CODES[epilogue],
-            torch.cuda.current_stream().cuda_stream)
+            *_layout_ptrs(layout), vec.data_ptr(), _ptr(bias), _ptr(perm),
+            out.data_ptr(), rows, layout.n_slabs, layout.window,
+            EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream)
     launched(LAUNCHES, "spmv_ell_windowed", err)
     return out

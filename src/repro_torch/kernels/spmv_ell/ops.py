@@ -3,24 +3,30 @@
 Counterpart of ``repro.kernels.spmv_ell.ops``: the slab geometry (row
 padding and the clamp for tiny row counts), the resident / column-windowed
 split at ``RESIDENT_VEC_LIMIT``, the slab-compacted column-window layout,
-and the unfused fallback for a bias that is not 1-D.  On Hopper the vector
-needs no on-chip residency, but the split stays so the windowed kernel (K2)
-stays on the path for long vectors.  The kernel masks the ragged last slab itself,
-so row padding sets the launch grid and copies nothing.
+and the unfused fallback for a bias that is not 1-D.
+
+The split decides two things.  A user's ELL/JDS arrays (``spmv_ell``)
+take K1's direct body within the limit and K2 beyond it.  A marshaled CSR
+(``pack_ell128`` / ``spmv_ell_packed``) is kept only as the slab-compacted
+column-window layout: within the limit at a window that fits shared memory
+(``staged_window``), run by K1's staged body; beyond it at 65,536 columns,
+run by K2.  The kernels mask the ragged last slab themselves, so row
+padding sets the launch grid and copies nothing.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.common import apply_epilogue_inregister
-from repro_torch.kernels.spmv_ell.kernel import (spmv_ell_cuda,
+from repro_torch.kernels.spmv_ell.kernel import (STAGE_BYTES, spmv_ell_cuda,
+                                                 spmv_ell_staged_cuda,
                                                  spmv_ell_windowed_cuda)
 from repro_torch.sparse.convert import csr_to_ell
-from repro_torch.sparse.formats import (CSR, ELL, WINDOW, WindowedELL,
-                                        ell_windows)
+from repro_torch.sparse.formats import (CSR, SEG_WIDTH, WINDOW,
+                                        WindowedELL, ell_windows)
 
 # Vector sizes above this use the column-windowed kernel.
 RESIDENT_VEC_LIMIT = 1 << 20  # 1M elements (4 MiB f32)
@@ -86,31 +92,43 @@ def _windowed(val, col, vec, rows_per_slab, window: int = WINDOW,
                                   out_rows=out_rows, epilogue=epilogue)
 
 
-def pack_ell128(csr: CSR) -> Union[ELL, WindowedELL]:
-    """The marshaled form of a CSR matrix that the kernels read: its
-    lane-128 ELL, or, when its vector would exceed ``RESIDENT_VEC_LIMIT``,
-    only that ELL's slab-compacted column-window layout (the windowed
-    kernel never reads the ELL itself, so it is not kept)."""
+def staged_window(cols: int, element_size: int) -> int:
+    """The column window of K1's staged body: the vector's columns in as
+    few windows as fit ``STAGE_BYTES`` of shared memory (and 16-bit local
+    ids), split evenly and rounded up to ``SEG_WIDTH`` so that each window
+    starts on a 16-byte boundary (50,000 for NAS CG class C's 150,000 f32
+    columns)."""
+    most = min(WINDOW, STAGE_BYTES // element_size) // SEG_WIDTH * SEG_WIDTH
+    n_windows = max(1, -(-cols // most))
+    return -(-max(1, -(-cols // n_windows)) // SEG_WIDTH) * SEG_WIDTH
+
+
+def pack_ell128(csr: CSR) -> WindowedELL:
+    """The marshaled form of a CSR matrix that the kernels read: the
+    slab-compacted column-window layout of its lane-128 ELL (the JDS row
+    sort kept as ``perm``), at ``staged_window`` for a vector within
+    ``RESIDENT_VEC_LIMIT`` and at 65,536 columns beyond it.  Neither
+    kernel reads the ELL or its padding, so they are not kept."""
     ell = csr_to_ell(csr, lane=128)
-    if csr.cols <= RESIDENT_VEC_LIMIT:
-        return ell
-    return ell_windows(ell.val, ell.col, csr.cols, perm=ell.perm)
+    window = staged_window(csr.cols, ell.val.element_size()) \
+        if csr.cols <= RESIDENT_VEC_LIMIT else WINDOW
+    return ell_windows(ell.val, ell.col, csr.cols, window=window,
+                       perm=ell.perm)
 
 
-def spmv_ell_packed(packed: Union[ELL, WindowedELL], vec: torch.Tensor,
+def spmv_ell_packed(packed: WindowedELL, vec: torch.Tensor,
                     epilogue: Optional[str] = None,
                     bias=None) -> torch.Tensor:
-    """SpMV with a :func:`pack_ell128` value: the kernel un-permutes the
-    JDS row sort in its store, and a column-window layout runs on the
-    windowed kernel as it is, without compacting the slots again."""
+    """SpMV with a :func:`pack_ell128` value: K1's staged body within
+    ``RESIDENT_VEC_LIMIT`` columns, K2 beyond; the kernel un-permutes the
+    JDS row sort in its store."""
     rows = packed.shape[0]
     if bias is not None and not _fusable(bias, rows):
         out = spmv_ell_packed(packed, vec)
         return apply_epilogue_inregister(out, bias, epilogue)
-    if not isinstance(packed, WindowedELL):
-        return spmv_ell(packed.val, packed.col, vec, epilogue=epilogue,
-                        bias=bias, perm=packed.perm, out_rows=rows)
     if bias is not None:
         bias = bias.float().contiguous()
-    return spmv_ell_windowed_cuda(packed, vec, bias=bias, perm=packed.perm,
-                                  out_rows=rows, epilogue=epilogue)
+    run = spmv_ell_staged_cuda if packed.shape[1] <= RESIDENT_VEC_LIMIT \
+        else spmv_ell_windowed_cuda
+    return run(packed, vec, bias=bias, perm=packed.perm, out_rows=rows,
+               epilogue=epilogue)

@@ -1,6 +1,7 @@
 """Sparse matrix substrate: formats, conversions, reference ops.
 
-Counterpart of ``repro.sparse`` (CSR, COO, ELL, JDS, BCSR);
+Counterpart of ``repro.sparse`` (CSR, COO, ELL, JDS, BCSR), plus the
+kernels' own layouts (WindowedELL, PackedBCSR);
 ``from_numpy`` / ``to_numpy`` carry a matrix between the
 two packages as numpy arrays.
 """
@@ -10,6 +11,7 @@ from repro_torch.sparse.formats import (
     COO,
     ELL,
     JDS,
+    PackedBCSR,
     WindowedELL,
     bcsr_from_dense,
     coo_from_dense,
@@ -18,6 +20,7 @@ from repro_torch.sparse.formats import (
     ell_windows,
     from_numpy,
     jds_from_csr,
+    pack_bcsr,
     to_numpy,
 )
 from repro_torch.sparse.ops import (bcsr_spmm_ref, spmv_coo_ref, spmv_csr_ref,
@@ -25,9 +28,9 @@ from repro_torch.sparse.ops import (bcsr_spmm_ref, spmv_coo_ref, spmv_csr_ref,
 from repro_torch.sparse.random import random_csr, random_spd_csr, stencil27_csr
 
 __all__ = [
-    "CSR", "COO", "ELL", "JDS", "WindowedELL", "BCSR",
+    "CSR", "COO", "ELL", "JDS", "WindowedELL", "BCSR", "PackedBCSR",
     "csr_from_dense", "coo_from_dense", "ell_from_csr", "ell_windows",
-    "jds_from_csr", "bcsr_from_dense", "from_numpy", "to_numpy",
+    "jds_from_csr", "bcsr_from_dense", "pack_bcsr", "from_numpy", "to_numpy",
     "spmv_csr_ref", "spmv_coo_ref", "spmv_ell_ref", "bcsr_spmm_ref",
     "random_csr", "random_spd_csr", "stencil27_csr",
 ]

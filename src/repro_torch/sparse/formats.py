@@ -13,6 +13,9 @@ paper's (§3.2 Fig. 4/5):
          per window), with window-local column ids (the layout of the
          windowed SpMV kernel for long vectors)
 * BCSR — block CSR: dense (bm, bk) tiles, CSR structure over tile rows
+* PackedBCSR — BCSR's tile structure with each tile's entries stored
+         alone (value and a 16-bit tile-local id), the layout of the BCSR
+         SpMM kernel
 
 The host constructors build in numpy, so their arrays are byte-identical
 to the JAX package's, and hand back tensors on the device of their input.
@@ -234,6 +237,141 @@ class BCSR:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class PackedBCSR:
+    """BCSR's (bm, bk) tile structure with only each tile's entries stored.
+
+    ``block_col``, ``block_rowptr``, ``shape`` and ``block_shape`` are
+    BCSR's, tile for tile (an empty block row keeps its explicit tile, now
+    with no entries).  In place of dense tiles:
+
+    * ``val`` (nnz,): the entries, tile after tile, within a tile by
+      (row i, column k) — f32 or bf16;
+    * ``local`` (nnz,) uint16: each entry's ``i * bk + k`` (so
+      ``bm * bk`` is at most 65,536);
+    * ``tile_ptr`` (nblocks+1,) int64: tile t's entries are
+      ``tile_ptr[t] .. tile_ptr[t+1]-1``;
+    * ``row_start`` (nblocks, bm) uint16: row i of tile t starts at entry
+      ``tile_ptr[t] + row_start[t, i]`` and ends where row i+1 starts (the
+      last row at ``tile_ptr[t+1]``);
+    * ``col_mask`` (nblocks, ceil(bk/32)) int32: bit k % 32 of word k // 32
+      is set when tile t has an entry in column k (the operand rows the
+      kernel stages for the tile).
+
+    The kernel follows the offsets unchecked, so a layout whose offsets
+    would read past its entries or whose ids leave their tile or row is
+    refused when it is built.
+    """
+
+    val: torch.Tensor           # (nnz,)
+    local: torch.Tensor         # (nnz,) uint16
+    tile_ptr: torch.Tensor      # (nblocks+1,) int64
+    row_start: torch.Tensor     # (nblocks, bm) uint16
+    col_mask: torch.Tensor      # (nblocks, ceil(bk/32)) int32
+    block_col: torch.Tensor     # (nblocks,) int32
+    block_rowptr: torch.Tensor  # (block_rows+1,) int32
+    shape: Tuple[int, int]
+    block_shape: Tuple[int, int]
+
+    def __post_init__(self):
+        bm, bk = self.block_shape
+        rows, cols = self.shape
+        if bm * bk > 1 << 16 or bm <= 0 or bk <= 0:
+            raise ValueError(f"tiles of {bm}x{bk} do not take 16-bit local "
+                             f"ids (bm * bk must be in [1, 65536])")
+        if rows % bm or cols % bk:
+            raise ValueError(f"shape {self.shape} is not a multiple of "
+                             f"{self.block_shape}")
+        nb, nnz = self.block_col.shape[0], self.val.shape[0]
+        if (self.val.dim() != 1 or self.local.shape != self.val.shape
+                or self.local.dtype != torch.uint16
+                or self.block_col.dim() != 1
+                or self.tile_ptr.shape != (nb + 1,)
+                or self.row_start.shape != (nb, bm)
+                or self.row_start.dtype != torch.uint16
+                or self.col_mask.shape != (nb, -(-bk // 32))
+                or self.block_rowptr.shape != (rows // bm + 1,)):
+            raise ValueError(
+                f"a packed BCSR of {nb} tiles of {bm}x{bk} over {rows} rows "
+                f"needs 1-D val and uint16 local of one length, {nb + 1} "
+                f"tile_ptr entries, uint16 row_start ({nb}, {bm}), col_mask "
+                f"({nb}, {-(-bk // 32)}) and {rows // bm + 1} block_rowptr "
+                f"entries; got val "
+                f"{tuple(self.val.shape)}, local {tuple(self.local.shape)} "
+                f"{self.local.dtype}, tile_ptr {tuple(self.tile_ptr.shape)}, "
+                f"row_start {tuple(self.row_start.shape)} "
+                f"{self.row_start.dtype}, col_mask "
+                f"{tuple(self.col_mask.shape)}, block_rowptr "
+                f"{tuple(self.block_rowptr.shape)}")
+        if self.val.device.type == "meta":
+            return                     # shapes only: there are no values
+        ptr, brp = self.tile_ptr.long(), self.block_rowptr.long()
+        size = torch.diff(ptr)
+        checks = [ptr[0] == 0, ptr[-1] == nnz, (size >= 0).all(),
+                  brp[0] == 0, brp[-1] == nb, (torch.diff(brp) >= 0).all()]
+        if nb:
+            bc = self.block_col.long()
+            checks.append(((bc >= 0) & (bc < cols // bk)).all())
+        ok = bool(torch.stack(checks).all())
+        if ok and nnz:
+            tile = torch.repeat_interleave(
+                torch.arange(nb, device=ptr.device), size, output_size=nnz)
+            loc = self.local.long()
+            row = torch.div(loc, bk, rounding_mode="floor").clamp(max=bm)
+            # ids strictly increase within a tile, and each row's entries
+            # sit where row_start says
+            same = tile[1:] == tile[:-1]
+            counts = torch.zeros(nb * (bm + 1), dtype=torch.int64,
+                                 device=ptr.device).index_add_(
+                0, tile * (bm + 1) + row, torch.ones_like(row)
+            ).view(nb, bm + 1)[:, :bm]
+            start = torch.cumsum(counts, 1) - counts
+            ok = bool(torch.stack([
+                (row < bm).all(), (loc[1:] > loc[:-1])[same].all(),
+                (self.row_start.long() == start).all()]).all())
+            ok = ok and torch.equal(self.col_mask,
+                                    _col_mask(tile, loc % bk, nb, bk))
+        elif ok:
+            ok = bool((self.row_start.long() == 0).all()
+                      and (self.col_mask == 0).all())
+        if not ok:
+            raise ValueError(
+                "packed tiles out of bounds: need tile_ptr to grow from 0 "
+                f"to {nnz}, block_rowptr from 0 to {nb}, block columns "
+                f"within the {cols // bk} of the shape, local ids below "
+                f"{bm * bk} and increasing within a tile, row_start to "
+                "count each tile's entries of the rows before, and col_mask "
+                "to mark each tile's columns")
+
+    @property
+    def nblocks(self) -> int:
+        return self.block_col.shape[0]
+
+    @property
+    def block_rows(self) -> int:
+        return self.shape[0] // self.block_shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return self.val.shape[0]
+
+    def todense(self) -> torch.Tensor:
+        bm, bk = self.block_shape
+        dev = self.val.device
+        tile = torch.repeat_interleave(
+            torch.arange(self.nblocks, device=dev),
+            torch.diff(self.tile_ptr), output_size=self.nnz)
+        brow = torch.repeat_interleave(
+            torch.arange(self.block_rows, device=dev),
+            torch.diff(self.block_rowptr).long(), output_size=self.nblocks)
+        loc = self.local.long()
+        row = brow[tile] * bm + torch.div(loc, bk, rounding_mode="floor")
+        col = self.block_col.long()[tile] * bk + loc % bk
+        out = torch.zeros(self.shape, dtype=self.val.dtype, device=dev)
+        out[row, col] = self.val
+        return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class ELL:
     """Row-padded format (JDS rows padded to a lane-aligned width).
 
@@ -370,6 +508,56 @@ def bcsr_from_dense(dense, block_shape=(8, 128), device=None) -> BCSR:
                 shape=(rows, cols), block_shape=(bm, bk))
 
 
+def _col_mask(tile: torch.Tensor, k: torch.Tensor, nblocks: int,
+              bk: int) -> torch.Tensor:
+    """(nblocks, ceil(bk/32)) int32: bit k % 32 of word k // 32 of row t
+    is set when some entry of tile t is in column k."""
+    words = -(-bk // 32)
+    used = torch.unique(tile * bk + k)     # each (tile, column) once
+    t = torch.div(used, bk, rounding_mode="floor")
+    k = used - t * bk
+    bits = torch.zeros(nblocks * words, dtype=torch.int64, device=k.device)
+    bits.index_add_(0, t * words + torch.div(k, 32, rounding_mode="floor"),
+                    torch.bitwise_left_shift(torch.ones_like(k), k % 32))
+    # the 32 bits as int32, two's complement
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32).view(nblocks, words)
+
+
+def packed_bcsr(val: torch.Tensor, tile: torch.Tensor, local: torch.Tensor,
+                block_col: torch.Tensor, block_rowptr: torch.Tensor,
+                shape: Tuple[int, int],
+                block_shape: Tuple[int, int]) -> PackedBCSR:
+    """A :class:`PackedBCSR` from its entries, already in (tile, local id)
+    order: ``tile`` the index of each entry's tile, ``local`` its
+    ``i * bk + k``; the offsets are counted from them."""
+    bm, bk = block_shape
+    nb = block_col.shape[0]
+    dev = val.device
+    tile, local = tile.long(), local.long()
+    tile_ptr = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    tile_ptr[1:] = torch.cumsum(torch.bincount(tile, minlength=nb), 0)
+    counts = torch.bincount(
+        tile * bm + torch.div(local, bk, rounding_mode="floor"),
+        minlength=nb * bm).view(nb, bm)
+    row_start = torch.cumsum(counts, 1) - counts
+    return PackedBCSR(val=val, local=local.to(torch.int32).to(torch.uint16),
+                      tile_ptr=tile_ptr,
+                      row_start=row_start.to(torch.int32).to(torch.uint16),
+                      col_mask=_col_mask(tile, local % bk, nb, bk),
+                      block_col=block_col, block_rowptr=block_rowptr,
+                      shape=tuple(shape), block_shape=(bm, bk))
+
+
+def pack_bcsr(bcsr: BCSR) -> PackedBCSR:
+    """The dense tiles' nonzero entries, tile for tile: the packed layout
+    of a BCSR that a caller already holds."""
+    bm, bk = bcsr.block_shape
+    t, i, k = torch.nonzero(bcsr.blocks, as_tuple=True)   # (t, i, k) order
+    return packed_bcsr(bcsr.blocks[t, i, k], t, i * bk + k, bcsr.block_col,
+                       bcsr.block_rowptr, bcsr.shape, bcsr.block_shape)
+
+
 def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
                 window: int = WINDOW,
                 perm: Optional[torch.Tensor] = None) -> WindowedELL:
@@ -429,7 +617,8 @@ def ell_windows(val: torch.Tensor, col: torch.Tensor, cols: int,
 # Numpy interchange: the state carried between the two packages.
 # ---------------------------------------------------------------------------
 
-_CONTAINERS = {cls.__name__: cls for cls in (CSR, COO, ELL, JDS, BCSR)}
+_CONTAINERS = {cls.__name__: cls
+               for cls in (CSR, COO, ELL, JDS, BCSR, PackedBCSR)}
 _TUPLES = ("shape", "block_shape")
 
 

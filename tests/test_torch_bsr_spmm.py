@@ -1,9 +1,11 @@
 """The port's BCSR path against the JAX package: the BCSR containers and
 the direct CSR -> BCSR repack byte for byte, the SpMM ops layer against
 the Pallas kernel run in interpret mode (as tests/test_kernels.py runs it),
-and the data plane's planned path.  On the CPU the kernel wrapper takes
-its plain version; tests/test_torch_kernels_gpu.py holds the CUDA kernel
-itself against that plain version on the card.
+on dense tiles (packed by the ops layer) and on packed tiles
+(``PackedBCSR``, what the kernel reads), and the data plane's planned
+path.  On the CPU the kernel wrapper takes its plain version;
+tests/test_torch_kernels_gpu.py holds the CUDA kernel itself against that
+plain version on the card.
 
 Tolerances: atol = rtol = 1e-4 in f32 (the reference's own, for sums in
 another order); 5e-2 for bf16 storage (the reference's bf16 tolerance).
@@ -39,27 +41,38 @@ def _same(torch_c, jax_c):
         assert arr.tobytes() == ref.tobytes(), name
 
 
+LAYOUTS = ["tiles", "packed"]
+
+
+def _as(layout, bcsr):
+    """The ops layer's operand: the dense tiles, or their packed form."""
+    return tf.pack_bcsr(bcsr) if layout == "packed" else bcsr
+
+
 def _dense_operand(cols, n, seed=1, dtype=np.float32):
     return np.random.default_rng(seed).standard_normal((cols, n)).astype(dtype)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("rows,cols,n,bm,density", [
     (256, 384, 256, 128, 0.3),
     (128, 128, 128, 64, 0.5),
     (384, 256, 128, 128, 0.1),
 ])
-def test_bsr_spmm_shapes_match_pallas(rows, cols, n, bm, density):
+def test_bsr_spmm_shapes_match_pallas(rows, cols, n, bm, density, layout):
     ref = jrandom.random_bcsr(rows, cols, block_shape=(bm, 128),
                               block_density=density, seed=rows + n)
     x = _dense_operand(cols, n)
     want = ref_ops.bsr_spmm(ref, jnp.asarray(x), interpret=True)
-    got = bsr_ops.bsr_spmm(tf.from_numpy(ref), torch.from_numpy(x))
+    got = bsr_ops.bsr_spmm(_as(layout, tf.from_numpy(ref)),
+                           torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     oracle = bsr_ops.bsr_spmm_oracle(tf.from_numpy(ref), torch.from_numpy(x))
     np.testing.assert_allclose(oracle.numpy(), np.asarray(want), **TOL)
 
 
-def test_bsr_spmm_bf16_matches_pallas():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_bsr_spmm_bf16_matches_pallas(layout):
     ref = jrandom.random_bcsr(256, 256, block_shape=(128, 128),
                               block_density=0.4, seed=7)
     blocks = np.asarray(ref.blocks).astype(jnp.bfloat16)
@@ -70,13 +83,17 @@ def test_bsr_spmm_bf16_matches_pallas():
     t = tf.from_numpy(ref)
     t = tf.BCSR(torch.from_numpy(blocks.astype(np.float32)).to(torch.bfloat16),
                 t.block_col, t.block_rowptr, t.shape, t.block_shape)
+    t = _as(layout, t)
+    if layout == "packed":
+        assert t.val.dtype == torch.bfloat16
     got = bsr_ops.bsr_spmm(t, torch.from_numpy(x.astype(np.float32))
                            .to(torch.bfloat16))
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                **BF16_TOL)
 
 
-def test_bsr_spmm_empty_block_rows_match_pallas():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_bsr_spmm_empty_block_rows_match_pallas(layout):
     d = np.zeros((256, 256), np.float32)
     d[:128] = np.random.default_rng(0).standard_normal((128, 256))
     ref = jf.bcsr_from_dense(d, (128, 128))
@@ -88,15 +105,19 @@ def test_bsr_spmm_empty_block_rows_match_pallas():
                    t.block_shape)
     assert not bare.all_block_rows_nonempty
     x = _dense_operand(256, 128)
-    got = bsr_ops.bsr_spmm(t, torch.from_numpy(x))
+    got = bsr_ops.bsr_spmm(_as(layout, t), torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy()[128:], 0.0)
+    # the bare container (no tile in block row 1) as well
+    got_bare = bsr_ops.bsr_spmm(_as(layout, bare), torch.from_numpy(x))
+    np.testing.assert_allclose(got_bare.numpy()[128:], 0.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(
         ref_ops.bsr_spmm(ref, jnp.asarray(x), interpret=True)), **TOL)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("epilogue", ["relu", "silu", "none"])
 @pytest.mark.parametrize("kind", ["row", "col"])
-def test_bsr_spmm_fused_epilogues_match_pallas(epilogue, kind):
+def test_bsr_spmm_fused_epilogues_match_pallas(epilogue, kind, layout):
     """Row and column biases with every epilogue, on a matrix with an
     empty block row: the reference falls back to its unfused epilogue
     there, the port's kernel writes epilogue(0 + bias) itself."""
@@ -109,14 +130,15 @@ def test_bsr_spmm_fused_epilogues_match_pallas(epilogue, kind):
     want = ref_ops.bsr_spmm(ref, jnp.asarray(x), epilogue=epilogue,
                             bias=jnp.asarray(bias), bias_kind=kind,
                             interpret=True)
-    got = bsr_ops.bsr_spmm(tf.from_numpy(ref), torch.from_numpy(x),
-                           epilogue=epilogue, bias=torch.from_numpy(bias),
-                           bias_kind=kind)
+    got = bsr_ops.bsr_spmm(_as(layout, tf.from_numpy(ref)),
+                           torch.from_numpy(x), epilogue=epilogue,
+                           bias=torch.from_numpy(bias), bias_kind=kind)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("n", [1, 6, 200])
-def test_bsr_spmm_ragged_n_matches_pallas(n):
+def test_bsr_spmm_ragged_n_matches_pallas(n, layout):
     """N off the 128-column tile: the reference pads N, the port's kernel
     masks the edge."""
     ref = jrandom.random_bcsr(256, 256, block_shape=(128, 128),
@@ -126,8 +148,9 @@ def test_bsr_spmm_ragged_n_matches_pallas(n):
     want = ref_ops.bsr_spmm(ref, jnp.asarray(x), epilogue="relu",
                             bias=jnp.asarray(bias), bias_kind="row",
                             interpret=True)
-    got = bsr_ops.bsr_spmm(tf.from_numpy(ref), torch.from_numpy(x),
-                           epilogue="relu", bias=torch.from_numpy(bias))
+    got = bsr_ops.bsr_spmm(_as(layout, tf.from_numpy(ref)),
+                           torch.from_numpy(x), epilogue="relu",
+                           bias=torch.from_numpy(bias))
     assert got.shape == (256, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -135,12 +158,11 @@ def test_bsr_spmm_ragged_n_matches_pallas(n):
 def test_kernel_wrapper_takes_the_plain_version_on_cpu():
     ref = jrandom.random_bcsr(256, 256, block_shape=(128, 128),
                               block_density=0.5, seed=2)
-    t = tf.from_numpy(ref)
+    t = tf.pack_bcsr(tf.from_numpy(ref))
     x = torch.from_numpy(_dense_operand(256, 128))
-    before = K.LAUNCHES["bsr_spmm"]
-    out = K.bsr_spmm_cuda(t.blocks, t.block_col, t.block_rowptr, x,
-                          out_rows=200)
-    assert K.LAUNCHES["bsr_spmm"] == before      # no launch on the CPU
+    before = dict(K.LAUNCHES)
+    out = K.bsr_spmm_cuda(t, x, out_rows=200)
+    assert K.LAUNCHES == before      # no launch on the CPU
     assert out.shape == (200, 128)
     np.testing.assert_allclose(out.numpy(), np.asarray(
         ref_ops.bsr_spmm_oracle(ref, jnp.asarray(x.numpy())))[:200], **TOL)
@@ -229,3 +251,8 @@ def test_compiled_bcsr_spmv_on_cpu_matches_naive():
         (m,) = fast.last_report.matches
         assert (m.computation, m.format, m.epilogue) \
             == ("spmv_csr", "CSR", "relu")
+        # cuda.bcsr's kernel reads packed tiles, torch.bcsr dense ones
+        tiles = [v for v in fast.cache._store.values()
+                 if isinstance(v, (tf.BCSR, tf.PackedBCSR))]
+        assert [type(v) for v in tiles] == [
+            tf.PackedBCSR if policy == "cuda.bcsr" else tf.BCSR]

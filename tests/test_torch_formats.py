@@ -236,3 +236,156 @@ def test_random_spd_is_symmetric_diagonally_dominant():
     again = trandom.random_spd_csr(300, 12, seed=3)
     assert torch.equal(again.val, csr.val) and torch.equal(again.col_ind,
                                                            csr.col_ind)
+
+
+# ---------------------------------------------------------------------------
+# The packed BCSR layout (K3's)
+# ---------------------------------------------------------------------------
+
+def _edge_case_csr(rows, cols, dtype=torch.float32):
+    """A CSR with a duplicate entry, an explicit stored zero, a duplicate
+    pair that sums to zero, an empty block row at 8-row tiles (rows
+    8..15) and ragged edges."""
+    d = np.asarray(jrandom.random_dense_sparse(rows, cols, 0.1, seed=rows))
+    d[8:16] = 0
+    r, c = np.nonzero(d)
+    v = d[r, c]
+    r = np.concatenate([r, [0, 1, 2, 2]])
+    c = np.concatenate([c, [c[0], cols - 1, 3, 3]])
+    v = np.concatenate([v, [0.5, 0.0, 0.25, -0.25]]).astype(np.float32)
+    order = np.lexsort((c, r))
+    r, c, v = r[order], c[order], v[order]
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=rows))])
+    return tf.CSR(torch.from_numpy(v).to(dtype),
+                  torch.from_numpy(c.astype(np.int32)),
+                  torch.from_numpy(row_ptr.astype(np.int32)), (rows, cols))
+
+
+def _check_packed(p, csr):
+    """The packed layout's properties against the CSR it came from."""
+    from repro_torch.sparse.convert import csr_to_bcsr
+
+    bm, bk = p.block_shape
+    rows, cols = csr.shape
+    # todense: duplicates summed, explicit zeros (and zero sums) dropped
+    dense = p.todense()
+    assert dense.dtype == csr.val.dtype
+    assert torch.equal(dense[:rows, :cols], csr.todense())
+    assert not dense[rows:].any() and not dense[:, cols:].any()
+    assert bool((p.val != 0).all())
+    assert p.nnz == int((csr.todense() != 0).sum())
+    # the outer structure is csr_to_bcsr's, tile for tile
+    b = csr_to_bcsr(csr, (bm, bk))
+    assert p.shape == b.shape and p.block_shape == b.block_shape
+    assert torch.equal(p.block_col, b.block_col)
+    assert torch.equal(p.block_rowptr, b.block_rowptr)
+    assert bool((torch.diff(p.block_rowptr) > 0).all())   # no empty row
+    # and the entries are those dense tiles' entries, in the same order
+    q = tf.pack_bcsr(b)
+    for f in ("val", "tile_ptr", "col_mask", "block_col", "block_rowptr"):
+        assert torch.equal(getattr(p, f), getattr(q, f)), f
+    for f in ("local", "row_start"):
+        assert torch.equal(getattr(p, f).long(), getattr(q, f).long()), f
+    # local ids within the tile and strictly increasing in each tile
+    ptr = p.tile_ptr.numpy()
+    loc = p.local.numpy().astype(np.int64)
+    assert p.local.dtype == torch.uint16 and (loc < bm * bk).all()
+    for t in range(p.nblocks):
+        seg = loc[ptr[t]:ptr[t + 1]]
+        assert (np.diff(seg) > 0).all()
+        starts = np.searchsorted(seg // bk, np.arange(bm))
+        np.testing.assert_array_equal(p.row_start.numpy()[t], starts)
+        # the column mask marks exactly the tile's columns
+        words = p.col_mask.numpy()[t].astype(np.uint32)
+        marked = [k for k in range(bk) if words[k // 32] >> (k % 32) & 1]
+        assert marked == sorted(set((seg % bk).tolist()))
+    # bytes: the entries at 2 + 2 or 4 + 2 B, then the offsets and masks
+    assert p.val.nbytes + p.local.nbytes \
+        == p.nnz * (p.val.element_size() + 2)
+    assert p.tile_ptr.nbytes + p.row_start.nbytes + p.col_mask.nbytes \
+        == 8 * (p.nblocks + 1) + 2 * p.nblocks * bm \
+        + 4 * p.nblocks * -(-bk // 32)
+
+
+@pytest.mark.parametrize("block_shape", [(8, 128), (128, 128), (64, 32),
+                                         (16, 8)])
+@pytest.mark.parametrize("rows,cols", [(45, 300), (130, 129), (16, 128)])
+def test_packed_bcsr_layout(rows, cols, block_shape):
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
+
+    csr = _edge_case_csr(rows, cols)
+    _check_packed(csr_to_packed_bcsr(csr, block_shape), csr)
+
+
+def test_packed_bcsr_of_the_stencil():
+    """HPCG's operator on a 12x11x10 grid in 128x128 tiles: every stored
+    entry, 6 B each, in the tiles the 27-point coordinates give."""
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
+
+    csr = trandom.stencil27_csr(12, 11, 10)
+    p = csr_to_packed_bcsr(csr, (128, 128))
+    _check_packed(p, csr)
+    assert p.nnz == csr.nnz
+    assert p.val.nbytes + p.local.nbytes == 6 * csr.nnz
+    row = np.repeat(np.arange(csr.rows), np.diff(csr.row_ptr.numpy()))
+    tiles = np.unique(row // 128 * 11 + csr.col_ind.numpy() // 128)
+    assert p.nblocks == tiles.shape[0]
+
+
+def test_packed_bcsr_bf16_values():
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
+
+    csr = _edge_case_csr(130, 129, dtype=torch.bfloat16)
+    p = csr_to_packed_bcsr(csr, (128, 128))
+    assert p.val.dtype == torch.bfloat16
+    _check_packed(p, csr)
+    assert p.val.nbytes + p.local.nbytes == 4 * p.nnz
+
+
+def _spoil_packed(p, case):
+    """The fields of ``p`` changed so that the kernel would read out of
+    bounds or into the wrong row."""
+    loc, rs = p.local.long().clone(), p.row_start.long().clone()
+    ptr, bc = p.tile_ptr.clone(), p.block_col.clone()
+    u16 = lambda t: t.to(torch.int32).to(torch.uint16)
+    if case == "entries_end_past_val":
+        return dict(val=p.val[:-1], local=p.local[:-1])
+    if case == "tile_ptr_shrinks":
+        ptr[1] = ptr[2] + 1
+        return dict(tile_ptr=ptr)
+    if case == "block_col_past_the_columns":
+        bc[0] = p.shape[1] // p.block_shape[1]
+        return dict(block_col=bc)
+    if case == "ids_out_of_order":
+        loc[[0, 1]] = loc[[1, 0]]
+        return dict(local=u16(loc))
+    if case == "id_past_the_tile":
+        loc[-1] = p.block_shape[0] * p.block_shape[1]
+        return dict(local=u16(loc))
+    if case == "mask_misses_a_column":
+        mask = p.col_mask.clone()
+        mask[0, loc[0] % p.block_shape[1] // 32] = 0
+        return dict(col_mask=mask)
+    # a row start that hands row 1's first entry to row 0
+    t = int(torch.nonzero(rs[:, 1] > rs[:, 0])[0])
+    rs[t, 1] += 1
+    return dict(row_start=u16(rs))
+
+
+@pytest.mark.parametrize("case", [
+    "entries_end_past_val", "tile_ptr_shrinks", "block_col_past_the_columns",
+    "ids_out_of_order", "id_past_the_tile", "row_start_off",
+    "mask_misses_a_column"])
+def test_packed_bcsr_refuses_out_of_bounds_tiles(case):
+    """The kernel follows the offsets unchecked, so building a packed
+    layout that would read past its entries or the operand, sum an entry
+    into the wrong row or leave an operand row it reads unstaged raises on
+    any device; so does a tile of more than 65,536 ids."""
+    from repro_torch.sparse.convert import csr_to_packed_bcsr
+
+    p = csr_to_packed_bcsr(_edge_case_csr(130, 129), (64, 32))
+    assert dataclasses.replace(p).nnz == p.nnz
+    with pytest.raises(ValueError):
+        dataclasses.replace(p, **_spoil_packed(p, case))
+    with pytest.raises(ValueError):
+        csr_to_packed_bcsr(_edge_case_csr(130, 129), (256, 512))

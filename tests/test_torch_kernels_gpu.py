@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (ELL SpMV K1/K2, BCSR SpMM K3, grouped
-matmul K4), against their plain torch versions.
+"""The CUDA kernels on the card (ELL SpMV K1 in its staged and direct
+bodies and K2, BCSR SpMM K3 in its wide and narrow bodies over packed
+tiles, grouped matmul K4), against their plain torch versions.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present.  This
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -21,6 +22,7 @@ from repro_torch.kernels.moe_gmm import kernel as K4
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as R4
 from repro_torch.kernels.spmv_ell import kernel as K
+from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.kernels.spmv_ell import ref as R
 from repro_torch.models import layers as tlayers
 from repro_torch.sparse import convert as tconvert
@@ -120,6 +122,98 @@ def test_windowed_kernel_edges(cuda, dtype, epilogue):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue,with_bias,with_perm", EPILOGUES)
+@pytest.mark.parametrize("window", [512, 3000])
+def test_staged_kernel_matches_plain(cuda, dtype, epilogue, with_bias,
+                                     with_perm, window):
+    """K1's staged body over 6 windows of the vector and over one."""
+    val, col, perm, vec, bias = _ell(cuda, dtype)
+    w = tf.ell_windows(val, col, 3000, window=window)
+    kw = dict(bias=bias if with_bias else None,
+              perm=perm if with_perm else None, epilogue=epilogue)
+    before = dict(K.LAUNCHES)
+    got = K.spmv_ell_staged_cuda(w, vec, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell_staged"] == before["spmv_ell_staged"] + 1
+    assert K.LAUNCHES["spmv_ell_windowed"] == before["spmv_ell_windowed"]
+    torch.testing.assert_close(
+        got, R.spmv_ell_windowed_plain(w, vec, **kw),
+        **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", [None, "relu", "silu"])
+def test_staged_kernel_edges(cuda, dtype, epilogue):
+    """Rows straddling two windows, an empty slab, a ragged last slab, a
+    row permutation and a bias by output row, and a window (1,000) whose
+    start is not 16-byte aligned in bf16, so part of the stage is copied
+    element by element."""
+    rng = np.random.default_rng(8)
+    d = np.zeros((100, 2048), np.float32)
+    d[:, 990:1061] = rng.standard_normal((100, 71))
+    d[rng.random((100, 2048)) > 0.5] = 0
+    d[32:64] = 0
+    ell = tf.ell_from_csr(tf.csr_from_dense(d), sort_rows=False, lane=8)
+    val, col = ell.val.to(cuda, dtype), ell.col.to(cuda)
+    w = tf.ell_windows(val, col, 2048, window=1000)
+    assert torch.diff(w.seg_ptr).tolist()[1] == 0
+    vec = torch.from_numpy(rng.standard_normal(2048).astype(np.float32))
+    perm = torch.from_numpy(rng.permutation(100).astype(np.int32))
+    bias = torch.from_numpy(rng.standard_normal(100).astype(np.float32))
+    kw = dict(bias=bias.to(cuda), perm=perm.to(cuda), epilogue=epilogue)
+    vec = vec.to(cuda, dtype)
+    got = K.spmv_ell_staged_cuda(w, vec, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, R.spmv_ell_windowed_plain(w, vec, **kw),
+        **(TOL if dtype == torch.float32 else BF16_TOL))
+    empty = perm[32:64].long()
+    torch.testing.assert_close(
+        got[empty].cpu(), apply_epilogue_inregister(bias[empty], None, epilogue))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_kernel_at_the_resident_limit(cuda, dtype):
+    """A vector of RESIDENT_VEC_LIMIT elements: 19 windows of 55,192 f32 or
+    16 of 65,536 bf16, and enough slabs (20,000 rows) that each CTA holds
+    several.  In f32 through the marshaled path (pack_ell128, then
+    spmv_ell_packed), in bf16 on a layout built the same way."""
+    rng = np.random.default_rng(11)
+    rows, cols = 20_000, ell_ops.RESIDENT_VEC_LIMIT
+    counts = rng.integers(0, 60, rows)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    c = np.concatenate([np.sort(rng.choice(cols, k, replace=False))
+                        for k in counts]).astype(np.int32)
+    csr = tf.CSR(torch.from_numpy(rng.standard_normal(c.shape[0])
+                                  .astype(np.float32)).to(cuda),
+                 torch.from_numpy(c).to(cuda),
+                 torch.from_numpy(row_ptr).to(cuda), (rows, cols))
+    size = torch.tensor([], dtype=dtype).element_size()
+    if dtype == torch.float32:
+        layout = ell_ops.pack_ell128(csr)
+    else:
+        ell = tf.ell_from_csr(csr, lane=128)
+        layout = tf.ell_windows(ell.val.to(dtype), ell.col, cols,
+                                window=ell_ops.staged_window(cols, size),
+                                perm=ell.perm)
+    assert layout.n_windows == (19 if dtype == torch.float32 else 16)
+    vec = torch.randn(cols, device=cuda).to(dtype)
+    bias = torch.randn(rows, device=cuda)
+    before = dict(K.LAUNCHES)
+    got = ell_ops.spmv_ell_packed(layout, vec, epilogue="relu", bias=bias)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell_staged"] == before["spmv_ell_staged"] + 1
+    want = R.spmv_ell_windowed_plain(layout, vec, bias=bias,
+                                     perm=layout.perm, out_rows=rows,
+                                     epilogue="relu")
+    torch.testing.assert_close(got, want, **(TOL if dtype == torch.float32
+                                             else BF16_TOL))
+
+
+@pytest.mark.gpu
 def test_wrapper_refuses_bad_operands(cuda):
     val = torch.ones(8, 16, device=cuda)
     col = torch.zeros(8, 16, dtype=torch.int32, device=cuda)
@@ -142,11 +236,17 @@ def test_wrapper_refuses_bad_operands(cuda):
             w, val=w.val[:-32], col=w.col[:-32]), vec)
     with pytest.raises(ValueError):
         K.spmv_ell_windowed_cuda(w, vec, bias=torch.ones(3, device=cuda))
+    with pytest.raises(ValueError):
+        K.spmv_ell_staged_cuda(w, vec[:3])
+    wide = tf.ell_windows(val, col, 4, window=1 << 16)
+    with pytest.raises(ValueError):     # a window past shared memory
+        K.spmv_ell_staged_cuda(wide, vec)
 
 
 @pytest.mark.gpu
 def test_compiled_csr_spmv_runs_the_kernel(cuda):
-    """The host-mode path on the card: detect, repack once, launch K1."""
+    """The host-mode path on the card: detect, repack once, launch K1's
+    staged body."""
     csr = tf.from_numpy(tf.to_numpy(trandom.random_csr(300, 200, 0.05,
                                                        seed=2)),
                         kind="CSR", device=cuda)
@@ -161,41 +261,49 @@ def test_compiled_csr_spmv_runs_the_kernel(cuda):
             0, row, val * v[col])
 
     fast = lilac.compile(naive, mode="host", policy="cuda.ell")
-    before = K.LAUNCHES["spmv_ell"]
+    before = dict(K.LAUNCHES)
     for _ in range(3):
         out = fast(csr.val, csr.col_ind, csr.row_ptr, v)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["spmv_ell"] == before + 3
+    assert K.LAUNCHES["spmv_ell_staged"] == before["spmv_ell_staged"] + 3
+    assert K.LAUNCHES["spmv_ell"] == before["spmv_ell"]
     assert fast.cache.stats.misses == 1
     assert [n for _, n in fast.last_selections] == ["cuda.ell"]
     torch.testing.assert_close(out, naive(csr.val, csr.col_ind, csr.row_ptr,
                                           v), **TOL)
 
 
-def _bcsr(cuda, dtype, bm=128, rows=700, cols=600, density=0.03, seed=4):
-    """A BCSR of a random matrix with its block rows 1 (and 3) empty."""
+def _packed(cuda, dtype, bm=128, rows=700, cols=600, density=0.03, seed=4):
+    """The packed tiles of a random matrix with its block rows 1 (and 3)
+    empty, built on the card."""
     d = trandom.random_dense_sparse(rows, cols, density, seed=seed)
     d[bm:2 * bm] = 0
     if rows > 4 * bm:
         d[3 * bm:4 * bm] = 0
-    b = tconvert.csr_to_bcsr(tf.csr_from_dense(d), (bm, 128))
-    return tf.BCSR(b.blocks.to(cuda, dtype), b.block_col.to(cuda),
-                   b.block_rowptr.to(cuda), b.shape, b.block_shape)
+    csr = tf.csr_from_dense(d, device=cuda)
+    csr = tf.CSR(csr.val.to(dtype), csr.col_ind, csr.row_ptr, csr.shape)
+    return tconvert.csr_to_packed_bcsr(csr, (bm, 128))
 
 
 K3_CASES = [(None, None), ("relu", "row"), ("silu", "col"), ("none", "row"),
             ("none", "col"), ("relu", None), ("silu", "row"), ("relu", "col")]
 
 
+def _k3_body(n):
+    return "bsr_spmm_narrow" if n <= K3.NARROW_N else "bsr_spmm_wide"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epilogue,bias_kind", K3_CASES)
-@pytest.mark.parametrize("n", [1, 128, 200])
+@pytest.mark.parametrize("n", [1, 3, 8, 100, 128, 200])
 def test_bsr_spmm_kernel_matches_plain(cuda, dtype, epilogue, bias_kind, n):
     """Every epilogue and bias kind, empty block rows, N = 1 (the SpMV
-    harness's width), 128 and a ragged 200, a dense operand shorter than
-    the padded columns, and rows cut short of the last block row."""
-    b = _bcsr(cuda, dtype)
+    harness's width), 3 and 8 on the narrow body, 100 (a copy padded to a
+    16-byte row in bf16), 128 and a ragged 200 on the wide one, a dense
+    operand shorter than the padded columns, and rows cut short of the
+    last block row."""
+    b = _packed(cuda, dtype)
     rng = np.random.default_rng(2)
     dense = torch.from_numpy(rng.standard_normal((590, n)).astype(
         np.float32)).to(cuda, dtype)
@@ -205,12 +313,13 @@ def test_bsr_spmm_kernel_matches_plain(cuda, dtype, epilogue, bias_kind, n):
         .astype(np.float32)).to(cuda)
     kw = dict(out_rows=rows, bias=bias, bias_kind=bias_kind,
               epilogue=epilogue)
-    before = K3.LAUNCHES["bsr_spmm"]
-    got = K3.bsr_spmm_cuda(b.blocks, b.block_col, b.block_rowptr, dense, **kw)
+    before = dict(K3.LAUNCHES)
+    got = K3.bsr_spmm_cuda(b, dense, **kw)
     torch.cuda.synchronize()
-    assert K3.LAUNCHES["bsr_spmm"] == before + 1
-    want = R3.bsr_spmm_plain(b.blocks, b.block_col, b.block_rowptr, dense,
-                             **kw)
+    body = _k3_body(n)
+    assert K3.LAUNCHES[body] == before[body] + 1
+    assert sum(K3.LAUNCHES.values()) == sum(before.values()) + 1
+    want = R3.bsr_spmm_plain(b, dense, **kw)
     assert got.shape == (rows, n)
     torch.testing.assert_close(got, want, **(TOL if dtype == torch.float32
                                              else BF16_TOL))
@@ -218,14 +327,52 @@ def test_bsr_spmm_kernel_matches_plain(cuda, dtype, epilogue, bias_kind, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bm", [8, 64])
-def test_bsr_spmm_kernel_short_tiles(cuda, bm):
-    b = _bcsr(cuda, torch.float32, bm=bm, rows=512, cols=384, density=0.1)
-    dense = torch.randn(384, 64, device=cuda)
-    got = K3.bsr_spmm_cuda(b.blocks, b.block_col, b.block_rowptr, dense,
-                           epilogue="relu")
-    want = R3.bsr_spmm_plain(b.blocks, b.block_col, b.block_rowptr, dense,
-                             epilogue="relu")
+@pytest.mark.parametrize("n", [1, 64])
+def test_bsr_spmm_kernel_short_tiles(cuda, bm, n):
+    b = _packed(cuda, torch.float32, bm=bm, rows=512, cols=384, density=0.1)
+    dense = torch.randn(384, n, device=cuda)
+    got = K3.bsr_spmm_cuda(b, dense, epilogue="relu")
+    want = R3.bsr_spmm_plain(b, dense, epilogue="relu")
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 128])
+def test_bsr_spmm_kernel_block_rows_without_tiles(cuda, n):
+    """A layout whose block row 1 has no tile at all (not even the explicit
+    empty one the repack keeps) stores epilogue(0 + bias) there."""
+    b = _packed(cuda, torch.float32, rows=256, cols=256, density=0.2)
+    ptr = b.tile_ptr[:2].clone()
+    bare = dataclasses.replace(
+        b, val=b.val[:int(ptr[1])], local=b.local[:int(ptr[1])],
+        tile_ptr=ptr, row_start=b.row_start[:1], col_mask=b.col_mask[:1],
+        block_col=b.block_col[:1],
+        block_rowptr=torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda))
+    dense = torch.randn(256, n, device=cuda)
+    bias = torch.randn(256, device=cuda)
+    got = K3.bsr_spmm_cuda(bare, dense, bias=bias, bias_kind="row",
+                           epilogue="silu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, R3.bsr_spmm_plain(
+        bare, dense, bias=bias, bias_kind="row", epilogue="silu"), **TOL)
+    torch.testing.assert_close(
+        got[128:], apply_epilogue_inregister(bias[128:, None].expand(-1, n),
+                                             None, "silu"))
+
+
+@pytest.mark.gpu
+def test_bsr_spmm_kernel_on_the_stencil(cuda):
+    """HPCG's operator on a 24^3 grid in 128x128 tiles at the GNN's
+    N = 128 with its relu and column bias, and at the CG's N = 1."""
+    csr = trandom.stencil27_csr(24, 24, 24, device=cuda)
+    b = tconvert.csr_to_packed_bcsr(csr, (128, 128))
+    for n, kw in ((128, dict(bias=torch.randn(128, device=cuda),
+                             bias_kind="col", epilogue="relu")), (1, {})):
+        dense = torch.randn(csr.cols, n, device=cuda)
+        got = K3.bsr_spmm_cuda(b, dense, out_rows=csr.rows, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, R3.bsr_spmm_plain(b, dense, out_rows=csr.rows, **kw), **TOL)
 
 
 GMM_BF16_TOL = dict(atol=1e-3, rtol=1e-3)   # bf16 products are exact in f32
@@ -294,20 +441,21 @@ def test_gmm_kernel_takes_out_of_range_expert_ids_as_plain(cuda, dtype):
 
 @pytest.mark.gpu
 def test_k3_k4_wrappers_refuse_bad_operands(cuda):
-    b = _bcsr(cuda, torch.float32)
+    b = _packed(cuda, torch.float32)
     dense = torch.randn(600, 8, device=cuda)
     with pytest.raises(TypeError):
-        K3.bsr_spmm_cuda(b.blocks, b.block_col.long(), b.block_rowptr, dense)
+        K3.bsr_spmm_cuda(dataclasses.replace(b, val=b.val.double()), dense)
     with pytest.raises(TypeError):
-        K3.bsr_spmm_cuda(b.blocks, b.block_col, b.block_rowptr, dense.half())
+        K3.bsr_spmm_cuda(b, dense.half())
     with pytest.raises(ValueError):
-        K3.bsr_spmm_cuda(b.blocks, b.block_col, b.block_rowptr, dense,
-                         bias=torch.ones(3, device=cuda), bias_kind="col")
+        K3.bsr_spmm_cuda(b, dense, bias=torch.ones(3, device=cuda),
+                         bias_kind="col")
     with pytest.raises(ValueError):
-        K3.bsr_spmm_cuda(b.blocks, b.block_col, b.block_rowptr, dense,
-                         bias=torch.ones(8, device=cuda))
+        K3.bsr_spmm_cuda(b, dense, bias=torch.ones(8, device=cuda))
     with pytest.raises(ValueError):
-        K3.bsr_spmm_cuda(b.blocks, b.block_col, b.block_rowptr, dense.t())
+        K3.bsr_spmm_cuda(b, dense.t())
+    with pytest.raises(ValueError):     # ids that leave their row
+        dataclasses.replace(b, row_start=torch.zeros_like(b.row_start))
     xs = torch.randn(256, 64, device=cuda)
     w = torch.randn(2, 64, 128, device=cuda)
     te = torch.zeros(2, dtype=torch.int32, device=cuda)
@@ -337,7 +485,7 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
     csr = tf.from_numpy(tf.to_numpy(trandom.random_csr(300, 200, 0.05,
                                                        seed=2)),
                         kind="CSR", device=cuda)
-    h = torch.randn(200, 16, device=cuda)
+    h = torch.randn(200, 16, device=cuda)    # the wide body: N > 8
     bias = torch.randn(16, device=cuda)
 
     def layer(val, col, row_ptr, h, bias):
@@ -349,11 +497,11 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
         return torch.relu(out.index_add_(0, r, val[:, None] * h[col]) + bias)
 
     fast = lilac.compile(layer)
-    before = K3.LAUNCHES["bsr_spmm"]
+    before = K3.LAUNCHES["bsr_spmm_wide"]
     for _ in range(3):
         out = fast(csr.val, csr.col_ind, csr.row_ptr, h, bias)
     torch.cuda.synchronize()
-    assert K3.LAUNCHES["bsr_spmm"] == before + 3
+    assert K3.LAUNCHES["bsr_spmm_wide"] == before + 3
     assert fast.cache.stats.misses == 1
     assert [n for _, n in fast.last_selections] == ["cuda.bcsr"]
     torch.testing.assert_close(out, layer(csr.val, csr.col_ind, csr.row_ptr,

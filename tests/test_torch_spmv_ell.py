@@ -118,9 +118,9 @@ def test_windowed_layout_with_perm_matches_pallas(epilogue, with_bias):
 @pytest.mark.parametrize("cols", [300, 1_100_000])
 def test_spmv_ell_packed_unpermutes_like_the_reference(cols):
     """Marshaled ELL: the kernel's store un-permutes the row sort and the
-    fused epilogue indexes the bias by output row.  For a vector over 1<<20
-    elements the marshaled value is the matrix's column-window relayout
-    alone, and the windowed kernel runs on it."""
+    fused epilogue indexes the bias by output row.  The marshaled value is
+    the matrix's column-window relayout alone: at the staged body's window
+    for a vector within 1<<20 elements, at K2's 65,536 beyond."""
     rng = np.random.default_rng(7)
     key = np.unique(rng.integers(0, 96 * cols, 900))
     r, c = key // cols, key % cols
@@ -139,7 +139,9 @@ def test_spmv_ell_packed_unpermutes_like_the_reference(cols):
     out = ell_ops.spmv_ell_packed(packed, torch.from_numpy(vec),
                                   epilogue="relu", bias=torch.from_numpy(bias))
     np.testing.assert_allclose(out.numpy(), expect, **TOL)
-    assert isinstance(packed, tf.WindowedELL) == (cols > 1 << 20)
+    assert isinstance(packed, tf.WindowedELL)
+    assert packed.window == (ell_ops.staged_window(cols, 4)
+                             if cols <= 1 << 20 else tf.WINDOW)
     ell = tf.ell_from_csr(csr, lane=128)
     assert torch.equal(packed.perm, ell.perm)
 
@@ -166,6 +168,8 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
     layout = tf.ell_windows(t.val, t.col, 64, window=16)
     out = K.spmv_ell_windowed_cuda(layout, v)
     torch.testing.assert_close(out, R.spmv_ell_windowed_ref(layout, v))
+    out = K.spmv_ell_staged_cuda(layout, v)
+    torch.testing.assert_close(out, R.spmv_ell_windowed_ref(layout, v))
     assert K.LAUNCHES == before          # the plain version is no launch
     with pytest.raises(ValueError):
         K.spmv_ell_cuda(t.val.to("meta"), t.col.to("meta"), v.to("meta"))
@@ -174,3 +178,54 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
         window=16, shape=layout.shape)
     with pytest.raises(ValueError):
         K.spmv_ell_windowed_cuda(meta, v.to("meta"))
+    with pytest.raises(ValueError):
+        K.spmv_ell_staged_cuda(meta, v.to("meta"))
+
+
+@pytest.mark.parametrize("cols,size,expect", [
+    (150_000, 4, 50_000),       # NAS CG class C, f32: 3 windows of 200 KB
+    (1 << 20, 4, 55_192),       # RESIDENT_VEC_LIMIT: 19 windows
+    (150_000, 2, 50_000),       # bf16: 16-bit ids cap the window at 65,536
+    (100_000, 2, 50_000),
+    (300, 4, 304),              # one window, rounded up to 8
+])
+def test_staged_window_fits_shared_memory(cols, size, expect):
+    w = ell_ops.staged_window(cols, size)
+    assert w == expect and w % 8 == 0
+    assert w * size <= K.STAGE_BYTES and w <= 1 << 16
+    assert -(-cols // w) == -(-cols // (min(1 << 16, K.STAGE_BYTES // size)
+                                        // 8 * 8))
+
+
+@pytest.mark.parametrize("epilogue,with_bias", [
+    (None, False), ("relu", True), ("silu", True), ("none", True),
+    ("silu", False),
+])
+@pytest.mark.parametrize("window", [64, 136, 512])
+def test_staged_layout_matches_pallas(epilogue, with_bias, window):
+    """K1's marshaled call on a small window, so that a 100 x 512 matrix
+    spans 8, 4 or 1 windows: a JDS-sorted ELL with 61 empty rows (after the
+    sort slab 2 is empty and slab 3 empty and ragged), the row permutation
+    and the bias by output row in the store; against the resident Pallas
+    kernel (spmv_ell_pallas) on the sorted rows."""
+    rng = np.random.default_rng(13)
+    d = rng.standard_normal((100, 512)).astype(np.float32)
+    d[rng.random((100, 512)) > 0.08] = 0
+    d[20:81] = 0
+    ell = ell_from_csr(jf.csr_from_dense(d))
+    vec = rng.standard_normal(512).astype(np.float32)
+    bias = rng.standard_normal(100).astype(np.float32)
+    perm = np.asarray(ell.perm)
+    jb = jnp.asarray(bias[perm]) if with_bias else None
+    tb = torch.from_numpy(bias) if with_bias else None
+    ref = ref_ops.spmv_ell(ell.val, ell.col, jnp.asarray(vec),
+                           epilogue=epilogue, bias=jb, interpret=True)
+    expect = np.zeros(100, np.float32)
+    expect[perm] = np.asarray(ref)[:100]
+    t = tf.from_numpy(ell)
+    layout = tf.ell_windows(t.val, t.col, 512, window=window, perm=t.perm)
+    assert layout.n_windows == -(-512 // window) and layout.n_slabs == 4
+    assert torch.diff(layout.seg_ptr).tolist()[2:] == [0, 0]
+    out = K.spmv_ell_staged_cuda(layout, torch.from_numpy(vec), bias=tb,
+                                 perm=t.perm, out_rows=100, epilogue=epilogue)
+    np.testing.assert_allclose(out.numpy(), expect, **TOL)

@@ -217,6 +217,54 @@ def test_gnn_loop_on_bcsr_repacks_once(n):
         "last_path"] == ("CSR", "BCSR128x128")
 
 
+def _marshaled(fast, kind):
+    """The data plane's cached values of container class ``kind``."""
+    return [v for v in fast.cache._store.values() if isinstance(v, kind)]
+
+
+@pytest.mark.parametrize("n", [SPMM_N, 130])
+def test_compiled_spmm_marshals_packed_tiles_like_the_reference(n):
+    """The naive SpMM compiled for cuda.bcsr on CPU tensors: the marshaled
+    value is the packed tile layout (no dense tile), R3's check that
+    cuda.bcsr itself served the call, and the result against the JAX
+    package's compile of the same program (N = 130 takes the kernel's
+    wide body on the card, N = 5 its narrow one)."""
+    ops = _spmm_operands()
+    ops["dmat"] = np.random.default_rng(n).standard_normal(
+        (SPMM_COLS, n)).astype(np.float32)
+    names = ("val", "col", "row_ptr", "dmat")
+    want = np.asarray(jlilac.compile(spmm_jax)(*(jnp.asarray(ops[k])
+                                                 for k in names)))
+    fast = lilac.compile(naive_spmm, policy="cuda.bcsr", platform="cpu")
+    got = fast(*(torch.from_numpy(ops[k]) for k in names))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert [name for _, name in fast.last_selections] == ["cuda.bcsr"]
+    (packed,) = _marshaled(fast, tf.PackedBCSR)
+    assert not _marshaled(fast, tf.BCSR)
+    assert packed.block_shape == (128, 128) and packed.nnz <= SPMM_NNZ
+    assert packed.local.dtype == torch.uint16
+
+
+def test_compiled_spmv_marshals_the_staged_layout_like_the_reference():
+    """The naive CSR SpMV compiled for cuda.ell on CPU tensors: the
+    marshaled value is the column-window layout at the staged body's
+    window (no ELL kept), R3's check that cuda.ell served the call, and
+    the result against the JAX package's compile of the same program."""
+    ref, csr, v = _operands()
+    want = np.asarray(jlilac.compile(naive_jax, mode="host",
+                                     policy="jnp.ell")(
+        ref.val, ref.col_ind, ref.row_ptr, jnp.asarray(v)))
+    fast = lilac.compile(naive, mode="host", policy="cuda.ell",
+                         platform="cpu")
+    got = fast(csr.val, csr.col_ind, csr.row_ptr, torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert [name for _, name in fast.last_selections] == ["cuda.ell"]
+    (layout,) = _marshaled(fast, tf.WindowedELL)
+    assert not _marshaled(fast, tf.ELL)
+    assert layout.window == 80 and layout.n_windows == 1    # COLS, by 8
+    assert layout.perm is not None and layout.col.dtype == torch.uint16
+
+
 def test_platform_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
