@@ -39,12 +39,33 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      repack, the CG check;
    * MoE (K4): one OLMoE-1B-7B expert layer (d_model 2048, 64 experts of
      d_ff 1024, top-8, bf16; seeded weights) over two sequences of 4,096
-     tokens through moe_block(impl="lilac") under the default policy: one
-     moe_ffn/MOE match traced once, cuda.gmm, 6 launches (3 a sequence),
-     and the output and the naive bf16 block's, each as relative L2 error
-     against the f32 plain oracle on the same bf16 inputs;
+     tokens through moe_block(impl="lilac") — trace mode, as the reference
+     compiles it — under the default policy: one moe_ffn/MOE match traced
+     once, cuda.gmm as the custom op lilac_torch::moe_ffn, 6 launches (3 a
+     sequence), and the output and the naive bf16 block's, each as
+     relative L2 error against the f32 plain oracle on the same bf16
+     inputs;
+   * the autotuner: lilac.compile(naive SpMV, mode="host",
+     policy="autotune") at NPB-C and at HPCG on a fresh store in a
+     temporary directory: each candidate's steady time, repack seconds and
+     amortized cost (a candidate that cannot fit is eliminated by its
+     exception), the winner checked to have the least amortized cost, the
+     25 CG iterations through it with the iterate check; then a second
+     process on the same store must re-time nothing and pick the same
+     winners;
+   * trace mode: the ELL layer (K1's direct body, fused epilogue, as the
+     custom op lilac_torch::spmv_ell) and one sequence of the OLMoE layer
+     compiled with the default mode: one custom-op node in the rewritten
+     graph, the output equal to host mode's bit for bit, the graph
+     captured in a torch.cuda.CUDAGraph and replayed equal to the eager
+     call, with the per-call times of host mode, trace mode, the graph and
+     the replay; and policy="autotune" in trace mode on the MoE layer,
+     sweeping cuda.gmm's tm;
 4. holds each kernel against its plain torch version at the paths' shapes
-   (every fused epilogue; f32 and bf16 for K3 and K4) and times the
+   (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
+   at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
+   and K4 at every tm cuda.gmm declares, each bit for bit against the
+   default) and times the
    kernel (CUDA events, host enqueue, torch.profiler), the plain version
    and one PyTorch call of the same function that the port never calls
    (cuSPARSE SpMV and SpMM, torch._grouped_mm; for K4 also a bf16 GEMM of
@@ -63,8 +84,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -95,6 +119,11 @@ GMM_ATOL = GMM_RTOL = 1e-3
 K1_LAYOUT_BYTES = 0.33e9       # K1's staged layout at NPB-C
 K2_LAYOUT_BYTES = 0.31e9       # K2's compacted layout at HPCG-104^3
 K3_LAYOUT_BYTES = 0.25e9       # K3's packed tiles at HPCG-104^3
+# K1's direct body: rows_per_slab values timed, declared or not, at NPB-C
+# and at its first SMALL_ROWS rows (128 CTAs of the default slab, fewer
+# than the card's 132 SMs): the tune clause keeps the values that win
+SLAB_PROBE = (32, 8, 64, 128)
+SMALL_ROWS = 4096
 
 
 def require(ok: bool, what: str) -> None:
@@ -966,6 +995,338 @@ def gmm_witnesses(a, w, te, tm) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The autotuner (host mode) and trace mode
+# ---------------------------------------------------------------------------
+
+def _kernel_of(winner: str, a) -> dict:
+    """The kernel body a spmv_csr harness launches on ``a`` (none for the
+    plain torch.* harnesses)."""
+    from repro_torch.kernels.spmv_ell.ops import RESIDENT_VEC_LIMIT
+
+    if winner == "cuda.ell":
+        return "spmv_ell_staged" if a.cols <= RESIDENT_VEC_LIMIT \
+            else "spmv_ell_windowed"
+    return {"cuda.bcsr": "bsr_spmm_narrow"}.get(winner)
+
+
+def autotune_path(mats, x_refs, device, iters: int = CG_ITERS):
+    """lilac.compile(naive_spmv, mode="host", policy="autotune") at each
+    matrix on the store LILAC_TORCH_AUTOTUNE_CACHE names: the first call
+    measures every candidate (a candidate that raises is eliminated), the
+    CG then runs through the winner."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.core.harness import REGISTRY
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.kernels.spmv_ell import kernel as K
+
+    out = {}
+    for name, (a, b) in mats.items():
+        fast = lilac.compile(naive_spmv, mode="host", policy="autotune",
+                             device=device)
+        tuner = REGISTRY.autotuner
+        timed_before = tuner.stats.timing_calls
+        sync(device)
+        t0 = time.perf_counter()
+        fast(a.val, a.col_ind, a.row_ptr, b)
+        sync(device)
+        tune_s = time.perf_counter() - t0
+        report = dict(tuner.last_report)
+        rec = tuner.cache.entries[tuner.last_decision.sig]["host"]
+        K.reset_launches()
+        B.reset_launches()
+        calls: list = []
+        x = cg(timed(fast, calls, device), a, b, iters)
+        sync(device)
+        launches = {**K.LAUNCHES, **B.LAUNCHES}
+        out[name] = {
+            "winner": fast.last_selections[0][1], "record": rec,
+            "candidates": report, "tune_seconds": tune_s,
+            "timing_calls": tuner.stats.timing_calls - timed_before,
+            "eliminated": sorted(n for n, r in report.items() if r is None),
+            "launches": launches, "kernel": _kernel_of(rec["harness"], a),
+            "steady_call_ms": steady_ms(calls),
+            "finite": bool(torch.isfinite(x).all()),
+            "rel_to_naive": rel_l2(x, x_refs[name])}
+        del fast, x
+        release(device)
+    return out
+
+
+def check_autotune_path(res, iters: int = CG_ITERS) -> None:
+    for name, r in res.items():
+        amort = r["record"]["amortized_s"]
+        measured = {n for n, c in r["candidates"].items() if c is not None}
+        require(r["timing_calls"] > 0 and set(amort) == measured,
+                f"autotune {name}: every surviving candidate measured, got "
+                f"{sorted(amort)} of {sorted(r['candidates'])}")
+        require(r["winner"] == r["record"]["harness"]
+                == min(amort, key=amort.get),
+                f"autotune {name}: the winner {r['winner']} has the least "
+                f"amortized cost of {amort}")
+        if r["kernel"] is not None:
+            require(r["launches"][r["kernel"]] == iters + 1,
+                    f"autotune {name}: {r['kernel']} launched once per CG "
+                    f"SpMV ({iters + 1}), got {r['launches']}")
+        require(r["finite"] and r["rel_to_naive"] <= CG_RTOL,
+                f"autotune {name}: CG iterate within {CG_RTOL} of the naive "
+                f"CG, got {r['rel_to_naive']:.3g}")
+
+
+def warm_start(seed: int, device, **sizes) -> dict:
+    """The second process on the autotune store: one call of each
+    matrix's compiled SpMV; what it selected and what it timed."""
+    from repro_torch import lilac
+    from repro_torch.core.harness import REGISTRY
+
+    out = {}
+    for name, (a, b) in matrices(seed, device, **sizes).items():
+        fast = lilac.compile(naive_spmv, mode="host", policy="autotune",
+                             device=device)
+        fast(a.val, a.col_ind, a.row_ptr, b)
+        out[name] = fast.last_selections[0][1]
+    out["stats"] = REGISTRY.autotuner.stats.as_dict()
+    return out
+
+
+def run_warm_start(seed: int, store: Path) -> dict:
+    env = dict(os.environ, LILAC_TORCH_AUTOTUNE_CACHE=str(store))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--seed", str(seed), "--warm-start"], env=env,
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise RuntimeError(f"warm-start process failed:\n{p.stderr[-4000:]}")
+    res = json.loads(p.stdout.strip().splitlines()[-1])
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def check_warm_start(warm, res) -> None:
+    stats = warm["stats"]
+    require(stats["timing_calls"] == 0 and stats["elimination_calls"] == 0
+            and stats["disk_hits"] == 1
+            and stats["disk_hits"] + stats["memory_hits"] == len(res),
+            f"warm start: zero candidates re-timed, every signature served "
+            f"from the store read once, got {stats}")
+    for name, r in res.items():
+        require(warm[name] == r["winner"],
+                f"warm start {name}: the same winner {r['winner']}, got "
+                f"{warm[name]}")
+
+
+def graph_replay(fn, reps: int):
+    """``fn()`` eagerly and as a captured CUDA graph: (eager outputs,
+    replayed outputs, device ms and host ms a call of each)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    eager = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return (eager, replayed, cuda_ms(fn, reps), cuda_ms(graph.replay, reps))
+
+
+def trace_numbers(fn, args, name: str, op: str, device, reps: int):
+    """``fn`` compiled in trace mode against host mode, and its rewritten
+    graph eagerly and replayed in a CUDA graph."""
+    import torch
+    from repro_torch import lilac
+
+    fast = lilac.compile(fn, device=device)
+    host = lilac.compile(fn, mode="host", device=device)
+    got = fast(*args)
+    want = host(*args)
+    gm = fast.graph_for(*args)
+    res = {"selections": [n for _, n in fast.last_selections],
+           "op_nodes": sum(n.target == getattr(torch.ops.lilac_torch,
+                                               op).default
+                           for n in gm.graph.nodes),
+           "nodes": len(gm.graph.nodes),
+           "equal_to_host": bool(torch.equal(got, want)), "want": name}
+    if device.type == "cuda":
+        eager, replayed, g_ms, r_ms = graph_replay(lambda: gm(*args), reps)
+        res.update(
+            replay_equal=bool(torch.equal(eager[0], replayed[0])),
+            trace_call_ms=cuda_ms(lambda: fast(*args), reps),
+            host_call_ms=cuda_ms(lambda: host(*args), reps),
+            graph_ms=g_ms, replay_ms=r_ms)
+    return res
+
+
+def check_trace(res, what: str) -> None:
+    require(res["selections"] == [res["want"]] and res["op_nodes"] == 1,
+            f"trace {what}: {res['want']} as one custom-op node, got "
+            f"{res['selections']} and {res['op_nodes']} op nodes")
+    require(res["equal_to_host"], f"trace {what}: equal to host mode")
+    require(res.get("replay_equal", True),
+            f"trace {what}: the CUDA-graph replay equals the eager call")
+
+
+def slab_variants(a, seed: int, device, reps: int = 20):
+    """K1's direct body at every rows_per_slab of SLAB_PROBE, on NPB-C's
+    lane-128 ELL as the ELL layer calls it and on its first SMALL_ROWS
+    rows, against the plain version and bit for bit against the default
+    slab (the values cuda.ell declares are marked); and the ELL layer in
+    trace mode."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.kernels.spmv_ell import ref as R
+    from repro_torch.sparse import ell_from_csr
+
+    ell = ell_from_csr(a, lane=128)
+    rng = torch.Generator(device="cpu").manual_seed(seed)
+    vec = torch.randn(a.cols, generator=rng).to(device)
+    bias = torch.randn(a.rows, generator=rng).to(device)
+    on_card = device.type == "cuda"
+    declared = [s["rows_per_slab"] for s in
+                lilac.REGISTRY.get("spmv_ell", "cuda.ell").schedules]
+    variants = {}
+    for rows in (a.rows, min(a.rows, SMALL_ROWS)):
+        val, col, b = ell.val[:rows], ell.col[:rows], bias[:rows]
+        kw = dict(bias=b, epilogue="relu")
+        nnz = int(torch.diff(a.row_ptr.long())[ell.perm[:rows].long()].sum())
+        base = K.spmv_ell_cuda(val, col, vec, rows_per_slab=declared[0],
+                               **kw)
+        io = nbytes(vec, b) + rows * 4
+        for rs in SLAB_PROBE:
+            run = lambda: K.spmv_ell_cuda(val, col, vec, rows_per_slab=rs,
+                                          **kw)
+            v = variants[f"{rs} at {rows} rows"] = variant_numbers(
+                run, lambda: R.spmv_ell_plain(val, col, vec, **kw),
+                "spmv_ell_kernel", on_card, reps, nnz * 8 + io, 2 * nnz,
+                a.val.dtype, what=f"spmv_ell rows_per_slab={rs} at {rows}")
+            v["declared"] = rs in declared
+            v["equal_to_default"] = bool(torch.equal(run(), base))
+    trace = trace_numbers(ell_layer, (ell.val, ell.col, vec, bias),
+                          "cuda.ell", "spmv_ell", device, reps)
+    return {"variants": variants, "trace": trace}
+
+
+def check_variants(variants, what: str) -> None:
+    for k, v in variants.items():
+        require(v["equal_to_default"],
+                f"{what}={k} computes the default variant's bits")
+
+
+def moe_trace_path(cfg, p, x, device, reps: int = 10):
+    """The OLMoE expert FFN of one sequence in trace mode (K4 as the
+    custom op) against host mode and replayed in a CUDA graph; the same
+    under policy="autotune" in trace mode (cuda.gmm's tm swept beside the
+    other candidates); and K4 at every tm cuda.gmm declares against its
+    plain version, moe_ffn bit for bit across them."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.core.harness import REGISTRY
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ops as GO
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.models import layers as L
+
+    gate, idx, _ = L.moe_router(p, x[:1], cfg.moe_topk)
+    args = (x[0], gate[0], idx[0], p["wg"], p["wu"], p["wd"])
+    res = {"trace": trace_numbers(L._moe_naive_2d, args, "cuda.gmm",
+                                  "moe_ffn", device, reps)}
+    tuned = lilac.compile(L._moe_naive_2d, policy="autotune", device=device)
+    out = tuned(*args)
+    tuner = REGISTRY.autotuner
+    rec = tuner.cache.entries[tuner.last_decision.sig]["trace"]
+    winner = tuned.last_selections[0][1]
+    # the winner's own function, pinned by name at its default schedule
+    # (every tm computes the same bits)
+    pinned = lilac.compile(L._moe_naive_2d, policy=winner, device=device)
+    res["autotune"] = {"winner": winner,
+                       "schedule": tuned.last_schedules[0],
+                       "variant_s": rec["variant_s"],
+                       "amortized_s": rec["amortized_s"],
+                       "equal_to_pinned": bool(torch.equal(out,
+                                                           pinned(*args))),
+                       "finite": bool(torch.isfinite(out).all()),
+                       "rel_l2": rel_l2(out, GR.moe_ffn_ref(*args))}
+    on_card = device.type == "cuda"
+    T, K = idx.shape[1:]
+    E, D, F = p["wg"].shape
+    tiles = [s["tm"] for s in REGISTRY.get("moe_ffn", "cuda.gmm").schedules]
+    base = GO.moe_ffn(*args, tm=tiles[0])
+    variants = {}
+    for tm in tiles:
+        dest, te, tp = GO._route(idx[0], T, K, E, tm)
+        xs = torch.zeros((tp, D), dtype=x.dtype, device=device)
+        xs[dest] = x[0].repeat_interleave(K, dim=0)
+        nb = T * K * D * xs.element_size() + nbytes(p["wg"]) + T * K * F * 4
+        v = variants[tm] = variant_numbers(
+            lambda: G.gmm_cuda(xs, p["wg"], te, tm),
+            lambda: GR.gmm_ref(xs, p["wg"], te, tm), "gmm_tc_kernel",
+            on_card, reps, nb, 2 * T * K * D * F, x.dtype, GMM_ATOL,
+            GMM_RTOL, what=f"gmm tm={tm}")
+        v["tp"] = tp
+        v["equal_to_default"] = bool(torch.equal(
+            GO.moe_ffn(*args, tm=tm), base))
+        del xs
+    res["variants"] = variants
+    return res
+
+
+def check_moe_trace(res) -> None:
+    check_trace(res["trace"], "MoE")
+    a = res["autotune"]
+    require(sorted(a["variant_s"].get("cuda.gmm", {})) == sorted(
+        f"tm={v}" for v in res["variants"]),
+            f"trace autotune: every tm of cuda.gmm swept, got "
+            f"{a['variant_s']}")
+    require(a["winner"] == min(a["amortized_s"], key=a["amortized_s"].get),
+            f"trace autotune: the winner has the least cost, got "
+            f"{a['winner']} of {a['amortized_s']}")
+    require(a["finite"] and a["equal_to_pinned"],
+            f"trace autotune: a finite output equal to the winner "
+            f"{a['winner']}'s when it is named, got {a}")
+    require(a["rel_l2"] <= MOE_RTOL,
+            f"trace autotune: relative L2 error vs the f32 oracle within "
+            f"{MOE_RTOL}, got {a['rel_l2']:.3g} ({a['winner']})")
+    check_variants(res["variants"], "moe_ffn tm")
+
+
+def print_trace(res, what: str) -> None:
+    t = res
+    line = (f"trace {what}: {t['selections']} as {t['op_nodes']} custom-op "
+            f"node of {t['nodes']}; equal to host mode: "
+            f"{t['equal_to_host']}")
+    if "replay_ms" in t:
+        line += (f"; CUDA-graph replay equal: {t['replay_equal']}; a call "
+                 f"(device ms, host ms to enqueue): host mode "
+                 f"{t['host_call_ms'][0]:.4f}/{t['host_call_ms'][1]:.4f}, "
+                 f"trace mode {t['trace_call_ms'][0]:.4f}/"
+                 f"{t['trace_call_ms'][1]:.4f}, its graph module "
+                 f"{t['graph_ms'][0]:.4f}/{t['graph_ms'][1]:.4f}, replay "
+                 f"{t['replay_ms'][0]:.4f}/{t['replay_ms'][1]:.4f}")
+    print(line)
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
+
+
+def print_tune_variants(variants, what: str, tol: str) -> None:
+    for k, v in variants.items():
+        print(f"{what}={k}: max|err| {v['max_abs_err']:.3g} ({tol}), "
+              f"{_ms(v['ms'])} ms (host {_ms(v['host_ms'])} ms; profiler "
+              f"{_ms(v['profiler_ms'])} ms a launch), plain "
+              f"{_ms(v['plain_ms'])} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}); bits equal to the default: "
+              f"{v['equal_to_default']}"
+              + (f"; Tp {v['tp']}" if "tp" in v else "")
+              + ("" if v.get("declared", True) else " (not declared)"))
+
+
+# ---------------------------------------------------------------------------
 
 def sass_count(library: Path, opcode: str) -> int:
     """How many SASS instructions of ``opcode`` the library holds
@@ -1035,6 +1396,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--record", type=Path, default=None,
                     help="write a detailed JSON record to this path")
+    ap.add_argument("--warm-start", action="store_true",
+                    help=argparse.SUPPRESS)   # the autotune phase's 2nd run
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1050,6 +1413,9 @@ def main() -> int:
     # full-f32 products in the plain versions and the oracles
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.warm_start:
+        print(json.dumps(warm_start(args.seed, torch.device("cuda"))))
+        return 0
     t_start = time.perf_counter()
     smi = smi_line()
     print(f"card: {smi}")
@@ -1083,7 +1449,8 @@ def main() -> int:
 
     # -- SpMV on ELL (K1, K2) ------------------------------------------------
     res = main_path(mats, args.seed, device)
-    x_ref = res.pop("x_ref")["hpcg"]
+    x_refs = res.pop("x_ref")
+    x_ref = x_refs["hpcg"]
     for name in mats:
         r = res[name]
         print(f"SpMV path {name}: match {r['match']} via {r['selections']}, "
@@ -1122,6 +1489,44 @@ def main() -> int:
     print(f"npb in cuda.bcsr's packed 128x128 tiles: {t['tiles']} tiles, "
           f"{t['nnz']} entries, {t['bytes']} B (dense f32 tiles would take "
           f"{t['dense_tile_bytes']} B)")
+    release(device)
+
+    # -- K1's rows_per_slab variants, the ELL layer in trace mode ------------
+    slabs = slab_variants(mats["npb"][0], args.seed, device)
+    print_tune_variants(slabs["variants"], "spmv_ell rows_per_slab",
+                        f"tol atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
+    print_trace(slabs["trace"], "ELL layer (npb)")
+    check_variants(slabs["variants"], "spmv_ell rows_per_slab")
+    check_trace(slabs["trace"], "ELL layer")
+    record["slab_variants"] = slabs
+    release(device)
+
+    # -- host-mode autotune at NPB-C and HPCG, then a warm start ------------
+    store_dir = tempfile.mkdtemp(prefix="lilac-torch-")
+    store = Path(store_dir) / "autotune.json"
+    os.environ["LILAC_TORCH_AUTOTUNE_CACHE"] = str(store)
+    tuned = autotune_path(mats, x_refs, device)
+    for name, r in tuned.items():
+        for cand, c in r["candidates"].items():
+            print(f"autotune {name} {cand}: " + (
+                "raised, eliminated" if c is None else
+                f"steady {c['steady_s'] * 1e3:.4f} ms, repack "
+                f"{c['marshal_s']:.4f} s, amortized (reuse "
+                f"{r['record']['reuse']:g}) {c['amortized_s'] * 1e3:.4f} ms"))
+        print(f"autotune {name}: winner {r['winner']} after "
+              f"{r['tune_seconds']:.2f}s of tuning ({r['timing_calls']} "
+              f"timings); CG {CG_ITERS} it through it, "
+              f"{r['steady_call_ms']:.3f} ms a call, |x-x_naive|/|x_naive| = "
+              f"{r['rel_to_naive']:.3g}; launches {r['launches']}")
+    check_autotune_path(tuned)
+    warm = run_warm_start(args.seed, store)
+    print(f"autotune warm start (a second process, {warm['seconds']:.1f}s): "
+          f"{ {k: v for k, v in warm.items() if k in tuned} }, tuner "
+          f"{warm['stats']}")
+    check_warm_start(warm, tuned)
+    shutil.rmtree(store_dir)
+    record.update(autotune_path=tuned, warm_start=warm)
+    del x_refs
     a_hpcg, b_hpcg = mats.pop("hpcg")
     del mats
     release(device)
@@ -1202,6 +1607,17 @@ def main() -> int:
             print(f"gmm/{vname} witnesses, max|err| vs plain: {v['witness']}")
     kernels.append(kernel_entry(gmm, "gate_up", moe["launches"]))
     record["kernels"] += bsr + [gmm]
+    release(device)
+    moe_trace = moe_trace_path(OLMOE, p, x, device)
+    print_trace(moe_trace["trace"], f"MoE ({OLMOE.name}, one sequence)")
+    a = moe_trace["autotune"]
+    print(f"trace autotune MoE: winner {a['winner']} {a['schedule']}, "
+          f"seconds {a['variant_s']}, relative L2 error vs the f32 oracle "
+          f"{a['rel_l2']:.3g}")
+    print_tune_variants(moe_trace["variants"], "gmm gate_up tm",
+                        f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
+    check_moe_trace(moe_trace)
+    record["moe_trace"] = moe_trace
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,4 @@
-"""repro_torch.core — the LiLAC pass on FX graphs (host mode).
+"""repro_torch.core — the LiLAC pass on FX graphs (trace and host modes).
 
 Public API (prefer the ``repro_torch.lilac`` facade):
     compile                    the single LiLAC entry point
@@ -6,6 +6,7 @@ Public API (prefer the ``repro_torch.lilac`` facade):
     Detector                   backtracking FX-graph detection
     REGISTRY / Harness         LiLAC-How backends (populated from specs)
     DataPlane                  fingerprint-keyed marshaling cache
+    autotune                   persistent, signature-keyed harness tuning
     what_lang                  the LiLAC spec language (Fig. 3 + §3.3)
 """
 from repro_torch.core.detect import (DetectionReport, Detector, Match,
@@ -15,8 +16,10 @@ from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
 from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
                                       MarshalingCache,
-                                      SparseFormat, fingerprint)
+                                      MarshalPolicy, SparseFormat,
+                                      fingerprint)
 from repro_torch.core.pass_manager import LilacFunction, compile
+from repro_torch.core import autotune
 from repro_torch.core import spec
 from repro_torch.core import what_lang
 
@@ -28,8 +31,8 @@ __all__ = [
     "Detector", "DetectionReport", "Match", "default_detector",
     "REGISTRY", "CallCtx", "DuplicateHarnessError", "Harness",
     "HarnessRegistry",
-    "MarshalingCache", "DataPlane", "SparseFormat",
+    "MarshalingCache", "DataPlane", "MarshalPolicy", "SparseFormat",
     "ConversionEdge", "ConversionGraph", "FORMATS", "GRAPH", "SOURCES",
-    "fingerprint", "LilacFunction", "compile", "spec",
+    "fingerprint", "LilacFunction", "compile", "spec", "autotune",
     "what_lang",
 ]

@@ -29,6 +29,7 @@ Backends of this package:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,15 +46,27 @@ class DuplicateHarnessError(ValueError):
 
 @dataclasses.dataclass
 class CallCtx:
-    mode: str                      # 'host' (trace mode is a later slice)
-    cache: DataPlane               # the compiled function's data plane
-    format: str                    # match format: CSR/COO/ELL/JDS
+    mode: str                      # 'trace' | 'host'
+    cache: Optional[DataPlane]     # the compiled function's data plane;
+                                   # None: every call repacks
+    format: str                    # match format: CSR/COO/ELL/JDS/MOE
     platform: str = "cuda"
+    # Selected schedule variant: tune-param name -> value.  None (or {})
+    # means the harness's declared default schedule.  Set by the autotuner
+    # when it sweeps or pins a variant; the generated spec wrapper merges
+    # it over the defaults and passes the result to the kernel body as
+    # keyword arguments.
+    schedule: Optional[Dict[str, Any]] = None
     # Detected fused epilogue for this call site: 'relu' | 'silu' | 'none'
     # (bias only) | None.  Harnesses declaring ``fuse epilogue`` apply it
     # themselves (reading ``binding['bias']``); for all others the rewriter
     # applies it after the call.
     epilogue: Optional[str] = None
+    # Fusion decision for this call: None = the harness's declared default
+    # (fuse iff it declares ``fuse epilogue``); False pins the unfused
+    # realization of a fuse-capable harness (the epilogue applies after the
+    # call).  Swept as a variant dimension by the autotuner.
+    fuse: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -66,8 +79,28 @@ class Harness:
     formats: Tuple[str, ...] = ()                 # () = any
     # declared marshal clauses (what_lang.MarshalClause)
     marshal: Tuple[Any, ...] = ()
+    # declared schedule space (what_lang.TuneClause / Constraint): the
+    # autotuner sweeps the variants and pins (harness, schedule) pairs.
+    # Not in the registry fingerprint: a changed tune space is caught per
+    # record (a pinned schedule outside the family re-tunes).
+    tune: Tuple[Any, ...] = ()
+    constraints: Tuple[Any, ...] = ()
     # True when the body applies detected epilogues itself
     fuse_epilogue: bool = False
+    _schedules: Optional[Tuple[Dict[str, Any], ...]] = None
+
+    @property
+    def schedules(self) -> Tuple[Dict[str, Any], ...]:
+        """Every constraint-satisfying assignment of the declared tune
+        params, default first; empty for an untuned harness."""
+        if self._schedules is None:
+            from repro_torch.core.what_lang import enumerate_schedules
+            self._schedules = enumerate_schedules(self.tune, self.constraints)
+        return self._schedules
+
+    @property
+    def default_schedule(self) -> Dict[str, Any]:
+        return {t.name: t.values[0] for t in self.tune}
 
     def __call__(self, binding: Binding, ctx: CallCtx):
         return self.fn(binding, ctx)
@@ -77,6 +110,8 @@ class HarnessRegistry:
     def __init__(self):
         self._by_comp: Dict[str, List[Harness]] = {}
         self._defaults: Dict[Tuple[str, str], str] = {}  # (comp, platform) -> name
+        self._autotuner = None
+        self._fp: Optional[str] = None
 
     def register(self, h: Harness, default_for: Tuple[str, ...] = (),
                  override: bool = False):
@@ -96,7 +131,36 @@ class HarnessRegistry:
             hs.append(h)
         for plat in default_for:
             self._defaults[(h.implements, plat)] = h.name
+        self._autotuner = None        # harness set changed: new fingerprint
+        self._fp = None
         return h
+
+    def fingerprint(self) -> str:
+        """Stable hash of the registered harness set: persisted tunings
+        are dropped whenever it changes.  Memoized until the next
+        ``register``."""
+        if self._fp is None:
+            items = sorted(
+                (h.implements, h.name, h.platforms, h.formats, h.jit_safe)
+                for hs in self._by_comp.values() for h in hs)
+            self._fp = hashlib.blake2b(repr(items).encode(),
+                                       digest_size=8).hexdigest()
+        return self._fp
+
+    @property
+    def autotuner(self):
+        """The registry's :class:`~repro_torch.core.autotune.Autotuner`,
+        made anew when the fingerprint moves."""
+        from repro_torch.core.autotune import Autotuner
+
+        fp = self.fingerprint()
+        if self._autotuner is None \
+                or self._autotuner.registry_fingerprint != fp:
+            self._autotuner = Autotuner(registry_fingerprint=fp)
+        return self._autotuner
+
+    def reset_autotuner(self):
+        self._autotuner = None
 
     def default_name(self, comp: str, platform: str) -> Optional[str]:
         return self._defaults.get((comp, platform))
@@ -124,15 +188,35 @@ class HarnessRegistry:
         return out
 
     def select(self, comp: str, fmt: str, platform: str, mode: str,
-               policy: str = "default") -> Harness:
+               policy: str = "default",
+               binding: Optional[Binding] = None,
+               ctx: Optional[CallCtx] = None) -> Harness:
         """The platform default (else the first candidate) under
-        ``policy='default'``; the named harness under an explicit name."""
+        ``policy='default'``; the persistent tuner's winner for this call
+        signature under ``'autotune'`` (the default when it cannot measure);
+        the named harness under an explicit name.  In trace mode a named
+        ``host_only`` harness raises: it would marshal inside a captured
+        graph."""
         cands = self.candidates(comp, fmt, platform, mode)
         if not cands:
             raise KeyError(f"no harness for {comp}/{fmt} on {platform} ({mode})")
-        if policy != "default":
-            return self.get(comp, policy)  # explicit pin by name
+        if policy not in ("default", "autotune"):
+            h = self.get(comp, policy)  # explicit pin by name
+            if mode == "trace" and not h.jit_safe:
+                raise ValueError(
+                    f"harness {h.name!r} is host_only: it marshals on every "
+                    f"call, which a traced graph cannot do; compile with "
+                    f"mode='host' to use it")
+            return h
         dname = self._defaults.get((comp, platform))
+        if policy == "autotune" and binding is not None:
+            if ctx is None:
+                ctx = CallCtx(mode=mode, cache=DataPlane(), format=fmt,
+                              platform=platform)
+            h = self.autotuner.select(comp, fmt, platform, mode, cands,
+                                      binding, ctx, default_name=dname)
+            if h is not None:
+                return h
         for h in cands:
             if h.name == dname:
                 return h

@@ -17,7 +17,10 @@ matrix change?" is answered with content fingerprints at the harness call.
 * ``MarshalingCache`` — memoizes derived values keyed on the fingerprints
   of their source arrays, least recently used out first.
 * ``DataPlane`` — ``ensure(src, dst, ...)`` walks the conversion graph, so
-  harnesses targeting one format share one cached buffer.
+  harnesses targeting one format share one cached buffer;
+  ``estimate_marshal_seconds`` is what the autotuner amortizes.
+* ``MarshalPolicy`` — the data plane's knobs: the declared call frequency
+  ``reuse``, the capacity ``max_entries``, and ``enabled``.
 
 Constructors hand back tensors on the device of their input, so a marshaled
 format built from CUDA operands stays on the card between calls.
@@ -126,19 +129,29 @@ class ConversionEdge:
     name: str
     est_cost: float = 1.0
     measured: Optional[float] = None
+    last: Optional[float] = None   # seconds of the most recent run
     runs: int = 0
 
     def cost(self) -> float:
         return self.measured if self.measured is not None else self.est_cost
 
     def run(self, value) -> Tuple[Any, float]:
-        t0 = time.perf_counter()
-        out = self.fn(value)
-        dt = time.perf_counter() - t0
+        out, dt = _timed(lambda: self.fn(value))
         self.measured = dt if self.measured is None \
             else 0.7 * self.measured + 0.3 * dt
+        self.last = dt
         self.runs += 1
         return out, dt
+
+
+def _timed(thunk: Callable[[], Any]) -> Tuple[Any, float]:
+    """``thunk()`` and its seconds, to the end of the device work it queued
+    (a repack on the card runs asynchronously)."""
+    t0 = time.perf_counter()
+    out = thunk()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 class ConversionGraph:
@@ -233,16 +246,16 @@ class SourceLoader:
     fmt: str
     fn: Callable[[Dict[str, Any]], Any]
     measured: Optional[float] = None
+    last: Optional[float] = None
 
     def cost(self) -> float:
         return self.measured if self.measured is not None else 0.1
 
     def run(self, binding) -> Tuple[Any, float]:
-        t0 = time.perf_counter()
-        out = self.fn(binding)
-        dt = time.perf_counter() - t0
+        out, dt = _timed(lambda: self.fn(binding))
         self.measured = dt if self.measured is None \
             else 0.7 * self.measured + 0.3 * dt
+        self.last = dt
         return out, dt
 
 
@@ -261,8 +274,40 @@ def register_source(name: str, fmt: str, fn: Callable, override: bool = False
 
 
 # ---------------------------------------------------------------------------
-# Stats
+# Policy and stats
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MarshalPolicy:
+    """Knobs for the data plane (``compile(..., marshal_policy=)``).
+
+    ``reuse``        declared call frequency: expected harness calls per
+                     matrix change.  The autotuner folds repack cost in at
+                     this rate (amortized cost = kernel + marshal / reuse).
+    ``max_entries``  data-plane capacity; least recently used out first.
+    ``enabled``      False: no data plane, every call repacks (the paper's
+                     "naive library call").
+    """
+    reuse: float = 100.0
+    max_entries: int = 64
+    enabled: bool = True
+
+    @staticmethod
+    def parse(val) -> "MarshalPolicy":
+        if val is None:
+            return MarshalPolicy()
+        if isinstance(val, MarshalPolicy):
+            return val
+        if isinstance(val, str):
+            if val in ("shared", "default", "on"):
+                return MarshalPolicy()
+            if val in ("off", "none", "disabled"):
+                return MarshalPolicy(enabled=False)
+            raise ValueError(f"unknown marshal_policy {val!r} (use 'shared' "
+                             f"| 'off' or a MarshalPolicy instance)")
+        raise TypeError(f"marshal_policy must be str or MarshalPolicy, got "
+                        f"{type(val).__name__}")
+
 
 @dataclasses.dataclass
 class CacheStats:
@@ -296,13 +341,13 @@ class PlanStats:
 
 class MarshalingCache:
     """Memoizes marshaled INPUTs (paper Fig. 8/9/10), at most
-    ``MAX_ENTRIES`` of them: the least recently used goes first."""
+    ``max_entries`` of them: the least recently used goes first."""
 
-    MAX_ENTRIES = 64
-
-    def __init__(self):
+    def __init__(self, max_entries: int = 64):
+        self.max_entries = max_entries
         self._store: "OrderedDict[Tuple, Any]" = OrderedDict()
         self._cost: Dict[Tuple, float] = {}
+        self._spec_cost: Dict[str, float] = {}   # repack -> last seconds
         self.stats = CacheStats()
 
     def _key(self, spec_name: str, key_arrays: Sequence) -> Tuple:
@@ -318,7 +363,7 @@ class MarshalingCache:
         self._store[key] = val
         self._store.move_to_end(key)
         self._cost[key] = cost
-        while len(self._store) > self.MAX_ENTRIES:
+        while len(self._store) > self.max_entries:
             victim, _ = self._store.popitem(last=False)
             self._cost.pop(victim, None)
             self.stats.evictions += 1
@@ -332,14 +377,29 @@ class MarshalingCache:
             self._hit(key, key_arrays)
             return val
         self.stats.misses += 1
-        t0 = time.perf_counter()
-        val = compute()
-        self._insert(key, val, time.perf_counter() - t0)
+        val, cost = _timed(compute)
+        self._spec_cost[spec_name] = cost
+        self._insert(key, val, cost)
         return val
+
+    def keys(self) -> set:
+        """The keys of the entries held now."""
+        return set(self._store)
+
+    def evict(self, keys) -> None:
+        """Drop the entries under ``keys`` (absent keys are ignored)."""
+        for k in keys:
+            self._store.pop(k, None)
+            self._cost.pop(k, None)
 
     def clear(self):
         self._store.clear()
         self._cost.clear()
+
+
+def _seconds(step) -> float:
+    """A loader's or an edge's most recent seconds, else its estimate."""
+    return step.last if step.last is not None else step.cost()
 
 
 class DataPlane(MarshalingCache):
@@ -354,8 +414,10 @@ class DataPlane(MarshalingCache):
     as ONE hit or miss in ``stats``.
     """
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, policy: Optional[MarshalPolicy] = None):
+        policy = policy or MarshalPolicy()
+        super().__init__(max_entries=policy.max_entries)
+        self.policy = policy
         self.plans: Dict[Tuple[str, str], PlanStats] = {}
 
     def _node_key(self, src: str, fmt: str, fps: Tuple) -> Tuple:
@@ -410,9 +472,7 @@ class DataPlane(MarshalingCache):
             if fallback is None:
                 raise KeyError(f"no conversion path {src}({loader.fmt})"
                                f"->{dst} and no fallback repack")
-            t0 = time.perf_counter()
-            val = fallback()
-            cost = time.perf_counter() - t0
+            val, cost = _timed(fallback)
             ps.build_seconds += cost
             ps.last_path = (f"{src}!fallback", dst)
             self._insert(key, val, cost)
@@ -439,6 +499,30 @@ class DataPlane(MarshalingCache):
         ps.build_seconds += paid
         ps.last_path = (start_fmt,) + tuple(e.dst for e in path)
         return val
+
+    def estimate_marshal_seconds(self, clauses: Sequence[Any]) -> float:
+        """Repack seconds of a harness's marshal clauses from the binding,
+        sharing-independent: the loader plus the edges of the cheapest full
+        conversion path, each at the seconds of its most recent run (the
+        autotuner asks right after a warm-up call ran them for this
+        matrix); a clause without a path, or without formats, counts its
+        repack's last seconds."""
+        total = 0.0
+        for cl in clauses:
+            src, dst = getattr(cl, "src", None), getattr(cl, "dst", None)
+            loader = SOURCES.get(src)
+            if loader is not None and dst in FORMATS:
+                plan = GRAPH.plan({loader.fmt: loader.cost()}, dst)
+                if plan is not None:
+                    total += _seconds(loader) + sum(_seconds(e)
+                                                    for e in plan[1])
+                    continue
+                ps = self.plans.get((src, dst))
+                if ps is not None and ps.misses:
+                    total += ps.build_seconds / ps.misses
+                    continue
+            total += self._spec_cost.get(cl.repack, 0.0)
+        return total
 
     def plan_stats(self) -> Dict[str, Dict[str, Any]]:
         """Per-plan accounting: '{src}->{dst}' -> stats."""

@@ -2,25 +2,52 @@
 
 Counterpart of ``repro.core.rewrite``.  The paper inserts a harness call
 before the matched loop nest, removes the result store, and lets DCE sweep
-the rest.  Here the rewritten program is an interpretation of the traced
-graph: every operator is run except the matched anchors, whose values come
-from the selected harness, and the operators that only fed them.
+the rest.  Two realizations, one per mode:
+
+* host mode (``run_rewritten``) interprets the traced graph: every operator
+  is run except the matched anchors, whose values come from the selected
+  harness, and the operators that only fed them;
+* trace mode (``rewrite_graph``) builds a new ``GraphModule`` from that
+  same interpretation, traced once on the graph's fake tensors — the
+  counterpart of evaluating the rewritten jaxpr under ``jax.jit``.  A
+  jit-safe CUDA harness appears in it as one node of its custom op
+  (``torch.ops.lilac_torch.*``), a plain-torch harness as its aten ops.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.fx import GraphModule, Node
 from torch.fx.node import map_arg
 
-from repro_torch.core.detect import Match
+from repro_torch.core.detect import Match, normalize_graph
 from repro_torch.core.harness import CallCtx, Harness
 from repro_torch.kernels.common import apply_epilogue_inregister
 
 #: The detected epilogue applied outside the harness — the unfused
 #: realization, and the semantics the fused kernels must reproduce.
 apply_epilogue = apply_epilogue_inregister
+
+#: select(match, binding, ctx) -> Harness; it may set ctx.schedule/fuse
+Select = Callable[[Match, Dict[str, Any], CallCtx], Harness]
+
+
+def effective_fuse(harness, ctx) -> bool:
+    """Whether this call applies the detected epilogue in the kernel: the
+    harness must be fuse-capable (``fuse epilogue``), and then ``ctx.fuse``
+    overrides its declared default, so fusion is a measured decision."""
+    if not harness.fuse_epilogue:
+        return False
+    return True if ctx.fuse is None else bool(ctx.fuse)
+
+
+def fused_bias(binding: Dict[str, Any], ctx: CallCtx):
+    """The detected bias for a fuse-capable body to apply: None when the
+    call's epilogue is applied after it (the unfused realization hides
+    ``ctx.epilogue``), so the bias is added once."""
+    return binding.get("bias") if ctx.epilogue is not None else None
 
 
 def needed_nodes(gm: GraphModule, matches: List[Match]) -> frozenset:
@@ -45,13 +72,14 @@ def needed_nodes(gm: GraphModule, matches: List[Match]) -> frozenset:
 
 def run_rewritten(gm: GraphModule,
                   matches: List[Match],
-                  select: Callable[[Match], Harness],
+                  select: Select,
                   args: List[Any],
                   ctx_factory: Callable[[Match], CallCtx],
-                  on_select: Optional[Callable[[Match, Harness], None]] = None,
+                  on_select: Optional[Callable[[Match, Harness, CallCtx],
+                                               None]] = None,
                   needed: Optional[frozenset] = None) -> List[Any]:
     """Evaluate ``gm`` on ``args`` with matched anchors replaced by harness
-    calls.  ``on_select`` observes every (match, chosen harness) pair;
+    calls.  ``on_select`` observes every (match, harness, ctx) triple;
     ``needed`` is a precomputed :func:`needed_nodes` for these matches."""
     env: Dict[Node, Any] = {}
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
@@ -78,17 +106,33 @@ def run_rewritten(gm: GraphModule,
     raise ValueError("graph has no output node")
 
 
+def _binding(m: Match, lookup) -> Dict[str, Any]:
+    return {k: (lookup(v) if isinstance(v, Node) else v)
+            for k, v in m.binding.items()}
+
+
 def _eval_anchor(m: Match, env, select, ctx_factory, on_select):
-    binding = {k: (env[v] if isinstance(v, Node) else v)
-               for k, v in m.binding.items()}
+    binding = _binding(m, env.__getitem__)
     ctx = ctx_factory(m)
-    h = select(m)
+    h = select(m, binding, ctx)
     if on_select is not None:
-        on_select(m, h)
+        on_select(m, h, ctx)
+    return _coerce(call_harness(h, binding, ctx, m.epilogue), m.anchor)
+
+
+def call_harness(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
+                 epilogue: Optional[str]):
+    """One harness call with the detected ``epilogue`` realized as the
+    call's fusion decision says: in the kernel, or after the call."""
+    fused = effective_fuse(h, ctx)
+    if epilogue is not None and not fused and h.fuse_epilogue \
+            and ctx.epilogue is not None:
+        # a fuse-capable harness pinned unfused: the body must not see it
+        ctx = dataclasses.replace(ctx, epilogue=None)
     out = h(binding, ctx)
-    if m.epilogue is not None and not h.fuse_epilogue:
-        out = apply_epilogue(out, binding.get("bias"), m.epilogue)
-    return _coerce(out, m.anchor)
+    if epilogue is not None and not fused:
+        out = apply_epilogue(out, binding.get("bias"), epilogue)
+    return out
 
 
 def _coerce(val: torch.Tensor, node: Node) -> torch.Tensor:
@@ -99,3 +143,52 @@ def _coerce(val: torch.Tensor, node: Node) -> torch.Tensor:
     if tuple(val.shape) != tuple(like.shape):
         val = val.reshape(like.shape)
     return val
+
+
+def rewrite_graph(gm: GraphModule,
+                  matches: List[Match],
+                  select: Select,
+                  ctx_factory: Callable[[Match], CallCtx],
+                  on_select: Optional[Callable[[Match, Harness, CallCtx],
+                                               None]] = None,
+                  needed: Optional[frozenset] = None) -> GraphModule:
+    """Trace mode: the rewritten program as a new ``GraphModule`` with the
+    traced graph's placeholders and outputs.
+
+    Every match selects once, here, on the traced (fake) values of its
+    binding — the autotuner, under ``policy='autotune'``, measures then —
+    and the choice is pinned into the graph: each anchor becomes the
+    selected harness traced in place (one custom-op node for a jit-safe
+    CUDA harness), an unfused epilogue aten nodes after it, and operators
+    that only fed an anchor are gone.  A harness that is not jit-safe
+    raises: it would marshal inside the graph.
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.func import functionalize
+
+    if not matches:
+        return gm               # nothing to replace: the traced graph
+    chosen: Dict[Node, tuple] = {}
+    for m in matches:
+        binding = _binding(m, lambda v: v.meta["val"])
+        ctx = ctx_factory(m)
+        h = select(m, binding, ctx)
+        if not h.jit_safe:
+            raise ValueError(
+                f"harness {h.name!r} is host_only and cannot be traced into "
+                f"a graph; compile with mode='host' to use it")
+        if on_select is not None:
+            on_select(m, h, ctx)
+        chosen[m.anchor] = (h, ctx)
+
+    def pinned(m, binding, ctx):
+        return chosen[m.anchor][0]
+
+    def interpret(*args):
+        return run_rewritten(gm, matches, pinned, list(args),
+                             lambda m: chosen[m.anchor][1], needed=needed)
+
+    fakes = [n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
+    out = make_fx(functionalize(interpret, remove="mutations_and_views"),
+                  tracing_mode="fake", _allow_non_fake_inputs=True)(*fakes)
+    return normalize_graph(out)

@@ -13,10 +13,13 @@ HARNESS block and a kernel body; this module does the rest:
 * ``register_builtins`` populates the registry from the builtin spec
   texts plus the HARNESS blocks next to the CUDA kernels.
 
-Not ported yet: persistence hooks (BeforeFirstExecution /
-AfterLastExecution / persistent), ``vjp`` backward bodies and ``tune``
-schedule spaces (there is no autotuner); a HARNESS block that declares one
-is refused.
+``tune`` and ``constraint`` clauses declare a harness's schedule space:
+the constraint-filtered variants, default first, are enumerated when the
+harness registers, and the selected variant reaches the kernel body as
+keyword arguments.  Not ported yet: persistence hooks
+(BeforeFirstExecution / AfterLastExecution / persistent) and ``vjp``
+backward bodies, which come with the plan layer and with training; a
+HARNESS block that declares one is refused.
 """
 from __future__ import annotations
 
@@ -62,23 +65,49 @@ def _resolve_key(binding: H.Binding, alternatives) -> Any:
 
 def _marshaled_fn(decl: W.HarnessDecl, body: Callable) -> Callable:
     """Generate the execution wrapper for a HARNESS descriptor: marshaled
-    inputs arrive at the kernel body as keyword arguments.  A clause with
-    ``from <src> to <dst>`` goes through the data plane's conversion graph,
-    with the clause's repack as the fallback."""
+    inputs and the tuned schedule arrive at the kernel body as keyword
+    arguments.
+
+    *Marshal clauses*: a clause with ``from <src> to <dst>`` goes through
+    the data plane's conversion graph, with the clause's repack as the
+    fallback; without a data plane (``marshal_policy='off'``) every call
+    repacks.
+
+    *Tune clauses*: the body receives every declared tune param: the
+    default schedule (first declared values) overlaid with
+    ``ctx.schedule``, which is how the autotuner's winner reaches the
+    kernel.  An unknown schedule key raises: a pinned variant must never
+    silently do nothing."""
     clauses = decl.marshal
+    default_schedule = decl.default_schedule()
+    tune_names = frozenset(default_schedule)
 
     def fn(binding: H.Binding, ctx: H.CallCtx):
         marshaled = {}
+        cache = ctx.cache
         for cl in clauses:
             pack = REPACKS[cl.repack]
             keys = tuple(_resolve_key(binding, alts) for alts in cl.keys)
-            if cl.src and cl.dst:
-                marshaled[cl.name] = ctx.cache.ensure(
+            if cache is None:
+                marshaled[cl.name] = pack(binding)
+            elif cl.src and cl.dst:
+                marshaled[cl.name] = cache.ensure(
                     cl.src, cl.dst, keys, binding,
                     fallback=lambda p=pack: p(binding))
             else:
-                marshaled[cl.name] = ctx.cache.get(
+                marshaled[cl.name] = cache.get(
                     cl.repack, keys, lambda p=pack: p(binding))
+        if tune_names:
+            sched = dict(default_schedule)
+            if ctx.schedule:
+                unknown = set(ctx.schedule) - tune_names
+                if unknown:
+                    raise SpecError(
+                        f"harness {decl.name!r}: schedule has unknown "
+                        f"param(s) {sorted(unknown)} "
+                        f"(declared: {sorted(tune_names)})")
+                sched.update(ctx.schedule)
+            marshaled.update(sched)
         return body(binding, ctx, **marshaled)
 
     fn.__name__ = getattr(body, "__name__", decl.name)
@@ -95,14 +124,27 @@ def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
     if decl.vjp is not None:
         raise SpecError(f"harness {decl.name!r}: vjp clauses are not "
                         f"supported by this package yet")
-    if decl.tune or decl.constraints:
-        raise SpecError(f"harness {decl.name!r}: tune clauses are not "
-                        f"supported by this package yet (no autotuner)")
-    fn = _marshaled_fn(decl, body) if decl.marshal else body
+    # Enumerate the schedule family now: a tune/constraint mistake (a
+    # constraint that cannot be evaluated, or one that prunes the default
+    # schedule) fails at registration, not mid-sweep inside the autotuner.
+    schedules = ()
+    if decl.tune:
+        try:
+            schedules = W.enumerate_schedules(decl.tune, decl.constraints)
+        except W.ParseError as e:
+            raise SpecError(f"harness {decl.name!r}: {e}")
+        if not schedules or schedules[0] != decl.default_schedule():
+            raise SpecError(
+                f"harness {decl.name!r}: the default schedule (first "
+                f"declared values) violates a constraint")
+    fn = _marshaled_fn(decl, body) if (decl.marshal or decl.tune) else body
     return [
         H.Harness(decl.name, comp, fn, jit_safe=decl.jit_safe,
                   platforms=decl.platforms, formats=decl.formats,
-                  marshal=decl.marshal, fuse_epilogue=decl.fuse_epilogue)
+                  marshal=decl.marshal, tune=decl.tune,
+                  constraints=decl.constraints,
+                  fuse_epilogue=decl.fuse_epilogue,
+                  _schedules=schedules or None)
         for comp in decl.implements
     ]
 

@@ -9,13 +9,16 @@ CSR's entries, with no dense tile.  As ``default_for cuda`` the SpMM block
 repacks any matrix this way, as the reference tiles any matrix on the TPU;
 at NAS CG class C's 36 M entries that is ~1.37 M tiles in ~0.61 GB (the
 tiles' row starts weigh more than their ~26 entries each).  The
-reference's ``tune``, ``constraint`` and ``vjp`` clauses
-are left out until the port has an autotuner and a backward pass.
+reference's ``tune`` and ``constraint`` clauses sweep its VMEM tile
+widths and Mosaic's ``dimsem``; the CUDA kernel's wrapper takes no launch
+parameter, so these blocks declare no ``tune`` clause (the autotuner
+still chooses between harnesses).  ``vjp`` waits for a backward pass.
 ``fuse epilogue``: the kernel applies a detected ``(+bias) -> relu|silu``
 before its single store.
 """
 from __future__ import annotations
 
+from repro_torch.core.rewrite import fused_bias
 from repro_torch.core.spec import harness
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 
@@ -34,7 +37,7 @@ def spmv_bcsr_cuda_host(b, ctx, *, bcsr):
     N = 1 width masks the other columns, where the reference tiles the
     vector to 128 columns.  The SpMV output is (rows,), so only a bias of
     that length rides the kernel as a row bias."""
-    bias = b.get("bias")
+    bias = fused_bias(b, ctx)
     kind = "row" if bias is not None and bias.dim() == 1 \
         and bias.shape[0] == b["rows"] else None
     out = bsr_ops.bsr_spmm(bcsr, b["iv"][:, None], epilogue=ctx.epilogue,
@@ -55,7 +58,7 @@ def spmm_bcsr_cuda_host(b, ctx, *, bcsr):
     """The detected bias adds to the (rows, N) product by broadcasting, so
     a bias of shape (N,) is a column bias and one of (rows, 1) a row bias,
     whatever rows and N are."""
-    bias = b.get("bias")
+    bias = fused_bias(b, ctx)
     kind = None
     if bias is not None and tuple(bias.shape) == (b["dense"].shape[1],):
         kind = "col"

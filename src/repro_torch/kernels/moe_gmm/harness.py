@@ -1,21 +1,29 @@
 """LiLAC HARNESS declaration for the CUDA grouped-matmul MoE kernel.
 
 Counterpart of ``repro.kernels.moe_gmm.harness`` (the ``pallas.gmm``
-block), declared for ``cuda``.  The reference's ``tune``, ``constraint``
-and ``vjp`` clauses are left out until the port has an autotuner and a
-backward pass: the kernel runs at tm = 128, and its CTA covers 128 x 128
-outputs.
+block), declared for ``cuda``.  The body is the custom op
+``lilac_torch::moe_ffn`` (jit-safe: trace mode puts it in the rewritten
+graph).
+
+``tune tm``: the row tile, which is the group alignment (128, the first
+value, was the constant before).  K4's CTA covers 128 x 128 outputs
+whatever tm is (tm = 64 leaves half its rows unused, tm = 256 spans two
+CTAs), so tm moves the padding and the tile-expert map, not a row's sum:
+every variant computes the same bits, and no shared-memory constraint
+depends on it.  The reference's ``fn``/``dk``/``dimsem`` clauses are its
+VMEM tiles and Mosaic's; ``vjp`` waits for a backward pass.
 """
 from __future__ import annotations
 
 from repro_torch.core.spec import harness
-from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ops import moe_ffn_op
 
 
 @harness("""
 HARNESS cuda.gmm implements moe_ffn
   default_for cuda;
+  tune tm in {128, 64, 256};
 """)
-def moe_gmm_cuda(b, ctx):
-    return gmm_ops.moe_ffn(b["x"], b["gate"], b["idx"], b["wg"], b["wu"],
-                           b["wd"])
+def moe_gmm_cuda(b, ctx, *, tm):
+    return moe_ffn_op(b["x"], b["gate"], b["idx"], b["wg"], b["wu"],
+                      b["wd"], tm)

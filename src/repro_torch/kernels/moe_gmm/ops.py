@@ -4,7 +4,14 @@ expert FFN.
 Counterpart of ``repro.kernels.moe_gmm.ops``.  ``moe_ffn`` is exact with
 respect to the naive dense-dispatch oracle (no capacity drops) while
 doing ~E/K times less matmul work.  The gated combine stays plain torch
-(``index_add_``), as the reference leaves it to XLA.
+(a sum over each token's K pairs), as the reference leaves it to XLA.
+
+``lilac_torch::moe_ffn`` is ``moe_ffn`` as a ``torch.library`` custom op
+(with a fake kernel that gives its output's shape and dtype), the form in
+which the ``cuda.gmm`` harness appears in a trace-mode graph: its shapes
+are static (``Tp`` is the worst case), it mutates no input and it needs
+no host sync, so ``make_fx``, ``torch.compile`` and CUDA-graph capture
+pass through it.
 """
 from __future__ import annotations
 
@@ -34,7 +41,10 @@ def _route(idx: torch.Tensor, T: int, K: int, E: int, tm: int
     TK = T * K
     Tp = int(math.ceil(TK / tm) * tm + (E - 1) * tm)
     flat_e = idx.reshape(-1).long()
-    counts = torch.bincount(flat_e, minlength=E)
+    # a scatter, not torch.bincount, which reads the largest id back to
+    # the host: the op must not sync (CUDA-graph capture)
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
     aligned = (counts + tm - 1) // tm * tm
     ends = torch.cumsum(aligned, 0)
     group_start = ends - aligned
@@ -71,8 +81,23 @@ def moe_ffn(x: torch.Tensor,      # (T, D)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
     y = gmm_cuda(h, wd, tile_expert, tm=tm)   # (Tp, D)
     contrib = y[dest] * gate.reshape(-1).float()[:, None]
-    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    return out.index_add_(0, flat_t, contrib).to(x.dtype)
+    # a token's K pairs are consecutive rows: sum them in a fixed order (an
+    # index_add_ on the card adds them atomically in whatever order the
+    # threads land, and a call would not repeat its own bits)
+    return contrib.reshape(T, K, D).sum(dim=1).to(x.dtype)
+
+
+@torch.library.custom_op("lilac_torch::moe_ffn", mutates_args=())
+def moe_ffn_op(x: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
+               wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+               tm: int) -> torch.Tensor:
+    """:func:`moe_ffn` as a custom op: (T, D) in ``x.dtype``."""
+    return moe_ffn(x, gate, idx, wg, wu, wd, tm=tm)
+
+
+@moe_ffn_op.register_fake
+def _moe_ffn_fake(x, gate, idx, wg, wu, wd, tm):
+    return torch.empty_like(x)
 
 
 def moe_ffn_oracle(x, gate, idx, wg, wu, wd):

@@ -7,17 +7,27 @@ kernel body: marshaling for the CSR/COO entry point is generated from the
 layout of the matrix's lane-128 ELL (``ops.pack_ell128``).  The two
 blocks run different K1 bodies: the direct ELL/JDS block gets the user's
 arrays on every call and cannot amortise a repack, so it runs the direct
-one-warp-a-row body on them; the CSR/COO block runs K1's staged body (the
-vector in shared memory, window by window) on the marshaled layout, or K2
-for a vector past ``RESIDENT_VEC_LIMIT``.  The reference's ``tune``
-clauses are left out until the port has an autotuner.  ``fuse
-epilogue``: the kernels apply a detected ``(+bias) -> relu|silu`` before
-their single store — for the CSR/COO entry too, since the marshaled row
-permutation is a full permutation and the kernel's store un-permutes it.
+one-warp-a-row body on them, through the custom op
+``lilac_torch::spmv_ell`` (jit-safe: trace mode puts it in the rewritten
+graph); the CSR/COO block runs K1's staged body (the vector in shared
+memory, window by window) on the marshaled layout, or K2 for a vector
+past ``RESIDENT_VEC_LIMIT`` (host only).  ``fuse epilogue``: the kernels
+apply a detected ``(+bias) -> relu|silu`` before their single store — for
+the CSR/COO entry too, since the marshaled row permutation is a full
+permutation and the kernel's store un-permutes it.
+
+``tune rows_per_slab``: the rows a CTA of K1's direct body covers, its
+warps taking them in turn (32, the first value, was the constant before);
+each row is still summed by one warp, so every variant computes the same
+bits.  8 gives a matrix of few rows four times the CTAs; larger slabs
+only give fewer CTAs, and are not declared (``chip_smoke.py`` times
+them).  The staged body and K2 take no launch parameter, so the CSR/COO
+block declares none: the autotuner chooses between harnesses there.  The
+reference's ``dimsem`` clauses are Mosaic's and have no counterpart.
 """
 from __future__ import annotations
 
-from repro_torch.core.rewrite import apply_epilogue
+from repro_torch.core.rewrite import apply_epilogue, fused_bias
 from repro_torch.core.spec import harness
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 
@@ -27,19 +37,23 @@ HARNESS cuda.ell implements spmv_ell, spmv_jds
   formats ELL, JDS;
   default_for cuda;
   fuse epilogue;
+  tune rows_per_slab in {32, 8};
 """)
-def spmv_ell_cuda(b, ctx):
+def spmv_ell_cuda(b, ctx, *, rows_per_slab):
     """Direct ELL/JDS match -> K1's direct body on the user's arrays."""
+    op = ell_ops.spmv_ell_op
     perm = b.get("perm")
-    bias = b.get("bias")
-    if perm is None:
+    bias = fused_bias(b, ctx)
+    if perm is None and ell_ops._fusable(bias, b["val"].shape[0]):
         # pure ELL: the epilogue fuses before the kernel's only store
-        return ell_ops.spmv_ell(b["val"], b["col_ind"], b["vector"],
-                                epilogue=ctx.epilogue, bias=bias)
+        return op(b["val"], b["col_ind"], b["vector"], bias, None, None,
+                  ctx.epilogue, rows_per_slab)
     # JDS: a user's perm need not name every row, and the detected bias
-    # lives in output space, so the epilogue applies after the scatter
-    out = ell_ops.spmv_ell(b["val"], b["col_ind"], b["vector"],
-                           perm=perm.int(), out_rows=b["rows"])
+    # lives in output space, so the epilogue applies after the scatter (as
+    # it does for a bias the kernel cannot index per row)
+    out = op(b["val"], b["col_ind"], b["vector"], None,
+             None if perm is None else perm.int(),
+             None if perm is None else b["rows"], None, rows_per_slab)
     if ctx.epilogue is not None:
         out = apply_epilogue(out, bias, ctx.epilogue)
     return out
@@ -58,4 +72,4 @@ def spmv_ell_cuda_host(b, ctx, *, ell):
     """CSR/COO match -> the marshaled layout (kept on the card) -> K1's
     staged body, or K2 for a long vector."""
     return ell_ops.spmv_ell_packed(ell, b["iv"], epilogue=ctx.epilogue,
-                                   bias=b.get("bias"))
+                                   bias=fused_bias(b, ctx))

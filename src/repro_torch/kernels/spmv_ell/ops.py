@@ -12,6 +12,12 @@ column-window layout: within the limit at a window that fits shared memory
 (``staged_window``), run by K1's staged body; beyond it at 65,536 columns,
 run by K2.  The kernels mask the ragged last slab themselves, so row
 padding sets the launch grid and copies nothing.
+
+``lilac_torch::spmv_ell`` is ``spmv_ell`` as a ``torch.library`` custom op
+(with a fake kernel that gives its output's shape and dtype), the form in
+which the direct ELL/JDS harness appears in a trace-mode graph: it does
+not mutate its inputs and needs no host sync, so ``make_fx``,
+``torch.compile`` and CUDA-graph capture pass through it.
 """
 from __future__ import annotations
 
@@ -75,6 +81,33 @@ def spmv_ell(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
                              rows_per_slab=rows_per_slab)
     return _windowed(val, col, vec, rows_per_slab, epilogue=epilogue,
                      bias=bias, perm=perm, out_rows=out_rows)
+
+
+@torch.library.custom_op("lilac_torch::spmv_ell", mutates_args=())
+def spmv_ell_op(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
+                bias: Optional[torch.Tensor], perm: Optional[torch.Tensor],
+                out_rows: Optional[int], epilogue: Optional[str],
+                rows_per_slab: int) -> torch.Tensor:
+    """:func:`spmv_ell` as a custom op: f32 out of ``(rows,)``, or
+    ``(out_rows,)`` with a ``perm``; a ``bias`` must be a 1-D tensor of that
+    length (the fused one)."""
+    n_out = _out_rows(val, perm, out_rows)
+    if not _fusable(bias, n_out):
+        raise ValueError(f"bias must be 1-D of {n_out} rows")
+    return spmv_ell(val, col, vec, rows_per_slab=rows_per_slab,
+                    epilogue=epilogue, bias=bias, perm=perm,
+                    out_rows=out_rows)
+
+
+@spmv_ell_op.register_fake
+def _spmv_ell_fake(val, col, vec, bias, perm, out_rows, epilogue,
+                   rows_per_slab):
+    return val.new_empty((_out_rows(val, perm, out_rows),),
+                         dtype=torch.float32)
+
+
+def _out_rows(val, perm, out_rows: Optional[int]) -> int:
+    return val.shape[0] if perm is None or out_rows is None else out_rows
 
 
 def _windowed(val, col, vec, rows_per_slab, window: int = WINDOW,

@@ -5,8 +5,10 @@ Application authors::
 
     from repro_torch import lilac
 
-    fast = lilac.compile(step, mode="host", policy="cuda.ell")
+    fast = lilac.compile(step)          # trace mode: a rewritten graph
     fast(val, col, row_ptr, vec)        # detected, rewritten, on the card
+    fast.graph_for(val, col, row_ptr, vec)   # the graph, to compile/capture
+    host = lilac.compile(step, mode="host", policy="autotune")
 
 Library implementers (spec + function = a new backend)::
 
@@ -19,11 +21,12 @@ Library implementers (spec + function = a new backend)::
     def mylib_spmv(binding, ctx, *, packed):
         return mylib.spmv(packed, binding["iv"])
 """
+from repro_torch.core.autotune import Autotuner, AutotuneCache
 from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
                                       Harness, HarnessRegistry)
 from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
-                                      MarshalingCache,
+                                      MarshalingCache, MarshalPolicy,
                                       SparseFormat, edge, register_format,
                                       register_source)
 from repro_torch.core.pass_manager import LilacFunction, compile
@@ -51,9 +54,9 @@ __all__ = [
     "apply_epilogue",
     # registry / runtime
     "REGISTRY", "Harness", "HarnessRegistry", "DuplicateHarnessError",
-    "CallCtx", "MarshalingCache",
+    "CallCtx", "MarshalingCache", "Autotuner", "AutotuneCache",
     # data plane
-    "DataPlane", "SparseFormat", "ConversionEdge",
+    "DataPlane", "MarshalPolicy", "SparseFormat", "ConversionEdge",
     "ConversionGraph", "FORMATS", "GRAPH", "SOURCES", "edge",
     "register_format", "register_source",
 ]

@@ -86,8 +86,10 @@ _LILAC_MOE: Dict[str, object] = {}
 
 
 def _lilac_moe_2d(platform: str):
-    """lilac.compile applied to the naive form, one per platform and
-    cached at module level (detection runs once per shape signature)."""
+    """lilac.compile applied to the naive form in trace mode, as the
+    reference compiles it, one per platform and cached at module level
+    (detection and the rewritten graph are built once per shape
+    signature)."""
     if platform not in _LILAC_MOE:
         from repro_torch import lilac
         _LILAC_MOE[platform] = lilac.compile(_moe_naive_2d, platform=platform)

@@ -243,7 +243,8 @@ def test_compiled_bcsr_spmv_on_cpu_matches_naive():
                           + b)
 
     for policy in ("cuda.bcsr", "torch.bcsr"):
-        fast = lilac.compile(layer, policy=policy, platform="cpu")
+        fast = lilac.compile(layer, mode="host", policy=policy,
+                             platform="cpu")
         got = fast(csr.val, csr.col_ind, csr.row_ptr, v, b)
         torch.testing.assert_close(got, layer(csr.val, csr.col_ind,
                                               csr.row_ptr, v, b), **TOL)

@@ -1,6 +1,9 @@
 """The CUDA kernels on the card (ELL SpMV K1 in its staged and direct
 bodies and K2, BCSR SpMM K3 in its wide and narrow bodies over packed
-tiles, grouped matmul K4), against their plain torch versions.
+tiles, grouped matmul K4), against their plain torch versions; every
+declared ``tune`` value of K1 (``rows_per_slab``) and K4 (``tm``); the
+custom ops captured in a CUDA graph; trace mode and the autotuner on the
+card.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present.  This
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -31,6 +34,19 @@ from repro_torch.sparse import random as trandom
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # bf16 storage, f32 accumulation
+
+
+@pytest.fixture(autouse=True)
+def _own_store(tmp_path, monkeypatch):
+    """The autotuner's store in this test's directory (this file runs with
+    --noconftest on the card)."""
+    from repro_torch.core.harness import REGISTRY
+
+    monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    REGISTRY.reset_autotuner()
+    yield
+    REGISTRY.reset_autotuner()
 
 
 @pytest.fixture
@@ -496,7 +512,7 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
         out = torch.zeros(rows, h.shape[1], device=val.device)
         return torch.relu(out.index_add_(0, r, val[:, None] * h[col]) + bias)
 
-    fast = lilac.compile(layer)
+    fast = lilac.compile(layer, mode="host")
     before = K3.LAUNCHES["bsr_spmm_wide"]
     for _ in range(3):
         out = fast(csr.val, csr.col_ind, csr.row_ptr, h, bias)
@@ -541,3 +557,176 @@ def test_compiled_bf16_moe_runs_the_tensor_core_kernel(cuda):
         err = torch.linalg.vector_norm(got[b].float() - want) \
             / torch.linalg.vector_norm(want)
         assert got.dtype == torch.bfloat16 and float(err) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# tune clauses, custom ops, trace mode and the autotuner on the card
+# ---------------------------------------------------------------------------
+
+ELL_SLABS = [s["rows_per_slab"] for s in
+             lilac.REGISTRY.get("spmv_ell", "cuda.ell").schedules]
+GMM_TILES = [s["tm"] for s in
+             lilac.REGISTRY.get("moe_ffn", "cuda.gmm").schedules]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_per_slab", ELL_SLABS)
+def test_every_declared_slab_matches_plain_bit_for_bit(cuda, dtype,
+                                                       rows_per_slab):
+    """K1's direct body at each declared rows_per_slab: against its plain
+    version, and bit for bit against the default slab (a row is summed by
+    one warp whatever the CTA covers)."""
+    val, col, perm, vec, bias = _ell(cuda, dtype)
+    kw = dict(bias=bias, perm=perm, out_rows=val.shape[0], epilogue="relu")
+    got = K.spmv_ell_cuda(val, col, vec, rows_per_slab=rows_per_slab, **kw)
+    base = K.spmv_ell_cuda(val, col, vec, rows_per_slab=ELL_SLABS[0], **kw)
+    torch.cuda.synchronize()
+    want = R.spmv_ell_plain(val, col, vec, **kw)
+    torch.testing.assert_close(got, want, **(TOL if dtype == torch.float32
+                                             else BF16_TOL))
+    assert torch.equal(got, base)
+
+
+@pytest.mark.gpu
+def test_pagerank_on_unnormalized_links_differs_by_rounding_only(cuda):
+    """PageRank over the example's graph with its raw link values (not
+    split among out-links) through cuda.ell on the card: the iterate grows
+    past 1e24 in 40 steps, and the compiled SpMV still agrees with the
+    naive one to f32 rounding relative to it, so a large absolute
+    difference there is the iterate's size, not a wrong kernel."""
+    from repro_torch.examples import pagerank
+    from repro_torch.examples.common import naive_spmv
+
+    g, _ = pagerank.links(4096, cuda)
+    spmv = lilac.compile(naive_spmv, mode="host", policy="cuda.ell",
+                         device=cuda)
+    before = K.LAUNCHES["spmv_ell_staged"]
+    x = pagerank.pagerank(spmv, g, g.val, 40)
+    want = pagerank.pagerank(naive_spmv, g, g.val, 40)
+    scale = float(want.abs().max())
+    assert scale > 1e24
+    assert float((x - want).abs().max()) <= 1e-5 * scale
+    assert K.LAUNCHES["spmv_ell_staged"] == before + 40
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tm", GMM_TILES)
+def test_every_declared_row_tile_matches_plain_bit_for_bit(cuda, dtype, tm):
+    """K4 at each declared tm, alone and through moe_ffn: against the plain
+    versions, and moe_ffn bit for bit against the default tile (tm moves
+    the padding, not a row's sum)."""
+    xs, w, te = _gmm_operands(cuda, dtype, 1024, 128, 256, 4, tm, tm)
+    got = K4.gmm_cuda(xs, w, te, tm=tm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, tm),
+                               **(TOL if dtype == torch.float32
+                                  else GMM_BF16_TOL))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    # top-8: a token sums 8 pairs, whose order an atomic combine would vary
+    p = tlayers.moe_params(tlayers.moe_spec(128, 64, 16, dtype), gen)
+    x = torch.randn(200, 128, generator=gen, device=cuda).to(dtype)
+    gate, idx, _ = tlayers.moe_router(p, x[None], 8)
+    args = (x, gate[0], idx[0], p["wg"], p["wu"], p["wd"])
+    out = gmm_ops.moe_ffn(*args, tm=tm)
+    base = gmm_ops.moe_ffn(*args, tm=GMM_TILES[0])
+    torch.cuda.synchronize()
+    assert torch.equal(out, base)
+    # the plain version: the same function on the CPU copies (gmm_ref)
+    plain = gmm_ops.moe_ffn(*(a.cpu() for a in args), tm=tm)
+    torch.testing.assert_close(out.cpu().float(), plain.float(),
+                               **(dict(atol=1e-3, rtol=1e-3)
+                                  if dtype == torch.float32 else BF16_TOL))
+
+
+def _replayed(fn):
+    """``fn()`` eagerly, and captured in a CUDA graph and replayed."""
+    eager = fn()
+    fn()                                # warm on the side stream's pool
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return eager, out
+
+
+@pytest.mark.gpu
+def test_custom_ops_replay_in_a_cuda_graph(cuda):
+    val, col, perm, vec, bias = _ell(cuda, torch.float32)
+    for args in ((val, col, vec, bias, None, None, "relu", 32),
+                 (val, col, vec, None, perm, val.shape[0], None, 64)):
+        eager, replay = _replayed(lambda: ell_ops.spmv_ell_op(*args))
+        assert torch.equal(eager, replay)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p = tlayers.moe_params(tlayers.moe_spec(128, 64, 16, torch.bfloat16),
+                           gen)
+    x = torch.randn(200, 128, generator=gen, device=cuda).bfloat16()
+    gate, idx, _ = tlayers.moe_router(p, x[None], 8)
+    for tm in GMM_TILES:
+        eager, replay = _replayed(lambda: gmm_ops.moe_ffn_op(
+            x, gate[0], idx[0], p["wg"], p["wu"], p["wd"], tm))
+        assert torch.equal(eager, replay)
+
+
+@pytest.mark.gpu
+def test_trace_mode_graphs_equal_host_mode_and_replay(cuda):
+    """The ELL layer and the MoE FFN compiled in trace mode on the card:
+    the graph holds the custom op, equals host mode bit for bit, and its
+    CUDA-graph replay equals the eager call."""
+    val, col, _, vec, bias = _ell(cuda, torch.float32)
+
+    def layer(val, col, vec, bias):
+        return torch.relu((val * vec[col]).sum(dim=1) + bias)
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = tlayers.moe_params(tlayers.moe_spec(128, 64, 16, torch.bfloat16),
+                           gen)
+    x = torch.randn(200, 128, generator=gen, device=cuda).bfloat16()
+    gate, idx, _ = tlayers.moe_router(p, x[None], 8)
+    cases = [(layer, (val, col, vec, bias), "spmv_ell", "cuda.ell"),
+             (tlayers._moe_naive_2d,
+              (x, gate[0], idx[0], p["wg"], p["wu"], p["wd"]), "moe_ffn",
+              "cuda.gmm")]
+    for fn, args, op, name in cases:
+        fast = lilac.compile(fn)
+        host = lilac.compile(fn, mode="host")
+        got = fast(*args)
+        assert [n for _, n in fast.last_selections] == [name]
+        gm = fast.graph_for(*args)
+        assert getattr(torch.ops.lilac_torch, op).default in [
+            n.target for n in gm.graph.nodes]
+        assert torch.equal(got, host(*args))
+        eager, replay = _replayed(lambda: gm(*args)[0])
+        assert torch.equal(eager, replay)
+
+
+@pytest.mark.gpu
+def test_host_autotune_on_the_card_picks_the_least_amortized(cuda):
+    csr = tf.from_numpy(tf.to_numpy(trandom.random_csr(3000, 3000, 0.01,
+                                                       seed=3)),
+                        kind="CSR", device=cuda)
+    vec = torch.randn(3000, device=cuda)
+
+    def spmv(val, col, row_ptr, v):
+        rows = row_ptr.shape[0] - 1
+        r = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                    torch.diff(row_ptr),
+                                    output_size=val.shape[0])
+        return torch.zeros(rows, device=val.device).index_add_(
+            0, r, val * v[col])
+
+    fast = lilac.compile(spmv, mode="host", policy="autotune")
+    args = (csr.val, csr.col_ind, csr.row_ptr, vec)
+    out = fast(*args)
+    torch.testing.assert_close(out, spmv(*args), **TOL)
+    tuner = lilac.REGISTRY.autotuner
+    rec = tuner.cache.get(tuner.last_decision.sig, "host")
+    assert {"cuda.ell", "cuda.bcsr", "torch.segment"} <= set(rec["timings"])
+    assert fast.last_selections[0][1] == rec["harness"] == min(
+        rec["amortized_s"], key=rec["amortized_s"].get)
+    timed = tuner.stats.timing_calls
+    fast(*args)
+    assert tuner.stats.timing_calls == timed

@@ -184,7 +184,7 @@ def test_compiled_moe_default_policy_matches_reference_compile():
     jfast = jlilac.compile(jlayers._moe_naive_2d)
     tp = tlayers.moe_params_from_numpy(p)
     tg, ti, _ = tlayers.moe_router(tp, torch.from_numpy(x), TOPK)
-    fast = lilac.compile(tlayers._moe_naive_2d, platform="cpu")
+    fast = lilac.compile(tlayers._moe_naive_2d, mode="host", platform="cpu")
     for b in range(B):
         want = jfast(jnp.asarray(x[b]), jg[b], ji[b], p["wg"], p["wu"],
                      p["wd"])
@@ -204,7 +204,7 @@ def test_compiled_moe_block_on_gmm_matches_reference_naive():
     want, _ = jlayers.moe_block(p, jnp.asarray(x), topk=TOPK, impl="naive")
     tp = tlayers.moe_params_from_numpy(p)
     gate, idx, _ = tlayers.moe_router(tp, torch.from_numpy(x), TOPK)
-    fast = lilac.compile(tlayers._moe_naive_2d, policy="cuda.gmm",
+    fast = lilac.compile(tlayers._moe_naive_2d, mode="host", policy="cuda.gmm",
                          platform="cpu")
     got = torch.stack([fast(torch.from_numpy(x[b]), gate[b], idx[b],
                             tp["wg"], tp["wu"], tp["wd"]) for b in range(B)])

@@ -63,7 +63,7 @@ def test_host_mode_matches_reference_compile():
                                     "cuda.ell"])
 def test_every_spmv_harness_agrees(policy):
     _, csr, v = _operands()
-    fast = lilac.compile(naive, policy=policy, platform="cpu")
+    fast = lilac.compile(naive, mode="host", policy=policy, platform="cpu")
     got = fast(csr.val, csr.col_ind, csr.row_ptr, torch.from_numpy(v))
     want = naive(csr.val, csr.col_ind, csr.row_ptr, torch.from_numpy(v))
     torch.testing.assert_close(got, want, **TOL)
@@ -119,7 +119,8 @@ def test_direct_ell_with_fused_epilogue_on_cpu():
         return torch.relu((val * vec[col]).sum(dim=1) + bias)
 
     for policy, name in (("default", "torch.ell"), ("cuda.ell", "cuda.ell")):
-        fast = lilac.compile(layer, policy=policy, platform="cpu")
+        fast = lilac.compile(layer, mode="host", policy=policy,
+                             platform="cpu")
         torch.testing.assert_close(fast(val, col, vec, bias),
                                    layer(val, col, vec, bias), **TOL)
         (m,) = fast.last_report.matches
@@ -161,7 +162,7 @@ def test_spmm_compile_matches_reference_compile():
     names = ("val", "col", "row_ptr", "dmat")
     want = np.asarray(jlilac.compile(spmm_jax)(*(jnp.asarray(ops[n])
                                                  for n in names)))
-    fast = lilac.compile(naive_spmm, platform="cpu")
+    fast = lilac.compile(naive_spmm, mode="host", platform="cpu")
     got = fast(*(torch.from_numpy(ops[n]) for n in names))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     (m,) = fast.last_report.matches
@@ -173,7 +174,8 @@ def test_spmm_compile_matches_reference_compile():
                                     "cuda.bcsr"])
 def test_every_spmm_harness_agrees(policy):
     ops = {k: torch.from_numpy(v) for k, v in _spmm_operands().items()}
-    fast = lilac.compile(naive_spmm, policy=policy, platform="cpu")
+    fast = lilac.compile(naive_spmm, mode="host", policy=policy,
+                         platform="cpu")
     got = fast(ops["val"], ops["col"], ops["row_ptr"], ops["dmat"])
     torch.testing.assert_close(got, naive_spmm(ops["val"], ops["col"],
                                                ops["row_ptr"], ops["dmat"]),
@@ -202,7 +204,8 @@ def test_gnn_loop_on_bcsr_repacks_once(n):
     def step(val, col, row_ptr, h, b):
         return torch.relu(naive_spmm(val, col, row_ptr, h) + b)
 
-    fast = lilac.compile(step, policy="cuda.bcsr", platform="cpu")
+    fast = lilac.compile(step, mode="host", policy="cuda.bcsr",
+                         platform="cpu")
     h, h_ref = h0, h0
     for _ in range(4):
         h = fast(val, col, row_ptr, h[:SPMM_COLS], b)
@@ -235,7 +238,8 @@ def test_compiled_spmm_marshals_packed_tiles_like_the_reference(n):
     names = ("val", "col", "row_ptr", "dmat")
     want = np.asarray(jlilac.compile(spmm_jax)(*(jnp.asarray(ops[k])
                                                  for k in names)))
-    fast = lilac.compile(naive_spmm, policy="cuda.bcsr", platform="cpu")
+    fast = lilac.compile(naive_spmm, mode="host", policy="cuda.bcsr",
+                         platform="cpu")
     got = fast(*(torch.from_numpy(ops[k]) for k in names))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert [name for _, name in fast.last_selections] == ["cuda.bcsr"]
@@ -269,7 +273,7 @@ def test_platform_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lilac.compile(naive)
-    fast = lilac.compile(naive, device="cpu")
+    fast = lilac.compile(naive, mode="host", device="cpu")
     assert fast.platform == "cpu"
     with pytest.raises(ValueError):
         lilac.compile(naive, platform="cuda", device="cpu")
@@ -277,8 +281,8 @@ def test_platform_rules():
         _, csr, v = _operands()
         fast(csr.val.to("meta"), csr.col_ind, csr.row_ptr,
              torch.from_numpy(v))
-    with pytest.raises(NotImplementedError):
-        lilac.compile(naive, mode="trace", platform="cpu")
+    with pytest.raises(ValueError, match="mode must be"):
+        lilac.compile(naive, mode="jit", platform="cpu")
 
 
 def test_fingerprint_samples_large_tensors():
@@ -295,10 +299,10 @@ def test_fingerprint_samples_large_tensors():
 
 
 def test_data_plane_keeps_the_most_recent_entries():
-    """The data plane holds at most MAX_ENTRIES marshaled values and lets
+    """The data plane holds at most max_entries marshaled values and lets
     the least recently used go first."""
     plane = lilac.DataPlane()
-    n = plane.MAX_ENTRIES
+    n = plane.max_entries
     keys = [torch.full((4,), float(i)) for i in range(n + 1)]
     for i, k in enumerate(keys[:n]):
         plane.get("pack", (k,), lambda i=i: i)

@@ -96,11 +96,15 @@ HARNESS t.bad implements spmv_csr
 HARNESS t.hooked implements spmv_csr
   BeforeFirstExecution setup;
 """, {"t.hooked": lambda b, c: None}, registry=lilac.HarnessRegistry())
-    with pytest.raises(lilac.SpecError, match="tune clauses"):
+    # tune clauses register now; a default schedule that breaks its own
+    # constraint does not
+    with pytest.raises(lilac.SpecError, match="violates a constraint"):
         lilac.register_spec("""
 HARNESS t.tuned implements spmv_csr
-  tune rows_per_slab in {32, 8};
-""", {"t.tuned": lambda b, c: None}, registry=lilac.HarnessRegistry())
+  tune rows_per_slab in {256, 8};
+  constraint rows_per_slab <= 128;
+""", {"t.tuned": lambda b, c, rows_per_slab: None},
+            registry=lilac.HarnessRegistry())
     with pytest.raises(lilac.SpecError, match="no kernel body"):
         lilac.register_spec("HARNESS t.nobody implements spmv_csr", {},
                             registry=lilac.HarnessRegistry())
