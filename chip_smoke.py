@@ -31,7 +31,8 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      largest magnitude after each step outside the compiled part, under
      the default policy: one spmm_csr/CSR match with the fused relu-bias
      epilogue, cuda.bcsr, one repack into packed 128x128 tiles (each
-     tile's entries only: at most 0.25 GB, no dense tile) and 14 hits, 15
+     tile's entries only: at most 0.25 GB, no dense tile) and 14 hits of
+     the plan or the data plane, 15
      launches of K3's wide body, and the final H against the same loop on
      the uncompiled naive SpMM;
    * SpMV on BCSR (K3 at N = 1): 25 CG iterations on the HPCG operator
@@ -51,8 +52,23 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      amortized cost (a candidate that cannot fit is eliminated by its
      exception), the winner checked to have the least amortized cost, the
      25 CG iterations through it with the iterate check; then a second
-     process on the same store must re-time nothing and pick the same
-     winners;
+     process on the same store (its plan cache off) must re-time nothing
+     and pick the same winners;
+   * executable plans: the NPB-C and HPCG CGs on cuda.ell (K1 staged,
+     K2) and the HPCG CG on cuda.bcsr (K3 narrow), 25 iterations each,
+     with bake=True (the default: the call's program replayed from one
+     CUDA graph after the first call) and bake=False (the interpreter):
+     the steady call, one call's device and host-enqueue ms, plan_info,
+     the repack and the launches (26 a CG in both), the iterates equal bit
+     for bit, and an in-place val.mul_(2) between two calls re-marshaling
+     to the naive result; then a second process on the same plans.json
+     and an empty tuner store must detect nothing, time nothing, select
+     the same harnesses and bake; and A @ (A @ b) at HPCG under
+     policy="autotune" on the autotune phase's store: two coupled matches,
+     the joint plan search run once, its assignment no dearer than
+     greedy's, the entry baked, the output against the uncompiled one.
+     Every path above and below bakes too
+     (the default), so its launch counts include CUDA-graph replays;
    * trace mode: the ELL layer (K1's direct body, fused epilogue, as the
      custom op lilac_torch::spmv_ell) and one sequence of the OLMoE layer
      compiled with the default mode: one custom-op node in the rewritten
@@ -620,6 +636,10 @@ def spmm_path(a, seed: int, device, steps: int = GNN_STEPS,
         "match": (m.computation, m.format, m.epilogue),
         "selections": [n for _, n in fast.last_selections],
         "repacks": fast.cache.stats.misses, "hits": fast.cache.stats.hits,
+        "plan_hits": fast.plan_info()["plan_hits"],
+        "plan": {k: d[k] for d in fast.plan_info()["plans"][:1]
+                 for k in ("cuda_graph", "graph_copy_bytes", "replay_ms",
+                           "eager_ms")},
         "repack_seconds": plan and plan.build_seconds,
         "repack_path": plan and plan.last_path,
         "trace_seconds": fast.stats["trace_seconds"],
@@ -650,9 +670,11 @@ def check_spmm_path(res, steps: int = GNN_STEPS) -> None:
     require(res["selections"] == ["cuda.bcsr"],
             f"SpMM: cuda.bcsr under the default policy, got "
             f"{res['selections']}")
-    require(res["repacks"] == 1 and res["hits"] == steps - 1,
-            f"SpMM: one repack and {steps - 1} hits, got {res['repacks']} "
-            f"and {res['hits']}")
+    require(res["repacks"] == 1
+            and res["hits"] + res["plan_hits"] == steps - 1,
+            f"SpMM: one repack and {steps - 1} hits of the plan or the data "
+            f"plane, got {res['repacks']}, {res['plan_hits']} and "
+            f"{res['hits']}")
     require(res["repack_path"] == ("CSR", "BCSR128x128"),
             f"SpMM: the repack takes CSR -> BCSR128x128 directly, got "
             f"{res['repack_path']}")
@@ -1089,11 +1111,15 @@ def warm_start(seed: int, device, **sizes) -> dict:
     return out
 
 
-def run_warm_start(seed: int, store: Path) -> dict:
-    env = dict(os.environ, LILAC_TORCH_AUTOTUNE_CACHE=str(store))
+def run_warm_start(seed: int, store: Path, flag: str = "--warm-start",
+                   **env_vars) -> dict:
+    """A second process of this script on the store (``flag`` picks what
+    it runs; ``env_vars`` set its environment)."""
+    env = dict(os.environ, LILAC_TORCH_AUTOTUNE_CACHE=str(store),
+               **env_vars)
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--seed", str(seed), "--warm-start"], env=env,
+                        "--seed", str(seed), flag], env=env,
                        capture_output=True, text=True, timeout=600)
     if p.returncode != 0:
         raise RuntimeError(f"warm-start process failed:\n{p.stderr[-4000:]}")
@@ -1113,6 +1139,223 @@ def check_warm_start(warm, res) -> None:
         require(warm[name] == r["winner"],
                 f"warm start {name}: the same winner {r['winner']}, got "
                 f"{warm[name]}")
+
+
+# ---------------------------------------------------------------------------
+# Executable plans: the CG calls replayed from one CUDA graph
+# ---------------------------------------------------------------------------
+
+#: (matrix, policy, kernel module, kernel body) of the plan phase's CGs
+PLAN_CASES = (("npb", "cuda.ell", "spmv_ell", "spmv_ell_staged"),
+              ("hpcg", "cuda.ell", "spmv_ell", "spmv_ell_windowed"),
+              ("hpcg", "cuda.bcsr", "bsr_spmm", "bsr_spmm_narrow"))
+
+
+def _launch_counter(module: str):
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.kernels.spmv_ell import kernel as K
+
+    return {"spmv_ell": K, "bsr_spmm": B}[module]
+
+
+def plan_path(mats, device, iters: int = CG_ITERS, reps: int = 20):
+    """Each of PLAN_CASES' CGs through lilac.compile(naive_spmv,
+    mode="host", policy=...) with bake=True (the default: a plan, replayed
+    from a CUDA graph after the first call) and bake=False (the
+    interpreter on every call): the steady call, one call's device and
+    host-enqueue ms, plan_info, repacks and launches; then an in-place
+    val.mul_(2) between two calls."""
+    import torch
+    from repro_torch import lilac
+
+    out = {}
+    for name, policy, module, body in PLAN_CASES:
+        a, b = mats[name]
+        counter = _launch_counter(module)
+        xs = {}
+        for bake in (True, False):
+            fast = lilac.compile(naive_spmv, mode="host", policy=policy,
+                                 device=device, bake=bake)
+            counter.reset_launches()
+            calls: list = []
+            xs[bake] = cg(timed(fast, calls, device), a, b, iters)
+            sync(device)
+            r = {"launches": counter.LAUNCHES[body],
+                 "plan_info": fast.plan_info(),
+                 "repacks": fast.cache.stats.misses,
+                 "steady_call_ms": steady_ms(calls),
+                 "selections": [n for _, n in fast.last_selections]}
+            p = xs[bake].clone()
+            r["call_ms"] = cuda_ms(
+                lambda: fast(a.val, a.col_ind, a.row_ptr, p), reps) \
+                if device.type == "cuda" else (None, None)
+            # an in-place write to the matrix between two calls
+            val = a.val.clone()
+            fast(val, a.col_ind, a.row_ptr, p)
+            before = fast.cache.stats.misses
+            val.mul_(2)
+            got = fast(val, a.col_ind, a.row_ptr, p)
+            want = naive_spmv(val, a.col_ind, a.row_ptr, p)
+            r["edit"] = {"repacks": fast.cache.stats.misses - before,
+                         "max_abs_err": max_err(got, want)[0],
+                         "within_tol": max_err(got, want)[1] <= 1.0,
+                         "rebakes": fast.plan_info()["rebakes"]}
+            out[f"{name} {policy} bake={bake}"] = r
+            del fast, val, got, want, p
+            release(device)
+        out[f"{name} {policy}"] = {
+            "equal": bool(torch.equal(xs[True], xs[False])),
+            "rel": rel_l2(xs[True], xs[False]), "body": body,
+            "finite": bool(torch.isfinite(xs[True]).all())}
+        del xs
+    return out
+
+
+def check_plan_path(res, iters: int = CG_ITERS) -> None:
+    calls = iters + 1
+    for name, policy, _, body in PLAN_CASES:
+        pair = res[f"{name} {policy}"]
+        for bake in (True, False):
+            r = res[f"{name} {policy} bake={bake}"]
+            info = r["plan_info"]
+            what = f"plans {name} {policy} bake={bake}"
+            if bake:
+                require(info["baked"] == 1 and not info["bake_errors"]
+                        and info["plan_hits"] == calls - 1
+                        and info["plans"][0]["cuda_graph"],
+                        f"{what}: baked into a CUDA graph, no bake error, "
+                        f"{calls - 1} plan hits, got {info}")
+            else:
+                require(info["baked"] == 0 and info["plan_hits"] == 0,
+                        f"{what}: the interpreter on every call, got {info}")
+            require(r["selections"] == [policy] and r["repacks"] == 1,
+                    f"{what}: {policy} and one repack, got "
+                    f"{r['selections']}, {r['repacks']}")
+            require(r["launches"] == calls,
+                    f"{what}: {body} launched once per CG SpMV ({calls}), "
+                    f"got {r['launches']}")
+            e = r["edit"]
+            require(e["repacks"] == 1 and e["within_tol"],
+                    f"{what}: an in-place val.mul_(2) re-marshals and gives "
+                    f"the naive result, got {e}")
+        # the same kernels in the same order on the same inputs
+        require(pair["finite"] and pair["equal"],
+                f"plans {name} {policy}: the plan's CG iterate equals the "
+                f"interpreter's bit for bit, got |dx|/|x| {pair['rel']:.3g}")
+
+
+def two_hops(val, col, row_ptr, v):
+    """A @ (A @ v) with the textbook SpMV: two matches on one matrix,
+    coupled by the repack they may share."""
+    return naive_spmv(val, col, row_ptr, naive_spmv(val, col, row_ptr, v))
+
+
+def joint_path(a, b, device, calls: int = 3) -> dict:
+    """two_hops at one matrix under policy="autotune", on the tuner store
+    of the autotune phase: the joint plan search runs once both matches
+    are pinned (re-costing the store's records, timing nothing), the
+    entry then bakes; its report, selections, plan_info and the output
+    against the uncompiled two_hops."""
+    from repro_torch import lilac
+    from repro_torch.core.harness import REGISTRY
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.kernels.spmv_ell import kernel as K
+
+    tuner = REGISTRY.autotuner
+    timed_before = tuner.stats.timing_calls
+    fast = lilac.compile(two_hops, mode="host", policy="autotune",
+                         device=device)
+    K.reset_launches()
+    B.reset_launches()
+    sels = []
+    for _ in range(calls):
+        y = fast(a.val, a.col_ind, a.row_ptr, b)
+        sels.append([n for _, n in fast.last_selections])
+    sync(device)
+    info = fast.plan_info()
+    res = {"matches": len(fast.last_report.matches), "selections": sels,
+           "plan_info": {k: v for k, v in info.items() if k != "plans"},
+           "plans": info["plans"],
+           "timing_calls": tuner.stats.timing_calls - timed_before,
+           "launches": {**K.LAUNCHES, **B.LAUNCHES},
+           "rel_to_naive": rel_l2(y, two_hops(a.val, a.col_ind, a.row_ptr,
+                                              b)),
+           "repacks": fast.cache.stats.misses}
+    del fast, y
+    release(device)
+    return res
+
+
+def check_joint_path(res, calls: int = 3) -> None:
+    info = res["plan_info"]
+    require(res["matches"] == 2, f"joint: two SpMV matches, got "
+            f"{res['matches']}")
+    require(info["joint_searched"] == 1 and len(info["joint"]) == 1,
+            f"joint: the search ran once, got {info}")
+    j = info["joint"][0]
+    require(len(j["assignment"]) == 2
+            and j["cost_s"] <= j["greedy_cost_s"]
+            and j["cost_s"] <= j["independent_cost_s"],
+            f"joint: an assignment for both matches costing no more than "
+            f"greedy's or the independent winners', got {j}")
+    require(res["selections"][-1] == [h for h, _, _ in j["assignment"]],
+            f"joint: the last call ran the joint assignment, got "
+            f"{res['selections'][-1]} for {j['assignment']}")
+    require(info["baked"] == 1 and not info["bake_errors"]
+            and info["plan_hits"] >= 1,
+            f"joint: the entry baked and its plan served a call, got {info}")
+    require(res["rel_to_naive"] <= KERNEL_RTOL,
+            f"joint: |y - y_naive| / |y_naive| within {KERNEL_RTOL}, got "
+            f"{res['rel_to_naive']:.3g}")
+
+
+def plan_warm_start(seed: int, device, **sizes) -> dict:
+    """The second process on plans.json, with an empty tuner store: each
+    plan entry of the first process compiled again and called once; the
+    detection calls it made, what it timed, what it selected."""
+    from repro_torch import lilac
+    from repro_torch.core import detect as D
+    from repro_torch.core.harness import REGISTRY
+
+    calls = {"n": 0}
+    orig = D.Detector.detect
+
+    def spy(det, gm):
+        calls["n"] += 1
+        return orig(det, gm)
+
+    D.Detector.detect = spy
+    mats = matrices(seed, device, **sizes)
+    out = {"selections": {}, "baked": {}}
+    for name, policy in [("npb", "autotune"), ("hpcg", "autotune")] + [
+            (n, p) for n, p, _, _ in PLAN_CASES]:
+        a, b = mats[name]
+        fast = lilac.compile(naive_spmv, mode="host", policy=policy,
+                             device=device)
+        fast(a.val, a.col_ind, a.row_ptr, b)
+        key = f"{name} {policy}"
+        out["selections"][key] = fast.last_selections[0][1]
+        out["baked"][key] = fast.plan_info()["baked"]
+        del fast
+    out["detect_calls"] = calls["n"]
+    out["tuner"] = REGISTRY.autotuner.stats.as_dict()
+    return out
+
+
+def check_plan_warm_start(warm, tuned) -> None:
+    require(warm["detect_calls"] == 0,
+            f"plan warm start: zero detection calls, got "
+            f"{warm['detect_calls']}")
+    t = warm["tuner"]
+    require(t["timing_calls"] == 0 and t["elimination_calls"] == 0,
+            f"plan warm start: zero candidates re-timed, got {t}")
+    want = {f"{n} autotune": r["winner"] for n, r in tuned.items()}
+    want.update({f"{n} {p}": p for n, p, _, _ in PLAN_CASES})
+    require(warm["selections"] == want,
+            f"plan warm start: the same selections {want}, got "
+            f"{warm['selections']}")
+    require(all(v == 1 for v in warm["baked"].values()),
+            f"plan warm start: every entry baked, got {warm['baked']}")
 
 
 def graph_replay(fn, reps: int):
@@ -1398,6 +1641,8 @@ def main() -> int:
                     help="write a detailed JSON record to this path")
     ap.add_argument("--warm-start", action="store_true",
                     help=argparse.SUPPRESS)   # the autotune phase's 2nd run
+    ap.add_argument("--plan-warm-start", action="store_true",
+                    help=argparse.SUPPRESS)   # the plan phase's 2nd run
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1416,6 +1661,22 @@ def main() -> int:
     if args.warm_start:
         print(json.dumps(warm_start(args.seed, torch.device("cuda"))))
         return 0
+    if args.plan_warm_start:
+        print(json.dumps(plan_warm_start(args.seed, torch.device("cuda"))))
+        return 0
+    # the persistent stores (plans, tuner) in a directory of this run
+    work = tempfile.mkdtemp(prefix="lilac-torch-")
+    os.environ["LILAC_TORCH_PLAN_CACHE"] = str(Path(work) / "plans.json")
+    os.environ.pop("LILAC_TORCH_PLAN_CACHE_DISABLE", None)
+    try:
+        return run(args, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(args, work: str) -> int:
+    import torch
+
     t_start = time.perf_counter()
     smi = smi_line()
     print(f"card: {smi}")
@@ -1502,8 +1763,7 @@ def main() -> int:
     release(device)
 
     # -- host-mode autotune at NPB-C and HPCG, then a warm start ------------
-    store_dir = tempfile.mkdtemp(prefix="lilac-torch-")
-    store = Path(store_dir) / "autotune.json"
+    store = Path(work) / "autotune.json"
     os.environ["LILAC_TORCH_AUTOTUNE_CACHE"] = str(store)
     tuned = autotune_path(mats, x_refs, device)
     for name, r in tuned.items():
@@ -1519,13 +1779,49 @@ def main() -> int:
               f"{r['steady_call_ms']:.3f} ms a call, |x-x_naive|/|x_naive| = "
               f"{r['rel_to_naive']:.3g}; launches {r['launches']}")
     check_autotune_path(tuned)
-    warm = run_warm_start(args.seed, store)
+    # the tuner's store alone: the plan cache would serve the pins first
+    warm = run_warm_start(args.seed, store,
+                          LILAC_TORCH_PLAN_CACHE_DISABLE="1")
     print(f"autotune warm start (a second process, {warm['seconds']:.1f}s): "
           f"{ {k: v for k, v in warm.items() if k in tuned} }, tuner "
           f"{warm['stats']}")
     check_warm_start(warm, tuned)
-    shutil.rmtree(store_dir)
     record.update(autotune_path=tuned, warm_start=warm)
+    release(device)
+
+    # -- executable plans: the CGs replayed from one CUDA graph -------------
+    plans = plan_path(mats, device)
+    for key, r in plans.items():
+        if "bake=" not in key:
+            print(f"plans {key}: iterate equal to bake=False's bit for bit: "
+                  f"{r['equal']} (|dx|/|x| {r['rel']:.3g}), {r['body']}")
+            continue
+        info = {k: v for k, v in r["plan_info"].items()
+                if k not in ("plans", "joint")}
+        print(f"plans {key}: CG {r['steady_call_ms']:.4f} ms a call "
+              f"(timed); one call {_ms(r['call_ms'][0])} ms device, "
+              f"{_ms(r['call_ms'][1])} ms host enqueue; {r['repacks']} repack; "
+              f"launches {r['launches']}; plan_info {info}; plans "
+              f"{r['plan_info']['plans']}; in-place val.mul_(2): {r['edit']}")
+    check_plan_path(plans)
+    pwarm = run_warm_start(args.seed, Path(work) / "autotune-empty.json",
+                           "--plan-warm-start")
+    print(f"plan warm start (a second process on plans.json, an empty tuner "
+          f"store, {pwarm['seconds']:.1f}s): {pwarm['detect_calls']} "
+          f"detection calls, tuner {pwarm['tuner']}, selections "
+          f"{pwarm['selections']}, baked {pwarm['baked']}")
+    check_plan_warm_start(pwarm, tuned)
+    record.update(plan_path=plans, plan_warm_start=pwarm)
+    joint = joint_path(*mats["hpcg"], device)
+    print(f"joint search hpcg A @ (A @ b) under autotune: selections by "
+          f"call {joint['selections']}, report {joint['plan_info']['joint']}"
+          f", {joint['timing_calls']} timings, {joint['repacks']} repacks, "
+          f"launches {joint['launches']}, |y-y_naive|/|y_naive| = "
+          f"{joint['rel_to_naive']:.3g}; plan_info "
+          f"{ {k: v for k, v in joint['plan_info'].items() if k != 'joint'} }"
+          f"; plans {joint['plans']}")
+    check_joint_path(joint)
+    record["joint_path"] = joint
     del x_refs
     a_hpcg, b_hpcg = mats.pop("hpcg")
     del mats
@@ -1537,7 +1833,8 @@ def main() -> int:
           f"{spmm['selections']}, traced in {spmm['trace_seconds']:.2f}s, "
           f"detected in {spmm['detect_seconds']:.2f}s, {spmm['repacks']} "
           f"repack {spmm['repack_path']} ({spmm['repack_seconds']:.2f}s), "
-          f"{spmm['hits']} hits; {GNN_STEPS} steps in {spmm['seconds']:.2f}s "
+          f"{spmm['hits']} hits, {spmm['plan_hits']} plan hits; "
+          f"{GNN_STEPS} steps in {spmm['seconds']:.2f}s "
           f"(first call {spmm['first_call_s']:.2f}s, then "
           f"{spmm['steady_call_ms']:.3f} ms a call); naive loop "
           f"{spmm['naive_seconds']:.2f}s; |H-H_naive|/|H_naive| = "
@@ -1547,7 +1844,7 @@ def main() -> int:
           f"{spmm['kept_bytes'] / 2**30:.2f} GiB; marshaled "
           f"{spmm['packed']} packed layout of {spmm['tiles']} tiles, "
           f"{spmm['layout_bytes']} B ({spmm['dense_tiles']} dense); K3 "
-          f"launches {spmm['launches']}")
+          f"launches {spmm['launches']}; plan {spmm['plan']}")
     check_spmm_path(spmm)
     release(device)
     bcg = bcsr_cg_path(a_hpcg, b_hpcg, x_ref, device)

@@ -6,6 +6,8 @@ Public API (prefer the ``repro_torch.lilac`` facade):
     Detector                   backtracking FX-graph detection
     REGISTRY / Harness         LiLAC-How backends (populated from specs)
     DataPlane                  fingerprint-keyed marshaling cache
+    TrackedArray               explicit-version operand wrapper
+    ExecutablePlan / PlanCache baked dispatch and its persistent store
     autotune                   persistent, signature-keyed harness tuning
     what_lang                  the LiLAC spec language (Fig. 3 + §3.3)
 """
@@ -17,8 +19,10 @@ from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
                                       MarshalingCache,
                                       MarshalPolicy, SparseFormat,
-                                      fingerprint)
+                                      TrackedArray, fingerprint,
+                                      version_token)
 from repro_torch.core.pass_manager import LilacFunction, compile
+from repro_torch.core.plan import ExecutablePlan, PlanBakeError, PlanCache
 from repro_torch.core import autotune
 from repro_torch.core import spec
 from repro_torch.core import what_lang
@@ -34,5 +38,6 @@ __all__ = [
     "MarshalingCache", "DataPlane", "MarshalPolicy", "SparseFormat",
     "ConversionEdge", "ConversionGraph", "FORMATS", "GRAPH", "SOURCES",
     "fingerprint", "LilacFunction", "compile", "spec", "autotune",
-    "what_lang",
+    "what_lang", "TrackedArray", "version_token", "ExecutablePlan",
+    "PlanBakeError", "PlanCache",
 ]

@@ -6,7 +6,8 @@ structure.  SparseX answers this by tuning once per matrix and reusing the
 decision; LiLAC inherits the idea at the harness-selection boundary.
 
 * ``signature_of`` buckets a harness call's binding into a stable key
-  ``(computation, format, platform, shape buckets, sparsity bucket)``:
+  ``(computation, format, platform, shape buckets, sparsity bucket,
+  floating dtypes)``:
   shapes to powers of two, density to decades, so that "the same kind of
   problem" reuses one decision across calls, processes and slightly
   different inputs.  It reads shapes only, so a fake tensor of a traced
@@ -152,10 +153,15 @@ def _shape_of(v: Any) -> Optional[Tuple[int, ...]]:
 def signature_of(comp: str, fmt: str, platform: str,
                  binding: Dict[str, Any],
                  epilogue: Optional[str] = None) -> str:
-    """Stable string key of one harness call site.  It reads shapes and
-    Python scalars only, never data, so real and fake tensors give one key.
-    ``epilogue`` tunes fused-epilogue sites apart from plain ones."""
+    """Stable string key of one harness call site.  It reads shapes,
+    dtypes and Python scalars only, never data, so real and fake tensors
+    give one key.  ``epilogue`` tunes fused-epilogue sites apart from plain
+    ones.  The reference's key is this one without its last part, the
+    dtypes of the floating operands (``|dt:a=float32,...``): a kernel's
+    body can differ by dtype (K4's bf16 body runs on the tensor cores, its
+    f32 body does not), so one shape in two dtypes tunes apart."""
     dims: List[str] = []
+    dtypes: List[str] = []
     rows = nnz = cols = None
     for k in sorted(binding):
         v = binding[k]
@@ -173,6 +179,10 @@ def signature_of(comp: str, fmt: str, platform: str,
             shape = _shape_of(v)
             if shape is not None:
                 dims.append(f"{k}={'x'.join(str(pow2_bucket(s)) for s in shape)}")
+                dt = getattr(v, "dtype", None)
+                if (dt.is_floating_point if isinstance(dt, torch.dtype)
+                        else getattr(dt, "kind", "") == "f"):
+                    dtypes.append(f"{k}={str(dt).replace('torch.', '')}")
                 if k in ("iv", "vector", "vec", "dense") and shape:
                     cols = shape[0]
     if rows and nnz and cols:
@@ -182,6 +192,8 @@ def signature_of(comp: str, fmt: str, platform: str,
     sig = "|".join([comp, fmt, platform, ",".join(dims), sb])
     if epilogue:
         sig += f"|ep:{epilogue}"
+    if dtypes:
+        sig += "|dt:" + ",".join(dtypes)
     return sig
 
 

@@ -87,6 +87,11 @@ class Harness:
     constraints: Tuple[Any, ...] = ()
     # True when the body applies detected epilogues itself
     fuse_epilogue: bool = False
+    # False opts out of executable-plan baking (repro_torch.core.plan): a
+    # body with per-call host-side behavior beyond its marshal clauses
+    # (RNG, mutable globals, I/O) would have its first call's behavior
+    # frozen into the plan
+    bakeable: bool = True
     _schedules: Optional[Tuple[Dict[str, Any], ...]] = None
 
     @property
@@ -112,6 +117,10 @@ class HarnessRegistry:
         self._defaults: Dict[Tuple[str, str], str] = {}  # (comp, platform) -> name
         self._autotuner = None
         self._fp: Optional[str] = None
+        # moves on every register: the fingerprint cannot see a same-name
+        # body replaced with override=True, and a baked plan must not keep
+        # running the old body
+        self.epoch = 0
 
     def register(self, h: Harness, default_for: Tuple[str, ...] = (),
                  override: bool = False):
@@ -133,6 +142,7 @@ class HarnessRegistry:
             self._defaults[(h.implements, plat)] = h.name
         self._autotuner = None        # harness set changed: new fingerprint
         self._fp = None
+        self.epoch += 1
         return h
 
     def fingerprint(self) -> str:

@@ -4,7 +4,8 @@
 Counterpart of ``repro.core.marshal``.  The paper tracks writes to host
 arrays with memory protection so that device transfers and data-dependent
 invariants are recomputed only when the memory changed; here "did this
-matrix change?" is answered with content fingerprints at the harness call.
+matrix change?" is answered with content fingerprints at the harness call,
+and, for a tensor the data plane has seen before, with its version.
 
 * ``fingerprint(t)`` — cheap content hash: full bytes below a threshold,
   else a strided sample of ~1.2 k elements taken on the tensor's own
@@ -21,6 +22,28 @@ matrix change?" is answered with content fingerprints at the harness call.
   ``estimate_marshal_seconds`` is what the autotuner amortizes.
 * ``MarshalPolicy`` — the data plane's knobs: the declared call frequency
   ``reuse``, the capacity ``max_entries``, and ``enabled``.
+* ``TrackedArray`` / ``version_token`` — the O(1) change tokens that the
+  executable plans (:mod:`repro_torch.core.plan`) guard their operands by.
+
+**Versions.**  A sampled fingerprint cannot see a write to one element off
+its sample grid, and torch tensors, unlike the reference's JAX arrays, are
+mutable.  Each group of cache entries derived from one matrix therefore
+records, per key tensor, a :func:`checksum` of the bytes it was built from
+and the ``(storage, _version)`` at each address it has served (a few
+addresses each).  Every in-place torch operation bumps the tensor's
+``_version`` (shared with its views), so a lookup whose fingerprint
+matches is decided in O(1) for a tensor at a served address: the same
+version hits, another is a miss that re-marshals.  A tensor at an address
+the group has not served (a re-upload, or a new tensor where a freed one
+lay) is decided by its checksum, one pass on its own device: the same
+bytes share the buffers, other bytes re-marshal.  A tensor with no version
+counter (one made under ``torch.inference_mode``) is keyed by its exact
+bytes instead.  What ``_version`` cannot see is a write that bypasses
+torch's in-place operators: through ``.data``, through a DLPack or
+``.numpy()`` view of the memory, or by a kernel outside torch.  After such
+a write the caller declares it by passing the matrix as a ``TrackedArray``
+and calling ``replace`` with the new contents (the same tensor is fine):
+``replace`` bumps the tensor's version, which every layer then sees.
 
 Constructors hand back tensors on the device of their input, so a marshaled
 format built from CUDA operands stays on the card between calls.
@@ -32,6 +55,7 @@ import hashlib
 import heapq
 import itertools
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,7 +67,10 @@ _MISSING = object()
 
 
 def fingerprint(arr: Any, exact: bool = False) -> Tuple:
-    """Content fingerprint of a tensor (or Python scalar)."""
+    """Content fingerprint of a tensor (or Python scalar; a TrackedArray
+    gives its O(1) version token)."""
+    if isinstance(arr, TrackedArray):
+        return version_token(arr)
     if isinstance(arr, (int, float, bool)):
         return ("scalar", arr)
     t = arr.detach()
@@ -60,6 +87,158 @@ def fingerprint(arr: Any, exact: bool = False) -> Tuple:
     data = sample.cpu().view(torch.uint8).numpy()
     return ("sampled", meta,
             hashlib.blake2b(data.tobytes(), digest_size=16).hexdigest())
+
+
+class TrackedArray:
+    """Explicit-version wrapper: ``replace`` declares new contents and
+    bumps the version, so a plan guards the operand in O(1).  ``arr`` is
+    the current tensor.  ``replace`` also bumps the tensor's own
+    ``_version`` (``torch.autograd.graph.increment_version``), so the data
+    plane sees the write even when the new contents are the old tensor
+    written outside torch's in-place operators."""
+
+    def __init__(self, arr, base_token: Optional[object] = None,
+                 version: int = 0):
+        self.arr = arr
+        self.base_token = base_token if base_token is not None else object()
+        self.version = version
+
+    def replace(self, new_arr) -> "TrackedArray":
+        if isinstance(new_arr, torch.Tensor) and has_version(new_arr):
+            torch.autograd.graph.increment_version(new_arr)
+        return TrackedArray(new_arr, self.base_token, self.version + 1)
+
+    def __repr__(self):
+        return f"TrackedArray(v{self.version}, {tuple(getattr(self.arr, 'shape', ()))})"
+
+
+def unwrap(x):
+    return x.arr if isinstance(x, TrackedArray) else x
+
+
+def has_version(t: torch.Tensor) -> bool:
+    """Whether ``t`` carries a version counter (an inference tensor does
+    not)."""
+    return not t.is_inference()
+
+
+def tensor_token(t: torch.Tensor) -> Tuple:
+    """O(1) identity and version of a tensor's contents: its storage, the
+    view's place in it, its dtype and device, and its ``_version``.  Equal
+    tokens of a tensor kept alive mean equal contents, save for a write
+    ``_version`` cannot see (the module docstring)."""
+    return ("tensor", id(t.untyped_storage()), t.data_ptr(),
+            t.storage_offset(), tuple(t.shape), t.stride(), t.dtype,
+            t.device, t._version if has_version(t) else None)
+
+
+def version_token(x) -> Tuple:
+    """O(1) change token for executable-plan guards
+    (:mod:`repro_torch.core.plan`): a TrackedArray yields its (base-token
+    id, version) pair, a tensor its :func:`tensor_token`, anything else its
+    object identity.  Unlike :func:`fingerprint`, no bytes are read."""
+    if isinstance(x, TrackedArray):
+        return ("tracked", id(x.base_token), x.version)
+    if isinstance(x, torch.Tensor):
+        return tensor_token(x)
+    return ("id", id(x))
+
+
+def stamp(x) -> Optional[Tuple[int, int]]:
+    """``(data_ptr, _version)`` of a key tensor with a version counter;
+    None for anything else."""
+    if isinstance(x, torch.Tensor) and has_version(x):
+        return (x.data_ptr(), x._version)
+    return None
+
+
+#: int32 words a checksum pass reads at once (bounds its temporaries)
+_CHECK_CHUNK = 1 << 24
+#: odd multiplier of the checksum's position weights (2^64 / phi, signed)
+_CHECK_MIX = -7046029254386353131
+
+
+def checksum(t: torch.Tensor) -> int:
+    """A 64-bit position-weighted sum of ``t``'s bytes, taken on its own
+    device, so one scalar crosses to the host.  Each 32-bit word is
+    weighted by an odd number, so a change to any one word always changes
+    the sum; a wider change goes unseen only if its weighted differences
+    cancel modulo 2^64."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    words = b.view(torch.int32)
+    acc = torch.zeros((), dtype=torch.int64, device=words.device)
+    for s in range(0, words.numel(), _CHECK_CHUNK):
+        x = words[s:s + _CHECK_CHUNK].to(torch.int64)
+        i = torch.arange(s, s + x.numel(), dtype=torch.int64,
+                         device=words.device)
+        acc += (x * ((i * _CHECK_MIX) | 1)).sum()
+    return int(acc)
+
+
+#: addresses a group of cache entries remembers per key tensor
+_STAMP_ADDRESSES = 8
+
+
+class _Sources:
+    """What a group of cache entries knows of the key tensors it was built
+    from: per key, the checksum of their bytes and, at each address it has
+    served, the storage (weakly) and the version seen there."""
+    __slots__ = ("sums", "seen")
+
+    def __init__(self, key_arrays: Sequence):
+        self.sums = tuple(checksum(a) if stamp(a) is not None else None
+                          for a in key_arrays)
+        self.seen: Tuple[Dict[int, Tuple[int, Any]], ...] = tuple(
+            {} for _ in key_arrays)
+        self._note(key_arrays)
+
+    def confirm(self, key_arrays: Sequence) -> bool:
+        """Whether the key tensors hold the bytes the group was built from:
+        by version at a served address (another version: written in place
+        since), by checksum anywhere else.  Remembers them on success."""
+        if len(key_arrays) != len(self.sums):
+            return False
+        for seen, s, a in zip(self.seen, self.sums, key_arrays):
+            if stamp(a) is None:
+                continue                # keyed exactly, or not a tensor
+            rec = seen.get(a.data_ptr())
+            if rec is not None and rec[1]() is a.untyped_storage():
+                if rec[0] != a._version:
+                    return False
+            elif s is None or checksum(a) != s:
+                return False
+        self._note(key_arrays)
+        return True
+
+    def _note(self, key_arrays: Sequence) -> None:
+        for seen, a in zip(self.seen, key_arrays):
+            if stamp(a) is None:
+                continue
+            ptr = a.data_ptr()
+            seen.pop(ptr, None)
+            seen[ptr] = (a._version, weakref.ref(a.untyped_storage()))
+            while len(seen) > _STAMP_ADDRESSES:
+                del seen[next(iter(seen))]
+
+
+def _group(key: Tuple) -> Tuple:
+    """The entries one matrix's sources cover: a data-plane node's key
+    without its format (the conversion graph's intermediates of one
+    matrix), any other key by itself."""
+    if key and key[0] == "node":
+        return key[:2] + key[3:]
+    return key
+
+
+def key_fingerprint(a) -> Tuple:
+    """The fingerprint a cache keys ``a`` by: sampled for a versioned
+    tensor (its version and checksum decide a match, :class:`_Sources`),
+    exact for a tensor without a version counter."""
+    if isinstance(a, torch.Tensor) and not has_version(a):
+        return fingerprint(a, exact=True)
+    return fingerprint(a)
 
 
 def nbytes_of(x) -> int:
@@ -217,6 +396,18 @@ class ConversionGraph:
         path.reverse()
         return start, path, best[dst]
 
+    def plan_cost(self, starts: Dict[str, float], dst: str
+                  ) -> Optional[Tuple[float, Tuple[str, ...]]]:
+        """The joint plan search's cost oracle
+        (:mod:`repro_torch.core.plan_search`): the cheapest cost from any
+        start format (each with its entry cost, 0.0 for one already built)
+        to ``dst`` and the formats the path materializes.  Runs no edge."""
+        plan = self.plan(dict(starts), dst)
+        if plan is None:
+            return None
+        start, path, cost = plan
+        return cost, (start,) + tuple(e.dst for e in path)
+
     def full_path_cost(self, src_fmt: str, dst: str,
                        entry_cost: float = 0.0) -> Optional[float]:
         """Cheapest-path cost src->dst, ignoring cached intermediates."""
@@ -320,6 +511,8 @@ class CacheStats:
     shared_edge_hits: int = 0   # paths that started from a cached
                                 # intermediate instead of the binding
     evictions: int = 0
+    stale: int = 0              # fingerprint hits whose key tensor was
+                                # written in place since: re-marshaled
 
 
 @dataclasses.dataclass
@@ -347,11 +540,31 @@ class MarshalingCache:
         self.max_entries = max_entries
         self._store: "OrderedDict[Tuple, Any]" = OrderedDict()
         self._cost: Dict[Tuple, float] = {}
+        # _group(key) -> what the group's entries were built from
+        self._sources: Dict[Tuple, _Sources] = {}
         self._spec_cost: Dict[str, float] = {}   # repack -> last seconds
         self.stats = CacheStats()
 
     def _key(self, spec_name: str, key_arrays: Sequence) -> Tuple:
-        return (spec_name,) + tuple(fingerprint(a) for a in key_arrays)
+        return (spec_name,) + tuple(key_fingerprint(a) for a in key_arrays)
+
+    def _lookup(self, key: Tuple, key_arrays: Sequence):
+        """The entry under ``key``, or ``_MISSING`` when there is none or
+        the key tensors do not hold the bytes it was built from (written in
+        place since, or another tensor whose sample matches: then the
+        group's entries are dropped)."""
+        val = self._store.get(key, _MISSING)
+        if val is _MISSING:
+            return val
+        group = _group(key)
+        src = self._sources.get(group)
+        if src is not None and not src.confirm(key_arrays):
+            # every entry derived from the matrix is stale: the conversion
+            # graph's intermediates too
+            self.stats.stale += 1
+            self._evict_group(group)
+            return _MISSING
+        return val
 
     def _hit(self, key: Tuple, key_arrays: Sequence):
         self._store.move_to_end(key)
@@ -359,28 +572,42 @@ class MarshalingCache:
         self.stats.bytes_avoided += sum(nbytes_of(a) for a in key_arrays)
         self.stats.recompute_seconds_avoided += self._cost.get(key, 0.0)
 
-    def _insert(self, key: Tuple, val: Any, cost: float):
+    def _insert(self, key: Tuple, val: Any, cost: float,
+                key_arrays: Sequence = ()):
+        group = _group(key)
+        src = self._sources.get(group)
+        if src is None or not src.confirm(key_arrays):
+            # a new matrix, or other bytes under a matching sample: the
+            # group's older entries were built from something else
+            self._evict_group(group)
+            self._sources[group] = _Sources(key_arrays)
         self._store[key] = val
         self._store.move_to_end(key)
         self._cost[key] = cost
         while len(self._store) > self.max_entries:
             victim, _ = self._store.popitem(last=False)
             self._cost.pop(victim, None)
+            self._forget(victim)
             self.stats.evictions += 1
 
     def get(self, spec_name: str, key_arrays: Tuple, compute: Callable[[], Any]):
         """Cached value for ``spec_name`` derived from ``key_arrays``;
         recomputed only if a source array changed (the mprotect analogue)."""
         key = self._key(spec_name, key_arrays)
-        val = self._store.get(key, _MISSING)
+        val = self._lookup(key, key_arrays)
         if val is not _MISSING:
             self._hit(key, key_arrays)
             return val
         self.stats.misses += 1
         val, cost = _timed(compute)
         self._spec_cost[spec_name] = cost
-        self._insert(key, val, cost)
+        self._insert(key, val, cost, key_arrays)
         return val
+
+    def marshal_seconds(self, repack_names: Sequence[str]) -> float:
+        """The last measured seconds of the named repacks (0.0 for one
+        that never ran here)."""
+        return sum(self._spec_cost.get(n, 0.0) for n in repack_names)
 
     def keys(self) -> set:
         """The keys of the entries held now."""
@@ -391,10 +618,22 @@ class MarshalingCache:
         for k in keys:
             self._store.pop(k, None)
             self._cost.pop(k, None)
+            self._forget(k)
+
+    def _evict_group(self, group: Tuple) -> None:
+        self.evict([k for k in self._store if _group(k) == group])
+
+    def _forget(self, key: Tuple) -> None:
+        """Drop the sources of ``key``'s group once no entry of it is
+        left."""
+        group = _group(key)
+        if not any(_group(k) == group for k in self._store):
+            self._sources.pop(group, None)
 
     def clear(self):
         self._store.clear()
         self._cost.clear()
+        self._sources.clear()
 
 
 def _seconds(step) -> float:
@@ -442,10 +681,10 @@ class DataPlane(MarshalingCache):
                                f"format {dst!r} and no fallback repack")
             return self.get(f"{src}->{dst}", tuple(key_arrays), fallback)
 
-        fps = tuple(fingerprint(a) for a in key_arrays)
+        fps = tuple(key_fingerprint(a) for a in key_arrays)
         key = self._node_key(src, dst, fps)
         ps = self._plan_stats(src, dst)
-        val = self._store.get(key, _MISSING)
+        val = self._lookup(key, key_arrays)
         if val is not _MISSING:
             self._hit(key, key_arrays)
             ps.hits += 1
@@ -459,10 +698,11 @@ class DataPlane(MarshalingCache):
         # the binding loader at its measured cost
         starts: Dict[str, float] = {}
         cached_keys: Dict[str, Tuple] = {}
-        for k in self._store:
+        for k in list(self._store):
             if (isinstance(k, tuple) and len(k) == 3 + len(fps)
                     and k[0] == "node" and k[1] == src and k[3:] == fps
-                    and k[2] not in NO_TRANSIT):
+                    and k[2] not in NO_TRANSIT
+                    and self._lookup(k, key_arrays) is not _MISSING):
                 starts[k[2]] = 0.0
                 cached_keys[k[2]] = k
         starts.setdefault(loader.fmt, loader.cost())
@@ -475,7 +715,7 @@ class DataPlane(MarshalingCache):
             val, cost = _timed(fallback)
             ps.build_seconds += cost
             ps.last_path = (f"{src}!fallback", dst)
-            self._insert(key, val, cost)
+            self._insert(key, val, cost, key_arrays)
             return val
 
         start_fmt, path, _ = plan
@@ -489,13 +729,15 @@ class DataPlane(MarshalingCache):
         else:
             val, paid = loader.run(binding)
             self.stats.loader_runs += 1
-            self._insert(self._node_key(src, start_fmt, fps), val, paid)
+            self._insert(self._node_key(src, start_fmt, fps), val, paid,
+                         key_arrays)
         for e in path:
             val, dt = e.run(val)
             paid += dt
             self.stats.edge_runs += 1
             # cost = cumulative seconds paid to produce it in THIS ensure
-            self._insert(self._node_key(src, e.dst, fps), val, paid)
+            self._insert(self._node_key(src, e.dst, fps), val, paid,
+                         key_arrays)
         ps.build_seconds += paid
         ps.last_path = (start_fmt,) + tuple(e.dst for e in path)
         return val

@@ -8,25 +8,43 @@ calls.  Two modes:
 * ``mode="trace"`` (the default, as in the reference) selects among the
   jit-safe harnesses once per signature and builds the rewritten
   ``GraphModule`` (``rewrite.rewrite_graph``), the counterpart of the
-  rewritten jaxpr under ``jax.jit``: every call runs that graph, and
-  ``graph_for`` hands it to the caller to ``torch.compile`` or capture in
-  a CUDA graph;
-* ``mode="host"`` runs the traced graph eagerly with the anchors replaced
-  by harness calls, the call's data plane amortizing format repacks across
+  rewritten jaxpr under ``jax.jit``; ``graph_for`` hands it to the caller
+  to ``torch.compile`` or capture in a CUDA graph;
+* ``mode="host"`` runs the traced graph with the anchors replaced by
+  harness calls, the call's data plane amortizing format repacks across
   calls (paper Fig. 18); host-only harnesses (those that marshal) run
   only here.
 
 Policies are ``"default"`` (the platform's default harness), an explicit
 harness name, or ``"autotune"``: the persistent tuner
 (:mod:`repro_torch.core.autotune`) measures the candidates for the call's
-signature once, and the winner (harness, schedule, fusion) is pinned.
+signature once, and the winner (harness, schedule, fusion) is pinned; once
+every match of a program is pinned, the joint search
+(:mod:`repro_torch.core.plan_search`) re-costs the measured candidates
+together, with zero re-timing, and may move the pins.
+
+**Plans** (:mod:`repro_torch.core.plan`).  Once every selection is
+definitive and a call has run, the entry is baked into an
+:class:`~repro_torch.core.plan.ExecutablePlan` (``bake=True``, the
+default): the marshaled buffers hoisted, and on the card the program in
+one CUDA graph.  A later call whose guards hold replays it: the last plan
+first, then a short list of recently served plans (bucketed callers rotate
+between a few signatures), then the entry's own.  A guard miss runs the
+interpreter, which either finds that the data plane served the same
+buffers (a re-upload of the same bytes, which the data plane confirms by
+checksum: the plan's guards move to the new tensors, no re-bake) or
+re-bakes; after four re-bakes of plans that never
+served a call the entry stops baking.  Marshal-bearing selections never
+bake under ``marshal_policy="off"`` (it promises a repack every call), nor
+does a harness that opts out (``bakeable=False``).  The persistent plan
+cache keys the traced graph: a warm process rehydrates the matches and the
+pins from ``plans.json``, so it runs no detection and times nothing.
 
 The compiled function runs on the card: ``platform="cuda"`` unless the
 caller passes ``platform="cpu"`` (or ``device="cpu"``).  Asking for CUDA
 where no card is present raises, and so do operands on another device —
-the pass never falls back to the CPU quietly.  Not ported yet: executable
-plans, the plan cache and fault containment; a harness that raises makes
-the call raise.
+the pass never falls back to the CPU quietly.  Not ported yet: fault
+containment; a harness that raises makes the call raise.
 """
 from __future__ import annotations
 
@@ -39,7 +57,10 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import detect as D
 from repro_torch.core import harness as H
-from repro_torch.core.marshal import DataPlane, MarshalPolicy
+from repro_torch.core import plan as P
+from repro_torch.core import plan_search as PS
+from repro_torch.core.autotune import autotune_disabled
+from repro_torch.core.marshal import DataPlane, MarshalPolicy, unwrap
 from repro_torch.core.rewrite import needed_nodes, rewrite_graph, run_rewritten
 
 
@@ -50,7 +71,8 @@ class CompiledEntry:
     tensor_pos: Tuple[int, ...]      # flat-argument positions of tensors
     out_spec: Any                    # pytree spec of the output
     needed: frozenset                # rewrite.needed_nodes of the report
-    # autotune pins: match index -> (harness, schedule, fuse)
+    # autotune pins: match index -> (harness, schedule, fuse); after the
+    # joint search, the jointly optimal assignment
     pins: Dict[int, Tuple] = dataclasses.field(default_factory=dict)
     # trace mode: the rewritten graph and what was selected into it
     rewritten: Any = None
@@ -58,12 +80,28 @@ class CompiledEntry:
         default_factory=list)
     schedules: List[Optional[Dict[str, Any]]] = dataclasses.field(
         default_factory=list)
+    fuses: List[Optional[bool]] = dataclasses.field(default_factory=list)
+    # the persistent plan cache's key and whether this entry is stored
+    cache_key: Optional[str] = None
+    persisted: bool = False
+    # the baked plan (None until the entry is resolved and a call ran)
+    plan: Optional[P.ExecutablePlan] = None
+    no_bake: bool = False
+    bake_error: Optional[str] = None
+    rebakes: int = 0
+    # the joint search's report, and whether it ran (or was skipped); an
+    # entry rehydrated with complete pins starts done: its pins are the
+    # joint assignment of the process that searched
+    joint: Optional[Dict[str, Any]] = None
+    joint_done: bool = False
 
 
 def _leaf_key(x) -> Tuple:
-    if isinstance(x, torch.Tensor):
-        return ("t", tuple(x.shape), str(x.dtype), x.device.type)
-    return ("py", type(x).__name__, x)
+    """The compile-dict key of one leaf (``plan.leaf_templates``' rule)."""
+    (t,) = P.leaf_templates([x])
+    if t[0] == "t":
+        return ("t", t[1], str(t[2]), t[3].type)
+    return ("py", t[1].__name__, t[2])
 
 
 def resolve_platform(platform: Optional[str], device=None) -> str:
@@ -87,20 +125,33 @@ def resolve_platform(platform: Optional[str], device=None) -> str:
 class LilacFunction:
     """A function passed through the LiLAC pass."""
 
+    _HOT_PLAN_LIMIT = 32
+    _REBAKE_LIMIT = 4
+
     def __init__(self, fn: Callable, *, mode: str = "trace",
                  policy: str = "default", platform: Optional[str] = None,
-                 device=None, marshal_policy=None):
+                 device=None, marshal_policy=None, bake: bool = True,
+                 plan_cache: Any = None,
+                 registry: Optional[H.HarnessRegistry] = None):
         if mode not in ("trace", "host"):
             raise ValueError(f"mode must be 'trace' or 'host', got {mode!r}")
         self.fn = fn
         self.mode = mode
         self.policy = policy
+        self.registry = registry if registry is not None else H.REGISTRY
         self.platform = resolve_platform(platform, device)
         self.marshal_policy = MarshalPolicy.parse(marshal_policy)
         # None: every call repacks (the paper's naive library call)
         self.cache = (DataPlane(self.marshal_policy)
                       if self.marshal_policy.enabled else None)
+        self.bake_enabled = bool(bake)
+        self._plan_cache_injected = isinstance(plan_cache, P.PlanCache)
+        self._plan_cache = self._make_plan_cache(plan_cache)
         self._compiled: Dict[Tuple, CompiledEntry] = {}
+        self._last_compiled: Optional[Tuple] = None   # (entry, spec, tmpl)
+        self._last_plan: Optional[P.ExecutablePlan] = None
+        # recently served plans across signatures, most recent first
+        self._hot_plans: List[P.ExecutablePlan] = []
         # set-up paid per input signature: traces run and the seconds spent
         # tracing and detecting (repacks are the data plane's: cache.plans)
         self.stats = {"traces": 0, "trace_seconds": 0.0, "detect_seconds": 0.0}
@@ -111,7 +162,72 @@ class LilacFunction:
         # the schedule each of those ran with (None: default or untuned)
         self.last_schedules: List[Optional[Dict[str, Any]]] = []
 
+    def _make_plan_cache(self, opt) -> Optional[P.PlanCache]:
+        if opt is False or opt in ("off", "none", "disabled"):
+            return None
+        if isinstance(opt, P.PlanCache):
+            return opt
+        fp = self.registry.fingerprint()
+        if opt in (None, True, "default", "on"):
+            # only the default location honors the environment's switch: a
+            # path the caller names is the stronger statement
+            return None if P.plan_cache_disabled() \
+                else P.shared_plan_cache(None, fp)
+        return P.shared_plan_cache(opt, fp)
+
     # -- compilation ---------------------------------------------------------
+
+    def _validated_pins(self, raw: Dict[str, Any], matches) -> Dict[int, Tuple]:
+        """Pins rehydrated from the plan cache, checked against the live
+        registry: a vanished harness or a schedule outside its harness's
+        current tune space drops the pin (the tuner re-tunes it)."""
+        pins: Dict[int, Tuple] = {}
+        for k, v in (raw or {}).items():
+            try:
+                i, name, schedule, fuse = int(k), v[0], v[1], v[2]
+            except (TypeError, ValueError, IndexError):
+                continue
+            if not 0 <= i < len(matches):
+                continue
+            try:
+                h = self.registry.get(matches[i].computation, name)
+            except KeyError:
+                continue
+            if schedule is not None and schedule not in h.schedules:
+                continue
+            pins[i] = (name, schedule, fuse)
+        return pins
+
+    def _plan_cache_view(self) -> Optional[P.PlanCache]:
+        pc = self._plan_cache
+        if pc is not None and not self._plan_cache_injected \
+                and pc.registry_fingerprint != self.registry.fingerprint():
+            # harnesses registered since: re-key the view, so stale plans
+            # invalidate and fresh ones persist
+            pc = self._plan_cache = P.shared_plan_cache(
+                pc.path, self.registry.fingerprint())
+        return pc
+
+    def _rehydrate(self, pc: P.PlanCache, gm, key: str):
+        """(report, pins, joint) from a plan-cache record, or None."""
+        rec = pc.get(key)
+        if rec is None:
+            return None
+        ser = rec.get("matches", ())
+        got = None
+        # integrity first: n_eqns and the digest must agree with the live
+        # graph and the record's own matches before any node is resolved
+        if (rec.get("n_eqns") == P.n_ops(gm)
+                and rec.get("detect_digest") == P.detect_digest(ser)):
+            got = P.rehydrate_matches(gm, ser)
+        if got is None:
+            pc.stats.rejected += 1
+            return None
+        report = D.DetectionReport(
+            got, n_eqns=P.n_ops(gm),
+            log=["rehydrated from plan cache (detection + tuning skipped)"])
+        return report, self._validated_pins(rec.get("pins"), got), \
+            rec.get("joint")
 
     def _build_entry(self, leaves, spec) -> CompiledEntry:
         tensor_pos = tuple(i for i, x in enumerate(leaves)
@@ -130,23 +246,53 @@ class LilacFunction:
         t0 = time.perf_counter()
         gm = D.trace(flat_fn, [leaves[i] for i in tensor_pos])
         t1 = time.perf_counter()
-        report = D.default_detector().detect(gm)
         self.stats["traces"] += 1
         self.stats["trace_seconds"] += t1 - t0
+        pc = self._plan_cache_view()
+        key = served = None
+        if pc is not None:
+            key = P.plan_key(gm, self.platform, self.mode, self.policy,
+                             reuse=self.marshal_policy.reuse)
+            served = self._rehydrate(pc, gm, key)
+        if served is not None:
+            report, pins, joint = served
+        else:
+            report, pins, joint = D.default_detector().detect(gm), {}, None
         self.stats["detect_seconds"] += time.perf_counter() - t1
-        return CompiledEntry(gm, report, tensor_pos, out_spec[-1],
-                             needed_nodes(gm, report.matches))
+        entry = CompiledEntry(gm, report, tensor_pos, out_spec[-1],
+                              needed_nodes(gm, report.matches), pins=pins,
+                              cache_key=key)
+        complete = len(pins) == len(report.matches)
+        # a served record with complete pins never re-persists; one whose
+        # pins were dropped re-persists once this process resolves them
+        entry.persisted = served is not None and (
+            self.policy != "autotune" or complete)
+        if served is not None and pins and complete:
+            entry.joint_done, entry.joint = True, joint
+        return entry
+
+    @staticmethod
+    def _unwrap(flat) -> List[Any]:
+        """The leaves with TrackedArray operands unwrapped."""
+        return [unwrap(x) for x in flat]
 
     def _entry_for(self, leaves, spec) -> CompiledEntry:
-        for x in leaves:
-            if isinstance(x, torch.Tensor) and x.device.type != self.platform:
-                raise ValueError(
-                    f"compiled for {self.platform!r} but got a tensor on "
-                    f"{x.device}")
-        key = (spec, tuple(_leaf_key(x) for x in leaves))
-        entry = self._compiled.get(key)
-        if entry is None:
-            entry = self._compiled[key] = self._build_entry(leaves, spec)
+        last = self._last_compiled
+        if last is not None and last[1] == spec \
+                and P.leaves_match(last[2], leaves):
+            entry = last[0]
+        else:
+            for x in leaves:
+                if isinstance(x, torch.Tensor) \
+                        and x.device.type != self.platform:
+                    raise ValueError(
+                        f"compiled for {self.platform!r} but got a tensor on "
+                        f"{x.device}")
+            key = (spec, tuple(_leaf_key(x) for x in leaves))
+            entry = self._compiled.get(key)
+            if entry is None:
+                entry = self._compiled[key] = self._build_entry(leaves, spec)
+            self._last_compiled = (entry, spec, P.leaf_templates(leaves))
         self.last_report = entry.report
         if self.mode == "trace" and entry.rewritten is None:
             self._build_graph(entry)
@@ -154,18 +300,23 @@ class LilacFunction:
 
     def _build_graph(self, entry: CompiledEntry) -> None:
         """Trace mode: select once per match and pin the winners into the
-        rewritten graph."""
-        selections: List[Tuple[D.Match, str]] = []
-        schedules: List[Optional[Dict[str, Any]]] = []
+        rewritten graph; rebuilt once if the joint search moves a pin."""
+        for _ in range(2):
+            selections, schedules, fuses = [], [], []
 
-        def on_select(m, h, ctx):
-            selections.append((m, h.name))
-            schedules.append(ctx.schedule)
+            def on_select(m, h, ctx):
+                selections.append((m, h.name))
+                schedules.append(ctx.schedule)
+                fuses.append(ctx.fuse)
 
-        entry.rewritten = rewrite_graph(
-            entry.gm, entry.report.matches, self._selector(entry),
-            self._ctx_factory, on_select=on_select, needed=entry.needed)
-        entry.selections, entry.schedules = selections, schedules
+            entry.rewritten = rewrite_graph(
+                entry.gm, entry.report.matches, self._selector(entry),
+                self._ctx_factory, on_select=on_select, needed=entry.needed)
+            entry.selections, entry.schedules, entry.fuses = \
+                selections, schedules, fuses
+            if not self._maybe_joint(entry):
+                break
+        self._maybe_persist(entry)
 
     def graph_for(self, *args, **kwargs) -> torch.fx.GraphModule:
         """Trace mode: the rewritten ``GraphModule`` for this signature,
@@ -177,12 +328,12 @@ class LilacFunction:
             raise ValueError("graph_for needs mode='trace'; host mode runs "
                              "the traced graph eagerly with marshaling")
         leaves, spec = tree_flatten((args, kwargs))
-        return self._entry_for(leaves, spec).rewritten
+        return self._entry_for(self._unwrap(leaves), spec).rewritten
 
-    # -- execution -----------------------------------------------------------
+    # -- selection -----------------------------------------------------------
 
     def _select(self, m: D.Match, binding=None, ctx=None) -> H.Harness:
-        return H.REGISTRY.select(m.computation, m.format, self.platform,
+        return self.registry.select(m.computation, m.format, self.platform,
                                  self.mode, policy=self.policy,
                                  binding=binding, ctx=ctx)
 
@@ -199,10 +350,14 @@ class LilacFunction:
             i = index[m.anchor]
             pin = entry.pins.get(i)
             if pin is not None:
-                name, ctx.schedule, ctx.fuse = pin
-                return H.REGISTRY.get(m.computation, name)
+                try:
+                    h = self.registry.get(m.computation, pin[0])
+                    _, ctx.schedule, ctx.fuse = pin
+                    return h
+                except KeyError:
+                    del entry.pins[i]       # harness set changed: re-tune
             h = self._select(m, binding, ctx)
-            dec = H.REGISTRY.autotuner.last_decision
+            dec = self.registry.autotuner.last_decision
             if dec is not None and dec.definitive:
                 entry.pins[i] = dec.as_pin()
             return h
@@ -213,34 +368,306 @@ class LilacFunction:
         return H.CallCtx(mode=self.mode, cache=self.cache, format=m.format,
                          platform=self.platform, epilogue=m.epilogue)
 
+    # -- execution -----------------------------------------------------------
+
+    def _serve(self, plan: P.ExecutablePlan, tensors):
+        self.last_report = plan.report
+        self.last_selections = list(plan.selections)
+        self.last_schedules = list(plan.schedules)
+        return tree_unflatten(plan.run(tensors), plan.out_spec)
+
+    def _note_hot(self, plan: P.ExecutablePlan) -> None:
+        """Move ``plan`` to the front of the hot list (bounded)."""
+        self._last_plan = plan
+        hot = self._hot_plans
+        if hot and hot[0] is plan:
+            return
+        if plan in hot:
+            hot.remove(plan)
+        hot.insert(0, plan)
+        del hot[self._HOT_PLAN_LIMIT:]
+
+    def _drop_plan(self, entry: CompiledEntry) -> None:
+        plan, entry.plan = entry.plan, None
+        if plan is None:
+            return
+        if self._last_plan is plan:
+            self._last_plan = None
+        if plan in self._hot_plans:
+            self._hot_plans.remove(plan)
+
     def __call__(self, *args, **kwargs):
-        leaves, spec = tree_flatten((args, kwargs))
+        flat, spec = tree_flatten((args, kwargs))
+        # steady state: guard check -> one replay.  A registry epoch moved
+        # by any (re-)registration refuses a plan
+        epoch = self.registry.epoch
+        last = self._last_plan
+        candidates = ([last] if last is not None else []) + \
+            [p for p in self._hot_plans if p is not last]
+        for plan in candidates:
+            if plan.registry_epoch != epoch:
+                continue
+            tensors = plan.match(spec, flat)
+            if tensors is not None:
+                self._note_hot(plan)
+                return self._serve(plan, tensors)
+        leaves = self._unwrap(flat)
         entry = self._entry_for(leaves, spec)
         tensors = [leaves[i] for i in entry.tensor_pos]
+        plan = entry.plan
+        if plan is not None and plan.registry_epoch == epoch:
+            got = plan.match(spec, flat)
+            if got is not None:
+                self._note_hot(plan)
+                return self._serve(plan, got)
         if self.mode == "trace":
-            outs = entry.rewritten(*tensors)
+            outs = list(entry.rewritten(*tensors))
             self.last_selections = list(entry.selections)
             self.last_schedules = list(entry.schedules)
-            return tree_unflatten(list(outs), entry.out_spec)
+            if self.bake_enabled and not entry.no_bake:
+                self._maybe_bake_graph(entry, flat, tensors, spec)
+            return tree_unflatten(outs, entry.out_spec)
+        return self._interpret(entry, flat, tensors, spec)
+
+    def _interpret(self, entry: CompiledEntry, flat, tensors, spec):
+        """Host mode: run the traced graph with harness calls, recording
+        what a plan needs."""
+        recorder = (P.PlanRecorder()
+                    if self.bake_enabled and not entry.no_bake else None)
+
+        def ctx_factory(m):
+            ctx = self._ctx_factory(m)
+            if recorder is not None:
+                ctx.cache = P.recording_cache(ctx.cache,
+                                              recorder.slot(m).buffers)
+            return ctx
+
         selections: List[Tuple[D.Match, str]] = []
         schedules: List[Optional[Dict[str, Any]]] = []
 
         def on_select(m, h, ctx):
             selections.append((m, h.name))
             schedules.append(ctx.schedule)
+            if recorder is not None:
+                recorder.begin(m, h, ctx.schedule, ctx.fuse)
 
         outs = run_rewritten(entry.gm, entry.report.matches,
-                             self._selector(entry), tensors,
-                             self._ctx_factory, on_select=on_select,
-                             needed=entry.needed)
+                             self._selector(entry), tensors, ctx_factory,
+                             on_select=on_select, needed=entry.needed)
         self.last_selections = selections
         self.last_schedules = schedules
+        moved = self._maybe_joint(entry)
+        self._maybe_persist(entry)
+        if recorder is not None and not moved:
+            # pins that just moved under the joint search: this call ran
+            # the pre-joint assignment, the next one records and bakes
+            self._maybe_bake(entry, recorder, flat, tensors, spec)
         return tree_unflatten(outs, entry.out_spec)
+
+    # -- the plan's life cycle -----------------------------------------------
+
+    def _maybe_joint(self, entry: CompiledEntry) -> bool:
+        """Run the joint search once per entry, after every match has a
+        definitive pin.  Returns True when it moved a pin.  It re-costs the
+        tuner's recorded components and times nothing."""
+        if entry.joint_done or self.policy != "autotune":
+            return False
+        matches = entry.report.matches
+        if len(matches) < 2:
+            entry.joint_done = True     # nothing to couple
+            return False
+        if len(entry.pins) != len(matches):
+            return False                # not yet resolved
+        width = PS.beam_width()
+        entry.joint_done = True
+        if width <= 0:
+            return False                # LILAC_TORCH_SEARCH_BEAM=0: greedy
+        res = PS.optimize_entry(
+            matches, entry.pins, registry=self.registry,
+            tuner=self.registry.autotuner, platform=self.platform,
+            mode=self.mode, cache=self.cache,
+            reuse=self.marshal_policy.reuse, width=width)
+        if res is None:
+            return False
+        entry.joint = res.report()
+        moved = False
+        for i, cand in enumerate(res.assignment):
+            if entry.pins.get(i) != cand.pin():
+                entry.pins[i] = cand.pin()
+                moved = True
+        if moved:
+            entry.persisted = False     # re-persist the joint pins
+            self._drop_plan(entry)      # baked on the pre-joint pins
+        return moved
+
+    def _resolved(self, entry: CompiledEntry) -> bool:
+        """Every selection is definitive: always under an explicit or the
+        default policy; under autotune once every match is pinned (or
+        tuning is off, which makes the defaults deterministic)."""
+        matches = entry.report.matches
+        if self.policy != "autotune" or not matches:
+            return True
+        return len(entry.pins) == len(matches) or autotune_disabled()
+
+    def _maybe_persist(self, entry: CompiledEntry) -> None:
+        pc = self._plan_cache
+        if pc is None or entry.persisted or entry.cache_key is None \
+                or not self._resolved(entry):
+            return
+        entry.persisted = True
+        try:
+            ser = P.serialize_matches(entry.gm, entry.report.matches)
+        except P.PlanBakeError:
+            return                      # unaddressable match: keep in memory
+        rec = {"matches": ser, "n_eqns": P.n_ops(entry.gm),
+               "detect_digest": P.detect_digest(ser),
+               "pins": {str(i): [n, s, f]
+                        for i, (n, s, f) in entry.pins.items()}}
+        if entry.joint is not None:
+            rec["joint"] = entry.joint
+        pc.put(entry.cache_key, rec)
+
+    def _disable_bake(self, entry: CompiledEntry, reason: str) -> None:
+        """Stop baking this entry and drop its plan, whose buffers and
+        strong references would otherwise stay resident."""
+        entry.no_bake = True
+        entry.bake_error = reason
+        self._drop_plan(entry)
+
+    def _bakeable(self, entry: CompiledEntry, harnesses, tensors) -> bool:
+        """Whether this call may bake (disabling the entry where it never
+        may)."""
+        if entry.no_bake or not self._resolved(entry):
+            return False
+        if not all(P.plain_tensor(t) for t in tensors):
+            return False            # a later call with plain tensors may
+        if self.cache is None and any(h.marshal for h in harnesses):
+            # marshal_policy='off' promises a repack every call: hoisting
+            # one into a plan would quietly bring caching back
+            self._disable_bake(entry, "marshal_policy='off' forbids "
+                               "hoisting repacks; the interpreter repacks "
+                               "every call")
+            return False
+        for h in harnesses:
+            if not getattr(h, "bakeable", True):
+                self._disable_bake(
+                    entry, f"harness {h.name!r} is stateful or opted out of "
+                           f"baking (bakeable=False)")
+                return False
+        return True
+
+    def _keep_or_rebake(self, entry: CompiledEntry) -> bool:
+        """With a plan in place, whether a new one may be baked: False once
+        the re-bakes stop paying off."""
+        plan = entry.plan
+        if plan is not None and entry.rebakes >= self._REBAKE_LIMIT \
+                and plan.hits == 0:
+            # operands change faster than a plan pays off
+            self._disable_bake(entry, "rebake thrash (operands change per "
+                                      "call)")
+            return False
+        return True
+
+    def _install(self, entry: CompiledEntry, bake: Callable) -> None:
+        if not self._keep_or_rebake(entry):
+            return
+        try:
+            baked = bake()
+        except Exception as e:     # a capture the card refused, etc.
+            self._disable_bake(entry, repr(e))
+            return
+        if entry.plan is not None:
+            entry.rebakes += 1
+            self._drop_plan(entry)
+        entry.plan = baked
+        self._note_hot(baked)
+
+    def _maybe_bake(self, entry: CompiledEntry, recorder: P.PlanRecorder,
+                    flat, tensors, spec) -> None:
+        matches = entry.report.matches
+        if not recorder.complete_for(matches):
+            return
+        harnesses = [recorder.slots[id(m.anchor)].harness for m in matches]
+        if not self._bakeable(entry, harnesses, tensors):
+            return
+        plan = entry.plan
+        if (plan is not None and plan.consts_ok()
+                and plan.registry_epoch == self.registry.epoch
+                and plan.same_hoisted(recorder)):
+            # content-identical operands under new identities: the data
+            # plane served the same buffers, so only the guards move
+            try:
+                plan.refresh_guards(flat, tensors)
+            except Exception as e:
+                self._disable_bake(entry, repr(e))
+                return
+            self._note_hot(plan)
+            return
+        self._install(entry, lambda: P.bake_plan(
+            gm=entry.gm, matches=matches, needed=entry.needed,
+            recorder=recorder, raw_flat=flat, tensors=tensors,
+            tensor_pos=entry.tensor_pos, in_spec=spec,
+            out_spec=entry.out_spec, report=entry.report, mode=self.mode,
+            platform=self.platform, registry_epoch=self.registry.epoch))
+
+    def _maybe_bake_graph(self, entry: CompiledEntry, flat, tensors,
+                          spec) -> None:
+        """Trace mode: the rewritten graph is the plan's program."""
+        harnesses = [self.registry.get(m.computation, name)
+                     for m, name in entry.selections]
+        if not self._bakeable(entry, harnesses, tensors):
+            return
+        self._install(entry, lambda: P.bake_graph_plan(
+            gm=entry.rewritten, raw_flat=flat, tensors=tensors,
+            tensor_pos=entry.tensor_pos, in_spec=spec,
+            out_spec=entry.out_spec, report=entry.report,
+            selections=list(entry.selections),
+            schedules=list(entry.schedules), fuses=list(entry.fuses),
+            platform=self.platform, registry_epoch=self.registry.epoch))
+
+    def invalidate_plans(self) -> None:
+        """Drop every baked plan (not the persistent cache): the next call
+        of each signature records and bakes again."""
+        for entry in self._compiled.values():
+            entry.plan = None
+            entry.no_bake = False
+            entry.bake_error = None
+            entry.rebakes = 0
+        self._last_plan = None
+        self._hot_plans.clear()
+
+    def executable_plan(self, *args, **kwargs) -> Optional[P.ExecutablePlan]:
+        """The baked plan of this call signature, or None (not resolved
+        yet, baking off, or unbakeable).  Runs nothing."""
+        leaves, spec = tree_flatten((args, kwargs))
+        return self._entry_for(self._unwrap(leaves), spec).plan
+
+    def plan_info(self) -> Dict[str, Any]:
+        """Bake status of this function's entries."""
+        entries = list(self._compiled.values())
+        plans = [e.plan for e in entries if e.plan is not None]
+        pc = self._plan_cache
+        return {
+            "entries": len(entries),
+            "baked": len(plans),
+            "plan_hits": sum(p.hits for p in plans),
+            "rebakes": sum(e.rebakes for e in entries),
+            "no_bake": sum(1 for e in entries if e.no_bake),
+            "bake_errors": [e.bake_error for e in entries if e.bake_error],
+            "joint_searched": sum(1 for e in entries if e.joint is not None),
+            "joint": [e.joint for e in entries if e.joint is not None],
+            "plan_cache": str(pc.path) if pc is not None else None,
+            "plan_cache_stats": pc.stats.as_dict() if pc is not None
+            else None,
+            "plans": [p.describe() for p in plans],
+        }
 
 
 def compile(fn: Callable, *, mode: str = "trace", policy: str = "default",
             platform: Optional[str] = None, device=None,
-            marshal_policy=None) -> LilacFunction:
+            marshal_policy=None, bake: bool = True,
+            plan_cache: Any = None,
+            registry: Optional[H.HarnessRegistry] = None) -> LilacFunction:
     """The single LiLAC entry point: pass ``fn`` through the pass.
 
     ``mode``      'trace' (the default: the rewritten graph, jit-safe
@@ -254,6 +681,17 @@ def compile(fn: Callable, *, mode: str = "trace", policy: str = "default",
                   or 'shared' (default: one data plane per function) or
                   'off' (every call repacks); its ``reuse`` is the calls a
                   matrix over which the autotuner amortizes a repack.
+    ``bake``      True (default): bake each resolved entry into an
+                  :class:`~repro_torch.core.plan.ExecutablePlan` (a CUDA
+                  graph on the card); False keeps the interpreter on every
+                  call.
+    ``plan_cache``  the persistent plan cache: None/'default' resolves
+                  ``LILAC_TORCH_PLAN_CACHE`` (default
+                  ~/.cache/lilac-torch/plans.json), 'off'/False disables
+                  it, a path or a :class:`~repro_torch.core.plan.PlanCache`
+                  names one.
+    ``registry``  the harness registry (default: the global ``REGISTRY``).
     """
     return LilacFunction(fn, mode=mode, policy=policy, platform=platform,
-                         device=device, marshal_policy=marshal_policy)
+                         device=device, marshal_policy=marshal_policy,
+                         bake=bake, plan_cache=plan_cache, registry=registry)

@@ -48,7 +48,8 @@ def main():
         print(f"{name:6s}: {dt:7.3f}s  {k} iters  residual {resid:.2e}")
     print(f"lilac ran {[n for _, n in fast.last_selections]}; data plane: "
           f"{fast.cache.stats.misses} repacks (a tuner's warm-up calls "
-          f"included), {fast.cache.stats.hits} hits")
+          f"included), {fast.cache.stats.hits} hits; plan: "
+          f"{fast.plan_info()['plan_hits']} hits")
 
 
 if __name__ == "__main__":

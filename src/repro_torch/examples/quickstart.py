@@ -45,7 +45,8 @@ def main():
     print(f"naive   : {t_naive / reps * 1e6:9.1f} us/call")
     print(f"lilac   : {t_lilac / reps * 1e6:9.1f} us/call")
     print(f"speedup : {t_naive / t_lilac:.2f}x (marshaled once: "
-          f"{spmv.cache.stats.misses} repack, {spmv.cache.stats.hits} hits)")
+          f"{spmv.cache.stats.misses} repack, {spmv.cache.stats.hits} hits; "
+          f"baked plan: {spmv.plan_info()['plan_hits']} hits)")
 
 
 if __name__ == "__main__":

@@ -24,14 +24,16 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import EPILOGUE_CODES, check_tensor, launched
+from repro_torch.kernels.common import (EPILOGUE_CODES, check_tensor,
+                                        counter, launched)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_plain
 from repro_torch.sparse.formats import PackedBCSR
 
 SOURCE = Path(__file__).parent / "csrc" / "bsr_spmm.cu"
 
-#: kernel body -> launches since the last reset (a plain count).
-LAUNCHES = {"bsr_spmm_wide": 0, "bsr_spmm_narrow": 0}
+#: kernel body -> launches since the last reset (a plain count; an
+#: executable plan's CUDA-graph replay adds the launches it replays).
+LAUNCHES = counter(("bsr_spmm_wide", "bsr_spmm_narrow"))
 
 #: The largest tile the kernel takes: a CTA's rows, and the operand rows
 #: the wide body stages.

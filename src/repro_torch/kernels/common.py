@@ -7,13 +7,27 @@ to the accumulator before the kernel's single store.  ``EPILOGUE_CODES``
 is the integer a wrapper passes for the chain; ``check_tensor`` and
 ``launched`` are the checks every kernel wrapper makes around a launch.  The Mosaic-only
 ``compiler_params`` has no counterpart: a CUDA kernel's launch shape is set
-by its wrapper.
+by its wrapper.  ``COUNTERS`` holds every kernel's launch counter.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
+
+#: Every kernel module's launch counter (its ``LAUNCHES``), registered by
+#: :func:`counter`: an executable plan reads them around a CUDA-graph
+#: capture and adds each replay's launches.
+COUNTERS: List[Dict[str, int]] = []
+
+
+def counter(names: Iterable[str]) -> Dict[str, int]:
+    """A registered launch counter: kernel name -> launches (a plain
+    count)."""
+    launches = dict.fromkeys(names, 0)
+    COUNTERS.append(launches)
+    return launches
+
 
 #: epilogue name -> the code the CUDA kernels take ('none' = bias only).
 EPILOGUE_CODES = {None: 0, "none": 0, "relu": 1, "silu": 2}

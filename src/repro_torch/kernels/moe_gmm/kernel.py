@@ -15,13 +15,14 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import check_tensor, launched
+from repro_torch.kernels.common import check_tensor, counter, launched
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 SOURCE = Path(__file__).parent / "csrc" / "moe_gmm.cu"
 
-#: kernel name -> launches since the last reset (a plain count).
-LAUNCHES = {"gmm": 0}
+#: kernel name -> launches since the last reset (a plain count; an
+#: executable plan's CUDA-graph replay adds the launches it replays).
+LAUNCHES = counter(("gmm",))
 
 #: Rows a CTA covers at most (tm is at most this or a multiple of it).
 MAX_TILE = 128

@@ -29,15 +29,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import EPILOGUE_CODES, check_tensor, launched
+from repro_torch.kernels.common import (EPILOGUE_CODES, check_tensor,
+                                        counter, launched)
 from repro_torch.kernels.spmv_ell.ref import (spmv_ell_plain,
                                               spmv_ell_windowed_plain)
 from repro_torch.sparse.formats import WindowedELL
 
 SOURCE = Path(__file__).parent / "csrc" / "spmv_ell.cu"
 
-#: kernel name -> launches since the last reset (a plain count).
-LAUNCHES = {"spmv_ell": 0, "spmv_ell_staged": 0, "spmv_ell_windowed": 0}
+#: kernel name -> launches since the last reset (a plain count; an
+#: executable plan's CUDA-graph replay adds the launches it replays).
+LAUNCHES = counter(("spmv_ell", "spmv_ell_staged", "spmv_ell_windowed"))
 
 #: Shared memory the staged body may fill with a window of the vector (of
 #: the 227 KB a block can have on an H100).

@@ -9,6 +9,8 @@ Application authors::
     fast(val, col, row_ptr, vec)        # detected, rewritten, on the card
     fast.graph_for(val, col, row_ptr, vec)   # the graph, to compile/capture
     host = lilac.compile(step, mode="host", policy="autotune")
+    host(val, col, row_ptr, vec); host(val, col, row_ptr, vec)
+    host.plan_info()                    # baked: 1, plan_hits: 1
 
 Library implementers (spec + function = a new backend)::
 
@@ -27,9 +29,10 @@ from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
 from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
                                       MarshalingCache, MarshalPolicy,
-                                      SparseFormat, edge, register_format,
-                                      register_source)
+                                      SparseFormat, TrackedArray, edge,
+                                      register_format, register_source)
 from repro_torch.core.pass_manager import LilacFunction, compile
+from repro_torch.core.plan import ExecutablePlan, PlanCache
 from repro_torch.core.rewrite import apply_epilogue
 from repro_torch.core.spec import (REPACKS, SpecError, build_harnesses,
                                    harness, register_builtins, register_spec,
@@ -55,6 +58,8 @@ __all__ = [
     # registry / runtime
     "REGISTRY", "Harness", "HarnessRegistry", "DuplicateHarnessError",
     "CallCtx", "MarshalingCache", "Autotuner", "AutotuneCache",
+    # executable plans
+    "ExecutablePlan", "PlanCache", "TrackedArray",
     # data plane
     "DataPlane", "MarshalPolicy", "SparseFormat", "ConversionEdge",
     "ConversionGraph", "FORMATS", "GRAPH", "SOURCES", "edge",

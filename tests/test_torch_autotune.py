@@ -7,7 +7,8 @@ fresh subprocess with zero candidates re-timed.
 
 Each test gets its own store: the autouse fixture points
 ``LILAC_TORCH_AUTOTUNE_CACHE`` into ``tmp_path`` (tests/conftest.py
-isolates only the JAX package's ``LILAC_*`` files).  Timing runs here on
+isolates only the JAX package's ``LILAC_*`` files) and turns the plan
+cache off, so that a warm process asks the tuner's store.  Timing runs here on
 the CPU, so where a winner matters the timer is rigged; no test asserts
 which real harness is fastest.
 """
@@ -42,6 +43,9 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 def _own_store(tmp_path, monkeypatch):
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
+    # these tests hold the tuner's own store: a plan cache would serve the
+    # pins of a warm process before the tuner is asked
+    monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE_DISABLE", "1")
     for k in ("LILAC_TORCH_AUTOTUNE_BUDGET", "LILAC_TORCH_AUTOTUNE_DISABLE",
               "LILAC_TORCH_AUTOTUNE_MAX_VARIANTS"):
         monkeypatch.delenv(k, raising=False)
@@ -142,7 +146,8 @@ def test_sparsity_bucket_matches_reference(frac):
     (150_000, 36_000_000, 150_000, "none")])
 def test_signature_matches_reference_from_values_and_fakes(rows, nnz, cols,
                                                            epilogue):
-    """The same problem keys the same in both packages, and a traced (fake)
+    """The same problem keys the same in both packages, save for the
+    port's last part, the floating operands' dtypes; and a traced (fake)
     tensor keys as its real tensor does: a trace-mode record serves a
     host-mode call's lookup and a fresh process's."""
     shapes = {"a": (nnz,), "colidx": (nnz,), "rowstr": (rows + 1,),
@@ -150,7 +155,8 @@ def test_signature_matches_reference_from_values_and_fakes(rows, nnz, cols,
     b = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
     b.update(rows=rows, nnz=nnz)
     want = jautotune.signature_of("spmv_csr", "CSR", "cpu", b,
-                                  epilogue=epilogue)
+                                  epilogue=epilogue) + "|dt:" + ",".join(
+        f"{k}=float32" for k in sorted(shapes))
     with FakeTensorMode():
         fakes = {k: torch.empty(s) for k, s in shapes.items()}
     fakes.update(rows=rows, nnz=nnz)
@@ -774,3 +780,30 @@ def test_marshal_policy_off_repacks_every_call():
     assert len(small._store) == 2 and small.stats.evictions == 1
     with pytest.raises(ValueError):
         lilac.MarshalPolicy.parse("sometimes")
+
+
+def test_dtype_tunes_apart():
+    """One MoE shape in f32 and in bf16: two tuner keys, differing only in
+    their dtype part, and two records in the store (K4's body differs by
+    dtype, so a decision for one must not serve the other)."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(0)
+    sigs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = L.moe_params(L.moe_spec(32, 16, 4, dtype), gen)
+        x = torch.randn(24, 32, generator=gen).to(dtype)
+        gate, idx, _ = L.moe_router(p, x[None], 2)
+        fast = lilac.compile(L._moe_naive_2d, policy="autotune",
+                             platform="cpu")
+        fast(x, gate[0], idx[0], p["wg"], p["wu"], p["wd"])
+        dec = REGISTRY.autotuner.last_decision
+        assert dec.source == "measured"
+        sigs[dtype] = dec.sig
+    f32, bf16 = sigs[torch.float32], sigs[torch.bfloat16]
+    assert f32 != bf16
+    assert f32.split("|dt:")[0] == bf16.split("|dt:")[0]
+    assert "x=float32" in f32 and "x=bfloat16" in bf16
+    path = A.default_cache_path()
+    entries = json.loads(path.read_text())["entries"]
+    assert "trace" in entries[f32] and "trace" in entries[bf16]

@@ -30,6 +30,13 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 
 
+@pytest.fixture(autouse=True)
+def _own_plan_cache(tmp_path, monkeypatch):
+    """The plan cache in this test's directory."""
+    monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
+
+
+
 def _same(torch_c, jax_c):
     for name, arr in tf.to_numpy(torch_c).items():
         ref = getattr(jax_c, name)

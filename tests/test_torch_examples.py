@@ -20,6 +20,7 @@ NODES, ITERS = 512, 40
 def _own_store(tmp_path, monkeypatch):
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
     REGISTRY.reset_autotuner()
     yield
     REGISTRY.reset_autotuner()

@@ -44,6 +44,7 @@ def _own_store(tmp_path, monkeypatch):
 
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
     REGISTRY.reset_autotuner()
     yield
     REGISTRY.reset_autotuner()
@@ -730,3 +731,184 @@ def test_host_autotune_on_the_card_picks_the_least_amortized(cuda):
     timed = tuner.stats.timing_calls
     fast(*args)
     assert tuner.stats.timing_calls == timed
+
+
+# ---------------------------------------------------------------------------
+# executable plans: the rewritten program replayed from one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _naive_spmv(val, col, row_ptr, v):
+    rows = row_ptr.shape[0] - 1
+    r = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                torch.diff(row_ptr), output_size=val.shape[0])
+    return torch.zeros(rows, device=val.device).index_add_(0, r, val * v[col])
+
+
+def _plan_cg(fast, csr, b, iters):
+    x = torch.zeros_like(b)
+    r = b - fast(csr.val, csr.col_ind, csr.row_ptr, x)
+    p, rs = r, torch.dot(r, r)
+    for _ in range(iters):
+        ap = fast(csr.val, csr.col_ind, csr.row_ptr, p)
+        alpha = rs / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = torch.dot(r, r)
+        p = r + (rs_new / rs) * p
+        rs = rs_new
+    return x
+
+
+_PLAN_CASES = {   # case -> (policy, kernel body, resident vector limit)
+    "staged": ("cuda.ell", (K.LAUNCHES, "spmv_ell_staged"), None),
+    "windowed": ("cuda.ell", (K.LAUNCHES, "spmv_ell_windowed"), 1000),
+    "narrow": ("cuda.bcsr", (K3.LAUNCHES, "bsr_spmm_narrow"), None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_PLAN_CASES))
+def test_plan_replay_equals_the_interpreter_bit_for_bit(cuda, case,
+                                                        monkeypatch):
+    """A CG through a baked plan (a CUDA-graph replay a call after the
+    first) and through the interpreter: the same kernels in the same
+    order, so the same bits, and the same launches counted."""
+    policy, (launches, body), limit = _PLAN_CASES[case]
+    if limit is not None:
+        monkeypatch.setattr(ell_ops, "RESIDENT_VEC_LIMIT", limit)
+    csr = trandom.random_spd_csr(3000, 15, seed=4, device=cuda)
+    b = torch.ones(3000, device=cuda)
+    xs, counts = {}, {}
+    for bake in (True, False):
+        fast = lilac.compile(_naive_spmv, mode="host", policy=policy,
+                             bake=bake)
+        before = launches[body]
+        xs[bake] = _plan_cg(fast, csr, b, 10)
+        torch.cuda.synchronize()
+        counts[bake] = launches[body] - before
+        info = fast.plan_info()
+        if bake:
+            assert info["baked"] == 1 and not info["bake_errors"], info
+            assert info["plan_hits"] == 10
+            assert info["plans"][0]["cuda_graph"]
+        else:
+            assert info["baked"] == 0 and info["plan_hits"] == 0
+        assert fast.cache.stats.misses == 1
+    assert counts[True] == counts[False] == 11
+    assert torch.equal(xs[True], xs[False])
+    torch.testing.assert_close(xs[True], _plan_cg(_naive_spmv, csr, b, 10),
+                               **TOL)
+
+
+@pytest.mark.gpu
+def test_plan_outputs_of_two_replays_do_not_alias(cuda):
+    csr = trandom.random_spd_csr(2000, 9, seed=5, device=cuda)
+    fast = lilac.compile(_naive_spmv, mode="host", policy="cuda.ell")
+    v1, v2 = torch.randn(2000, device=cuda), torch.randn(2000, device=cuda)
+    fast(csr.val, csr.col_ind, csr.row_ptr, v1)
+    y1 = fast(csr.val, csr.col_ind, csr.row_ptr, v1)
+    keep = y1.clone()
+    y2 = fast(csr.val, csr.col_ind, csr.row_ptr, v2)
+    assert fast.plan_info()["plan_hits"] == 2
+    assert y1.data_ptr() != y2.data_ptr()
+    assert torch.equal(y1, keep)
+    torch.testing.assert_close(
+        y2, _naive_spmv(csr.val, csr.col_ind, csr.row_ptr, v2), **TOL)
+
+
+@pytest.mark.gpu
+def test_plan_launch_counters_count_replays(cuda):
+    """Each replay adds the launches recorded at capture; the bake's own
+    warm-up and capture add none."""
+    csr = trandom.random_spd_csr(2000, 9, seed=6, device=cuda)
+    v = torch.randn(2000, device=cuda)
+    for policy, (launches, body) in (
+            ("cuda.ell", (K.LAUNCHES, "spmv_ell_staged")),
+            ("cuda.bcsr", (K3.LAUNCHES, "bsr_spmm_narrow"))):
+        fast = lilac.compile(_naive_spmv, mode="host", policy=policy)
+        before = launches[body]
+        for _ in range(7):
+            fast(csr.val, csr.col_ind, csr.row_ptr, v)
+        torch.cuda.synchronize()
+        assert launches[body] - before == 7
+        assert fast.plan_info()["plan_hits"] == 6
+
+
+@pytest.mark.gpu
+def test_inplace_edit_busts_the_plan_on_the_card(cuda):
+    """One element of a > 64 KB val, off the fingerprint's sample grid,
+    written in place between two replays: the plan misses, the data plane
+    re-marshals, and the output is the naive one (with and without
+    bake)."""
+    csr = trandom.random_spd_csr(3000, 15, seed=7, device=cuda)
+    v = torch.randn(3000, device=cuda)
+    for bake in (True, False):
+        val = csr.val.clone()
+        fast = lilac.compile(_naive_spmv, mode="host", policy="cuda.ell",
+                             bake=bake)
+        fast(val, csr.col_ind, csr.row_ptr, v)
+        fast(val, csr.col_ind, csr.row_ptr, v)
+        val[12345] += 100.0
+        got = fast(val, csr.col_ind, csr.row_ptr, v)
+        torch.testing.assert_close(
+            got, _naive_spmv(val, csr.col_ind, csr.row_ptr, v), **TOL)
+        assert fast.cache.stats.misses == 2
+        val.mul_(2)
+        got = fast(val, csr.col_ind, csr.row_ptr, v)
+        torch.testing.assert_close(
+            got, _naive_spmv(val, csr.col_ind, csr.row_ptr, v), **TOL)
+        assert fast.plan_info()["rebakes"] == (2 if bake else 0)
+
+
+@pytest.mark.gpu
+def test_inference_tensor_edit_busts_the_plan_on_the_card(cuda):
+    """A matrix made under torch.inference_mode carries no version: an
+    in-place edit under inference_mode between two replays busts the plan
+    through its checksum guard, and a re-upload with one element changed
+    re-marshals through the data plane's checksum."""
+    csr = trandom.random_spd_csr(3000, 15, seed=9, device=cuda)
+    v = torch.randn(3000, device=cuda)
+    with torch.inference_mode():
+        val = csr.val.clone()
+        fast = lilac.compile(_naive_spmv, mode="host", policy="cuda.ell")
+        fast(val, csr.col_ind, csr.row_ptr, v)
+        fast(val, csr.col_ind, csr.row_ptr, v)
+        assert fast.plan_info()["plan_hits"] == 1
+        val[12345] += 100.0
+        got = fast(val, csr.col_ind, csr.row_ptr, v)
+        want = _naive_spmv(val, csr.col_ind, csr.row_ptr, v)
+    torch.testing.assert_close(got, want, **TOL)
+    assert fast.cache.stats.misses == 2
+    fast = lilac.compile(_naive_spmv, mode="host", policy="cuda.ell")
+    fast(csr.val, csr.col_ind, csr.row_ptr, v)
+    fast(csr.val, csr.col_ind, csr.row_ptr, v)
+    val2 = csr.val.clone()
+    val2[23456] += 100.0
+    got = fast(val2, csr.col_ind, csr.row_ptr, v)
+    torch.testing.assert_close(
+        got, _naive_spmv(val2, csr.col_ind, csr.row_ptr, v), **TOL)
+    assert fast.cache.stats.misses == 2 and fast.cache.stats.stale == 1
+
+
+@pytest.mark.gpu
+def test_plan_past_the_copy_limit_runs_eagerly(cuda, monkeypatch):
+    """A plan whose replay, its copies included, times slower than its
+    eager program (the timing rigged here, as a GNN step's copies make it)
+    runs its program eagerly on the card: no CUDA graph, the same bits,
+    one launch a call."""
+    from repro_torch.core import plan as P
+
+    monkeypatch.setattr(P, "per_call_ms", lambda *fns, **kw: [1.0, 0.5])
+    csr = trandom.random_spd_csr(2000, 9, seed=8, device=cuda)
+    v = torch.randn(2000, device=cuda)
+    fast = lilac.compile(_naive_spmv, mode="host", policy="cuda.ell")
+    interp = lilac.compile(_naive_spmv, mode="host", policy="cuda.ell",
+                           bake=False)
+    before = K.LAUNCHES["spmv_ell_staged"]
+    outs = [fast(csr.val, csr.col_ind, csr.row_ptr, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell_staged"] - before == 3
+    (plan,) = fast.plan_info()["plans"]
+    assert not plan["cuda_graph"] and plan["hits"] == 2
+    want = interp(csr.val, csr.col_ind, csr.row_ptr, v)
+    assert all(torch.equal(o, want) for o in outs)

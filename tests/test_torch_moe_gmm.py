@@ -32,6 +32,13 @@ FFN_TOL = dict(atol=1e-4, rtol=1e-3)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
+@pytest.fixture(autouse=True)
+def _own_plan_cache(tmp_path, monkeypatch):
+    """The plan cache in this test's directory."""
+    monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
+
+
+
 def _moe_operands(T, D, F, E, K, seed, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return dict(

@@ -43,6 +43,7 @@ MOE_OP = torch.ops.lilac_torch.moe_ffn.default
 def _own_store(tmp_path, monkeypatch):
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
     monkeypatch.delenv("LILAC_TORCH_AUTOTUNE_DISABLE", raising=False)
     REGISTRY.reset_autotuner()
     yield
