@@ -77,15 +77,35 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      call, with the per-call times of host mode, trace mode, the graph and
      the replay; and policy="autotune" in trace mode on the MoE layer,
      sweeping cuda.gmm's tm;
+   every path above injects no fault and must show no containment event
+   and no quarantine skip (each one warns) and leave the quarantine store,
+   kept in the run's temporary directory, empty; then
+   * containment, on the same matrices and layer: kernel_raise:cuda.ell on
+     the NPB-C CG (policy="cuda.ell", baked): the 25 iterates within 1e-3
+     of the naive CG, one record (spmv_csr, cuda.ell, default) on disk and
+     the fallback named, a new function skipping cuda.ell with no
+     containment event but a warned, counted quarantine skip,
+     and with the store cleared cuda.ell and K1 staged back (26 launches);
+     nan_output:cuda.bcsr on 3 GNN steps: the NaN caught, the output
+     within 1e-4 of the naive loop; shadow checks at rate 1 on the NPB-C
+     CG's 25 plan calls (f32 tolerance) and on two MoE blocks (bf16
+     tolerance) with no divergence, and shadow_diverge:dispatch on the
+     BCSR CG: the naive answer served, the plan torn down, cuda.bcsr
+     quarantined and the next call without it; the combined fault spec of
+     tools/chaos_smoke_torch.py under policy="autotune" at NPB-C and HPCG
+     (seeded by --seed; zero uncontained exceptions, results equal to the
+     uncompiled program's, quarantines persisted); and the fault-free plan
+     and bake=False CG calls beside those of commit 199bd38;
 4. holds each kernel against its plain torch version at the paths' shapes
    (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
    at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
    and K4 at every tm cuda.gmm declares, each bit for bit against the
-   default) and times the
+   default; K4's f32 body at the OLMoE gate/up shapes too) and times the
    kernel (CUDA events, host enqueue, torch.profiler), the plain version
    and one PyTorch call of the same function that the port never calls
-   (cuSPARSE SpMV and SpMM, torch._grouped_mm; for K4 also a bf16 GEMM of
-   the same flops as a rate yardstick), beside the least time the card
+   (cuSPARSE SpMV and SpMM, torch._grouped_mm in bf16 and on the f32
+   operands; for K4 also a bf16 GEMM of the same flops as a rate
+   yardstick), beside the least time the card
    could take for the function's own work at the widths the layout stores
    (bound_ms); prints the layouts' bytes (checks: K1's staged layout at
    NPB-C at most 0.33 GB, K2's at HPCG 0.31 GB, K3's packed tiles at HPCG
@@ -99,6 +119,7 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -968,6 +989,7 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     # bf16, as that call requires, where K4 writes f32)
     grouped = getattr(torch, "_grouped_mm", None)
     entry["library_ms"] = entry["library_err"] = None
+    entry["library_f32"] = None
     if on_card and grouped is not None:
         counts = torch.bincount(idx[0].reshape(-1).long(), minlength=E)
         offs = torch.cumsum((counts + tm - 1) // tm * tm, 0).to(torch.int32)
@@ -976,6 +998,17 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
         entry["library_err"] = float((lib()[:rows].float() - GR.gmm_ref(
             xs, p["wg"], te, tm)[:rows]).abs().max())
         entry["library_ms"] = cuda_ms(lib, reps)[0]
+        # the f32 body's product as one call, where this PyTorch takes f32
+        xf, wf = calls["gate_up_f32"]
+        try:
+            lib32 = lambda: grouped(xf, wf, offs=offs)
+            err32 = float((lib32()[:rows] - GR.gmm_ref(
+                xf, wf, te, tm)[:rows]).abs().max())
+            entry["library_f32"] = {"ms": cuda_ms(lib32, reps)[0],
+                                    "max_abs_err": err32}
+        except Exception as e:      # a PyTorch that takes bf16 only
+            entry["library_f32"] = {
+                "ms": None, "refused": f"{type(e).__name__}: {str(e)[:300]}"}
     # a GEMM-rate yardstick, not the same function: one expert's weights
     # for all routed rows, the same flops as the gate/up call
     x2, w0 = xs[:routed], p["wg"][0]
@@ -1537,6 +1570,296 @@ def check_moe_trace(res) -> None:
     check_variants(res["variants"], "moe_ffn tm")
 
 
+# ---------------------------------------------------------------------------
+# Containment: faults injected on the card, quarantine, shadow checks
+# ---------------------------------------------------------------------------
+
+SHADOW_PLAN_CALLS = CG_ITERS            # the NPB-C CG's plan calls
+CONTAIN_GNN_STEPS = 3
+
+
+@contextlib.contextmanager
+def fault_free(what: str):
+    """A phase that injects no fault: it must show no containment event
+    and no quarantine skip (each one warns) and leave the quarantine store
+    empty."""
+    from repro_torch.core.resilience import (LilacContainmentWarning,
+                                             QuarantineStore)
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always", LilacContainmentWarning)
+        yield
+    events = [str(w.message) for w in seen
+              if issubclass(w.category, LilacContainmentWarning)]
+    for w in seen:
+        if not issubclass(w.category, LilacContainmentWarning):
+            print(f"warning in {what}: {w.category.__name__}: {w.message}",
+                  file=sys.stderr)
+    skips = [e for e in events if "is quarantined and skipped" in e]
+    require(not events, f"{what}: no containment event and no quarantine "
+            f"skip, got {len(skips)} skips in {events}")
+    active = QuarantineStore(os.environ["LILAC_TORCH_QUARANTINE_CACHE"])
+    require(not active.active(), f"{what}: an empty quarantine store, got "
+            f"{active.active()}")
+
+
+def _contained(fn):
+    """(result, containment warnings) of ``fn()``."""
+    from repro_torch.core.resilience import LilacContainmentWarning
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always", LilacContainmentWarning)
+        out = fn()
+    return out, [str(w.message) for w in seen
+                 if issubclass(w.category, LilacContainmentWarning)]
+
+
+def kernel_raise_path(a, b, x_ref, device, iters: int = CG_ITERS):
+    """``kernel_raise:cuda.ell`` on the NPB-C CG (policy="cuda.ell", baked):
+    the first call quarantines cuda.ell and falls back; a new function
+    skips it with no containment event but with a skip warning and count;
+    with the store cleared cuda.ell (K1 staged) runs again."""
+    from repro_torch import lilac
+    from repro_torch.core import faults
+    from repro_torch.core.resilience import QuarantineStore, shared_quarantine
+    from repro_torch.kernels.spmv_ell import kernel as K
+
+    def compiled():
+        return lilac.compile(naive_spmv, mode="host", policy="cuda.ell",
+                             device=device)
+
+    fast = compiled()
+    with faults.inject("kernel_raise:cuda.ell") as plan:
+        x, events = _contained(lambda: cg(fast, a, b, iters))
+    sync(device)
+    on_disk = QuarantineStore(
+        os.environ["LILAC_TORCH_QUARANTINE_CACHE"]).active()
+    res = {"fired": len(plan.fired), "events": events,
+           "fallback": [n for _, n in fast.last_selections],
+           "containment": fast.resilience_info()["containment"],
+           "plan_hits": fast.plan_info()["plan_hits"],
+           "quarantined": sorted(on_disk),
+           "rel_to_naive": rel_l2(x, x_ref)}
+    del fast
+    again = compiled()
+    K.reset_launches()
+    (x2, events2) = _contained(lambda: cg(again, a, b, 2))
+    res.update(skip_selections=[n for _, n in again.last_selections],
+               skip_events=events2,
+               skip_containment=again.resilience_info()["containment"],
+               skip_launches=K.LAUNCHES["spmv_ell_staged"])
+    del again
+    shared_quarantine().clear()
+    third = compiled()
+    K.reset_launches()
+    x3 = cg(third, a, b, iters)
+    sync(device)
+    res.update(cleared_selections=[n for _, n in third.last_selections],
+               cleared_launches=K.LAUNCHES["spmv_ell_staged"],
+               cleared_rel_to_naive=rel_l2(x3, x_ref))
+    del third
+    release(device)
+    return res
+
+
+def check_kernel_raise_path(res, iters: int = CG_ITERS) -> None:
+    require(res["rel_to_naive"] <= CG_RTOL,
+            f"kernel_raise: the 25 iterates within {CG_RTOL} of x_naive, got "
+            f"{res['rel_to_naive']:.3g}")
+    require(res["quarantined"] == ["spmv_csr|cuda.ell|default"],
+            f"kernel_raise: exactly (spmv_csr, cuda.ell, default) on disk, "
+            f"got {res['quarantined']}")
+    require(res["fallback"] and res["fallback"] != ["cuda.ell"]
+            and len(res["events"]) == 1 and res["fired"] == 1,
+            f"kernel_raise: one contained event and a named fallback, got "
+            f"{res['events']}, {res['fallback']}")
+    skip = res["skip_containment"]
+    require(res["skip_selections"] == res["fallback"]
+            and skip["quarantines"] == 0 and skip["contained_exceptions"] == 0
+            and skip["quarantine_skips"] >= 1
+            and len(res["skip_events"]) == skip["quarantine_skips"]
+            and all("'cuda.ell'" in e and "is quarantined and skipped" in e
+                    for e in res["skip_events"])
+            and res["skip_launches"] == 0,
+            f"kernel_raise: a new function skips cuda.ell with no containment "
+            f"event and one warned, counted skip, got "
+            f"{res['skip_selections']}, {skip}, {res['skip_events']}")
+    require(res["cleared_selections"] == ["cuda.ell"]
+            and res["cleared_launches"] == iters + 1
+            and res["cleared_rel_to_naive"] <= CG_RTOL,
+            f"kernel_raise: with the store cleared cuda.ell runs K1 staged "
+            f"{iters + 1} times, got {res['cleared_selections']}, "
+            f"{res['cleared_launches']}")
+
+
+def nan_output_path(a, seed: int, device, steps: int = CONTAIN_GNN_STEPS,
+                    width: int = GNN_WIDTH):
+    """``nan_output:cuda.bcsr`` on ``steps`` GNN steps: the NaN output of
+    K3 is caught by the validator, the step falls back, the output is the
+    uncompiled loop's."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.core import faults
+    from repro_torch.core.resilience import shared_quarantine
+
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    h0 = torch.randn((a.cols, width), generator=gen, device=device)
+    bias = torch.randn(width, generator=gen, device=device)
+    fast = lilac.compile(gnn_step, mode="host", device=device)
+
+    def loop(step):
+        h = h0
+        for _ in range(steps):
+            h = step(a.val, a.col_ind, a.row_ptr, h, bias)
+            h = h / h.abs().max()
+        return h
+
+    with faults.inject("nan_output:cuda.bcsr") as plan:
+        h, events = _contained(lambda: loop(fast))
+    res = {"fired": len(plan.fired), "events": events,
+           "selections": [n for _, n in fast.last_selections],
+           "containment": fast.resilience_info()["containment"],
+           "finite": bool(torch.isfinite(h).all())}
+    del fast
+    release(device)
+    res["rel_to_naive"] = rel_l2(h, loop(gnn_step))
+    shared_quarantine().clear()
+    release(device)
+    return res
+
+
+def check_nan_output_path(res) -> None:
+    c = res["containment"]
+    require(c["nonfinite_outputs"] >= 1 and c["quarantines"] >= 1
+            and res["events"] and res["selections"] != ["cuda.bcsr"],
+            f"nan_output: the NaN output of cuda.bcsr contained, got {c}, "
+            f"{res['selections']}")
+    require(res["finite"] and res["rel_to_naive"] <= GNN_RTOL,
+            f"nan_output: the GNN output within {GNN_RTOL} of the naive "
+            f"loop, got {res['rel_to_naive']:.3g}")
+
+
+def shadow_path(mats, x_ref, cfg, p, x, device, iters: int = CG_ITERS):
+    """Shadow checks at rate 1: the NPB-C CG's plan calls (cuda.ell) and
+    two MoE blocks (cuda.gmm, bf16) against the uncompiled program, then
+    ``shadow_diverge:dispatch`` on the BCSR CG at HPCG."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.core import faults
+    from repro_torch.core.resilience import shared_quarantine
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.models import layers as L
+
+    os.environ["LILAC_TORCH_SHADOW_RATE"] = "1"
+    try:
+        a, b = mats["npb"]
+        fast = lilac.compile(naive_spmv, mode="host", policy="cuda.ell",
+                             device=device)
+        calls: list = []
+        xs, events = _contained(lambda: cg(timed(fast, calls, device), a, b,
+                                           iters))
+        res = {"npb": {"info": fast.resilience_info(), "events": events,
+                       "plan_hits": fast.plan_info()["plan_hits"],
+                       "steady_call_ms": steady_ms(calls),
+                       "rel_to_naive": rel_l2(xs, x_ref)}}
+        del fast
+        moe = L._lilac_moe_2d(device.type)
+        before = dict(moe.resilience_stats.as_dict())
+        calls = []
+        for _ in range(2):
+            timed(lambda: L.moe_block(p, x, topk=cfg.moe_topk,
+                                      impl="lilac"), calls, device)()
+        after = moe.resilience_stats.as_dict()
+        res["moe"] = {k: after[k] - before[k] for k in after}
+        res["moe"]["block_ms"] = [1e3 * t for t in calls]
+        # a forced divergence on the BCSR CG's plan
+        a, b = mats["hpcg"]
+        fast = lilac.compile(naive_spmv, mode="host", policy="cuda.bcsr",
+                             device=device)
+        fast(a.val, a.col_ind, a.row_ptr, b)        # bakes
+        with faults.inject("shadow_diverge:dispatch") as plan:
+            got = fast(a.val, a.col_ind, a.row_ptr, b)
+        want = naive_spmv(a.val, a.col_ind, a.row_ptr, b)
+        r = {"fired": len(plan.fired), "served_naive": bool(
+            torch.equal(got, want)), "baked_after": fast.plan_info()["baked"],
+             "quarantined": sorted(shared_quarantine().active()),
+             "divergences": fast.resilience_info()["containment"][
+                 "shadow_divergences"]}
+        B.reset_launches()
+        nxt = fast(a.val, a.col_ind, a.row_ptr, b)
+        sync(device)
+        r.update(next_selections=[n for _, n in fast.last_selections],
+                 next_launches=B.LAUNCHES["bsr_spmm_narrow"],
+                 next_max_err=max_err(nxt, want)[1])
+        res["bcsr"] = r
+        del fast
+    finally:
+        os.environ.pop("LILAC_TORCH_SHADOW_RATE", None)
+    shared_quarantine().clear()
+    release(device)
+    return res
+
+
+def check_shadow_path(res, iters: int = CG_ITERS, batch: int = MOE_BATCH
+                      ) -> None:
+    n = res["npb"]
+    c = n["info"]["containment"]
+    require(c["shadow_checks"] == iters and c["shadow_divergences"] == 0
+            and n["plan_hits"] == iters and not n["events"]
+            and n["rel_to_naive"] <= CG_RTOL,
+            f"shadow: {iters} NPB-C plan calls checked with no divergence, "
+            f"got {c}, {n['plan_hits']} plan hits")
+    m = res["moe"]
+    require(m["shadow_checks"] == 2 * batch and m["shadow_divergences"] == 0,
+            f"shadow: {2 * batch} MoE calls checked with no divergence (bf16 "
+            f"tolerance), got {m}")
+    r = res["bcsr"]
+    require(r["fired"] == 1 and r["served_naive"] and r["baked_after"] == 0
+            and r["divergences"] == 1
+            and r["quarantined"] == ["spmv_csr|cuda.bcsr|default"],
+            f"shadow_diverge: the naive answer served, the plan torn down, "
+            f"cuda.bcsr quarantined, got {r}")
+    require(r["next_selections"] not in ([], ["cuda.bcsr"])
+            and r["next_launches"] == 0 and r["next_max_err"] <= 1.0,
+            f"shadow_diverge: the next call runs without cuda.bcsr, got "
+            f"{r['next_selections']}, {r['next_launches']} K3 launches")
+
+
+def chaos_path(mats, seed: int, device, work: str) -> dict:
+    """The combined fault spec of tools/chaos_smoke_torch.py under
+    policy="autotune" at NPB-C and HPCG, every store in a directory of its
+    own (the tuner measures afresh)."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "chaos_smoke_torch", ROOT / "tools" / "chaos_smoke_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.redirect_stores(str(Path(work) / "chaos"))
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    problems = {name: (a, torch.randn(a.cols, generator=gen, device=device))
+                for name, (a, _) in mats.items()}
+    t0 = time.perf_counter()
+    sweep = tool.oracle_sweep(problems, seed, device.type)
+    res = {"sweep": sweep, "seconds": time.perf_counter() - t0,
+           "spec": tool.CHAOS_SPEC,
+           "repro": f"python3 chip_smoke.py --seed {seed}"}
+    res.update(tool.gates(sweep))
+    release(device)
+    return res
+
+
+def check_chaos_path(res) -> None:
+    for gate in ("zero_uncontained_exceptions", "results_match_oracle",
+                 "quarantines_persisted"):
+        require(res[gate], f"chaos: {gate}, got {res['sweep']}; replay with "
+                f"{res['repro']}")
+    require(res["sweep"]["faults_fired"] > 0, "chaos: faults fired")
+
+
+
 def print_trace(res, what: str) -> None:
     t = res
     line = (f"trace {what}: {t['selections']} as {t['op_nodes']} custom-op "
@@ -1664,10 +1987,15 @@ def main() -> int:
     if args.plan_warm_start:
         print(json.dumps(plan_warm_start(args.seed, torch.device("cuda"))))
         return 0
-    # the persistent stores (plans, tuner) in a directory of this run
+    # the persistent stores (plans, tuner, quarantine) in a directory of
+    # this run; no ambient fault plan or shadow rate
     work = tempfile.mkdtemp(prefix="lilac-torch-")
     os.environ["LILAC_TORCH_PLAN_CACHE"] = str(Path(work) / "plans.json")
-    os.environ.pop("LILAC_TORCH_PLAN_CACHE_DISABLE", None)
+    os.environ["LILAC_TORCH_QUARANTINE_CACHE"] = str(
+        Path(work) / "quarantine.json")
+    for k in ("LILAC_TORCH_PLAN_CACHE_DISABLE", "LILAC_TORCH_FAULTS",
+              "LILAC_TORCH_FAULTS_SEED", "LILAC_TORCH_SHADOW_RATE"):
+        os.environ.pop(k, None)
     try:
         return run(args, work)
     finally:
@@ -1709,7 +2037,8 @@ def run(args, work: str) -> int:
     print(f"generated in {time.perf_counter() - t0:.1f}s")
 
     # -- SpMV on ELL (K1, K2) ------------------------------------------------
-    res = main_path(mats, args.seed, device)
+    with fault_free("SpMV path"):
+        res = main_path(mats, args.seed, device)
     x_refs = res.pop("x_ref")
     x_ref = x_refs["hpcg"]
     for name in mats:
@@ -1753,7 +2082,8 @@ def run(args, work: str) -> int:
     release(device)
 
     # -- K1's rows_per_slab variants, the ELL layer in trace mode ------------
-    slabs = slab_variants(mats["npb"][0], args.seed, device)
+    with fault_free("slab variants and the ELL layer in trace mode"):
+        slabs = slab_variants(mats["npb"][0], args.seed, device)
     print_tune_variants(slabs["variants"], "spmv_ell rows_per_slab",
                         f"tol atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref|")
     print_trace(slabs["trace"], "ELL layer (npb)")
@@ -1765,7 +2095,8 @@ def run(args, work: str) -> int:
     # -- host-mode autotune at NPB-C and HPCG, then a warm start ------------
     store = Path(work) / "autotune.json"
     os.environ["LILAC_TORCH_AUTOTUNE_CACHE"] = str(store)
-    tuned = autotune_path(mats, x_refs, device)
+    with fault_free("autotune"):
+        tuned = autotune_path(mats, x_refs, device)
     for name, r in tuned.items():
         for cand, c in r["candidates"].items():
             print(f"autotune {name} {cand}: " + (
@@ -1780,8 +2111,9 @@ def run(args, work: str) -> int:
               f"{r['rel_to_naive']:.3g}; launches {r['launches']}")
     check_autotune_path(tuned)
     # the tuner's store alone: the plan cache would serve the pins first
-    warm = run_warm_start(args.seed, store,
-                          LILAC_TORCH_PLAN_CACHE_DISABLE="1")
+    with fault_free("autotune warm start"):
+        warm = run_warm_start(args.seed, store,
+                              LILAC_TORCH_PLAN_CACHE_DISABLE="1")
     print(f"autotune warm start (a second process, {warm['seconds']:.1f}s): "
           f"{ {k: v for k, v in warm.items() if k in tuned} }, tuner "
           f"{warm['stats']}")
@@ -1790,7 +2122,8 @@ def run(args, work: str) -> int:
     release(device)
 
     # -- executable plans: the CGs replayed from one CUDA graph -------------
-    plans = plan_path(mats, device)
+    with fault_free("plans"):
+        plans = plan_path(mats, device)
     for key, r in plans.items():
         if "bake=" not in key:
             print(f"plans {key}: iterate equal to bake=False's bit for bit: "
@@ -1804,15 +2137,18 @@ def run(args, work: str) -> int:
               f"launches {r['launches']}; plan_info {info}; plans "
               f"{r['plan_info']['plans']}; in-place val.mul_(2): {r['edit']}")
     check_plan_path(plans)
-    pwarm = run_warm_start(args.seed, Path(work) / "autotune-empty.json",
-                           "--plan-warm-start")
+    with fault_free("plan warm start"):
+        pwarm = run_warm_start(args.seed,
+                               Path(work) / "autotune-empty.json",
+                               "--plan-warm-start")
     print(f"plan warm start (a second process on plans.json, an empty tuner "
           f"store, {pwarm['seconds']:.1f}s): {pwarm['detect_calls']} "
           f"detection calls, tuner {pwarm['tuner']}, selections "
           f"{pwarm['selections']}, baked {pwarm['baked']}")
     check_plan_warm_start(pwarm, tuned)
     record.update(plan_path=plans, plan_warm_start=pwarm)
-    joint = joint_path(*mats["hpcg"], device)
+    with fault_free("joint search"):
+        joint = joint_path(*mats["hpcg"], device)
     print(f"joint search hpcg A @ (A @ b) under autotune: selections by "
           f"call {joint['selections']}, report {joint['plan_info']['joint']}"
           f", {joint['timing_calls']} timings, {joint['repacks']} repacks, "
@@ -1822,13 +2158,14 @@ def run(args, work: str) -> int:
           f"; plans {joint['plans']}")
     check_joint_path(joint)
     record["joint_path"] = joint
-    del x_refs
-    a_hpcg, b_hpcg = mats.pop("hpcg")
-    del mats
+    # the containment phase reuses both matrices (0.6 GB); each path drops
+    # its compiled functions, whose layouts the data plane holds
+    a_hpcg, b_hpcg = mats["hpcg"]
     release(device)
 
     # -- SpMM and SpMV on BCSR (K3) -----------------------------------------
-    spmm = spmm_path(a_hpcg, args.seed, device)
+    with fault_free("SpMM path"):
+        spmm = spmm_path(a_hpcg, args.seed, device)
     print(f"SpMM path hpcg x {GNN_WIDTH}: match {spmm['match']} via "
           f"{spmm['selections']}, traced in {spmm['trace_seconds']:.2f}s, "
           f"detected in {spmm['detect_seconds']:.2f}s, {spmm['repacks']} "
@@ -1847,7 +2184,8 @@ def run(args, work: str) -> int:
           f"launches {spmm['launches']}; plan {spmm['plan']}")
     check_spmm_path(spmm)
     release(device)
-    bcg = bcsr_cg_path(a_hpcg, b_hpcg, x_ref, device)
+    with fault_free("BCSR CG"):
+        bcg = bcsr_cg_path(a_hpcg, b_hpcg, x_ref, device)
     print(f"BCSR SpMV path hpcg: match {bcg['match']} via "
           f"{bcg['selections']}, {bcg['repacks']} repack "
           f"({bcg['repack_seconds']:.2f}s), {bcg['hits']} hits; CG "
@@ -1872,12 +2210,13 @@ def run(args, work: str) -> int:
         kernels.append(kernel_entry(
             e, "main_path", (spmm if e["name"] == "bsr_spmm_wide"
                              else bcg)["launches"][e["name"]]))
-    del a_hpcg, b_hpcg, x_ref
+    del a_hpcg, b_hpcg
     release(device)
 
     # -- MoE (K4) ------------------------------------------------------------
     p, x = moe_inputs(OLMOE, args.seed, device)
-    moe = moe_path(OLMOE, p, x, device)
+    with fault_free("MoE path"):
+        moe = moe_path(OLMOE, p, x, device)
     print(f"MoE path {OLMOE.name} x {tuple(x.shape)} {x.dtype}: match "
           f"{moe['match']} via {moe['selections']}, {moe['traces']} trace "
           f"({moe['trace_seconds']:.2f}s), detected in "
@@ -1899,13 +2238,16 @@ def run(args, work: str) -> int:
           f"({gmm['routed_rows']}, {OLMOE.d_model}) x ({OLMOE.d_model}, "
           f"{OLMOE.d_ff}) bf16, not the same function): "
           f"{gmm['gemm_ms']:.4f} ms")
+    print(f"gmm library for the f32 body (torch._grouped_mm on the f32 "
+          f"operands): {gmm['library_f32']}")
     for vname, v in gmm["variants"].items():
         if "witness" in v:
             print(f"gmm/{vname} witnesses, max|err| vs plain: {v['witness']}")
     kernels.append(kernel_entry(gmm, "gate_up", moe["launches"]))
     record["kernels"] += bsr + [gmm]
     release(device)
-    moe_trace = moe_trace_path(OLMOE, p, x, device)
+    with fault_free("MoE trace mode"):
+        moe_trace = moe_trace_path(OLMOE, p, x, device)
     print_trace(moe_trace["trace"], f"MoE ({OLMOE.name}, one sequence)")
     a = moe_trace["autotune"]
     print(f"trace autotune MoE: winner {a['winner']} {a['schedule']}, "
@@ -1915,6 +2257,64 @@ def run(args, work: str) -> int:
                         f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
     check_moe_trace(moe_trace)
     record["moe_trace"] = moe_trace
+
+    # -- containment: faults injected on the card ---------------------------
+    t0 = time.perf_counter()
+    kr = kernel_raise_path(*mats["npb"], x_refs["npb"], device)
+    print(f"containment kernel_raise:cuda.ell (npb CG, policy=cuda.ell): "
+          f"{kr['fired']} fired, warning {kr['events']}, fallback "
+          f"{kr['fallback']}, {kr['plan_hits']} plan hits, containment "
+          f"{kr['containment']}, on disk {kr['quarantined']}, "
+          f"|x-x_naive|/|x_naive| = {kr['rel_to_naive']:.3g}; a new "
+          f"function: {kr['skip_selections']}, "
+          f"{kr['skip_containment']['contained_exceptions']} contained, "
+          f"{kr['skip_containment']['quarantine_skips']} quarantine skips "
+          f"({len(kr['skip_events'])} warned), {kr['skip_launches']} K1 "
+          f"launches; store cleared: "
+          f"{kr['cleared_selections']}, K1 staged launches "
+          f"{kr['cleared_launches']}, |x-x_naive|/|x_naive| = "
+          f"{kr['cleared_rel_to_naive']:.3g}")
+    check_kernel_raise_path(kr)
+    no = nan_output_path(mats["hpcg"][0], args.seed, device)
+    print(f"containment nan_output:cuda.bcsr (GNN, {CONTAIN_GNN_STEPS} "
+          f"steps): {no['fired']} fired, selections {no['selections']}, "
+          f"containment {no['containment']}, |H-H_naive|/|H_naive| = "
+          f"{no['rel_to_naive']:.3g} (tol {GNN_RTOL})")
+    check_nan_output_path(no)
+    sh = shadow_path(mats, x_refs["npb"], OLMOE, p, x, device)
+    print(f"shadow rate 1: npb CG {sh['npb']['info']['containment']}, "
+          f"{sh['npb']['steady_call_ms']:.3f} ms a call with its check, "
+          f"|x-x_naive|/|x_naive| = {sh['npb']['rel_to_naive']:.3g}; MoE "
+          f"{sh['moe']} (blocks with their checks, ms)")
+    print(f"shadow_diverge:dispatch (hpcg BCSR CG): {sh['bcsr']}")
+    check_shadow_path(sh)
+    del p, x
+    release(device)
+    chaos = chaos_path(mats, args.seed, device, work)
+    for name, r in chaos["sweep"]["problems"].items():
+        print(f"chaos {name}: {r}")
+    print(f"chaos (policy=autotune, {chaos['spec']}) in "
+          f"{chaos['seconds']:.1f}s: fired={chaos['sweep']['faults_fired']} "
+          f"quarantines={chaos['sweep']['quarantines']} "
+          f"fallbacks={chaos['sweep']['fallbacks']} persisted="
+          f"{chaos['quarantine_records_on_disk']}; "
+          + ", ".join(f"{g} {chaos[g]}" for g in (
+              "zero_uncontained_exceptions", "results_match_oracle",
+              "quarantines_persisted"))
+          + f"; replay: {chaos['repro']}")
+    check_chaos_path(chaos)
+    print(f"containment phase {time.perf_counter() - t0:.1f}s")
+    record.update(kernel_raise=kr, nan_output=no, shadow=sh, chaos=chaos)
+    # the same calls at commit 199bd38, before containment (NVIDIA H100
+    # 80GB HBM3, 700 W): what the validation's sync may add to
+    at_parent = {"npb cuda.ell": (0.188, 0.836),
+                 "hpcg cuda.ell": (0.200, 0.753),
+                 "hpcg cuda.bcsr": (0.212, 0.526)}
+    print("cost of containment, fault-free CG calls (timed ms, plan / "
+          "bake=False; at 199bd38 beside): " + "; ".join(
+              f"{k} {plans[k + ' bake=True']['steady_call_ms']:.3f} / "
+              f"{plans[k + ' bake=False']['steady_call_ms']:.3f} "
+              f"(199bd38 {v[0]} / {v[1]})" for k, v in at_parent.items()))
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -8,6 +8,8 @@ Public API (prefer the ``repro_torch.lilac`` facade):
     DataPlane                  fingerprint-keyed marshaling cache
     TrackedArray               explicit-version operand wrapper
     ExecutablePlan / PlanCache baked dispatch and its persistent store
+    faults / resilience        fault injection, quarantine, contained retry,
+                               shadow checks
     autotune                   persistent, signature-keyed harness tuning
     what_lang                  the LiLAC spec language (Fig. 3 + §3.3)
 """
@@ -23,6 +25,15 @@ from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       version_token)
 from repro_torch.core.pass_manager import LilacFunction, compile
 from repro_torch.core.plan import ExecutablePlan, PlanBakeError, PlanCache
+from repro_torch.core.resilience import (Containment, ContainmentStats,
+                                         LilacContainmentWarning,
+                                         QuarantineStore, ReferenceFallback,
+                                         StickyDeviceFault,
+                                         default_quarantine_path,
+                                         outputs_close,
+                                         reset_shared_quarantine,
+                                         shared_quarantine)
+from repro_torch.core import faults
 from repro_torch.core import autotune
 from repro_torch.core import spec
 from repro_torch.core import what_lang
@@ -40,4 +51,8 @@ __all__ = [
     "fingerprint", "LilacFunction", "compile", "spec", "autotune",
     "what_lang", "TrackedArray", "version_token", "ExecutablePlan",
     "PlanBakeError", "PlanCache",
+    "faults", "Containment", "ContainmentStats", "QuarantineStore",
+    "ReferenceFallback", "LilacContainmentWarning", "StickyDeviceFault",
+    "default_quarantine_path", "outputs_close", "shared_quarantine",
+    "reset_shared_quarantine",
 ]

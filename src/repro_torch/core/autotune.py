@@ -36,9 +36,17 @@ plan search will re-cost without re-timing.
 
 A candidate that cannot run here (a repack or a kernel that runs out of
 the card's memory, operands or a variant its harness refuses with a
-``ValueError``) is eliminated; on the card the allocator's cache is
-emptied after it, and the data-plane entries it built are dropped.  Any
-other error propagates.  The
+``ValueError``, an injected ``tune_raise``) is eliminated; on the card the
+allocator's cache is emptied after it, and the data-plane entries it built
+are dropped.  Any other error (a kernel that does not build or launch)
+must not quietly lose the race: it propagates as a
+:class:`CandidateFailure` that names the candidate; the broken race
+stores nothing.  The containment boundary
+(:mod:`repro_torch.core.resilience`) lets it reach the caller when the
+candidate is a ``cuda.*`` kernel on the card, and otherwise quarantines
+that candidate and selects again.  A quarantined candidate or variant is
+left out of every race (``quarantine_skips``; a skipped harness warns),
+and a stored winner that has since been quarantined is re-tuned.  The
 data plane keeps a candidate's entries only while it is the cheapest so
 far, so a losing repack never holds the memory a later candidate needs;
 after a measurement it holds the winner's alone.
@@ -71,6 +79,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import faults
+from repro_torch.core import resilience as R
 from repro_torch.core.jsonstore import JsonStore, cache_dir
 
 SCHEMA_VERSION = 4
@@ -215,6 +225,7 @@ class TuneStats:
     eliminated: int = 0        # variants that raised
     save_errors: int = 0       # persistence failed (unwritable path)
     corrupt_recoveries: int = 0  # torn cache file moved aside
+    quarantine_skips: int = 0  # candidates/variants left out by quarantine
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
@@ -421,6 +432,20 @@ def _elapsed(fn, device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
+class CandidateFailure(RuntimeError):
+    """A candidate failed its measurement for a reason that does not
+    eliminate it (a kernel that does not build or launch).  It names the
+    candidate and its variant; the original error is its cause."""
+
+    def __init__(self, harness: str, schedule, fuse, error: BaseException):
+        super().__init__(f"autotune candidate {harness!r} "
+                         f"({variant_key(schedule, fuse)}) failed: "
+                         f"{type(error).__name__}: {error}")
+        self.harness = harness
+        self.schedule = schedule
+        self.fuse = fuse
+
+
 class Autotuner:
     """Signature-keyed backend selection with an exploration budget.
 
@@ -497,11 +522,12 @@ class Autotuner:
         """Time one (harness, schedule) variant; None when it cannot run
         here: the card's memory is too small for it
         (``torch.OutOfMemoryError``) or its harness refuses the operands or
-        the schedule (``ValueError``).  It is eliminated, not fatal.  Any
-        other error (a kernel that does not build or launch) propagates: a
-        broken candidate must not quietly lose the race.  The data-plane
-        entries its calls build are recorded as the harness's, and dropped
-        if it was eliminated."""
+        the schedule (``ValueError``), or an injected fault fired.  It is
+        eliminated, not fatal.  Any other error (a kernel that does not
+        build or launch) raises :class:`CandidateFailure`: a broken
+        candidate must not quietly lose the race.  The data-plane entries
+        its calls build are recorded as the harness's, and dropped if it
+        was eliminated."""
         prev = ctx.schedule
         ctx.schedule = schedule
         before = ctx.cache.keys() if ctx.cache is not None else set()
@@ -510,9 +536,11 @@ class Autotuner:
         # synthesized from the traced shapes
         args = operands if mode == "trace" else binding
         try:
+            if faults.ACTIVE is not None:
+                faults.fail("tune_raise", h.name)
             return self._best_of(lambda: self._as_runtime(h, args, ctx),
                                  torch.device(ctx.platform), reps)
-        except (torch.OutOfMemoryError, ValueError):
+        except (torch.OutOfMemoryError, ValueError, faults.InjectedFault):
             self.stats.eliminated += 1
             if ctx.cache is not None:
                 ctx.cache.evict(ctx.cache.keys() - before)
@@ -520,6 +548,8 @@ class Autotuner:
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
             return None
+        except Exception as e:
+            raise CandidateFailure(h.name, schedule, ctx.fuse, e) from e
         finally:
             ctx.schedule = prev
             if ctx.cache is not None:
@@ -575,12 +605,18 @@ class Autotuner:
         unfused for a ``fuse epilogue`` harness at an epilogue site),
         capped at ``max_variants``.  Each harness's default variant always
         survives the cap; the rest fill round-robin."""
+        q = R.shared_quarantine()
         families = []
         for h in ranked:
             scheds = list(h.schedules) or [None]
             fuses = ([True, False] if epilogue is not None
                      and h.fuse_epilogue else [None])
-            families.append((h, [(s, f) for s in scheds for f in fuses]))
+            fam = [(s, f) for s in scheds for f in fuses
+                   if not q.is_quarantined(h.implements, h.name,
+                                           variant_key(s, f))]
+            self.stats.quarantine_skips += len(scheds) * len(fuses) - len(fam)
+            if fam:
+                families.append((h, fam))
         cap = max(len(families), self._max_variants())
         total = sum(len(f) for _, f in families)
         if total <= cap:
@@ -700,12 +736,16 @@ class Autotuner:
         self._owned = {}
         pool = self._variant_pool(ranked, ctx.epilogue)
         marshal_s: Dict[str, float] = {}
-        if len(pool) <= max(1, self._budget()):
-            measured = self._steady(pool, binding, ctx, mode, operands,
-                                    marshal_s)
-        else:
-            measured = self._sweep(pool, binding, ctx, mode, operands,
-                                   marshal_s)
+        try:
+            if len(pool) <= max(1, self._budget()):
+                measured = self._steady(pool, binding, ctx, mode, operands,
+                                        marshal_s)
+            else:
+                measured = self._sweep(pool, binding, ctx, mode, operands,
+                                       marshal_s)
+        except CandidateFailure:
+            self._settle(ctx, None)     # the broken race keeps nothing
+            raise
         self.last_report = {h.name: None for h, _, _ in pool}
         if not measured:
             self._settle(ctx, None)
@@ -768,6 +808,16 @@ class Autotuner:
         or None to tell the registry to fall back to its default."""
         if not cands:
             return None
+        q = R.shared_quarantine()
+        live = [h for h in cands if not q.is_quarantined(comp, h.name)]
+        # all quarantined keeps the full set: an answer is still owed, and
+        # containment at the call is the enforcement
+        if live and len(live) < len(cands):
+            self.stats.quarantine_skips += len(cands) - len(live)
+            for h in cands:
+                if h not in live:
+                    R.warn_skip(comp, h.name, "default", "the race runs without it")
+            cands = live
         by_name = {h.name: h for h in cands}
         sig = signature_of(comp, fmt, platform, binding, epilogue=ctx.epilogue)
         prior_name = None
@@ -777,6 +827,10 @@ class Autotuner:
             rec = self.cache.get(sig, mode)
             if rec is not None and rec.get("harness") in by_name:
                 served = self._serve(rec, by_name, ctx)
+                if served is not None and R.quarantined(
+                        q, comp, served[0], variant_key(served[1],
+                                                        served[2])):
+                    served = None   # the record predates the incident
                 if served is not None:
                     src = ("disk" if self.cache.stats.disk_hits > disk_before
                            else "memory")

@@ -12,8 +12,26 @@ What-program's expressions to IR values one by one.  Here:
 * Skeletons — the vectorized realization of a row loop: the scatter-add
   (``index_add`` / ``scatter_add`` / ``index_put(accumulate=True)``) of a
   gathered product for CSR/COO, the row sum of a padded product for
-  ELL/JDS, the scatter-add of scaled row windows for SpMM, and the
-  contraction over experts of a one-hot dispatch for the MoE FFN.
+  ELL/JDS, the scatter-add of scaled row windows for SpMM, the
+  contraction over experts of a one-hot dispatch for the MoE FFN, the
+  sum of a product of two vectors (or ``aten.dot``) for a dot product, and
+  ``aten.mv`` or the row sum of a matrix times a broadcast vector for a
+  dense GEMV.
+* Loops — ``make_fx`` unrolls a Python loop, so the counterpart of the
+  reference's ``fori_loop`` skeleton is a chain of n identical statements
+  on the same arrays, statement k reading element k at a literal index
+  (``row[k:k+1]``, ``row[k, None]``, ``val[k]``).  ``out[row[k:k+1]] +=
+  val[k] * vec[col[k:k+1]]`` from zeros (traced as get + add +
+  ``index_put``, or written ``index_put_(..., accumulate=True)`` or
+  ``index_add_``) matches as one COO SpMV of nnz = n, and ``acc = acc +
+  a[k] * b[k]`` from zero as one dot product: ``variant="loop"``,
+  anchored at the last statement, every node of the chain claimed.  A
+  0-d tensor index is an integer index in PyTorch: ``out[row[k]]`` reads
+  the id as a Python int, which a fake-tensor trace refuses and a
+  concrete trace bakes into the graph as a constant, and such a chain is
+  no sparse matrix and does not match.  Tracing costs O(n), so this form
+  suits small programs, like the reference's tests; the scan-body matcher
+  is not ported.
 * Backtracking — pattern matching is generator-based: every commutative
   operand order, alternative idiom and candidate assignment is a backtrack
   point; the first complete, semantically validated assignment wins.
@@ -24,9 +42,9 @@ What-program's expressions to IR values one by one.  Here:
   ``repeat_interleave(arange(rows), diff(row_ptr))`` (a ``searchsorted``,
   say) is accepted.
 
-The SpMV, SpMM and MoE matchers are ported; a computation whose matcher is
-not (dot, gemv, loop skeletons) is listed in ``Detector.unmatchable`` and
-never matches.
+Every builtin computation has a matcher; a spec-registered computation
+whose shape no matcher skeleton fits is listed in ``Detector.unmatchable``
+and never matches.
 """
 from __future__ import annotations
 
@@ -39,6 +57,7 @@ from torch.fx import GraphModule, Node
 from torch.fx.node import map_arg
 
 from repro_torch.core import what_lang as W
+from repro_torch.core.resilience import device_fault as _device_fault
 
 aten = torch.ops.aten
 
@@ -353,7 +372,7 @@ class Gather1D(Pat):
 @dataclasses.dataclass
 class Match:
     computation: str          # What-program name
-    variant: str              # 'vectorized'
+    variant: str              # 'vectorized' | 'loop' (an unrolled chain)
     format: str               # CSR / COO / ELL / JDS
     anchor: Node              # the node whose value the harness replaces
     binding: Dict[str, Any]   # What-name -> graph node or Python number
@@ -388,15 +407,6 @@ class DetectionReport:
 # ---------------------------------------------------------------------------
 # Semantic validation
 # ---------------------------------------------------------------------------
-
-def _device_fault(e: BaseException) -> bool:
-    """A failure of the card itself (out of memory, a CUDA runtime error),
-    which says nothing of whether a subgraph is row expansion."""
-    accel = getattr(torch, "AcceleratorError", None)
-    return isinstance(e, torch.cuda.OutOfMemoryError) \
-        or (accel is not None and isinstance(e, accel)) \
-        or "CUDA error" in str(e)
-
 
 def _validate_row_expansion(ctx: Ctx, row_node: Node, row_ptr: Node, nnz: int,
                             rows: int, trials: int = 2) -> bool:
@@ -903,6 +913,334 @@ class MoeMatcher(Matcher):
         return None
 
 
+
+def _is_1d(ctx, atom):
+    return _ndim(atom) == 1
+
+
+def _flat_sum(n: Node) -> bool:
+    """sum over every element of a 1-D value (no dim, or dim 0), no
+    keepdim, no dtype change."""
+    if n.kwargs.get("dtype") is not None or _ndim(n.args[0]) != 1:
+        return False
+    if n.target == aten.sum.default:
+        return len(n.args) < 2
+    dims = n.args[1] if len(n.args) > 1 else None
+    keep = n.args[2] if len(n.args) > 2 else n.kwargs.get("keepdim", False)
+    return dims is not None and list(dims) in ([0], [-1]) and not keep
+
+
+class DotMatcher(Matcher):
+    """result = sum(i) a[i] * b[i]: the sum of a product of two vectors of
+    one length (``(a * b).sum()``, ``torch.sum(a * b)``), ``aten.dot``
+    (``a @ b``, ``torch.dot``, ``torch.inner``), and the unrolled loop
+    ``acc = acc + a[k] * b[k]`` from zero (``variant="loop"``)."""
+
+    anchor_targets = frozenset({aten.sum.default, aten.sum.dim_IntList,
+                                aten.dot.default, aten.add.Tensor})
+
+    def __init__(self, comp: W.Computation):
+        self.computation = comp.name
+        self.vec_pat = Alt(
+            P({aten.sum.default, aten.sum.dim_IntList},
+              Comm(aten.mul.Tensor, B("a", pred=_is_1d),
+                   B("b", pred=_is_1d)),
+              params=_flat_sum),
+            P(aten.dot.default, B("a", pred=_is_1d), B("b", pred=_is_1d)),
+        )
+
+    def match_node(self, ctx, node):
+        if node.target == aten.add.Tensor:
+            return _match_unrolled_dot(ctx, node, self.computation)
+        if _shape(node) != ():
+            return None
+        for env in self.vec_pat.match(ctx, node, {}):
+            if _shape(env["a"]) != _shape(env["b"]):
+                continue            # a broadcast is no dot product
+            env = dict(env)
+            env["length"] = _shape(env["a"])[0]
+            return Match(self.computation, "vectorized", "DOT", node, env)
+        return None
+
+
+class VecRow(Pat):
+    """A 1-D vector broadcast along dim 0 of a matrix: the atom is the
+    vector of the matrix's column count, as is or lifted to (1, cols)."""
+
+    def __init__(self, inner: Pat):
+        self.inner = inner
+
+    def match(self, ctx, atom, env):
+        s = _shape(atom)
+        if s is None or len(s) not in (1, 2) or (len(s) == 2 and s[0] != 1) \
+                or _ndim(ctx.peel(atom)) != 1:
+            return
+        yield from self.inner.match(ctx, atom, env)
+
+
+class GemvMatcher(Matcher):
+    """Dense matrix-vector product (the paper: "we fully support dense"):
+    ``aten.mv`` (``m @ v``, ``torch.mv``), or the row sum of ``m * v``
+    with ``v`` broadcast along dim 0."""
+
+    anchor_targets = frozenset({aten.mv.default, aten.sum.dim_IntList})
+
+    def __init__(self, comp: W.Computation):
+        self.computation = comp.name
+        self.sum_pat = P(aten.sum.dim_IntList,
+                         Comm(aten.mul.Tensor, B("mat", pred=_is_2d),
+                              VecRow(B("vec"))),
+                         params=_row_sum)
+
+    def match_node(self, ctx, node):
+        if node.target == aten.mv.default:
+            mat, vec = (a if _ndim(ctx.peel(a)) == _ndim(a) else None
+                        for a in (ctx.peel(node.args[0]),
+                                  ctx.peel(node.args[1])))
+            if mat is None or vec is None:
+                mat, vec = node.args[0], node.args[1]
+            rows, cols = _shape(node.args[0])
+            return Match(self.computation, "vectorized", "GEMV", node,
+                         {"mat": mat, "vec": vec, "rows": rows,
+                          "cols": cols})
+        for env in self.sum_pat.match(ctx, node, {}):
+            rows, cols = _shape(env["mat"])
+            if _shape(env["vec"]) != (cols,):
+                continue
+            env = dict(env)
+            env.update(rows=rows, cols=cols)
+            return Match(self.computation, "vectorized", "GEMV", node, env)
+        return None
+
+
+# -- unrolled loops (the fori_loop skeleton's counterpart) -------------------
+
+_SELECTS = {aten.select.int, aten.select_copy.int}
+_SLICES = {aten.slice.Tensor, aten.slice_copy.Tensor}
+_GATHERS = {aten.index.Tensor, aten.index_select.default}
+_STEPS = {aten.index_put.default, aten.index_add.default,
+          aten.scatter_add.default}
+
+
+def _elem_load(ctx: Ctx, atom) -> Optional[Tuple[Node, int, List[Node]]]:
+    """(array, k, nodes) when ``atom`` is element k of a 1-D array at a
+    literal index: ``arr[k]`` (a select), ``arr[k:k+1]`` (a one-element
+    slice) or ``arr[k, None]``, through reshapes.  ``nodes`` are the
+    operators of the load."""
+    a = ctx.peel(atom)
+    n = ctx.prod(a)
+    if n is None:
+        return None
+    if n.target in _SELECTS:
+        arr, dim, k = n.args[:3]
+    elif n.target in _SLICES:
+        arr = n.args[0]
+        dim = n.args[1] if len(n.args) > 1 else 0
+        start = n.args[2] if len(n.args) > 2 else None
+        end = n.args[3] if len(n.args) > 3 else None
+        step = n.args[4] if len(n.args) > 4 else 1
+        if not isinstance(start, int) or not isinstance(end, int) \
+                or end - start != 1 or step != 1:
+            return None
+        k = start
+    else:
+        return None
+    if dim != 0 or not isinstance(k, int) or _ndim(arr) != 1:
+        return None
+    length = _shape(arr)[0]
+    nodes = [x for x in (atom, a, n) if isinstance(x, Node)
+             and ctx.prod(x) is not None]
+    return ctx.peel(arr), k % length if length else k, nodes
+
+
+def _elem_product(ctx: Ctx, atom, gathered: bool):
+    """The product at one step: ``a[k] * b[k]`` (``gathered=False``) or
+    ``val[k] * vec[col[k]]`` (``gathered=True``), either order.  Returns
+    (arrays, k, nodes) or None; arrays are (a, b) or (val, col, vec)."""
+    n = ctx.prod(ctx.peel(atom))
+    if n is None or n.target != aten.mul.Tensor or len(n.args) != 2:
+        return None
+    for x, y in (n.args, n.args[::-1]):
+        lx = _elem_load(ctx, x)
+        if lx is None:
+            continue
+        if not gathered:
+            ly = _elem_load(ctx, y)
+            if ly is None or ly[1] != lx[1]:
+                continue
+            return (lx[0], ly[0]), lx[1], [n] + lx[2] + ly[2]
+        g = ctx.prod(ctx.peel(y))
+        if g is None or g.target not in _GATHERS:
+            continue
+        if g.target == aten.index.Tensor:
+            if len(g.args[1]) != 1 or g.args[1][0] is None:
+                continue
+            vec, idx = g.args[0], g.args[1][0]
+        else:
+            if g.args[1] != 0:
+                continue
+            vec, idx = g.args[0], g.args[2]
+        lc = _elem_load(ctx, idx)
+        if lc is None or lc[1] != lx[1] or _ndim(vec) != 1:
+            continue
+        return ((lx[0], lc[0], ctx.peel(vec)), lx[1],
+                [n, g] + lx[2] + lc[2])
+    return None
+
+
+def _coo_step(ctx: Ctx, n: Node):
+    """One statement ``out[row[k]] += val[k] * vec[col[k]]``: (previous
+    output, (row, val, col, vec), k, nodes) or None.  Accepts the three
+    forms ``make_fx`` gives: get + add + ``index_put`` (``+=`` through
+    advanced indexing), ``index_put(accumulate=True)`` and ``index_add``
+    (or ``scatter_add``)."""
+    extra: List[Node] = []
+    if n.target == aten.index_put.default:
+        prev, indices, upd = n.args[:3]
+        acc = n.args[3] if len(n.args) > 3 \
+            else n.kwargs.get("accumulate", False)
+        if len(indices) != 1 or indices[0] is None:
+            return None
+        idx = indices[0]
+    elif n.target == aten.index_add.default:
+        if n.args[1] != 0 or n.kwargs.get("alpha", 1) != 1 \
+                or (len(n.args) > 4 and n.args[4] != 1):
+            return None
+        prev, idx, upd, acc = n.args[0], n.args[2], n.args[3], True
+    elif n.target == aten.scatter_add.default and n.args[1] == 0:
+        prev, idx, upd, acc = n.args[0], n.args[2], n.args[3], True
+    else:
+        return None
+    lr = _elem_load(ctx, idx)
+    if lr is None or _ndim(n) != 1 or not _is_int(idx):
+        return None
+    if not acc:
+        # out[i] = out[i] + upd: the get must read the element it writes
+        add = ctx.prod(ctx.peel(upd))
+        if add is None or add.target != aten.add.Tensor \
+                or add.kwargs.get("alpha", 1) != 1:
+            return None
+        for get, u in (add.args, add.args[::-1]):
+            g = ctx.prod(ctx.peel(get))
+            if g is not None and g.target == aten.index.Tensor \
+                    and g.args[0] is prev and len(g.args[1]) == 1 \
+                    and (_elem_load(ctx, g.args[1][0]) or ())[:2] == lr[:2]:
+                extra = [x for x in (upd, ctx.peel(upd), g, get)
+                         if ctx.prod(x) is not None] + [add]
+                upd = u
+                break
+        else:
+            return None
+    prod = _elem_product(ctx, upd, gathered=True)
+    if lr is None or prod is None or prod[1] != lr[1]:
+        return None
+    (val, col, vec), k, nodes = prod
+    return prev, (lr[0], val, col, vec), k, [n] + extra + lr[2] + nodes
+
+
+def _dot_step(ctx: Ctx, n: Node):
+    """One statement ``acc = acc + a[k] * b[k]``: (previous accumulator,
+    (a, b), k, nodes) or None."""
+    if n.target != aten.add.Tensor or n.kwargs.get("alpha", 1) != 1 \
+            or len(n.args) != 2:
+        return None
+    for acc, p in (n.args, n.args[::-1]):
+        prod = _elem_product(ctx, p, gathered=False)
+        if prod is not None:
+            arrays, k, nodes = prod
+            return acc, arrays, k, [n] + nodes
+    return None
+
+
+def _continues(ctx: Ctx, n: Node, step) -> bool:
+    """``n`` is the accumulator of a later statement of the same chain:
+    it is not the chain's end."""
+    return any((got := step(ctx, u)) is not None and got[0] is n
+               for u in n.users)
+
+
+def _unrolled_chain(ctx: Ctx, anchor: Node, step):
+    """Walk the statements back from ``anchor`` to the zeros the chain
+    starts from.  Returns (arrays, n, nodes) when statement j reads
+    element j of the same arrays for j = 0..n-1 and no intermediate value
+    escapes the chain; else None."""
+    if anchor.target not in _STEPS | {aten.add.Tensor} \
+            or _continues(ctx, anchor, step):
+        return None
+    steps = []
+    cur = anchor
+    arrays = None
+    while True:
+        got = step(ctx, cur) if isinstance(cur, Node) else None
+        if got is None:
+            break
+        prev, arrs, k, nodes = got
+        if arrays is None:
+            arrays = arrs
+        elif any(x is not y for x, y in zip(arrs, arrays)):
+            return None
+        steps.append((k, nodes))
+        cur = prev
+        if ctx.is_zeros(cur):
+            break
+    if not steps or not ctx.is_zeros(cur):
+        return None
+    steps.reverse()
+    if [k for k, _ in steps] != list(range(len(steps))):
+        return None
+    chain = [x for _, nodes in steps for x in nodes]
+    members = set(chain)
+    for _, nodes in steps[:-1]:
+        out = nodes[0]
+        if out in ctx.outvars or any(u not in members for u in out.users):
+            return None
+    return arrays, len(steps), chain
+
+
+def _match_unrolled_coo(ctx: Ctx, anchor: Node, computation: str):
+    got = _unrolled_chain(ctx, anchor, _coo_step)
+    if got is None:
+        return None
+    (row, val, col, vec), nnz, chain = got
+    if any(_shape(a) != (nnz,) for a in (row, val, col)) \
+            or not _is_int(row) or not _is_int(col):
+        return None
+    binding = {"a": val, "rowidx": row, "colidx": col, "iv": vec,
+               "rows": _shape(anchor)[0], "nnz": nnz}
+    return Match(computation, "loop", "COO", anchor, binding,
+                 notes="unrolled loop skeleton",
+                 claimed=tuple(x for x in chain if x is not anchor))
+
+
+def _match_unrolled_dot(ctx: Ctx, anchor: Node, computation: str):
+    v = _val(anchor)
+    if not isinstance(v, torch.Tensor) or v.numel() != 1:
+        return None
+    got = _unrolled_chain(ctx, anchor, _dot_step)
+    if got is None:
+        return None
+    (a, b), n, chain = got
+    if _shape(a) != (n,) or _shape(b) != (n,):
+        return None
+    return Match(computation, "loop", "DOT", anchor,
+                 {"a": a, "b": b, "length": n},
+                 notes="unrolled loop skeleton",
+                 claimed=tuple(x for x in chain if x is not anchor))
+
+
+class CooLoopMatcher(Matcher):
+    """The unrolled COO loop ``out[row[k]] += val[k] * vec[col[k]]``,
+    k = 0..nnz-1, from zeros: one ``variant="loop"`` COO SpMV."""
+
+    anchor_targets = frozenset(_STEPS)
+
+    def __init__(self, comp: W.Computation):
+        self.computation = comp.name
+
+    def match_node(self, ctx, node):
+        return _match_unrolled_coo(ctx, node, self.computation)
+
+
 # ---------------------------------------------------------------------------
 # Matcher generation (What-AST -> detection function) + top-level detect().
 # ---------------------------------------------------------------------------
@@ -916,18 +1254,23 @@ def generate_matcher(comp: W.Computation) -> List[Matcher]:
     stmt = comp.stmt()
     if len(foralls) == 2 and _range_is_ragged(stmt.range, foralls[0].range.var):
         return [SpmmMatcher(comp)]   # doubly-parallel ragged = SpMM
-    if len(foralls) == 1 and comp.name != "gemv":
+    if not foralls and isinstance(stmt.target, W.Var):
+        return [DotMatcher(comp)]
+    if len(foralls) == 1:
         # permuted output target (JDS) takes precedence: its inner range is
         # "ragged" in the What-text (nzcnt[i]) but the vectorized
         # realization is the padded 2D layout with a perm scatter.
         if isinstance(stmt.target, W.Load) and isinstance(stmt.target.index, W.Load):
             return [PaddedRowMatcher(comp, jds=True)]
         if _range_is_ragged(stmt.range, foralls[0].range.var):
-            return [RaggedRowMatcher(comp)]
+            # the loop first: a statement of an unrolled loop is itself a
+            # one-element scatter-add, which the row matcher would take
+            return [CooLoopMatcher(comp), RaggedRowMatcher(comp)]
+        if comp.name == "gemv":
+            return [GemvMatcher(comp)]
         # dense inner range with 2D loads -> padded rows
         return [PaddedRowMatcher(comp, jds=False)]
-    # dot, gemv and the loop skeletons are later slices
-    raise NotImplementedError(f"no matcher for {comp.name} in this package")
+    raise NotImplementedError(f"cannot generate a matcher for {comp.name}")
 
 
 # ---------------------------------------------------------------------------

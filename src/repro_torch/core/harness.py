@@ -22,6 +22,8 @@ Backends of this package:
   spmm_csr      torch.segment  index_add of row windows           (cpu)
                 torch.bcsr     marshaled CSR->BCSR8x128 repack   (host calls)
                 cuda.bcsr      marshaled CSR->BCSR128x128, CUDA kernel (cuda)
+  dotproduct    torch.dot      torch.dot                          (cpu + cuda)
+  gemv          torch.dot      torch.mv                           (cpu + cuda)
   moe_ffn       torch.capacity capacity-bucket dispatch           (cpu)
                 cuda.gmm       routed grouped matmul, CUDA kernel (cuda)
                 dense          the naive formulation itself
@@ -35,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.marshal import DataPlane
 
 Binding = Dict[str, Any]
@@ -108,7 +111,10 @@ class Harness:
         return {t.name: t.values[0] for t in self.tune}
 
     def __call__(self, binding: Binding, ctx: CallCtx):
-        return self.fn(binding, ctx)
+        if faults.ACTIVE is None:
+            return self.fn(binding, ctx)
+        faults.fail("kernel_raise", self.name)
+        return faults.corrupt("nan_output", self.name, self.fn(binding, ctx))
 
 
 class HarnessRegistry:
@@ -172,6 +178,19 @@ class HarnessRegistry:
     def reset_autotuner(self):
         self._autotuner = None
 
+    def _other_computations(self, comp: str, name: str) -> bool:
+        """A policy naming ``name`` leaves ``comp`` on its default: ``comp``
+        has no hand-written kernel (``cuda.*``) to pin, as the dot product
+        and GEMV beside the SpMV that ``policy="cuda.ell"`` is about, and
+        ``name`` is a harness of another computation.  A computation with a
+        kernel raises ``KeyError`` for a name it does not have, as does a
+        name that no computation has."""
+        own = self._by_comp.get(comp, ())
+        return (all(h.name != name and not h.name.startswith("cuda.")
+                    for h in own)
+                and any(h.name == name for hs in self._by_comp.values()
+                        for h in hs))
+
     def default_name(self, comp: str, platform: str) -> Optional[str]:
         return self._defaults.get((comp, platform))
 
@@ -210,7 +229,8 @@ class HarnessRegistry:
         cands = self.candidates(comp, fmt, platform, mode)
         if not cands:
             raise KeyError(f"no harness for {comp}/{fmt} on {platform} ({mode})")
-        if policy not in ("default", "autotune"):
+        if policy not in ("default", "autotune") \
+                and not self._other_computations(comp, policy):
             h = self.get(comp, policy)  # explicit pin by name
             if mode == "trace" and not h.jit_safe:
                 raise ValueError(
@@ -390,9 +410,18 @@ def _moe_dense(b: Binding, ctx: CallCtx):
     return torch.einsum("te,etd->td", combine, y)
 
 
+def _dot(b: Binding, ctx: CallCtx):
+    dt = torch.result_type(b["a"], b["b"])
+    return torch.dot(b["a"].to(dt), b["b"].to(dt))
+
+
+def _gemv(b: Binding, ctx: CallCtx):
+    dt = torch.result_type(b["mat"], b["vec"])
+    return torch.mv(b["mat"].to(dt), b["vec"].to(dt))
+
+
 # Kernel bodies for the builtin spec texts, keyed by spec family then by
 # harness name (repro_torch.core.spec.register_builtins consumes this).
-# The dot and gemv families have no body yet and are not registered.
 BUILTIN_BODIES: Dict[str, Dict[str, Callable]] = {
     "spmv": {
         "torch.segment": _spmv_segment,
@@ -402,6 +431,8 @@ BUILTIN_BODIES: Dict[str, Dict[str, Callable]] = {
     },
     "spmv_padded": {"torch.ell": _spmv_ell_direct},
     "spmm": {"torch.segment": _spmm_segment, "torch.bcsr": _spmm_bcsr_host},
+    "dotproduct": {"torch.dot": _dot},
+    "gemv": {"torch.dot": _gemv},
     "moe_ffn": {"torch.capacity": _moe_capacity},
     "moe_ffn_baseline": {"dense": _moe_dense},
 }

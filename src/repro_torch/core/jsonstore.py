@@ -1,8 +1,9 @@
 """The on-disk JSON store protocol of the persistent caches.
 
 Counterpart of ``repro.core.jsonstore``.  The autotune cache
-(:class:`repro_torch.core.autotune.AutotuneCache`) follows it, and the
-plan cache will when the plan layer is ported:
+(:class:`repro_torch.core.autotune.AutotuneCache`), the plan cache
+(:class:`repro_torch.core.plan.PlanCache`) and the quarantine store
+(:class:`repro_torch.core.resilience.QuarantineStore`) follow it:
 
 * **Document layout**: one JSON object
   ``{"schema": <int>, "registry": "<fingerprint>", "entries": {...}}``.
@@ -155,6 +156,7 @@ class JsonStore:
                 with os.fdopen(fd, "w", encoding="utf-8") as f:
                     json.dump(doc, f, indent=1, sort_keys=True)
                 os.replace(tmp, self.path)
+                self._maybe_tear()
             except BaseException:
                 try:
                     os.unlink(tmp)
@@ -165,3 +167,22 @@ class JsonStore:
             if lock_f is not None:
                 fcntl.flock(lock_f.fileno(), fcntl.LOCK_UN)
                 lock_f.close()
+
+    def _maybe_tear(self):
+        """Fault site ``cache_torn_write`` (:mod:`repro_torch.core.faults`):
+        the tempfile + ``os.replace`` protocol cannot tear on POSIX, so the
+        injection stands in for the wider world (a crashed writer, a
+        network file system) by truncating the file just written to half
+        its bytes.  The site is the file's stem (``autotune``, ``plans``,
+        ``quarantine``)."""
+        from repro_torch.core import faults
+
+        if faults.ACTIVE is None \
+                or not faults.check("cache_torn_write", self.path.stem):
+            return
+        try:
+            size = os.path.getsize(self.path)
+            with open(self.path, "r+b") as f:
+                f.truncate(max(1, size // 2))
+        except OSError:
+            pass

@@ -61,6 +61,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import faults
+
 _SMALL = 1 << 16  # full-hash threshold in bytes
 
 _MISSING = object()
@@ -599,6 +601,8 @@ class MarshalingCache:
             self._hit(key, key_arrays)
             return val
         self.stats.misses += 1
+        if faults.ACTIVE is not None:
+            faults.fail("marshal_raise", spec_name)
         val, cost = _timed(compute)
         self._spec_cost[spec_name] = cost
         self._insert(key, val, cost, key_arrays)
@@ -694,6 +698,8 @@ class DataPlane(MarshalingCache):
 
         self.stats.misses += 1
         ps.misses += 1
+        if faults.ACTIVE is not None:
+            faults.fail("marshal_raise", f"{src}->{dst}")
         # start set: cached intermediates of the SAME matrix (cost 0) plus
         # the binding loader at its measured cost
         starts: Dict[str, float] = {}

@@ -43,23 +43,44 @@ pins from ``plans.json``, so it runs no detection and times nothing.
 The compiled function runs on the card: ``platform="cuda"`` unless the
 caller passes ``platform="cpu"`` (or ``device="cpu"``).  Asking for CUDA
 where no card is present raises, and so do operands on another device —
-the pass never falls back to the CPU quietly.  Not ported yet: fault
-containment; a harness that raises makes the call raise.
+the pass never falls back to the CPU quietly.
+
+**Containment** (:mod:`repro_torch.core.resilience`).  Every anchor of an
+interpreted call, and every anchor traced into a trace-mode graph, runs
+under a :class:`~repro_torch.core.resilience.Containment`: a harness that
+raises, returns the wrong size or (on a concrete call) non-finite values
+is quarantined, loudly (``LilacContainmentWarning``), and the anchor
+retries with the next candidate; when none is left the match is disabled
+and its anchor runs as the plain graph node, so the call returns the
+uncompiled program's answer.  The retry loop is bounded by the match
+count + 1.  On the card a hand-written kernel's (``cuda.*``) own
+exception is not contained: it reaches the caller.  A quarantine unwinds
+the entry's pin, plan, persisted plan record and joint result, and no
+layer restores a quarantined harness: selection under every policy (each
+skip warns and counts ``quarantine_skips``), the tuner, the joint search,
+rehydrated pins.  A CUDA error that poisons the context is recorded and raised
+(:class:`~repro_torch.core.resilience.StickyDeviceFault`).  Plan calls
+are not validated (no sync on that path); ``LILAC_TORCH_SHADOW_RATE``
+samples them against the uncompiled program instead, and a divergence
+serves the uncompiled answer, quarantines the plan's selections and
+tears the plan down.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, FrozenSet, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import detect as D
+from repro_torch.core import faults
 from repro_torch.core import harness as H
 from repro_torch.core import plan as P
 from repro_torch.core import plan_search as PS
-from repro_torch.core.autotune import autotune_disabled
+from repro_torch.core import resilience as R
+from repro_torch.core.autotune import autotune_disabled, variant_key
 from repro_torch.core.marshal import DataPlane, MarshalPolicy, unwrap
 from repro_torch.core.rewrite import needed_nodes, rewrite_graph, run_rewritten
 
@@ -70,7 +91,6 @@ class CompiledEntry:
     report: D.DetectionReport
     tensor_pos: Tuple[int, ...]      # flat-argument positions of tensors
     out_spec: Any                    # pytree spec of the output
-    needed: frozenset                # rewrite.needed_nodes of the report
     # autotune pins: match index -> (harness, schedule, fuse); after the
     # joint search, the jointly optimal assignment
     pins: Dict[int, Tuple] = dataclasses.field(default_factory=dict)
@@ -94,6 +114,33 @@ class CompiledEntry:
     # joint assignment of the process that searched
     joint: Optional[Dict[str, Any]] = None
     joint_done: bool = False
+    # match indices whose every candidate failed under containment: their
+    # anchors run as plain graph nodes until the entry is rebuilt
+    disabled: set = dataclasses.field(default_factory=set)
+    # rewrite.needed_nodes per set of matches evaluated (containment can
+    # disable single matches)
+    _needed: Dict[FrozenSet[int], frozenset] = dataclasses.field(
+        default_factory=dict)
+
+    def needed_for(self, matches) -> frozenset:
+        key = frozenset(id(m.anchor) for m in matches)
+        got = self._needed.get(key)
+        if got is None:
+            got = self._needed[key] = needed_nodes(self.gm, matches)
+        return got
+
+    def enabled(self) -> List[D.Match]:
+        """The report's matches minus the disabled ones."""
+        if not self.disabled:
+            return self.report.matches
+        return [m for i, m in enumerate(self.report.matches)
+                if i not in self.disabled]
+
+    def index_of(self, m: D.Match) -> Optional[int]:
+        for i, mm in enumerate(self.report.matches):
+            if mm is m:
+                return i
+        return None
 
 
 def _leaf_key(x) -> Tuple:
@@ -154,13 +201,22 @@ class LilacFunction:
         self._hot_plans: List[P.ExecutablePlan] = []
         # set-up paid per input signature: traces run and the seconds spent
         # tracing and detecting (repacks are the data plane's: cache.plans)
-        self.stats = {"traces": 0, "trace_seconds": 0.0, "detect_seconds": 0.0}
+        self.stats = {"traces": 0, "trace_seconds": 0.0, "detect_seconds": 0.0,
+                      "detects": 0}
         self.last_report: Optional[D.DetectionReport] = None
         # (match, harness-name) pairs from the most recent call, in anchor
         # order: what actually ran
         self.last_selections: List[Tuple[D.Match, str]] = []
         # the schedule each of those ran with (None: default or untuned)
         self.last_schedules: List[Optional[Dict[str, Any]]] = []
+        # containment: this function's counters, the adaptive shadow rate
+        # (the environment's rate is a floor; incidents spike it, clean
+        # checks decay it) and the guard that keeps a shadow's own call
+        # from shadowing
+        self.resilience_stats = R.ContainmentStats()
+        self._shadow = R.AdaptiveShadowRate(R.ENV_SHADOW)
+        self._shadow_ctr = 0
+        self._in_shadow = False
 
     def _make_plan_cache(self, opt) -> Optional[P.PlanCache]:
         if opt is False or opt in ("off", "none", "disabled"):
@@ -179,9 +235,11 @@ class LilacFunction:
 
     def _validated_pins(self, raw: Dict[str, Any], matches) -> Dict[int, Tuple]:
         """Pins rehydrated from the plan cache, checked against the live
-        registry: a vanished harness or a schedule outside its harness's
-        current tune space drops the pin (the tuner re-tunes it)."""
+        registry: a vanished harness, a schedule outside its harness's
+        current tune space or a quarantined (harness, variant) drops the
+        pin (the tuner re-tunes it)."""
         pins: Dict[int, Tuple] = {}
+        q = R.shared_quarantine()
         for k, v in (raw or {}).items():
             try:
                 i, name, schedule, fuse = int(k), v[0], v[1], v[2]
@@ -194,6 +252,10 @@ class LilacFunction:
             except KeyError:
                 continue
             if schedule is not None and schedule not in h.schedules:
+                continue
+            # the record predates any incident that quarantined it
+            if R.quarantined(q, matches[i].computation, name,
+                             variant_key(schedule, fuse)):
                 continue
             pins[i] = (name, schedule, fuse)
         return pins
@@ -258,10 +320,10 @@ class LilacFunction:
             report, pins, joint = served
         else:
             report, pins, joint = D.default_detector().detect(gm), {}, None
+            self.stats["detects"] += 1
         self.stats["detect_seconds"] += time.perf_counter() - t1
         entry = CompiledEntry(gm, report, tensor_pos, out_spec[-1],
-                              needed_nodes(gm, report.matches), pins=pins,
-                              cache_key=key)
+                              pins=pins, cache_key=key)
         complete = len(pins) == len(report.matches)
         # a served record with complete pins never re-persists; one whose
         # pins were dropped re-persists once this process resolves them
@@ -300,22 +362,35 @@ class LilacFunction:
 
     def _build_graph(self, entry: CompiledEntry) -> None:
         """Trace mode: select once per match and pin the winners into the
-        rewritten graph; rebuilt once if the joint search moves a pin."""
-        for _ in range(2):
+        rewritten graph, each anchor traced under containment; rebuilt once
+        if the joint search moves a pin, and once more for each match
+        containment disables."""
+        joint_moves = 0
+        contain = self._containment(entry)
+        while True:
+            matches = entry.enabled()
             selections, schedules, fuses = [], [], []
 
             def on_select(m, h, ctx):
+                if selections and selections[-1][0] is m:
+                    selections.pop(), schedules.pop(), fuses.pop()
                 selections.append((m, h.name))
                 schedules.append(ctx.schedule)
                 fuses.append(ctx.fuse)
 
-            entry.rewritten = rewrite_graph(
-                entry.gm, entry.report.matches, self._selector(entry),
-                self._ctx_factory, on_select=on_select, needed=entry.needed)
+            try:
+                entry.rewritten = rewrite_graph(
+                    entry.gm, matches, self._selector(entry),
+                    self._ctx_factory, on_select=on_select,
+                    needed=entry.needed_for(matches), contain=contain)
+            except R.ReferenceFallback as rf:
+                self._disable(entry, rf)
+                continue
             entry.selections, entry.schedules, entry.fuses = \
                 selections, schedules, fuses
-            if not self._maybe_joint(entry):
+            if joint_moves or not self._maybe_joint(entry):
                 break
+            joint_moves += 1
         self._maybe_persist(entry)
 
     def graph_for(self, *args, **kwargs) -> torch.fx.GraphModule:
@@ -333,9 +408,30 @@ class LilacFunction:
     # -- selection -----------------------------------------------------------
 
     def _select(self, m: D.Match, binding=None, ctx=None) -> H.Harness:
-        return self.registry.select(m.computation, m.format, self.platform,
+        """The policy's harness, unless it is quarantined: then the next
+        candidate as containment orders them (the platform default first,
+        at its default variant), with a ``LilacContainmentWarning`` and a
+        ``quarantine_skips`` count each time.  With every candidate
+        quarantined the policy's own stands: an answer is still owed, and
+        containment at the call is the enforcement."""
+        h = self.registry.select(m.computation, m.format, self.platform,
                                  self.mode, policy=self.policy,
                                  binding=binding, ctx=ctx)
+        q = R.shared_quarantine()
+        vkey = variant_key(getattr(ctx, "schedule", None),
+                           getattr(ctx, "fuse", None))
+        if not R.quarantined(q, m.computation, h.name, vkey):
+            return h
+        alt = R.next_candidate(self.registry, q, m, self.platform,
+                               self.mode, {h.name})
+        if alt is None:
+            return h
+        self.resilience_stats.quarantine_skips += 1
+        R.warn_skip(m.computation, h.name, vkey,
+                    f"{alt.name!r} runs in its place")
+        if ctx is not None:
+            ctx.schedule = ctx.fuse = None
+        return alt
 
     def _selector(self, entry: CompiledEntry):
         """The select function of a call: under ``policy='autotune'``,
@@ -345,10 +441,18 @@ class LilacFunction:
         if self.policy != "autotune":
             return self._select
         index = {m.anchor: i for i, m in enumerate(entry.report.matches)}
+        q = R.shared_quarantine()
 
         def select(m, binding, ctx):
             i = index[m.anchor]
             pin = entry.pins.get(i)
+            if pin is not None and R.quarantined(
+                    q, m.computation, pin[0], variant_key(pin[1], pin[2])):
+                del entry.pins[i]           # quarantined since: re-tune
+                self.resilience_stats.quarantine_skips += 1
+                R.warn_skip(m.computation, pin[0],
+                            variant_key(pin[1], pin[2]), "the tuner selects again")
+                pin = None
             if pin is not None:
                 try:
                     h = self.registry.get(m.computation, pin[0])
@@ -370,11 +474,101 @@ class LilacFunction:
 
     # -- execution -----------------------------------------------------------
 
-    def _serve(self, plan: P.ExecutablePlan, tensors):
+    def _dispatch_plan(self, plan: P.ExecutablePlan, tensors):
         self.last_report = plan.report
         self.last_selections = list(plan.selections)
         self.last_schedules = list(plan.schedules)
         return tree_unflatten(plan.run(tensors), plan.out_spec)
+
+    def _serve(self, plan: P.ExecutablePlan, tensors, flat, spec):
+        """One plan call; no validation runs on it (no sync), but a
+        sampled shadow check may."""
+        out = self._dispatch_plan(plan, tensors)
+        if not self._in_shadow:
+            r = self._shadow.effective()
+            if r > 0.0:
+                out = self._maybe_shadow(plan, flat, spec, out, r)
+        return out
+
+    def _maybe_shadow(self, plan, flat, spec, out, r):
+        """Sampled shadow verification, stratified without RNG state: at
+        rate r, call n is checked iff the integer part of n*r advances, so
+        every window of 1/r calls holds one check.  ``r`` is the adaptive
+        effective rate."""
+        self._shadow_ctr = n = self._shadow_ctr + 1
+        if int(n * r) == int((n - 1) * r):
+            return out
+        self.resilience_stats.shadow_checks += 1
+        args, kwargs = tree_unflatten(self._unwrap(flat), spec)
+        self._in_shadow = True
+        try:
+            ref = self.fn(*args, **kwargs)
+        except Exception:
+            return out          # the uncompiled program failed; keep ours
+        finally:
+            self._in_shadow = False
+        if R.outputs_close(out, ref) \
+                and not faults.check("shadow_diverge", "dispatch"):
+            self._shadow.clean()
+            return out
+        # the plan's answer is wrong: serve the uncompiled one for this
+        # call, quarantine what the plan selected and tear it down, so the
+        # next call selects, tunes and bakes again
+        self.resilience_stats.shadow_divergences += 1
+        self._shadow_divergence(plan, "shadow divergence")
+        return ref
+
+    def _shadow_divergence(self, plan: P.ExecutablePlan, reason: str):
+        self._shadow.spike(reason)
+        q = R.shared_quarantine()
+        for (m, name), sched in zip(plan.selections, plan.schedules):
+            q.add(m.computation, name, variant_key(sched, None),
+                  reason=reason, site=name)
+        for entry in self._compiled.values():
+            if entry.plan is plan:
+                self._unwind(entry, reason)
+
+    def report_divergence(self, reason: str = "external divergence"):
+        """An out-of-band check (an application's checksum, a serving
+        tier's request shadow) saw this function return a wrong answer.
+        Responds as to a shadow divergence: quarantine what the live plans
+        (or the pins of a signature not baked yet) selected, tear them
+        down so the next call re-tunes, spike the shadow rate."""
+        self.resilience_stats.shadow_divergences += 1
+        plans = []
+        q = R.shared_quarantine()
+        for entry in self._compiled.values():
+            if entry.plan is not None:
+                if entry.plan not in plans:
+                    plans.append(entry.plan)
+                continue
+            for i, (name, sched, fuse) in list(entry.pins.items()):
+                q.add(entry.report.matches[i].computation, name,
+                      variant_key(sched, None), reason=reason, site=name)
+            if entry.pins:
+                self._unwind(entry, reason)
+        for plan in plans:
+            self._shadow_divergence(plan, reason)
+        if not plans:
+            self._shadow.spike(reason)
+
+    def resilience_info(self) -> Dict[str, Any]:
+        """Containment, quarantine and shadow counters of this function,
+        the tuner's quarantine skips (process-wide) and the shared
+        quarantine store's view."""
+        q = R.shared_quarantine()
+        return {
+            "containment": self.resilience_stats.as_dict(),
+            "tuner_quarantine_skips":
+                self.registry.autotuner.stats.quarantine_skips,
+            "quarantine": q.stats.as_dict(),
+            "quarantine_active": len(q.active()),
+            "quarantine_path": str(q.path),
+            "shadow_rate": self._shadow.effective(),
+            "shadow": self._shadow.snapshot(),
+            "disabled_matches": sum(len(e.disabled)
+                                    for e in self._compiled.values()),
+        }
 
     def _note_hot(self, plan: P.ExecutablePlan) -> None:
         """Move ``plan`` to the front of the hot list (bounded)."""
@@ -395,6 +589,7 @@ class LilacFunction:
             self._last_plan = None
         if plan in self._hot_plans:
             self._hot_plans.remove(plan)
+        plan.release()
 
     def __call__(self, *args, **kwargs):
         flat, spec = tree_flatten((args, kwargs))
@@ -410,7 +605,7 @@ class LilacFunction:
             tensors = plan.match(spec, flat)
             if tensors is not None:
                 self._note_hot(plan)
-                return self._serve(plan, tensors)
+                return self._serve(plan, tensors, flat, spec)
         leaves = self._unwrap(flat)
         entry = self._entry_for(leaves, spec)
         tensors = [leaves[i] for i in entry.tensor_pos]
@@ -419,7 +614,7 @@ class LilacFunction:
             got = plan.match(spec, flat)
             if got is not None:
                 self._note_hot(plan)
-                return self._serve(plan, got)
+                return self._serve(plan, got, flat, spec)
         if self.mode == "trace":
             outs = list(entry.rewritten(*tensors))
             self.last_selections = list(entry.selections)
@@ -429,9 +624,47 @@ class LilacFunction:
             return tree_unflatten(outs, entry.out_spec)
         return self._interpret(entry, flat, tensors, spec)
 
+    def _containment(self, entry: CompiledEntry) -> R.Containment:
+        def on_quarantine(m, harness, vkey, reason):
+            # an incident: densify shadow checks until a clean streak
+            self._shadow.spike(f"quarantine: {reason}")
+            i = entry.index_of(m)
+            pin = entry.pins.get(i) if i is not None else None
+            if pin is not None and pin[0] == harness:
+                del entry.pins[i]
+            self._unwind(entry, reason)
+
+        return R.Containment(self.registry, R.shared_quarantine(),
+                             on_quarantine=on_quarantine,
+                             stats=self.resilience_stats)
+
+    def _unwind(self, entry: CompiledEntry, reason: str) -> None:
+        """A quarantine or divergence made the entry's resolution stale:
+        drop its plan (freeing a CUDA graph's pool and buffers), its
+        persisted plan record and its joint result, so the next call
+        selects, tunes and bakes again.  Pins still valid stay."""
+        entry.rewritten = None      # trace mode rebuilds its graph
+        entry.persisted = False
+        entry.joint_done = False
+        entry.joint = None
+        entry.no_bake = False
+        entry.bake_error = None
+        self._drop_plan(entry)
+        pc = self._plan_cache
+        if pc is not None and entry.cache_key is not None:
+            pc.drop(entry.cache_key, reason)
+
+    def _disable(self, entry: CompiledEntry, rf: R.ReferenceFallback):
+        i = entry.index_of(rf.match)
+        if i is None or i in entry.disabled:
+            raise rf        # not this entry's match: nothing to disable
+        entry.disabled.add(i)
+
     def _interpret(self, entry: CompiledEntry, flat, tensors, spec):
-        """Host mode: run the traced graph with harness calls, recording
-        what a plan needs."""
+        """Host mode: run the traced graph with harness calls under
+        containment, recording what a plan needs.  A ReferenceFallback
+        disables one match and the call runs again, so the loop is bounded
+        by the match count + 1."""
         recorder = (P.PlanRecorder()
                     if self.bake_enabled and not entry.no_bake else None)
 
@@ -446,14 +679,28 @@ class LilacFunction:
         schedules: List[Optional[Dict[str, Any]]] = []
 
         def on_select(m, h, ctx):
+            if selections and selections[-1][0] is m:
+                # containment's retry of the same anchor: a replacement
+                selections.pop(), schedules.pop()
             selections.append((m, h.name))
             schedules.append(ctx.schedule)
             if recorder is not None:
                 recorder.begin(m, h, ctx.schedule, ctx.fuse)
 
-        outs = run_rewritten(entry.gm, entry.report.matches,
-                             self._selector(entry), tensors, ctx_factory,
-                             on_select=on_select, needed=entry.needed)
+        contain = self._containment(entry)
+        for _ in range(len(entry.report.matches) + 1):
+            matches = entry.enabled()
+            try:
+                outs = run_rewritten(entry.gm, matches, self._selector(entry),
+                                     tensors, ctx_factory,
+                                     on_select=on_select,
+                                     needed=entry.needed_for(matches),
+                                     contain=contain)
+                break
+            except R.ReferenceFallback as rf:
+                self._disable(entry, rf)
+                selections.clear()
+                schedules.clear()
         self.last_selections = selections
         self.last_schedules = schedules
         moved = self._maybe_joint(entry)
@@ -502,12 +749,13 @@ class LilacFunction:
 
     def _resolved(self, entry: CompiledEntry) -> bool:
         """Every selection is definitive: always under an explicit or the
-        default policy; under autotune once every match is pinned (or
-        tuning is off, which makes the defaults deterministic)."""
-        matches = entry.report.matches
-        if self.policy != "autotune" or not matches:
+        default policy; under autotune once every enabled match is pinned
+        (or tuning is off, which makes the defaults deterministic)."""
+        if self.policy != "autotune" or not entry.enabled():
             return True
-        return len(entry.pins) == len(matches) or autotune_disabled()
+        return autotune_disabled() or all(
+            i in entry.pins for i in range(len(entry.report.matches))
+            if i not in entry.disabled)
 
     def _maybe_persist(self, entry: CompiledEntry) -> None:
         pc = self._plan_cache
@@ -584,7 +832,7 @@ class LilacFunction:
 
     def _maybe_bake(self, entry: CompiledEntry, recorder: P.PlanRecorder,
                     flat, tensors, spec) -> None:
-        matches = entry.report.matches
+        matches = entry.enabled()
         if not recorder.complete_for(matches):
             return
         harnesses = [recorder.slots[id(m.anchor)].harness for m in matches]
@@ -604,7 +852,7 @@ class LilacFunction:
             self._note_hot(plan)
             return
         self._install(entry, lambda: P.bake_plan(
-            gm=entry.gm, matches=matches, needed=entry.needed,
+            gm=entry.gm, matches=matches, needed=entry.needed_for(matches),
             recorder=recorder, raw_flat=flat, tensors=tensors,
             tensor_pos=entry.tensor_pos, in_spec=spec,
             out_spec=entry.out_spec, report=entry.report, mode=self.mode,
@@ -641,6 +889,48 @@ class LilacFunction:
         yet, baking off, or unbakeable).  Runs nothing."""
         leaves, spec = tree_flatten((args, kwargs))
         return self._entry_for(self._unwrap(leaves), spec).plan
+
+    def prewarm(self, *signatures) -> Dict[str, Any]:
+        """Bake a plan per call signature before traffic arrives.
+
+        Each signature is a tuple of positional arguments; a leaf that is
+        a ``(shape, dtype)`` pair is made as zeros on this function's
+        device.  One call per signature runs the whole detect -> tune ->
+        bake life cycle here (or rehydrates it from the plan cache).
+        Returns per signature ``{baked, detect_calls, from_plan_cache}``
+        and the totals; ``detect_calls`` stays 0 on a plan-cache warm
+        start."""
+        def is_spec(x):
+            return (isinstance(x, tuple) and len(x) == 2
+                    and isinstance(x[1], torch.dtype)
+                    and isinstance(x[0], (tuple, list, torch.Size)))
+
+        def materialize(x):
+            return torch.zeros(tuple(x[0]), dtype=x[1],
+                               device=self.platform) if is_spec(x) else x
+
+        per_sig: List[Dict[str, Any]] = []
+        for sig in signatures:
+            leaves, spec = tree_flatten(tuple(sig), is_leaf=is_spec)
+            args = tree_unflatten([materialize(x) for x in leaves], spec)
+            before = self.stats["detects"]
+            self(*args)
+            flat, in_spec = tree_flatten((args, {}))
+            entry = self._entry_for(self._unwrap(flat), in_spec)
+            per_sig.append({
+                "baked": entry.plan is not None,
+                "detect_calls": self.stats["detects"] - before,
+                "from_plan_cache": any("rehydrated from plan cache" in line
+                                       for line in entry.report.log),
+            })
+        return {
+            "signatures": per_sig,
+            "n_signatures": len(per_sig),
+            "baked": sum(1 for x in per_sig if x["baked"]),
+            "detect_calls": sum(x["detect_calls"] for x in per_sig),
+            "plan_cache_hits": sum(1 for x in per_sig
+                                   if x["from_plan_cache"]),
+        }
 
     def plan_info(self) -> Dict[str, Any]:
         """Bake status of this function's entries."""

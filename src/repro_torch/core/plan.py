@@ -90,6 +90,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.fx import GraphModule, Node
 
+from repro_torch.core import faults
 from repro_torch.core.jsonstore import JsonStore, cache_dir
 from repro_torch.core.marshal import (TrackedArray, checksum, fingerprint,
                                       has_version, unwrap, version_token)
@@ -361,17 +362,27 @@ class PlanCache(JsonStore):
 
     def get(self, key: str) -> Optional[Dict[str, Any]]:
         rec = self.entries.get(key)
-        if rec is not None:
-            self.stats.memory_hits += 1
-            return rec
-        if not self.loaded:
+        if rec is None and not self.loaded:
             self.load()
             rec = self.entries.get(key)
-            if rec is not None:
+            if rec is not None and "dropped" not in rec:
                 self.stats.disk_hits += 1
                 return rec
+        elif rec is not None and "dropped" not in rec:
+            self.stats.memory_hits += 1
+            return rec
         self.stats.misses += 1
         return None
+
+    def drop(self, key: str, reason: str) -> None:
+        """Retire a record (a quarantine or a shadow divergence made its
+        pins stale).  A tombstone takes its place, since a save merges the
+        entries over the file's: ``get`` treats it as a miss, and the
+        entry's next resolution persists over it."""
+        if not self.loaded:
+            self.load()
+        if key in self.entries:
+            self.put(key, {"dropped": str(reason)[:200]})
 
     def put(self, key: str, record: Dict[str, Any], persist: bool = True):
         self.entries[key] = record
@@ -723,6 +734,18 @@ def per_call_ms(*fns: Callable, calls: int = 8) -> List[float]:
 # The plan itself
 # ---------------------------------------------------------------------------
 
+def _unfaulted(runner: Callable) -> Callable:
+    """``runner`` with fault injection paused: a plan's program is the
+    executable containment does not see (the JAX package's jitted plan),
+    so faults fire at its bake (``bake_raise``), not in its calls."""
+    def run(*leaves):
+        if faults.ACTIVE is None:
+            return runner(*leaves)
+        with faults.paused():
+            return runner(*leaves)
+    return run
+
+
 class ExecutablePlan:
     """A baked realization of one ``CompiledEntry``: the rewritten program
     (a CUDA graph on the card, the eager program on the CPU) and the guards
@@ -736,7 +759,7 @@ class ExecutablePlan:
                  guards, const_guards, report, selections, schedules, fuses,
                  hoisted, registry_epoch: int, platform: str,
                  read: frozenset = frozenset()):
-        self.runner = runner
+        self.runner = _unfaulted(runner)
         self.in_spec = in_spec
         self.out_spec = out_spec
         self.templates = templates
@@ -865,6 +888,16 @@ class ExecutablePlan:
                     total += b.numel() * b.element_size()
         return total
 
+    def release(self) -> None:
+        """Let go of the CUDA graph (its memory pool and static buffers)
+        and of the hoisted layouts: a dropped plan must not pin them until
+        the garbage collector runs."""
+        self._capture = None
+        self._pinned = {}
+        self.hoisted = {}
+        if self.platform == "cuda":
+            torch.cuda.empty_cache()
+
     def describe(self) -> Dict[str, Any]:
         """JSON-able summary (``plan_info``)."""
         return {
@@ -907,6 +940,8 @@ def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
     from repro_torch.core.harness import CallCtx
     from repro_torch.core.rewrite import run_rewritten
 
+    if faults.ACTIVE is not None:
+        faults.fail("bake_raise", "bake")
     if not recorder.complete_for(matches):
         raise PlanBakeError("recorded call is missing selections")
     slots = {id(m.anchor): recorder.slots[id(m.anchor)] for m in matches}
@@ -949,6 +984,8 @@ def bake_graph_plan(*, gm: GraphModule, raw_flat, tensors, tensor_pos,
                     platform: str, registry_epoch: int = 0) -> ExecutablePlan:
     """Bake a trace-mode entry: its rewritten ``GraphModule`` is the
     program (no marshaling, so no marshal guards)."""
+    if faults.ACTIVE is not None:
+        faults.fail("bake_raise", "bake")
     read = read_positions(gm, [], frozenset(
         n for n in gm.graph.nodes if n.op == "call_function"))
     plan = ExecutablePlan(

@@ -382,10 +382,12 @@ def optimize_entry(flat_matches, pins: Dict[int, Tuple], *, registry,
     every match's candidate table from recorded measurements (zero
     re-timing) and beam-search the joint assignment.  Returns None when
     any match lacks a servable record or candidates — the per-match pins
-    stand in that case."""
-    from repro_torch.core.autotune import signature_of
+    stand in that case.  Quarantined candidates are left out."""
+    from repro_torch.core import resilience as R
+    from repro_torch.core.autotune import signature_of, variant_key
     from repro_torch.core.marshal import SOURCES
 
+    q = R.shared_quarantine()
     graph = _graph_of(cache)
     tables: List[List[Candidate]] = []
     for i, m in enumerate(flat_matches):
@@ -398,8 +400,11 @@ def optimize_entry(flat_matches, pins: Dict[int, Tuple], *, registry,
         if rec is None:
             return None
         cands = registry.candidates(m.computation, m.format, platform, mode)
-        table = candidates_for_match(m, rec, cands, cache,
-                                     prior=pins.get(i))
+        # a quarantined (harness, variant) never enters the assignment
+        table = [c for c in candidates_for_match(m, rec, cands, cache,
+                                                 prior=pins.get(i))
+                 if not R.quarantined(q, m.computation, c.harness,
+                                      variant_key(c.schedule, c.fuse))]
         if not table:
             return None
         tables.append(table)

@@ -77,10 +77,18 @@ def run_rewritten(gm: GraphModule,
                   ctx_factory: Callable[[Match], CallCtx],
                   on_select: Optional[Callable[[Match, Harness, CallCtx],
                                                None]] = None,
-                  needed: Optional[frozenset] = None) -> List[Any]:
+                  needed: Optional[frozenset] = None,
+                  contain: Optional[Callable] = None) -> List[Any]:
     """Evaluate ``gm`` on ``args`` with matched anchors replaced by harness
     calls.  ``on_select`` observes every (match, harness, ctx) triple;
-    ``needed`` is a precomputed :func:`needed_nodes` for these matches."""
+    ``needed`` is a precomputed :func:`needed_nodes` for these matches.
+
+    ``contain`` (a :class:`repro_torch.core.resilience.Containment`)
+    selects and runs every anchor, ``(m, binding, ctx, select, attempt,
+    on_select) -> out``, so a failing harness is retried with another
+    candidate or escalated to ``ReferenceFallback`` instead of reaching
+    the caller.  When it retries it issues ``on_select`` again for the
+    same match: observers treat that as a replacement."""
     env: Dict[Node, Any] = {}
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
     if len(placeholders) != len(args):
@@ -97,7 +105,8 @@ def run_rewritten(gm: GraphModule,
         if n.op == "placeholder":
             continue
         if m is not None:
-            env[n] = _eval_anchor(m, env, select, ctx_factory, on_select)
+            env[n] = _eval_anchor(m, env, select, ctx_factory, on_select,
+                                  contain)
         elif n.op == "get_attr":
             env[n] = getattr(gm, n.target)
         elif n in needed:
@@ -111,13 +120,22 @@ def _binding(m: Match, lookup) -> Dict[str, Any]:
             for k, v in m.binding.items()}
 
 
-def _eval_anchor(m: Match, env, select, ctx_factory, on_select):
+def _eval_anchor(m: Match, env, select, ctx_factory, on_select,
+                 contain=None):
     binding = _binding(m, env.__getitem__)
     ctx = ctx_factory(m)
-    h = select(m, binding, ctx)
-    if on_select is not None:
-        on_select(m, h, ctx)
-    return _coerce(call_harness(h, binding, ctx, m.epilogue), m.anchor)
+
+    def attempt(h: Harness, c: CallCtx):
+        return call_harness(h, binding, c, m.epilogue)
+
+    if contain is not None:
+        out = contain(m, binding, ctx, select, attempt, on_select)
+    else:
+        h = select(m, binding, ctx)
+        if on_select is not None:
+            on_select(m, h, ctx)
+        out = attempt(h, ctx)
+    return _coerce(out, m.anchor)
 
 
 def call_harness(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
@@ -151,7 +169,8 @@ def rewrite_graph(gm: GraphModule,
                   ctx_factory: Callable[[Match], CallCtx],
                   on_select: Optional[Callable[[Match, Harness, CallCtx],
                                                None]] = None,
-                  needed: Optional[frozenset] = None) -> GraphModule:
+                  needed: Optional[frozenset] = None,
+                  contain: Optional[Callable] = None) -> GraphModule:
     """Trace mode: the rewritten program as a new ``GraphModule`` with the
     traced graph's placeholders and outputs.
 
@@ -161,7 +180,9 @@ def rewrite_graph(gm: GraphModule,
     selected harness traced in place (one custom-op node for a jit-safe
     CUDA harness), an unfused epilogue aten nodes after it, and operators
     that only fed an anchor are gone.  A harness that is not jit-safe
-    raises: it would marshal inside the graph.
+    raises: it would marshal inside the graph.  Under ``contain`` a
+    harness that fails to trace (or traces to the wrong size) is replaced
+    by the next candidate; ``on_select`` observes what was traced in.
     """
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.func import functionalize
@@ -172,13 +193,12 @@ def rewrite_graph(gm: GraphModule,
     for m in matches:
         binding = _binding(m, lambda v: v.meta["val"])
         ctx = ctx_factory(m)
-        h = select(m, binding, ctx)
+        h = contain.pick(m, binding, ctx, select) if contain is not None \
+            else select(m, binding, ctx)
         if not h.jit_safe:
             raise ValueError(
                 f"harness {h.name!r} is host_only and cannot be traced into "
                 f"a graph; compile with mode='host' to use it")
-        if on_select is not None:
-            on_select(m, h, ctx)
         chosen[m.anchor] = (h, ctx)
 
     def pinned(m, binding, ctx):
@@ -186,7 +206,9 @@ def rewrite_graph(gm: GraphModule,
 
     def interpret(*args):
         return run_rewritten(gm, matches, pinned, list(args),
-                             lambda m: chosen[m.anchor][1], needed=needed)
+                             lambda m: chosen[m.anchor][1],
+                             on_select=on_select, needed=needed,
+                             contain=contain)
 
     fakes = [n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
     out = make_fx(functionalize(interpret, remove="mutations_and_views"),

@@ -11,6 +11,7 @@ Application authors::
     host = lilac.compile(step, mode="host", policy="autotune")
     host(val, col, row_ptr, vec); host(val, col, row_ptr, vec)
     host.plan_info()                    # baked: 1, plan_hits: 1
+    host.resilience_info()              # containment, quarantine, shadows
 
 Library implementers (spec + function = a new backend)::
 
@@ -23,6 +24,7 @@ Library implementers (spec + function = a new backend)::
     def mylib_spmv(binding, ctx, *, packed):
         return mylib.spmv(packed, binding["iv"])
 """
+from repro_torch.core import faults
 from repro_torch.core.autotune import Autotuner, AutotuneCache
 from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
                                       Harness, HarnessRegistry)
@@ -33,6 +35,14 @@ from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       register_format, register_source)
 from repro_torch.core.pass_manager import LilacFunction, compile
 from repro_torch.core.plan import ExecutablePlan, PlanCache
+from repro_torch.core.resilience import (Containment, ContainmentStats,
+                                         LilacContainmentWarning,
+                                         QuarantineStore, ReferenceFallback,
+                                         StickyDeviceFault,
+                                         default_quarantine_path,
+                                         outputs_close,
+                                         reset_shared_quarantine,
+                                         shared_quarantine)
 from repro_torch.core.rewrite import apply_epilogue
 from repro_torch.core.spec import (REPACKS, SpecError, build_harnesses,
                                    harness, register_builtins, register_spec,
@@ -64,4 +74,9 @@ __all__ = [
     "DataPlane", "MarshalPolicy", "SparseFormat", "ConversionEdge",
     "ConversionGraph", "FORMATS", "GRAPH", "SOURCES", "edge",
     "register_format", "register_source",
+    # containment (fault injection, quarantine, contained retry, shadows)
+    "faults", "Containment", "ContainmentStats", "QuarantineStore",
+    "ReferenceFallback", "LilacContainmentWarning", "StickyDeviceFault",
+    "default_quarantine_path", "outputs_close", "shared_quarantine",
+    "reset_shared_quarantine",
 ]

@@ -33,6 +33,10 @@ from repro_torch.core import autotune as A
 from repro_torch.core.harness import REGISTRY, CallCtx, Harness, HarnessRegistry
 from repro_torch.core.marshal import DataPlane, MarshalPolicy
 from repro_torch.sparse import formats as tf
+from repro_torch.core import faults
+from repro_torch.core.resilience import (LilacContainmentWarning,
+                                         reset_shared_quarantine,
+                                         shared_quarantine)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ROWS, COLS = 96, 80
@@ -41,6 +45,15 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 
 @pytest.fixture(autouse=True)
 def _own_store(tmp_path, monkeypatch):
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
     # these tests hold the tuner's own store: a plan cache would serve the
@@ -485,8 +498,11 @@ HARNESS toy.ok implements spmv_csr
 
 def test_a_broken_kernel_raises_through_the_compiled_call(monkeypatch):
     """The same through ``lilac.compile(..., policy="autotune")``: a
-    harness whose body raises RuntimeError makes the call raise, rather
-    than leaving the plain ``torch.*`` harness to win."""
+    harness whose body raises RuntimeError neither quietly loses the race
+    to a plain ``torch.*`` harness nor ends the user's call.  The tuner's
+    error names the candidate; containment quarantines that candidate,
+    loudly, and races again without it, and the call returns the
+    uncompiled program's answer.  The race that broke stores nothing."""
     h = REGISTRY.get("spmv_csr", "torch.ell")
 
     def broken(b, ctx):
@@ -494,11 +510,21 @@ def test_a_broken_kernel_raises_through_the_compiled_call(monkeypatch):
 
     monkeypatch.setattr(h, "fn", broken)
     _, csr, v = _operands()
+    args = (csr.val, csr.col_ind, csr.row_ptr, torch.from_numpy(v))
     fast = lilac.compile(naive, mode="host", policy="autotune",
                          platform="cpu")
-    with pytest.raises(RuntimeError, match="cudaError 700"):
-        fast(csr.val, csr.col_ind, csr.row_ptr, torch.from_numpy(v))
-    assert REGISTRY.autotuner.stats.stores == 0
+    with pytest.warns(LilacContainmentWarning, match="'torch.ell'"):
+        out = fast(*args)
+    torch.testing.assert_close(out, naive(*args), atol=1e-4, rtol=1e-4)
+    (reason,) = [r["reason"] for k, r in shared_quarantine().active().items()
+                 if k.startswith("spmv_csr|torch.ell|")]
+    assert "cudaError 700" in reason
+    assert fast.last_selections[0][1] != "torch.ell"
+    stored = [r for modes in REGISTRY.autotuner.cache.entries.values()
+              for r in modes.values()]
+    assert all(r["harness"] != "torch.ell" and "torch.ell" not in r["timings"]
+               for r in stored)
+    assert fast.resilience_info()["containment"]["contained_exceptions"] == 1
 
 
 def test_a_losing_candidate_frees_its_entries_before_the_next(monkeypatch):

@@ -25,6 +25,8 @@ from repro_torch.kernels.bsr_spmm import kernel as K
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.sparse import convert as tconvert
 from repro_torch.sparse import formats as tf
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
@@ -33,6 +35,15 @@ BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 @pytest.fixture(autouse=True)
 def _own_plan_cache(tmp_path, monkeypatch):
     """The plan cache in this test's directory."""
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
 
 

@@ -12,12 +12,23 @@ from repro_torch import lilac
 from repro_torch.core.harness import REGISTRY
 from repro_torch.examples import pagerank
 from repro_torch.examples.common import naive_spmv
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 NODES, ITERS = 512, 40
 
 
 @pytest.fixture(autouse=True)
 def _own_store(tmp_path, monkeypatch):
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
     monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))

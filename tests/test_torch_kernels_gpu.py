@@ -31,6 +31,8 @@ from repro_torch.models import layers as tlayers
 from repro_torch.sparse import convert as tconvert
 from repro_torch.sparse import formats as tf
 from repro_torch.sparse import random as trandom
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # bf16 storage, f32 accumulation
@@ -40,6 +42,15 @@ BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # bf16 storage, f32 accumulation
 def _own_store(tmp_path, monkeypatch):
     """The autotuner's store in this test's directory (this file runs with
     --noconftest on the card)."""
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     from repro_torch.core.harness import REGISTRY
 
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
@@ -912,3 +923,116 @@ def test_plan_past_the_copy_limit_runs_eagerly(cuda, monkeypatch):
     assert not plan["cuda_graph"] and plan["hits"] == 2
     want = interp(csr.val, csr.col_ind, csr.row_ptr, v)
     assert all(torch.equal(o, want) for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# containment on the card
+# ---------------------------------------------------------------------------
+
+def _naive_csr(val, col, row_ptr, v):
+    rows = row_ptr.shape[0] - 1
+    row = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                  torch.diff(row_ptr), output_size=val.shape[0])
+    return torch.zeros(rows, device=val.device).index_add_(0, row,
+                                                          val * v[col])
+
+
+def _csr_on(cuda):
+    csr = tf.from_numpy(tf.to_numpy(trandom.random_csr(300, 200, 0.05,
+                                                       seed=2)),
+                        kind="CSR", device=cuda)
+    return (csr.val, csr.col_ind, csr.row_ptr,
+            torch.randn(200, device=cuda))
+
+
+@pytest.mark.gpu
+def test_kernel_raise_on_k1_falls_back_to_the_naive_program(cuda):
+    """kernel_raise:cuda.ell: K1 never runs, the call returns the naive
+    program's answer through the fallback, cuda.ell is quarantined, and
+    the baked plan serves the fallback from then on."""
+    from repro_torch.core.resilience import (LilacContainmentWarning,
+                                             shared_quarantine)
+
+    args = _csr_on(cuda)
+    fast = lilac.compile(_naive_csr, mode="host", policy="cuda.ell")
+    before = K.LAUNCHES["spmv_ell_staged"]
+    with faults.inject("kernel_raise:cuda.ell") as plan, \
+            pytest.warns(LilacContainmentWarning, match="cuda.ell"):
+        out = fast(*args)
+    again = fast(*args)
+    torch.cuda.synchronize()
+    assert plan.fired == [("kernel_raise", "cuda.ell", 0)]
+    assert K.LAUNCHES["spmv_ell_staged"] == before
+    assert [n for _, n in fast.last_selections] == ["torch.segment"]
+    assert shared_quarantine().is_quarantined("spmv_csr", "cuda.ell")
+    assert fast.plan_info()["plan_hits"] == 1
+    for got in (out, again):
+        torch.testing.assert_close(got, _naive_csr(*args), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["cuda.ell", "autotune"])
+def test_a_kernel_that_fails_to_launch_raises_through_the_call(
+        cuda, monkeypatch, policy):
+    """A real (not injected) error of a CUDA harness on the card is not
+    contained: the call raises it, under a named policy and from the
+    tuner's race alike, nothing is quarantined, and no plain version
+    answers in the kernel's place."""
+    import warnings
+
+    from repro_torch.core.harness import REGISTRY
+    from repro_torch.core.resilience import (LilacContainmentWarning,
+                                             shared_quarantine)
+
+    def broken(b, ctx):
+        raise RuntimeError("launch failed: cudaError 9")
+
+    monkeypatch.setattr(REGISTRY.get("spmv_csr", "cuda.ell"), "fn", broken)
+    fast = lilac.compile(_naive_csr, mode="host", policy=policy)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", LilacContainmentWarning)
+        with pytest.raises(RuntimeError, match="cudaError 9"):
+            fast(*_csr_on(cuda))
+    assert not shared_quarantine().active()
+    assert fast.resilience_info()["containment"]["contained_exceptions"] == 0
+
+
+@pytest.mark.gpu
+def test_nan_output_of_k3_narrow_is_contained(cuda):
+    """nan_output:cuda.bcsr at N = 1: K3's narrow body runs, its output is
+    poisoned, the validator's sync catches it, and the call returns the
+    naive answer."""
+    args = _csr_on(cuda)
+    fast = lilac.compile(_naive_csr, mode="host", policy="cuda.bcsr")
+    before = K3.LAUNCHES["bsr_spmm_narrow"]
+    with faults.inject("nan_output:cuda.bcsr"):
+        out = fast(*args)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES["bsr_spmm_narrow"] == before + 1
+    c = fast.resilience_info()["containment"]
+    assert c["nonfinite_outputs"] == 1 and c["quarantines"] == 1
+    assert [n for _, n in fast.last_selections] != ["cuda.bcsr"]
+    torch.testing.assert_close(out, _naive_csr(*args), **TOL)
+
+
+@pytest.mark.gpu
+def test_bf16_moe_shadowed_at_rate_one_reports_no_divergence(cuda,
+                                                            monkeypatch):
+    """Every plan call of the bf16 MoE block on cuda.gmm shadowed by the
+    naive bf16 block: the bf16 tolerance (relative L2 <= 2e-2) reports no
+    divergence, so cuda.gmm stays selected."""
+    monkeypatch.setenv("LILAC_TORCH_SHADOW_RATE", "1")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = tlayers.moe_params(tlayers.moe_spec(64, 32, 8, torch.bfloat16), gen)
+    x = torch.randn(2, 48, 64, generator=gen, device=cuda).bfloat16()
+    fast = tlayers._lilac_moe_2d("cuda")
+    before = fast.resilience_stats.as_dict()
+    for _ in range(3):
+        got, _ = tlayers.moe_block(p, x, topk=2, impl="lilac")
+    after = fast.resilience_stats.as_dict()
+    assert after["shadow_checks"] - before["shadow_checks"] >= 4
+    assert after["shadow_divergences"] == before["shadow_divergences"]
+    assert [n for _, n in fast.last_selections] == ["cuda.gmm"]
+    want, _ = tlayers.moe_block(p, x, topk=2, impl="naive")
+    assert float(torch.linalg.vector_norm((got - want).float())
+                 / torch.linalg.vector_norm(want.float())) <= 2e-2

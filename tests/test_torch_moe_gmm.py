@@ -27,6 +27,8 @@ from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
 from repro_torch.kernels.moe_gmm import kernel as K
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models import layers as tlayers
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 FFN_TOL = dict(atol=1e-4, rtol=1e-3)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -35,6 +37,15 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 @pytest.fixture(autouse=True)
 def _own_plan_cache(tmp_path, monkeypatch):
     """The plan cache in this test's directory."""
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
 
 

@@ -32,10 +32,21 @@ from repro_torch.core.plan_search import (Candidate, MarshalReq,
                                           independent_assignment, search)
 from repro_torch.core.spec import register_spec
 from repro_torch.sparse import random as trandom
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 
 @pytest.fixture(autouse=True)
 def _own_caches(tmp_path, monkeypatch):
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
     monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))

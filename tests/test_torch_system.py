@@ -18,6 +18,8 @@ from repro_torch import lilac
 from repro_torch.core.marshal import fingerprint
 from repro_torch.sparse import formats as tf
 from repro_torch.sparse import random as trandom
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 ROWS, COLS = 96, 80
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -26,6 +28,15 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 @pytest.fixture(autouse=True)
 def _own_plan_cache(tmp_path, monkeypatch):
     """The plan cache in this test's directory."""
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
 
 

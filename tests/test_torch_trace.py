@@ -30,6 +30,8 @@ from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.spmv_ell import ops as ell_ops
 from repro_torch.models import layers as tlayers
 from repro_torch.sparse import formats as tf
+from repro_torch.core import faults
+from repro_torch.core.resilience import reset_shared_quarantine
 
 ROWS, COLS = 96, 80
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -41,6 +43,15 @@ MOE_OP = torch.ops.lilac_torch.moe_ffn.default
 
 @pytest.fixture(autouse=True)
 def _own_store(tmp_path, monkeypatch):
+    # containment's store in this test's directory, no ambient chaos plan
+    # and no shadow checks: a quarantine must not outlive its test
+    monkeypatch.setenv("LILAC_TORCH_QUARANTINE_CACHE",
+                       str(tmp_path / "quarantine.json"))
+    for k in ("LILAC_TORCH_FAULTS", "LILAC_TORCH_FAULTS_SEED",
+              "LILAC_TORCH_SHADOW_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    faults.load_env()
+    reset_shared_quarantine()
     monkeypatch.setenv("LILAC_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
     monkeypatch.setenv("LILAC_TORCH_PLAN_CACHE", str(tmp_path / "plans.json"))
