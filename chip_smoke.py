@@ -9,8 +9,10 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together), prints ptxas's registers
-   and shared memory, and checks with cuobjdump that K4's bf16 body runs
-   on the tensor cores (HGMMA in its SASS);
+   and shared memory, and checks with cuobjdump, function by function,
+   that K4's bf16 body runs on the tensor cores (HGMMA in its SASS) and
+   its f32 body on the CUDA cores (FFMA, no HMMA or HGMMA), printing the
+   f32 body's 128-bit and 32-bit shared-memory loads;
 3. drives each path through ``repro_torch.lilac.compile`` — the paper's
    Fig. 1 flow — with the kernels' launch counts set to 0 just before the
    path and read just after, and checks what came out:
@@ -46,6 +48,12 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      sequence), and the output and the naive bf16 block's, each as
      relative L2 error against the f32 plain oracle on the same bf16
      inputs;
+   * MoE in f32 (K4's f32 body): one sequence of 4,096 tokens of the
+     same layer with its parameters and input cast to f32 through
+     moe_block(impl="lilac"): cuda.gmm, 3 launches of the f32 body and
+     none of the bf16 one, and the output and the naive f32 block's
+     against the f32 plain oracle (relative L2 error within 1e-4), with
+     the block's time beside the naive block's;
    * the autotuner: lilac.compile(naive SpMV, mode="host",
      policy="autotune") at NPB-C and at HPCG on a fresh store in a
      temporary directory: each candidate's steady time, repack seconds and
@@ -150,6 +158,10 @@ MOE_BATCH, MOE_SEQ = 2, 4096   # OLMoE's context length
 # (a rounding error up to 2^-9 = 2e-3 relative); the routed path rounds h
 # and its output to bf16, the naive bf16 block every einsum's output
 MOE_RTOL = 2e-2
+# the same layer in f32 (no TF32 anywhere): the routed path and the oracle
+# differ only in the order of f32 sums of 2,048 and 1,024 products and of
+# each token's 8 gated terms, a rounding of ~2^-24 a step: ~1e-6 relative
+MOE_F32_RTOL = 1e-4
 KERNEL_ATOL = KERNEL_RTOL = 1e-4   # K1-K3 against their plain versions
 # K4: f32 sums of 1,024 or 2,048 products, in another order than cuBLAS's
 GMM_ATOL = GMM_RTOL = 1e-3
@@ -157,7 +169,7 @@ K1_LAYOUT_BYTES = 0.33e9       # K1's staged layout at NPB-C
 K2_LAYOUT_BYTES = 0.31e9       # K2's compacted layout at HPCG-104^3
 K3_LAYOUT_BYTES = 0.25e9       # K3's packed tiles at HPCG-104^3
 # K1's direct body: rows_per_slab values timed, declared or not, at NPB-C
-# and at its first SMALL_ROWS rows (128 CTAs of the default slab, fewer
+# and at its first SMALL_ROWS rows (128 slabs of the default size, fewer
 # than the card's 132 SMs): the tune clause keeps the values that win
 SLAB_PROBE = (32, 8, 64, 128)
 SMALL_ROWS = 4096
@@ -874,7 +886,8 @@ def moe_inputs(cfg, seed: int, device, batch: int = MOE_BATCH,
 
 def moe_path(cfg, p, x, device):
     """One expert layer through moe_block(impl='lilac'), then the naive
-    block, each against the f32 plain oracle."""
+    block, each against the f32 plain oracle; ``launches`` counts each K4
+    body's launches in the first call."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
@@ -886,7 +899,7 @@ def moe_path(cfg, p, x, device):
     G.reset_launches()
     out, _ = L.moe_block(p, x, topk=cfg.moe_topk, impl="lilac")
     sync(device)
-    launches = G.LAUNCHES["gmm"]
+    launches = dict(G.LAUNCHES)
     first_s = time.perf_counter() - t0
     peak, _ = memory_read(device, before)
     fast = L._lilac_moe_2d(device.type)
@@ -927,9 +940,9 @@ def check_moe_path(res, batch: int = MOE_BATCH) -> None:
     require(res["selections"] == ["cuda.gmm"],
             f"MoE: cuda.gmm under the default policy, got "
             f"{res['selections']}")
-    require(res["launches"] == 3 * batch,
-            f"K4 launched 3 times a sequence ({3 * batch}), got "
-            f"{res['launches']}")
+    require(res["launches"] == {"gmm": 3 * batch, "gmm_f32": 0},
+            f"K4's bf16 body launched 3 times a sequence ({3 * batch}), "
+            f"got {res['launches']}")
     require(res["finite"], "MoE: finite output")
     require(res["rel_l2"] <= MOE_RTOL and res["naive_rel_l2"] <= MOE_RTOL,
             f"MoE: relative L2 error against the f32 oracle within "
@@ -937,9 +950,34 @@ def check_moe_path(res, batch: int = MOE_BATCH) -> None:
             f"{res['naive_rel_l2']:.3g} (naive)")
 
 
+def moe_f32_path(cfg, p, x, device):
+    """The first sequence of the expert layer with its parameters and input
+    cast to f32 (K4's f32 body), as moe_path runs it."""
+    return moe_path(cfg, {k: v.float() for k, v in p.items()},
+                    x[:1].float(), device)
+
+
+def check_moe_f32_path(res) -> None:
+    require(res["selections"] == ["cuda.gmm"],
+            f"MoE f32: cuda.gmm under the default policy, got "
+            f"{res['selections']}")
+    require(res["launches"] == {"gmm": 0, "gmm_f32": 3},
+            f"MoE f32: 3 launches of K4's f32 body and none of the bf16 "
+            f"one, got {res['launches']}")
+    require(res["finite"] and res["dtype"] == "torch.float32",
+            f"MoE f32: a finite f32 output, got {res['dtype']}")
+    require(res["rel_l2"] <= MOE_F32_RTOL
+            and res["naive_rel_l2"] <= MOE_F32_RTOL,
+            f"MoE f32: relative L2 error against the f32 oracle within "
+            f"{MOE_F32_RTOL}, got {res['rel_l2']:.3g} (routed) and "
+            f"{res['naive_rel_l2']:.3g} (naive)")
+
+
 def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     """K4 against its plain version at the MoE path's calls (the first
-    sequence's routing): gate/up and down in bf16, gate/up in f32."""
+    sequence's routing): the bf16 body at gate/up and down, the f32 body
+    at gate/up on the operands cast to f32.  Two entries: ``gmm`` (bf16)
+    and ``gmm_f32``."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
@@ -967,17 +1005,20 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     entry = {"name": "gmm", "shape": {k: (tuple(a.shape), tuple(w.shape))
                                       for k, (a, w) in calls.items()},
              "tp": tp, "routed_rows": routed, "variants": {}}
+    entry32 = {"name": "gmm_f32", "tp": tp, "routed_rows": routed,
+               "variants": {}}
     for vname, (a, w) in calls.items():
         fin, fout = w.shape[1:]
         run = lambda: G.gmm_cuda(a, w, te, tm)
         plain = lambda: GR.gmm_ref(a, w, te, tm)
         # the routed rows, not the padded Tp
         nb = routed * fin * a.element_size() + nbytes(w) + routed * fout * 4
-        v = entry["variants"][vname] = variant_numbers(
-            run, plain, "gmm_tc_kernel" if a.dtype == torch.bfloat16
-            else "gmm_simt_kernel", on_card, reps, nb,
-            2 * routed * fin * fout, a.dtype, GMM_ATOL, GMM_RTOL,
-            what=f"gmm/{vname}")
+        bf16 = a.dtype == torch.bfloat16
+        v = (entry if bf16 else entry32)["variants"][vname] = \
+            variant_numbers(run, plain, "gmm_tc_kernel" if bf16
+                            else "gmm_simt_kernel", on_card, reps, nb,
+                            2 * routed * fin * fout, a.dtype, GMM_ATOL,
+                            GMM_RTOL, what=f"gmm/{vname}")
         if v["ms"] is not None:
             # achieved rates over the routed rows and over all Tp rows
             v["tflops_routed"] = v["flops"] / v["ms"] / 1e9
@@ -989,7 +1030,7 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
     # bf16, as that call requires, where K4 writes f32)
     grouped = getattr(torch, "_grouped_mm", None)
     entry["library_ms"] = entry["library_err"] = None
-    entry["library_f32"] = None
+    entry32["library_ms"] = entry32["library_err"] = None
     if on_card and grouped is not None:
         counts = torch.bincount(idx[0].reshape(-1).long(), minlength=E)
         offs = torch.cumsum((counts + tm - 1) // tm * tm, 0).to(torch.int32)
@@ -998,23 +1039,19 @@ def gmm_kernel_phases(cfg, p, x, device, reps: int = 10):
         entry["library_err"] = float((lib()[:rows].float() - GR.gmm_ref(
             xs, p["wg"], te, tm)[:rows]).abs().max())
         entry["library_ms"] = cuda_ms(lib, reps)[0]
-        # the f32 body's product as one call, where this PyTorch takes f32
+        # the f32 body's product as one call (this PyTorch takes f32 and
+        # computes it in full f32: max |err| ~1e-5)
         xf, wf = calls["gate_up_f32"]
-        try:
-            lib32 = lambda: grouped(xf, wf, offs=offs)
-            err32 = float((lib32()[:rows] - GR.gmm_ref(
-                xf, wf, te, tm)[:rows]).abs().max())
-            entry["library_f32"] = {"ms": cuda_ms(lib32, reps)[0],
-                                    "max_abs_err": err32}
-        except Exception as e:      # a PyTorch that takes bf16 only
-            entry["library_f32"] = {
-                "ms": None, "refused": f"{type(e).__name__}: {str(e)[:300]}"}
+        lib32 = lambda: grouped(xf, wf, offs=offs)
+        entry32["library_err"] = float((lib32()[:rows] - GR.gmm_ref(
+            xf, wf, te, tm)[:rows]).abs().max())
+        entry32["library_ms"] = cuda_ms(lib32, reps)[0]
     # a GEMM-rate yardstick, not the same function: one expert's weights
     # for all routed rows, the same flops as the gate/up call
     x2, w0 = xs[:routed], p["wg"][0]
     entry["gemm_ms"] = cuda_ms(lambda: torch.matmul(x2, w0), reps)[0] \
         if on_card else None
-    return entry
+    return entry, entry32
 
 
 def gmm_witnesses(a, w, te, tm) -> dict:
@@ -1894,15 +1931,65 @@ def print_tune_variants(variants, what: str, tol: str) -> None:
 
 # ---------------------------------------------------------------------------
 
-def sass_count(library: Path, opcode: str) -> int:
-    """How many SASS instructions of ``opcode`` the library holds
-    (cuobjdump of the CUDA toolkit)."""
-    import shutil
+def sass_functions(library: Path) -> dict:
+    """Each kernel function of the library (its mangled name) -> how many
+    SASS instructions of each opcode it holds, modifiers included (e.g.
+    ``LDS.128``), from the ``Function :`` sections of ``cuobjdump -sass``."""
+    import collections
+    import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], check=True,
                           capture_output=True, text=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    funcs: dict = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = funcs.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and current is not None:
+            current[m.group(1)] += 1
+    return funcs
+
+
+def sass_summary(counts) -> dict:
+    """One function's SASS opcodes by base name (``FFMA``, ``HGMMA``, ...),
+    except that shared and global loads and shared stores are split by
+    width: ``LDS`` / ``LDG`` / ``STS`` count the 32-bit forms,
+    ``LDS.128`` / ``LDG.128`` / ``STS.128`` the 128-bit ones (64-bit and
+    narrower forms are left out)."""
+    out: dict = {}
+    for op, n in counts.items():
+        base, *mods = op.split(".")
+        key = base
+        if base in ("LDS", "LDG", "STS"):
+            if "128" in mods:
+                key = base + ".128"
+            elif any(m in ("64", "U16", "S16", "U8", "S8") for m in mods):
+                continue
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def check_k4_sass(library: Path) -> dict:
+    """K4's two bodies from their own SASS: the bf16 body issues HGMMA (the
+    tensor cores), the f32 body FFMA and no HMMA or HGMMA (full f32 on the
+    CUDA cores).  Returns each function's summary."""
+    funcs = {name: sass_summary(c) for name, c in
+             sass_functions(library).items()
+             if "gmm_tc_kernel" in name or "gmm_simt_kernel" in name}
+    tc = [c for n, c in funcs.items() if "gmm_tc_kernel" in n]
+    simt = [c for n, c in funcs.items() if "gmm_simt_kernel" in n]
+    require(len(tc) == 1 and tc[0].get("HGMMA", 0) > 0,
+            f"K4's bf16 body runs on the tensor cores (HGMMA), got {tc}")
+    require(len(simt) >= 1 and all(
+        c.get("FFMA", 0) > 0 and not c.get("HMMA") and not c.get("HGMMA")
+        for c in simt),
+            f"K4's f32 body is FFMA with no HMMA or HGMMA, got {simt}")
+    return funcs
 
 
 def smi_line() -> str:
@@ -1919,6 +2006,7 @@ REPLACES = {      # kernel body -> the TPU kernel it replaces
     "bsr_spmm_wide": "src/repro/kernels/bsr_spmm/kernel.py:81",
     "bsr_spmm_narrow": "src/repro/kernels/bsr_spmm/kernel.py:81",
     "gmm": "src/repro/kernels/moe_gmm/kernel.py:53",
+    "gmm_f32": "src/repro/kernels/moe_gmm/kernel.py:53",
 }
 SOURCES = {
     "spmv_ell_staged": "src/repro_torch/kernels/spmv_ell/csrc/spmv_ell.cu",
@@ -1927,6 +2015,7 @@ SOURCES = {
     "bsr_spmm_wide": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
     "bsr_spmm_narrow": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
     "gmm": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+    "gmm_f32": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
 }
 
 
@@ -2025,11 +2114,13 @@ def run(args, work: str) -> int:
         for line in build.build_log(s).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
-    hgmma = sass_count(build.library_path(G.SOURCE), "HGMMA")
-    print(f"{G.SOURCE.name}: {hgmma} HGMMA instructions in its SASS")
-    require(hgmma > 0, "K4's bf16 body runs on the tensor cores (HGMMA)")
+    k4_sass = check_k4_sass(build.library_path(G.SOURCE))
+    for name, c in k4_sass.items():
+        print(f"{G.SOURCE.name} {name}: SASS HGMMA {c.get('HGMMA', 0)}, "
+              f"HMMA {c.get('HMMA', 0)}, FFMA {c.get('FFMA', 0)}, 128-bit "
+              f"LDS {c.get('LDS.128', 0)}, 32-bit LDS {c.get('LDS', 0)}")
 
-    record = {"card": smi}
+    record = {"card": smi, "k4_sass": k4_sass}
     t0 = time.perf_counter()
     mats = matrices(args.seed, device)
     for name, (a, _) in mats.items():
@@ -2229,22 +2320,24 @@ def run(args, work: str) -> int:
           f"GiB; K4 launches {moe['launches']}")
     check_moe_path(moe)
     record["moe_path"] = moe
-    gmm = gmm_kernel_phases(OLMOE, p, x, device)
+    gmm, gmm32 = gmm_kernel_phases(OLMOE, p, x, device)
     print(f"gmm Tp {gmm['tp']} rows for {gmm['routed_rows']} routed")
     print_variants(gmm, f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
+    print_variants(gmm32, f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
     print(f"gmm library (torch._grouped_mm, the gate/up product with a "
           f"bf16 output): {gmm['library_ms']} ms, max|err| vs plain "
           f"{gmm['library_err']}; GEMM-rate yardstick (one torch.matmul of "
           f"({gmm['routed_rows']}, {OLMOE.d_model}) x ({OLMOE.d_model}, "
           f"{OLMOE.d_ff}) bf16, not the same function): "
           f"{gmm['gemm_ms']:.4f} ms")
-    print(f"gmm library for the f32 body (torch._grouped_mm on the f32 "
-          f"operands): {gmm['library_f32']}")
+    print(f"gmm_f32 library (torch._grouped_mm on the f32 operands): "
+          f"{gmm32['library_ms']} ms, max|err| vs plain "
+          f"{gmm32['library_err']}")
     for vname, v in gmm["variants"].items():
         if "witness" in v:
             print(f"gmm/{vname} witnesses, max|err| vs plain: {v['witness']}")
-    kernels.append(kernel_entry(gmm, "gate_up", moe["launches"]))
-    record["kernels"] += bsr + [gmm]
+    kernels.append(kernel_entry(gmm, "gate_up", moe["launches"]["gmm"]))
+    record["kernels"] += bsr + [gmm, gmm32]
     release(device)
     with fault_free("MoE trace mode"):
         moe_trace = moe_trace_path(OLMOE, p, x, device)
@@ -2257,6 +2350,19 @@ def run(args, work: str) -> int:
                         f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
     check_moe_trace(moe_trace)
     record["moe_trace"] = moe_trace
+    release(device)
+    with fault_free("MoE f32"):
+        m32 = moe_f32_path(OLMOE, p, x, device)
+    print(f"MoE f32 path {OLMOE.name} x {m32['shape']} float32: via "
+          f"{m32['selections']}, {m32['steady_call_ms']:.3f} ms "
+          f"a block (naive f32 {m32['naive_call_ms']:.3f} ms); relative L2 "
+          f"error vs the f32 oracle {m32['rel_l2']:.3g} (naive "
+          f"{m32['naive_rel_l2']:.3g}; tol {MOE_F32_RTOL}); K4 launches "
+          f"{m32['launches']}")
+    check_moe_f32_path(m32)
+    kernels.append(kernel_entry(gmm32, "gate_up_f32",
+                                m32["launches"]["gmm_f32"]))
+    record["moe_f32_path"] = m32
 
     # -- containment: faults injected on the card ---------------------------
     t0 = time.perf_counter()

@@ -46,10 +46,29 @@
 // on the host, through the driver entry point that the runtime hands out,
 // so the library links nothing beyond the CUDA runtime.
 //
-// f32 (off the OLMoE path): a plain SIMT tiling, 256 threads, an 8x8 f32
-// micro-tile each, D walked in 32-deep chunks through shared memory.
-// Bound by the CUDA cores' f32 rate (~67 TFLOP/s).
-// Offsets into w (64 x 2,048 x 1,024 = 134 M elements) are 64-bit.
+// f32 (gmm_simt_kernel; the body of a model with f32 parameters): FFMA on
+// the CUDA cores, no TF32 and no tensor core, so each output is the f32
+// sum over k = 0, 1, ..., D-1 in that order, one fmaf a step, whatever tm
+// is.  Bound by operations: at OLMoE's gate/up call, 137 GFLOP over the
+// routed rows (171 over all Tp rows, the tail tiles included) against the
+// CUDA cores' ~67 TFLOP/s, ~2.05 ms; the bytes (~0.9 GB) take ~0.28 ms.
+// So the design keeps the FMA pipes fed:
+//   * 256 threads, each an 8x8 tile of the CTA's 128x128 laid out as 2x2
+//     blocks of 4x4, so that a thread reads its A and B fragments with
+//     four LDS.128 a depth step, for 64 FFMA;
+//   * xs (A) is loaded 16 bytes a thread and stored k-major into shared
+//     memory, its float4 blocks XOR-swizzled so that the transposing store
+//     meets no bank conflict; w[e] (B) goes straight into shared memory
+//     with 16-byte cp.async;
+//   * two stages of depth 8: the next chunk's loads are in flight during
+//     this chunk's FMAs, with one __syncthreads a chunk;
+//   * __launch_bounds__(256, 2): two CTAs an SM, so that one CTA's barrier
+//     is hidden by the other's FMAs;
+//   * column tiles fastest, as in the bf16 body.
+// Inputs with D or F not a multiple of 4, or xs or w not 16-byte aligned,
+// take the same body with masked scalar loads and stores (the template's
+// kVec = false).  Offsets into w (64 x 2,048 x 1,024 = 134 M elements) are
+// 64-bit.
 //
 // C interface for ctypes: each entry point launches on the given stream
 // and returns a cudaError (cudaGetLastError() after the launch), so a
@@ -356,84 +375,185 @@ int launch_tc(const void* xs, const void* w, const void* tile_expert,
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT micro-tiles
+// f32: SIMT, double-buffered, 128-bit shared-memory fragments
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
-constexpr int kSK = 32;                          // depth of one chunk
-constexpr int kTN = 8;
-constexpr int kThreadsN = kBN / kTN;             // 16
-constexpr int kThreadsM = kThreads / kThreadsN;  // 16
-constexpr int kTM = kBM / kThreadsM;             // 8
+constexpr int kSK = 8;            // depth of a stage
+constexpr int kQuads = kSK / 4;   // float4s of an A row in a stage
+constexpr int kLoads = kSK / 8;   // float4s of A (and of B) a thread loads
+constexpr int kWarpM = 64;        // a warp's tile: 64 rows x 32 columns,
+constexpr int kWarpN = 32;        // the CTA's 8 warps 2 x 4
+constexpr int kStageFloats = kSK * (kBM + kBN);
 
-// CTA (blockIdx.x, blockIdx.y) computes rows [bx*rb, bx*rb + rb) and
-// columns [by*128, by*128 + 128) of out.
-__global__ void __launch_bounds__(kThreads)
+// As is k-major: row k of a stage holds the 128 rows' values at depth k.
+// The float4 block b of row k sits at block b ^ (8 / kQuads) * ((k / 4) %
+// kQuads), so that a warp's transposing store (32 / kQuads rows x kSK
+// depths, one depth per STS) hits 32 banks, and a thread still reads 4
+// consecutive rows as one LDS.128.
+__device__ __forceinline__ int a_slot(int k, int m) {
+  return (((m >> 2) ^ (((k >> 2) % kQuads) * (8 / kQuads))) << 2) | (m & 3);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool in_range) {
+  const uint32_t dst = smem_u32(smem);
+  const int bytes = in_range ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+// The operands of one stage, as a thread loads them: its j-th A float4 is
+// row i / kQuads, depths 4 * (i % kQuads) .. +3 with i = t + 256 * j (a
+// warp reads whole 4*kSK-byte row pieces); its j-th B float4 is depth
+// i / 32, columns 4 * (i % 32) .. +3 (a warp reads one 512-byte row of
+// w[e]).  kVec: 16-byte loads (D and F multiples of 4, xs and w 16-byte
+// aligned; B by cp.async straight into shared memory); otherwise masked
+// scalar loads through registers.
+template <bool kVec>
+struct Stage {
+  float4 a[kLoads];
+  float4 b[kLoads];  // scalar path only
+
+  __device__ __forceinline__ void load(const float* __restrict__ xs,
+                                       const float* __restrict__ we,
+                                       float* bs, int64_t r0, int64_t c0,
+                                       int k0, int d, int f, int rb) {
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      const int m = i / kQuads;
+      const int ka = k0 + 4 * (i % kQuads);
+      const float* pa = xs + (r0 + m) * d + ka;
+      const int kb = k0 + i / 32;
+      const int64_t cb = c0 + 4 * (i % 32);
+      const float* pb = we + static_cast<int64_t>(kb) * f + cb;
+      if (kVec) {
+        a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (m < rb && ka < d) {
+          a[j] = __ldg(reinterpret_cast<const float4*>(pa));
+        }
+        const bool in = kb < d && cb < f;
+        cp_async16(bs + (i / 32) * kBN + 4 * (i % 32), in ? pb : we, in);
+      } else {
+        float av[4], bv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          av[e] = m < rb && ka + e < d ? __ldg(pa + e) : 0.f;
+          bv[e] = kb < d && cb + e < f ? __ldg(pb + e) : 0.f;
+        }
+        a[j] = make_float4(av[0], av[1], av[2], av[3]);
+        b[j] = make_float4(bv[0], bv[1], bv[2], bv[3]);
+      }
+    }
+    if (kVec) asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  // Registers -> shared memory (A transposed), and B's copies landed.
+  __device__ __forceinline__ void store(float* as, float* bs) const {
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      const int m = i / kQuads;
+      const int k = 4 * (i % kQuads);
+      as[(k + 0) * kBM + a_slot(k + 0, m)] = a[j].x;
+      as[(k + 1) * kBM + a_slot(k + 1, m)] = a[j].y;
+      as[(k + 2) * kBM + a_slot(k + 2, m)] = a[j].z;
+      as[(k + 3) * kBM + a_slot(k + 3, m)] = a[j].w;
+      if (!kVec) {
+        *reinterpret_cast<float4*>(bs + (i / 32) * kBN + 4 * (i % 32)) = b[j];
+      }
+    }
+    if (kVec) asm volatile("cp.async.wait_all;" ::: "memory");
+  }
+};
+
+// CTA b computes columns [c*128, c*128 + 128) of rows [r*rb, r*rb + rb),
+// with c = b % n_col_tiles and r = b / n_col_tiles (column tiles fastest);
+// rb <= 128 divides tm (or equals it).  Thread (warp, lane) owns rows
+// 64*(warp%2) + 4*(lane/4) + {0..3, 32..35} and columns 32*(warp/2) +
+// 4*(lane%4) + {0..3, 16..19}: 2 x 2 blocks of 4 x 4.  Each output's sum
+// runs over k = 0, 1, ..., D-1 in order, one fmaf a step.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
 gmm_simt_kernel(const float* __restrict__ xs, const float* __restrict__ w,
                 const int* __restrict__ tile_expert, float* __restrict__ out,
-                int d, int f, int n_experts, int tm, int rb) {
-  __shared__ float As[kBM][kSK + 1];
-  __shared__ float Bs[kSK][kBN];
+                int d, int f, int n_experts, int tm, int rb,
+                int n_col_tiles) {
+  __shared__ __align__(16) float smem[2 * kStageFloats];
 
-  const int tx = threadIdx.x % kThreadsN;
-  const int ty = threadIdx.x / kThreadsN;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rb;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kBN;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x % n_col_tiles) * kBN;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x / n_col_tiles) * rb;
   const int e = clamp_expert(tile_expert[r0 / tm], n_experts);
   const float* we = w + static_cast<int64_t>(e) * d * f;
-  float acc[kTM][kTN];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m0 = (warp & 1) * kWarpM + 4 * (lane >> 2);
+  const int n0 = (warp >> 1) * kWarpN + 4 * (lane & 3);
+
+  float acc[8][8];
 #pragma unroll
-  for (int m = 0; m < kTM; ++m) {
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[m][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < d; k0 += kSK) {
-    for (int s = threadIdx.x; s < kBM * kSK; s += kThreads) {
-      const int i = s / kSK;
-      const int kk = s % kSK;
-      float v = 0.0f;
-      if (i < rb && k0 + kk < d) v = xs[(r0 + i) * d + k0 + kk];
-      As[i][kk] = v;
-    }
-    for (int s = threadIdx.x; s < kSK * kBN; s += kThreads) {
-      const int kk = s / kBN;
-      const int c = s % kBN;
-      float v = 0.0f;
-      if (k0 + kk < d && c0 + c < f) {
-        v = we[static_cast<int64_t>(k0 + kk) * f + c0 + c];
+  const int n_chunks = (d + kSK - 1) / kSK;
+  Stage<kVec> st;
+  st.load(xs, we, smem + kSK * kBM, r0, c0, 0, d, f, rb);
+  st.store(smem, smem + kSK * kBM);
+  __syncthreads();
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    float* as = smem + (kc & 1) * kStageFloats;
+    const float* bs = as + kSK * kBM;
+    float* next = smem + ((kc + 1) & 1) * kStageFloats;
+    const bool more = kc + 1 < n_chunks;
+    // the next chunk's loads are in flight during this chunk's FMAs
+    if (more) st.load(xs, we, next + kSK * kBM, r0, c0, (kc + 1) * kSK, d, f,
+                      rb);
+#pragma unroll
+    for (int k = 0; k < kSK; ++k) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(as + k * kBM + a_slot(k, m0));
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + k * kBM + a_slot(k, m0 + 32));
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kBN + n0);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + k * kBN + n0 + 16);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
-      Bs[kk][c] = v;
     }
+    // the other buffer was last read before the previous barrier
+    if (more) st.store(next, next + kSK * kBM);
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kSK; ++kk) {
-      float av[kTM];
-      float bv[kTN];
+  }
+
 #pragma unroll
-      for (int m = 0; m < kTM; ++m) av[m] = As[ty + m * kThreadsM][kk];
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i & 3) + 32 * (i >> 2);
+    if (row >= rb) continue;
+    float* o = out + (r0 + row) * f;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = Bs[kk][tx + j * kThreadsN];
+    for (int h = 0; h < 2; ++h) {
+      const int64_t c = c0 + n0 + 16 * h;
+      if (kVec) {
+        if (c < f) {
+          *reinterpret_cast<float4*>(o + c) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+        }
+      } else {
 #pragma unroll
-      for (int m = 0; m < kTM; ++m) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          acc[m][j] = fmaf(av[m], bv[j], acc[m][j]);
+        for (int j = 0; j < 4; ++j) {
+          if (c + j < f) o[c + j] = acc[i][4 * h + j];
         }
       }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int i = ty + m * kThreadsM;
-    if (i >= rb) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = tx + j * kThreadsN;
-      if (c0 + c >= f) continue;
-      out[(r0 + i) * f + c0 + c] = acc[m][j];
     }
   }
 }
@@ -442,14 +562,19 @@ gmm_simt_kernel(const float* __restrict__ xs, const float* __restrict__ w,
 
 extern "C" {
 
+// vec != 0: D and F multiples of 4 and xs, w and out 16-byte aligned (the
+// wrapper decides); otherwise the masked scalar path.
 int gmm_f32(const void* xs, const void* w, const void* tile_expert, void* out,
-            int tp, int d, int f, int n_experts, int tm, void* stream) {
+            int tp, int d, int f, int n_experts, int tm, int vec,
+            void* stream) {
   const int rb = tm < kBM ? tm : kBM;
-  const dim3 grid(tp / rb, (f + kBN - 1) / kBN);
-  gmm_simt_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int n_col_tiles = (f + kBN - 1) / kBN;
+  const unsigned int blocks = static_cast<unsigned int>(tp / rb) * n_col_tiles;
+  auto kernel = vec ? gmm_simt_kernel<true> : gmm_simt_kernel<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xs), static_cast<const float*>(w),
       static_cast<const int*>(tile_expert), static_cast<float*>(out), d, f,
-      n_experts, tm, rb);
+      n_experts, tm, rb, n_col_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

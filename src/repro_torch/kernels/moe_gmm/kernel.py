@@ -6,7 +6,9 @@ Counterpart of ``repro.kernels.moe_gmm.kernel``:
 
 For tensors on the CPU the wrapper returns the kernel's plain version
 (``ref.gmm_ref``); for CUDA tensors it launches the kernel on the current
-stream or raises.  ``LAUNCHES`` counts the launches.
+stream or raises.  ``LAUNCHES`` counts the launches of each body: ``gmm``
+the bf16 body (``gmm_tc_kernel``), ``gmm_f32`` the f32 one
+(``gmm_simt_kernel``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ SOURCE = Path(__file__).parent / "csrc" / "moe_gmm.cu"
 
 #: kernel name -> launches since the last reset (a plain count; an
 #: executable plan's CUDA-graph replay adds the launches it replays).
-LAUNCHES = counter(("gmm",))
+LAUNCHES = counter(("gmm", "gmm_f32"))
 
 #: Rows a CTA covers at most (tm is at most this or a multiple of it).
 MAX_TILE = 128
@@ -31,7 +33,16 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
-    LAUNCHES["gmm"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def f32_vector_path(xs: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether f32 operands take the f32 body's 16-byte loads and stores
+    (D and F multiples of 4, xs and w 16-byte aligned) rather than its
+    masked scalar ones."""
+    return (xs.shape[1] % 4 == 0 and w.shape[2] % 4 == 0
+            and xs.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def gmm_cuda(xs: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
@@ -43,10 +54,15 @@ def gmm_cuda(xs: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
     128 (a CTA covers 128 rows).  The kernel covers F in 128-column tiles
     and masks the edge, so F and D take any size, except that bf16
     operands go through TMA, whose 16-byte strides need D and F to be
-    multiples of 8: the wrapper raises on any other bf16 D or F.  Expert
-    ids follow the reference's indexing rule, in the kernel and in its
-    plain version alike: a negative id counts from the end, then ids are
-    clamped into [0, E), so no id reads past ``w``."""
+    multiples of 8: the wrapper raises on any other bf16 D or F.  f32
+    operands run on the CUDA cores in full f32; where D and F are
+    multiples of 4 and ``xs`` and ``w`` are 16-byte aligned
+    (:func:`f32_vector_path`) the body loads and stores 16 bytes a
+    thread, and any other D, F or offset takes its masked scalar loads
+    and stores, with the same sums.  Expert ids follow the reference's
+    indexing rule, in the kernel and in its plain version alike: a
+    negative id counts from the end, then ids are clamped into [0, E), so
+    no id reads past ``w``."""
     if xs.device.type == "cpu":
         return gmm_ref(xs, w, tile_expert, tm)
     dev = xs.device
@@ -76,10 +92,17 @@ def gmm_cuda(xs: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
     out = torch.empty((tp, f), dtype=torch.float32, device=dev)
     if tp == 0 or f == 0:
         return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (xs.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
+            out.data_ptr())
     with torch.cuda.device(dev):
-        err = build.entry_point(SOURCE, f"gmm_{_SUFFIX[xs.dtype]}", 4, 5)(
-            xs.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
-            out.data_ptr(), tp, d, f, e, tm,
-            torch.cuda.current_stream().cuda_stream)
-    launched(LAUNCHES, "gmm", err)
+        if xs.dtype == torch.float32:
+            name = "gmm_f32"
+            err = build.entry_point(SOURCE, name, 4, 6)(
+                *ptrs, tp, d, f, e, tm, int(f32_vector_path(xs, w)), stream)
+        else:
+            name = "gmm"
+            err = build.entry_point(SOURCE, "gmm_bf16", 4, 5)(
+                *ptrs, tp, d, f, e, tm, stream)
+    launched(LAUNCHES, name, err)
     return out

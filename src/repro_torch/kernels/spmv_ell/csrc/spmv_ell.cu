@@ -39,10 +39,39 @@
 // Every CTA reads the whole vector once from L2 (132 x 0.6 MB at NPB-C).
 //
 // The direct body (K1 on a user's ELL/JDS arrays, which change every call
-// and so are never repacked) is the first port's: one warp owns a row, its
-// lanes read val and col in consecutive 128-byte lines, the gather
-// vec[col] goes through L1/L2, and the sum is reduced by warp shuffles
-// before the epilogue and the single store.
+// and so are never repacked) reads every slot, padding included: 8 bytes
+// a slot (0.46 GB at NPB-C's lane-128 ELL, 150,000 rows of 384 slots,
+// 0.138 ms at the memory's rate), and gathers vec[col] for each.  What
+// bounds it is those gathers: at random columns each one that misses on
+// the SM is its own 32-byte L2 sector, and the vector (600 KB at NPB-C)
+// is larger than an SM's 256 KB of L1 and shared memory.  With every
+// column id set to 0 the body streams its slots in ~0.16 ms; with the
+// real ids it takes ~0.25 ms (tools/k1_k4_probe.py; NVIDIA H100 80GB
+// HBM3, 700 W).  The design:
+//   * one CTA an SM (1,024 threads); slab b of rows_per_slab rows goes to
+//     CTA b % grid, whose half-warps take its rows in turn: two rows in
+//     flight a warp;
+//   * a half-warp reads a row 16 bytes a lane (4 f32 or 8 bf16 slots and
+//     their col ids), four steps in flight, and sums it in a fixed order
+//     (each lane its slots in turn, then a shuffle tree), so a row's bits
+//     depend on nothing but the row;
+//   * val and col stream past L1 (ld.global.nc.L1::no_allocate), and the
+//     kernel prefers no shared-memory carve-out beyond what it asks for,
+//     so L1 keeps what it can of the vector for the gathers;
+//   * each CTA first stages the vector's first elements in shared memory
+//     (up to 192 KB; fewer for a small matrix, for which the copy would
+//     cost more than it saves), where a gather costs a shared-memory load
+//     and no 32-byte sector: densely packed, the prefix holds more of the
+//     vector than the same bytes of L1, whose lines the random gathers
+//     fill a sector at a time.  Keeping the whole vector in the shared
+//     memory of a 3-CTA cluster (distributed shared memory) was tried and
+//     was slower;
+//   * widths that are not a multiple of the 16-byte step, and rows that
+//     do not start 16-byte aligned, take the same body with scalar loads.
+// Every slot's col is read and gathered, padding included: 0 * vec[col]
+// is NaN where vec[col] is inf or NaN, as in the plain version.  (Skipping
+// the slots of value 0 behind a pass that proves the vector finite is
+// exact, but saved only ~3 % at NPB-C for a second launch and scratch.)
 //
 // K2 reads the slab-compacted column-window layout of
 // sparse/formats.py:ell_windows (SELL-32 per window) at windows of 65,536:
@@ -88,28 +117,6 @@ __device__ __forceinline__ float epilogue_inregister(float acc,
   return acc;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, offset);
-  }
-  return v;
-}
-
-// Sum of val[k] * vec[col[k]] over k = lane, lane+32, ... < width.
-template <typename T>
-__device__ __forceinline__ float lane_dot(const T* __restrict__ val,
-                                          const int* __restrict__ col,
-                                          const T* __restrict__ vec,
-                                          int width, int lane) {
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int k = lane; k < width; k += 32) {
-    acc += to_f32(val[k]) * to_f32(vec[col[k]]);
-  }
-  return acc;
-}
-
 __device__ __forceinline__ void store_row(float acc, int64_t row,
                                           const float* __restrict__ bias,
                                           const int* __restrict__ perm,
@@ -120,31 +127,6 @@ __device__ __forceinline__ void store_row(float acc, int64_t row,
 }
 
 constexpr int kSlab = 32;  // rows of a K2 slab: one warp, a lane a row
-
-__device__ __forceinline__ int64_t slab_end(int64_t first, int rows_per_slab,
-                                            int rows) {
-  const int64_t end = first + rows_per_slab;
-  return end < rows ? end : rows;
-}
-
-// K1: val/col (rows, width); the whole vector is addressable.  A block
-// covers rows_per_slab rows; its warps take them in turn.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spmv_ell_kernel(const T* __restrict__ val, const int* __restrict__ col,
-                const T* __restrict__ vec, const float* __restrict__ bias,
-                const int* __restrict__ perm, float* __restrict__ out,
-                int rows, int width, int rows_per_slab, int epilogue) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows_per_slab;
-  const int64_t last = slab_end(first, rows_per_slab, rows);
-  for (int64_t row = first + warp; row < last; row += kThreads / 32) {
-    const int64_t base = row * width;
-    float acc = warp_sum(lane_dot(val + base, col + base, vec, width, lane));
-    if (lane == 0) store_row(acc, row, bias, perm, out, epilogue);
-  }
-}
 
 // K2: warp b of the grid owns slab b, lane i its row 32*b + i.  A slab
 // with no segment stores epilogue(0 + bias); lanes past `rows` (the ragged
@@ -284,23 +266,210 @@ spmv_ell_staged_kernel(const T* __restrict__ val,
   }
 }
 
+// K1, direct: the user's val/col (rows, width) and the whole vector.
+constexpr int kDirectThreads = 1024;  // one CTA an SM: 64 half-warps
+// The most of the vector a CTA stages: the rest of the SM's 256 KB stays
+// L1 for the other gathers (past 192 KB, L1 grows too small for them and
+// NPB-C slows again).
+constexpr int kDirectStageBytes = 192 * 1024;
+constexpr int kStageShare = 4;  // stage at most 1/4 of a CTA's slots
+
+// Streaming loads of val and col: read once, so they do not allocate in L1,
+// which keeps it for the vector.
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float r;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
+  unsigned short r;
+  asm("ld.global.nc.L1::no_allocate.b16 %0, [%1];" : "=h"(r) : "l"(p));
+  return __uint_as_float(static_cast<uint32_t>(r) << 16);
+}
+
+__device__ __forceinline__ int ld_stream(const int* p) {
+  int r;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(r) : "l"(p));
+  return r;
+}
+
+// Element q of the 16 bytes w as f32 (4 f32 or 8 bf16 values).
+__device__ __forceinline__ float element(const uint32_t (&w)[4], int q,
+                                         float) {
+  return __uint_as_float(w[q]);
+}
+__device__ __forceinline__ float element(const uint32_t (&w)[4], int q,
+                                         __nv_bfloat16) {
+  const uint32_t x = w[q >> 1];
+  return __uint_as_float(q & 1 ? x & 0xffff0000u : x << 16);
+}
+
+__device__ __forceinline__ float ld_vec(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_vec(const __nv_bfloat16* p) {
+  const unsigned short x = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+
+// vec[c]: from the prefix staged in shared memory, else through L1.
+template <typename T>
+__device__ __forceinline__ float gather(const T* vs, const T* vec, int c,
+                                        int stage) {
+  if (c < stage) return to_f32(vs[c]);
+  return ld_vec(vec + c);
+}
+
+// A row's sum over its slots, by the 16 lanes of a half-warp: lane hl
+// adds its slots in order into one f32, then the 16 partial sums meet in a
+// fixed shuffle tree.  kVec: slots [16*kQ*j + kQ*hl, +kQ) for j = 0, 1, ...
+// (16-byte loads: kQ = 4 f32 or 8 bf16 values, their col ids in one or
+// two); otherwise slots hl, hl + 16, ... one by one.
+template <typename T, bool kVec>
+__device__ __forceinline__ float row_sum(const T* __restrict__ vrow,
+                                         const int* __restrict__ crow,
+                                         const T* vs, const T* vec, int width,
+                                         int stage, int hl) {
+  float acc = 0.0f;
+  if (kVec) {
+    constexpr int kQ = 16 / sizeof(T);
+#pragma unroll 4
+    for (int k = hl * kQ; k < width; k += 16 * kQ) {
+      const uint4 v4 = ld_stream16(vrow + k);
+      const uint32_t v[4] = {v4.x, v4.y, v4.z, v4.w};
+      int c[kQ];
+#pragma unroll
+      for (int j = 0; j < kQ / 4; ++j) {
+        const uint4 c4 = ld_stream16(crow + k + 4 * j);
+        c[4 * j] = c4.x;
+        c[4 * j + 1] = c4.y;
+        c[4 * j + 2] = c4.z;
+        c[4 * j + 3] = c4.w;
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        acc = fmaf(element(v, q, T()), gather(vs, vec, c[q], stage), acc);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int k = hl; k < width; k += 16) {
+      acc = fmaf(ld_stream(vrow + k),
+                 gather(vs, vec, ld_stream(crow + k), stage), acc);
+    }
+  }
+  const unsigned mask = 0xffffu << (threadIdx.x & 16);
+#pragma unroll
+  for (int offset = 8; offset > 0; offset >>= 1) {
+    acc += __shfl_xor_sync(mask, acc, offset);
+  }
+  return acc;
+}
+
+// Slab b (rows [b*rows_per_slab, (b+1)*rows_per_slab)) belongs to CTA
+// b % gridDim.x; a CTA's rows, slab after slab, go to its half-warps in
+// turn.  vec[0, stage) is first staged in shared memory.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kDirectThreads, 1)
+spmv_ell_kernel(const T* __restrict__ val, const int* __restrict__ col,
+                const T* __restrict__ vec, const float* __restrict__ bias,
+                const int* __restrict__ perm, float* __restrict__ out,
+                int rows, int width, int rows_per_slab, int stage,
+                int epilogue) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* vs = reinterpret_cast<T*>(smem_raw);
+  if (stage > 0) stage_window(vs, vec, stage);
+  const int hl = threadIdx.x & 15;
+  for (int64_t t = threadIdx.x >> 4;; t += kDirectThreads / 16) {
+    const int64_t row =
+        (blockIdx.x + t / rows_per_slab * gridDim.x) * rows_per_slab +
+        t % rows_per_slab;
+    if (row >= rows) break;  // a CTA's rows only grow with t
+    const int64_t base = row * width;
+    const float acc = row_sum<T, kVec>(val + base, col + base, vs, vec,
+                                       width, stage, hl);
+    if (hl == 0) store_row(acc, row, bias, perm, out, epilogue);
+  }
+}
+
+inline int sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return static_cast<int>(err);
+}
+
 inline unsigned int blocks_for(int rows, int rows_per_slab) {
   return static_cast<unsigned int>((static_cast<int64_t>(rows)
                                     + rows_per_slab - 1) / rows_per_slab);
 }
 
-template <typename T>
-int launch_resident(const void* val, const void* col, const void* vec,
-                    const void* bias, const void* perm, void* out, int rows,
-                    int width, int rows_per_slab, int epilogue,
-                    void* stream) {
-  spmv_ell_kernel<T><<<blocks_for(rows, rows_per_slab), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+template <typename T, bool kVec>
+int launch_direct_body(const void* val, const void* col, const void* vec,
+                       const void* bias, const void* perm, void* out, int rows,
+                       int width, int rows_per_slab, int epilogue, int stage,
+                       int grid, void* stream) {
+  const int smem = stage * static_cast<int>(sizeof(T));
+  static int attribute_bytes = -1;
+  if (smem > attribute_bytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        spmv_ell_kernel<T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err == cudaSuccess && attribute_bytes < 0) {
+      // no shared memory asked for beyond the staged prefix: L1 keeps the
+      // rest of the SM's 256 KB for the vector
+      err = cudaFuncSetAttribute(spmv_ell_kernel<T, kVec>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_bytes = smem;
+  }
+  spmv_ell_kernel<T, kVec><<<grid, kDirectThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(val), static_cast<const int*>(col),
       static_cast<const T*>(vec), static_cast<const float*>(bias),
       static_cast<const int*>(perm), static_cast<float*>(out), rows, width,
-      rows_per_slab, epilogue);
+      rows_per_slab, stage, epilogue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One CTA an SM (fewer for fewer slabs), each staging vec[0, s) with
+// s = min(cols, kDirectStageBytes of T, a CTA's slots / kStageShare), so
+// that a small matrix does not pay for a large copy.
+template <typename T>
+int launch_direct(const void* val, const void* col, const void* vec,
+                  const void* bias, const void* perm, void* out, int rows,
+                  int width, int cols, int rows_per_slab, int epilogue,
+                  int vec_path, void* stream) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  const int64_t slabs = (static_cast<int64_t>(rows) + rows_per_slab - 1)
+                        / rows_per_slab;
+  const int grid = static_cast<int>(slabs < sms ? slabs : sms);
+  const int64_t cap = kDirectStageBytes / static_cast<int>(sizeof(T));
+  int64_t s = static_cast<int64_t>(rows) * width / (kStageShare * grid);
+  s = s < cap ? s : cap;
+  s = s < cols ? s : cols;
+  return vec_path
+             ? launch_direct_body<T, true>(val, col, vec, bias, perm, out,
+                                           rows, width, rows_per_slab,
+                                           epilogue, static_cast<int>(s), grid,
+                                           stream)
+             : launch_direct_body<T, false>(val, col, vec, bias, perm, out,
+                                            rows, width, rows_per_slab,
+                                            epilogue, static_cast<int>(s),
+                                            grid, stream);
 }
 
 template <typename T>
@@ -333,12 +502,8 @@ int launch_staged(const void* val, const void* col, const void* seg_ptr,
                   const void* vec, const void* bias, const void* perm,
                   void* out, int rows, int cols, int n_slabs, int window,
                   int epilogue, void* stream) {
-  int device = 0;
   int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  cudaError_t err = static_cast<cudaError_t>(sm_count(&sms));
   if (err != cudaSuccess) return static_cast<int>(err);
   // one CTA an SM, each with an even share of the slabs, unless that share
   // exceeds what its warps hold; then more CTAs, in waves
@@ -373,19 +538,25 @@ int launch_staged(const void* val, const void* col, const void* seg_ptr,
 
 extern "C" {
 
+// vec_path != 0: val and col 16-byte aligned and width a multiple of 4
+// (f32) or 8 (bf16), so that every row starts 16-byte aligned (the wrapper
+// decides); otherwise the body's scalar loads.
 int spmv_ell_f32(const void* val, const void* col, const void* vec,
                  const void* bias, const void* perm, void* out, int rows,
-                 int width, int rows_per_slab, int epilogue, void* stream) {
-  return launch_resident<float>(val, col, vec, bias, perm, out, rows, width,
-                                rows_per_slab, epilogue, stream);
+                 int width, int cols, int rows_per_slab, int epilogue,
+                 int vec_path, void* stream) {
+  return launch_direct<float>(val, col, vec, bias, perm, out, rows, width,
+                              cols, rows_per_slab, epilogue, vec_path,
+                              stream);
 }
 
 int spmv_ell_bf16(const void* val, const void* col, const void* vec,
                   const void* bias, const void* perm, void* out, int rows,
-                  int width, int rows_per_slab, int epilogue, void* stream) {
-  return launch_resident<__nv_bfloat16>(val, col, vec, bias, perm, out, rows,
-                                        width, rows_per_slab, epilogue,
-                                        stream);
+                  int width, int cols, int rows_per_slab, int epilogue,
+                  int vec_path, void* stream) {
+  return launch_direct<__nv_bfloat16>(val, col, vec, bias, perm, out, rows,
+                                      width, cols, rows_per_slab, epilogue,
+                                      vec_path, stream);
 }
 
 int spmv_ell_windowed_f32(const void* val, const void* col,

@@ -16,14 +16,16 @@ apply a detected ``(+bias) -> relu|silu`` before their single store — for
 the CSR/COO entry too, since the marshaled row permutation is a full
 permutation and the kernel's store un-permutes it.
 
-``tune rows_per_slab``: the rows a CTA of K1's direct body covers, its
-warps taking them in turn (32, the first value, was the constant before);
-each row is still summed by one warp, so every variant computes the same
-bits.  8 gives a matrix of few rows four times the CTAs; larger slabs
-only give fewer CTAs, and are not declared (``chip_smoke.py`` times
-them).  The staged body and K2 take no launch parameter, so the CSR/COO
-block declares none: the autotuner chooses between harnesses there.  The
-reference's ``dimsem`` clauses are Mosaic's and have no counterpart.
+``tune rows_per_slab``: the rows of a slab of K1's direct body.  The body
+runs one CTA an SM; slab b goes to CTA b mod the grid, whose half-warps
+take its rows in turn.  Each row is summed by one half-warp in a fixed
+order, so every value computes the same bits.  Only 32 is declared: 8,
+which deals the rows out more evenly, timed the same at NPB-C and at its
+first 4,096 rows (``chip_smoke.py``'s ``slab_variants`` times 32, 8, 64
+and 128), and larger slabs only unbalance the CTAs.  The staged body and K2 take no launch
+parameter, so the CSR/COO block declares none: the autotuner chooses
+between harnesses there.  The reference's ``dimsem`` clauses are
+Mosaic's and have no counterpart.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ HARNESS cuda.ell implements spmv_ell, spmv_jds
   formats ELL, JDS;
   default_for cuda;
   fuse epilogue;
-  tune rows_per_slab in {32, 8};
+  tune rows_per_slab in {32};
 """)
 def spmv_ell_cuda(b, ctx, *, rows_per_slab):
     """Direct ELL/JDS match -> K1's direct body on the user's arrays."""

@@ -58,11 +58,19 @@ def _fn(name: str):
         return build.entry_point(SOURCE, name, 9, 4)
     if "staged" in name:
         return build.entry_point(SOURCE, name, 9, 5)
-    return build.entry_point(SOURCE, name, 6, 4)
+    return build.entry_point(SOURCE, name, 6, 6)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def ell_vector_path(val: torch.Tensor, col: torch.Tensor) -> bool:
+    """Whether K1's direct body reads ``val`` and ``col`` 16 bytes a lane
+    (every row 16-byte aligned: both tensors aligned and the width a
+    multiple of 4 f32 or 8 bf16 values) rather than one slot at a time."""
+    return (val.shape[-1] % (16 // val.element_size()) == 0
+            and val.data_ptr() % 16 == 0 and col.data_ptr() % 16 == 0)
 
 
 def _prepare(val, vec, bias, perm, rows, out_rows, epilogue):
@@ -98,7 +106,18 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
                   epilogue: Optional[str] = None,
                   rows_per_slab: int = 32) -> torch.Tensor:
     """K1: ``out[o(i)] = epilogue(sum_j val[i,j]*vec[col[i,j]] + bias[o(i)])``
-    with ``o = perm`` or the identity; val/col ``(rows, width)``, f32 out."""
+    with ``o = perm`` or the identity; val/col ``(rows, width)``, f32 out.
+
+    One CTA an SM: slab b of ``rows_per_slab`` rows goes to CTA b mod the
+    grid, and a half-warp sums each row in a fixed order, so a row's bits
+    do not depend on ``rows_per_slab``.  Where :func:`ell_vector_path`
+    holds (any width that is a multiple of 4 f32 or 8 bf16 values, on
+    16-byte aligned tensors) the body reads 16 bytes a lane; any other
+    width or offset takes its scalar loads.  Each CTA first stages the
+    vector's first min(cols, 192 KB, a quarter of its slots) elements in
+    shared memory, which moves where a gather reads, not what it reads.
+    Every slot is read and gathered, padding included, so ``0 * inf``
+    gives NaN as in the plain version."""
     if val.device.type == "cpu":
         return spmv_ell_plain(val, col, vec, bias=bias, perm=perm,
                               out_rows=out_rows, epilogue=epilogue)
@@ -114,8 +133,10 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
     with torch.cuda.device(val.device):
         err = _fn(f"spmv_ell_{_SUFFIX[val.dtype]}")(
             val.data_ptr(), col.data_ptr(), vec.data_ptr(), _ptr(bias),
-            _ptr(perm), out.data_ptr(), rows, width, rows_per_slab,
-            EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream)
+            _ptr(perm), out.data_ptr(), rows, width, vec.shape[0],
+            rows_per_slab, EPILOGUE_CODES[epilogue],
+            int(ell_vector_path(val, col)),
+            torch.cuda.current_stream().cuda_stream)
     launched(LAUNCHES, "spmv_ell", err)
     return out
 

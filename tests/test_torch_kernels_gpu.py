@@ -1,9 +1,11 @@
 """The CUDA kernels on the card (ELL SpMV K1 in its staged and direct
 bodies and K2, BCSR SpMM K3 in its wide and narrow bodies over packed
-tiles, grouped matmul K4), against their plain torch versions; every
-declared ``tune`` value of K1 (``rows_per_slab``) and K4 (``tm``); the
-custom ops captured in a CUDA graph; trace mode and the autotuner on the
-card.
+tiles, grouped matmul K4 in its bf16 and f32 bodies), against their plain
+torch versions, with the edges of K1's direct body and K4's f32 body
+(widths off their 16-byte steps, unaligned operands, the staged prefix,
+inf under padding, zero tail rows); every declared ``tune`` value of K1
+(``rows_per_slab``) and K4 (``tm``); the custom ops captured in a CUDA
+graph; trace mode and the autotuner on the card.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present.  This
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -97,6 +99,132 @@ def test_resident_kernel_matches_plain(cuda, dtype, epilogue, with_bias,
     torch.testing.assert_close(
         got, R.spmv_ell_plain(val, col, vec, **kw),
         **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+def _raw_ell(cuda, dtype, rows, width, cols, seed, pad=0.3):
+    """ELL arrays as a user hands them over: each row's last slots (about
+    ``pad`` of them) are padding (value 0, column 0), the rest random."""
+    rng = np.random.default_rng(seed)
+    val = rng.standard_normal((rows, width)).astype(np.float32)
+    col = rng.integers(0, cols, (rows, width)).astype(np.int32)
+    used = rng.integers(int(width * (1 - 2 * pad)), width + 1, rows)
+    slot = np.arange(width)[None, :]
+    val[slot >= used[:, None]] = 0
+    col[slot >= used[:, None]] = 0
+    vec = rng.standard_normal(cols).astype(np.float32)
+    return (torch.from_numpy(val).to(cuda, dtype),
+            torch.from_numpy(col).to(cuda),
+            torch.from_numpy(vec).to(cuda, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", [
+    (900, 37),      # a width that is no multiple of the 16-byte step
+    (5, 384),       # fewer rows than a slab: one CTA
+    (5, 37),
+    (3000, 40),     # f32: 16-byte steps; bf16: 40 % 8 == 0 as well
+    (2000, 36),     # f32: 16-byte steps; bf16: scalar
+])
+def test_direct_body_edges_match_plain(cuda, dtype, rows, width):
+    """K1's direct body on widths off its 16-byte step (the scalar loads)
+    and on fewer rows than a slab, with the row permutation and the fused
+    epilogue, against its plain version."""
+    val, col, vec = _raw_ell(cuda, dtype, rows, width, 5000, rows + width)
+    assert K.ell_vector_path(val, col) == (
+        width % (16 // val.element_size()) == 0)
+    rng = np.random.default_rng(width)
+    perm = torch.from_numpy(rng.permutation(rows).astype(np.int32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(rows).astype(np.float32)) \
+        .to(cuda)
+    for kw in (dict(), dict(perm=perm, out_rows=rows + 3),
+               dict(bias=bias, epilogue="silu")):
+        got = K.spmv_ell_cuda(val, col, vec, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, R.spmv_ell_plain(val, col, vec, **kw),
+            **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_direct_body_takes_the_scalar_path_off_alignment(cuda, dtype):
+    """val and col that do not start 16-byte aligned take the scalar loads.
+    A lane then sums other slots than on the 16-byte path, so the result
+    is held against the plain version, not against the aligned copy's
+    bits."""
+    val, col, vec = _raw_ell(cuda, dtype, 700, 64, 3000, 11)
+    vbuf = torch.zeros(val.numel() + 1, dtype=dtype, device=cuda)
+    cbuf = torch.zeros(col.numel() + 1, dtype=torch.int32, device=cuda)
+    vbuf[1:] = val.reshape(-1)
+    cbuf[1:] = col.reshape(-1)
+    sval, scol = vbuf[1:].view(700, 64), cbuf[1:].view(700, 64)
+    assert K.ell_vector_path(val, col)
+    assert not K.ell_vector_path(sval, scol)
+    got = K.spmv_ell_cuda(sval, scol, vec)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, R.spmv_ell_plain(val, col, vec),
+                               **(TOL if dtype == torch.float32
+                                  else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [384, 37])
+def test_direct_body_padding_times_inf_is_nan_as_plain(cuda, dtype, width):
+    """vec[0] = inf: the padding (value 0, column 0) gathers it, so 0 * inf
+    makes its row NaN, in the kernel as in the plain version; rows with a
+    real entry at column 0 and no padding are +-inf.  The body reads and
+    gathers every slot."""
+    val, col, vec = _raw_ell(cuda, dtype, 2000, width, 1000, width)
+    # every third row full, at columns past 5: finite; every seventh with
+    # a real entry at column 0 as well
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    val[::3] = torch.randn(val[::3].shape, generator=gen, device=cuda) \
+        .to(dtype) + 8
+    col[::3] = torch.randint(6, 1000, col[::3].shape, generator=gen,
+                             device=cuda, dtype=torch.int32)
+    col[::7, 0] = 0
+    vec[0] = float("inf")
+    vec[5] = float("nan")
+    got = K.spmv_ell_cuda(val, col, vec)
+    want = R.spmv_ell_plain(val, col, vec)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any()) and bool(torch.isfinite(want).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, equal_nan=True,
+                               **(TOL if dtype == torch.float32
+                                  else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", [6000, 120000])
+@pytest.mark.parametrize("width", [128, 132])
+def test_direct_body_staged_prefix_does_not_move_bits(cuda, dtype, cols,
+                                                      width):
+    """How much of the vector the direct body stages in each CTA's shared
+    memory follows from the matrix (the launcher's rule: min(cols, 192 KB,
+    a quarter of a CTA's slots)); it changes where a gather reads, not what
+    it reads.  The first k rows, called alone, stage less than the whole
+    matrix does (at width 128 on 132 SMs: 96 elements at 3 rows, 914 at
+    200, 4,848 at 20,000; the whole 240,000 rows 58,181, capped at 49,152
+    in f32, or at 6,000 columns the whole vector), and each gives the
+    whole matrix's bits for its rows, on the 16-byte path (width 128) and
+    on the scalar one (132 in bf16); the whole matrix is held against the
+    plain version."""
+    rows = 240_000
+    val, col, vec = _raw_ell(cuda, dtype, rows, width, cols, 3)
+    want = K.spmv_ell_cuda(val, col, vec)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(want, R.spmv_ell_plain(val, col, vec),
+                               **(TOL if dtype == torch.float32
+                                  else BF16_TOL))
+    for k in (3, 200, 20_000):
+        got = K.spmv_ell_cuda(val[:k], col[:k], vec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[:k]), k
 
 
 @pytest.mark.gpu
@@ -425,10 +553,11 @@ def _gmm_operands(cuda, dtype, Tp, D, F, E, tm, seed):
 ])
 def test_gmm_kernel_matches_plain(cuda, dtype, Tp, D, F, E, tm):
     xs, w, te = _gmm_operands(cuda, dtype, Tp, D, F, E, tm, Tp + D)
-    before = K4.LAUNCHES["gmm"]
+    body = "gmm" if dtype == torch.bfloat16 else "gmm_f32"
+    before = dict(K4.LAUNCHES)
     got = K4.gmm_cuda(xs, w, te, tm=tm)
     torch.cuda.synchronize()
-    assert K4.LAUNCHES["gmm"] == before + 1
+    assert K4.LAUNCHES == {**before, body: before[body] + 1}
     torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, tm),
                                **(TOL if dtype == torch.float32
                                   else GMM_BF16_TOL))
@@ -444,6 +573,80 @@ def test_gmm_tensor_core_kernel_at_olmoe_widths(cuda, D, F):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 128),
                                **GMM_BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,F", [(2048, 1024), (1024, 2048)])
+def test_gmm_f32_body_at_olmoe_widths(cuda, D, F):
+    """OLMoE's gate/up and down widths with 8 experts and tm = 128 in f32,
+    on the f32 body's 16-byte path.  w is drawn at the model's scale
+    (std 1/sqrt(D), as moe_params draws it), so that a sum of D products
+    is O(1) and the f32 rounding of its D steps (~2^-24 each) stays far
+    inside TOL."""
+    xs, w, te = _gmm_operands(cuda, torch.float32, 1024, D, F, 8, 128, D)
+    w = w / D ** 0.5
+    assert K4.f32_vector_path(xs, w)
+    before = dict(K4.LAUNCHES)
+    got = K4.gmm_cuda(xs, w, te, tm=128)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == {**before, "gmm_f32": before["gmm_f32"] + 1}
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 128), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Tp,D,F,tm", [
+    (96, 37, 50, 32),       # D and F no multiples of 4: the scalar path
+    (256, 37, 130, 128),
+    (128, 8, 3, 64),
+    (384, 61, 256, 384),    # a tile three CTAs tall
+])
+def test_gmm_f32_body_scalar_path_matches_plain(cuda, Tp, D, F, tm):
+    xs, w, te = _gmm_operands(cuda, torch.float32, Tp, D, F, 3, tm, D + F)
+    assert not K4.f32_vector_path(xs, w)
+    got = K4.gmm_cuda(xs, w, te, tm=tm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, tm), **TOL)
+
+
+@pytest.mark.gpu
+def test_gmm_f32_body_takes_the_scalar_path_off_alignment(cuda):
+    """xs views whose data is not 16-byte aligned take the scalar path:
+    ``big[1:]`` of an odd D, and a flat buffer shifted by one element at a
+    D that is a multiple of 4.  Both paths sum each output over k in the
+    same order, so the shifted copy gives the aligned copy's bits."""
+    rng = np.random.default_rng(8)
+    te = torch.tensor([1, 0, 2, 1], dtype=torch.int32, device=cuda)
+    big = torch.from_numpy(rng.standard_normal((257, 37)).astype(np.float32)
+                           ).to(cuda)
+    w = torch.randn(3, 37, 64, device=cuda)
+    xs = big[1:]
+    assert xs.is_contiguous() and not K4.f32_vector_path(xs, w)
+    got = K4.gmm_cuda(xs, w, te, tm=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 64), **TOL)
+    xa, wa, _ = _gmm_operands(cuda, torch.float32, 256, 64, 128, 3, 64, 9)
+    flat = torch.zeros(xa.numel() + 1, device=cuda)
+    flat[1:] = xa.reshape(-1)
+    shifted = flat[1:].view(256, 64)
+    assert K4.f32_vector_path(xa, wa)
+    assert not K4.f32_vector_path(shifted, wa)
+    aligned = K4.gmm_cuda(xa, wa, te, tm=64)
+    got = K4.gmm_cuda(shifted, wa, te, tm=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    torch.testing.assert_close(got, R4.gmm_ref(xa, wa, te, 64), **TOL)
+
+
+@pytest.mark.gpu
+def test_gmm_f32_body_gives_zeros_for_zero_tail_rows(cuda):
+    """The tail tiles past the last group hold zero rows (moe_ffn's xs):
+    they come out as zeros."""
+    xs, w, te = _gmm_operands(cuda, torch.float32, 512, 128, 256, 4, 128, 2)
+    xs[384:] = 0
+    got = K4.gmm_cuda(xs, w, te, tm=128)
+    torch.cuda.synchronize()
+    assert bool((got[384:] == 0).all())
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, 128), **TOL)
 
 
 @pytest.mark.gpu
@@ -538,10 +741,10 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     p = tlayers.moe_params(tlayers.moe_spec(64, 32, 8, torch.float32), gen)
     x = torch.randn(2, 40, 64, generator=gen, device=cuda)
-    before = K4.LAUNCHES["gmm"]
+    before = K4.LAUNCHES["gmm_f32"]
     got, _ = tlayers.moe_block(p, x, topk=2, impl="lilac")
     torch.cuda.synchronize()
-    assert K4.LAUNCHES["gmm"] == before + 6
+    assert K4.LAUNCHES["gmm_f32"] == before + 6
     fast = tlayers._lilac_moe_2d("cuda")
     assert [n for _, n in fast.last_selections] == ["cuda.gmm"]
     want, _ = tlayers.moe_block(p, x, topk=2, impl="naive")

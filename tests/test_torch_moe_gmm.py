@@ -87,6 +87,23 @@ def test_gmm_plain_matches_pallas(Tp, D, F, E, tm, fn, dk):
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("D,F,offset,expect", [
+    (2048, 1024, 0, True),      # OLMoE's gate/up
+    (1024, 2048, 0, True),      # and down
+    (37, 50, 0, False),         # D and F off the 16-byte step
+    (36, 50, 0, False),
+    (36, 52, 0, True),
+    (64, 128, 1, False),        # xs off 16-byte alignment
+])
+def test_f32_vector_path_rule(D, F, offset, expect):
+    """Which f32 operands K4's f32 body loads 16 bytes a thread (the CUDA
+    wrapper passes this to the kernel); the rest take its scalar loads."""
+    xs = torch.zeros(8 * D + 4)[offset:][:8 * D].view(8, D)
+    w = torch.zeros(2, D, F)
+    assert xs.is_contiguous() and w.data_ptr() % 16 == 0
+    assert K.f32_vector_path(xs, w) == expect
+
+
 def test_gmm_plain_maps_out_of_range_expert_ids_as_the_reference():
     """Ids past E or below 0 (which the kernel must not follow past w) take
     the expert that the JAX oracle's gather takes: a negative id counts

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.kernels.spmv_ell import ops as ref_ops
+from repro.kernels.spmv_ell.ref import spmv_ell_ref as jax_spmv_ell_ref
 from repro.sparse import ell_from_csr, random_csr
 from repro.sparse import formats as jf
 from repro_torch.kernels.spmv_ell import kernel as K
@@ -180,6 +181,48 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
         K.spmv_ell_windowed_cuda(meta, v.to("meta"))
     with pytest.raises(ValueError):
         K.spmv_ell_staged_cuda(meta, v.to("meta"))
+
+
+@pytest.mark.parametrize("dtype,width,offset,expect", [
+    (torch.float32, 384, 0, True),      # NPB-C's lane-128 ELL
+    (torch.float32, 36, 0, True),
+    (torch.float32, 37, 0, False),      # rows off the 16-byte step
+    (torch.float32, 384, 1, False),     # data off 16-byte alignment
+    (torch.bfloat16, 384, 0, True),
+    (torch.bfloat16, 40, 0, True),
+    (torch.bfloat16, 36, 0, False),     # 8 bf16 values a step
+    (torch.bfloat16, 384, 3, False),
+])
+def test_direct_body_vector_path_rule(dtype, width, offset, expect):
+    """Which val/col K1's direct body reads 16 bytes a lane: every row
+    16-byte aligned (the CUDA wrapper passes this to the kernel)."""
+    rows = 6
+    val = torch.zeros(rows * width + 8, dtype=dtype)[offset:][:rows * width]
+    col = torch.zeros(rows * width + 8, dtype=torch.int32)[:rows * width]
+    val, col = val.view(rows, width), col.view(rows, width)
+    assert val.is_contiguous() and col.data_ptr() % 16 == 0
+    assert K.ell_vector_path(val, col) == expect
+
+
+@pytest.mark.parametrize("width", [384, 37])
+def test_padding_times_inf_is_nan_as_in_the_reference(width):
+    """Padding slots (value 0, column 0) gather vec[0]: with vec[0] = inf
+    their rows are NaN in the reference's sum, and in the port's plain
+    version, which K1's direct body is held to on the card."""
+    rng = np.random.default_rng(width)
+    val = rng.standard_normal((50, width)).astype(np.float32)
+    col = rng.integers(1, 300, (50, width)).astype(np.int32)
+    val[::2, width // 2:] = 0
+    col[::2, width // 2:] = 0
+    vec = rng.standard_normal(300).astype(np.float32)
+    vec[0] = np.inf
+    want = np.asarray(jax_spmv_ell_ref(jnp.asarray(val), jnp.asarray(col),
+                                       jnp.asarray(vec)))
+    got = K.spmv_ell_cuda(torch.from_numpy(val), torch.from_numpy(col),
+                          torch.from_numpy(vec)).numpy()
+    assert np.isnan(want[::2]).all() and np.isfinite(want[1::2]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("cols,size,expect", [
