@@ -85,6 +85,19 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      call, with the per-call times of host mode, trace mode, the graph and
      the replay; and policy="autotune" in trace mode on the MoE layer,
      sweeping cuda.gmm's tm;
+   * gradients, on the same matrices: (sum of squares of the NPB-C SpMV)
+     differentiated through lilac.compile(naive SpMV, mode="host") under
+     the default policy and cuda.ell (K1 staged forward, the backward its
+     ``vjp spmv_csr_bwd`` clause's body); the same loss's
+     torch.func.grad compiled (the forward SpMV and the SpMVᵀ detected,
+     both on cuda.ell, the third call from a baked plan, its ms beside
+     bake=False's); one GNN step's gradient at HPCG x 128 (K3 wide,
+     ``vjp spmm_csr_bwd``, the relu epilogue unfused); the ELL layer's
+     gradient in trace mode (K1 direct, lilac_torch::spmv_ell's formula,
+     the epilogue unfused in the graph of a grad call and fused in the
+     other's): each gradient within 1e-4 of its scale (max |ref|) plus
+     1e-4 of itself of the uncompiled program's autograd, with launches,
+     selections and ms;
    every path above injects no fault and must show no containment event
    and no quarantine skip (each one warns) and leave the quarantine store,
    kept in the run's temporary directory, empty; then
@@ -104,6 +117,22 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      (seeded by --seed; zero uncontained exceptions, results equal to the
      uncompiled program's, quarantines persisted); and the fault-free plan
      and bake=False CG calls beside those of commit 199bd38;
+   * training, in a process of its own (deterministic algorithms, cuBLAS's
+     workspace fixed): OLMoE-1B-7B at full width (d_model 2048, 16 heads,
+     64 experts of d_ff 1024, top-8, vocab 50,304, bf16 parameters, f32
+     AdamW master) with its depth cut from 16 to 2 layers, moe_impl="lilac"
+     (the expert layer of each sequence in trace mode on cuda.gmm, its
+     backward ``moe_ffn_bwd``), SyntheticLM at batch 2 x seq 1,024: the
+     first step's loss and every gradient leaf against moe_impl="naive"
+     from the same parameters and batch (1e-2 and relative L2 2e-2), the
+     token-expert pairs past the reference's backward capacity (twice the
+     mean load; the port's backward drops none), 4 steps of
+     train_loop through make_train_step with a checkpoint every 2, a
+     restart from step 2 whose losses must equal the uninterrupted run's
+     bit for bit, K4's 3 x layers x sequences launches a step, and per
+     step its CUDA-event ms, loss, grad norm and peak memory beside 3 steps
+     of the naive model, and one step of each under torch.profiler (device
+     time by kernel class, the top kernels, the device's idle share);
 4. holds each kernel against its plain torch version at the paths' shapes
    (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
    at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
@@ -1182,7 +1211,7 @@ def warm_start(seed: int, device, **sizes) -> dict:
 
 
 def run_warm_start(seed: int, store: Path, flag: str = "--warm-start",
-                   **env_vars) -> dict:
+                   timeout: int = 600, **env_vars) -> dict:
     """A second process of this script on the store (``flag`` picks what
     it runs; ``env_vars`` set its environment)."""
     env = dict(os.environ, LILAC_TORCH_AUTOTUNE_CACHE=str(store),
@@ -1190,7 +1219,7 @@ def run_warm_start(seed: int, store: Path, flag: str = "--warm-start",
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "--seed", str(seed), flag], env=env,
-                       capture_output=True, text=True, timeout=600)
+                       capture_output=True, text=True, timeout=timeout)
     if p.returncode != 0:
         raise RuntimeError(f"warm-start process failed:\n{p.stderr[-4000:]}")
     res = json.loads(p.stdout.strip().splitlines()[-1])
@@ -1992,6 +2021,587 @@ def check_k4_sass(library: Path) -> dict:
     return funcs
 
 
+# ---------------------------------------------------------------------------
+# Gradients through the kernels: vjp clauses and the custom ops' formulas
+# ---------------------------------------------------------------------------
+
+# dval, dx and the GNN's gradients against the uncompiled program's
+# autograd on the card: |got - want| <= 1e-5 * max |want| + 1e-4 * |want|.
+# The atol is relative to the gradient's scale: each is an f32 sum of
+# hundreds of products taken in another order (atomics, K1's rows),
+# through a forward sum that cancels to ~0 in some rows, so an element far
+# below the scale carries the scale's rounding (an element-wise 1e-4
+# failed on NPB-C's dx by an absolute 0.34 of a 421,813 scale).  The
+# readings sit near 1e-6 of the scale, as does the uncompiled program's
+# own f32 gradient against its f64 one (the "control" entry).
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+
+
+def grads_of(fn, args, wrt):
+    """The gradients of sum(fn(*args)^2) with respect to args[i], i in
+    ``wrt``, by autograd (the arguments copied, so no .grad accumulates)."""
+    import torch
+
+    args = list(args)
+    for i in wrt:
+        args[i] = args[i].detach().clone().requires_grad_()
+    out = fn(*args)
+    loss = ((out if out.dtype == torch.float64 else out.float()) ** 2).sum()
+    return torch.autograd.grad(loss, [args[i] for i in wrt])
+
+
+def grad_errors(got, want) -> dict:
+    """Per gradient: max |err|, the gradient's scale (max |want|) and
+    whether every element is within GRAD_ATOL of the scale plus
+    GRAD_RTOL of itself."""
+    scale = [float(w.float().abs().max()) for w in want]
+    errs = [max_err(g, w, GRAD_ATOL * s, GRAD_RTOL)
+            for g, w, s in zip(got, want, scale)]
+    return {"max_abs_err": [e[0] for e in errs], "scale": scale,
+            "within_tol": all(e[1] <= 1.0 for e in errs)}
+
+
+def grad_path(mats, seed: int, device, reps: int = 5) -> dict:
+    """The gradient paths on the card: grad-of-compile of the NPB-C SpMV
+    under the default policy and cuda.ell (K1 staged, ``vjp
+    spmv_csr_bwd``), compile-of-grad of the same loss (two matches, a plan
+    from its third call, against bake=False), one GNN step's gradient at
+    HPCG x 128 (K3 wide, ``vjp spmm_csr_bwd``, the epilogue unfused), and
+    the ELL layer's gradient in trace mode (K1 direct, the formula of
+    ``lilac_torch::spmv_ell``, the epilogue unfused)."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.sparse import ell_from_csr
+
+    def ms(fn, reps):
+        """(device ms, host ms) a call on the card; not measured here."""
+        return cuda_ms(fn, reps) if device.type == "cuda" else None
+
+    gen = torch.Generator(device="cpu").manual_seed(seed + 5)
+    a = mats["npb"][0]
+    x = torch.randn(a.cols, generator=gen).to(device)
+    args = (a.val, a.col_ind, a.row_ptr, x)
+    want = grads_of(naive_spmv, args, (0, 3))
+    exact = grads_of(naive_spmv, (a.val.double(), a.col_ind, a.row_ptr,
+                                  x.double()), (0, 3))
+    res = {"npb naive fwd+bwd ms": ms(
+        lambda: grads_of(naive_spmv, args, (0, 3)), reps),
+        "npb control: naive f32 against naive f64": grad_errors(want, exact)}
+    del exact
+    for policy in ("default", "cuda.ell"):
+        fast = lilac.compile(naive_spmv, mode="host", policy=policy,
+                             device=device)
+        K.reset_launches()
+        got = grads_of(fast, args, (0, 3))
+        launches = dict(K.LAUNCHES)
+        res[f"npb grad-of-compile {policy}"] = {
+            "selections": [n for _, n in fast.last_selections],
+            "launches": launches, **grad_errors(got, want),
+            "fwd+bwd ms": ms(lambda: grads_of(fast, args, (0, 3)),
+                                  reps),
+            "bake_errors": fast.plan_info()["bake_errors"]}
+        del fast
+    release(device)
+
+    def loss(v, c, r, xx):
+        return (naive_spmv(v, c, r, xx) ** 2).sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 3))
+    want = grad(*args)
+    cog = lilac.compile(grad, mode="host", policy="cuda.ell", device=device)
+    interp = lilac.compile(grad, mode="host", policy="cuda.ell",
+                           device=device, bake=False)
+    K.reset_launches()
+    first_s = []
+    got = timed(cog, first_s, device)(*args)
+    launches_first = dict(K.LAUNCHES)
+    for _ in range(2):
+        got = cog(*args)
+    info = cog.plan_info()
+    interp(*args)
+    res["npb compile-of-grad"] = {
+        "matches": [(m.computation, m.format)
+                    for m in cog.last_report.matches],
+        "selections": [n for _, n in cog.last_selections],
+        "launches_first_call": launches_first, **grad_errors(got, want),
+        "first_call_s": first_s[0], "baked": info["baked"],
+        "plan_hits": info["plan_hits"],
+        "plans": [p.get("cuda_graph") for p in info["plans"]],
+        "plan_ms": ms(lambda: cog(*args), reps),
+        "bake=False ms": ms(lambda: interp(*args), reps),
+        "uncompiled ms": ms(lambda: grad(*args), reps)}
+    del cog, interp, want, got
+    release(device)
+
+    ah = mats["hpcg"][0]
+    h = torch.randn((ah.cols, GNN_WIDTH), generator=gen).to(device)
+    bias = torch.randn(GNN_WIDTH, generator=gen).to(device)
+    gargs = (ah.val, ah.col_ind, ah.row_ptr, h, bias)
+    gnn = lilac.compile(gnn_step, mode="host", device=device)
+    B.reset_launches()
+    before = memory_mark(device)
+    got = grads_of(gnn, gargs, (0, 3, 4))
+    launches = dict(B.LAUNCHES)
+    peak, _ = memory_read(device, before)
+    step_ms = ms(lambda: grads_of(gnn, gargs, (0, 3, 4)), 2)
+    (m,) = gnn.last_report.matches
+    sel = [n for _, n in gnn.last_selections]
+    del gnn
+    release(device)
+    before = memory_mark(device)
+    want = grads_of(gnn_step, gargs, (0, 3, 4))
+    naive_peak, _ = memory_read(device, before)
+    res["gnn step gradient"] = {
+        "match": (m.computation, m.format, m.epilogue), "selections": sel,
+        "launches": launches, **grad_errors(got, want),
+        "fwd+bwd ms": step_ms, "peak_bytes": peak,
+        "naive fwd+bwd ms": ms(lambda: grads_of(gnn_step, gargs,
+                                                     (0, 3, 4)), 2),
+        "naive_peak_bytes": naive_peak}
+    del got, want, h
+    release(device)
+
+    ell = ell_from_csr(a, lane=128)
+    vec = torch.randn(a.cols, generator=gen).to(device)
+    lbias = torch.randn(a.rows, generator=gen).to(device)
+    largs = (ell.val, ell.col, vec, lbias)
+    layer = lilac.compile(ell_layer, device=device)
+    K.reset_launches()
+    got = grads_of(layer, largs, (0, 2, 3))
+    launches = dict(K.LAUNCHES)
+    op = torch.ops.lilac_torch.spmv_ell.default
+    grad_in = [t.detach().requires_grad_() if t.is_floating_point() else t
+               for t in largs]
+    epilogues = {
+        "grad": [n.args[6] for n in layer.graph_for(*grad_in).graph.nodes
+                 if n.target is op],
+        "plain": [n.args[6] for n in layer.graph_for(*largs).graph.nodes
+                  if n.target is op]}
+    want = grads_of(ell_layer, largs, (0, 2, 3))
+    res["ell layer gradient (trace mode)"] = {
+        "selections": [n for _, n in layer.last_selections],
+        "launches": launches, "epilogues": epilogues,
+        **grad_errors(got, want),
+        "fwd+bwd ms": ms(lambda: grads_of(layer, largs, (0, 2, 3)),
+                              reps),
+        "naive fwd+bwd ms": ms(lambda: grads_of(ell_layer, largs,
+                                                     (0, 2, 3)), reps)}
+    return res
+
+
+def check_grad_path(res) -> None:
+    for key in ("npb grad-of-compile default", "npb grad-of-compile cuda.ell",
+                "npb compile-of-grad", "gnn step gradient",
+                "ell layer gradient (trace mode)"):
+        require(res[key]["within_tol"],
+                f"{key}: gradients within {GRAD_ATOL} * max|ref| + "
+                f"{GRAD_RTOL} * |ref| of the uncompiled autograd's, got "
+                f"max |err| {res[key]['max_abs_err']} at scales "
+                f"{res[key]['scale']}")
+    r = res["npb grad-of-compile cuda.ell"]
+    require(r["selections"] == ["cuda.ell"]
+            and r["launches"]["spmv_ell_staged"] == 1,
+            f"npb grad-of-compile: cuda.ell and one K1 staged launch, got "
+            f"{r['selections']} and {r['launches']}")
+    r = res["npb compile-of-grad"]
+    require(r["matches"] == [("spmv_csr", "CSR"), ("spmv_csr", "COO")],
+            f"npb compile-of-grad: the forward SpMV and the SpMVᵀ, got "
+            f"{r['matches']}")
+    require(r["selections"] == ["cuda.ell", "cuda.ell"]
+            and r["launches_first_call"]["spmv_ell_staged"] == 2,
+            f"npb compile-of-grad: both on cuda.ell, two K1 staged launches "
+            f"a call, got {r['selections']} and {r['launches_first_call']}")
+    require(r["baked"] == 1 and r["plan_hits"] == 2,
+            f"npb compile-of-grad: the third call from a baked plan, got "
+            f"baked {r['baked']}, plan hits {r['plan_hits']}")
+    r = res["gnn step gradient"]
+    require(r["match"] == ("spmm_csr", "CSR", "relu")
+            and r["selections"] == ["cuda.bcsr"]
+            and r["launches"]["bsr_spmm_wide"] == 1,
+            f"gnn step gradient: spmm_csr/CSR +relu on cuda.bcsr, one K3 "
+            f"wide launch, got {r['match']}, {r['selections']}, "
+            f"{r['launches']}")
+    r = res["ell layer gradient (trace mode)"]
+    require(r["selections"] == ["cuda.ell"]
+            and r["launches"]["spmv_ell"] == 1,
+            f"ell layer gradient: cuda.ell, one K1 direct launch, got "
+            f"{r['selections']} and {r['launches']}")
+    require(r["epilogues"] == {"grad": [None], "plain": ["relu"]},
+            f"ell layer gradient: the epilogue unfused under grad and fused "
+            f"without, got {r['epilogues']}")
+
+
+# ---------------------------------------------------------------------------
+# Training: OLMoE-1B-7B at full width, its depth cut to 2 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 2               # of OLMoE-1B-7B's 16
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
+NAIVE_TRAIN_STEPS = 3
+# the lilac step's first loss and gradients against the naive step's from
+# the same parameters and batch: bf16 parameters and activations, the
+# MoE layer's tolerance (MOE_RTOL) for every gradient leaf
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RTOL = 2e-2
+
+
+def expert_loads(idx, experts: int):
+    """(sequences, experts) token-expert pairs an expert, from the
+    router's (B, S, K) choices."""
+    import torch
+
+    flat = idx.reshape(idx.shape[0], -1).long()
+    return torch.zeros((flat.shape[0], experts), dtype=torch.long,
+                       device=idx.device).scatter_add_(
+                           1, flat, torch.ones_like(flat))
+
+
+def routing_diagnosis(cfg, params, batch) -> dict:
+    """Why the routes collapse at init, layer by layer on ``batch``: the
+    RMS of the residual stream entering the layer, of the attention
+    block's output and of the MoE block's; the mean cosine of each
+    position's router input with its sequence's mean input; the spread of
+    the router's logits across positions (their std over positions,
+    averaged over experts) against across experts; the distinct top-1
+    experts and the largest expert load.  Also returns each layer's
+    router input, for ``moe_layer_timing``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.spec import tree_map
+
+    def rms(t):
+        return float(t.float().pow(2).mean().sqrt())
+
+    out, inputs = [], []
+    with torch.no_grad():
+        x = params["embed"][batch["tokens"].long()]
+        B, S = x.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None] \
+            .expand(B, S)
+        for j in range(cfg.n_layers):
+            bp = tree_map(lambda a: a[j], params["blocks"])["b0"]
+            attn = L.attention_block(bp["attn"], T._norm_apply(
+                cfg, bp["ln1"], x), positions=pos, kv_chunk=cfg.kv_chunk)
+            h = T._norm_apply(cfg, bp["ln2"], x + attn)
+            logits = torch.einsum("bsd,de->bse", h.float(),
+                                  bp["moe"]["router"])
+            _, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
+            moe, _ = L.moe_block(bp["moe"], h, topk=cfg.moe_topk,
+                                 impl="naive")
+            out.append({
+                "residual_rms": rms(x), "attn_rms": rms(attn),
+                "moe_rms": rms(moe),
+                "router_input_cos_to_mean": float(F.cosine_similarity(
+                    h.float(), h.float().mean(1, keepdim=True), dim=-1)
+                    .mean()),
+                "logit_std_across_positions": float(logits.std(1).mean()),
+                "logit_std_across_experts": float(logits.std(2).mean()),
+                "distinct_top1": int(idx[..., 0].unique().numel()),
+                "max_load": int(expert_loads(idx, cfg.moe_experts).max())})
+            inputs.append(h)
+            x = x + attn + moe
+    return {"layers": out}, inputs
+
+
+def moe_layer_timing(cfg, p, hidden: dict, reps: int = 3) -> dict:
+    """Layer 0's MoE block forward + backward (x and its four parameters),
+    ``impl`` lilac against naive, device ms by CUDA events, on each of
+    ``hidden``'s router inputs (name -> (B, S, D)), with the largest
+    expert load of the routes it gives."""
+    import torch
+    from repro_torch.models import layers as L
+
+    res = {}
+    for name, h in hidden.items():
+        with torch.no_grad():
+            _, idx, _ = L.moe_router(p, h, cfg.moe_topk)
+        row = {"max_load": int(expert_loads(idx, cfg.moe_experts).max()),
+               "mean_load": h.shape[1] * cfg.moe_topk / cfg.moe_experts}
+        for impl in ("lilac", "naive"):
+            def fwd_bwd(impl=impl):
+                x = h.detach().requires_grad_()
+                pp = {k: v.detach().requires_grad_() for k, v in p.items()}
+                out, aux = L.moe_block(pp, x, topk=cfg.moe_topk, impl=impl)
+                (out.float().pow(2).mean() + aux).backward()
+            row[f"{impl} fwd+bwd ms"] = cuda_ms(fwd_bwd, reps)
+        res[name] = row
+    return res
+
+
+def train_path(seed: int, device, work: str, cfg=None,
+               layers: int = TRAIN_LAYERS, batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS) -> dict:
+    """OLMoE-1B-7B (full width, ``layers`` deep, moe_impl="lilac", no
+    remat) trained through make_train_step / train_loop on SyntheticLM:
+    the first step's loss and gradients against moe_impl="naive" from the
+    same parameters and batch, the token-expert pairs past the backward's
+    capacity, ``steps`` steps with a checkpoint every TRAIN_CKPT_EVERY
+    (deterministic algorithms), a restart from the first checkpoint run
+    to the end, and NAIVE_TRAIN_STEPS steps of the naive model for
+    timing.  Each step: CUDA-event ms, loss, grad norm, peak memory."""
+    import shutil as _shutil
+
+    import torch
+    from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
+    from repro_torch.core.harness import REGISTRY
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.train import optim as O
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+
+    cfg = (cfg or OLMOE).replace(n_layers=layers, moe_impl="lilac",
+                                 remat=False)
+    model = build_model(cfg)
+    naive_model = build_model(cfg.replace(moe_impl="naive"))
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 11),
+                        device)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                       seed=seed)
+    b0 = {k: torch.as_tensor(v, device=device)
+          for k, v in data.batch_at(0).items()}
+    res = {"config": {"name": cfg.name, "layers": layers,
+                      "d_model": cfg.d_model, "experts": cfg.moe_experts,
+                      "topk": cfg.moe_topk, "vocab": cfg.vocab,
+                      "batch": batch, "seq": seq,
+                      "params": model.param_count(),
+                      "active_params": model.active_param_count()}}
+
+    # the oracle: the first step's loss and gradients, lilac against naive;
+    # the routes recorded on the way, for the capacity count
+    routes = []
+    router = L.moe_router
+
+    def recording_router(p, x, topk):
+        gate, idx, aux = router(p, x, topk)
+        routes.append(idx.detach())
+        return gate, idx, aux
+
+    L.moe_router = recording_router
+    try:
+        G.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        loss_l, g_l = value_and_grad(model.loss_fn)(params, b0)
+        sync(device)
+        res["oracle_lilac_first_s"] = time.perf_counter() - t0
+        res["oracle_launches"] = dict(G.LAUNCHES)
+    finally:
+        L.moe_router = router
+    fast = L._lilac_moe_2d(device.type)
+    res["moe_selections"] = [n for _, n in fast.last_selections]
+    loss_n, g_n = value_and_grad(naive_model.loss_fn)(params, b0)
+    from repro_torch.models.spec import leaves
+
+    flat_n = dict(leaves(g_n))
+    rel = {k: rel_l2(g, flat_n[k]) for k, g in leaves(g_l)}
+    res.update(loss_lilac=float(loss_l), loss_naive=float(loss_n),
+               loss_rel=abs(float(loss_l) - float(loss_n))
+               / abs(float(loss_n)),
+               grad_rel_l2_max=max(rel.values()),
+               grad_rel_l2_worst=max(rel, key=rel.get),
+               grads_finite=all(bool(torch.isfinite(g).all())
+                                for _, g in leaves(g_l)))
+    del g_l, g_n, flat_n
+    T, K, E = seq, cfg.moe_topk, cfg.moe_experts
+    cap = max(8, min(-(-T * K * 2 // E), T * K))  # _moe_capacity's rule
+    loads = torch.cat([expert_loads(r, E) for r in routes])
+    res.update(capacity=cap, mean_load=T * K / E,
+               max_load=int(loads.max()),
+               pairs_past_capacity=int((loads - cap).clamp_min(0).sum()))
+    res["routing_at_init"], inputs = routing_diagnosis(cfg, params, b0)
+    if device.type == "cuda":
+        # the MoE layer at the routes of the model at init (collapsed) and
+        # at those of unit-normal router inputs (spread), same shapes
+        gen = torch.Generator(device=device).manual_seed(seed + 13)
+        spread = torch.randn(inputs[0].shape, generator=gen, device=device
+                             ).to(inputs[0].dtype)
+        p0 = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
+        res["moe_layer_timing"] = moe_layer_timing(
+            cfg, p0, {"model at init": inputs[0], "unit normal": spread})
+        del spread, p0
+    del inputs
+    release(device)
+
+    # the loop, with a checkpoint every TRAIN_CKPT_EVERY steps, then the
+    # restart from the first checkpoint
+    opt = O.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+    ckdir = Path(work) / "ckpt"
+    log: list = []
+
+    def timed_step(fn):
+        """``fn`` timed by CUDA events (a host clock on the CPU)."""
+        def run(p, s, b):
+            before = memory_mark(device)
+            if device.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            t0 = time.perf_counter()
+            out = fn(p, s, b)
+            if device.type == "cuda":
+                e1.record()
+                torch.cuda.synchronize()
+                ms = e0.elapsed_time(e1)
+            else:
+                ms = 1e3 * (time.perf_counter() - t0)
+            peak, _ = memory_read(device, before)
+            log.append({"ms": ms, "loss": float(out[2]["loss"]),
+                        "grad_norm": float(out[2]["grad_norm"]),
+                        "peak_bytes": peak or 0})
+            return out
+        return run
+
+    lc = LoopConfig(steps=steps, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
+                    ckpt_dir=str(ckdir), deterministic=True)
+    heartbeat: list = []
+    step = timed_step(make_train_step(model, opt))
+    G.reset_launches()
+    routes.clear()
+    L.moe_router = recording_router
+    try:
+        r1 = train_loop(model, opt, lc, data.batch_at, params=params,
+                        device=device, step_fn=step, emit=heartbeat.append)
+    finally:
+        L.moe_router = router
+    # the largest expert load of each step's layers (the router runs once
+    # a layer in a step's forward)
+    res["step_max_loads"] = [
+        [int(expert_loads(r, E).max()) for r in routes[i:i + layers]]
+        for i in range(0, len(routes), layers)]
+    routes.clear()
+    res.update(loop_launches=dict(G.LAUNCHES), history=r1["history"],
+               steps=list(log), disk_free_bytes=_shutil.disk_usage(work).free,
+               checkpoints=sorted(int(d.name[5:]) for d in ckdir.iterdir()
+                                  if d.is_dir() and not d.name.endswith(
+                                      ".tmp")))
+    del r1
+    release(device)
+    for s in res["checkpoints"]:
+        if s > TRAIN_CKPT_EVERY:
+            _shutil.rmtree(ckdir / f"step_{s}")
+    log.clear()
+    t0 = time.perf_counter()
+    r2 = train_loop(model, opt, lc, data.batch_at, params=params,
+                    device=device, step_fn=step, emit=heartbeat.append)
+    res.update(restart_start_step=r2["start_step"],
+               restart_history=r2["history"], restart_steps=list(log),
+               restart_seconds=time.perf_counter() - t0)
+    del r2
+    _shutil.rmtree(ckdir, ignore_errors=True)
+    release(device)
+
+    # the naive step, for its time
+    log.clear()
+    naive_step = timed_step(make_train_step(naive_model, opt))
+    p, s = params, O.adamw_init(opt, params)
+    for i in range(NAIVE_TRAIN_STEPS):
+        batch_i = {k: torch.as_tensor(v, device=device)
+                   for k, v in data.batch_at(i).items()}
+        p, s, _ = naive_step(p, s, batch_i)
+    res["naive_steps"] = list(log)
+    if device.type == "cuda":
+        res["naive_profile"] = step_breakdown(naive_step, p, s, b0, device)
+        del p, s
+        release(device)
+        st = O.adamw_init(opt, params)
+        res["lilac_profile"] = step_breakdown(
+            make_train_step(model, opt), params, st, b0, device)
+    res["heartbeat"] = heartbeat
+    res["tuner"] = REGISTRY.autotuner.stats.as_dict()
+    return res
+
+
+def kernel_kind(name: str) -> str:
+    """A coarse class of a CUDA kernel by its name."""
+    n = name.lower()
+    for kind, keys in (("K4 (gmm)", ("gmm_tc", "gmm_simt")),
+                       ("GEMM (cuBLAS)", ("gemm", "cutlass", "xmma", "sm90_",
+                                          "cublas", "nvjet")),
+                       ("gather/scatter/sort", ("index", "scatter", "gather",
+                                                "sort", "radix", "put_")),
+                       ("reduction", ("reduce", "softmax", "logsumexp")),
+                       ("elementwise", ("elementwise", "vectorized", "unrolled",
+                                        "copy", "fill", "cat"))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def step_breakdown(step, params, opt_state, batch, device, top: int = 8):
+    """One call of ``step`` under torch.profiler: device time by kernel
+    class and the ``top`` kernels, the step's wall ms and the device's
+    idle share of it (1 - kernel time / wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        sync(device)
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [(e.key, e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total]
+    kinds: dict = {}
+    for name, ms, _ in kernels:
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + ms
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall, "kernel_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall) if wall else None,
+            "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "top": [(n[:80], round(ms, 3), c) for n, ms, c in
+                    sorted(kernels, key=lambda k: -k[1])[:top]]}
+
+
+def check_train_path(res, steps: int = TRAIN_STEPS,
+                     layers: int = TRAIN_LAYERS,
+                     batch: int = TRAIN_BATCH) -> None:
+    require(res["moe_selections"] == ["cuda.gmm"],
+            f"training: the inner MoE on cuda.gmm, got "
+            f"{res['moe_selections']}")
+    per_step = 3 * layers * batch
+    require(res["oracle_launches"]["gmm"] == per_step
+            and res["loop_launches"]["gmm"] == per_step * steps,
+            f"training: {per_step} K4 bf16 launches a step (3 x {layers} "
+            f"layers x {batch} sequences), got {res['oracle_launches']} for "
+            f"one step and {res['loop_launches']} for {steps}")
+    require(res["loss_rel"] <= TRAIN_LOSS_RTOL,
+            f"training: the first loss within {TRAIN_LOSS_RTOL} of the "
+            f"naive step's, got {res['loss_lilac']} against "
+            f"{res['loss_naive']}")
+    require(res["grads_finite"] and res["grad_rel_l2_max"] <= TRAIN_GRAD_RTOL,
+            f"training: every gradient leaf within relative L2 "
+            f"{TRAIN_GRAD_RTOL} of the naive step's, got "
+            f"{res['grad_rel_l2_max']:.3g} at {res['grad_rel_l2_worst']}")
+    require(len(res["history"]) == steps
+            and all(abs(v) < float("inf") for v in res["history"]),
+            f"training: {steps} finite losses, got {res['history']}")
+    require(res["restart_start_step"] == TRAIN_CKPT_EVERY
+            and res["restart_history"] == res["history"][TRAIN_CKPT_EVERY:],
+            f"training: the restart from step {TRAIN_CKPT_EVERY} repeats the "
+            f"uninterrupted losses bit for bit, got "
+            f"{res['restart_history']} against {res['history']}")
+
+
+def train_line(s) -> str:
+    return (f"{s['ms']:.2f} ms, loss {s['loss']:.6f}, grad norm "
+            f"{s['grad_norm']:.4g}, peak {s['peak_bytes'] / 2**30:.2f} GiB")
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2055,6 +2665,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the autotune phase's 2nd run
     ap.add_argument("--plan-warm-start", action="store_true",
                     help=argparse.SUPPRESS)   # the plan phase's 2nd run
+    ap.add_argument("--train-phase", action="store_true",
+                    help=argparse.SUPPRESS)   # the training phase's process
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2075,6 +2687,15 @@ def main() -> int:
         return 0
     if args.plan_warm_start:
         print(json.dumps(plan_warm_start(args.seed, torch.device("cuda"))))
+        return 0
+    if args.train_phase:
+        work = tempfile.mkdtemp(prefix="lilac-torch-train-")
+        try:
+            with fault_free("training"):
+                res = train_path(args.seed, torch.device("cuda"), work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(json.dumps(res))
         return 0
     # the persistent stores (plans, tuner, quarantine) in a directory of
     # this run; no ambient fault plan or shadow rate
@@ -2364,6 +2985,17 @@ def run(args, work: str) -> int:
                                 m32["launches"]["gmm_f32"]))
     record["moe_f32_path"] = m32
 
+    # -- gradients through the kernels --------------------------------------
+    t0 = time.perf_counter()
+    with fault_free("gradients"):
+        gp = grad_path(mats, args.seed, device)
+    for key, r in gp.items():
+        print(f"gradient {key}: {r}")
+    check_grad_path(gp)
+    print(f"gradient phase {time.perf_counter() - t0:.1f}s")
+    record["grad_path"] = gp
+    release(device)
+
     # -- containment: faults injected on the card ---------------------------
     t0 = time.perf_counter()
     kr = kernel_raise_path(*mats["npb"], x_refs["npb"], device)
@@ -2421,6 +3053,62 @@ def run(args, work: str) -> int:
               f"{k} {plans[k + ' bake=True']['steady_call_ms']:.3f} / "
               f"{plans[k + ' bake=False']['steady_call_ms']:.3f} "
               f"(199bd38 {v[0]} / {v[1]})" for k, v in at_parent.items()))
+
+    # -- training: OLMoE-1B-7B, full width, 2 layers -------------------------
+    # a process of its own: deterministic algorithms need cuBLAS's
+    # workspace fixed before its first call, and the earlier phases' memory
+    # is gone
+    tr = run_warm_start(args.seed, Path(work) / "autotune-train.json",
+                        "--train-phase", timeout=900,
+                        CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                        LILAC_TORCH_QUARANTINE_CACHE=str(
+                            Path(work) / "quarantine-train.json"))
+    c = tr["config"]
+    print(f"training {c['name']} (d_model {c['d_model']}, {c['experts']} "
+          f"experts top-{c['topk']}, vocab {c['vocab']}) cut to "
+          f"{c['layers']} layers: {c['params']} params ({c['active_params']} "
+          f"active), batch {c['batch']} x seq {c['seq']}, moe_impl=lilac via "
+          f"{tr['moe_selections']}")
+    print(f"training oracle, first step: loss {tr['loss_lilac']:.6f} "
+          f"(naive {tr['loss_naive']:.6f}, rel {tr['loss_rel']:.3g}, tol "
+          f"{TRAIN_LOSS_RTOL}); worst gradient leaf relative L2 "
+          f"{tr['grad_rel_l2_max']:.3g} at {tr['grad_rel_l2_worst']} (tol "
+          f"{TRAIN_GRAD_RTOL}); token-expert pairs past capacity "
+          f"{tr['pairs_past_capacity']} (capacity {tr['capacity']}, mean "
+          f"load {tr['mean_load']:g}, max load {tr['max_load']}); first "
+          f"lilac forward+backward {tr['oracle_lilac_first_s']:.2f}s; K4 "
+          f"launches {tr['oracle_launches']}")
+    for j, lr in enumerate(tr["routing_at_init"]["layers"]):
+        print(f"training routing at init, layer {j}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in lr.items()))
+    for name, row in tr["moe_layer_timing"].items():
+        print(f"training MoE layer 0 fwd+bwd at the routes of {name}: "
+              f"max load {row['max_load']} (mean {row['mean_load']:g}); "
+              f"lilac {row['lilac fwd+bwd ms']}, naive "
+              f"{row['naive fwd+bwd ms']} (device ms, host ms)")
+    print(f"training: the largest expert load of each step's layers "
+          f"{tr['step_max_loads']}")
+    for i, st in enumerate(tr["steps"]):
+        print(f"training step {i}: {train_line(st)}")
+    for i, st in enumerate(tr["restart_steps"]):
+        print(f"training restart step {tr['restart_start_step'] + i}: "
+              f"{train_line(st)}")
+    for i, st in enumerate(tr["naive_steps"]):
+        print(f"training naive step {i}: {train_line(st)}")
+    print(f"training: K4 launches over {TRAIN_STEPS} steps "
+          f"{tr['loop_launches']}; checkpoints {tr['checkpoints']}; restart "
+          f"from step {tr['restart_start_step']} in "
+          f"{tr['restart_seconds']:.1f}s, losses {tr['restart_history']} "
+          f"against {tr['history']}; the process took {tr['seconds']:.1f}s")
+    for name in ("lilac_profile", "naive_profile"):
+        pr = tr[name]
+        print(f"training {name.split('_')[0]} step profiled: "
+              f"{pr['wall_ms']:.1f} ms wall, {pr['kernel_ms']:.1f} ms of "
+              f"kernels (idle share {pr['idle_share']:.3f}); by kind "
+              f"{ {k: round(v, 2) for k, v in pr['by_kind_ms'].items()} }; "
+              f"top {pr['top']}")
+    check_train_path(tr)
+    record["train_path"] = tr
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

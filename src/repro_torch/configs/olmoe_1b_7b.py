@@ -2,9 +2,9 @@
 [moe] 16L d_model=2048 16H (GQA kv=16) d_ff=1024/expert vocab=50304
 [arXiv:2409.02060; hf]
 """
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, register
 
-CONFIG = ArchConfig(
+CONFIG = register(ArchConfig(
     name="olmoe-1b-7b",
     family="moe",
     n_layers=16,
@@ -16,4 +16,4 @@ CONFIG = ArchConfig(
     moe_experts=64,
     moe_topk=8,
     source="[arXiv:2409.02060; hf]",
-)
+))

@@ -48,6 +48,7 @@ and never matches.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -68,13 +69,41 @@ aten = torch.ops.aten
 
 def trace(fn: Callable, args: Sequence[torch.Tensor]) -> GraphModule:
     """Trace ``fn`` on fake tensors shaped like ``args`` into a functional
-    aten-level graph.  The program must not branch on tensor values."""
+    aten-level graph.  The program must not branch on tensor values.
+
+    The trace is a fresh one even where the call is itself being traced
+    or transformed (a compiled function called inside ``make_fx`` or
+    ``torch.func.grad``): the ambient modes and ``torch.func`` levels are
+    set aside while it runs, and it starts from fake tensors of its own
+    with the arguments' shapes, strides, dtypes and devices."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.func import functionalize
 
-    gm = make_fx(functionalize(fn, remove="mutations_and_views"),
-                 tracing_mode="fake")(*args)
+    with own_trace():
+        mode = FakeTensorMode()
+        with mode:
+            fakes = [torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                         device=a.device) for a in args]
+        gm = make_fx(functionalize(fn, remove="mutations_and_views"),
+                     tracing_mode="fake")(*fakes)
     return normalize_graph(gm)
+
+
+@contextlib.contextmanager
+def own_trace():
+    """A context in which operators run on real tensors, or trace a graph
+    of their own, even while an outer ``make_fx`` or ``torch.func``
+    transform runs (a compiled function called inside another trace): the
+    fake-tensor and proxy modes and the ``torch.func`` levels are set
+    aside, so semantic validation computes values and nothing is recorded
+    in the outer graph."""
+    from torch._functorch.pyfunctorch import \
+        temporarily_clear_interpreter_stack
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes(), temporarily_clear_interpreter_stack():
+        yield
 
 
 def normalize_graph(gm: GraphModule) -> GraphModule:
@@ -124,6 +153,7 @@ _RESHAPES = {aten.view.default, aten._unsafe_view.default,
 _LAYOUT = _RESHAPES | {aten.permute.default, aten.permute_copy.default,
                        aten.expand.default, aten.expand_copy.default,
                        aten.clone.default, aten.alias.default}
+_EXPANDS = {aten.expand.default, aten.expand_copy.default}
 _ZEROS = {aten.zeros.default, aten.zeros_like.default, aten.new_zeros.default}
 _FULLS = {aten.full.default: 1, aten.full_like.default: 1,
           aten.new_full.default: 2, aten.fill.Scalar: 1}
@@ -179,6 +209,12 @@ class Ctx:
                     == _nonunit_dims(_shape(n) or ()):
                 out = n.args[0]
                 continue
+            if n.target in _EXPANDS and isinstance(n.args[0], Node) \
+                    and _shape(n.args[0]) == _shape(n):
+                # an expand to the operand's own shape (autograd's
+                # backward of a gather writes one)
+                out = n.args[0]
+                continue
             break
         self._peel_cache[atom] = out
         return out
@@ -197,7 +233,8 @@ class Ctx:
                 return self.is_zeros(n.args[0])
             return False
         if isinstance(atom, Node) and atom.op == "get_attr":
-            return bool(torch.all(getattr(self.gm, atom.target) == 0))
+            with own_trace():
+                return bool(torch.all(getattr(self.gm, atom.target) == 0))
         return False
 
     # -- provenance ----------------------------------------------------------
@@ -227,7 +264,8 @@ class Ctx:
 
     def eval_subgraph(self, out: Node, leaf_values: Dict[Node, Any]):
         """Concretely evaluate the provenance subgraph of ``out`` given
-        values for its leaves — the semantic validation step."""
+        values for its leaves — the semantic validation step (the
+        validators run it under :func:`own_trace`)."""
         leaves, ops = self.provenance(out)
         env: Dict[Node, Any] = dict(leaf_values)
         for lf in leaves:
@@ -408,6 +446,16 @@ class DetectionReport:
 # Semantic validation
 # ---------------------------------------------------------------------------
 
+def _concretely(fn):
+    """Run a validator under :func:`own_trace`: its trial tensors and its
+    comparisons are real under an ambient trace too."""
+    def run(*args, **kwargs):
+        with own_trace():
+            return fn(*args, **kwargs)
+    return run
+
+
+@_concretely
 def _validate_row_expansion(ctx: Ctx, row_node: Node, row_ptr: Node, nnz: int,
                             rows: int, trials: int = 2) -> bool:
     """Check the subgraph row_ptr -> row_ids really is CSR row expansion:
@@ -447,6 +495,7 @@ def _validate_row_expansion(ctx: Ctx, row_node: Node, row_ptr: Node, nnz: int,
     return ok
 
 
+@_concretely
 def _validate_onehot_dispatch(ctx: Ctx, combine: Node, idx: Node, gate: Node,
                               n_experts: int, trials: int = 2) -> bool:
     """Check the subgraph (idx, gate) -> combine really is a top-k one-hot

@@ -70,6 +70,10 @@ class CallCtx:
     # realization of a fuse-capable harness (the epilogue applies after the
     # call).  Swept as a variant dimension by the autotuner.
     fuse: Optional[bool] = None
+    # The call carries gradients (rewrite.call_harness): set for a
+    # trace-mode graph built for inputs that require grad, whose fake
+    # values do not show it; a host-mode call reads its binding
+    differentiable: bool = False
 
 
 @dataclasses.dataclass
@@ -90,6 +94,12 @@ class Harness:
     constraints: Tuple[Any, ...] = ()
     # True when the body applies detected epilogues itself
     fuse_epilogue: bool = False
+    # declared backward (what_lang.VjpClause): the rewriter runs the call
+    # inside one torch.autograd.Function whose backward is the registered
+    # body (spec.VJPS).  None: autograd differentiates through the body,
+    # right for plain torch, fatal for a repack or a ctypes launch, which
+    # is why those declare one.  Not in the fingerprint
+    vjp: Optional[Any] = None
     # False opts out of executable-plan baking (repro_torch.core.plan): a
     # body with per-call host-side behavior beyond its marshal clauses
     # (RNG, mutable globals, I/O) would have its first call's behavior
@@ -361,6 +371,14 @@ def _spmv_ell_direct(b: Binding, ctx: CallCtx):
     return out
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) by comparison with ``arange(n)``: it
+    traces under ``torch.func`` transforms, where ``F.one_hot``'s check of
+    the index values asks a fake tensor for data."""
+    return (idx.long()[..., None]
+            == torch.arange(n, device=idx.device)).long()
+
+
 def _moe_capacity(b: Binding, ctx: CallCtx, capacity_factor: float = 2.0):
     """Sorted capacity-bucket dispatch: compute only routed tokens.
 
@@ -372,13 +390,12 @@ def _moe_capacity(b: Binding, ctx: CallCtx, capacity_factor: float = 2.0):
     wg, wu, wd = b["wg"], b["wu"], b["wd"]
     T, K = idx.shape
     E = b["experts"]
-    C = int(np.ceil(T * K / E * capacity_factor))
-    C = max(8, min(C, T * K))
+    C = max(8, min(int(np.ceil(T * K / E * capacity_factor)), T * K))
     flat_e = idx.reshape(-1).long()                             # (T*K,)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_g = gate.reshape(-1)
     # position of each routed pair within its expert queue
-    onehot = torch.nn.functional.one_hot(flat_e, E)             # (TK, E)
+    onehot = one_hot(flat_e, E)                                 # (TK, E)
     pos = (torch.cumsum(onehot, 0) - onehot)[
         torch.arange(T * K, device=x.device), flat_e]
     keep = pos < C
@@ -398,10 +415,92 @@ def _moe_capacity(b: Binding, ctx: CallCtx, capacity_factor: float = 2.0):
     return out.to(x.dtype)
 
 
+def _spmv_csr_bwd(b: Binding, ctx: CallCtx, primal, ct):
+    """SpMV transpose-products for a CSR/COO binding: ``d_a`` is the
+    per-entry product, ``d_iv`` the Aᵀ·ct scatter (itself a COO SpMV, which
+    a compiled gradient re-detects).  O(nnz) in both; A is never dense."""
+    r = _row_ids(b)
+    return {
+        "a": ct[r] * b["iv"][b["colidx"]],
+        "iv": torch.zeros_like(b["iv"]).index_add_(
+            0, b["colidx"], b["a"] * ct[r]),
+    }
+
+
+def _spmv_ell_bwd(b: Binding, ctx: CallCtx, primal, ct):
+    """ELL/JDS backward: a padded (val == 0) slot receives the cotangent
+    product like any other slot, which is the gradient of the forward with
+    respect to the padded val array."""
+    perm = b.get("perm")
+    dacc = ct if perm is None else ct[perm]
+    col = b["col_ind"].reshape(-1)
+    return {
+        "val": dacc[:, None] * b["vector"][b["col_ind"]],
+        "vector": torch.zeros_like(b["vector"]).index_add_(
+            0, col, (b["val"] * dacc[:, None]).reshape(-1)),
+    }
+
+
+#: entries x columns a step of _spmm_csr_bwd gathers at once (256 MB f32)
+SPMM_BWD_CHUNK = 1 << 26
+
+
+def _spmm_csr_bwd(b: Binding, ctx: CallCtx, primal, ct):
+    """CSR SpMM backward: ``d_dense = Aᵀ·ct`` as an O(nnz·N) scatter,
+    ``d_a`` the per-entry row dot.  The reference's body, taken over the
+    entries in chunks of ``SPMM_BWD_CHUNK`` gathered values, so that no
+    (nnz, N) gather exists whole (15 GB for HPCG-104³ x 128)."""
+    r, a, col, dense = _row_ids(b), b["a"], b["colidx"], b["dense"]
+    step = max(1, SPMM_BWD_CHUNK // max(dense.shape[1], 1))
+    da, dd = [], torch.zeros_like(dense)
+    for s in range(0, a.shape[0], step):
+        g = ct[r[s:s + step]]
+        da.append(torch.sum(g * dense[col[s:s + step]], dim=-1))
+        dd.index_add_(0, col[s:s + step], a[s:s + step, None] * g)
+    return {"a": torch.cat(da) if da else torch.zeros_like(a), "dense": dd}
+
+
+def _moe_ffn_bwd(b: Binding, ctx: CallCtx, primal, ct):
+    """MoE backward by recomputing the capacity-bucket dispatch under
+    ``torch.func.vjp``, as the reference does, but at a capacity that no
+    expert's load exceeds, so nothing drops: the forward harnesses (K4
+    over its expert-sorted rows) drop nothing either, and this is the
+    exact gradient of what they compute.  The capacity is the largest
+    load (one host read), E·max_load rows; in a trace, where routes have
+    no values, the token count, E·T rows as in the dense dispatch."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    idx, E = b["idx"], b["experts"]
+    top = idx.shape[0]
+    if not is_fake(idx):
+        flat = idx.reshape(-1).long()
+        top = int(torch.zeros(E, dtype=torch.long, device=flat.device)
+                  .index_add_(0, flat, torch.ones_like(flat)).max())
+
+    def f(x, gate, wg, wu, wd):
+        bb = dict(b)
+        bb.update(x=x, gate=gate, wg=wg, wu=wu, wd=wd)
+        return _moe_capacity(bb, ctx, capacity_factor=top * E / idx.numel())
+
+    _, pull = torch.func.vjp(f, b["x"], b["gate"], b["wg"], b["wu"], b["wd"])
+    gx, gg, gwg, gwu, gwd = pull(ct.to(b["x"].dtype))
+    return {"x": gx, "gate": gg, "wg": gwg, "wu": gwu, "wd": gwd}
+
+
+#: Backward bodies for ``vjp`` clauses, keyed by the name a clause cites
+#: (``repro_torch.core.spec`` enters them into its VJPS registry).
+BUILTIN_VJPS: Dict[str, Callable] = {
+    "spmv_csr_bwd": _spmv_csr_bwd,
+    "spmv_ell_bwd": _spmv_ell_bwd,
+    "spmm_csr_bwd": _spmm_csr_bwd,
+    "moe_ffn_bwd": _moe_ffn_bwd,
+}
+
+
 def _moe_dense(b: Binding, ctx: CallCtx):
     """The naive formulation itself — the paper's '-O2 baseline' harness."""
     x, gate, idx = b["x"], b["gate"], b["idx"]
-    onehot = torch.nn.functional.one_hot(idx.long(), b["experts"]).to(x.dtype)
+    onehot = one_hot(idx, b["experts"]).to(x.dtype)
     combine = torch.einsum("tke,tk->te", onehot, gate.to(x.dtype))
     g = torch.einsum("td,edf->etf", x, b["wg"])
     u = torch.einsum("td,edf->etf", x, b["wu"])

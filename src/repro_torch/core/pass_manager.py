@@ -40,6 +40,21 @@ does a harness that opts out (``bakeable=False``).  The persistent plan
 cache keys the traced graph: a warm process rehydrates the matches and the
 pins from ``plans.json``, so it runs no detection and times nothing.
 
+**Transforms** (docs/transforms.md).  Grad-of-compile: a call whose
+tensors require grad (``.backward()``, or inside ``torch.func.grad``) keys
+an entry of its own and runs the interpreter (host mode, and trace mode
+under ``torch.func``) or its own rewritten graph (trace mode) with
+autograd through every harness
+(``rewrite.call_harness``: epilogues unfused, ``vjp`` clauses as
+``torch.autograd.Function``s); it never hits or bakes a plan, and
+``plan_info()["bake_errors"]`` says so.  Compile-of-grad:
+``compile(torch.func.grad(f))`` traces to a plain graph holding the
+backward too, so the backward's sparse products (the SpMVᵀ, a COO SpMV of
+the matrix's entries) are detected like any other and the entry bakes.
+A compiled function called while another trace runs (``make_fx``, a
+compiled step) traces and validates on its own, outside the ambient modes
+(``detect.own_trace``).
+
 The compiled function runs on the card: ``platform="cuda"`` unless the
 caller passes ``platform="cpu"`` (or ``device="cpu"``).  Asking for CUDA
 where no card is present raises, and so do operands on another device —
@@ -117,6 +132,9 @@ class CompiledEntry:
     # match indices whose every candidate failed under containment: their
     # anchors run as plain graph nodes until the entry is rebuilt
     disabled: set = dataclasses.field(default_factory=set)
+    # per tensor leaf, whether it requires grad: such an entry carries
+    # gradients (epilogues unfused, never baked)
+    grad_inputs: Tuple[bool, ...] = ()
     # rewrite.needed_nodes per set of matches evaluated (containment can
     # disable single matches)
     _needed: Dict[FrozenSet[int], frozenset] = dataclasses.field(
@@ -147,8 +165,15 @@ def _leaf_key(x) -> Tuple:
     """The compile-dict key of one leaf (``plan.leaf_templates``' rule)."""
     (t,) = P.leaf_templates([x])
     if t[0] == "t":
-        return ("t", t[1], str(t[2]), t[3].type)
+        return ("t", t[1], str(t[2]), t[3].type, t[4])
     return ("py", t[1].__name__, t[2])
+
+
+def _func_wrapped(t) -> bool:
+    """A ``torch.func`` transform's tensor: a custom op's
+    ``register_autograd`` formula cannot run under it (``torch.library``
+    gives it no ``setup_context``), so such a call interprets."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
 
 
 def resolve_platform(platform: Optional[str], device=None) -> str:
@@ -323,7 +348,10 @@ class LilacFunction:
             self.stats["detects"] += 1
         self.stats["detect_seconds"] += time.perf_counter() - t1
         entry = CompiledEntry(gm, report, tensor_pos, out_spec[-1],
-                              pins=pins, cache_key=key)
+                              pins=pins, cache_key=key,
+                              grad_inputs=tuple(leaves[i].requires_grad
+                                                for i in tensor_pos))
+        self._reset_bake(entry)
         complete = len(pins) == len(report.matches)
         # a served record with complete pins never re-persists; one whose
         # pins were dropped re-persists once this process resolves them
@@ -332,6 +360,16 @@ class LilacFunction:
         if served is not None and pins and complete:
             entry.joint_done, entry.joint = True, joint
         return entry
+
+    def _reset_bake(self, entry: CompiledEntry) -> None:
+        """Clear the entry's refusal to bake, except the standing one of an
+        entry whose calls carry gradients: a replay records no autograd
+        graph."""
+        entry.no_bake = any(entry.grad_inputs)
+        entry.bake_error = None if not entry.no_bake else (
+            "carries gradients (an input requires grad): runs the "
+            + ("rewritten graph" if self.mode == "trace" else "interpreter")
+            + " with autograd through the harnesses, never a plan")
 
     @staticmethod
     def _unwrap(flat) -> List[Any]:
@@ -367,6 +405,13 @@ class LilacFunction:
         containment disables."""
         joint_moves = 0
         contain = self._containment(entry)
+        grad = any(entry.grad_inputs)
+
+        def ctx_factory(m):
+            ctx = self._ctx_factory(m)
+            ctx.differentiable = grad
+            return ctx
+
         while True:
             matches = entry.enabled()
             selections, schedules, fuses = [], [], []
@@ -381,7 +426,7 @@ class LilacFunction:
             try:
                 entry.rewritten = rewrite_graph(
                     entry.gm, matches, self._selector(entry),
-                    self._ctx_factory, on_select=on_select,
+                    ctx_factory, on_select=on_select,
                     needed=entry.needed_for(matches), contain=contain)
             except R.ReferenceFallback as rf:
                 self._disable(entry, rf)
@@ -615,7 +660,7 @@ class LilacFunction:
             if got is not None:
                 self._note_hot(plan)
                 return self._serve(plan, got, flat, spec)
-        if self.mode == "trace":
+        if self.mode == "trace" and not any(map(_func_wrapped, tensors)):
             outs = list(entry.rewritten(*tensors))
             self.last_selections = list(entry.selections)
             self.last_schedules = list(entry.schedules)
@@ -647,8 +692,7 @@ class LilacFunction:
         entry.persisted = False
         entry.joint_done = False
         entry.joint = None
-        entry.no_bake = False
-        entry.bake_error = None
+        self._reset_bake(entry)
         self._drop_plan(entry)
         pc = self._plan_cache
         if pc is not None and entry.cache_key is not None:
@@ -878,8 +922,7 @@ class LilacFunction:
         of each signature records and bakes again."""
         for entry in self._compiled.values():
             entry.plan = None
-            entry.no_bake = False
-            entry.bake_error = None
+            self._reset_bake(entry)
             entry.rebakes = 0
         self._last_plan = None
         self._hot_plans.clear()

@@ -34,8 +34,13 @@ source with no version counter (an inference tensor) is guarded by its
 :func:`~repro_torch.core.marshal.checksum` as well, one pass on the card
 each call, since no version moves when it is written.  A
 ``TrackedArray`` operand is guarded by its version too.  A leaf that is a
-fake or functional tensor, a tensor subclass, or one that requires grad
-never hits a plan (autograd through the kernels is not ported).
+fake or functional tensor, a tensor subclass, a ``torch.func`` wrapper or
+one that requires grad never hits a plan: a replay records no autograd
+graph, so a call that carries gradients runs the interpreter (host mode)
+or the rewritten graph (trace mode), where autograd sees the harnesses
+(``rewrite.call_harness``), and its entry is never baked (``plan_info()``
+says so).  A compiled gradient (``lilac.compile(torch.func.grad(f))``)
+traces to a plain graph and bakes like any other.
 
 **The CUDA graph.**  The capture reads the caller's own tensors at the
 guarded positions, so the matrix is never copied per call.  A leaf the
@@ -544,14 +549,16 @@ class _ConstGuard:
 
 def leaf_templates(flat) -> Tuple:
     """The per-leaf keying shared by every dispatch layer: a tensor (or a
-    TrackedArray's tensor) keys as ``("t", shape, dtype, device)``; any
+    TrackedArray's tensor) keys as ``("t", shape, dtype, device,
+    requires_grad)``; any
     other leaf by its type and value, since the trace bakes Python values
     into the graph.  The compile-dict key, the last-entry fast path and a
     plan's guard templates all derive from this function."""
     out = []
     for a in map(unwrap, flat):
         if isinstance(a, torch.Tensor):
-            out.append(("t", tuple(a.shape), a.dtype, a.device))
+            out.append(("t", tuple(a.shape), a.dtype, a.device,
+                        a.requires_grad))
         else:
             out.append(("py", type(a), a))
     return tuple(out)
@@ -565,7 +572,8 @@ def leaves_match(templates: Tuple, flat) -> bool:
     for t, a in zip(templates, map(unwrap, flat)):
         if t[0] == "t":
             if (not isinstance(a, torch.Tensor) or a.shape != t[1]
-                    or a.dtype != t[2] or a.device != t[3]):
+                    or a.dtype != t[2] or a.device != t[3]
+                    or a.requires_grad != t[4]):
                 return False
         elif type(a) is not t[1] or a != t[2]:
             return False
@@ -574,9 +582,11 @@ def leaves_match(templates: Tuple, flat) -> bool:
 
 def plain_tensor(x) -> bool:
     """A tensor a plan may serve: a plain ``torch.Tensor`` (not fake, not
-    functional, not a subclass) that does not require grad."""
+    functional, not a subclass, not a ``torch.func`` wrapper) that does not
+    require grad."""
     return (type(x) is torch.Tensor and not x.requires_grad
-            and not torch._is_functional_tensor(x))
+            and not torch._is_functional_tensor(x)
+            and not torch._C._functorch.is_functorch_wrapped_tensor(x))
 
 
 def _closure(gm: GraphModule, nodes) -> set:

@@ -12,6 +12,23 @@ the rest.  Two realizations, one per mode:
   counterpart of evaluating the rewritten jaxpr under ``jax.jit``.  A
   jit-safe CUDA harness appears in it as one node of its custom op
   (``torch.ops.lilac_torch.*``), a plain-torch harness as its aten ops.
+
+**Differentiation** (docs/transforms.md).  A call whose binding holds a
+tensor that requires grad (under ``.backward()`` or ``torch.func.grad``)
+runs its harness with the detected epilogue unfused: the kernel without
+it, ``apply_epilogue`` after it, where autograd sees the bias and the
+activation.  Run on real tensors (the interpreter), a harness with a
+``vjp`` clause runs inside one ``torch.autograd.Function`` per call
+(:class:`HarnessCall`) whose backward is the clause's body; only the
+binding values that require grad are its inputs, everything else stays
+captured, so marshal sources still fingerprint.  Traced into a graph, the
+harness appears as its aten ops or its custom op, whose
+``torch.library.register_autograd`` formula is the same body (such a
+formula serves ``.backward()``; ``torch.library`` gives it no
+``setup_context`` for ``torch.func``, so a ``torch.func`` call of a
+trace-mode function runs the interpreter).  A harness that would lose a
+gradient raises ``ValueError`` naming the key; a gradient is never
+silently ``None`` or zero.
 """
 from __future__ import annotations
 
@@ -22,7 +39,7 @@ import torch
 from torch.fx import GraphModule, Node
 from torch.fx.node import map_arg
 
-from repro_torch.core.detect import Match, normalize_graph
+from repro_torch.core.detect import Match, normalize_graph, own_trace
 from repro_torch.core.harness import CallCtx, Harness
 from repro_torch.kernels.common import apply_epilogue_inregister
 
@@ -138,10 +155,123 @@ def _eval_anchor(m: Match, env, select, ctx_factory, on_select,
     return _coerce(out, m.anchor)
 
 
+def _live(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.requires_grad
+
+
+def differentiating(binding: Dict[str, Any]) -> bool:
+    """Whether a call must carry gradients: grad mode is on and a binding
+    value requires grad (a ``torch.func.grad`` input does too)."""
+    return torch.is_grad_enabled() and any(map(_live, binding.values()))
+
+
+def _traced(binding: Dict[str, Any]) -> bool:
+    """Whether the call is being traced into a graph (fake values): the
+    graph then holds the harness's own ops, not a Python Function."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return any(is_fake(v) for v in binding.values()
+               if isinstance(v, torch.Tensor))
+
+
+def _plain(v):
+    """A ``torch.func`` wrapper of a value that does not require grad,
+    unwrapped to the tensor it holds: a repack may read its data."""
+    from torch._C import _functorch as F
+
+    while isinstance(v, torch.Tensor) and not v.requires_grad \
+            and F.is_functorch_wrapped_tensor(v):
+        v = F.get_unwrapped(v)
+    return v
+
+
+class HarnessCall(torch.autograd.Function):
+    """One harness call with a ``vjp`` clause as an autograd node:
+    ``forward`` runs the harness, ``backward`` the clause's body.  A
+    separate ``setup_context`` lets ``torch.func.grad`` / ``vjp`` compose
+    with it, not only ``.backward()``."""
+
+    @staticmethod
+    def forward(run, pull, *dv):
+        return run(*dv)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.pull = inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (None, None) + ctx.pull(ctx.saved_tensors, ct)
+
+
+def _call_with_vjp(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
+                   live: List[str]):
+    """``h`` inside a :class:`HarnessCall` over the binding values in
+    ``live`` (those that require grad; all must be named by its clause, or
+    this raises)."""
+    from repro_torch.core.spec import VJPS
+
+    clause = h.vjp
+    wrt = tuple(k for k in clause.wrt if k in live)
+    stray = [k for k in live if k not in wrt]
+    if stray:
+        raise ValueError(
+            f"harness {h.name!r}: {stray} require grad but its clause "
+            f"{clause} does not differentiate them")
+    body = VJPS[clause.name]
+    nondiff = {k: _plain(v) for k, v in binding.items() if k not in wrt}
+
+    def run(*dv):
+        b = dict(nondiff)
+        b.update(zip(wrt, (d.detach() for d in dv)))
+        return h(b, ctx)
+
+    def pull(saved, ct):
+        b = {k: v for k, v in binding.items() if k not in wrt}
+        b.update(zip(wrt, saved))
+        grads = body(b, ctx, None, ct)
+        missing = [k for k in wrt if grads.get(k) is None]
+        if missing:
+            raise ValueError(
+                f"vjp {clause.name!r} returned no gradient for {missing} "
+                f"(declared wrt: {list(clause.wrt)})")
+        return tuple(grads[k].to(d.dtype) for k, d in zip(wrt, saved))
+
+    return HarnessCall.apply(run, pull, *(binding[k] for k in wrt))
+
+
+def _call_differentiable(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
+                         epilogue: Optional[str]):
+    """The call under differentiation: the epilogue unfused (the kernel
+    runs without it); on real tensors the clause's Function, else (no
+    clause, or traced into a graph) autograd through the harness: its aten
+    ops or its custom op's formula."""
+    if ctx.epilogue is not None:
+        ctx = dataclasses.replace(ctx, epilogue=None)
+    live = [k for k, v in binding.items()
+            if _live(v) and not (k == "bias" and epilogue is not None)]
+    if h.vjp is not None and not _traced(binding):
+        out = _call_with_vjp(h, binding, ctx, live) if live \
+            else h({k: _plain(v) for k, v in binding.items()}, ctx)
+    else:
+        out = h(binding, ctx)
+        if live and not (isinstance(out, torch.Tensor) and out.requires_grad):
+            raise ValueError(
+                f"harness {h.name!r} returned no gradient for {live}: its "
+                f"body leaves autograd; declare a vjp clause")
+    if epilogue is not None:
+        out = apply_epilogue(out, binding.get("bias"), epilogue)
+    return out
+
+
 def call_harness(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
                  epilogue: Optional[str]):
     """One harness call with the detected ``epilogue`` realized as the
-    call's fusion decision says: in the kernel, or after the call."""
+    call's fusion decision says: in the kernel, or after the call; under
+    differentiation always after it."""
+    if ctx.differentiable or differentiating(binding):
+        return _call_differentiable(h, binding, ctx, epilogue)
     fused = effective_fuse(h, ctx)
     if epilogue is not None and not fused and h.fuse_epilogue \
             and ctx.epilogue is not None:
@@ -172,7 +302,9 @@ def rewrite_graph(gm: GraphModule,
                   needed: Optional[frozenset] = None,
                   contain: Optional[Callable] = None) -> GraphModule:
     """Trace mode: the rewritten program as a new ``GraphModule`` with the
-    traced graph's placeholders and outputs.
+    traced graph's placeholders and outputs.  A graph for calls that carry
+    gradients is traced with ``ctx.differentiable`` set: its harnesses
+    appear as they run under differentiation (epilogues unfused).
 
     Every match selects once, here, on the traced (fake) values of its
     binding — the autotuner, under ``policy='autotune'``, measures then —
@@ -211,6 +343,7 @@ def rewrite_graph(gm: GraphModule,
                              contain=contain)
 
     fakes = [n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
-    out = make_fx(functionalize(interpret, remove="mutations_and_views"),
-                  tracing_mode="fake", _allow_non_fake_inputs=True)(*fakes)
+    with own_trace():
+        out = make_fx(functionalize(interpret, remove="mutations_and_views"),
+                      tracing_mode="fake", _allow_non_fake_inputs=True)(*fakes)
     return normalize_graph(out)

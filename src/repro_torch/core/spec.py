@@ -16,10 +16,13 @@ HARNESS block and a kernel body; this module does the rest:
 ``tune`` and ``constraint`` clauses declare a harness's schedule space:
 the constraint-filtered variants, default first, are enumerated when the
 harness registers, and the selected variant reaches the kernel body as
-keyword arguments.  Not ported yet: persistence hooks
-(BeforeFirstExecution / AfterLastExecution / persistent) and ``vjp``
-backward bodies, which come with the plan layer and with training; a
-HARNESS block that declares one is refused.
+keyword arguments.  A ``vjp <name>(<wrt>)`` clause names a backward body
+registered with ``@vjp(name)`` (the builtin ones are
+``harness.BUILTIN_VJPS``): the rewriter runs such a harness inside one
+``torch.autograd.Function`` whose backward is that body
+(``rewrite.call_harness``).  Not ported: persistence hooks
+(BeforeFirstExecution / AfterLastExecution / persistent); a HARNESS block
+that declares one is refused.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ class SpecError(ValueError):
 
 
 REPACKS: Dict[str, Callable[[H.Binding], Any]] = {}
+VJPS: Dict[str, Callable] = {}
 
 
 def repack(name: str, *, override: bool = False):
@@ -48,6 +52,29 @@ def repack(name: str, *, override: bool = False):
         REPACKS[name] = fn
         return fn
     return deco
+
+
+def vjp(name: str, *, override: bool = False):
+    """Register a backward body so ``vjp <name>(wrt...)`` clauses can refer
+    to it.  Its signature::
+
+        bwd(binding, ctx, primal_out, cotangent) -> {wrt_key: grad, ...}
+
+    It runs in autograd's backward pass (or under ``torch.func``), so it is
+    plain torch on the cotangent, the wrt binding values and whatever index
+    structure the binding holds.  It must return a gradient for every
+    declared wrt key that requires one."""
+    def deco(fn):
+        if name in VJPS and VJPS[name] is not fn and not override:
+            raise SpecError(f"vjp {name!r} is already registered")
+        VJPS[name] = fn
+        return fn
+    return deco
+
+
+# The builtin backward bodies enter the registry at import, so any HARNESS
+# block (builtin spec text or kernel package) can cite them.
+VJPS.update(H.BUILTIN_VJPS)
 
 
 # ---------------------------------------------------------------------------
@@ -121,9 +148,6 @@ def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
     if decl.before_first or decl.after_last or decl.persistent:
         raise SpecError(f"harness {decl.name!r}: persistence hooks are not "
                         f"supported by this package yet")
-    if decl.vjp is not None:
-        raise SpecError(f"harness {decl.name!r}: vjp clauses are not "
-                        f"supported by this package yet")
     # Enumerate the schedule family now: a tune/constraint mistake (a
     # constraint that cannot be evaluated, or one that prunes the default
     # schedule) fails at registration, not mid-sweep inside the autotuner.
@@ -143,7 +167,7 @@ def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
                   platforms=decl.platforms, formats=decl.formats,
                   marshal=decl.marshal, tune=decl.tune,
                   constraints=decl.constraints,
-                  fuse_epilogue=decl.fuse_epilogue,
+                  fuse_epilogue=decl.fuse_epilogue, vjp=decl.vjp,
                   _schedules=schedules or None)
         for comp in decl.implements
     ]
@@ -182,6 +206,12 @@ def register_spec(spec: Union[str, W.Spec], bodies: Dict[str, Callable], *,
             raise SpecError(
                 f"no kernel body bound for HARNESS {decl.name!r} "
                 f"(bodies has {sorted(bodies)})")
+        if decl.vjp is not None and decl.vjp.name not in VJPS:
+            # like a repack: a misspelt backward fails at registration,
+            # not the first time someone differentiates
+            raise SpecError(
+                f"HARNESS {decl.name!r}: unknown vjp {decl.vjp.name!r} "
+                f"(register it with @vjp before the harness)")
         for cl in decl.marshal:
             if cl.repack not in REPACKS:
                 raise SpecError(

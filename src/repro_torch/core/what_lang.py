@@ -331,10 +331,9 @@ def _eval_expr(e: Expr, env: Dict[str, Any]):
 @dataclasses.dataclass(frozen=True)
 class VjpClause:
     """``vjp <name>(<wrt>)``: the harness is differentiable with the
-    registered backward body ``name``, with respect to the listed binding
-    keys.  The clause parses here; the spec compiler of this package does
-    not register backward bodies yet (training is a later slice) and
-    refuses a harness that declares one."""
+    registered backward body ``name`` (``spec.vjp``), with respect to the
+    listed binding keys: the rewriter runs the call inside one
+    ``torch.autograd.Function`` whose backward is that body."""
     name: str
     wrt: Tuple[str, ...]
 
@@ -845,21 +844,27 @@ HARNESS torch.ell implements spmv_csr, spmv_coo
   formats CSR, COO;
   host_only;
   marshal ell = ell_pack(a, colidx, rowstr|rowidx) from csr_binding to ELL8;
+  vjp spmv_csr_bwd(a, iv);
 
 HARNESS torch.bcsr implements spmv_csr, spmv_coo
   formats CSR, COO;
   host_only;
   marshal bcsr = bcsr_pack(a, colidx, rowstr|rowidx)
       from csr_binding to BCSR8x128;
+  vjp spmv_csr_bwd(a, iv);
 
 HARNESS torch.dense implements spmv_csr, spmv_coo
   formats CSR, COO;
   host_only;
   marshal dense = densify(a, colidx, rowstr|rowidx)
       from csr_binding to DENSE;
+  vjp spmv_csr_bwd(a, iv);
 """
 # delta[rowidx[j]] denotes the i==rowidx[j] indicator; the generated matcher
-# realizes it as the scatter-add-by-row skeleton (see detect.py).
+# realizes it as the scatter-add-by-row skeleton (see detect.py).  The
+# marshaling harnesses repack the matrix's values outside autograd, so each
+# declares the CSR backward (the reference's jnp.* blocks declare none):
+# without it the gradient of ``a`` would be lost.
 
 BUILTIN_SPECS["spmv_padded"] = """
 COMPUTATION spmv_ell
@@ -896,6 +901,7 @@ HARNESS torch.bcsr implements spmm_csr
   host_only;
   marshal bcsr = bcsr_pack_mm(a, colidx, rowstr|rowidx)
       from csr_binding_mm to BCSR8x128;
+  vjp spmm_csr_bwd(a, dense);
 """
 
 BUILTIN_SPECS["dotproduct"] = """

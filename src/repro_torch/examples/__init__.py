@@ -5,8 +5,11 @@
     python -m repro_torch.examples.cg_solver
     python -m repro_torch.examples.pagerank
     python -m repro_torch.examples.bfs
+    python -m repro_torch.examples.train_sparse_moe
+    python -m repro_torch.examples.train_e2e
 
-(with ``src`` on ``PYTHONPATH``).  Each takes ``--policy
-{default,autotune,<harness>}`` and ``--device`` (default ``cuda``; pass
-``--device cpu`` to run the kernels' plain versions on the CPU).
+(with ``src`` on ``PYTHONPATH``).  The SpMV examples take ``--policy
+{default,autotune,<harness>}``; every example takes ``--device`` (default
+``cuda``; pass ``--device cpu`` to run the kernels' plain versions on the
+CPU).
 """

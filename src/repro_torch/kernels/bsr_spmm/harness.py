@@ -12,8 +12,10 @@ tiles' row starts weigh more than their ~26 entries each).  The
 reference's ``tune`` and ``constraint`` clauses sweep its VMEM tile
 widths and Mosaic's ``dimsem``; the CUDA kernel's wrapper takes no launch
 parameter, so these blocks declare no ``tune`` clause (the autotuner
-still chooses between harnesses).  ``vjp`` waits for a backward pass.
-``fuse epilogue``: the kernel applies a detected ``(+bias) -> relu|silu``
+still chooses between harnesses).  ``vjp``: the kernel has no backward;
+the blocks name the reference's plain backward bodies (``spmv_csr_bwd``,
+``spmm_csr_bwd``), run in one ``torch.autograd.Function`` per call with
+the epilogue unfused.  ``fuse epilogue``: the kernel applies a detected ``(+bias) -> relu|silu``
 before its single store.
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ HARNESS cuda.bcsr implements spmv_csr, spmv_coo
   marshal bcsr = bcsr_pack128(a, colidx, rowstr|rowidx)
       from csr_binding to BCSR128x128;
   fuse epilogue;
+  vjp spmv_csr_bwd(a, iv);
 """)
 def spmv_bcsr_cuda_host(b, ctx, *, bcsr):
     """The vector is the kernel's one-column dense operand: the kernel's
@@ -53,6 +56,7 @@ HARNESS cuda.bcsr implements spmm_csr
   marshal bcsr = bcsr_pack_mm128(a, colidx, rowstr|rowidx)
       from csr_binding_mm to BCSR128x128;
   fuse epilogue;
+  vjp spmm_csr_bwd(a, dense);
 """)
 def spmm_bcsr_cuda_host(b, ctx, *, bcsr):
     """The detected bias adds to the (rows, N) product by broadcasting, so

@@ -11,7 +11,11 @@ whatever tm is (tm = 64 leaves half its rows unused, tm = 256 spans two
 CTAs), so tm moves the padding and the tile-expert map, not a row's sum:
 every variant computes the same bits, and no shared-memory constraint
 depends on it.  The reference's ``fn``/``dk``/``dimsem`` clauses are its
-VMEM tiles and Mosaic's; ``vjp`` waits for a backward pass.
+VMEM tiles and Mosaic's.  ``vjp moe_ffn_bwd``: K4 has no backward; the
+body recomputes the capacity-bucket dispatch under ``torch.func.vjp`` at
+a capacity no expert's load exceeds (the forward drops nothing, so
+neither does its gradient), and ``lilac_torch::moe_ffn`` carries it as its autograd
+formula (the route trace mode takes).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.kernels.moe_gmm.ops import moe_ffn_op
 HARNESS cuda.gmm implements moe_ffn
   default_for cuda;
   tune tm in {128, 64, 256};
+  vjp moe_ffn_bwd(x, gate, wg, wu, wd);
 """)
 def moe_gmm_cuda(b, ctx, *, tm):
     return moe_ffn_op(b["x"], b["gate"], b["idx"], b["wg"], b["wu"],

@@ -11,7 +11,10 @@ doing ~E/K times less matmul work.  The gated combine stays plain torch
 which the ``cuda.gmm`` harness appears in a trace-mode graph: its shapes
 are static (``Tp`` is the worst case), it mutates no input and it needs
 no host sync, so ``make_fx``, ``torch.compile`` and CUDA-graph capture
-pass through it.
+pass through it.  Its autograd formula (``register_autograd``) is the
+``vjp`` clause's body, ``harness.BUILTIN_VJPS["moe_ffn_bwd"]``: the
+capacity-bucket dispatch recomputed under ``torch.func.vjp`` at a capacity
+no expert's load exceeds, nothing dropped (K4 has no backward).
 """
 from __future__ import annotations
 
@@ -80,7 +83,7 @@ def moe_ffn(x: torch.Tensor,      # (T, D)
     u = gmm_cuda(xs, wu, tile_expert, tm=tm)
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
     y = gmm_cuda(h, wd, tile_expert, tm=tm)   # (Tp, D)
-    contrib = y[dest] * gate.reshape(-1).float()[:, None]
+    contrib = y[dest] * gate.reshape(-1).to(y.dtype)[:, None]
     # a token's K pairs are consecutive rows: sum them in a fixed order (an
     # index_add_ on the card adds them atomically in whatever order the
     # threads land, and a call would not repeat its own bits)
@@ -98,6 +101,23 @@ def moe_ffn_op(x: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
 @moe_ffn_op.register_fake
 def _moe_ffn_fake(x, gate, idx, wg, wu, wd, tm):
     return torch.empty_like(x)
+
+
+def _moe_ffn_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:6])
+
+
+def _moe_ffn_backward(ctx, ct):
+    from repro_torch.core.harness import BUILTIN_VJPS
+
+    x, gate, idx, wg, wu, wd = ctx.saved_tensors
+    b = {"x": x, "gate": gate, "idx": idx, "wg": wg, "wu": wu, "wd": wd,
+         "experts": wg.shape[0]}
+    g = BUILTIN_VJPS["moe_ffn_bwd"](b, None, None, ct)
+    return g["x"], g["gate"], None, g["wg"], g["wu"], g["wd"], None
+
+
+moe_ffn_op.register_autograd(_moe_ffn_backward, setup_context=_moe_ffn_setup)
 
 
 def moe_ffn_oracle(x, gate, idx, wg, wu, wd):

@@ -15,17 +15,18 @@ import torch
 def gmm_ref(xs: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
             tm: int) -> torch.Tensor:
     """Group-aligned grouped matmul: (Tp, F) f32, row i = xs[i] @
-    w[tile_expert[i // tm]], in f32.  Expert ids follow the reference's
+    w[tile_expert[i // tm]], in f32 (in f64 for f64 operands).  Expert ids follow the reference's
     (JAX's) indexing rule, as the kernel does: a negative id counts from
     the end, then ids are clamped into [0, E)."""
     tp, E = xs.shape[0], w.shape[0]
     te = tile_expert.long()
     row_expert = torch.where(te < 0, te + E, te).clamp(0, E - 1)
     row_expert = row_expert.repeat_interleave(tm)[:tp]
-    out = torch.zeros((tp, w.shape[2]), dtype=torch.float32, device=xs.device)
+    dt = torch.promote_types(xs.dtype, torch.float32)   # f64 stays f64
+    out = torch.zeros((tp, w.shape[2]), dtype=dt, device=xs.device)
     for e in torch.unique(row_expert).tolist():
         rows = torch.nonzero(row_expert == e).reshape(-1)
-        out[rows] = xs[rows].float() @ w[e].float()
+        out[rows] = xs[rows].to(dt) @ w[e].to(dt)
     return out
 
 

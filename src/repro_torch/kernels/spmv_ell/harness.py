@@ -26,6 +26,12 @@ and 128), and larger slabs only unbalance the CTAs.  The staged body and K2 take
 parameter, so the CSR/COO block declares none: the autotuner chooses
 between harnesses there.  The reference's ``dimsem`` clauses are
 Mosaic's and have no counterpart.
+
+``vjp``: the kernels have no backward; each block names the reference's
+plain backward body (``harness.BUILTIN_VJPS``).  A host-mode call under
+differentiation runs inside one ``torch.autograd.Function`` with that
+body, its epilogue unfused; in trace mode ``lilac_torch::spmv_ell``
+carries the same body as its autograd formula.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ HARNESS cuda.ell implements spmv_ell, spmv_jds
   default_for cuda;
   fuse epilogue;
   tune rows_per_slab in {32};
+  vjp spmv_ell_bwd(val, vector);
 """)
 def spmv_ell_cuda(b, ctx, *, rows_per_slab):
     """Direct ELL/JDS match -> K1's direct body on the user's arrays."""
@@ -69,6 +76,7 @@ HARNESS cuda.ell implements spmv_csr, spmv_coo
   marshal ell = ell_pack128(a, colidx, rowstr|rowidx)
       from csr_binding to ELL128;
   fuse epilogue;
+  vjp spmv_csr_bwd(a, iv);
 """)
 def spmv_ell_cuda_host(b, ctx, *, ell):
     """CSR/COO match -> the marshaled layout (kept on the card) -> K1's

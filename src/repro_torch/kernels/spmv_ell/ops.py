@@ -17,7 +17,11 @@ padding sets the launch grid and copies nothing.
 (with a fake kernel that gives its output's shape and dtype), the form in
 which the direct ELL/JDS harness appears in a trace-mode graph: it does
 not mutate its inputs and needs no host sync, so ``make_fx``,
-``torch.compile`` and CUDA-graph capture pass through it.
+``torch.compile`` and CUDA-graph capture pass through it.  Its autograd
+formula is the ``vjp`` clause's body (``harness.BUILTIN_VJPS
+["spmv_ell_bwd"]``) behind the derivative of a fused epilogue, recomputed
+from the pre-activation (the rewriter unfuses the epilogue under
+differentiation, so a rewritten graph reaches it only without one).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.common import apply_epilogue_inregister
+from repro_torch.kernels.spmv_ell.ref import acc_dtype
 from repro_torch.kernels.spmv_ell.kernel import (STAGE_BYTES, spmv_ell_cuda,
                                                  spmv_ell_staged_cuda,
                                                  spmv_ell_windowed_cuda)
@@ -73,7 +78,7 @@ def spmv_ell(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
                        out_rows=out_rows)
         return apply_epilogue_inregister(out, bias, epilogue)
     if bias is not None:
-        bias = bias.float().contiguous()
+        bias = bias.to(acc_dtype(val.dtype)).contiguous()
     if vec.shape[0] <= RESIDENT_VEC_LIMIT:
         rows_per_slab, _ = slab_geometry(rows, rows_per_slab)
         return spmv_ell_cuda(val, col, vec, bias=bias, perm=perm,
@@ -103,7 +108,44 @@ def spmv_ell_op(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
 def _spmv_ell_fake(val, col, vec, bias, perm, out_rows, epilogue,
                    rows_per_slab):
     return val.new_empty((_out_rows(val, perm, out_rows),),
-                         dtype=torch.float32)
+                         dtype=acc_dtype(val.dtype))
+
+
+def _spmv_ell_setup(ctx, inputs, output):
+    val, col, vec, bias, perm, out_rows, epilogue, rows_per_slab = inputs
+    ctx.save_for_backward(val, col, vec, bias, perm)
+    ctx.args = (out_rows, epilogue, rows_per_slab)
+
+
+def _spmv_ell_backward(ctx, ct):
+    from repro_torch.core.harness import BUILTIN_VJPS
+
+    val, col, vec, bias, perm = ctx.saved_tensors
+    out_rows, epilogue, rows_per_slab = ctx.args
+    dz = ct
+    if epilogue in ("relu", "silu"):
+        z = spmv_ell_op(val, col, vec, bias, perm, out_rows, None,
+                        rows_per_slab)
+        if epilogue == "relu":
+            dz = ct * (z >= 0)          # torch.clamp_min's derivative
+        else:
+            sg = torch.sigmoid(z)
+            dz = ct * (sg * (1 + z * (1 - sg)))
+    b = {"val": val, "col_ind": col, "vector": vec,
+         "perm": None if perm is None else perm.long()}
+    g = BUILTIN_VJPS["spmv_ell_bwd"](b, None, None, dz)
+    dbias = None
+    if bias is not None and ctx.needs_input_grad[3]:
+        # a row that no perm entry names is stored as 0, bias or not
+        dbias = dz if perm is None else torch.zeros_like(dz).index_copy_(
+            0, perm.long(), dz[perm.long()])
+        dbias = dbias.to(bias.dtype)
+    return (g["val"].to(val.dtype), None, g["vector"].to(vec.dtype), dbias,
+            None, None, None, None)
+
+
+spmv_ell_op.register_autograd(_spmv_ell_backward,
+                              setup_context=_spmv_ell_setup)
 
 
 def _out_rows(val, perm, out_rows: Optional[int]) -> int:

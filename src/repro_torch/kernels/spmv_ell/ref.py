@@ -16,10 +16,17 @@ from repro_torch.kernels.common import apply_epilogue_inregister
 from repro_torch.sparse.formats import SLAB, WindowedELL
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation and output dtype: f32, or f64 for f64 operands
+    (the plain versions only; the kernels take f32 and bf16)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def spmv_ell_ref(val: torch.Tensor, col: torch.Tensor,
                  vec: torch.Tensor) -> torch.Tensor:
     """out[i] = sum_j val[i, j] * vec[col[i, j]]  (padding: val==0)."""
-    return torch.sum(val.float() * vec.float()[col.long()], dim=1)
+    dt = acc_dtype(val.dtype)
+    return torch.sum(val.to(dt) * vec.to(dt)[col.long()], dim=1)
 
 
 def spmv_ell_windowed_ref(layout: WindowedELL,
@@ -51,7 +58,7 @@ def _store(acc: torch.Tensor, bias, perm, out_rows: Optional[int],
         return apply_epilogue_inregister(acc, bias, epilogue)
     rows = acc.shape[0] if out_rows is None else out_rows
     p = perm.long()
-    out = torch.zeros(rows, dtype=torch.float32, device=acc.device)
+    out = torch.zeros(rows, dtype=acc.dtype, device=acc.device)
     b = None if bias is None else bias[p]
     out[p] = apply_epilogue_inregister(acc, b, epilogue)
     return out

@@ -23,6 +23,11 @@ Library implementers (spec + function = a new backend)::
     ''')
     def mylib_spmv(binding, ctx, *, packed):
         return mylib.spmv(packed, binding["iv"])
+
+A ``vjp spmv_csr_bwd(a, iv);`` clause in that block makes the harness
+differentiable: its calls then run inside one ``torch.autograd.Function``
+whose backward is the named body (``@lilac.vjp(name)`` registers one), so
+``.backward()`` and ``torch.func.grad`` reach ``a`` and ``iv``.
 """
 from repro_torch.core import faults
 from repro_torch.core.autotune import Autotuner, AutotuneCache
@@ -44,9 +49,9 @@ from repro_torch.core.resilience import (Containment, ContainmentStats,
                                          reset_shared_quarantine,
                                          shared_quarantine)
 from repro_torch.core.rewrite import apply_epilogue
-from repro_torch.core.spec import (REPACKS, SpecError, build_harnesses,
+from repro_torch.core.spec import (REPACKS, VJPS, SpecError, build_harnesses,
                                    harness, register_builtins, register_spec,
-                                   repack)
+                                   repack, vjp)
 from repro_torch.core.what_lang import (BUILTIN_SPECS, BUILTINS, Computation,
                                         Constraint, HarnessDecl, MarshalClause,
                                         ParseError, Spec, TuneClause,
@@ -57,8 +62,8 @@ __all__ = [
     # entry point
     "compile", "LilacFunction",
     # spec surface
-    "harness", "repack", "register_spec", "register_builtins",
-    "build_harnesses", "SpecError", "REPACKS",
+    "harness", "repack", "vjp", "register_spec", "register_builtins",
+    "build_harnesses", "SpecError", "REPACKS", "VJPS",
     # language
     "parse", "parse_spec", "parse_harness", "ParseError", "Spec",
     "Computation", "HarnessDecl", "MarshalClause", "TuneClause",

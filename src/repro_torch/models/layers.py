@@ -1,11 +1,16 @@
-"""Shared layers: the MoE expert FFN (naive dense dispatch, and the same
-passed through LiLAC).
+"""Shared layers: norms, rotary embedding, GQA attention, the SwiGLU MLP
+and the MoE expert FFN (naive dense dispatch, the same passed through
+LiLAC, and the capacity-bucket grouped dispatch).
 
-Counterpart of the MoE part of ``repro.models.layers``: ``moe_spec``,
-``moe_router``, ``_moe_naive_2d`` and ``moe_block`` with ``impl="naive"``
-or ``"lilac"``.  Parameters are a dict of tensors: ``moe_params`` draws
-them from a seeded ``torch.Generator``, ``moe_params_from_numpy`` takes
-the JAX package's as numpy arrays.
+Counterpart of ``repro.models.layers`` for the dense and MoE transformer.
+All functions are pure; parameters are dicts of tensors built from the
+``*_spec`` trees (``models.spec.ParamSpec``).  ``moe_spec`` /
+``moe_params`` are the MoE layer's own (shape, dtype) table and its
+seeded draw, which the kernel tests and ``chip_smoke.py`` use;
+``moe_params_from_numpy`` takes the JAX package's parameters as numpy
+arrays.  ``chunked_attention`` is the reference's online softmax over kv
+chunks as a plain loop (not ``scaled_dot_product_attention``), so that
+it computes the reference's sums.
 """
 from __future__ import annotations
 
@@ -14,6 +19,171 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.harness import one_hot
+from repro_torch.models.spec import ParamSpec
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_spec(d: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((d,), (None,), init="ones", dtype=F32)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def nonparam_layernorm(x, eps: float = 1e-5):
+    """OLMo-style non-parametric LayerNorm (no scale, no bias)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def make_norm(kind: str, d: int):
+    if kind == "rmsnorm":
+        return rmsnorm_spec(d), rmsnorm
+    if kind == "layernorm_nonparam":
+        return {}, lambda p, x: nonparam_layernorm(x)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: broadcastable to (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
+                      / half)
+    angles = positions[..., None].float() * freqs           # (..., S, half)
+    angles = angles[..., None, :]                           # (..., S, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:2 * half].float()
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    rest = x[..., 2 * half:]
+    return torch.cat([out1.to(x.dtype), out2.to(x.dtype), rest], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (online softmax over kv chunks)
+# ---------------------------------------------------------------------------
+
+def attention_spec(d_model: int, n_heads: int, n_kv: int,
+                   head_dim: int) -> Dict[str, ParamSpec]:
+    return {
+        "wq": ParamSpec((d_model, n_heads, head_dim), ("embed", "heads", None)),
+        "wk": ParamSpec((d_model, n_kv, head_dim), ("embed", "kv_heads", None)),
+        "wv": ParamSpec((d_model, n_kv, head_dim), ("embed", "kv_heads", None)),
+        "wo": ParamSpec((n_heads, head_dim, d_model), ("heads", None, "embed")),
+    }
+
+
+def _qkv(p, x, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    return rope(q, positions), rope(k, positions), v
+
+
+def chunked_attention(q, k, v, *, kv_chunk: int = 1024, q_positions=None,
+                      kv_positions=None):
+    """Memory-efficient causal attention: a loop over kv chunks carrying
+    the running (max, denominator, accumulator), so O(S * kv_chunk) logits
+    live at once instead of O(S^2).
+
+    q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) with H % KV == 0.
+    """
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / np.sqrt(dh)
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev)
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=dev)
+    nchunks = (Skv + kv_chunk - 1) // kv_chunk
+    pad = nchunks * kv_chunk - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+    qg = q.reshape(B, Sq, KV, G, dh).float()
+    m = torch.full((B, Sq, KV, G), -1e30, dtype=F32, device=dev)
+    l = torch.zeros((B, Sq, KV, G), dtype=F32, device=dev)
+    acc = torch.zeros((B, Sq, KV, G, dh), dtype=F32, device=dev)
+    for c in range(nchunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        kb, vb, pb = k[:, sl].float(), v[:, sl].float(), kv_positions[sl]
+        logits = torch.einsum("bskgd,bckd->bskgc", qg, kb) * scale
+        mask = ((pb >= 0)[None, :] & (pb[None, :] <= q_positions[:, None])
+                )[None, :, None, None, :]
+        logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        alpha = torch.exp(m - m_new)
+        probs = torch.exp(logits - m_new[..., None])
+        l = l * alpha + torch.sum(probs, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bskgc,bckd->bskgd",
+                                                     probs, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, Sq, H, dh)
+
+
+def attention_block(p, x, *, positions, kv_chunk: int = 1024):
+    q, k, v = _qkv(p, x, positions)
+    pos = positions[0] if positions.dim() > 1 else positions
+    out = chunked_attention(q, k, v, kv_chunk=kv_chunk, q_positions=pos,
+                            kv_positions=pos)
+    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
+    return {
+        "wg": ParamSpec((d_model, d_ff), ("embed", "mlp")),
+        "wu": ParamSpec((d_model, d_ff), ("embed", "mlp")),
+        "wd": ParamSpec((d_ff, d_model), ("mlp", "embed")),
+    }
+
+
+def mlp_block(p, x):
+    g = torch.einsum("bsd,df->bsf", x, p["wg"])
+    u = torch.einsum("bsd,df->bsf", x, p["wu"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+
+
+# ---------------------------------------------------------------------------
+# MoE: naive (dense dispatch), lilac (detected + rewritten), grouped
+# ---------------------------------------------------------------------------
+
+def moe_param_spec(d_model: int, d_ff: int,
+                   n_experts: int) -> Dict[str, ParamSpec]:
+    """The MoE layer's spec tree (the reference's ``moe_spec``)."""
+    return {
+        "router": ParamSpec((d_model, n_experts), ("embed", "expert"),
+                            dtype=F32),
+        "wg": ParamSpec((n_experts, d_model, d_ff), ("expert", "embed", "mlp")),
+        "wu": ParamSpec((n_experts, d_model, d_ff), ("expert", "embed", "mlp")),
+        "wd": ParamSpec((n_experts, d_ff, d_model), ("expert", "mlp", "embed")),
+    }
 
 
 def moe_spec(d_model: int, d_ff: int, n_experts: int,
@@ -64,7 +234,7 @@ def moe_router(p, x: torch.Tensor, topk: int):
     # load-balancing auxiliary loss (Switch-style)
     E = p["router"].shape[-1]
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    ce = one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
     aux = E * torch.sum(me * ce)
     return gate, idx.to(torch.int32), aux
 
@@ -73,7 +243,7 @@ def _moe_naive_2d(x, gate, idx, wg, wu, wd):
     """The canonical naive formulation — the form the LiLAC detector's
     moe_ffn matcher targets (see core/detect.py MoeMatcher)."""
     E = wg.shape[0]
-    onehot = F.one_hot(idx.long(), E).to(x.dtype)
+    onehot = one_hot(idx, E).to(x.dtype)
     combine = torch.einsum("tke,tk->te", onehot, gate.to(x.dtype))
     g = torch.einsum("td,edf->etf", x, wg)
     u = torch.einsum("td,edf->etf", x, wu)
@@ -96,18 +266,68 @@ def _lilac_moe_2d(platform: str):
     return _LILAC_MOE[platform]
 
 
-def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive"):
-    """x: (B, S, D).  Groups are sequences: the expert FFN runs once per
-    sequence, ``impl="lilac"`` through one compiled function (one trace for
-    all sequences of a shape).  Returns (out, aux_loss)."""
+def capacity(T: int, K: int, E: int, capacity_factor: float) -> int:
+    """The grouped dispatch's slots an expert (the reference's rule)."""
+    return max(4, min(int(np.ceil(T * K / E * capacity_factor)), T * K))
+
+
+def _moe_grouped_batched(x, gate, idx, wg, wu, wd,
+                         capacity_factor: float = 2.0):
+    """Capacity-bucketed grouped dispatch over groups (the leading dim):
+    compute scales with top-k instead of E.  A pair past its expert's
+    capacity is dropped, as in the reference.
+
+    x: (B, T, D); gate/idx: (B, T, K).  Returns (B, T, D)."""
+    B, T, D = x.shape
+    K = idx.shape[-1]
+    E = wg.shape[0]
+    C = capacity(T, K, E, capacity_factor)
+    TK = T * K
+    dev = x.device
+    flat_e = idx.reshape(B, TK).long()
+    flat_g = gate.reshape(B, TK)
+    onehot = one_hot(flat_e, E)                                  # (B, TK, E)
+    pos = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2,
+                       flat_e[..., None])[..., 0]                 # (B, TK)
+    keep = pos < C
+    # a dropped pair writes a row of its own past the E*C buckets
+    oob = E * C + torch.arange(TK, device=dev)[None, :]
+    slot = torch.where(keep, flat_e * C + pos, oob)
+    xtok = x.repeat_interleave(K, dim=1)                          # (B, TK, D)
+    bidx = torch.arange(B, device=dev)[:, None]
+    xb = torch.zeros((B, E * C + TK, D), dtype=x.dtype, device=dev)
+    xb = xb.index_put((bidx, slot), xtok)[:, :E * C].reshape(B, E, C, D)
+    g = torch.einsum("becd,edf->becf", xb, wg)
+    u = torch.einsum("becd,edf->becf", xb, wu)
+    h = F.silu(g.float()).to(x.dtype) * u
+    y = torch.einsum("becf,efd->becd", h, wd).reshape(B, E * C, D)
+    y = torch.cat([y, torch.zeros((B, 1, D), dtype=y.dtype, device=dev)], 1)
+    back = y[bidx, torch.where(keep, slot, E * C)]                # (B, TK, D)
+    back = torch.where(keep[..., None], back, 0)
+    contrib = back.float() * flat_g[..., None]
+    return contrib.reshape(B, T, K, D).sum(dim=2).to(x.dtype)
+
+
+def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
+              capacity_factor: float = 2.0):
+    """x: (B, S, D).  Groups are sequences: ``naive`` and ``lilac`` run
+    the expert FFN once per sequence, ``lilac`` through one compiled
+    function (one trace for all sequences of a shape); ``grouped`` runs
+    the capacity-bucket dispatch over all sequences at once, dropping a
+    pair past ``capacity_factor`` times an expert's mean load.  Returns
+    (out, aux_loss)."""
     gate, idx, aux = moe_router(p, x, topk)
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    if impl == "grouped":
+        return _moe_grouped_batched(x, gate, idx, wg, wu, wd,
+                                    capacity_factor=capacity_factor), aux
     if impl == "naive":
         fn = _moe_naive_2d
     elif impl == "lilac":
         fn = _lilac_moe_2d(x.device.type)
     else:
-        raise ValueError(f"impl must be 'naive' or 'lilac', got {impl!r}")
+        raise ValueError(f"impl must be 'naive', 'lilac' or 'grouped', "
+                         f"got {impl!r}")
     out = torch.stack([fn(x[b], gate[b], idx[b], wg, wu, wd)
                        for b in range(x.shape[0])])
     return out, aux

@@ -5,7 +5,10 @@ torch versions, with the edges of K1's direct body and K4's f32 body
 (widths off their 16-byte steps, unaligned operands, the staged prefix,
 inf under padding, zero tail rows); every declared ``tune`` value of K1
 (``rows_per_slab``) and K4 (``tm``); the custom ops captured in a CUDA
-graph; trace mode and the autotuner on the card.
+graph; trace mode and the autotuner on the card; gradients through every
+``cuda.*`` harness (their ``vjp`` clauses) and through the custom ops'
+autograd formulas against plain autograd, and ``torch.func.grad`` of a
+compiled call and of a compiled gradient.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present.  This
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -1239,3 +1242,145 @@ def test_bf16_moe_shadowed_at_rate_one_reports_no_divergence(cuda,
     want, _ = tlayers.moe_block(p, x, topk=2, impl="naive")
     assert float(torch.linalg.vector_norm((got - want).float())
                  / torch.linalg.vector_norm(want.float())) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels (vjp clauses, register_autograd formulas)
+# ---------------------------------------------------------------------------
+
+def _naive_spmv(val, col, row_ptr, v):
+    rows = row_ptr.shape[0] - 1
+    row = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                  torch.diff(row_ptr), output_size=val.shape[0])
+    out = torch.zeros(rows, dtype=val.dtype, device=val.device)
+    return out.index_add_(0, row, val * v[col])
+
+
+def _naive_spmm(val, col, row_ptr, h):
+    rows = row_ptr.shape[0] - 1
+    row = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                  torch.diff(row_ptr), output_size=val.shape[0])
+    out = torch.zeros((rows, h.shape[1]), dtype=h.dtype, device=h.device)
+    return out.index_add_(0, row, val[:, None] * h[col])
+
+
+def _grad_problem(cuda, cols=700, width=None):
+    csr = trandom.random_csr(500, cols, 0.03, seed=4, skew=1.0)
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy(rng.standard_normal(cols if width is None
+                                             else (cols, width))
+                         .astype(np.float32)).to(cuda)
+    return csr.val.to(cuda), csr.col_ind.to(cuda), csr.row_ptr.to(cuda), v
+
+
+def _grads(fn, val, col, ptr, x):
+    a, b = val.clone().requires_grad_(), x.clone().requires_grad_()
+    (fn(a, col, ptr, b) ** 2).sum().backward()
+    return a.grad, b.grad
+
+
+def _close_to_scale(got, want):
+    """Gradients as chip_smoke holds them: |got - want| <= 1e-5 * max
+    |want| + 1e-4 * |want|.  Each is an f32 sum in another order than the
+    plain program's (atomics), through forward sums that cancel in some
+    rows, so an element far below the gradient's scale carries the
+    scale's rounding."""
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,kernel", [("cuda.ell", "spmv_ell_staged"),
+                                           ("cuda.bcsr", "bsr_spmm_narrow")])
+def test_spmv_gradients_through_each_cuda_harness(cuda, policy, kernel):
+    val, col, ptr, x = _grad_problem(cuda)
+    fast = lilac.compile(_naive_spmv, mode="host", policy=policy)
+    launches = K.LAUNCHES if kernel.startswith("spmv") else K3.LAUNCHES
+    before = launches[kernel]
+    got = _grads(fast, val, col, ptr, x)
+    assert launches[kernel] == before + 1
+    assert [n for _, n in fast.last_selections] == [policy]
+    want = _grads(_naive_spmv, val, col, ptr, x)
+    _close_to_scale(got, want)
+    f = torch.func.grad(lambda v, xx: (fast(v, col, ptr, xx) ** 2).sum(),
+                        argnums=(0, 1))(val, x)
+    _close_to_scale(f, want)
+
+
+@pytest.mark.gpu
+def test_spmm_gradients_through_cuda_bcsr(cuda):
+    val, col, ptr, h = _grad_problem(cuda, width=64)
+    fast = lilac.compile(_naive_spmm, mode="host")
+    before = K3.LAUNCHES["bsr_spmm_wide"]
+    got = _grads(fast, val, col, ptr, h)
+    assert K3.LAUNCHES["bsr_spmm_wide"] == before + 1
+    assert [n for _, n in fast.last_selections] == ["cuda.bcsr"]
+    _close_to_scale(got, _grads(_naive_spmm, val, col, ptr, h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epilogue", [None, "relu", "silu"])
+def test_spmv_ell_op_formula_against_plain_autograd(cuda, epilogue):
+    """The op's formula on the kernel (K1 direct) against autograd
+    through its plain version on the same inputs."""
+    val, col, perm, vec, bias = _ell(cuda, torch.float32)
+    args = [t.clone().requires_grad_() for t in (val, vec, bias)]
+    out = ell_ops.spmv_ell_op(args[0], col, args[1], args[2], None, None,
+                              epilogue, 32)
+    (out ** 2).sum().backward()
+    ref = [t.clone().requires_grad_() for t in (val, vec, bias)]
+    (R.spmv_ell_plain(ref[0], col, ref[1], bias=ref[2],
+                      epilogue=epilogue) ** 2).sum().backward()
+    _close_to_scale([a.grad for a in args], [b.grad for b in ref])
+
+
+@pytest.mark.gpu
+def test_moe_ffn_op_formula_against_plain_autograd(cuda):
+    """K4 forward, ``moe_ffn_bwd`` backward, against autograd through the
+    dense oracle, with balanced routing (no pair past capacity)."""
+    rng = np.random.default_rng(7)
+    T, D, F, E, K = 256, 64, 32, 8, 2
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    x, gate = t(rng.standard_normal((T, D))), t(rng.random((T, K)))
+    idx = torch.from_numpy((np.arange(T * K).reshape(T, K) % E)
+                           .astype(np.int32)).to(cuda)
+    ws = [t(rng.standard_normal(s) * .1) for s in ((E, D, F), (E, D, F),
+                                                   (E, F, D))]
+    args = [a.clone().requires_grad_() for a in (x, gate, *ws)]
+    before = K4.LAUNCHES["gmm_f32"]
+    out = gmm_ops.moe_ffn_op(args[0], args[1], idx, *args[2:], 128)
+    assert K4.LAUNCHES["gmm_f32"] == before + 3
+    (out ** 2).sum().backward()
+    ref = [a.clone().requires_grad_() for a in (x, gate, *ws)]
+    (R4.moe_ffn_ref(ref[0], ref[1], idx, *ref[2:]) ** 2).sum().backward()
+    for a, b in zip(args, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_func_grad_of_compiled_call_and_compiled_grad(cuda):
+    """torch.func.grad over a compiled call (the clause's Function on the
+    unwrapped tensors) and a compiled torch.func.grad (both SpMVs
+    detected, a plan served from its third call)."""
+    val, col, ptr, x = _grad_problem(cuda)
+
+    def loss(v, c, r, xx):
+        return (_naive_spmv(v, c, r, xx) ** 2).sum()
+
+    want = torch.func.grad(loss, argnums=(0, 3))(val, col, ptr, x)
+    fast = lilac.compile(_naive_spmv, policy="cuda.ell", mode="host")
+    got = torch.func.grad(lambda v, xx: (fast(v, col, ptr, xx) ** 2).sum(),
+                          argnums=(0, 1))(val, x)
+    _close_to_scale(got, want)
+    cog = lilac.compile(torch.func.grad(loss, argnums=(0, 3)), mode="host",
+                        policy="cuda.ell")
+    for _ in range(3):
+        got = cog(val, col, ptr, x)
+    assert [(m.computation, m.format) for m in cog.last_report.matches] \
+        == [("spmv_csr", "CSR"), ("spmv_csr", "COO")]
+    assert cog.plan_info()["plan_hits"] >= 1
+    _close_to_scale(got, want)

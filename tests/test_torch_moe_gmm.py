@@ -264,7 +264,7 @@ def test_moe_block_lilac_traces_once_for_all_sequences():
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **FFN_TOL)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     with pytest.raises(ValueError):
-        tlayers.moe_block(tp, torch.from_numpy(x), topk=TOPK, impl="grouped")
+        tlayers.moe_block(tp, torch.from_numpy(x), topk=TOPK, impl="ragged")
 
 
 def test_moe_params_are_seeded():

@@ -18,9 +18,19 @@ def _port_vocabulary(spec: JW.Spec) -> JW.Spec:
     def name(n):
         return "torch." + n[4:] if n.startswith("jnp.") else n
 
+    def vjp(h):
+        # the port's marshaling blocks declare the CSR backward: their
+        # repack leaves autograd, which the reference's jnp.* blocks
+        # (differentiated by JAX through the repack) do not need
+        if h.vjp is not None or not h.marshal:
+            return h.vjp
+        if h.implements == ("spmm_csr",):
+            return JW.VjpClause("spmm_csr_bwd", ("a", "dense"))
+        return JW.VjpClause("spmv_csr_bwd", ("a", "iv"))
+
     harnesses = tuple(
         dataclasses.replace(h, name=name(h.name), platforms=plat(h.platforms),
-                            default_for=plat(h.default_for))
+                            default_for=plat(h.default_for), vjp=vjp(h))
         for h in spec.harnesses)
     return dataclasses.replace(spec, harnesses=harnesses)
 
