@@ -133,6 +133,37 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      step its CUDA-event ms, loss, grad norm and peak memory beside 3 steps
      of the naive model, and one step of each under torch.profiler (device
      time by kernel class, the top kernels, the device's idle share);
+   * serving, in a process of its own (cuBLAS's workspace fixed):
+     OLMoE-1B-7B at full width and depth (16 layers, bf16 parameters from
+     --seed, moe_decode_impl="naive_flat") in repro_torch.serve's Engine
+     (continuous batching, host-mode lilac on the decode step, baked
+     plans) over the bucket grid batch (1, 8) x seq (256, 512): prewarm
+     bakes the four signatures (seconds each), then a closed burst of 12
+     SyntheticWorkload requests (prompts 32-200, 16-64 new tokens; the
+     first workload seed from --seed whose burst needs both seq buckets)
+     runs with no detection and no bucket miss, one moe_ffn match a layer
+     on cuda.gmm in every plan and K4 launched 3 x 16 times a decode step;
+     prints TTFT, prefill and decode-step percentiles, tokens/s, peak
+     memory, each bucket's plan (CUDA graph or eager, the bytes a replay
+     copies, captures), one decode step under torch.profiler; checks each
+     MoE layer of one compiled bf16 decode step (cuda.gmm) against the
+     naive dense dispatch on the layer's own input (relative L2 2e-2),
+     and two streams teacher-forced through the compiled and the
+     uncompiled decode (bf16 against the uncompiled decode computing K4's
+     function, 2e-2; f32 against the naive one, 1e-4; the prefill's first
+     tokens equal),
+     prints each stream against a fresh engine's solo run and, where they
+     part, the step and the first operator whose row differs, and requires
+     0 divergences of the request shadow at rate 1 (replays at the batched
+     buckets); runs the burst on an uncompiled engine; under decode_raise
+     and decode_nan the poisoned slots leave with their reason and the
+     survivors' streams equal the fault-free run's; a second replica's
+     prewarm detects nothing, and replica_crash on the two-replica
+     FrontDoor loses no request, with the streams of the fault-free run;
+     shadow_diverge:request quarantines cuda.gmm and the next decode runs
+     without it; moe_ffn_ragged on K4 at 1, 7, 33 and 200 tokens and the
+     padded baseline within relative L2 2e-2 of the f32 oracle; and K4 at
+     the decode shapes (T = 1 and 8 tokens x top-8) in the kernels line;
 4. holds each kernel against its plain torch version at the paths' shapes
    (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
    at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
@@ -157,6 +188,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import difflib
 import json
 import os
 import shutil
@@ -2609,6 +2641,876 @@ def smi_line() -> str:
         text=True).stdout.strip()
 
 
+# ---------------------------------------------------------------------------
+# Serving: OLMoE-1B-7B at full width through repro_torch.serve
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_SEQ = (1, 8), (256, 512)
+SERVE_REQUESTS = 12
+SERVE_PROMPTS, SERVE_NEW = (32, 200), (16, 64)
+# the fault runs: one batch of requests that all end on the same step and
+# fit the smallest seq bucket, so every step, with a fault or without,
+# runs at (8, 256) and a survivor's row sees the shapes it sees unfaulted
+SERVE_FAULT_REQUESTS, SERVE_FAULT_NEW = 8, 24
+SERVE_FAULT_P = 0.1
+# each MoE layer of a compiled bf16 decode step (K4) against the naive
+# dense dispatch on the same input: the MoE layer's tolerance (MOE_RTOL);
+# the compiled f32 decode against the uncompiled one: f32's (PERF.md §2)
+SERVE_LOGIT_RTOL = MOE_RTOL
+SERVE_F32_RTOL = 1e-4
+SERVE_RAGGED = (1, 7, 33, 200)
+
+
+def serve_requests(cfg, seed: int, n: int = SERVE_REQUESTS,
+                   prompt=SERVE_PROMPTS, new=SERVE_NEW):
+    """A closed burst of the SyntheticWorkload (fresh Request objects)."""
+    from repro_torch.serve import SyntheticWorkload
+
+    return [r for _, r in SyntheticWorkload(
+        n_requests=n, vocab=cfg.vocab, prompt_len=prompt, new_tokens=new,
+        seed=seed).requests()]
+
+
+def serve_seed(cfg, seed: int, policy, n: int = SERVE_REQUESTS) -> int:
+    """The first workload seed from ``seed`` on (in steps of 1,000) whose
+    burst needs both seq buckets: at SERVE_PROMPTS and SERVE_NEW a request
+    needs at most 264 positions, so most bursts of 12 fit 256."""
+    s = seed
+    while not any(r.prompt_len + r.max_new_tokens > policy.seq[0]
+                  for r in serve_requests(cfg, s, n)):
+        s += 1000
+    return s
+
+
+def fault_requests(cfg, seed: int, policy, replicas: int = 2,
+                   n: int = SERVE_FAULT_REQUESTS):
+    """``n`` requests of SERVE_FAULT_NEW tokens within the smallest seq
+    bucket, with rids that a ``replicas``-way FrontDoor routes evenly (so
+    each replica batches at least two, at the largest batch bucket)."""
+    from repro_torch.serve import FrontDoor, Request
+
+    hi = min(SERVE_PROMPTS[1], policy.seq[0] - SERVE_FAULT_NEW)
+    base = serve_requests(cfg, seed + 29, n, (SERVE_PROMPTS[0], hi),
+                          (SERVE_FAULT_NEW, SERVE_FAULT_NEW))
+    rids, want = [], {k: n // replicas for k in range(replicas)}
+    rid = 10_000_000 + 1000 * seed
+    while len(rids) < n:
+        rid += 1
+        k = FrontDoor._hash(rid) % replicas
+        if want[k] > 0:
+            want[k] -= 1
+            rids.append(rid)
+    return [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                    rid=i) for r, i in zip(base, rids)]
+
+
+def _step_inputs(reqs, B: int, t: int, device):
+    """(tokens, pos) of decode step ``t`` of each request's stream (row
+    i = reqs[i]), teacher-forced: the token its stream holds at t."""
+    import numpy as np
+    import torch
+
+    tok, pos = np.zeros((B, 1), np.int32), np.zeros((B,), np.int32)
+    for i, r in enumerate(reqs):
+        tok[i, 0], pos[i] = r.tokens[t], r.prompt_len + t
+    return (torch.from_numpy(tok).to(device),
+            torch.from_numpy(pos).to(device))
+
+
+def _install(model, params, reqs, shape, device):
+    """A (B, S) cache with each request's prefill in its row, and whether
+    each prefill's greedy token is the stream's first."""
+    import torch
+
+    cache = model.init_cache(*shape, device=device)
+    firsts = []
+    for i, r in enumerate(reqs):
+        logits, caches = model.prefill(params, {"tokens": torch.as_tensor(
+            r.prompt[None], device=device)})
+        firsts.append(int(logits[0].argmax()) == r.tokens[0])
+        model.cache_set_slot(cache, i, model.cache_from_prefill(
+            caches, r.prompt_len, shape[1]))
+    return cache, firsts
+
+
+def teacher_forced(eng, model, params, reqs, device) -> dict:
+    """The compiled decode (the engine's baked plans) and the uncompiled
+    one fed the same tokens, the batched streams of ``reqs``, from the
+    same prefills in rows 0.. of a cache at the engine's bucket, each
+    carrying its own cache: per step the largest relative L2 error of an
+    active row's logits, each step's ms (host clock to a sync), and layer
+    0's router input at the first step (for K4's timing).  The same
+    against the uncompiled decode whose dense dispatch is computed by
+    cuda.gmm's function (``same_moe``: the plans' own arithmetic), and in
+    f32 (the parameters cast, a compiled decode of their own: K4's f32
+    body against the naive f32 dispatch); and each bf16 decode's logits
+    against the uncompiled f32 decode's, the oracle."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.spec import tree_map
+
+    shape = (eng.buckets.batch_bucket(len(reqs)), eng.buckets.seq_bucket(
+        max(r.prompt_len + r.max_new_tokens for r in reqs)))
+    steps = min(len(r.tokens) for r in reqs) - 1
+    n = len(reqs)
+
+    def run(dec_c, dec_u, m, p, record=False):
+        cache_c, firsts = _install(m, p, reqs, shape, device)
+        cache_u = tree_map(lambda a: a.clone(), cache_c)
+        router, inputs = L.moe_router, []
+
+        def recording(pp, x, topk):
+            inputs.append(x.detach())
+            return router(pp, x, topk)
+
+        rel, ms_c, ms_u, logits = [], [], [], []
+        for t in range(steps):
+            tok, pos = _step_inputs(reqs, shape[0], t, device)
+            s0 = time.perf_counter()
+            lc, cache_c = dec_c(p, cache_c, tok, pos)
+            sync(device)
+            s1 = time.perf_counter()
+            L.moe_router = recording if record and t == 0 else router
+            try:
+                lu, cache_u = dec_u(p, cache_u, tok, pos)
+            finally:
+                L.moe_router = router
+            sync(device)
+            ms_c.append(1e3 * (s1 - s0))
+            ms_u.append(1e3 * (time.perf_counter() - s1))
+            rel.append(max(rel_l2(lc[i], lu[i]) for i in range(n)))
+            logits.append((lc[:n].float(), lu[:n].float()))
+        return {"first_token_agrees": firsts, "rel_l2": rel,
+                "max_rel_l2": max(rel), "ms_compiled": ms_c,
+                "ms_uncompiled": ms_u}, logits, inputs
+
+    res, bf16, inputs = run(eng._decode, model.decode, model, params,
+                            record=True)
+
+    def decode_k4(p, cache, tok, pos):
+        """The uncompiled decode with its dense dispatch computed by the
+        function the cuda.gmm harness computes (K4, bf16)."""
+        naive = L._moe_naive_2d
+        L._moe_naive_2d = gmm_ops.moe_ffn
+        try:
+            return model.decode(p, cache, tok, pos)
+        finally:
+            L._moe_naive_2d = naive
+
+    res["same_moe"], _, _ = run(eng._decode, decode_k4, model, params)
+    m32 = build_model(model.cfg.replace(cache_dtype=torch.float32))
+    p32 = tree_map(lambda a: a.float(), params)
+    fast32 = lilac.compile(m32.decode, mode="host", device=device,
+                           plan_cache="off")
+    f32, oracle, _ = run(fast32, m32.decode, m32, p32)
+    del p32, fast32
+    to32 = {k: [max(rel_l2(b[j][i], o[1][i]) for i in range(n))
+                for b, o in zip(bf16, oracle)]
+            for j, k in enumerate(("compiled", "uncompiled"))}
+    res.update(shape=shape, steps=steps, f32=f32, bf16_to_f32=to32,
+               router_input=inputs[0])
+    return res
+
+
+def moe_layers(eng, model, params, reqs, device) -> dict:
+    """Each MoE layer of one compiled bf16 decode step against the naive
+    dense dispatch on the layer's own input.  The engine's baked plan at
+    the bucket of ``reqs`` runs its program once more eagerly with every
+    harness call recorded (its binding: the layer's input, routes and
+    weights; its output): each layer's output against
+    ``layers._moe_naive_2d`` on that binding, in bf16 and against the
+    f32 oracle, and the program's logits against the CUDA graph's replay
+    on the same inputs (that the recorded program is what the graph
+    runs).  Teacher-forced step 0, from the same prefills as
+    ``teacher_forced``."""
+    import torch
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    from repro_torch.core import rewrite
+    from repro_torch.models import layers as L
+
+    shape = (eng.buckets.batch_bucket(len(reqs)), eng.buckets.seq_bucket(
+        max(r.prompt_len + r.max_new_tokens for r in reqs)))
+    cache, _ = _install(model, params, reqs, shape, device)
+    tok, pos = _step_inputs(reqs, shape[0], 0, device)
+    args = (params, cache, tok, pos)
+    plan = eng._decode.executable_plan(*args)
+    flat, spec = tree_flatten((args, {}))
+    tensors = plan.match(spec, flat) if plan is not None else None
+    if tensors is None:
+        return {"shape": shape, "plan": False}
+    calls, call = [], rewrite.call_harness
+
+    def recording(h, binding, ctx, epilogue):
+        out = call(h, binding, ctx, epilogue)
+        calls.append((h.name, binding, out))
+        return out
+
+    rewrite.call_harness = recording
+    try:
+        program = tree_unflatten(list(plan.runner(*tensors)), plan.out_spec)
+    finally:
+        rewrite.call_harness = call
+    replay, _ = eng._decode(*args)
+    rel, to32 = [], []
+    for _, b, out in calls:
+        w = [b[k] for k in ("x", "gate", "idx", "wg", "wu", "wd")]
+        naive = L._moe_naive_2d(*w)
+        oracle = L._moe_naive_2d(*[a.float() if a.is_floating_point()
+                                   else a for a in w])
+        rel.append(rel_l2(out, naive))
+        to32.append((rel_l2(out, oracle), rel_l2(naive, oracle)))
+    return {"shape": shape, "plan": True,
+            "harnesses": [n for n, _, _ in calls], "rel_l2": rel,
+            "max_rel_l2": max(rel, default=float("inf")),
+            "to_f32": to32,
+            "replay_rel_l2": rel_l2(replay[:len(reqs)],
+                                    program[0][:len(reqs)])}
+
+
+def parting_op(model, params, req, solo_shape, device) -> dict:
+    """Where a batched stream and its solo run part: the uncompiled decode
+    teacher-forced with the stream's tokens, once at the buckets the
+    request ran at in the batch (row 0) and once at ``solo_shape``; the
+    first step whose logits differ bit for bit, and there the first
+    operator (in execution order) whose row-0 output differs bit for bit
+    among those whose row has the same shape in both runs."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpLog(TorchDispatchMode):
+        def __init__(self, B):
+            super().__init__()
+            self.B, self.rows = B, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            row = row0(out, self.B) if isinstance(out, torch.Tensor) \
+                and out.dim() >= 1 else None
+            # every operator logs, so the two runs' logs stay aligned
+            self.rows.append((str(func), None if row is None
+                              else row.clone()))
+            return out
+
+    def row0(out, B):
+        """The first request's part of an operator's output: row 0 of a
+        leading batch axis, or of the second axis under a unit one (a
+        batched product's); None for an output with no batch axis (a
+        weight's slice, the same in both runs)."""
+        if out.shape[0] == B:
+            return out[:1]
+        if out.dim() > 1 and out.shape[0] == 1 and out.shape[1] == B:
+            return out[:, :1]
+        return None
+
+    shapes = list(req.decode_buckets)
+    ca, _ = _install(model, params, [req], shapes[0], device)
+    cb, _ = _install(model, params, [req], solo_shape, device)
+    shape_a = shapes[0]
+    for t in range(len(req.tokens) - 1):
+        if shapes[t] != shape_a:
+            shape_a = shapes[t]
+            ca = model.cache_resize(ca, B=shape_a[0], max_seq=shape_a[1])
+        ta, pa = _step_inputs([req], shape_a[0], t, device)
+        tb, pb = _step_inputs([req], solo_shape[0], t, device)
+        la, ca_next = model.decode(params, ca, ta, pa)
+        lb, cb_next = model.decode(params, cb, tb, pb)
+        if not torch.equal(la[0], lb[0]):
+            logs = []
+            for c, tok, pos in ((ca, ta, pa), (cb, tb, pb)):
+                with OpLog(tok.shape[0]) as log:
+                    model.decode(params, c, tok, pos)
+                logs.append(log.rows)
+            # the same code at two shapes may dispatch a few other
+            # operators (an einsum over a unit axis): align the logs by
+            # their operator names
+            pairs = [(logs[0][a + k], logs[1][b + k]) for a, b, size in
+                     difflib.SequenceMatcher(
+                         None, [f for f, _ in logs[0]],
+                         [f for f, _ in logs[1]],
+                         autojunk=False).get_matching_blocks()
+                     for k in range(size)]
+            compared, op = 0, None
+            for (fa, ra), (fb, rb) in pairs:
+                if ra is None or rb is None or ra.shape != rb.shape:
+                    continue
+                compared += 1
+                if not torch.equal(ra, rb):
+                    op = {"index": compared, "op": fa,
+                          "shape": list(ra.shape),
+                          "max_abs_diff": float((ra.float() - rb.float())
+                                                .abs().max())}
+                    break
+            return {"rid": req.rid, "step": t, "batched_shape": shape_a,
+                    "solo_shape": solo_shape, "op": op,
+                    "ops_compared": compared,
+                    "logits_max_abs_diff": float((la[0] - lb[0]).abs().max()),
+                    "same_argmax": int(la[0].argmax()) == int(lb[0].argmax())}
+        ca, cb = ca_next, cb_next
+    return {"rid": req.rid, "step": None}
+
+
+def _plan_rows(fn) -> list:
+    """Per baked decode plan: its bucket (the cache's (B, S)), CUDA graph
+    or eager, the bytes a replay copies, captures, times, hits."""
+    out = []
+    for p in fn.plan_info()["plans"]:
+        # (params..., cache..., tokens, pos): the last cache leaf's (B, S)
+        b, s = p["tensor_leaves"][-3][0][:2]
+        out.append({"bucket": [b, s], "cuda_graph": p["cuda_graph"],
+                    "graph_copy_bytes": p["graph_copy_bytes"],
+                    "recaptures": p["recaptures"], "replay_ms": p["replay_ms"],
+                    "eager_ms": p["eager_ms"], "hits": p["hits"],
+                    "selections": sorted(set(p["selections"])),
+                    "moe_matches": len(p["selections"])})
+    return sorted(out, key=lambda r: r["bucket"])
+
+
+def cache_bytes(model, shape) -> int:
+    """Bytes of a (B, S) decode cache."""
+    from repro_torch.models.spec import leaves
+
+    return sum(a.numel() * a.element_size() for _, a in leaves(
+        model.init_cache(*shape, device="meta")))
+
+
+def gmm_decode_phases(cfg, p0, routes: dict, device, reps: int = 20) -> list:
+    """K4 (bf16) at the decode step's shapes, the gate/up call: T tokens x
+    top-K rows routed into the static Tp = ceil(T·K/tm)·tm + (E-1)·tm
+    rows, at T = 1 and T = 8, on the routes of each of ``routes`` (name ->
+    router input (T', D), T' >= 8).  Bound: the touched experts' weights
+    once, the routed rows in and out; library: torch._grouped_mm over
+    the same aligned rows."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.kernels.moe_gmm.ops import _route
+    from repro_torch.models import layers as L
+
+    on_card = device.type == "cuda"
+    E, D, F = p0["wg"].shape
+    K, tm = cfg.moe_topk, 128
+    entries = []
+    for T in (1, 8):
+        e = {"name": "gmm", "path": f"serving decode, T = {T}",
+             "variants": {}, "library_ms": None, "library_err": None}
+        for name, x in routes.items():
+            xt = x[:T]
+            _, idx, _ = L.moe_router(p0, xt[None], K)
+            idx = idx[0]
+            dest, te, tp = _route(idx, T, K, E, tm)
+            xs = torch.zeros((tp, D), dtype=xt.dtype, device=device)
+            xs[dest] = xt.repeat_interleave(K, dim=0)
+            touched = int(torch.unique(idx).numel())
+            nb = touched * D * F * 2 + T * K * D * 2 + T * K * F * 4
+            v = variant_numbers(
+                lambda: G.gmm_cuda(xs, p0["wg"], te, tm),
+                lambda: GR.gmm_ref(xs, p0["wg"], te, tm), "gmm_tc_kernel",
+                on_card, reps, nb, 2 * T * K * D * F, torch.bfloat16,
+                GMM_ATOL, GMM_RTOL, what=f"gmm decode T={T} {name}")
+            v.update(touched_experts=touched, tp=tp, routed_rows=T * K)
+            e["variants"][name] = v
+            grouped = getattr(torch, "_grouped_mm", None)
+            if on_card and grouped is not None \
+                    and e["library_ms"] is None:
+                counts = torch.bincount(idx.reshape(-1).long(), minlength=E)
+                offs = torch.cumsum((counts + tm - 1) // tm * tm,
+                                    0).to(torch.int32)
+                rows = int(offs[-1])
+                lib = lambda: grouped(xs, p0["wg"], offs=offs)
+                e["library_err"] = float((lib()[:rows].float() - GR.gmm_ref(
+                    xs, p0["wg"], te, tm)[:rows]).abs().max())
+                e["library_ms"] = cuda_ms(lib, reps)[0]
+        entries.append(e)
+    return entries
+
+
+def serve_path(seed: int, device, cfg=None, policy=None,
+               n_requests: int = SERVE_REQUESTS) -> dict:
+    """OLMoE-1B-7B at full width served by repro_torch.serve: the engine's
+    prewarm over ``policy``'s grid, a closed burst of ``n_requests`` on
+    baked plans (launches counted from 0), the teacher-forced comparison
+    with the uncompiled decode, batched against solo streams, a fault-free
+    run at request-shadow rate 1, an uncompiled engine's run, the serving
+    faults (decode_raise, decode_nan, replica_crash on a 2-replica front
+    door, shadow_diverge:request), moe_ffn_ragged on K4, K4 at the decode
+    shapes, and one decode step under torch.profiler."""
+    import torch
+    from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
+    from repro_torch.core import faults
+    from repro_torch.core import resilience as R
+    from repro_torch.kernels.common import COUNTERS
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.serve import (BucketPolicy, Engine, FrontDoor,
+                                   ServeConfig, moe_ffn_padded,
+                                   moe_ffn_ragged, padding_waste)
+
+    cfg = (cfg or OLMOE).replace(moe_decode_impl="naive_flat")
+    policy = policy or BucketPolicy(batch=SERVE_BATCH, seq=SERVE_SEQ)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 17),
+                        device)
+    sync(device)
+    res = {"config": {"name": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "heads": cfg.n_heads,
+                      "experts": cfg.moe_experts, "topk": cfg.moe_topk,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "params": model.param_count(),
+                      "grid": [list(g) for g in policy.grid()]},
+           "init_s": time.perf_counter() - t0,
+           "cache_bytes": {f"{b}x{s}": cache_bytes(model, (b, s))
+                           for b, s in policy.grid()}}
+    scfg = ServeConfig(mode="continuous", buckets=policy)
+
+    def reset_counts():
+        for c in COUNTERS:
+            c.update(dict.fromkeys(c, 0))
+
+    def counts():
+        return {k: v for c in COUNTERS for k, v in c.items() if v}
+
+    # (a) prewarm, then the burst on baked plans
+    t0 = time.perf_counter()
+    with fault_free("serving prewarm"):
+        eng = Engine(model, params, scfg)
+    res["prewarm_s"] = time.perf_counter() - t0
+    res["prewarm"] = eng.metrics.prewarm
+    res["prewarm_bake_errors"] = eng._decode.plan_info()["bake_errors"]
+    res["prewarm_bytes"] = (torch.cuda.memory_allocated(device),
+                            torch.cuda.max_memory_allocated(device)) \
+        if device.type == "cuda" else None
+    detects = eng._decode.stats["detects"]
+    wseed = res["workload_seed"] = serve_seed(cfg, seed, policy, n_requests)
+    reqs = serve_requests(cfg, wseed, n_requests)
+    before = memory_mark(device)
+    reset_counts()
+    with fault_free("serving"):
+        sync(device)
+        t0 = time.perf_counter()
+        snap = eng.run([(0.0, r) for r in reqs])
+        sync(device)
+        wall = time.perf_counter() - t0
+    res["launches"] = counts()
+    peak, _ = memory_read(device, before)
+    tokens = sum(len(r.tokens) for r in reqs)
+    res.update(
+        run_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        peak_bytes=peak or 0, steps=snap["steps"],
+        request_detects=eng._decode.stats["detects"] - detects,
+        bucket_misses=snap["buckets"]["misses"],
+        cache_resizes=snap["buckets"]["cache_resizes"],
+        ttft_s=snap["ttft_s"], prefill_s=snap["prefill_s"],
+        decode_step_s=snap["decode_step_s"],
+        occupancy=snap["batch_occupancy"],
+        buckets_used=sorted({b for r in reqs for b in r.decode_buckets}),
+        failed=[r.failed for r in reqs if r.failed],
+        streams=[list(r.tokens) for r in reqs],
+        plans=_plan_rows(eng._decode),
+        matches=[[m.computation for m in e.report.matches]
+                 for e in eng._decode._compiled.values()],
+        selections=sorted({n for _, n in eng._decode.last_selections}))
+
+    # one decode step at the largest bucket under torch.profiler
+    if device.type == "cuda":
+        big = policy.grid()[-1]
+        c = model.init_cache(*big, device=device)
+        tok = torch.ones((big[0], 1), dtype=torch.int32, device=device)
+        pos = torch.full((big[0],), big[1] // 2, dtype=torch.int32,
+                         device=device)
+        for _ in range(2):
+            _, c = eng._decode(params, c, tok, pos)
+        res["decode_profile"] = step_breakdown(
+            lambda p, s, b: eng._decode(p, c, tok, pos), params, None, None,
+            device)
+        res["decode_profile"]["bucket"] = list(big)
+        del c
+    release(device)
+
+    # (b) teacher-forced: compiled against uncompiled on two streams
+    with fault_free("serving teacher-forced"):
+        tf = teacher_forced(eng, model, params, reqs[:2], device)
+        tf["moe_layers"] = moe_layers(eng, model, params, reqs[:2], device)
+    router_input = tf.pop("router_input")
+    res["teacher_forced"] = tf
+
+    # (c) batched against solo, then the request shadow at rate 1
+    solo = []
+    with fault_free("serving solo"):
+        for r in reqs:
+            s = eng.generate_solo(r.prompt, r.max_new_tokens)
+            part = next((i for i, (a, b) in enumerate(zip(s, r.tokens))
+                         if a != b), None)
+            solo.append({"rid": r.rid, "equal": s == r.tokens,
+                         "first_token_apart": part,
+                         "buckets": sorted(set(r.decode_buckets))})
+        res["solo"] = solo
+        apart = [r for r, s in zip(reqs, solo) if not s["equal"]]
+        if apart:
+            r = apart[0]
+            res["parting"] = parting_op(model, params, r, (
+                policy.batch_bucket(1),
+                policy.seq_bucket(r.prompt_len + r.max_new_tokens)), device)
+    checks, divs = (eng.metrics.request_shadow_checks,
+                    eng.metrics.request_shadow_divergences)
+    os.environ[R.ENV_REQUEST_SHADOW] = "1"
+    try:
+        with fault_free("serving request shadow"):
+            again = serve_requests(cfg, wseed, n_requests)
+            eng.run([(0.0, r) for r in again])
+    finally:
+        os.environ.pop(R.ENV_REQUEST_SHADOW, None)
+    info = eng._decode.resilience_info()
+    res["shadow"] = {
+        "checks": eng.metrics.request_shadow_checks - checks,
+        "divergences": eng.metrics.request_shadow_divergences - divs,
+        "streams_equal_first_run": [list(r.tokens) for r in again]
+        == res["streams"],
+        "quarantine_active": info["quarantine_active"],
+        "containment": info["containment"]}
+    release(device)
+
+    # the same burst on an uncompiled engine (the naive dense dispatch)
+    ueng = Engine(model, params, scfg.replace(use_lilac=False))
+    plain = serve_requests(cfg, wseed, n_requests)
+    sync(device)
+    t0 = time.perf_counter()
+    usnap = ueng.run([(0.0, r) for r in plain])
+    sync(device)
+    res["uncompiled"] = {
+        "run_s": time.perf_counter() - t0, "steps": usnap["steps"],
+        "decode_step_s": usnap["decode_step_s"],
+        "streams_equal": [list(r.tokens) for r in plain] == res["streams"],
+        "tokens_apart": sum(a != b for r, s in zip(plain, res["streams"])
+                            for a, b in zip(r.tokens, s))}
+    del ueng
+    release(device)
+
+    # (d) faults: decode_raise, decode_nan against the fault-free streams
+    with fault_free("serving fault-free reference"):
+        clean = fault_requests(cfg, seed, policy)
+        eng.run([(0.0, r) for r in clean])
+    want = {r.rid: list(r.tokens) for r in clean}
+    res["fault_free_buckets"] = sorted({b for r in clean
+                                        for b in r.decode_buckets})
+    faulted = {}
+    for kind in ("decode_raise", "decode_nan"):
+        got = fault_requests(cfg, seed, policy)
+        with faults.inject(f"{kind}:decode:{SERVE_FAULT_P}",
+                           seed=seed) as plan:
+            (_, events) = _contained(
+                lambda: eng.run([(0.0, r) for r in got]))
+        survivors = [r for r in got if r.failed is None]
+        faulted[kind] = {
+            "fired": len(plan.fired), "events": events,
+            "failed": [r.failed[:60] for r in got if r.failed],
+            "survivors": len(survivors),
+            "survivors_equal": all(list(r.tokens) == want[r.rid]
+                                   for r in survivors),
+            "buckets": sorted({b for r in got for b in r.decode_buckets})}
+    res["faults"] = faulted
+
+    # a second replica on the shared plan cache, then replica_crash
+    t0 = time.perf_counter()
+    with fault_free("serving second replica"):
+        eng2 = Engine(model, params, scfg)
+    res["replica2_prewarm"] = dict(
+        eng2.metrics.prewarm, seconds=time.perf_counter() - t0,
+        bake_errors=eng2._decode.plan_info()["bake_errors"])
+    fd = FrontDoor([eng, eng2])
+    got = fault_requests(cfg, seed, policy)
+    for r in got:
+        require(fd.submit(r), "serving: the front door takes the request")
+    split = [sum(fd.assignment[r.rid] == k for r in got) for k in (0, 1)]
+    for _ in range(2):
+        fd.step()
+    victim = fd.assignment[got[0].rid]
+    with faults.inject(f"replica_crash:replica{victim}") as plan:
+        fd.step()
+    fd.run_until_idle()
+    snapf = fd.snapshot()["fleet"]
+    res["replica_crash"] = {
+        "fired": len(plan.fired), "split": split, "victim": victim,
+        "accounted": fd.accounted(), "failovers": fd.failovers,
+        "redistributed": fd.redistributed, "lost": fd.lost,
+        "finished": snapf["finished"],
+        "streams_equal": all(list(r.tokens) == want[r.rid] for r in got),
+        "buckets": sorted({b for r in got for b in r.decode_buckets})}
+    del fd, eng2
+    release(device)
+
+    # shadow_diverge:request: a divergence quarantines the decode's K4
+    os.environ[R.ENV_REQUEST_SHADOW] = "1"
+    try:
+        one = fault_requests(cfg, seed, policy, n=2)
+        divs = eng.metrics.request_shadow_divergences
+        with faults.inject("shadow_diverge:request") as plan:
+            (_, events) = _contained(lambda: eng.run(
+                [(0.0, one[0])]))
+        divs = eng.metrics.request_shadow_divergences - divs
+        q = R.shared_quarantine()
+        quarantined = sorted(q.active())
+        before = eng._decode.last_selections
+        os.environ.pop(R.ENV_REQUEST_SHADOW, None)
+        (_, after_events) = _contained(lambda: eng.run([(0.0, one[1])]))
+        res["shadow_diverge"] = {
+            "fired": len(plan.fired), "divergences": divs,
+            "quarantined": quarantined, "events": len(events),
+            "selections_before": sorted({n for _, n in before}),
+            "selections_after": sorted({
+                n for _, n in eng._decode.last_selections}),
+            "after_events": len(after_events),
+            "after_finished": one[1].failed is None
+            and len(one[1].tokens) == one[1].max_new_tokens}
+        q.clear()
+    finally:
+        os.environ.pop(R.ENV_REQUEST_SHADOW, None)
+    del eng
+    release(device)
+
+    # (e) moe_ffn_ragged on K4 against the padded baseline and the oracle
+    p0 = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    xs = [torch.randn((t, cfg.d_model), generator=gen, device=device)
+          .to(cfg.param_dtype) for t in SERVE_RAGGED]
+    routes = [L.moe_router(p0, x[None], cfg.moe_topk) for x in xs]
+    gates, idxs = [g[0] for g, _, _ in routes], [i[0] for _, i, _ in routes]
+    w = (p0["wg"], p0["wu"], p0["wd"])
+    with fault_free("serving ragged"):
+        G.reset_launches()
+        ragged = moe_ffn_ragged(xs, gates, idxs, *w)
+        ragged_launches = dict(G.LAUNCHES)
+        padded = moe_ffn_padded(xs, gates, idxs, *w)
+    rows = []
+    for x, g, i, a, b in zip(xs, gates, idxs, ragged, padded):
+        want_o = GR.moe_ffn_ref(x, g, i, *w)
+        rows.append({"tokens": int(x.shape[0]), "ragged": rel_l2(a, want_o),
+                     "padded": rel_l2(b, want_o)})
+    res["ragged"] = {"lengths": list(SERVE_RAGGED), "rows": rows,
+                     "launches": ragged_launches,
+                     "padding_waste": padding_waste(SERVE_RAGGED)}
+
+    # K4 at the decode shapes: the model's layer-0 routes, unit normal
+    unit = torch.randn(router_input.reshape(-1, cfg.d_model).shape,
+                       generator=gen, device=device).to(cfg.param_dtype)
+    res["gmm_decode"] = gmm_decode_phases(cfg, p0, {
+        "model routes": router_input.reshape(-1, cfg.d_model),
+        "unit-normal routes": unit}, device)
+    return res
+
+
+def check_serve_path(res) -> None:
+    layers = res["config"]["layers"]
+    pw = res["prewarm"]
+    grid = len(res["config"]["grid"])
+    require(pw["baked"] == pw["n_signatures"] == grid,
+            f"serving: prewarm bakes every grid point, got {pw}")
+    require(res["request_detects"] == 0 and res["bucket_misses"] == 0,
+            f"serving: no detection and no bucket miss on the request "
+            f"path, got {res['request_detects']} detects and "
+            f"{res['bucket_misses']} misses")
+    require(all(m == ["moe_ffn"] * layers for m in res["matches"])
+            and len(res["matches"]) == grid,
+            f"serving: one moe_ffn match a MoE layer in each signature, got "
+            f"{res['matches']}")
+    require(all(p["selections"] == ["cuda.gmm"]
+                and p["moe_matches"] == layers for p in res["plans"])
+            and len(res["plans"]) == grid,
+            f"serving: each bucket's plan runs cuda.gmm in every layer, got "
+            f"{res['plans']}")
+    require(res["launches"].get("gmm") == 3 * layers * res["steps"],
+            f"serving: K4 launches 3 x {layers} layers x {res['steps']} "
+            f"decode steps, got {res['launches']}")
+    require(not res["failed"] and len({b for b, _ in res["buckets_used"]})
+            > 1 and len({s for _, s in res["buckets_used"]}) > 1,
+            f"serving: every request finishes, the batch and seq buckets "
+            f"both change, got failures {res['failed']} and buckets "
+            f"{res['buckets_used']}")
+    tf = res["teacher_forced"]
+    ml = tf["moe_layers"]
+    require(ml["plan"] and ml["harnesses"] == ["cuda.gmm"] * layers
+            and ml["max_rel_l2"] <= SERVE_LOGIT_RTOL
+            and ml["replay_rel_l2"] <= SERVE_F32_RTOL,
+            f"serving: one compiled bf16 decode step, each of the {layers} "
+            f"MoE layers on cuda.gmm within relative L2 {SERVE_LOGIT_RTOL} "
+            f"of the naive dense dispatch on the layer's own input, and the "
+            f"recorded program within {SERVE_F32_RTOL} of the CUDA graph's "
+            f"replay, got {ml.get('harnesses')}, "
+            f"{ml.get('max_rel_l2', float('nan')):.3g} and "
+            f"{ml.get('replay_rel_l2', float('nan')):.3g}")
+    require(all(tf["first_token_agrees"])
+            and tf["same_moe"]["max_rel_l2"] <= SERVE_LOGIT_RTOL
+            and tf["f32"]["max_rel_l2"] <= SERVE_F32_RTOL,
+            f"serving: teacher-forced, the prefill's first tokens agree, at "
+            f"every step the compiled bf16 decode's logits are within "
+            f"relative L2 {SERVE_LOGIT_RTOL} of the uncompiled decode's "
+            f"whose MoE computes K4's function (the rewrite and the plans), "
+            f"and the compiled f32 decode (K4's f32 body) within "
+            f"{SERVE_F32_RTOL} of the uncompiled naive one, got "
+            f"{tf['first_token_agrees']}, {tf['same_moe']['max_rel_l2']:.3g} "
+            f"and {tf['f32']['max_rel_l2']:.3g}")
+    sh = res["shadow"]
+    require(sh["checks"] == len(res["streams"]) and sh["divergences"] == 0
+            and sh["quarantine_active"] == 0
+            and sh["containment"]["contained_exceptions"] == 0,
+            f"serving: the request shadow at rate 1 checks every request "
+            f"with 0 divergences, got {sh}")
+    for kind, f in res["faults"].items():
+        want_reason = "decode:" if kind == "decode_raise" \
+            else "non-finite decode logits"
+        require(f["fired"] > 0 and f["failed"] and f["survivors"] > 0
+                and all(x.startswith(want_reason) for x in f["failed"])
+                and f["survivors_equal"],
+                f"serving: {kind} evicts the poisoned slots with their "
+                f"reason and the survivors' streams equal the fault-free "
+                f"run's, got {f}")
+    rc = res["replica_crash"]
+    require(rc["fired"] == 1 and rc["accounted"] and rc["lost"] == 0
+            and rc["failovers"] == 1 and rc["streams_equal"],
+            f"serving: replica_crash loses no request and the streams equal "
+            f"the fault-free run's, got {rc}")
+    require(res["replica2_prewarm"]["detect_calls"] == 0
+            and res["replica2_prewarm"]["baked"] == grid,
+            f"serving: a second replica's prewarm detects nothing, got "
+            f"{res['replica2_prewarm']}")
+    sd = res["shadow_diverge"]
+    require(sd["divergences"] == 1
+            and any(k.startswith("moe_ffn|cuda.gmm") for k in sd["quarantined"])
+            and sd["selections_before"] == ["cuda.gmm"]
+            and "cuda.gmm" not in sd["selections_after"]
+            and sd["after_finished"],
+            f"serving: shadow_diverge:request reports a divergence, "
+            f"quarantines cuda.gmm and the next decode runs without it, "
+            f"got {sd}")
+    rg = res["ragged"]
+    require(all(r["ragged"] <= MOE_RTOL and r["padded"] <= MOE_RTOL
+                for r in rg["rows"]) and rg["launches"].get("gmm") == 3,
+            f"serving: moe_ffn_ragged (3 K4 launches) and moe_ffn_padded "
+            f"within relative L2 {MOE_RTOL} of the f32 oracle, got {rg}")
+
+
+def print_serve_path(sv) -> None:
+    c = sv["config"]
+    print(f"serving {c['name']} (d_model {c['d_model']}, {c['heads']} heads, "
+          f"{c['experts']} experts of d_ff {c['d_ff']} top-{c['topk']}, vocab "
+          f"{c['vocab']}, {c['layers']} layers): {c['params']} params, "
+          f"initialized in {sv['init_s']:.1f}s; the child process took "
+          f"{sv['seconds']:.1f}s")
+    pw = sv["prewarm"]
+    print(f"serving prewarm {pw['baked']}/{pw['n_signatures']} baked in "
+          f"{sv['prewarm_s']:.1f}s, {pw['detect_calls']} detections; per "
+          f"signature " + ", ".join(
+              f"{tuple(g)} {x['seconds']:.2f}s" for g, x in zip(
+                  pw["grid"], pw["signatures"])))
+    r2 = sv["replica2_prewarm"]
+    print(f"serving second replica prewarm: {r2['baked']} baked, "
+          f"{r2['detect_calls']} detections, {r2['plan_cache_hits']} from "
+          f"the plan cache, in {r2['seconds']:.1f}s")
+    pct = lambda d: f"p50 {1e3 * d['p50']:.2f} ms, p99 {1e3 * d['p99']:.2f} ms"
+    print(f"serving run: {len(sv['streams'])} requests, {sv['steps']} decode "
+          f"steps, {sv['tokens']} tokens in {sv['run_s']:.2f}s "
+          f"({sv['tokens_per_s']:.1f} tokens/s); TTFT {pct(sv['ttft_s'])}; "
+          f"prefill {pct(sv['prefill_s'])}; decode step (compiled) "
+          f"{pct(sv['decode_step_s'])}, uncompiled "
+          f"{pct(sv['uncompiled']['decode_step_s'])}; occupancy "
+          f"{sv['occupancy']:.3f}; buckets {sv['buckets_used']} "
+          f"({sv['cache_resizes']} resizes); peak "
+          f"{sv['peak_bytes'] / 2**30:.2f} GiB; request-path detections "
+          f"{sv['request_detects']}, bucket misses {sv['bucket_misses']}; "
+          f"launches {sv['launches']}")
+    u = sv["uncompiled"]
+    print(f"serving uncompiled engine: {u['steps']} steps in "
+          f"{u['run_s']:.2f}s; streams equal to the compiled run's: "
+          f"{u['streams_equal']} ({u['tokens_apart']} tokens apart)")
+    for p in sv["plans"]:
+        b = sv["cache_bytes"][f"{p['bucket'][0]}x{p['bucket'][1]}"]
+        print(f"serving plan {tuple(p['bucket'])}: "
+              f"{'CUDA graph' if p['cuda_graph'] else 'eager'}, "
+              f"graph_copy_bytes {p['graph_copy_bytes']} (cache {b} B; the "
+              f"functional cache update copies {2 * b} B a step), "
+              f"recaptures {p['recaptures']}, replay {_ms(p['replay_ms'])} "
+              f"ms / eager {_ms(p['eager_ms'])} ms, {p['hits']} hits, "
+              f"{p['moe_matches']} x {p['selections']}")
+    if "decode_profile" in sv:
+        pr = sv["decode_profile"]
+        print(f"serving decode step {tuple(pr['bucket'])} profiled: "
+              f"{pr['wall_ms']:.2f} ms wall, {pr['kernel_ms']:.2f} ms of "
+              f"kernels (idle share {pr['idle_share']:.3f}); by kind "
+              f"{ {k: round(v, 3) for k, v in pr['by_kind_ms'].items()} }; "
+              f"top {pr['top']}")
+    tf = sv["teacher_forced"]
+    med = lambda v: sorted(v)[len(v) // 2]
+    for name, r, tol in (
+            ("bf16", tf, "none (ROADMAP D2)"),
+            ("bf16, the uncompiled decode's MoE on K4's function",
+             tf["same_moe"], SERVE_LOGIT_RTOL),
+            ("f32", tf["f32"], SERVE_F32_RTOL)):
+        print(f"serving teacher-forced {name} {tuple(tf['shape'])}, "
+              f"{tf['steps']} steps: relative L2 of the logits, compiled "
+              f"against uncompiled, max {r['max_rel_l2']:.3g} (median "
+              f"{med(r['rel_l2']):.3g}, first {r['rel_l2'][0]:.3g}; tol "
+              f"{tol}), first tokens agree "
+              f"{r['first_token_agrees']}; step ms compiled "
+              f"{med(r['ms_compiled']):.2f}, uncompiled "
+              f"{med(r['ms_uncompiled']):.2f} (median, host clock to a "
+              f"sync)")
+    for k, v in tf["bf16_to_f32"].items():
+        print(f"serving teacher-forced bf16 {k} against the f32 oracle: "
+              f"relative L2 max {max(v):.3g}, median {med(v):.3g}, first "
+              f"{v[0]:.3g}")
+    ml = tf["moe_layers"]
+    if ml["plan"]:
+        print(f"serving MoE layers of one compiled bf16 decode step "
+              f"{tuple(ml['shape'])}: {len(ml['rel_l2'])} x "
+              f"{sorted(set(ml['harnesses']))}; relative L2 against the "
+              f"naive dispatch on the same input max {ml['max_rel_l2']:.3g} "
+              f"(median {med(ml['rel_l2']):.3g}; tol {SERVE_LOGIT_RTOL}); "
+              f"against the f32 oracle K4 max "
+              f"{max(a for a, _ in ml['to_f32']):.3g}, naive max "
+              f"{max(b for _, b in ml['to_f32']):.3g}; the program against "
+              f"the graph's replay {ml['replay_rel_l2']:.3g}")
+    print(f"serving prewarm bake errors {sv['prewarm_bake_errors']}, "
+          f"memory after prewarm (allocated, peak) {sv['prewarm_bytes']}")
+    eq = sum(s["equal"] for s in sv["solo"])
+    print(f"serving batched vs solo (a fresh engine's buckets): {eq} of "
+          f"{len(sv['solo'])} streams equal; " + "; ".join(
+              f"rid {s['rid']} apart from token {s['first_token_apart']} "
+              f"(batched at {s['buckets']})"
+              for s in sv["solo"] if not s["equal"]))
+    if "parting" in sv:
+        print(f"serving where the logits part: {sv['parting']}")
+    print(f"serving request shadow at rate 1 (solo replays at the batched "
+          f"buckets): {sv['shadow']}")
+    for kind, f in sv["faults"].items():
+        print(f"serving {kind} (p {SERVE_FAULT_P}): {f}")
+    print(f"serving replica_crash: {sv['replica_crash']}; fault-free "
+          f"buckets {sv['fault_free_buckets']}")
+    print(f"serving shadow_diverge:request: {sv['shadow_diverge']}")
+    print(f"serving moe_ffn_ragged at {sv['ragged']['lengths']} tokens "
+          f"(padding waste {sv['ragged']['padding_waste']:.3f}): relative "
+          f"L2 vs the f32 oracle " + ", ".join(
+              f"{r['tokens']}: K4 {r['ragged']:.3g} / padded "
+              f"{r['padded']:.3g}" for r in sv["ragged"]["rows"])
+          + f"; launches {sv['ragged']['launches']}")
+    for e in sv["gmm_decode"]:
+        for name, v in e["variants"].items():
+            print(f"gmm {e['path']} ({name}: {v['routed_rows']} routed rows "
+                  f"of Tp {v['tp']}, {v['touched_experts']} experts): "
+                  f"{_ms(v['ms'])} ms (host {_ms(v['host_ms'])} ms; "
+                  f"profiler {v['profiler_ms']} ms), plain "
+                  f"{_ms(v['plain_ms'])} ms, bound {v['bound_ms']:.5f} ms "
+                  f"({v['bound_by']}: {v['bytes']} B), max|err| "
+                  f"{v['max_abs_err']:.3g}")
+        print(f"gmm {e['path']} library (torch._grouped_mm, same rows): "
+              f"{_ms(e['library_ms'])} ms, max|err| vs plain "
+              f"{e['library_err']}")
+
+
 REPLACES = {      # kernel body -> the TPU kernel it replaces
     "spmv_ell_staged": "src/repro/kernels/spmv_ell/kernel.py:57",
     "spmv_ell": "src/repro/kernels/spmv_ell/kernel.py:57",
@@ -2631,7 +3533,8 @@ SOURCES = {
 
 def kernel_entry(e, main: str, launches: int):
     m = e["variants"][main]
-    return {"name": e["name"], "route": "cuda", "source": SOURCES[e["name"]],
+    return {"name": e["name"], **({"path": e["path"]} if "path" in e else {}),
+            "route": "cuda", "source": SOURCES[e["name"]],
             "replaces": REPLACES[e["name"]], "launches": launches,
             "max_abs_err": max(v["max_abs_err"]
                                for v in e["variants"].values()),
@@ -2667,6 +3570,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the plan phase's 2nd run
     ap.add_argument("--train-phase", action="store_true",
                     help=argparse.SUPPRESS)   # the training phase's process
+    ap.add_argument("--serve-phase", action="store_true",
+                    help=argparse.SUPPRESS)   # the serving phase's process
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2697,6 +3602,10 @@ def main() -> int:
             shutil.rmtree(work, ignore_errors=True)
         print(json.dumps(res))
         return 0
+    if args.serve_phase:
+        print(json.dumps(serve_path(args.seed, torch.device("cuda")),
+                         default=str))
+        return 0
     # the persistent stores (plans, tuner, quarantine) in a directory of
     # this run; no ambient fault plan or shadow rate
     work = tempfile.mkdtemp(prefix="lilac-torch-")
@@ -2704,7 +3613,8 @@ def main() -> int:
     os.environ["LILAC_TORCH_QUARANTINE_CACHE"] = str(
         Path(work) / "quarantine.json")
     for k in ("LILAC_TORCH_PLAN_CACHE_DISABLE", "LILAC_TORCH_FAULTS",
-              "LILAC_TORCH_FAULTS_SEED", "LILAC_TORCH_SHADOW_RATE"):
+              "LILAC_TORCH_FAULTS_SEED", "LILAC_TORCH_SHADOW_RATE",
+              "LILAC_TORCH_REQUEST_SHADOW_RATE", "LILAC_TORCH_SERVE_BUCKETS"):
         os.environ.pop(k, None)
     try:
         return run(args, work)
@@ -3109,6 +4019,23 @@ def run(args, work: str) -> int:
               f"top {pr['top']}")
     check_train_path(tr)
     record["train_path"] = tr
+
+    # -- serving: OLMoE-1B-7B, full width and depth ---------------------------
+    # a process of its own: the earlier phases' memory is gone, and cuBLAS's
+    # workspace is fixed before its first call, so a row's bits depend on
+    # the shapes it runs at and on nothing else
+    sv = run_warm_start(args.seed, Path(work) / "autotune-serve.json",
+                        "--serve-phase", timeout=900,
+                        CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                        LILAC_TORCH_PLAN_CACHE=str(
+                            Path(work) / "plans-serve.json"),
+                        LILAC_TORCH_QUARANTINE_CACHE=str(
+                            Path(work) / "quarantine-serve.json"))
+    print_serve_path(sv)
+    check_serve_path(sv)
+    kernels += [kernel_entry(e, "model routes", sv["launches"].get("gmm", 0))
+                for e in sv["gmm_decode"]]
+    record["serve_path"] = sv
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -5,8 +5,11 @@ keeps the fields that describe a published architecture and those that
 the dense and MoE transformer of ``repro_torch.models`` read: causal
 attention over token embeddings, head width d_model / n_heads, RoPE base
 1e4 and the grouped MoE's capacity factor 2.0 are what both registered
-configs use.  The reference's settings for other heads, frontends, SSMs,
-caches and sharding come with the configs and slices that use them.
+configs use.  ``cache_dtype`` is the KV cache's and ``moe_decode_impl``
+the MoE formulation of the one-token decode step (``"naive_flat"`` is the
+dense dispatch the detector matches, which the serving tier compiles).
+The reference's settings for other heads, frontends, SSMs and sharding
+come with the configs and slices that use them.
 """
 from __future__ import annotations
 
@@ -30,9 +33,15 @@ class ArchConfig:
     moe_topk: int = 0
     norm: str = "rmsnorm"         # rmsnorm | layernorm_nonparam
     moe_impl: str = "grouped"     # naive | lilac | grouped
+    # MoE formulation on the one-token decode path: "grouped_flat" is the
+    # capacity-bucket dispatch over the whole batch, "naive_flat" the
+    # canonical dense-dispatch form, so that a lilac-compiled decode step
+    # exposes the MoE to the detector (the serving tier uses it)
+    moe_decode_impl: str = "grouped_flat"
     kv_chunk: int = 1024
     remat: bool = True
     param_dtype: Any = torch.bfloat16
+    cache_dtype: Any = torch.bfloat16
     source: str = ""              # provenance note ([arXiv/hf; tier])
     # gradient accumulation: activation memory scales 1/microbatches
     microbatches: int = 1
@@ -76,4 +85,5 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         kv_chunk=32,
         remat=False,
         param_dtype=torch.float32,
+        cache_dtype=torch.float32,
     )

@@ -265,15 +265,23 @@ class Ctx:
     def eval_subgraph(self, out: Node, leaf_values: Dict[Node, Any]):
         """Concretely evaluate the provenance subgraph of ``out`` given
         values for its leaves — the semantic validation step (the
-        validators run it under :func:`own_trace`)."""
-        leaves, ops = self.provenance(out)
+        validators run it under :func:`own_trace`).  The given values cut
+        the subgraph: what only feeds them is not evaluated."""
         env: Dict[Node, Any] = dict(leaf_values)
-        for lf in leaves:
-            if lf not in env:
-                if lf.op != "get_attr":
-                    raise KeyError(f"no value for leaf {lf}")
-                env[lf] = getattr(self.gm, lf.target)
-        for n in ops:
+        ops: Dict[int, Node] = {}
+        stack = [out]
+        while stack:
+            a = stack.pop()
+            if a in env or self.index[a] in ops:
+                continue
+            if self.prod(a) is None:
+                if a.op != "get_attr":
+                    raise KeyError(f"no value for leaf {a}")
+                env[a] = getattr(self.gm, a.target)
+                continue
+            ops[self.index[a]] = a
+            stack.extend(a.all_input_nodes)
+        for n in (ops[i] for i in sorted(ops)):
             args = map_arg(n.args, env.__getitem__)
             kwargs = map_arg(n.kwargs, env.__getitem__)
             env[n] = n.target(*args, **kwargs)
@@ -857,10 +865,14 @@ class MoeMatcher(Matcher):
 
     An einsum traces to a ``bmm`` between layout operators, so each
     contraction is recognized by its ``bmm``, the values of the einsum's
-    own shape in the layout chains around it, and the shapes of the leaves
-    it reaches.  Anchored at the (T, D) output of the final contraction;
+    own shape in the layout chains around it, and the shapes of the
+    weights it reaches.  A weight is a graph input or one layer's slice
+    of a stacked input (``w[j]``, as a model's layer loop takes it); x,
+    idx and gate may be computed in the graph (a decode step's router
+    feeds them).  Anchored at the (T, D) output of the final contraction;
     the combine operand is semantically validated to be a top-k one-hot
-    dispatch of (idx, gate)."""
+    dispatch of (idx, gate), the (T, K) values it is computed from
+    (``_routing``)."""
 
     anchor_targets = frozenset({aten.bmm.default})
 
@@ -868,14 +880,23 @@ class MoeMatcher(Matcher):
         self.computation = comp.name
 
     @staticmethod
-    def _expert_mm(ctx, atom, x, w_shape):
-        """The weight leaf of einsum('td,edf->etf', x, w), or None."""
-        ops = _contraction(ctx, atom)
-        if ops is None:
+    def _weight(ctx, w) -> bool:
+        """``w`` is a graph input, or ``w_stack[j]`` of one."""
+        n = ctx.prod(w)
+        return n is None or (n.target in _SELECTS and n.args[1] == 0
+                             and ctx.prod(n.args[0]) is None)
+
+    @classmethod
+    def _expert_mm(cls, ctx, atom, x, w_shape):
+        """The weight of einsum('td,edf->etf', x, w), or None."""
+        n = ctx.prod(_layout_chain(ctx, atom)[-1])
+        if n is None or n.target != aten.bmm.default:
             return None
-        for a, w in (ops, ops[::-1]):
-            if a is x and _shape(w) == w_shape and ctx.prod(w) is None:
-                return w
+        chains = [_layout_chain(ctx, a) for a in n.args[:2]]
+        for a, w in (chains, chains[::-1]):
+            if x in a and _shape(w[-1]) == w_shape \
+                    and cls._weight(ctx, w[-1]):
+                return w[-1]
         return None
 
     @staticmethod
@@ -891,6 +912,16 @@ class MoeMatcher(Matcher):
                     return g
         return None
 
+    @staticmethod
+    def _x_candidates(ctx, g, T):
+        """The (T, D) float values in the layout chains of the operands of
+        the contraction under ``g``."""
+        n = ctx.prod(_layout_chain(ctx, g)[-1])
+        if n is None or n.target != aten.bmm.default:
+            return []
+        return [v for a in n.args[:2] for v in _layout_chain(ctx, a)
+                if _ndim(v) == 2 and _shape(v)[0] == T and not _is_int(v)]
+
     def _match_y(self, ctx, y, T, E):
         """Binding of x, wg, wu, wd for y = einsum('etf,efd->etd',
         silu(g) * u, wd), or None."""
@@ -900,7 +931,7 @@ class MoeMatcher(Matcher):
         for h, wd in (ops, ops[::-1]):
             hn = ctx.prod(h)
             if hn is None or hn.target != aten.mul.Tensor \
-                    or ctx.prod(wd) is not None or _ndim(wd) != 3:
+                    or _ndim(wd) != 3 or not self._weight(ctx, wd):
                 continue
             _, F, D = _shape(wd)
             for sg, u in (hn.args, hn.args[::-1]):
@@ -908,14 +939,39 @@ class MoeMatcher(Matcher):
                 g = None if sn is None else self._silu_arg(ctx, sn)
                 if g is None:
                     continue
-                for x in ctx.provenance(g)[0]:
-                    if _shape(x) != (T, D) or _is_int(x):
+                for x in self._x_candidates(ctx, g, T):
+                    if _shape(x) != (T, D):
                         continue
                     wg = self._expert_mm(ctx, g, x, (E, D, F))
                     wu = self._expert_mm(ctx, u, x, (E, D, F))
                     if wg is not None and wu is not None:
                         return dict(x=x, wg=wg, wu=wu, wd=wd)
         return None
+
+    @staticmethod
+    def _routing(ctx, combine, T):
+        """The values ``combine`` is computed from: graph leaves and, on a
+        path back from it, the first (T, K) value that is not computed
+        from (T, K) values alone (in a decode step, the router's (T, 1, K)
+        top-k reshaped); a (T, K) value computed from (T, K) values is
+        followed to them, so ``gate * gate`` leads to ``gate``."""
+        found, stack, seen = [], [combine], set()
+        while stack:
+            a = stack.pop()
+            if a in seen:
+                continue
+            seen.add(a)
+            n = ctx.prod(a)
+            if n is None:
+                found.append(a)
+                continue
+            ins = n.all_input_nodes
+            if a is not combine and _ndim(a) == 2 and _shape(a)[0] == T \
+                    and not all(_shape(i) == _shape(a) for i in ins):
+                found.append(a)
+                continue
+            stack.extend(ins)
+        return found
 
     def match_node(self, ctx, node):
         # the output chain: the bmm's sole consumers while they are layout
@@ -943,10 +999,10 @@ class MoeMatcher(Matcher):
             env = self._match_y(ctx, y, T, E)
             if env is None or _shape(env["x"])[1] != D:
                 continue
-            leaves, _ = ctx.provenance(combine)
+            leaves = [lf for lf in self._routing(ctx, combine, T)
+                      if lf.op != "get_attr"]
             ints = [lf for lf in leaves if _is_int(lf)]
-            floats = [lf for lf in leaves if lf not in ints
-                      and lf.op != "get_attr"]
+            floats = [lf for lf in leaves if lf not in ints]
             if len(ints) != 1 or len(floats) != 1 \
                     or _shape(ints[0]) != _shape(floats[0]) \
                     or _ndim(ints[0]) != 2 or _shape(ints[0])[0] != T:

@@ -16,14 +16,20 @@ Fault classes (the ``kind`` namespace) and where they fire here::
     bake_raise        plan baking raises (falls back to the interpreter)
     cache_torn_write  a JsonStore save leaves a truncated file on disk
     shadow_diverge    a shadow comparison is forced to report divergence
-    decode_raise      (serving; parsed, no site in this package yet)
-    decode_nan        (serving; parsed, no site in this package yet)
-    replica_crash     (serving; parsed, no site in this package yet)
+                      (site ``dispatch``: a plan call's; ``request``: the
+                      serving tier's request shadow)
+    decode_raise      a serving engine's decode step raises (one slot is
+                      poisoned and evicted; site ``decode``)
+    decode_nan        a decode step's logits row turns non-finite (that
+                      request fails; site ``decode``)
+    replica_crash     a front-door replica's step raises (it is retired and
+                      its requests fail over; site ``replica<N>``)
 
 Spec grammar (``LILAC_TORCH_FAULTS``): comma-separated rules, each
 ``kind[:site[:prob]]``.  ``site`` is an ``fnmatch`` pattern over the
 injection point's name (a harness name like ``cuda.ell``, a repack name,
-a cache file stem like ``autotune``, ``bake`` or ``dispatch``); omitted
+a cache file stem like ``autotune``, ``bake``, ``dispatch``, ``decode``,
+``request`` or ``replica0``); omitted
 or ``*`` matches every site.  ``prob`` (default 1.0) is the per-attempt
 firing probability, decided by a stable hash of ``(seed, kind, site,
 attempt#)``: no RNG state, so two processes with the same plan and call

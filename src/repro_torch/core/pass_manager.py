@@ -224,6 +224,9 @@ class LilacFunction:
         self._last_plan: Optional[P.ExecutablePlan] = None
         # recently served plans across signatures, most recent first
         self._hot_plans: List[P.ExecutablePlan] = []
+        # flat leaf positions a bake captures onto static buffers from the
+        # start: prewarm's throwaway inputs, which no later call brings again
+        self._static_leaves: frozenset = frozenset()
         # set-up paid per input signature: traces run and the seconds spent
         # tracing and detecting (repacks are the data plane's: cache.plans)
         self.stats = {"traces": 0, "trace_seconds": 0.0, "detect_seconds": 0.0,
@@ -900,7 +903,8 @@ class LilacFunction:
             recorder=recorder, raw_flat=flat, tensors=tensors,
             tensor_pos=entry.tensor_pos, in_spec=spec,
             out_spec=entry.out_spec, report=entry.report, mode=self.mode,
-            platform=self.platform, registry_epoch=self.registry.epoch))
+            platform=self.platform, registry_epoch=self.registry.epoch,
+            static_leaves=self._static_leaves))
 
     def _maybe_bake_graph(self, entry: CompiledEntry, flat, tensors,
                           spec) -> None:
@@ -915,7 +919,8 @@ class LilacFunction:
             out_spec=entry.out_spec, report=entry.report,
             selections=list(entry.selections),
             schedules=list(entry.schedules), fuses=list(entry.fuses),
-            platform=self.platform, registry_epoch=self.registry.epoch))
+            platform=self.platform, registry_epoch=self.registry.epoch,
+            static_leaves=self._static_leaves))
 
     def invalidate_plans(self) -> None:
         """Drop every baked plan (not the persistent cache): the next call
@@ -940,9 +945,13 @@ class LilacFunction:
         a ``(shape, dtype)`` pair is made as zeros on this function's
         device.  One call per signature runs the whole detect -> tune ->
         bake life cycle here (or rehydrates it from the plan cache).
-        Returns per signature ``{baked, detect_calls, from_plan_cache}``
-        and the totals; ``detect_calls`` stays 0 on a plan-cache warm
-        start."""
+        Returns per signature ``{seconds, baked, detect_calls,
+        from_plan_cache}`` (``seconds``: the call's trace, detection,
+        selection and bake, on the host's clock) and the totals;
+        ``detect_calls`` stays 0 on a plan-cache warm start.  The zeros
+        made from specs are throwaway, so a CUDA graph captures static
+        buffers at their positions from the start: a later call's tensor
+        there is copied in, not re-captured on."""
         def is_spec(x):
             return (isinstance(x, tuple) and len(x) == 2
                     and isinstance(x[1], torch.dtype)
@@ -955,12 +964,22 @@ class LilacFunction:
         per_sig: List[Dict[str, Any]] = []
         for sig in signatures:
             leaves, spec = tree_flatten(tuple(sig), is_leaf=is_spec)
-            args = tree_unflatten([materialize(x) for x in leaves], spec)
-            before = self.stats["detects"]
-            self(*args)
+            made = [materialize(x) for x in leaves]
+            args = tree_unflatten(made, spec)
             flat, in_spec = tree_flatten((args, {}))
+            made_ids = {id(t) for t, x in zip(made, leaves) if is_spec(x)}
+            before = self.stats["detects"]
+            t0 = time.perf_counter()
+            self._static_leaves = frozenset(
+                i for i, t in enumerate(flat) if id(t) in made_ids)
+            try:
+                self(*args)
+            finally:
+                self._static_leaves = frozenset()
+            seconds = time.perf_counter() - t0
             entry = self._entry_for(self._unwrap(flat), in_spec)
             per_sig.append({
+                "seconds": seconds,
                 "baked": entry.plan is not None,
                 "detect_calls": self.stats["detects"] - before,
                 "from_plan_cache": any("rehydrated from plan cache" in line

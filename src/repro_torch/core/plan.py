@@ -48,7 +48,9 @@ program reads and no marshal guard covers is first captured in place too,
 under a guard of the same kind; when a call brings another tensor there
 (the CG's direction vector ``p`` does on every call) the plan re-captures
 once with a static buffer at that position, which each later call fills
-with one device copy.  A leaf the program never reads (``row_ptr`` once its
+with one device copy.  A plan baked by ``LilacFunction.prewarm`` gets
+static buffers at the positions of prewarm's throwaway zeros from its
+first capture.  A leaf the program never reads (``row_ptr`` once its
 anchor is replaced) is neither copied nor read.  Outputs are cloned out of
 the graph's pool, which the next replay overwrites.  Each capture times
 one call of the replay, copies included, against one eager run of the same
@@ -829,9 +831,14 @@ class ExecutablePlan:
 
     # -- the CUDA graph ------------------------------------------------------
 
-    def capture(self, tensors: List[torch.Tensor]) -> None:
-        """Capture the program on the card (call once, after baking)."""
-        self._recapture(tensors, self._static)
+    def capture(self, tensors: List[torch.Tensor],
+                static_leaves: frozenset = frozenset()) -> None:
+        """Capture the program on the card (call once, after baking).  The
+        flat leaf positions ``static_leaves`` hold throwaway tensors: those
+        the program reads in place get static buffers at once."""
+        static = frozenset(i for i in self._in_place
+                           if self.tensor_pos[i] in static_leaves)
+        self._recapture(tensors, self._static | static)
         self.recaptures = 0
 
     def _recapture(self, tensors, static: frozenset) -> None:
@@ -931,22 +938,25 @@ class ExecutablePlan:
         }
 
 
-def _finish(plan: ExecutablePlan, tensors) -> ExecutablePlan:
+def _finish(plan: ExecutablePlan, tensors,
+            static_leaves: frozenset) -> ExecutablePlan:
     if plan.platform == "cuda":
-        plan.capture(tensors)
+        plan.capture(tensors, static_leaves)
     return plan
 
 
 def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
               raw_flat, tensors, tensor_pos, in_spec, out_spec, report,
-              mode: str, platform: str,
-              registry_epoch: int = 0) -> ExecutablePlan:
+              mode: str, platform: str, registry_epoch: int = 0,
+              static_leaves: frozenset = frozenset()) -> ExecutablePlan:
     """Bake one resolved host-mode rewrite into an :class:`ExecutablePlan`.
 
     ``raw_flat`` are the call's leaves as passed (possibly TrackedArray),
     ``tensors`` the unwrapped tensors the program runs on, taken from the
     flat positions ``tensor_pos``.  Raises :class:`PlanBakeError` (or what
-    the capture raises) on failure; the caller decides what to do."""
+    the capture raises) on failure; the caller decides what to do.
+    ``static_leaves``: flat positions whose tensors no later call brings
+    again (``ExecutablePlan.capture``)."""
     from repro_torch.core.harness import CallCtx
     from repro_torch.core.rewrite import run_rewritten
 
@@ -986,12 +996,13 @@ def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
         [slots[id(m.anchor)].fuse for m in matches],
         {aid: tuple(s.buffers) for aid, s in slots.items()},
         registry_epoch, platform, read=read_positions(gm, matches, needed))
-    return _finish(plan, tensors)
+    return _finish(plan, tensors, static_leaves)
 
 
 def bake_graph_plan(*, gm: GraphModule, raw_flat, tensors, tensor_pos,
                     in_spec, out_spec, report, selections, schedules, fuses,
-                    platform: str, registry_epoch: int = 0) -> ExecutablePlan:
+                    platform: str, registry_epoch: int = 0,
+                    static_leaves: frozenset = frozenset()) -> ExecutablePlan:
     """Bake a trace-mode entry: its rewritten ``GraphModule`` is the
     program (no marshaling, so no marshal guards)."""
     if faults.ACTIVE is not None:
@@ -1002,5 +1013,5 @@ def bake_graph_plan(*, gm: GraphModule, raw_flat, tensors, tensor_pos,
         gm, in_spec, out_spec, leaf_templates(raw_flat), tensor_pos, [],
         const_guards_for(gm), report, selections, schedules, fuses, {},
         registry_epoch, platform, read=read)
-    return _finish(plan, tensors)
+    return _finish(plan, tensors, static_leaves)
 

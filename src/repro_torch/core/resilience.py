@@ -23,7 +23,10 @@ pass's failure, not the user's.  The pieces:
   fingerprint is pinned to ``""``: a record names its harness, and an
   incident yesterday is evidence today whatever else was registered.
 * :class:`AdaptiveShadowRate` — the controller of sampled shadow checks
-  (a plan call also runs the uncompiled program and compares).
+  (a plan call also runs the uncompiled program and compares), and of the
+  serving tier's request shadow (``serve.engine``: a finished request
+  re-decoded alone and compared token for token; a divergence reaches
+  the compiled decode's ``report_divergence``).
 
 **What the card adds.**  On the card an exception raised by a
 hand-written kernel's harness (``cuda.*``) is not contained: a kernel
@@ -62,8 +65,10 @@ eager or replayed; the sampled shadow checks watch that path.
 Environment knobs: ``LILAC_TORCH_QUARANTINE_CACHE`` (store path),
 ``LILAC_TORCH_QUARANTINE_TTL`` (seconds, default 3600; ``<= 0`` never
 expires), ``LILAC_TORCH_SHADOW_RATE`` (in [0, 1]: the floor fraction of
-plan calls shadowed), ``LILAC_TORCH_SHADOW_SPIKE`` / ``LILAC_TORCH_SHADOW_DECAY``
-(the adaptive controller).
+plan calls shadowed), ``LILAC_TORCH_REQUEST_SHADOW_RATE`` (the floor
+fraction of a serving engine's finished requests re-decoded solo),
+``LILAC_TORCH_SHADOW_SPIKE`` / ``LILAC_TORCH_SHADOW_DECAY`` (the adaptive
+controller, both rates).
 """
 from __future__ import annotations
 
@@ -87,6 +92,8 @@ _ENV_TTL = "LILAC_TORCH_QUARANTINE_TTL"
 _ENV_SPIKE = "LILAC_TORCH_SHADOW_SPIKE"
 _ENV_DECAY = "LILAC_TORCH_SHADOW_DECAY"
 ENV_SHADOW = "LILAC_TORCH_SHADOW_RATE"
+#: the serving tier's request-level shadow rate (``serve.engine``)
+ENV_REQUEST_SHADOW = "LILAC_TORCH_REQUEST_SHADOW_RATE"
 DEFAULT_TTL_S = 3600.0
 DEFAULT_SHADOW_SPIKE = 16.0
 DEFAULT_SHADOW_DECAY = 0.5
@@ -173,14 +180,20 @@ def sticky_error_code(e: BaseException) -> Optional[int]:
     return None
 
 
+def injected_or_oom(e: BaseException) -> bool:
+    """``e`` is (or was raised from) an injected fault or out of memory:
+    the only failures on the card that say nothing of the port's code."""
+    return any(isinstance(x, (faults.InjectedFault,
+                              torch.cuda.OutOfMemoryError))
+               for x in _chain(e))
+
+
 def kernel_fault(harness: str, platform: str, e: BaseException) -> bool:
     """``e`` is a failure of a hand-written kernel on the card, which
     containment lets through: a ``cuda.*`` harness raised something that
     is neither an injected fault nor out of memory."""
     return (platform == "cuda" and harness.startswith("cuda.")
-            and not any(isinstance(x, (faults.InjectedFault,
-                                       torch.cuda.OutOfMemoryError))
-                        for x in _chain(e)))
+            and not injected_or_oom(e))
 
 
 def device_fault(e: BaseException) -> bool:

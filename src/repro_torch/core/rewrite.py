@@ -115,6 +115,7 @@ def run_rewritten(gm: GraphModule,
     anchor_map = {m.anchor: m for m in matches}
     if needed is None:
         needed = needed_nodes(gm, matches)
+    last_use = _last_uses(gm, anchor_map, needed)
     for n in gm.graph.nodes:
         if n.op == "output":
             return list(map_arg(n.args[0], env.__getitem__))
@@ -127,9 +128,57 @@ def run_rewritten(gm: GraphModule,
         elif n.op == "get_attr":
             env[n] = getattr(gm, n.target)
         elif n in needed:
-            env[n] = n.target(*map_arg(n.args, env.__getitem__),
-                              **map_arg(n.kwargs, env.__getitem__))
+            args_, kwargs_ = (map_arg(n.args, env.__getitem__),
+                              map_arg(n.kwargs, env.__getitem__))
+            env[n] = _view_of_copy(n, args_)(*args_, **kwargs_)
+        for dead in last_use.get(n, ()):
+            del env[dead]
     raise ValueError("graph has no output node")
+
+
+def _last_uses(gm: GraphModule, anchor_map, needed) -> Dict[Node, list]:
+    """node -> the values whose last reader it is, so that the interpreter
+    frees each value once nothing evaluated later reads it (a traced
+    16-layer decode step would otherwise hold every intermediate to the
+    end).  The output node reads last and frees nothing."""
+    last: Dict[Node, Node] = {}
+    for n in gm.graph.nodes:
+        m = anchor_map.get(n)
+        if m is not None:
+            reads = [v for v in m.binding.values() if isinstance(v, Node)]
+        elif n in needed:
+            reads = n.all_input_nodes
+        else:
+            continue
+        for r in reads:
+            last[r] = n
+    out: Dict[Node, list] = {}
+    for v, n in last.items():
+        out.setdefault(n, []).append(v)
+    outputs = next(n for n in reversed(gm.graph.nodes)
+                   if n.op == "output").all_input_nodes
+    for vs in out.values():
+        vs[:] = [v for v in vs if v not in outputs]
+    return out
+
+
+def _view_of_copy(n: Node, args) -> Callable:
+    """The operator to evaluate ``n`` with: a layer's slice of a stacked
+    tensor (``select_copy`` along dim 0 of a contiguous tensor, which
+    functionalization writes for ``w[j]``) is taken as the view it was in
+    the program, with the same contiguous layout, instead of a copy of
+    the layer's weights on every call.  The graph is functional, so
+    nothing writes the stack while the view is read; a graph output
+    stays a copy."""
+    if n.target is torch.ops.aten.select_copy.int and args[1] == 0 \
+            and isinstance(args[0], torch.Tensor) \
+            and args[0].is_contiguous() and not _is_output(n):
+        return torch.ops.aten.select.int
+    return n.target
+
+
+def _is_output(n: Node) -> bool:
+    return any(u.op == "output" for u in n.users)
 
 
 def _binding(m: Match, lookup) -> Dict[str, Any]:

@@ -7,6 +7,7 @@
     python -m repro_torch.examples.bfs
     python -m repro_torch.examples.train_sparse_moe
     python -m repro_torch.examples.train_e2e
+    python -m repro_torch.examples.serve
 
 (with ``src`` on ``PYTHONPATH``).  The SpMV examples take ``--policy
 {default,autotune,<harness>}``; every example takes ``--device`` (default

@@ -1,17 +1,21 @@
-"""Model factory: ArchConfig -> Model (spec, parameters, the loss).
+"""Model factory: ArchConfig -> Model (spec, parameters, the loss,
+prefill, decode and the batched cache's slot hooks).
 
-Counterpart of the training part of ``repro.models.factory``;
-``params_from_numpy`` carries the JAX package's parameter tree across, so
-that both packages compute the same model (prefill, decode and the cache
-helpers come with serving).
+Counterpart of ``repro.models.factory``; ``params_from_numpy`` carries the
+JAX package's parameter tree across, so that both packages compute the
+same model.  The reference's cache hooks return new caches (XLA copies or
+donates); here ``cache_set_slot`` and ``cache_move_slot`` are row copies
+into the cache they are given, which they return, and ``cache_resize``
+returns new contiguous buffers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import spec as S
@@ -41,8 +45,80 @@ class Model:
 
     def loss_fn(self, params, batch: Dict[str, Any]):
         """batch: tokens + labels -> scalar loss."""
-        x, aux = T.forward(self.cfg, params, batch)
+        x, aux, _ = T.forward(self.cfg, params, batch)
         return T.lm_loss(self.cfg, params, x, batch["labels"]) + 0.01 * aux
+
+    # -- prefill and decode ---------------------------------------------------
+
+    def prefill(self, params, batch: Dict[str, Any]):
+        """(logits of the last position (B, V) f32, the caches stacked over
+        the periods)."""
+        x, _, caches = T.forward(self.cfg, params, batch, collect_cache=True)
+        return T.lm_logits_last(self.cfg, params, x), caches
+
+    def decode(self, params, cache, tokens, pos):
+        return T.decode_step(self.cfg, params, cache, tokens, pos)
+
+    def init_cache(self, B: int, max_seq: int, device=None):
+        return T.init_cache(self.cfg, B, max_seq, device)
+
+    def cache_from_prefill(self, caches, prefill_len: int, max_seq: int):
+        """The prefill's stacked, length-L caches as the per-layer decode
+        cache, k/v zero-padded to ``max_seq`` in ``cfg.cache_dtype``."""
+        out = {}
+        for j in range(T.n_periods(self.cfg)):
+            period = {}
+            for bkey, entries in caches.items():
+                ce = {}
+                for name, leaf in entries.items():
+                    a = leaf[j]
+                    if name in ("k", "v"):
+                        a = F.pad(a, (0, 0, 0, 0, 0, max_seq - a.shape[1])
+                                  ).to(self.cfg.cache_dtype)
+                    ce[name] = a
+                period[bkey] = ce
+            out[f"p{j}"] = period
+        return out
+
+    # -- the batched cache's slots (serving) -----------------------------------
+
+    def cache_set_slot(self, cache, slot: int, row_cache):
+        """Copy a one-request cache (every leaf batch 1, the same capacity)
+        into row ``slot`` of ``cache``; returns ``cache``."""
+        S.tree_map(lambda full, one: full[slot].copy_(one[0]), cache,
+                   row_cache)
+        return cache
+
+    def cache_move_slot(self, cache, src: int, dst: int):
+        """Copy row ``src`` over row ``dst`` (slot compaction after an
+        eviction; the stale ``src`` row stays behind, never read once the
+        scheduler shrinks the active prefix); returns ``cache``."""
+        S.tree_map(lambda a: a[dst].copy_(a[src]), cache)
+        return cache
+
+    def cache_resize(self, cache, B: Optional[int] = None,
+                     max_seq: Optional[int] = None):
+        """Re-bucket a cache into new contiguous buffers: the batch axis
+        (axis 0 of every leaf) and the capacity axis of the k/v leaves
+        (axis 1, keyed by the leaf's name) padded with zeros or cut (the
+        engine cuts only what no active request uses)."""
+        def fix(a, name):
+            if B is not None and a.shape[0] != B:
+                a = (F.pad(a, (0, 0) * (a.dim() - 1) + (0, B - a.shape[0]))
+                     if B > a.shape[0] else a[:B])
+            if max_seq is not None and name in ("k", "v") \
+                    and a.shape[1] != max_seq:
+                a = (F.pad(a, (0, 0) * (a.dim() - 2)
+                           + (0, max_seq - a.shape[1]))
+                     if max_seq > a.shape[1] else a[:, :max_seq])
+            return (a.clone(memory_format=torch.contiguous_format)
+                    if a._base is not None else a)
+
+        def walk(tree):
+            return {k: walk(v) if isinstance(v, dict) else fix(v, k)
+                    for k, v in tree.items()}
+
+        return walk(cache)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -2,7 +2,9 @@
 and the MoE expert FFN (naive dense dispatch, the same passed through
 LiLAC, and the capacity-bucket grouped dispatch).
 
-Counterpart of ``repro.models.layers`` for the dense and MoE transformer.
+Counterpart of ``repro.models.layers`` for the dense and MoE transformer,
+with the one-token decode against a KV cache (``attention_decode_stacked``)
+and the flat MoE formulations of the decode step.
 All functions are pure; parameters are dicts of tensors built from the
 ``*_spec`` trees (``models.spec.ParamSpec``).  ``moe_spec`` /
 ``moe_params`` are the MoE layer's own (shape, dtype) table and its
@@ -143,12 +145,56 @@ def chunked_attention(q, k, v, *, kv_chunk: int = 1024, q_positions=None,
     return out.reshape(B, Sq, H, dh)
 
 
-def attention_block(p, x, *, positions, kv_chunk: int = 1024):
+def attention_block(p, x, *, positions, kv_chunk: int = 1024,
+                    with_kv: bool = False):
+    """Full-sequence causal attention.  Returns y (B, S, D), or with
+    ``with_kv`` ``(y, k, v)``: the roped k and v a prefill caches."""
     q, k, v = _qkv(p, x, positions)
     pos = positions[0] if positions.dim() > 1 else positions
     out = chunked_attention(q, k, v, kv_chunk=kv_chunk, q_positions=pos,
                             kv_positions=pos)
-    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    return (y, k, v) if with_kv else y
+
+
+def attention_decode_stacked(p, x, k_cache, v_cache, pos):
+    """One-token decode against a per-layer (B, S, KV, dh) cache buffer.
+
+    ``pos`` is a scalar (the whole batch at one position) or a (B,) vector
+    of per-row positions (continuous batching: every slot at its own
+    depth); a scalar takes the vector's path at equal positions, so the
+    two give the same bits.  Row b's new k/v is written at ``pos[b]``, and
+    the row attends to positions ``<= pos[b]``.  Returns ``(y, k_cache,
+    v_cache)`` with new cache buffers, as the reference does: the write is
+    a functional ``index_put`` (a copy of the buffer), where XLA's donation
+    makes the reference's ``dynamic_update_slice`` an in-place write.
+    """
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    rows = pos if pos.dim() == 1 else pos.expand(B)
+    q, k, v = _qkv(p, x, rows[:, None])
+    b = torch.arange(B, device=x.device)
+    k_cache = k_cache.index_put((b, rows.long()), k[:, 0].to(k_cache.dtype))
+    v_cache = v_cache.index_put((b, rows.long()), v[:, 0].to(v_cache.dtype))
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    H = q.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, -1)
+    logits = torch.einsum("bskgd,bckd->bskgc", qg.float(),
+                          k_cache.float()) / np.sqrt(q.shape[-1])
+    mask = torch.arange(S, device=x.device)[None, :] <= rows[:, None]
+    logits = torch.where(mask[:, None, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bskgc,bckd->bskgd", probs, v_cache.float())
+    out = out.reshape(B, 1, H, -1).to(x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, k_cache, v_cache
+
+
+def attention_decode(p, x, cache, pos):
+    """One-token decode against a KV cache ``{"k", "v"}`` of (B, S, KV,
+    dh); x: (B, 1, D).  Returns ``(y, new_cache)``."""
+    y, k, v = attention_decode_stacked(p, x, cache["k"], cache["v"], pos)
+    return y, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
@@ -314,20 +360,34 @@ def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
     the expert FFN once per sequence, ``lilac`` through one compiled
     function (one trace for all sequences of a shape); ``grouped`` runs
     the capacity-bucket dispatch over all sequences at once, dropping a
-    pair past ``capacity_factor`` times an expert's mean load.  Returns
-    (out, aux_loss)."""
+    pair past ``capacity_factor`` times an expert's mean load.  The flat
+    impls take the B·S tokens as one group (decode): ``grouped_flat``
+    one capacity-bucket dispatch, ``naive_flat`` one dense dispatch, the
+    exact form the detector matches, so that compiling a decode step
+    exposes its MoE layers.  Returns (out, aux_loss)."""
     gate, idx, aux = moe_router(p, x, topk)
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    B, S, D = x.shape
     if impl == "grouped":
         return _moe_grouped_batched(x, gate, idx, wg, wu, wd,
                                     capacity_factor=capacity_factor), aux
+    if impl == "grouped_flat":
+        out = _moe_grouped_batched(x.reshape(1, B * S, D),
+                                   gate.reshape(1, B * S, -1),
+                                   idx.reshape(1, B * S, -1), wg, wu, wd,
+                                   capacity_factor=capacity_factor)
+        return out.reshape(B, S, D), aux
+    if impl == "naive_flat":
+        out = _moe_naive_2d(x.reshape(B * S, D), gate.reshape(B * S, -1),
+                            idx.reshape(B * S, -1), wg, wu, wd)
+        return out.reshape(B, S, D), aux
     if impl == "naive":
         fn = _moe_naive_2d
     elif impl == "lilac":
         fn = _lilac_moe_2d(x.device.type)
     else:
-        raise ValueError(f"impl must be 'naive', 'lilac' or 'grouped', "
-                         f"got {impl!r}")
+        raise ValueError(f"impl must be 'naive', 'lilac', 'grouped', "
+                         f"'naive_flat' or 'grouped_flat', got {impl!r}")
     out = torch.stack([fn(x[b], gate[b], idx[b], wg, wu, wd)
                        for b in range(x.shape[0])])
     return out, aux

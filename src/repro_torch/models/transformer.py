@@ -1,5 +1,5 @@
 """Block assembly and the generic LM: spec building, the forward over the
-stacked periods and the chunked LM loss (the training path).
+stacked periods, the chunked LM loss, prefill and decode.
 
 Counterpart of ``repro.models.transformer`` for the ``dense`` and ``moe``
 families.  A period is the repeating unit of the architecture (one block
@@ -7,7 +7,9 @@ for these families); period parameters are stacked on a leading
 ``layers`` axis, as in the reference, and ``forward`` loops over the
 stack where the reference scans it.  With ``cfg.remat`` each period runs
 under ``torch.utils.checkpoint`` (non-reentrant), whose backward replays
-the period's forward.  Decode and the KV cache come with serving.
+the period's forward.  Decode carries a per-layer KV cache
+(``init_cache``) through ``decode_step``, a loop over the layers with one
+cache entry each, as the reference unrolls it.
 """
 from __future__ import annotations
 
@@ -97,12 +99,15 @@ def _norm_apply(cfg, p, x):
 
 def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
                 moe_impl: Optional[str] = None):
-    """Full-sequence block application.  Returns (x, aux_loss)."""
+    """Full-sequence block application.  Returns (x, aux_loss,
+    cache_entry): the block's k and v in ``x.dtype``."""
     h = _norm_apply(cfg, bp["ln1"], x)
     if mixer != "attn":
         raise ValueError(mixer)
-    x = x + L.attention_block(bp["attn"], h, positions=positions,
-                              kv_chunk=cfg.kv_chunk)
+    out, k, v = L.attention_block(bp["attn"], h, positions=positions,
+                                  kv_chunk=cfg.kv_chunk, with_kv=True)
+    x = x + out
+    cache_entry = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm_apply(cfg, bp["ln2"], x)
     if ffn == "mlp":
@@ -113,14 +118,17 @@ def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
         x = x + out
     else:
         raise ValueError(ffn)
-    return x, aux
+    return x, aux, cache_entry
 
 
-def forward(cfg, params, inputs: Dict[str, Any]):
-    """Full-sequence forward (training).
+def forward(cfg, params, inputs: Dict[str, Any], *,
+            collect_cache: bool = False):
+    """Full-sequence forward (training / prefill).
 
     inputs: {"tokens": (B,S) int}, optional "positions" (B,S).
-    Returns (x_final (B,S,D), aux_loss)."""
+    Returns (x_final (B,S,D), aux_loss, cache or None): with
+    ``collect_cache`` each block's k and v stacked over the periods,
+    ``{"b0": {"k": (periods, B, S, KV, dh), "v": ...}}``."""
     pattern = arch_pattern(cfg)
     x = params["embed"][inputs["tokens"].long()]
     B, S = x.shape[0], x.shape[1]
@@ -130,21 +138,28 @@ def forward(cfg, params, inputs: Dict[str, Any]):
                                  device=x.device)[None].expand(B, S)
 
     def period_fn(x, aux, period_params):
+        caches = {}
         for i, (mx, ff) in enumerate(pattern):
-            x, a = apply_block(cfg, period_params[f"b{i}"], x, mixer=mx,
-                               ffn=ff, positions=positions)
+            x, a, ce = apply_block(cfg, period_params[f"b{i}"], x, mixer=mx,
+                                   ffn=ff, positions=positions)
             aux = aux + a
-        return x, aux
+            caches[f"b{i}"] = ce
+        return x, aux, caches
 
     aux = torch.zeros((), dtype=F32, device=x.device)
+    per_period = []
     for j in range(n_periods(cfg)):
         period_params = tree_map(lambda a: a[j], params["blocks"])
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(period_fn, x, aux, period_params,
-                                use_reentrant=False)
+            x, aux, caches = checkpoint(period_fn, x, aux, period_params,
+                                        use_reentrant=False)
         else:
-            x, aux = period_fn(x, aux, period_params)
-    return _norm_apply(cfg, params["final_norm"], x), aux
+            x, aux, caches = period_fn(x, aux, period_params)
+        if collect_cache:
+            per_period.append(caches)
+    caches = (tree_map(lambda *a: torch.stack(a), *per_period)
+              if collect_cache else None)
+    return _norm_apply(cfg, params["final_norm"], x), aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -174,3 +189,79 @@ def lm_loss(cfg, params, x_final, labels, *, chunk: int = 512):
         tot = tot + torch.sum((lse - picked) * mask)
         cnt = cnt + torch.sum(mask)
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_logits_last(cfg, params, x_final):
+    """Logits of the last position only (prefill -> first generated
+    token), in f32."""
+    return torch.einsum("bd,dv->bv", x_final[:, -1, :].float(),
+                        params["unembed"].float())
+
+
+# ---------------------------------------------------------------------------
+# Decode (one new token, the cache carried)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, B: int, max_seq: int, device=None) -> Dict[str, Any]:
+    """Per-layer cache ``{"p{j}": {"b{i}": {"k", "v"}}}`` of zeros, each
+    (B, max_seq, KV, dh) in ``cfg.cache_dtype``, with no stacked periods
+    axis: each layer's buffer is its own tensor, as in the reference.
+    Only attention mixers have entries here; the recurrent families come
+    with their models."""
+    hd = cfg.d_model // cfg.n_heads
+    shape = (B, max_seq, cfg.n_kv_heads, hd)
+    cache: Dict[str, Any] = {}
+    for j in range(n_periods(cfg)):
+        cache[f"p{j}"] = {
+            f"b{i}": {"k": torch.zeros(shape, dtype=cfg.cache_dtype,
+                                       device=device),
+                      "v": torch.zeros(shape, dtype=cfg.cache_dtype,
+                                       device=device)}
+            for i, _ in enumerate(arch_pattern(cfg))}
+    return cache
+
+
+def decode_block(cfg, bp, x, ce, pos, *, mixer: str, ffn: str):
+    """One decode block against its own per-layer cache entry.  Returns
+    (x, new_entry)."""
+    if mixer != "attn":
+        raise ValueError(mixer)
+    h = _norm_apply(cfg, bp["ln1"], x)
+    out, kc, vc = L.attention_decode_stacked(bp["attn"], h, ce["k"],
+                                             ce["v"], pos)
+    x = x + out
+    h = _norm_apply(cfg, bp["ln2"], x)
+    if ffn == "mlp":
+        x = x + L.mlp_block(bp["mlp"], h)
+    elif ffn == "moe":
+        out, _ = L.moe_block(bp["moe"], h, topk=cfg.moe_topk,
+                             impl=cfg.moe_decode_impl)
+        x = x + out
+    else:
+        raise ValueError(ffn)
+    return x, {**ce, "k": kc, "v": vc}
+
+
+def decode_step(cfg, params, cache, tokens, pos):
+    """tokens: (B, 1) int; pos: a scalar (the whole batch at one write
+    position) or (B,) (per-slot positions: continuous batching).
+    Returns (logits (B, V) f32, new_cache).
+
+    The loop over the periods is unrolled, each layer's parameters a
+    slice of the stack and its cache entry its own buffer, as in the
+    reference."""
+    pattern = arch_pattern(cfg)
+    x = params["embed"][tokens.long()]
+    new_cache: Dict[str, Any] = {}
+    for j in range(n_periods(cfg)):
+        period_params = tree_map(lambda a: a[j], params["blocks"])
+        new_period = {}
+        for i, (mx, ff) in enumerate(pattern):
+            x, new_period[f"b{i}"] = decode_block(
+                cfg, period_params[f"b{i}"], x, cache[f"p{j}"][f"b{i}"],
+                pos, mixer=mx, ffn=ff)
+        new_cache[f"p{j}"] = new_period
+    x = _norm_apply(cfg, params["final_norm"], x)
+    logits = torch.einsum("bd,dv->bv", x[:, 0].float(),
+                          params["unembed"].float())
+    return logits, new_cache

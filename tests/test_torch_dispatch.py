@@ -632,3 +632,36 @@ def test_plan_life_cycle_matches_the_reference():
         assert (ti["baked"], ti["plan_hits"], ti["rebakes"]) == \
             (ji["baked"], ji["plan_hits"], ji["rebakes"]), (k, ji, ti)
     assert fast.plan_info()["rebakes"] == 1
+
+
+def test_interpreter_reads_a_stacked_slice_in_place_and_returns_copies():
+    """A layer's slice ``w[j]`` of a stacked input (``select_copy`` after
+    functionalization) is read in place by the interpreter, where the
+    decode step of a 16-layer model would otherwise copy every layer's
+    weights each call; an output that is such a slice is still a tensor
+    of its own, and every output equals the uncompiled function's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    def f(w, x):
+        return x @ w[1] + x @ w[2], w[0]
+
+    w = torch.arange(48.0).reshape(4, 3, 4)
+    x = torch.ones(3)
+    fast = lilac.compile(f, mode="host", platform="cpu", bake=False)
+    fast(w, x)                                # trace outside the mode
+    with Copies() as seen:
+        y, w0 = fast(w, x)
+    want_y, want_w0 = f(w, x)
+    assert torch.equal(y, want_y) and torch.equal(w0, want_w0)
+    assert w0.untyped_storage().data_ptr() != w.untyped_storage().data_ptr()
+    assert seen.ops.count(torch.ops.aten.select_copy.int) == 1   # the output
+    assert seen.ops.count(torch.ops.aten.select.int) == 2

@@ -11,6 +11,7 @@ import torch
 from repro_torch import lilac
 from repro_torch.core.harness import REGISTRY
 from repro_torch.examples import pagerank
+from repro_torch.examples import serve as serve_example
 from repro_torch.examples.common import naive_spmv
 from repro_torch.core import faults
 from repro_torch.core.resilience import reset_shared_quarantine
@@ -60,3 +61,16 @@ def test_pagerank_keeps_the_iterate_a_distribution(policy):
     assert 0.15 <= float(x.sum()) <= 1.0 + 1e-5
     torch.testing.assert_close(x, want, atol=1e-7, rtol=1e-5)
     assert len(spmv.last_selections) == 1
+
+
+def test_serve_example_on_the_cpu(capsys):
+    """``python -m repro_torch.examples.serve --device cpu``: every request
+    finishes on prewarmed buckets, the decode's MoE layers run as matches
+    (the CPU's ``torch.capacity``) from baked plans."""
+    snap = serve_example.main(["--device", "cpu", "--requests", "4",
+                               "--tokens", "4"])
+    assert snap["requests"]["finished"] == 4
+    assert snap["buckets"]["misses"] == 0
+    assert snap["prewarm"]["baked"] == snap["prewarm"]["n_signatures"] == 6
+    out = capsys.readouterr().out
+    assert "selections: ['torch.capacity', 'torch.capacity']" in out

@@ -7,8 +7,11 @@ inf under padding, zero tail rows); every declared ``tune`` value of K1
 (``rows_per_slab``) and K4 (``tm``); the custom ops captured in a CUDA
 graph; trace mode and the autotuner on the card; gradients through every
 ``cuda.*`` harness (their ``vjp`` clauses) and through the custom ops'
-autograd formulas against plain autograd, and ``torch.func.grad`` of a
-compiled call and of a compiled gradient.
+autograd formulas against plain autograd, ``torch.func.grad`` of a
+compiled call and of a compiled gradient; and serving: K4 under
+``moe_ffn`` at a decode step's shapes, the compiled decode inside the
+engine across re-buckets and slot moves teacher-forced against the
+uncompiled decode, and a decode plan on a cache at a new address.
 
 Every test is marked ``gpu`` and skips where no CUDA card is present.  This
 file imports neither JAX nor the JAX package, so it also runs where only
@@ -1384,3 +1387,162 @@ def test_func_grad_of_compiled_call_and_compiled_grad(cuda):
         == [("spmv_csr", "CSR"), ("spmv_csr", "COO")]
     assert cog.plan_info()["plan_hits"] >= 1
     _close_to_scale(got, want)
+
+
+# ---------------------------------------------------------------------------
+# serving: K4 at decode shapes, the compiled decode across re-buckets
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 8])
+def test_moe_ffn_at_decode_shapes(cuda, T):
+    """K4 (bf16) under moe_ffn at a decode step's T tokens x top-8 of 64
+    experts (T·K = 8 or 64 routed rows, most experts empty, Tp the static
+    8,192 rows), OLMoE widths, against the plain versions."""
+    E, D, F, K = 64, 2048, 1024, 8
+    rng = np.random.default_rng(T)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    gate = torch.from_numpy(rng.random((T, K)).astype(np.float32))
+    idx = torch.from_numpy(np.stack([rng.choice(E, K, replace=False)
+                                     for _ in range(T)]).astype(np.int32))
+    ws = [torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[1]))
+                           .astype(np.float32))
+          for s in ((E, D, F), (E, D, F), (E, F, D))]
+    xb, wb = x.to(cuda, torch.bfloat16), [w.to(cuda, torch.bfloat16)
+                                          for w in ws]
+    dest, te, tp = gmm_ops._route(idx.to(cuda), T, K, E, 128)
+    assert tp == 8192
+    xs = torch.zeros((tp, D), dtype=torch.bfloat16, device=cuda)
+    xs[dest] = xb.repeat_interleave(K, dim=0)
+    torch.testing.assert_close(K4.gmm_cuda(xs, wb[0], te),
+                               R4.gmm_ref(xs, wb[0], te, 128),
+                               atol=1e-3, rtol=1e-3)
+    before = K4.LAUNCHES["gmm"]
+    got = gmm_ops.moe_ffn(xb, gate.to(cuda), idx.to(cuda), *wb)
+    assert K4.LAUNCHES["gmm"] == before + 3
+    want = R4.moe_ffn_ref(xb.float(), gate.to(cuda), idx.to(cuda),
+                          *[w.float() for w in wb])
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel <= 2e-2, rel
+
+
+def _serving_model(cuda):
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_map
+
+    cfg = smoke_config(get_arch("olmoe-1b-7b")).replace(
+        moe_decode_impl="naive_flat", n_layers=2)
+    model = build_model(cfg)
+    params = tree_map(lambda a: a.float(), model.init(
+        torch.Generator(device=cuda).manual_seed(0), cuda))
+    return model, params
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.gpu
+def test_compiled_engine_across_rebuckets_and_slot_moves(cuda):
+    """The compiled decode (baked plans, CUDA graphs) inside the engine,
+    each step teacher-forced against the uncompiled decode on the same
+    cache and tokens, across batch and seq re-buckets and the slot moves
+    of evictions: logits and the new cache within f32 rounding, K4 (f32)
+    launched 3 times a layer a step."""
+    from repro_torch.models.spec import leaves
+    from repro_torch.serve import (BucketPolicy, Engine, Request,
+                                   ServeConfig)
+
+    model, params = _serving_model(cuda)
+    eng = Engine(model, params, ServeConfig(
+        buckets=BucketPolicy(batch=(1, 2, 4), seq=(16, 32))))
+    compiled, steps = eng._decode, []
+
+    def checked(p, cache, tokens, pos):
+        logits, new = compiled(p, cache, tokens, pos)
+        want, want_cache = model.decode(p, cache, tokens, pos)
+        steps.append((tuple(tokens.shape), cache["p0"]["b0"]["k"].shape[1],
+                      _rel(logits, want),
+                      max(_rel(a, b) for (_, a), (_, b) in
+                          zip(leaves(new), leaves(want_cache)))))
+        return logits, new
+
+    eng._decode = checked
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(1, 256, size=n).astype(np.int32),
+                    max_new_tokens=m)
+            for n, m in ((3, 2), (5, 9), (2, 4), (12, 14), (4, 3))]
+    before = K4.LAUNCHES["gmm_f32"]
+    for r in reqs:
+        assert eng.submit(r)
+    eng.run_until_idle()
+    assert all(r.failed is None and len(r.tokens) == r.max_new_tokens
+               for r in reqs)
+    shapes = {(s[0][0], s[1]) for s in steps}
+    assert len(shapes) >= 3, shapes          # re-bucketed on both axes
+    assert eng.metrics.snapshot()["buckets"]["misses"] == 0
+    assert max(s[2] for s in steps) <= 1e-4 and \
+        max(s[3] for s in steps) <= 1e-4, steps
+    assert K4.LAUNCHES["gmm_f32"] - before == 3 * 2 * len(steps)
+    assert [n for _, n in compiled.last_selections] == ["cuda.gmm"] * 2
+    info = compiled.plan_info()
+    assert info["baked"] == 6 and info["bake_errors"] == []
+
+
+@pytest.mark.gpu
+def test_prewarmed_decode_plan_captures_static_buffers_once(cuda):
+    """A decode plan baked by ``prewarm`` from (shape, dtype) specs holds
+    the cache, the tokens and the positions in static buffers from its
+    first capture: calls with caches at new addresses capture nothing
+    again and compute on their own caches."""
+    from repro_torch.models.spec import tree_map
+
+    model, params = _serving_model(cuda)
+    fast = lilac.compile(model.decode, mode="host", device=cuda,
+                         plan_cache="off")
+    specs = tree_map(lambda a: (tuple(a.shape), a.dtype),
+                     model.init_cache(2, 16, device="meta"))
+    rep = fast.prewarm((params, specs, ((2, 1), torch.int32),
+                        ((2,), torch.int32)))
+    assert rep["baked"] == 1
+    tokens = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for p in ([3, 5], [4, 6], [7, 1]):
+        pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+        c = tree_map(lambda a: torch.randn(a.shape, generator=gen,
+                                           device=cuda),
+                     model.init_cache(2, 16, device=cuda))
+        got, _ = fast(params, c, tokens, pos)
+        want, _ = model.decode(params, c, tokens, pos)
+        assert _rel(got, want) <= 1e-4
+    plan = fast.plan_info()["plans"][0]
+    assert plan["hits"] == 3 and plan["recaptures"] == 0
+    assert plan["static_inputs"], plan
+
+
+@pytest.mark.gpu
+def test_decode_plan_on_a_cache_at_a_new_address(cuda):
+    """A baked decode plan called with another cache tensor computes on
+    that tensor (a static buffer filled each call), not on the one it was
+    captured on."""
+    from repro_torch.models.spec import tree_map
+
+    model, params = _serving_model(cuda)
+    fast = lilac.compile(model.decode, mode="host", device=cuda)
+    tokens = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def cache():
+        return tree_map(lambda a: torch.randn(a.shape, generator=gen,
+                                              device=cuda),
+                        model.init_cache(2, 16, device=cuda))
+
+    for c in [cache(), cache(), cache()]:
+        got, _ = fast(params, c, tokens, pos)
+        want, _ = model.decode(params, c, tokens, pos)
+        assert _rel(got, want) <= 1e-4
+    info = fast.plan_info()
+    assert info["plan_hits"] >= 2 and info["baked"] == 1
+    assert info["plans"][0]["recaptures"] >= 1

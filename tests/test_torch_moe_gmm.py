@@ -126,7 +126,7 @@ def test_olmoe_config_matches_the_reference():
     ref = get_arch("olmoe-1b-7b")
     for f in dataclasses.fields(OLMOE):
         want = getattr(ref, f.name)
-        if f.name == "param_dtype":
+        if f.name in ("param_dtype", "cache_dtype"):
             want = getattr(torch, jnp.dtype(want).name)
         assert getattr(OLMOE, f.name) == want, f.name
 

@@ -680,6 +680,30 @@ def test_prewarm_from_shapes(problem):
     assert warm["detect_calls"] == 0 and warm["plan_cache_hits"] == 1
 
 
+def test_prewarm_bakes_its_zeros_as_static_leaves(problem, monkeypatch):
+    """The plan ``prewarm`` bakes is told which flat leaves are its own
+    zeros (a CUDA graph captures static buffers there from the start); a
+    bake on a caller's call is told none."""
+    from repro_torch.core import plan as P
+
+    seen, finish = [], P._finish
+
+    def recording(plan, tensors, static_leaves):
+        seen.append(static_leaves)
+        return finish(plan, tensors, static_leaves)
+
+    monkeypatch.setattr(P, "_finish", recording)
+    val, col, row_ptr, vec = _args(problem)
+    sig = ((tuple(val.shape), torch.float32), col, row_ptr,
+           ((COLS,), torch.float32))
+    rep = lilac.compile(naive_spmv, mode="host", platform="cpu",
+                        plan_cache="off").prewarm(sig)
+    assert rep["baked"] == 1
+    lilac.compile(naive_spmv, mode="host", platform="cpu",
+                  plan_cache="off")(*_args(problem))
+    assert seen == [frozenset({0, 3}), frozenset()]
+
+
 def cg_step(m, p, r):
     ap = m @ p
     return torch.dot(r, r) / (p * ap).sum(), ap
