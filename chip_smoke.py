@@ -27,6 +27,22 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      match, cuda.ell, one repack, one launch a call of the body the path
      takes, and the CG iterate against the same CG on the uncompiled naive
      SpMV;
+   * the How language's lifecycle (K1), on the same NPB-C matrix: a
+     HARNESS block with ``persistent layout``, BeforeFirstExecution
+     (registered with @lilac.hook) and AfterLastExecution (hooks=) on a
+     fresh registry, whose setup puts a ReadObject in the state
+     (construct: K1's staged layout of the matched CSR; update: a re-pack
+     on a change of the values; destruct: let it go) and whose body runs
+     K1 on it; 25 CG iterations through it in host mode: setup and
+     construct once, no update, 26 launches of K1's staged body, the
+     iterate within 1e-3 of the naive CG, no plan (plan_info names the
+     hooks); val scaled in place: one update and the CG on the edited
+     matrix; register(..., override=True) tears it down once, and device
+     memory returns to its level before setup; enabled=False returns the
+     function's own bits with no detection and no launch; CompileOptions
+     gives the keyword form's bits, selection and baking; the call times
+     of the hook-bearing harness, the baked cuda.ell plan and the
+     ReadObject's change check;
    * SpMM on BCSR (K3): a mesh-GNN aggregation, 15 steps (MeshGraphNets'
      message-passing steps) of H <- relu(A @ H + b) over the HPCG operator
      with H of 128 columns (MeshGraphNets' latent size), H rescaled by its
@@ -98,6 +114,19 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      other's): each gradient within 1e-4 of its scale (max |ref|) plus
      1e-4 of itself of the uncompiled program's autograd, with launches,
      selections and ms;
+   * RWKV-6 1.6B at full width and depth (24 layers, d_model 2,048, 32
+     heads of 64, d_ff 7,168, vocab 65,536, bf16 from --seed): prefill on
+     2 x 512 tokens and 32 teacher-forced decode steps against the
+     forward over the 544 tokens (f32: relative L2 within 1e-3 at every
+     step; bf16: the decode no further from the f32 forward than twice
+     the bf16 forward is, each step's argmax agreement printed), each
+     layer's decode against its forward on the layer's own inputs
+     (relative L2 within 3e-3 in bf16, 1e-3 in f32) and the bf16
+     residual stream's distance from f32's after each layer, prefill
+     and decode-step ms, and build_engine("rwkv6-1.6b", smoke=False)
+     serving 4 requests: what lilac.compile detects in its decode step,
+     every signature baked, and each stream equal to the uncompiled decode
+     teacher-forced at the engine's bucket;
    every path above injects no fault and must show no containment event
    and no quarantine skip (each one warns) and leave the quarantine store,
    kept in the run's temporary directory, empty; then
@@ -164,6 +193,16 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      without it; moe_ffn_ragged on K4 at 1, 7, 33 and 200 tokens and the
      padded baseline within relative L2 2e-2 of the f32 oracle; and K4 at
      the decode shapes (T = 1 and 8 tokens x top-8) in the kernels line;
+   * serving granite-moe-3b-a800m, in a process of its own: full width
+     and depth (32 layers, d_model 1,536, 24 heads on 8 kv heads, 40
+     experts of d_ff 512, top-8, vocab 49,155, bf16 from --seed) through
+     the same phase and checks on the same grid (32 moe_ffn matches a
+     signature, K4 3 x 32 times a decode step, each MoE layer of one
+     compiled step against the naive dispatch, teacher-forced in bf16 and
+     f32, the request shadow at rate 1), without the model-independent
+     runs that OLMoE's phase makes (batched against solo, the faults, the
+     second replica, moe_ffn_ragged), and K4's gate/up and down products
+     at T = 1 and 8 in the kernels line;
 4. holds each kernel against its plain torch version at the paths' shapes
    (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
    at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
@@ -2642,6 +2681,292 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
+# The How language's lifecycle: a hook-bearing harness on K1 (Fig. 14)
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_SPEC = """
+HARNESS lifecycle.ell implements spmv_csr
+  formats CSR;
+  host_only;
+  persistent layout;
+  BeforeFirstExecution lifecycle_ell_setup;
+  AfterLastExecution lifecycle_ell_teardown;
+"""
+READ_CHECK_CALLS = 50
+LIFECYCLE_MEMORY_SLACK = 1 << 20    # the allocator's rounding, generously
+
+
+def lifecycle_path(a, b, seed: int, device, iters: int = CG_ITERS,
+                   reps: int = 20) -> dict:
+    """A library's stateful backend in the How language: a HARNESS block
+    with ``persistent layout``, ``BeforeFirstExecution`` (registered with
+    ``@lilac.hook``) and ``AfterLastExecution`` (through ``hooks=``) on a
+    fresh registry, whose setup puts a ReadObject in ``persistent
+    ["layout"]``: construct packs K1's staged layout from the matched CSR,
+    update re-packs it on a change of the values, destruct lets it go.
+    The body runs K1 on that layout.  Then: the CG through it (host mode,
+    policy = that harness), an in-place edit of the values, the teardown
+    that ``register(..., override=True)`` runs, the memory before setup
+    and after it; ``enabled=False``; the keyword and CompileOptions forms
+    of one compile; and the call times of the hook-bearing harness (it
+    cannot bake), of the baked cuda.ell plan and of the ReadObject's
+    change check."""
+    import gc
+    import types
+
+    import torch
+    from repro_torch import lilac
+    from repro_torch.core.harness import _binding_to_csr
+    from repro_torch.core.rewrite import fused_bias
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.kernels.spmv_ell.ops import pack_ell128, spmv_ell_packed
+
+    on_card = device.type == "cuda"
+    counters = (K, B, G)
+    out = {}
+    rng = torch.Generator(device="cpu").manual_seed(seed + 7)
+    p = torch.randn(a.cols, generator=rng).to(device)
+    args = (a.val, a.col_ind, a.row_ptr, p)
+
+    def launches():
+        return sum(sum(c.LAUNCHES.values()) for c in counters)
+
+    # the keyword and the options form of one compile (a policy the
+    # device has), and the baked plan's call time
+    policy = "cuda.ell" if on_card else "torch.ell"
+    kw = lilac.compile(naive_spmv, mode="host", policy=policy, device=device)
+    op = lilac.compile(naive_spmv, options=lilac.CompileOptions(
+        mode="host", policy=policy, device=device))
+    outs = [[f(*args) for _ in range(3)] for f in (kw, op)]
+    out["options"] = {
+        "policy": policy,
+        "equal": all(torch.equal(x, y) for x, y in zip(*outs)),
+        "selections": [[n for _, n in f.last_selections] for f in (kw, op)],
+        "baked": [f.plan_info()["baked"] for f in (kw, op)]}
+    out["options"]["same_selection"] = (
+        out["options"]["selections"][0] == out["options"]["selections"][1])
+    out["baked_call_ms"] = cuda_ms(lambda: kw(*args), reps) if on_card \
+        else (None, None)
+    del kw, op, outs
+    release(device)
+
+    # enabled=False: the function itself, no detection, no launch (the
+    # naive SpMV's index_add_ sums by atomics on the card: deterministic
+    # algorithms make two runs of it comparable bit for bit)
+    off = lilac.compile(naive_spmv, enabled=False, device=device)
+    for c in counters:
+        c.reset_launches()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got, want = off(*args), naive_spmv(*args)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    out["disabled"] = {
+        "equal": bool(torch.equal(got, want)),
+        "detects": off.stats["detects"], "traces": off.stats["traces"],
+        "launches": launches()}
+    del off, got, want
+
+    # the hook-bearing harness on a registry of its own
+    events = dict.fromkeys(("setups", "constructs", "updates", "destructs",
+                            "teardowns"), 0)
+    binding = {}
+
+    def pack(val):
+        return pack_ell128(_binding_to_csr(binding["b"]))
+
+    def construct(val):
+        events["constructs"] += 1
+        return pack(val)
+
+    def update(val, layout):
+        events["updates"] += 1
+        return pack(val)
+
+    def destruct(layout):
+        events["destructs"] += 1
+
+    @lilac.hook("lifecycle_ell_setup", override=True)
+    def setup(state):
+        events["setups"] += 1
+        state["layout"] = lilac.ReadObject(construct, update, destruct)
+
+    def teardown(state):
+        events["teardowns"] += 1
+        state["layout"].release()
+        state["layout"] = None
+
+    registry = lilac.HarnessRegistry()
+    hooks = {"lifecycle_ell_teardown": teardown}
+
+    def body(bd, ctx):
+        binding["b"] = bd
+        layout = harness.persistent["layout"].read(bd["a"])
+        return spmv_ell_packed(layout, bd["iv"], epilogue=ctx.epilogue,
+                               bias=fused_bias(bd, ctx))
+
+    (harness,) = lilac.register_spec(LIFECYCLE_SPEC,
+                                     {"lifecycle.ell": body},
+                                     registry=registry, hooks=hooks)
+    fast = lilac.compile(naive_spmv, mode="host", policy="lifecycle.ell",
+                         registry=registry, device=device)
+    # the naive CG first: what it allocates for good (cuBLAS's workspace
+    # at its first product) is not the backend's
+    x_ref = cg(naive_spmv, a, b, iters)
+    sync(device)
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated(device) if on_card else None
+    for c in counters:
+        c.reset_launches()
+    calls: list = []
+    x = cg(timed(fast, calls, device), a, b, iters)
+    out["launches"] = K.LAUNCHES["spmv_ell_staged"]
+    out["all_launches"] = launches()
+    out.update(events)
+    layout = harness.persistent["layout"].read(a.val)
+    out.update(
+        rel_to_naive=rel_l2(x, x_ref), finite=bool(torch.isfinite(x).all()),
+        selections=[n for _, n in fast.last_selections],
+        match=[(m.computation, m.format) for m in fast.last_report.matches],
+        plan_info={k: v for k, v in fast.plan_info().items()
+                   if k in ("entries", "baked", "no_bake", "bake_errors")},
+        steady_call_ms=steady_ms(calls), first_call_s=calls[0],
+        layout_bytes=layout_bytes(layout),
+        mem_with_layout=(torch.cuda.memory_allocated(device) if on_card
+                         else None))
+    del layout
+    out["call_ms"] = cuda_ms(lambda: fast(*args), reps) if on_card \
+        else (None, None)
+    ro = harness.persistent["layout"]
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(READ_CHECK_CALLS):
+        ro.read(a.val)
+    sync(device)
+    out["read_check_ms"] = 1e3 * (time.perf_counter() - t0) / READ_CHECK_CALLS
+    out["events_after_timing"] = dict(events)
+
+    # the values scaled in place (a copy: later phases keep the matrix)
+    edited = types.SimpleNamespace(val=a.val.clone(), col_ind=a.col_ind,
+                                   row_ptr=a.row_ptr)
+    fast(edited.val, a.col_ind, a.row_ptr, p)
+    before = dict(events)
+    edited.val.mul_(2)
+    xe = cg(fast, edited, b, iters)
+    xe_ref = cg(naive_spmv, edited, b, iters)
+    out["edit"] = {
+        "updates": events["updates"] - before["updates"],
+        "constructs": events["constructs"] - before["constructs"],
+        "rel_to_naive": rel_l2(xe, xe_ref)}
+    del x, xe, xe_ref, edited, ro
+
+    # override=True replaces the live backend: its teardown runs once
+    (again,) = lilac.register_spec(LIFECYCLE_SPEC, {"lifecycle.ell": body},
+                                   registry=registry, hooks=hooks,
+                                   override=True)
+    out["after_override"] = dict(events)
+    harness.release()
+    again.release()              # never started: no hook runs
+    del fast, harness, again, registry
+    binding.clear()              # the last call's operands
+    gc.collect()
+    sync(device)
+    out["after_release"] = dict(events)
+    if on_card:
+        out["memory"] = {"before_setup": mem0,
+                         "with_layout": out.pop("mem_with_layout"),
+                         "after_release": torch.cuda.memory_allocated(device)}
+    else:
+        out.pop("mem_with_layout")
+    del x_ref
+    lilac.HOOKS.pop("lifecycle_ell_setup", None)
+    return out
+
+
+def check_lifecycle_path(res, iters: int = CG_ITERS) -> None:
+    calls = iters + 1
+    require(res["launches"] == calls,
+            f"lifecycle: K1's staged body launched once per SpMV of the CG "
+            f"({calls}), got {res['launches']}")
+    require(res["match"] == [("spmv_csr", "CSR")]
+            and res["selections"] == ["lifecycle.ell"],
+            f"lifecycle: one spmv_csr/CSR match on lifecycle.ell, got "
+            f"{res['match']} via {res['selections']}")
+    require(res["setups"] == 1 and res["constructs"] == 1
+            and res["updates"] == 0,
+            f"lifecycle: setup once, construct once, no update over the "
+            f"CG, got {res}")
+    require(res["finite"] and res["rel_to_naive"] <= CG_RTOL,
+            f"lifecycle: the CG iterate within {CG_RTOL} of the naive CG, "
+            f"got {res['rel_to_naive']:.3g}")
+    pi = res["plan_info"]
+    require(pi["baked"] == 0 and pi["no_bake"] == 1 and any(
+        "lifecycle.ell" in e and "lifecycle hooks" in e
+        for e in pi["bake_errors"]),
+            f"lifecycle: the hook-bearing harness never bakes and "
+            f"plan_info says why, got {pi}")
+    ev = res["events_after_timing"]
+    require(ev["setups"] == 1 and ev["constructs"] == 1
+            and ev["updates"] == 0,
+            f"lifecycle: the timed calls and change checks set up and pack "
+            f"nothing more, got {ev}")
+    e = res["edit"]
+    require(e["updates"] == 1 and e["constructs"] == 0
+            and e["rel_to_naive"] <= CG_RTOL,
+            f"lifecycle: val scaled in place updates the layout once and "
+            f"the CG matches the naive one on the edited matrix, got {e}")
+    ao, ar = res["after_override"], res["after_release"]
+    require(ao["teardowns"] == 1 and ao["destructs"] == 1
+            and ar["teardowns"] == 1 and ar["setups"] == 1,
+            f"lifecycle: register(..., override=True) tears the backend "
+            f"down once and release() runs no second teardown, got {ao}, "
+            f"{ar}")
+    if "memory" in res:
+        m = res["memory"]
+        require(abs(m["after_release"] - m["before_setup"])
+                <= LIFECYCLE_MEMORY_SLACK,
+                f"lifecycle: device memory back to its level before setup "
+                f"after the teardown (within {LIFECYCLE_MEMORY_SLACK} B), "
+                f"got {m}")
+    d = res["disabled"]
+    require(d["equal"] and d["detects"] == d["traces"] == 0
+            and d["launches"] == 0,
+            f"lifecycle: enabled=False returns the function's own bits with "
+            f"no trace, detection or launch, got {d}")
+    o = res["options"]
+    require(o["equal"] and o["same_selection"]
+            and o["selections"][0] == ["cuda.ell"]
+            and o["baked"] == [1, 1],
+            f"lifecycle: CompileOptions gives the keyword form's bits, "
+            f"selection (cuda.ell) and baking, got {o}")
+
+
+def print_lifecycle_path(lc) -> None:
+    print(f"lifecycle (npb CG, policy=lifecycle.ell, host mode): match "
+          f"{lc['match']} via {lc['selections']}; setups {lc['setups']}, "
+          f"constructs {lc['constructs']}, updates {lc['updates']}; K1 "
+          f"staged launches {lc['launches']} (all kernels "
+          f"{lc['all_launches']}); |x-x_naive|/|x_naive| = "
+          f"{lc['rel_to_naive']:.3g}; plan_info {lc['plan_info']}; layout "
+          f"{lc['layout_bytes']} B")
+    print(f"lifecycle call times: hook-bearing harness (interpreted) "
+          f"{lc['steady_call_ms']:.4f} ms a CG call (host clock to a sync), "
+          f"{_ms(lc['call_ms'][0])} ms device / {_ms(lc['call_ms'][1])} ms "
+          f"host enqueue a call; the baked {lc['options']['policy']} plan "
+          f"{_ms(lc['baked_call_ms'][0])} ms device / "
+          f"{_ms(lc['baked_call_ms'][1])} ms host; the ReadObject's change "
+          f"check {lc['read_check_ms']:.4f} ms a read (host clock)")
+    print(f"lifecycle val.mul_(2) in place: {lc['edit']}; after "
+          f"override=True {lc['after_override']}; after release() "
+          f"{lc['after_release']}; memory {lc.get('memory')}")
+    print(f"lifecycle enabled=False: {lc['disabled']}; CompileOptions "
+          f"against the keyword form: {lc['options']}")
+
+
+# ---------------------------------------------------------------------------
 # Serving: OLMoE-1B-7B at full width through repro_torch.serve
 # ---------------------------------------------------------------------------
 
@@ -2976,13 +3301,16 @@ def cache_bytes(model, shape) -> int:
         model.init_cache(*shape, device="meta")))
 
 
-def gmm_decode_phases(cfg, p0, routes: dict, device, reps: int = 20) -> list:
-    """K4 (bf16) at the decode step's shapes, the gate/up call: T tokens x
-    top-K rows routed into the static Tp = ceil(T·K/tm)·tm + (E-1)·tm
-    rows, at T = 1 and T = 8, on the routes of each of ``routes`` (name ->
-    router input (T', D), T' >= 8).  Bound: the touched experts' weights
-    once, the routed rows in and out; library: torch._grouped_mm over
-    the same aligned rows."""
+def gmm_decode_phases(cfg, p0, routes: dict, device, reps: int = 20,
+                      products=("gate_up",), label: str = "") -> list:
+    """K4 (bf16) at the decode step's shapes: T tokens x top-K rows routed
+    into the static Tp = ceil(T·K/tm)·tm + (E-1)·tm rows, at T = 1 and
+    T = 8, on the routes of each of ``routes`` (name -> router input
+    (T', D), T' >= 8), for each of ``products``: ``gate_up`` (the routed
+    rows of x times wg) and ``down`` (the rows of silu(x·wg)·(x·wu),
+    computed by the plain version, times wd).  Bound: the touched experts'
+    weights once, the routed rows in and out; library: torch._grouped_mm
+    over the same aligned rows."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
@@ -2994,152 +3322,54 @@ def gmm_decode_phases(cfg, p0, routes: dict, device, reps: int = 20) -> list:
     K, tm = cfg.moe_topk, 128
     entries = []
     for T in (1, 8):
-        e = {"name": "gmm", "path": f"serving decode, T = {T}",
-             "variants": {}, "library_ms": None, "library_err": None}
-        for name, x in routes.items():
-            xt = x[:T]
-            _, idx, _ = L.moe_router(p0, xt[None], K)
-            idx = idx[0]
-            dest, te, tp = _route(idx, T, K, E, tm)
-            xs = torch.zeros((tp, D), dtype=xt.dtype, device=device)
-            xs[dest] = xt.repeat_interleave(K, dim=0)
-            touched = int(torch.unique(idx).numel())
-            nb = touched * D * F * 2 + T * K * D * 2 + T * K * F * 4
-            v = variant_numbers(
-                lambda: G.gmm_cuda(xs, p0["wg"], te, tm),
-                lambda: GR.gmm_ref(xs, p0["wg"], te, tm), "gmm_tc_kernel",
-                on_card, reps, nb, 2 * T * K * D * F, torch.bfloat16,
-                GMM_ATOL, GMM_RTOL, what=f"gmm decode T={T} {name}")
-            v.update(touched_experts=touched, tp=tp, routed_rows=T * K)
-            e["variants"][name] = v
-            grouped = getattr(torch, "_grouped_mm", None)
-            if on_card and grouped is not None \
-                    and e["library_ms"] is None:
-                counts = torch.bincount(idx.reshape(-1).long(), minlength=E)
-                offs = torch.cumsum((counts + tm - 1) // tm * tm,
-                                    0).to(torch.int32)
-                rows = int(offs[-1])
-                lib = lambda: grouped(xs, p0["wg"], offs=offs)
-                e["library_err"] = float((lib()[:rows].float() - GR.gmm_ref(
-                    xs, p0["wg"], te, tm)[:rows]).abs().max())
-                e["library_ms"] = cuda_ms(lib, reps)[0]
-        entries.append(e)
+        for prod in products:
+            e = {"name": "gmm", "path": f"{label}serving decode, T = {T}"
+                 + ("" if products == ("gate_up",) else f", {prod}"),
+                 "variants": {}, "library_ms": None, "library_err": None}
+            for name, x in routes.items():
+                xt = x[:T]
+                _, idx, _ = L.moe_router(p0, xt[None], K)
+                idx = idx[0]
+                dest, te, tp = _route(idx, T, K, E, tm)
+                xs = torch.zeros((tp, D), dtype=xt.dtype, device=device)
+                xs[dest] = xt.repeat_interleave(K, dim=0)
+                w, k_in, n_out = p0["wg"], D, F
+                if prod == "down":
+                    g = GR.gmm_ref(xs, p0["wg"], te, tm)
+                    u = GR.gmm_ref(xs, p0["wu"], te, tm)
+                    xs = (torch.nn.functional.silu(g) * u).to(xt.dtype)
+                    w, k_in, n_out = p0["wd"], F, D
+                touched = int(torch.unique(idx).numel())
+                nb = touched * k_in * n_out * 2 + T * K * k_in * 2 \
+                    + T * K * n_out * 4
+                v = variant_numbers(
+                    lambda: G.gmm_cuda(xs, w, te, tm),
+                    lambda: GR.gmm_ref(xs, w, te, tm), "gmm_tc_kernel",
+                    on_card, reps, nb, 2 * T * K * k_in * n_out,
+                    torch.bfloat16, GMM_ATOL, GMM_RTOL,
+                    what=f"gmm decode T={T} {prod} {name}")
+                v.update(touched_experts=touched, tp=tp, routed_rows=T * K)
+                e["variants"][name] = v
+                grouped = getattr(torch, "_grouped_mm", None)
+                if on_card and grouped is not None \
+                        and e["library_ms"] is None:
+                    counts = torch.bincount(idx.reshape(-1).long(),
+                                            minlength=E)
+                    offs = torch.cumsum((counts + tm - 1) // tm * tm,
+                                        0).to(torch.int32)
+                    rows = int(offs[-1])
+                    lib = lambda: grouped(xs, w, offs=offs)
+                    e["library_err"] = float((lib()[:rows].float()
+                                              - GR.gmm_ref(xs, w, te, tm)
+                                              [:rows]).abs().max())
+                    e["library_ms"] = cuda_ms(lib, reps)[0]
+            entries.append(e)
     return entries
 
 
-def serve_path(seed: int, device, cfg=None, policy=None,
-               n_requests: int = SERVE_REQUESTS) -> dict:
-    """OLMoE-1B-7B at full width served by repro_torch.serve: the engine's
-    prewarm over ``policy``'s grid, a closed burst of ``n_requests`` on
-    baked plans (launches counted from 0), the teacher-forced comparison
-    with the uncompiled decode, batched against solo streams, a fault-free
-    run at request-shadow rate 1, an uncompiled engine's run, the serving
-    faults (decode_raise, decode_nan, replica_crash on a 2-replica front
-    door, shadow_diverge:request), moe_ffn_ragged on K4, K4 at the decode
-    shapes, and one decode step under torch.profiler."""
-    import torch
-    from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
-    from repro_torch.core import faults
-    from repro_torch.core import resilience as R
-    from repro_torch.kernels.common import COUNTERS
-    from repro_torch.kernels.moe_gmm import kernel as G
-    from repro_torch.kernels.moe_gmm import ref as GR
-    from repro_torch.models import build_model
-    from repro_torch.models import layers as L
-    from repro_torch.serve import (BucketPolicy, Engine, FrontDoor,
-                                   ServeConfig, moe_ffn_padded,
-                                   moe_ffn_ragged, padding_waste)
-
-    cfg = (cfg or OLMOE).replace(moe_decode_impl="naive_flat")
-    policy = policy or BucketPolicy(batch=SERVE_BATCH, seq=SERVE_SEQ)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=device).manual_seed(seed + 17),
-                        device)
-    sync(device)
-    res = {"config": {"name": cfg.name, "layers": cfg.n_layers,
-                      "d_model": cfg.d_model, "heads": cfg.n_heads,
-                      "experts": cfg.moe_experts, "topk": cfg.moe_topk,
-                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-                      "params": model.param_count(),
-                      "grid": [list(g) for g in policy.grid()]},
-           "init_s": time.perf_counter() - t0,
-           "cache_bytes": {f"{b}x{s}": cache_bytes(model, (b, s))
-                           for b, s in policy.grid()}}
-    scfg = ServeConfig(mode="continuous", buckets=policy)
-
-    def reset_counts():
-        for c in COUNTERS:
-            c.update(dict.fromkeys(c, 0))
-
-    def counts():
-        return {k: v for c in COUNTERS for k, v in c.items() if v}
-
-    # (a) prewarm, then the burst on baked plans
-    t0 = time.perf_counter()
-    with fault_free("serving prewarm"):
-        eng = Engine(model, params, scfg)
-    res["prewarm_s"] = time.perf_counter() - t0
-    res["prewarm"] = eng.metrics.prewarm
-    res["prewarm_bake_errors"] = eng._decode.plan_info()["bake_errors"]
-    res["prewarm_bytes"] = (torch.cuda.memory_allocated(device),
-                            torch.cuda.max_memory_allocated(device)) \
-        if device.type == "cuda" else None
-    detects = eng._decode.stats["detects"]
-    wseed = res["workload_seed"] = serve_seed(cfg, seed, policy, n_requests)
-    reqs = serve_requests(cfg, wseed, n_requests)
-    before = memory_mark(device)
-    reset_counts()
-    with fault_free("serving"):
-        sync(device)
-        t0 = time.perf_counter()
-        snap = eng.run([(0.0, r) for r in reqs])
-        sync(device)
-        wall = time.perf_counter() - t0
-    res["launches"] = counts()
-    peak, _ = memory_read(device, before)
-    tokens = sum(len(r.tokens) for r in reqs)
-    res.update(
-        run_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
-        peak_bytes=peak or 0, steps=snap["steps"],
-        request_detects=eng._decode.stats["detects"] - detects,
-        bucket_misses=snap["buckets"]["misses"],
-        cache_resizes=snap["buckets"]["cache_resizes"],
-        ttft_s=snap["ttft_s"], prefill_s=snap["prefill_s"],
-        decode_step_s=snap["decode_step_s"],
-        occupancy=snap["batch_occupancy"],
-        buckets_used=sorted({b for r in reqs for b in r.decode_buckets}),
-        failed=[r.failed for r in reqs if r.failed],
-        streams=[list(r.tokens) for r in reqs],
-        plans=_plan_rows(eng._decode),
-        matches=[[m.computation for m in e.report.matches]
-                 for e in eng._decode._compiled.values()],
-        selections=sorted({n for _, n in eng._decode.last_selections}))
-
-    # one decode step at the largest bucket under torch.profiler
-    if device.type == "cuda":
-        big = policy.grid()[-1]
-        c = model.init_cache(*big, device=device)
-        tok = torch.ones((big[0], 1), dtype=torch.int32, device=device)
-        pos = torch.full((big[0],), big[1] // 2, dtype=torch.int32,
-                         device=device)
-        for _ in range(2):
-            _, c = eng._decode(params, c, tok, pos)
-        res["decode_profile"] = step_breakdown(
-            lambda p, s, b: eng._decode(p, c, tok, pos), params, None, None,
-            device)
-        res["decode_profile"]["bucket"] = list(big)
-        del c
-    release(device)
-
-    # (b) teacher-forced: compiled against uncompiled on two streams
-    with fault_free("serving teacher-forced"):
-        tf = teacher_forced(eng, model, params, reqs[:2], device)
-        tf["moe_layers"] = moe_layers(eng, model, params, reqs[:2], device)
-    router_input = tf.pop("router_input")
-    res["teacher_forced"] = tf
-
-    # (c) batched against solo, then the request shadow at rate 1
+def serve_solo(res, eng, model, params, reqs, policy, device) -> None:
+    """Each stream of the burst against a fresh engine's solo run at the
+    smallest buckets, and where the first one parts, the operator."""
     solo = []
     with fault_free("serving solo"):
         for r in reqs:
@@ -3156,42 +3386,18 @@ def serve_path(seed: int, device, cfg=None, policy=None,
             res["parting"] = parting_op(model, params, r, (
                 policy.batch_bucket(1),
                 policy.seq_bucket(r.prompt_len + r.max_new_tokens)), device)
-    checks, divs = (eng.metrics.request_shadow_checks,
-                    eng.metrics.request_shadow_divergences)
-    os.environ[R.ENV_REQUEST_SHADOW] = "1"
-    try:
-        with fault_free("serving request shadow"):
-            again = serve_requests(cfg, wseed, n_requests)
-            eng.run([(0.0, r) for r in again])
-    finally:
-        os.environ.pop(R.ENV_REQUEST_SHADOW, None)
-    info = eng._decode.resilience_info()
-    res["shadow"] = {
-        "checks": eng.metrics.request_shadow_checks - checks,
-        "divergences": eng.metrics.request_shadow_divergences - divs,
-        "streams_equal_first_run": [list(r.tokens) for r in again]
-        == res["streams"],
-        "quarantine_active": info["quarantine_active"],
-        "containment": info["containment"]}
-    release(device)
 
-    # the same burst on an uncompiled engine (the naive dense dispatch)
-    ueng = Engine(model, params, scfg.replace(use_lilac=False))
-    plain = serve_requests(cfg, wseed, n_requests)
-    sync(device)
-    t0 = time.perf_counter()
-    usnap = ueng.run([(0.0, r) for r in plain])
-    sync(device)
-    res["uncompiled"] = {
-        "run_s": time.perf_counter() - t0, "steps": usnap["steps"],
-        "decode_step_s": usnap["decode_step_s"],
-        "streams_equal": [list(r.tokens) for r in plain] == res["streams"],
-        "tokens_apart": sum(a != b for r, s in zip(plain, res["streams"])
-                            for a, b in zip(r.tokens, s))}
-    del ueng
-    release(device)
 
-    # (d) faults: decode_raise, decode_nan against the fault-free streams
+def serve_faults(res, eng, model, params, scfg, seed, policy,
+                 device) -> None:
+    """The serving faults against the fault-free streams: decode_raise and
+    decode_nan, a second replica's prewarm and replica_crash on the
+    two-replica FrontDoor, then shadow_diverge:request."""
+    from repro_torch.core import faults
+    from repro_torch.core import resilience as R
+    from repro_torch.serve import Engine, FrontDoor
+
+    cfg = model.cfg
     with fault_free("serving fault-free reference"):
         clean = fault_requests(cfg, seed, policy)
         eng.run([(0.0, r) for r in clean])
@@ -3270,12 +3476,17 @@ def serve_path(seed: int, device, cfg=None, policy=None,
         q.clear()
     finally:
         os.environ.pop(R.ENV_REQUEST_SHADOW, None)
-    del eng
-    release(device)
 
-    # (e) moe_ffn_ragged on K4 against the padded baseline and the oracle
-    p0 = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
-    gen = torch.Generator(device=device).manual_seed(seed + 19)
+
+def serve_ragged(res, cfg, p0, gen, device) -> None:
+    """moe_ffn_ragged on K4 against the padded baseline and the oracle."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.models import layers as L
+    from repro_torch.serve import moe_ffn_padded, moe_ffn_ragged, \
+        padding_waste
+
     xs = [torch.randn((t, cfg.d_model), generator=gen, device=device)
           .to(cfg.param_dtype) for t in SERVE_RAGGED]
     routes = [L.moe_router(p0, x[None], cfg.moe_topk) for x in xs]
@@ -3295,12 +3506,173 @@ def serve_path(seed: int, device, cfg=None, policy=None,
                      "launches": ragged_launches,
                      "padding_waste": padding_waste(SERVE_RAGGED)}
 
+
+def serve_path(seed: int, device, cfg=None, policy=None,
+               n_requests: int = SERVE_REQUESTS, light: bool = False) -> dict:
+    """A MoE model at full width served by repro_torch.serve (OLMoE-1B-7B
+    unless ``cfg`` names another): the engine's prewarm over ``policy``'s
+    grid, a closed burst of ``n_requests`` on baked plans (launches
+    counted from 0), the teacher-forced comparison with the uncompiled
+    decode, batched against solo streams, a fault-free run at
+    request-shadow rate 1, an uncompiled engine's run, the serving faults
+    (decode_raise, decode_nan, replica_crash on a 2-replica front door,
+    shadow_diverge:request), moe_ffn_ragged on K4, K4 at the decode shapes,
+    and one decode step under torch.profiler.  ``light`` leaves out what
+    does not depend on the model and OLMoE's phase shows: batched against
+    solo, the faults, the second replica and moe_ffn_ragged; K4 at the
+    decode shapes then times the down product too."""
+    import torch
+    from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
+    from repro_torch.core import resilience as R
+    from repro_torch.kernels.common import COUNTERS
+    from repro_torch.models import build_model
+    from repro_torch.serve import BucketPolicy, Engine, ServeConfig
+
+    cfg = (cfg or OLMOE).replace(moe_decode_impl="naive_flat")
+    policy = policy or BucketPolicy(batch=SERVE_BATCH, seq=SERVE_SEQ)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 17),
+                        device)
+    sync(device)
+    res = {"config": {"name": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "heads": cfg.n_heads,
+                      "experts": cfg.moe_experts, "topk": cfg.moe_topk,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "params": model.param_count(),
+                      "grid": [list(g) for g in policy.grid()]},
+           "init_s": time.perf_counter() - t0, "light": light,
+           "cache_bytes": {f"{b}x{s}": cache_bytes(model, (b, s))
+                           for b, s in policy.grid()}}
+    scfg = ServeConfig(mode="continuous", buckets=policy)
+
+    def reset_counts():
+        for c in COUNTERS:
+            c.update(dict.fromkeys(c, 0))
+
+    def counts():
+        return {k: v for c in COUNTERS for k, v in c.items() if v}
+
+    # (a) prewarm, then the burst on baked plans
+    t0 = time.perf_counter()
+    with fault_free("serving prewarm"):
+        eng = Engine(model, params, scfg)
+    res["prewarm_s"] = time.perf_counter() - t0
+    res["prewarm"] = eng.metrics.prewarm
+    res["prewarm_bake_errors"] = eng._decode.plan_info()["bake_errors"]
+    res["prewarm_bytes"] = (torch.cuda.memory_allocated(device),
+                            torch.cuda.max_memory_allocated(device)) \
+        if device.type == "cuda" else None
+    detects = eng._decode.stats["detects"]
+    wseed = res["workload_seed"] = serve_seed(cfg, seed, policy, n_requests)
+    reqs = serve_requests(cfg, wseed, n_requests)
+    before = memory_mark(device)
+    reset_counts()
+    with fault_free("serving"):
+        sync(device)
+        t0 = time.perf_counter()
+        snap = eng.run([(0.0, r) for r in reqs])
+        sync(device)
+        wall = time.perf_counter() - t0
+    res["launches"] = counts()
+    peak, _ = memory_read(device, before)
+    tokens = sum(len(r.tokens) for r in reqs)
+    res.update(
+        run_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        peak_bytes=peak or 0, steps=snap["steps"],
+        request_detects=eng._decode.stats["detects"] - detects,
+        bucket_misses=snap["buckets"]["misses"],
+        cache_resizes=snap["buckets"]["cache_resizes"],
+        ttft_s=snap["ttft_s"], prefill_s=snap["prefill_s"],
+        decode_step_s=snap["decode_step_s"],
+        occupancy=snap["batch_occupancy"],
+        buckets_used=sorted({b for r in reqs for b in r.decode_buckets}),
+        failed=[r.failed for r in reqs if r.failed],
+        streams=[list(r.tokens) for r in reqs],
+        plans=_plan_rows(eng._decode),
+        matches=[[m.computation for m in e.report.matches]
+                 for e in eng._decode._compiled.values()],
+        selections=sorted({n for _, n in eng._decode.last_selections}))
+
+    # one decode step at the largest bucket under torch.profiler
+    if device.type == "cuda":
+        big = policy.grid()[-1]
+        c = model.init_cache(*big, device=device)
+        tok = torch.ones((big[0], 1), dtype=torch.int32, device=device)
+        pos = torch.full((big[0],), big[1] // 2, dtype=torch.int32,
+                         device=device)
+        for _ in range(2):
+            _, c = eng._decode(params, c, tok, pos)
+        res["decode_profile"] = step_breakdown(
+            lambda p, s, b: eng._decode(p, c, tok, pos), params, None, None,
+            device)
+        res["decode_profile"]["bucket"] = list(big)
+        del c
+    release(device)
+
+    # (b) teacher-forced: compiled against uncompiled on two streams
+    with fault_free("serving teacher-forced"):
+        tf = teacher_forced(eng, model, params, reqs[:2], device)
+        tf["moe_layers"] = moe_layers(eng, model, params, reqs[:2], device)
+    router_input = tf.pop("router_input")
+    res["teacher_forced"] = tf
+
+    # (c) batched against solo, then the request shadow at rate 1
+    if not light:
+        serve_solo(res, eng, model, params, reqs, policy, device)
+    checks, divs = (eng.metrics.request_shadow_checks,
+                    eng.metrics.request_shadow_divergences)
+    os.environ[R.ENV_REQUEST_SHADOW] = "1"
+    try:
+        with fault_free("serving request shadow"):
+            again = serve_requests(cfg, wseed, n_requests)
+            eng.run([(0.0, r) for r in again])
+    finally:
+        os.environ.pop(R.ENV_REQUEST_SHADOW, None)
+    info = eng._decode.resilience_info()
+    res["shadow"] = {
+        "checks": eng.metrics.request_shadow_checks - checks,
+        "divergences": eng.metrics.request_shadow_divergences - divs,
+        "streams_equal_first_run": [list(r.tokens) for r in again]
+        == res["streams"],
+        "quarantine_active": info["quarantine_active"],
+        "containment": info["containment"]}
+    release(device)
+
+    # the same burst on an uncompiled engine (the naive dense dispatch)
+    ueng = Engine(model, params, scfg.replace(use_lilac=False))
+    plain = serve_requests(cfg, wseed, n_requests)
+    sync(device)
+    t0 = time.perf_counter()
+    usnap = ueng.run([(0.0, r) for r in plain])
+    sync(device)
+    res["uncompiled"] = {
+        "run_s": time.perf_counter() - t0, "steps": usnap["steps"],
+        "decode_step_s": usnap["decode_step_s"],
+        "streams_equal": [list(r.tokens) for r in plain] == res["streams"],
+        "tokens_apart": sum(a != b for r, s in zip(plain, res["streams"])
+                            for a, b in zip(r.tokens, s))}
+    del ueng
+    release(device)
+
+    if not light:
+        serve_faults(res, eng, model, params, scfg, seed, policy, device)
+    del eng
+    release(device)
+
+    p0 = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    if not light:
+        serve_ragged(res, cfg, p0, gen, device)
+
     # K4 at the decode shapes: the model's layer-0 routes, unit normal
     unit = torch.randn(router_input.reshape(-1, cfg.d_model).shape,
                        generator=gen, device=device).to(cfg.param_dtype)
-    res["gmm_decode"] = gmm_decode_phases(cfg, p0, {
-        "model routes": router_input.reshape(-1, cfg.d_model),
-        "unit-normal routes": unit}, device)
+    res["gmm_decode"] = gmm_decode_phases(
+        cfg, p0, {"model routes": router_input.reshape(-1, cfg.d_model),
+                  "unit-normal routes": unit}, device,
+        products=("gate_up", "down") if light else ("gate_up",),
+        label=f"{cfg.name} " if light else "")
     return res
 
 
@@ -3360,6 +3732,12 @@ def check_serve_path(res) -> None:
             and sh["containment"]["contained_exceptions"] == 0,
             f"serving: the request shadow at rate 1 checks every request "
             f"with 0 divergences, got {sh}")
+    if not res["light"]:
+        check_serve_faults(res, grid)
+
+
+def check_serve_faults(res, grid: int) -> None:
+    """The checks of ``serve_faults`` and ``serve_ragged``."""
     for kind, f in res["faults"].items():
         want_reason = "decode:" if kind == "decode_raise" \
             else "non-finite decode logits"
@@ -3394,25 +3772,47 @@ def check_serve_path(res) -> None:
             f"within relative L2 {MOE_RTOL} of the f32 oracle, got {rg}")
 
 
-def print_serve_path(sv) -> None:
+def print_serve_faults(sv, tag: str) -> None:
+    r2 = sv["replica2_prewarm"]
+    print(f"{tag} second replica prewarm: {r2['baked']} baked, "
+          f"{r2['detect_calls']} detections, {r2['plan_cache_hits']} from "
+          f"the plan cache, in {r2['seconds']:.1f}s")
+    eq = sum(s["equal"] for s in sv["solo"])
+    print(f"{tag} batched vs solo (a fresh engine's buckets): {eq} of "
+          f"{len(sv['solo'])} streams equal; " + "; ".join(
+              f"rid {s['rid']} apart from token {s['first_token_apart']} "
+              f"(batched at {s['buckets']})"
+              for s in sv["solo"] if not s["equal"]))
+    if "parting" in sv:
+        print(f"{tag} where the logits part: {sv['parting']}")
+    for kind, f in sv["faults"].items():
+        print(f"{tag} {kind} (p {SERVE_FAULT_P}): {f}")
+    print(f"{tag} replica_crash: {sv['replica_crash']}; fault-free "
+          f"buckets {sv['fault_free_buckets']}")
+    print(f"{tag} shadow_diverge:request: {sv['shadow_diverge']}")
+    print(f"{tag} moe_ffn_ragged at {sv['ragged']['lengths']} tokens "
+          f"(padding waste {sv['ragged']['padding_waste']:.3f}): relative "
+          f"L2 vs the f32 oracle " + ", ".join(
+              f"{r['tokens']}: K4 {r['ragged']:.3g} / padded "
+              f"{r['padded']:.3g}" for r in sv["ragged"]["rows"])
+          + f"; launches {sv['ragged']['launches']}")
+
+
+def print_serve_path(sv, tag: str = "serving") -> None:
     c = sv["config"]
-    print(f"serving {c['name']} (d_model {c['d_model']}, {c['heads']} heads, "
+    print(f"{tag} {c['name']} (d_model {c['d_model']}, {c['heads']} heads, "
           f"{c['experts']} experts of d_ff {c['d_ff']} top-{c['topk']}, vocab "
           f"{c['vocab']}, {c['layers']} layers): {c['params']} params, "
           f"initialized in {sv['init_s']:.1f}s; the child process took "
           f"{sv['seconds']:.1f}s")
     pw = sv["prewarm"]
-    print(f"serving prewarm {pw['baked']}/{pw['n_signatures']} baked in "
+    print(f"{tag} prewarm {pw['baked']}/{pw['n_signatures']} baked in "
           f"{sv['prewarm_s']:.1f}s, {pw['detect_calls']} detections; per "
           f"signature " + ", ".join(
               f"{tuple(g)} {x['seconds']:.2f}s" for g, x in zip(
                   pw["grid"], pw["signatures"])))
-    r2 = sv["replica2_prewarm"]
-    print(f"serving second replica prewarm: {r2['baked']} baked, "
-          f"{r2['detect_calls']} detections, {r2['plan_cache_hits']} from "
-          f"the plan cache, in {r2['seconds']:.1f}s")
     pct = lambda d: f"p50 {1e3 * d['p50']:.2f} ms, p99 {1e3 * d['p99']:.2f} ms"
-    print(f"serving run: {len(sv['streams'])} requests, {sv['steps']} decode "
+    print(f"{tag} run: {len(sv['streams'])} requests, {sv['steps']} decode "
           f"steps, {sv['tokens']} tokens in {sv['run_s']:.2f}s "
           f"({sv['tokens_per_s']:.1f} tokens/s); TTFT {pct(sv['ttft_s'])}; "
           f"prefill {pct(sv['prefill_s'])}; decode step (compiled) "
@@ -3424,12 +3824,12 @@ def print_serve_path(sv) -> None:
           f"{sv['request_detects']}, bucket misses {sv['bucket_misses']}; "
           f"launches {sv['launches']}")
     u = sv["uncompiled"]
-    print(f"serving uncompiled engine: {u['steps']} steps in "
+    print(f"{tag} uncompiled engine: {u['steps']} steps in "
           f"{u['run_s']:.2f}s; streams equal to the compiled run's: "
           f"{u['streams_equal']} ({u['tokens_apart']} tokens apart)")
     for p in sv["plans"]:
         b = sv["cache_bytes"][f"{p['bucket'][0]}x{p['bucket'][1]}"]
-        print(f"serving plan {tuple(p['bucket'])}: "
+        print(f"{tag} plan {tuple(p['bucket'])}: "
               f"{'CUDA graph' if p['cuda_graph'] else 'eager'}, "
               f"graph_copy_bytes {p['graph_copy_bytes']} (cache {b} B; the "
               f"functional cache update copies {2 * b} B a step), "
@@ -3438,7 +3838,7 @@ def print_serve_path(sv) -> None:
               f"{p['moe_matches']} x {p['selections']}")
     if "decode_profile" in sv:
         pr = sv["decode_profile"]
-        print(f"serving decode step {tuple(pr['bucket'])} profiled: "
+        print(f"{tag} decode step {tuple(pr['bucket'])} profiled: "
               f"{pr['wall_ms']:.2f} ms wall, {pr['kernel_ms']:.2f} ms of "
               f"kernels (idle share {pr['idle_share']:.3f}); by kind "
               f"{ {k: round(v, 3) for k, v in pr['by_kind_ms'].items()} }; "
@@ -3450,7 +3850,7 @@ def print_serve_path(sv) -> None:
             ("bf16, the uncompiled decode's MoE on K4's function",
              tf["same_moe"], SERVE_LOGIT_RTOL),
             ("f32", tf["f32"], SERVE_F32_RTOL)):
-        print(f"serving teacher-forced {name} {tuple(tf['shape'])}, "
+        print(f"{tag} teacher-forced {name} {tuple(tf['shape'])}, "
               f"{tf['steps']} steps: relative L2 of the logits, compiled "
               f"against uncompiled, max {r['max_rel_l2']:.3g} (median "
               f"{med(r['rel_l2']):.3g}, first {r['rel_l2'][0]:.3g}; tol "
@@ -3460,12 +3860,12 @@ def print_serve_path(sv) -> None:
               f"{med(r['ms_uncompiled']):.2f} (median, host clock to a "
               f"sync)")
     for k, v in tf["bf16_to_f32"].items():
-        print(f"serving teacher-forced bf16 {k} against the f32 oracle: "
+        print(f"{tag} teacher-forced bf16 {k} against the f32 oracle: "
               f"relative L2 max {max(v):.3g}, median {med(v):.3g}, first "
               f"{v[0]:.3g}")
     ml = tf["moe_layers"]
     if ml["plan"]:
-        print(f"serving MoE layers of one compiled bf16 decode step "
+        print(f"{tag} MoE layers of one compiled bf16 decode step "
               f"{tuple(ml['shape'])}: {len(ml['rel_l2'])} x "
               f"{sorted(set(ml['harnesses']))}; relative L2 against the "
               f"naive dispatch on the same input max {ml['max_rel_l2']:.3g} "
@@ -3474,29 +3874,16 @@ def print_serve_path(sv) -> None:
               f"{max(a for a, _ in ml['to_f32']):.3g}, naive max "
               f"{max(b for _, b in ml['to_f32']):.3g}; the program against "
               f"the graph's replay {ml['replay_rel_l2']:.3g}")
-    print(f"serving prewarm bake errors {sv['prewarm_bake_errors']}, "
+    print(f"{tag} prewarm bake errors {sv['prewarm_bake_errors']}, "
           f"memory after prewarm (allocated, peak) {sv['prewarm_bytes']}")
-    eq = sum(s["equal"] for s in sv["solo"])
-    print(f"serving batched vs solo (a fresh engine's buckets): {eq} of "
-          f"{len(sv['solo'])} streams equal; " + "; ".join(
-              f"rid {s['rid']} apart from token {s['first_token_apart']} "
-              f"(batched at {s['buckets']})"
-              for s in sv["solo"] if not s["equal"]))
-    if "parting" in sv:
-        print(f"serving where the logits part: {sv['parting']}")
-    print(f"serving request shadow at rate 1 (solo replays at the batched "
+    print(f"{tag} request shadow at rate 1 (solo replays at the batched "
           f"buckets): {sv['shadow']}")
-    for kind, f in sv["faults"].items():
-        print(f"serving {kind} (p {SERVE_FAULT_P}): {f}")
-    print(f"serving replica_crash: {sv['replica_crash']}; fault-free "
-          f"buckets {sv['fault_free_buckets']}")
-    print(f"serving shadow_diverge:request: {sv['shadow_diverge']}")
-    print(f"serving moe_ffn_ragged at {sv['ragged']['lengths']} tokens "
-          f"(padding waste {sv['ragged']['padding_waste']:.3f}): relative "
-          f"L2 vs the f32 oracle " + ", ".join(
-              f"{r['tokens']}: K4 {r['ragged']:.3g} / padded "
-              f"{r['padded']:.3g}" for r in sv["ragged"]["rows"])
-          + f"; launches {sv['ragged']['launches']}")
+    if sv["light"]:
+        print(f"{tag}: batched against solo, the faults, the second replica "
+              f"and moe_ffn_ragged left out (OLMoE's serving phase runs "
+              f"them)")
+    else:
+        print_serve_faults(sv, tag)
     for e in sv["gmm_decode"]:
         for name, v in e["variants"].items():
             print(f"gmm {e['path']} ({name}: {v['routed_rows']} routed rows "
@@ -3509,6 +3896,296 @@ def print_serve_path(sv) -> None:
         print(f"gmm {e['path']} library (torch._grouped_mm, same rows): "
               f"{_ms(e['library_ms'])} ms, max|err| vs plain "
               f"{e['library_err']}")
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 1.6B at full width and depth: a recurrent decode state
+# ---------------------------------------------------------------------------
+
+RWKV_BATCH, RWKV_PROMPT, RWKV_STEPS = 2, 512, 32
+RWKV_F32_RTOL = 1e-3      # decode after prefill against the longer prefill
+RWKV_BF16_SPREAD = 2.0    # bf16 decode's error from f32 over the prefill's
+RWKV_BF16_LAYER_RTOL = 3e-3   # a layer's bf16 decode against its forward
+
+
+def rwkv_layers(cfg, p, tokens, prompt: int, steps: int):
+    """Layer by layer through the port's block functions: the residual
+    stream after each layer of the forward over all the tokens, and each
+    layer's decode held against that forward on the layer's own inputs
+    (its state set up by ``apply_block`` over the layer's first
+    ``prompt`` inputs, then ``steps`` ``decode_block`` calls fed the
+    forward's inputs at the next positions).  Returns (the residual
+    streams, embedding first; per layer the relative L2 of the decode's
+    block updates, output less input, over the ``steps`` steps against
+    the forward's).  A layer's distance is the rounding of that one
+    layer, free of what the layers below it did."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.spec import tree_map
+
+    (mixer, ffn), = T.arch_pattern(cfg)
+    x = p["embed"][tokens.long()]
+    xs, dist = [x], []
+    for j in range(T.n_periods(cfg)):
+        bp = tree_map(lambda a: a[j], p["blocks"])["b0"]
+        y, _, _ = T.apply_block(cfg, bp, x, mixer=mixer, ffn=ffn,
+                                positions=None)
+        _, _, ce = T.apply_block(cfg, bp, x[:, :prompt], mixer=mixer,
+                                 ffn=ffn, positions=None)
+        got = []
+        for t in range(prompt, prompt + steps):
+            yt, ce = T.decode_block(cfg, bp, x[:, t:t + 1], ce, None,
+                                    mixer=mixer, ffn=ffn)
+            got.append(yt[:, 0])
+        xt = x[:, prompt:prompt + steps].float()
+        dist.append(rel_l2(torch.stack(got, 1).float() - xt,
+                           y[:, prompt:prompt + steps].float() - xt))
+        xs.append(y)
+        x = y
+    return xs, dist
+RWKV_BURST = 4
+RWKV_BUCKETS = ((1, 4), (512,))
+
+
+def rwkv_path(seed: int, device, cfg=None, prompt: int = RWKV_PROMPT,
+              steps: int = RWKV_STEPS, burst: int = RWKV_BURST,
+              buckets=RWKV_BUCKETS) -> dict:
+    """RWKV-6 through the entry points a user calls: ``build_model``,
+    ``Model.prefill`` on RWKV_BATCH x ``prompt`` tokens, then ``steps``
+    teacher-forced ``Model.decode`` steps, held against the full-sequence
+    forward over the ``prompt + steps`` tokens: in f32 (relative L2 of
+    each step's logits) and in bf16 (each step's argmax); the prefill's
+    and a decode step's ms (CUDA events); then ``build_engine`` (full
+    size) serving a burst of ``burst`` requests of equal length at one
+    batch bucket: what lilac.compile detects in the decode step, and each
+    stream against the uncompiled decode teacher-forced at the engine's
+    bucket from the same prefills."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.spec import tree_map
+    from repro_torch.serve import BucketPolicy, ServeConfig, build_engine
+
+    cfg = cfg or get_arch("rwkv6-1.6b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 23),
+                        device)
+    sync(device)
+    res = {"config": {"name": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "heads": cfg.n_heads,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "params": model.param_count()},
+           "init_s": time.perf_counter() - t0, "prompt": prompt,
+           "steps": steps}
+    gen = torch.Generator(device="cpu").manual_seed(seed + 29)
+    tokens = torch.randint(1, cfg.vocab, (RWKV_BATCH, prompt + steps),
+                           generator=gen, dtype=torch.int32).to(device)
+
+    def run(m, p):
+        """Per step: the decode's logits and the full forward's at the
+        same position."""
+        with torch.no_grad():
+            x, _, _ = T.forward(m.cfg, p, {"tokens": tokens})
+            full = torch.einsum("bsd,dv->bsv", x[:, prompt - 1:].float(),
+                                p["unembed"].float())
+            del x
+            logits, caches = m.prefill(p, {"tokens": tokens[:, :prompt]})
+            cache = m.cache_from_prefill(caches, prompt, prompt + steps)
+            got = [logits]
+            for t in range(steps):
+                logits, cache = m.decode(p, cache,
+                                         tokens[:, prompt + t:][:, :1],
+                                         torch.tensor(prompt + t,
+                                                      device=device))
+                got.append(logits)
+        return got, full
+
+    def agree(a, b):
+        return bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+
+    got, full = run(model, params)
+    m32 = build_model(cfg.replace(param_dtype=torch.float32,
+                                  cache_dtype=torch.float32))
+    p32 = tree_map(lambda a: a.float(), params)
+    got32, full32 = run(m32, p32)
+    res["f32"] = {"rel_l2": [rel_l2(g, full32[:, t])
+                             for t, g in enumerate(got32)],
+                  "argmax_agree": [agree(g, full32[:, t])
+                                   for t, g in enumerate(got32)]}
+    res["f32"]["max_rel_l2"] = max(res["f32"]["rel_l2"])
+    # bf16: each path against the other, and each against the f32 oracle
+    # (the f32 forward over the longer sequence)
+    res["bf16"] = {
+        "argmax_agree": [agree(g, full[:, t]) for t, g in enumerate(got)],
+        "rel_l2": [rel_l2(g, full[:, t]) for t, g in enumerate(got)],
+        "decode_to_f32": [rel_l2(g, full32[:, t])
+                          for t, g in enumerate(got)],
+        "prefill_to_f32": [rel_l2(full[:, t], full32[:, t])
+                           for t in range(len(got))],
+        "decode_agrees_f32": [agree(g, full32[:, t])
+                              for t, g in enumerate(got)],
+        "prefill_agrees_f32": [agree(full[:, t], full32[:, t])
+                               for t in range(len(got))],
+        "finite": all(bool(torch.isfinite(g).all()) for g in got),
+        "shape": list(got[0].shape)}
+    # layer by layer: where the bf16 model leaves its f32 copy, and each
+    # layer's decode against its forward on the layer's own inputs
+    with torch.no_grad():
+        xb, db = rwkv_layers(cfg, params, tokens, prompt, steps)
+        xf, df = rwkv_layers(m32.cfg, p32, tokens, prompt, steps)
+    res["layers"] = {"bf16_to_f32": [rel_l2(b, f)
+                                     for b, f in zip(xb[1:], xf[1:])],
+                     "decode_bf16": db, "decode_f32": df}
+    del got, full, got32, full32, m32, p32, xb, xf
+    release(device)
+
+    if device.type == "cuda":
+        with torch.no_grad():
+            batch = {"tokens": tokens[:, :prompt]}
+            res["prefill_ms"] = cuda_ms(lambda: model.prefill(params, batch),
+                                        2)[0]
+            _, caches = model.prefill(params, batch)
+            cache = model.cache_from_prefill(caches, prompt, prompt + steps)
+            tok = tokens[:, prompt:prompt + 1]
+            pos = torch.tensor(prompt, device=device)
+            res["decode_step_ms"] = cuda_ms(
+                lambda: model.decode(params, cache, tok, pos), 10)[0]
+            del caches, cache
+    del params
+    release(device)
+
+    # the serving engine at full size, a burst of equal-length requests
+    from repro_torch.serve import Request
+
+    policy = BucketPolicy(batch=buckets[0], seq=buckets[1])
+    t0 = time.perf_counter()
+    with fault_free("RWKV-6 engine"):
+        eng = build_engine(cfg.name, smoke=False, seed=seed + 23,
+                           device=device, config=ServeConfig(
+                               buckets=policy, mode="continuous"))
+        res["engine_prewarm_s"] = time.perf_counter() - t0
+        rng = torch.Generator(device="cpu").manual_seed(seed + 31)
+        reqs = [Request(prompt=torch.randint(
+                    1, cfg.vocab, (48 + 16 * i,), generator=rng,
+                    dtype=torch.int32).numpy(), max_new_tokens=24)
+                for i in range(burst)]
+        sync(device)
+        t0 = time.perf_counter()
+        snap = eng.run([(0.0, r) for r in reqs])
+        sync(device)
+        wall = time.perf_counter() - t0
+    fn = eng._decode
+    res["engine"] = {
+        "prewarm": eng.metrics.prewarm, "run_s": wall,
+        "tokens": sum(len(r.tokens) for r in reqs),
+        "decode_step_s": snap["decode_step_s"], "ttft_s": snap["ttft_s"],
+        "buckets_used": sorted({b for r in reqs for b in r.decode_buckets}),
+        "failed": [r.failed for r in reqs if r.failed],
+        "matches": [[m.computation for m in e.report.matches]
+                    for e in fn._compiled.values()],
+        "detects": fn.stats["detects"],
+        "baked": fn.plan_info()["baked"],
+        "bake_errors": fn.plan_info()["bake_errors"]}
+    # the uncompiled decode teacher-forced at the engine's bucket, from
+    # the same prefills, against each stream's next token
+    model, params = eng.model, eng.params
+    shape = (policy.batch_bucket(len(reqs)),
+             policy.seq_bucket(max(r.prompt_len + r.max_new_tokens
+                                   for r in reqs)))
+    with torch.no_grad():
+        cache, firsts = _install(model, params, reqs, shape, device)
+        agree = []
+        for t in range(min(len(r.tokens) for r in reqs) - 1):
+            tok, pos = _step_inputs(reqs, shape[0], t, device)
+            logits, cache = model.decode(params, cache, tok, pos)
+            agree.append([int(logits[i].argmax()) == r.tokens[t + 1]
+                          for i, r in enumerate(reqs)])
+    res["engine"].update(first_tokens_agree=firsts, teacher_forced=agree,
+                         streams_equal=all(firsts) and all(map(all, agree)),
+                         shape=list(shape))
+    del eng, model, params
+    release(device)
+    return res
+
+
+def check_rwkv_path(res) -> None:
+    steps = res["steps"]
+    b, f = res["bf16"], res["f32"]
+    require(b["finite"] and len(b["rel_l2"]) == steps + 1,
+            f"RWKV-6: {steps + 1} finite logits (prefill + {steps} decode "
+            f"steps), got {len(b['rel_l2'])}")
+    require(f["max_rel_l2"] <= RWKV_F32_RTOL,
+            f"RWKV-6 f32: decode after prefill within relative L2 "
+            f"{RWKV_F32_RTOL} of the prefill over the longer sequence at "
+            f"every step, got {f['max_rel_l2']:.3g}")
+    # each layer adds its bf16 rounding to what the layers below left, in
+    # the reference too (ROADMAP §3 D3): a layer's decode is held to its
+    # forward on its own inputs, the whole decode to the f32 oracle no
+    # further than RWKV_BF16_SPREAD times the bf16 prefill is
+    lay = res["layers"]
+    require(max(lay["decode_bf16"]) <= RWKV_BF16_LAYER_RTOL
+            and max(lay["decode_f32"]) <= RWKV_F32_RTOL,
+            f"RWKV-6: each layer's decode within relative L2 "
+            f"{RWKV_BF16_LAYER_RTOL} (bf16) and {RWKV_F32_RTOL} (f32) of "
+            f"its forward on its own inputs, got "
+            f"{max(lay['decode_bf16']):.3g} and {max(lay['decode_f32']):.3g}")
+    d, p = max(b["decode_to_f32"]), max(b["prefill_to_f32"])
+    require(d <= RWKV_BF16_SPREAD * p,
+            f"RWKV-6 bf16: decode within {RWKV_BF16_SPREAD}x the bf16 "
+            f"prefill's relative L2 from the f32 oracle, got {d:.3g} "
+            f"against {p:.3g}")
+    e = res["engine"]
+    require(not e["failed"] and e["streams_equal"]
+            and e["baked"] == e["prewarm"]["n_signatures"],
+            f"RWKV-6 engine: every request finishes, every signature bakes "
+            f"and each stream equals the uncompiled decode teacher-forced "
+            f"at the engine's bucket, got {e}")
+
+
+def print_rwkv_path(rw) -> None:
+    c = rw["config"]
+    med = lambda v: sorted(v)[len(v) // 2]
+    print(f"RWKV-6 {c['name']} ({c['layers']} layers, d_model "
+          f"{c['d_model']}, {c['heads']} heads, d_ff {c['d_ff']}, vocab "
+          f"{c['vocab']}): {c['params']} params, initialized in "
+          f"{rw['init_s']:.1f}s; prefill {RWKV_BATCH} x {rw['prompt']} "
+          f"{_ms(rw.get('prefill_ms'))} ms, decode step "
+          f"{_ms(rw.get('decode_step_ms'))} ms (bf16, CUDA events)")
+    print(f"RWKV-6 decode after prefill against the prefill over the longer "
+          f"sequence, {rw['steps']} steps: f32 relative L2 max "
+          f"{rw['f32']['max_rel_l2']:.3g} (median "
+          f"{med(rw['f32']['rel_l2']):.3g}; tol {RWKV_F32_RTOL}); bf16 "
+          f"argmax agrees at {sum(rw['bf16']['argmax_agree'])} of "
+          f"{len(rw['bf16']['argmax_agree'])} steps, relative L2 max "
+          f"{max(rw['bf16']['rel_l2']):.3g}; against the f32 oracle: bf16 "
+          f"decode max {max(rw['bf16']['decode_to_f32']):.3g} (median "
+          f"{med(rw['bf16']['decode_to_f32']):.3g}, argmax agrees at "
+          f"{sum(rw['bf16']['decode_agrees_f32'])}), bf16 prefill max "
+          f"{max(rw['bf16']['prefill_to_f32']):.3g} (median "
+          f"{med(rw['bf16']['prefill_to_f32']):.3g}, argmax agrees at "
+          f"{sum(rw['bf16']['prefill_agrees_f32'])}; tol "
+          f"{RWKV_BF16_SPREAD}x)")
+    lay = rw["layers"]
+    print(f"RWKV-6 layer by layer: bf16 residual stream against f32's "
+          f"(relative L2) {' '.join(f'{v:.3g}' for v in lay['bf16_to_f32'])}")
+    print(f"RWKV-6 each layer's decode against its forward on its own "
+          f"inputs, over {rw['steps']} steps: bf16 max "
+          f"{max(lay['decode_bf16']):.3g} (median "
+          f"{med(lay['decode_bf16']):.3g}; tol {RWKV_BF16_LAYER_RTOL}), f32 "
+          f"max {max(lay['decode_f32']):.3g} (tol {RWKV_F32_RTOL})")
+    e = rw["engine"]
+    print(f"RWKV-6 engine: prewarm {e['prewarm']['baked']}/"
+          f"{e['prewarm']['n_signatures']} baked in "
+          f"{rw['engine_prewarm_s']:.1f}s; decode-step matches {e['matches']}"
+          f" ({e['detects']} detections); burst {e['tokens']} tokens in "
+          f"{e['run_s']:.2f}s, decode step p50 "
+          f"{1e3 * e['decode_step_s']['p50']:.2f} ms, p99 "
+          f"{1e3 * e['decode_step_s']['p99']:.2f} ms, buckets "
+          f"{e['buckets_used']}; streams equal to the uncompiled decode "
+          f"teacher-forced at {tuple(e['shape'])}: {e['streams_equal']}")
 
 
 REPLACES = {      # kernel body -> the TPU kernel it replaces
@@ -3572,6 +4249,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the training phase's process
     ap.add_argument("--serve-phase", action="store_true",
                     help=argparse.SUPPRESS)   # the serving phase's process
+    ap.add_argument("--serve-granite-phase", action="store_true",
+                    help=argparse.SUPPRESS)   # granite-moe's serving process
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3605,6 +4284,11 @@ def main() -> int:
     if args.serve_phase:
         print(json.dumps(serve_path(args.seed, torch.device("cuda")),
                          default=str))
+        return 0
+    if args.serve_granite_phase:
+        from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
+        print(json.dumps(serve_path(args.seed, torch.device("cuda"),
+                                    cfg=GRANITE, light=True), default=str))
         return 0
     # the persistent stores (plans, tuner, quarantine) in a directory of
     # this run; no ambient fault plan or shadow rate
@@ -3697,6 +4381,19 @@ def run(args, work: str) -> int:
     kernels = [kernel_entry(e, "main_path", res["launches"][e["name"]])
                for e in ell_rows]
     record["kernels"] = ell_rows
+    release(device)
+
+    # -- the How language's lifecycle: a hook-bearing harness on K1 ---------
+    t0 = time.perf_counter()
+    with fault_free("lifecycle"):
+        lc = lifecycle_path(*mats["npb"], args.seed, device)
+    print_lifecycle_path(lc)
+    print(f"lifecycle phase {time.perf_counter() - t0:.1f}s")
+    check_lifecycle_path(lc)
+    staged = next(e for e in ell_rows if e["name"] == "spmv_ell_staged")
+    kernels.append(dict(kernel_entry(staged, "main_path", lc["launches"]),
+                        path="lifecycle: the hook-bearing harness's CG"))
+    record["lifecycle_path"] = lc
     record["npb_packed_tiles"] = t = packed_tiles_of(mats["npb"][0])
     print(f"npb in cuda.bcsr's packed 128x128 tiles: {t['tiles']} tiles, "
           f"{t['nnz']} entries, {t['bytes']} B (dense f32 tiles would take "
@@ -3906,6 +4603,17 @@ def run(args, work: str) -> int:
     record["grad_path"] = gp
     release(device)
 
+    # -- RWKV-6 1.6B, full width and depth: a recurrent decode state ---------
+    # (before the containment phase, whose quarantine records stay)
+    t0 = time.perf_counter()
+    rw = rwkv_path(args.seed, device)
+    rw["seconds"] = time.perf_counter() - t0
+    print_rwkv_path(rw)
+    print(f"RWKV-6 phase {rw['seconds']:.1f}s")
+    check_rwkv_path(rw)
+    record["rwkv_path"] = rw
+    release(device)
+
     # -- containment: faults injected on the card ---------------------------
     t0 = time.perf_counter()
     kr = kernel_raise_path(*mats["npb"], x_refs["npb"], device)
@@ -4036,6 +4744,20 @@ def run(args, work: str) -> int:
     kernels += [kernel_entry(e, "model routes", sv["launches"].get("gmm", 0))
                 for e in sv["gmm_decode"]]
     record["serve_path"] = sv
+
+    # -- serving granite-moe-3b-a800m, full width and depth (K4) -------------
+    gr = run_warm_start(args.seed, Path(work) / "autotune-granite.json",
+                        "--serve-granite-phase", timeout=900,
+                        CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                        LILAC_TORCH_PLAN_CACHE=str(
+                            Path(work) / "plans-granite.json"),
+                        LILAC_TORCH_QUARANTINE_CACHE=str(
+                            Path(work) / "quarantine-granite.json"))
+    print_serve_path(gr, tag="granite serving")
+    check_serve_path(gr)
+    kernels += [kernel_entry(e, "model routes", gr["launches"].get("gmm", 0))
+                for e in gr["gmm_decode"]]
+    record["granite_serve_path"] = gr
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -2,14 +2,15 @@
 
 Counterpart of ``repro.configs.base``, with torch dtypes.  ``ArchConfig``
 keeps the fields that describe a published architecture and those that
-the dense and MoE transformer of ``repro_torch.models`` read: causal
-attention over token embeddings, head width d_model / n_heads, RoPE base
-1e4 and the grouped MoE's capacity factor 2.0 are what both registered
-configs use.  ``cache_dtype`` is the KV cache's and ``moe_decode_impl``
-the MoE formulation of the one-token decode step (``"naive_flat"`` is the
-dense dispatch the detector matches, which the serving tier compiles).
-The reference's settings for other heads, frontends, SSMs and sharding
-come with the configs and slices that use them.
+the dense and MoE transformers and RWKV-6 of ``repro_torch.models`` read:
+causal attention over token embeddings, head width d_model / n_heads,
+RoPE base 1e4 and the grouped MoE's capacity factor 2.0 are what every
+registered config uses.  ``cache_dtype`` is the KV cache's and
+``moe_decode_impl`` the MoE formulation of the one-token decode step
+(``"naive_flat"`` is the dense dispatch the detector matches, which the
+serving tier compiles).  The reference's settings for other heads,
+frontends, Mamba and sharding come with the configs and slices that use
+them.
 """
 from __future__ import annotations
 

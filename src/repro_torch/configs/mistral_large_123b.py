@@ -1,0 +1,17 @@
+"""mistral-large-123b — the scale stressor (123B dense).
+[dense] 88L d_model=12288 96H (GQA kv=8) d_ff=28672 vocab=32768
+[hf:mistralai/Mistral-Large-Instruct-2407; unverified]
+"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="mistral-large-123b",
+    family="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=28672,
+    vocab=32768,
+    source="[hf:mistralai/Mistral-Large-Instruct-2407; unverified]",
+))

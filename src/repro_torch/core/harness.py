@@ -2,9 +2,12 @@
 
 Counterpart of ``repro.core.harness``.  A ``Harness`` is the executable
 form of a spec's HARNESS block: a named implementation of one
-What-computation, with marshaling and platform constraints.  This module
-holds the mechanism (Harness, HarnessRegistry, the global REGISTRY) and the
-builtin ``torch.*`` bodies; which harness exists, and
+What-computation, with marshaling, persistence and platform
+constraints: its persistent state and its BeforeFirstExecution /
+AfterLastExecution hooks (``setup`` / ``teardown``, the paper's Fig. 14
+lifecycle) live on it.  This module holds the mechanism (Harness,
+HarnessRegistry, the global REGISTRY) and the builtin ``torch.*`` bodies;
+which harness exists, and
 its formats, platforms and marshaled inputs, lives in the spec texts
 (``what_lang.BUILTIN_SPECS`` plus the HARNESS blocks next to the CUDA
 kernels under ``repro_torch/kernels/``).
@@ -84,6 +87,9 @@ class Harness:
     jit_safe: bool = True                         # False: host calls only
     platforms: Tuple[str, ...] = ("cpu", "cuda")
     formats: Tuple[str, ...] = ()                 # () = any
+    # the declared ``persistent`` names, None until ``setup`` fills them;
+    # the state a library keeps between calls (a handle, a workspace)
+    persistent: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # declared marshal clauses (what_lang.MarshalClause)
     marshal: Tuple[Any, ...] = ()
     # declared schedule space (what_lang.TuneClause / Constraint): the
@@ -103,8 +109,17 @@ class Harness:
     # False opts out of executable-plan baking (repro_torch.core.plan): a
     # body with per-call host-side behavior beyond its marshal clauses
     # (RNG, mutable globals, I/O) would have its first call's behavior
-    # frozen into the plan
+    # frozen into the plan.  A harness with persistent state or lifecycle
+    # hooks never bakes either (pass_manager._bakeable)
     bakeable: bool = True
+    setup: Optional[Callable] = None              # BeforeFirstExecution
+    teardown: Optional[Callable] = None           # AfterLastExecution
+    # {"up": bool}, shared by the harnesses of one HARNESS block: the
+    # sibling Harness objects are one backend, so setup runs once on the
+    # first call through any of them, release through any of them tears
+    # down for all, and a later call sets up again
+    lifecycle: Dict[str, bool] = dataclasses.field(
+        default_factory=lambda: {"up": False})
     _schedules: Optional[Tuple[Dict[str, Any], ...]] = None
 
     @property
@@ -120,11 +135,29 @@ class Harness:
     def default_schedule(self) -> Dict[str, Any]:
         return {t.name: t.values[0] for t in self.tune}
 
+    def _is_up(self) -> bool:
+        return self.lifecycle["up"]
+
+    def _mark(self, up: bool) -> None:
+        self.lifecycle["up"] = up
+
     def __call__(self, binding: Binding, ctx: CallCtx):
-        if faults.ACTIVE is None:
-            return self.fn(binding, ctx)
-        faults.fail("kernel_raise", self.name)
-        return faults.corrupt("nan_output", self.name, self.fn(binding, ctx))
+        if faults.ACTIVE is not None:
+            faults.fail("kernel_raise", self.name)
+        if self.setup is not None and not self._is_up():
+            self.setup(self.persistent)
+            self._mark(True)
+        out = self.fn(binding, ctx)
+        if faults.ACTIVE is not None:
+            out = faults.corrupt("nan_output", self.name, out)
+        return out
+
+    def release(self) -> None:
+        """AfterLastExecution: tear the backend down if it is up (a later
+        call sets it up again)."""
+        if self._is_up() and self.teardown is not None:
+            self.teardown(self.persistent)
+            self._mark(False)
 
 
 class HarnessRegistry:
@@ -142,7 +175,8 @@ class HarnessRegistry:
                  override: bool = False):
         """Register a harness.  Re-registering the same ``(implements,
         name)`` is an error unless ``override=True``, which replaces the
-        existing harness in its candidate-order slot."""
+        existing harness in its candidate-order slot after running its
+        AfterLastExecution hook."""
         hs = self._by_comp.setdefault(h.implements, [])
         for i, existing in enumerate(hs):
             if existing.name == h.name:
@@ -150,6 +184,7 @@ class HarnessRegistry:
                     raise DuplicateHarnessError(
                         f"harness {h.name!r} is already registered for "
                         f"{h.implements!r}; pass override=True to replace it")
+                existing.release()
                 hs[i] = h
                 break
         else:

@@ -24,6 +24,9 @@ and, for a tensor the data plane has seen before, with its version.
   ``reuse``, the capacity ``max_entries``, and ``enabled``.
 * ``TrackedArray`` / ``version_token`` — the O(1) change tokens that the
   executable plans (:mod:`repro_torch.core.plan`) guard their operands by.
+* ``ReadObject`` — a harness's own derived value (construct / update /
+  destruct on a fingerprint change, the paper's Fig. 14), kept in its
+  persistent state.
 
 **Versions.**  A sampled fingerprint cannot see a write to one element off
 its sample grid, and torch tensors, unlike the reference's JAX arrays, are
@@ -776,3 +779,42 @@ class DataPlane(MarshalingCache):
         """Per-plan accounting: '{src}->{dst}' -> stats."""
         return {f"{src}->{dst}": dataclasses.asdict(ps)
                 for (src, dst), ps in sorted(self.plans.items())}
+
+
+class ReadObject:
+    """Paper Fig. 14: a value derived from an input with change tracking.
+    ``construct(arr)`` runs on the first read and when the input's shape
+    changes (after ``destruct`` of the old state), ``update(arr, state)``
+    when its content changes (:func:`fingerprint`, sampled above 64 KiB
+    unless ``exact``), ``destruct(state)`` on ``release``.  The shape is
+    read from the tensor, so no read copies it to the host."""
+
+    def __init__(self, construct: Callable, update: Callable,
+                 destruct: Optional[Callable] = None, exact: bool = False):
+        self.construct = construct
+        self.update = update
+        self.destruct = destruct
+        self.exact = exact
+        self._state: Optional[Any] = None
+        self._fp: Optional[Tuple] = None
+        self._shape: Optional[Tuple] = None
+
+    def read(self, arr):
+        fp = fingerprint(arr, self.exact)
+        value = unwrap(arr)
+        shape = tuple(value.shape)
+        if self._state is None or shape != self._shape:
+            if self._state is not None and self.destruct is not None:
+                self.destruct(self._state)
+            self._state = None
+            self._state = self.construct(value)
+            self._fp, self._shape = fp, shape
+        elif fp != self._fp:
+            self._state = self.update(value, self._state)
+            self._fp = fp
+        return self._state
+
+    def release(self) -> None:
+        if self._state is not None and self.destruct is not None:
+            self.destruct(self._state)
+        self._state = self._fp = self._shape = None

@@ -203,22 +203,42 @@ class LilacFunction:
     def __init__(self, fn: Callable, *, mode: str = "trace",
                  policy: str = "default", platform: Optional[str] = None,
                  device=None, marshal_policy=None, bake: bool = True,
-                 plan_cache: Any = None,
-                 registry: Optional[H.HarnessRegistry] = None):
+                 plan_cache: Any = None, enabled: bool = True,
+                 registry: Optional[H.HarnessRegistry] = None,
+                 detector: Optional[D.Detector] = None,
+                 cache: Optional[DataPlane] = None):
         if mode not in ("trace", "host"):
             raise ValueError(f"mode must be 'trace' or 'host', got {mode!r}")
         self.fn = fn
         self.mode = mode
         self.policy = policy
+        # False: every call runs ``fn`` itself (the A/B baseline)
+        self.enabled = bool(enabled)
         self.registry = registry if registry is not None else H.REGISTRY
+        # None: the default detector, rebuilt when a spec adds a computation
+        self.detector = detector
         self.platform = resolve_platform(platform, device)
         self.marshal_policy = MarshalPolicy.parse(marshal_policy)
-        # None: every call repacks (the paper's naive library call)
-        self.cache = (DataPlane(self.marshal_policy)
-                      if self.marshal_policy.enabled else None)
+        # a data plane the caller shares between functions, else this
+        # function's own; None: every call repacks (the paper's naive
+        # library call)
+        if cache is not None:
+            self.cache = cache
+        else:
+            self.cache = (DataPlane(self.marshal_policy)
+                          if self.marshal_policy.enabled else None)
         self.bake_enabled = bool(bake)
         self._plan_cache_injected = isinstance(plan_cache, P.PlanCache)
-        self._plan_cache = self._make_plan_cache(plan_cache)
+        # the persistent plan cache keys a graph's default detection: a
+        # function with a detector of its own neither reads nor writes it
+        if detector is not None and plan_cache not in (
+                None, False, True, "default", "on", "off", "none", "disabled"):
+            raise ValueError(
+                "a function compiled with its own detector keeps no "
+                "persistent plan records: pass plan_cache= or detector=, "
+                "not both")
+        self._plan_cache = (None if detector is not None
+                            else self._make_plan_cache(plan_cache))
         self._compiled: Dict[Tuple, CompiledEntry] = {}
         self._last_compiled: Optional[Tuple] = None   # (entry, spec, tmpl)
         self._last_plan: Optional[P.ExecutablePlan] = None
@@ -347,7 +367,8 @@ class LilacFunction:
         if served is not None:
             report, pins, joint = served
         else:
-            report, pins, joint = D.default_detector().detect(gm), {}, None
+            detector = self.detector or D.default_detector()
+            report, pins, joint = detector.detect(gm), {}, None
             self.stats["detects"] += 1
         self.stats["detect_seconds"] += time.perf_counter() - t1
         entry = CompiledEntry(gm, report, tensor_pos, out_spec[-1],
@@ -640,6 +661,8 @@ class LilacFunction:
         plan.release()
 
     def __call__(self, *args, **kwargs):
+        if not self.enabled:
+            return self.fn(*args, **kwargs)
         flat, spec = tree_flatten((args, kwargs))
         # steady state: guard check -> one replay.  A registry epoch moved
         # by any (re-)registration refuses a plan
@@ -844,10 +867,14 @@ class LilacFunction:
                                "every call")
             return False
         for h in harnesses:
-            if not getattr(h, "bakeable", True):
+            # a plan would freeze the first call's host-side behavior: the
+            # lifecycle hooks and the persistent state are read every call
+            if (not getattr(h, "bakeable", True) or h.setup is not None
+                    or h.teardown is not None or h.persistent):
                 self._disable_bake(
                     entry, f"harness {h.name!r} is stateful or opted out of "
-                           f"baking (bakeable=False)")
+                           f"baking (bakeable=False / lifecycle hooks / "
+                           f"persistent)")
                 return False
         return True
 
@@ -1015,12 +1042,9 @@ class LilacFunction:
         }
 
 
-def compile(fn: Callable, *, mode: str = "trace", policy: str = "default",
-            platform: Optional[str] = None, device=None,
-            marshal_policy=None, bake: bool = True,
-            plan_cache: Any = None,
-            registry: Optional[H.HarnessRegistry] = None) -> LilacFunction:
-    """The single LiLAC entry point: pass ``fn`` through the pass.
+@dataclasses.dataclass
+class CompileOptions:
+    """Configuration for :func:`compile` (the paper's Fig. 1 pass).
 
     ``mode``      'trace' (the default: the rewritten graph, jit-safe
                   harnesses only) or 'host' (eager with the data plane —
@@ -1029,6 +1053,8 @@ def compile(fn: Callable, *, mode: str = "trace", policy: str = "default",
     ``policy``    'default' | 'autotune' | an explicit harness name.
     ``platform``  'cuda' (the default; raises without a card) or 'cpu'.
     ``device``    alternative spelling: its type picks the platform.
+    ``enabled``   False runs the original function (the A/B baseline): no
+                  trace, no detection, no kernel.
     ``marshal_policy``  a :class:`~repro_torch.core.marshal.MarshalPolicy`,
                   or 'shared' (default: one data plane per function) or
                   'off' (every call repacks); its ``reuse`` is the calls a
@@ -1042,8 +1068,51 @@ def compile(fn: Callable, *, mode: str = "trace", policy: str = "default",
                   ~/.cache/lilac-torch/plans.json), 'off'/False disables
                   it, a path or a :class:`~repro_torch.core.plan.PlanCache`
                   names one.
-    ``registry``  the harness registry (default: the global ``REGISTRY``).
+    ``registry``/``detector``/``cache``  the harness registry, the
+                  detector and the data plane; None picks the global
+                  registry, the default detector and a data plane of the
+                  function's own.  Pass one DataPlane as ``cache`` to
+                  several compiled functions to share marshaled buffers.
+                  A function with its own detector keeps no persistent
+                  plan records (they key the default detection): naming
+                  a ``plan_cache`` beside it raises ``ValueError``.
+
+    The reference's ``donate_args`` has no counterpart (torch has no
+    buffer donation), so it is an unknown option here.
     """
-    return LilacFunction(fn, mode=mode, policy=policy, platform=platform,
-                         device=device, marshal_policy=marshal_policy,
-                         bake=bake, plan_cache=plan_cache, registry=registry)
+    mode: str = "trace"
+    policy: str = "default"
+    platform: Optional[str] = None
+    device: Any = None
+    enabled: bool = True
+    marshal_policy: Optional[Any] = None
+    bake: bool = True
+    plan_cache: Any = None
+    registry: Optional[H.HarnessRegistry] = None
+    detector: Optional[D.Detector] = None
+    cache: Optional[DataPlane] = None
+
+
+_OPTION_FIELDS = {f.name for f in dataclasses.fields(CompileOptions)}
+
+
+def compile(fn: Optional[Callable] = None, *,
+            options: Optional[CompileOptions] = None,
+            **overrides) -> LilacFunction:
+    """The single LiLAC entry point: pass ``fn`` through the pass.
+
+    Usable directly (``lilac.compile(fn, mode="host")``), with an options
+    dataclass (``lilac.compile(fn, options=CompileOptions(...))``, where
+    keyword arguments override its fields), or as a decorator
+    (``@lilac.compile(policy="autotune")``).  The keywords are the
+    fields of :class:`CompileOptions`; any other raises ``TypeError``.
+    """
+    bad = set(overrides) - _OPTION_FIELDS
+    if bad:
+        raise TypeError(f"unknown compile option(s): {sorted(bad)}")
+    opts = options if options is not None else CompileOptions()
+    if overrides:
+        opts = dataclasses.replace(opts, **overrides)
+    if fn is None:
+        return lambda f: compile(f, options=opts)
+    return LilacFunction(fn, **{k: getattr(opts, k) for k in _OPTION_FIELDS})

@@ -9,9 +9,12 @@ HARNESS block and a kernel body; this module does the rest:
   which route each repack through the call's data plane.
 * ``@harness(...)`` is the decorator form (see
   ``repro_torch/kernels/*/harness.py``).
-* ``@repack(name)`` registers the format conversions spec texts name.
+* ``@repack(name)`` / ``@hook(name)`` register the format conversions
+  and the BeforeFirstExecution / AfterLastExecution functions that spec
+  texts name (``hooks=`` passes more for one registration).
 * ``register_builtins`` populates the registry from the builtin spec
-  texts plus the HARNESS blocks next to the CUDA kernels.
+  texts plus the HARNESS blocks next to the CUDA kernels; given a fresh
+  registry, it replays every spec registered against the global one.
 
 ``tune`` and ``constraint`` clauses declare a harness's schedule space:
 the constraint-filtered variants, default first, are enumerated when the
@@ -20,9 +23,15 @@ keyword arguments.  A ``vjp <name>(<wrt>)`` clause names a backward body
 registered with ``@vjp(name)`` (the builtin ones are
 ``harness.BUILTIN_VJPS``): the rewriter runs such a harness inside one
 ``torch.autograd.Function`` whose backward is that body
-(``rewrite.call_harness``).  Not ported: persistence hooks
-(BeforeFirstExecution / AfterLastExecution / persistent); a HARNESS block
-that declares one is refused.
+(``rewrite.call_harness``).
+
+``persistent`` names, ``BeforeFirstExecution`` and ``AfterLastExecution``
+are the paper's Fig. 14 lifecycle: the harnesses of one block share one
+persistent dict and one lifecycle flag, so ``setup(persistent)`` runs
+once before the first call through any of them and ``teardown`` once on
+``release`` (or when ``register(..., override=True)`` replaces the
+backend).  Such a harness never bakes into a plan: its state is read on
+every call.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ class SpecError(ValueError):
 
 
 REPACKS: Dict[str, Callable[[H.Binding], Any]] = {}
+HOOKS: Dict[str, Callable[[Dict[str, Any]], Any]] = {}
 VJPS: Dict[str, Callable] = {}
 
 
@@ -50,6 +60,17 @@ def repack(name: str, *, override: bool = False):
         if name in REPACKS and REPACKS[name] is not fn and not override:
             raise SpecError(f"repack {name!r} is already registered")
         REPACKS[name] = fn
+        return fn
+    return deco
+
+
+def hook(name: str, *, override: bool = False):
+    """Register a persistence hook ``persistent_state_dict -> None`` so
+    BeforeFirstExecution / AfterLastExecution clauses can refer to it."""
+    def deco(fn):
+        if name in HOOKS and HOOKS[name] is not fn and not override:
+            raise SpecError(f"hook {name!r} is already registered")
+        HOOKS[name] = fn
         return fn
     return deco
 
@@ -142,12 +163,26 @@ def _marshaled_fn(decl: W.HarnessDecl, body: Callable) -> Callable:
     return fn
 
 
-def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
+def _hook(decl: W.HarnessDecl, table: Dict[str, Callable],
+          name: Optional[str], clause: str) -> Optional[Callable]:
+    if name is None:
+        return None
+    fn = table.get(name)
+    if fn is None:
+        raise SpecError(f"harness {decl.name!r}: unknown {clause} hook "
+                        f"{name!r}")
+    return fn
+
+
+def build_harnesses(decl: W.HarnessDecl, body: Callable, *,
+                    hooks: Optional[Dict[str, Callable]] = None,
+                    ) -> List[H.Harness]:
     """Compile one HARNESS descriptor + kernel body into Harness objects
-    (one per implemented computation)."""
-    if decl.before_first or decl.after_last or decl.persistent:
-        raise SpecError(f"harness {decl.name!r}: persistence hooks are not "
-                        f"supported by this package yet")
+    (one per implemented computation).  Hook names resolve against
+    ``hooks``, then the registered ``HOOKS``."""
+    table = {**HOOKS, **(hooks or {})}
+    setup = _hook(decl, table, decl.before_first, "BeforeFirstExecution")
+    teardown = _hook(decl, table, decl.after_last, "AfterLastExecution")
     # Enumerate the schedule family now: a tune/constraint mistake (a
     # constraint that cannot be evaluated, or one that prunes the default
     # schedule) fails at registration, not mid-sweep inside the autotuner.
@@ -162,10 +197,15 @@ def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
                 f"harness {decl.name!r}: the default schedule (first "
                 f"declared values) violates a constraint")
     fn = _marshaled_fn(decl, body) if (decl.marshal or decl.tune) else body
+    # one block is one backend, however many computations it implements:
+    # its harnesses share the persistent dict and the lifecycle flag
+    persistent = {k: None for k in decl.persistent}
+    lifecycle = {"up": False}
     return [
         H.Harness(decl.name, comp, fn, jit_safe=decl.jit_safe,
                   platforms=decl.platforms, formats=decl.formats,
-                  marshal=decl.marshal, tune=decl.tune,
+                  persistent=persistent, setup=setup, teardown=teardown,
+                  lifecycle=lifecycle, marshal=decl.marshal, tune=decl.tune,
                   constraints=decl.constraints,
                   fuse_epilogue=decl.fuse_epilogue, vjp=decl.vjp,
                   _schedules=schedules or None)
@@ -173,8 +213,15 @@ def build_harnesses(decl: W.HarnessDecl, body: Callable) -> List[H.Harness]:
     ]
 
 
+# Every spec registered against the global REGISTRY is logged, so that
+# register_builtins can replay the whole builtin surface into a fresh
+# registry.
+_GLOBAL_SPEC_LOG: List[tuple] = []
+
+
 def register_spec(spec: Union[str, W.Spec], bodies: Dict[str, Callable], *,
                   registry: Optional[H.HarnessRegistry] = None,
+                  hooks: Optional[Dict[str, Callable]] = None,
                   override: bool = False) -> List[H.Harness]:
     """Register a full LiLAC spec: new computations go to the What-language
     builtins (rebuilding the default detector), and every HARNESS block is
@@ -231,7 +278,7 @@ def register_spec(spec: Union[str, W.Spec], bodies: Dict[str, Callable], *,
                     raise SpecError(
                         f"HARNESS {decl.name!r}: no conversion path "
                         f"{cl.src}({start}) -> {cl.dst} in the graph")
-        hs = build_harnesses(decl, body)
+        hs = build_harnesses(decl, body, hooks=hooks)
         for h in hs:
             key = (h.implements, h.name)
             already = any(ex.name == h.name
@@ -259,11 +306,14 @@ def register_spec(spec: Union[str, W.Spec], bodies: Dict[str, Callable], *,
         for h in hs:
             reg.register(h, default_for=decl.default_for, override=override)
             registered.append(h)
+    if is_global:
+        _GLOBAL_SPEC_LOG.append((spec, dict(bodies), dict(hooks or {})))
     return registered
 
 
 def harness(decl: Union[str, W.HarnessDecl], *,
             registry: Optional[H.HarnessRegistry] = None,
+            hooks: Optional[Dict[str, Callable]] = None,
             override: bool = False):
     """Decorator: compile and register the kernel body under a HARNESS
     declaration (text or parsed)::
@@ -285,7 +335,7 @@ def harness(decl: Union[str, W.HarnessDecl], *,
     name = spec.harnesses[0].name
 
     def deco(body):
-        register_spec(spec, {name: body}, registry=registry,
+        register_spec(spec, {name: body}, registry=registry, hooks=hooks,
                       override=override)
         return body
 
@@ -402,13 +452,23 @@ def _densify(b: H.Binding):
 _builtins_done = False
 
 
-def register_builtins() -> H.HarnessRegistry:
+def register_builtins(registry: Optional[H.HarnessRegistry] = None
+                      ) -> H.HarnessRegistry:
     """Populate the global REGISTRY from the builtin spec texts (the
     HARNESS blocks that have a body in ``harness.BUILTIN_BODIES``), then
     the CUDA kernels' own HARNESS blocks, then the families that must come
     after them (``what_lang.POST_KERNEL_FAMILIES``): candidate order is
-    registration order."""
+    registration order.  Given another registry, replay every spec the
+    global one logged into it (with override=True, so a spec re-loaded
+    globally with override ends as it did there), each harness a new
+    object with its own persistent state."""
     global _builtins_done
+    if registry is not None and registry is not H.REGISTRY:
+        register_builtins()
+        for spec, bodies, hooks in list(_GLOBAL_SPEC_LOG):
+            register_spec(spec, bodies, registry=registry, hooks=hooks,
+                          override=True)
+        return registry
     if _builtins_done:
         return H.REGISTRY
 

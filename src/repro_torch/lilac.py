@@ -24,6 +24,29 @@ Library implementers (spec + function = a new backend)::
     def mylib_spmv(binding, ctx, *, packed):
         return mylib.spmv(packed, binding["iv"])
 
+A library that keeps state between calls (a handle, a workspace, a
+layout of its own) declares it, as in the paper's Fig. 14::
+
+    @lilac.hook("mylib_init")
+    def mylib_init(state):
+        state["layout"] = lilac.ReadObject(construct=mylib.pack,
+                                           update=mylib.repack,
+                                           destruct=mylib.free)
+
+    @lilac.harness('''
+    HARNESS mylib.spmv implements spmv_csr
+      host_only;
+      persistent layout;
+      BeforeFirstExecution mylib_init;
+      AfterLastExecution mylib_fini;
+    ''', hooks={"mylib_fini": lambda state: state["layout"].release()})
+    def mylib_spmv(binding, ctx):
+        ...   # reads the harness's persistent["layout"]
+
+``lilac.compile(f, enabled=False)`` returns ``f``'s own answers (the A/B
+baseline); ``lilac.compile(f, options=lilac.CompileOptions(...))`` and
+``@lilac.compile(mode="host")`` are the other spellings.
+
 A ``vjp spmv_csr_bwd(a, iv);`` clause in that block makes the harness
 differentiable: its calls then run inside one ``torch.autograd.Function``
 whose backward is the named body (``@lilac.vjp(name)`` registers one), so
@@ -36,9 +59,10 @@ from repro_torch.core.harness import (REGISTRY, CallCtx, DuplicateHarnessError,
 from repro_torch.core.marshal import (FORMATS, GRAPH, SOURCES, ConversionEdge,
                                       ConversionGraph, DataPlane,
                                       MarshalingCache, MarshalPolicy,
-                                      SparseFormat, TrackedArray, edge,
-                                      register_format, register_source)
-from repro_torch.core.pass_manager import LilacFunction, compile
+                                      ReadObject, SparseFormat, TrackedArray,
+                                      edge, register_format, register_source)
+from repro_torch.core.pass_manager import (CompileOptions, LilacFunction,
+                                           compile)
 from repro_torch.core.plan import ExecutablePlan, PlanCache
 from repro_torch.core.resilience import (Containment, ContainmentStats,
                                          LilacContainmentWarning,
@@ -49,9 +73,10 @@ from repro_torch.core.resilience import (Containment, ContainmentStats,
                                          reset_shared_quarantine,
                                          shared_quarantine)
 from repro_torch.core.rewrite import apply_epilogue
-from repro_torch.core.spec import (REPACKS, VJPS, SpecError, build_harnesses,
-                                   harness, register_builtins, register_spec,
-                                   repack, vjp)
+from repro_torch.core.spec import (HOOKS, REPACKS, VJPS, SpecError,
+                                   build_harnesses, harness, hook,
+                                   register_builtins, register_spec, repack,
+                                   vjp)
 from repro_torch.core.what_lang import (BUILTIN_SPECS, BUILTINS, Computation,
                                         Constraint, HarnessDecl, MarshalClause,
                                         ParseError, Spec, TuneClause,
@@ -60,10 +85,10 @@ from repro_torch.core.what_lang import (BUILTIN_SPECS, BUILTINS, Computation,
 
 __all__ = [
     # entry point
-    "compile", "LilacFunction",
+    "compile", "CompileOptions", "LilacFunction",
     # spec surface
-    "harness", "repack", "vjp", "register_spec", "register_builtins",
-    "build_harnesses", "SpecError", "REPACKS", "VJPS",
+    "harness", "repack", "hook", "vjp", "register_spec", "register_builtins",
+    "build_harnesses", "SpecError", "REPACKS", "HOOKS", "VJPS",
     # language
     "parse", "parse_spec", "parse_harness", "ParseError", "Spec",
     "Computation", "HarnessDecl", "MarshalClause", "TuneClause",
@@ -72,7 +97,8 @@ __all__ = [
     "apply_epilogue",
     # registry / runtime
     "REGISTRY", "Harness", "HarnessRegistry", "DuplicateHarnessError",
-    "CallCtx", "MarshalingCache", "Autotuner", "AutotuneCache",
+    "CallCtx", "MarshalingCache", "ReadObject", "Autotuner",
+    "AutotuneCache",
     # executable plans
     "ExecutablePlan", "PlanCache", "TrackedArray",
     # data plane

@@ -4,7 +4,8 @@ LiLAC, and the capacity-bucket grouped dispatch).
 
 Counterpart of ``repro.models.layers`` for the dense and MoE transformer,
 with the one-token decode against a KV cache (``attention_decode_stacked``)
-and the flat MoE formulations of the decode step.
+and the flat MoE formulations of the decode step, and the chunked scan
+over time of the recurrent mixers (``chunked_scan``).
 All functions are pure; parameters are dicts of tensors built from the
 ``*_spec`` trees (``models.spec.ParamSpec``).  ``moe_spec`` /
 ``moe_params`` are the MoE layer's own (shape, dtype) table and its
@@ -21,6 +22,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.harness import one_hot
 from repro_torch.models.spec import ParamSpec
@@ -48,6 +50,35 @@ def nonparam_layernorm(x, eps: float = 1e-5):
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def chunked_scan(step, init, xs, chunk: int = 128):
+    """The reference's rematerialized ``lax.scan`` as a loop over time:
+    ``step(carry, x_t) -> (carry, y_t)`` over the leading axis of each
+    tensor of the tuple ``xs``; returns (carry, the y_t stacked).  With
+    grad on and more than ``chunk`` steps, each chunk runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so backward keeps the
+    carries at chunk boundaries only and replays each chunk's forward:
+    O(S/chunk) carries instead of O(S).  Where nothing requires grad
+    (inference) the loop runs plain."""
+    def run(carry, *part):
+        ys = []
+        for t in range(part[0].shape[0]):
+            carry, y = step(carry, tuple(a[t] for a in part))
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    S = xs[0].shape[0]
+    grad = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in (init, *xs))
+    if S <= chunk or not grad:
+        return run(init, *xs)
+    carry, ys = init, []
+    for s0 in range(0, S, chunk):
+        carry, y = checkpoint(run, carry, *(a[s0:s0 + chunk] for a in xs),
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 def make_norm(kind: str, d: int):

@@ -15,12 +15,17 @@ import numpy as np
 import torch
 
 
+#: the init kinds ``init_params`` draws; the reference's Mamba kinds
+#: (``arange_log``, ``dt_bias``) come with the Mamba port
+INIT_KINDS = ("normal", "zeros", "ones")
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     dtype: Any = torch.bfloat16
-    init: str = "normal"     # normal | zeros | ones
+    init: str = "normal"     # one of INIT_KINDS
     scale: float = 1.0       # stddev multiplier for normal init
 
     def __post_init__(self):
@@ -53,8 +58,13 @@ def init_params(spec_tree, generator: torch.Generator, device=None):
     depth there (std 1/sqrt(2) for a 2-period model), which at full width
     drives the residual stream to ~1e5 at init.  Values from another RNG
     differ anyway: parity runs take the reference's parameters
-    (``models.factory.params_from_numpy``)."""
+    (``models.factory.params_from_numpy``).  An init kind outside
+    ``INIT_KINDS`` raises ``ValueError`` before anything is drawn."""
     device = device or generator.device
+    unknown = sorted({s.init for _, s in leaves(spec_tree)} - set(INIT_KINDS))
+    if unknown:
+        raise ValueError(f"unknown init kind(s) {unknown}; init_params "
+                         f"draws {list(INIT_KINDS)}")
 
     def make(s: ParamSpec):
         if s.init == "zeros":

@@ -1,15 +1,17 @@
 """Block assembly and the generic LM: spec building, the forward over the
 stacked periods, the chunked LM loss, prefill and decode.
 
-Counterpart of ``repro.models.transformer`` for the ``dense`` and ``moe``
-families.  A period is the repeating unit of the architecture (one block
-for these families); period parameters are stacked on a leading
+Counterpart of ``repro.models.transformer`` for the ``dense``, ``moe`` and
+``ssm`` (RWKV-6) families.  A period is the repeating unit of the
+architecture (one block for these families); period parameters are
+stacked on a leading
 ``layers`` axis, as in the reference, and ``forward`` loops over the
 stack where the reference scans it.  With ``cfg.remat`` each period runs
 under ``torch.utils.checkpoint`` (non-reentrant), whose backward replays
-the period's forward.  Decode carries a per-layer KV cache
-(``init_cache``) through ``decode_step``, a loop over the layers with one
-cache entry each, as the reference unrolls it.
+the period's forward.  Decode carries a per-layer cache (``init_cache``:
+an attention layer's k/v, an RWKV layer's (dh, dh) f32 state per head and
+its two token-shift carries) through ``decode_step``, a loop over the
+layers with one cache entry each, as the reference unrolls it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 from repro_torch.models.spec import ParamSpec, tree_map
 
 F32 = torch.float32
@@ -31,9 +34,12 @@ F32 = torch.float32
 
 def arch_pattern(cfg) -> List[Tuple[str, str]]:
     """[(mixer_kind, ffn_kind)] per layer within one period."""
+    if cfg.family == "ssm":                       # rwkv6
+        return [("rwkv", "channelmix")]
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe are)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
+            f"are)")
     return [("attn", "moe" if cfg.moe_experts else "mlp")]
 
 
@@ -55,15 +61,20 @@ def _norm_spec(cfg):
 def block_spec(cfg, mixer: str, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"ln1": _norm_spec(cfg)}
-    if mixer != "attn":
+    if mixer == "attn":
+        spec["attn"] = L.attention_spec(d, cfg.n_heads, cfg.n_kv_heads,
+                                        d // cfg.n_heads)
+    elif mixer == "rwkv":
+        spec["tm"] = R.timemix_spec(d, cfg.n_heads)
+    else:
         raise ValueError(mixer)
-    spec["attn"] = L.attention_spec(d, cfg.n_heads, cfg.n_kv_heads,
-                                    d // cfg.n_heads)
     spec["ln2"] = _norm_spec(cfg)
     if ffn == "mlp":
         spec["mlp"] = L.mlp_spec(d, cfg.d_ff)
     elif ffn == "moe":
         spec["moe"] = L.moe_param_spec(d, cfg.d_ff, cfg.moe_experts)
+    elif ffn == "channelmix":
+        spec["cm"] = R.channelmix_spec(d, cfg.d_ff)
     else:
         raise ValueError(ffn)
     return spec
@@ -100,14 +111,23 @@ def _norm_apply(cfg, p, x):
 def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
                 moe_impl: Optional[str] = None):
     """Full-sequence block application.  Returns (x, aux_loss,
-    cache_entry): the block's k and v in ``x.dtype``."""
+    cache_entry): an attention block's k and v in ``x.dtype``, an RWKV
+    block's state ``s`` after the sequence and its token-shift carries
+    ``last_tm`` / ``last_cm``."""
     h = _norm_apply(cfg, bp["ln1"], x)
-    if mixer != "attn":
+    if mixer == "attn":
+        out, k, v = L.attention_block(bp["attn"], h, positions=positions,
+                                      kv_chunk=cfg.kv_chunk, with_kv=True)
+        cache_entry = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
+    elif mixer == "rwkv":
+        hd = cfg.d_model // cfg.n_heads
+        state = torch.zeros((x.shape[0], cfg.n_heads, hd, hd), dtype=F32,
+                            device=x.device)
+        out, state, last_x = R.timemix(bp["tm"], h, state, cfg.n_heads)
+        cache_entry = {"s": state, "last_tm": last_x}
+    else:
         raise ValueError(mixer)
-    out, k, v = L.attention_block(bp["attn"], h, positions=positions,
-                                  kv_chunk=cfg.kv_chunk, with_kv=True)
     x = x + out
-    cache_entry = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = _norm_apply(cfg, bp["ln2"], x)
     if ffn == "mlp":
@@ -115,6 +135,9 @@ def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
     elif ffn == "moe":
         out, aux = L.moe_block(bp["moe"], h, topk=cfg.moe_topk,
                                impl=moe_impl or cfg.moe_impl)
+        x = x + out
+    elif ffn == "channelmix":
+        out, cache_entry["last_cm"] = R.channelmix(bp["cm"], h)
         x = x + out
     else:
         raise ValueError(ffn)
@@ -127,8 +150,10 @@ def forward(cfg, params, inputs: Dict[str, Any], *,
 
     inputs: {"tokens": (B,S) int}, optional "positions" (B,S).
     Returns (x_final (B,S,D), aux_loss, cache or None): with
-    ``collect_cache`` each block's k and v stacked over the periods,
-    ``{"b0": {"k": (periods, B, S, KV, dh), "v": ...}}``."""
+    ``collect_cache`` each block's cache entry stacked over the periods,
+    ``{"b0": {"k": (periods, B, S, KV, dh), "v": ...}}`` (RWKV:
+    ``{"s": (periods, B, H, dh, dh), "last_tm": (periods, B, D),
+    "last_cm": ...}``)."""
     pattern = arch_pattern(cfg)
     x = params["embed"][inputs["tokens"].long()]
     B, S = x.shape[0], x.shape[1]
@@ -203,32 +228,50 @@ def lm_logits_last(cfg, params, x_final):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, B: int, max_seq: int, device=None) -> Dict[str, Any]:
-    """Per-layer cache ``{"p{j}": {"b{i}": {"k", "v"}}}`` of zeros, each
-    (B, max_seq, KV, dh) in ``cfg.cache_dtype``, with no stacked periods
-    axis: each layer's buffer is its own tensor, as in the reference.
-    Only attention mixers have entries here; the recurrent families come
-    with their models."""
+    """Per-layer cache ``{"p{j}": {"b{i}": entries}}`` of zeros with no
+    stacked periods axis: each layer's buffer is its own tensor, as in the
+    reference.  An attention block's ``k`` / ``v`` are (B, max_seq, KV,
+    dh) in ``cfg.cache_dtype``; an RWKV block's state ``s`` is (B, H, dh,
+    dh) f32 and its carries ``last_tm`` / ``last_cm`` (B, D) in
+    ``cfg.param_dtype``, at any ``max_seq``."""
     hd = cfg.d_model // cfg.n_heads
-    shape = (B, max_seq, cfg.n_kv_heads, hd)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     cache: Dict[str, Any] = {}
     for j in range(n_periods(cfg)):
-        cache[f"p{j}"] = {
-            f"b{i}": {"k": torch.zeros(shape, dtype=cfg.cache_dtype,
-                                       device=device),
-                      "v": torch.zeros(shape, dtype=cfg.cache_dtype,
-                                       device=device)}
-            for i, _ in enumerate(arch_pattern(cfg))}
+        period = {}
+        for i, (mx, ff) in enumerate(arch_pattern(cfg)):
+            ce: Dict[str, Any] = {}
+            if mx == "attn":
+                shape = (B, max_seq, cfg.n_kv_heads, hd)
+                ce = {"k": zeros(shape, cfg.cache_dtype),
+                      "v": zeros(shape, cfg.cache_dtype)}
+            elif mx == "rwkv":
+                ce = {"s": zeros((B, cfg.n_heads, hd, hd), F32),
+                      "last_tm": zeros((B, cfg.d_model), cfg.param_dtype)}
+            if ff == "channelmix":
+                ce["last_cm"] = zeros((B, cfg.d_model), cfg.param_dtype)
+            period[f"b{i}"] = ce
+        cache[f"p{j}"] = period
     return cache
 
 
 def decode_block(cfg, bp, x, ce, pos, *, mixer: str, ffn: str):
     """One decode block against its own per-layer cache entry.  Returns
     (x, new_entry)."""
-    if mixer != "attn":
-        raise ValueError(mixer)
     h = _norm_apply(cfg, bp["ln1"], x)
-    out, kc, vc = L.attention_decode_stacked(bp["attn"], h, ce["k"],
-                                             ce["v"], pos)
+    new_ce = dict(ce)
+    if mixer == "attn":
+        out, new_ce["k"], new_ce["v"] = L.attention_decode_stacked(
+            bp["attn"], h, ce["k"], ce["v"], pos)
+    elif mixer == "rwkv":
+        out, new_ce["s"], last = R.timemix(bp["tm"], h, ce["s"], cfg.n_heads,
+                                           x_prev=ce["last_tm"])
+        new_ce["last_tm"] = last.to(ce["last_tm"].dtype)
+    else:
+        raise ValueError(mixer)
     x = x + out
     h = _norm_apply(cfg, bp["ln2"], x)
     if ffn == "mlp":
@@ -237,9 +280,13 @@ def decode_block(cfg, bp, x, ce, pos, *, mixer: str, ffn: str):
         out, _ = L.moe_block(bp["moe"], h, topk=cfg.moe_topk,
                              impl=cfg.moe_decode_impl)
         x = x + out
+    elif ffn == "channelmix":
+        out, last = R.channelmix(bp["cm"], h, x_prev=ce["last_cm"])
+        x = x + out
+        new_ce["last_cm"] = last.to(ce["last_cm"].dtype)
     else:
         raise ValueError(ffn)
-    return x, {**ce, "k": kc, "v": vc}
+    return x, new_ce
 
 
 def decode_step(cfg, params, cache, tokens, pos):

@@ -1546,3 +1546,160 @@ def test_decode_plan_on_a_cache_at_a_new_address(cuda):
     info = fast.plan_info()
     assert info["plan_hits"] >= 2 and info["baked"] == 1
     assert info["plans"][0]["recaptures"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# granite-moe-3b-a800m's shapes, and the How language's lifecycle on K1
+# ---------------------------------------------------------------------------
+
+GRANITE_D, GRANITE_F, GRANITE_E = 1536, 512, 40
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("product", ["gate_up", "down"])
+@pytest.mark.parametrize("T", [1, 8, 1024])
+def test_gmm_at_granite_moe_shapes(cuda, dtype, product, T):
+    """K4 at granite-moe-3b-a800m's widths (D 1,536, F 512, 40 experts,
+    top-8) over the rows ``_route`` gives T tokens (decode at T = 1 and 8,
+    a prefill-size T = 1,024), against its plain version; w at the model's
+    scale (std 1/sqrt(fan-in))."""
+    K, tm = 8, 128
+    k_in, n_out = (GRANITE_D, GRANITE_F) if product == "gate_up" \
+        else (GRANITE_F, GRANITE_D)
+    rng = np.random.default_rng(T + k_in)
+    idx = torch.from_numpy(np.stack([rng.choice(GRANITE_E, K, replace=False)
+                                     for _ in range(T)]).astype(np.int32))
+    dest, te, tp = gmm_ops._route(idx.to(cuda), T, K, GRANITE_E, tm)
+    x = torch.from_numpy(rng.standard_normal((T, k_in)).astype(np.float32))
+    xs = torch.zeros((tp, k_in), device=cuda)
+    xs[dest] = x.to(cuda).repeat_interleave(K, dim=0)
+    w = torch.from_numpy((rng.standard_normal((GRANITE_E, k_in, n_out))
+                          / k_in ** 0.5).astype(np.float32))
+    xs, w = xs.to(dtype), w.to(cuda, dtype)
+    body = "gmm" if dtype == torch.bfloat16 else "gmm_f32"
+    before = dict(K4.LAUNCHES)
+    got = K4.gmm_cuda(xs, w, te, tm=tm)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == {**before, body: before[body] + 1}
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, tm),
+                               **(TOL if dtype == torch.float32
+                                  else GMM_BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_hook_bearing_spmv_harness_on_k1(cuda):
+    """A spmv_csr harness with ``persistent layout``, BeforeFirstExecution
+    and AfterLastExecution whose setup puts a ReadObject in its state
+    (construct: K1's staged layout of the matched CSR; update: a re-pack
+    on a value change): one setup and one construct over many calls, one
+    update after an in-place edit, answers equal to the plain SpMV, K1's
+    staged body a call, no plan, and one teardown on release."""
+    from repro_torch.core.harness import _binding_to_csr
+
+    csr = trandom.random_csr(3000, 2500, 0.01, seed=4)
+    csr = tf.CSR(val=csr.val.to(cuda), col_ind=csr.col_ind.to(cuda),
+                 row_ptr=csr.row_ptr.to(cuda), shape=csr.shape)
+    events = []
+    binding = {}
+
+    def setup(state):
+        events.append("setup")
+
+        def pack(val):
+            return ell_ops.pack_ell128(_binding_to_csr(binding["b"]))
+
+        state["layout"] = lilac.ReadObject(
+            construct=lambda v: events.append("construct") or pack(v),
+            update=lambda v, s: events.append("update") or pack(v),
+            destruct=lambda s: events.append("destruct"))
+
+    def teardown(state):
+        events.append("teardown")
+        state["layout"].release()
+
+    reg = lilac.HarnessRegistry()
+
+    def body(b, ctx):
+        binding["b"] = b
+        layout = h.persistent["layout"].read(b["a"])
+        return ell_ops.spmv_ell_packed(layout, b["iv"])
+
+    (h,) = lilac.register_spec("""
+HARNESS gpu.lifecycle implements spmv_csr
+  formats CSR;
+  host_only;
+  persistent layout;
+  BeforeFirstExecution gpu_setup;
+  AfterLastExecution gpu_teardown;
+""", {"gpu.lifecycle": body}, registry=reg,
+        hooks={"gpu_setup": setup, "gpu_teardown": teardown})
+
+    def naive(val, col, row_ptr, v):
+        rows = row_ptr.shape[0] - 1
+        row = torch.repeat_interleave(
+            torch.arange(rows, device=val.device), torch.diff(row_ptr),
+            output_size=val.shape[0])
+        out = torch.zeros(rows, dtype=val.dtype, device=val.device)
+        return out.index_add_(0, row, val * v[col])
+
+    fast = lilac.compile(naive, mode="host", policy="gpu.lifecycle",
+                         registry=reg, device=cuda)
+    val = csr.val.clone()
+    K.reset_launches()
+    for seed in range(4):
+        v = torch.randn(csr.shape[1], device=cuda,
+                        generator=torch.Generator(device=cuda)
+                        .manual_seed(seed))
+        torch.testing.assert_close(fast(val, csr.col_ind, csr.row_ptr, v),
+                                   naive(val, csr.col_ind, csr.row_ptr, v),
+                                   **TOL)
+    assert events == ["setup", "construct"]
+    val.mul_(2)
+    torch.testing.assert_close(fast(val, csr.col_ind, csr.row_ptr, v),
+                               naive(val, csr.col_ind, csr.row_ptr, v), **TOL)
+    assert events == ["setup", "construct", "update"]
+    assert K.LAUNCHES["spmv_ell_staged"] == 5
+    info = fast.plan_info()
+    assert info["baked"] == 0 and "lifecycle hooks" in info["bake_errors"][0]
+    h.release()
+    assert events[-2:] == ["teardown", "destruct"]
+
+
+@pytest.mark.gpu
+def test_compiled_granite_moe_decode_runs_k4_in_both_layers(cuda):
+    """granite-moe-3b-a800m at full width (24 heads on 8 kv heads, 40
+    experts of d_ff 512, top-8) at smoke depth (2 layers), its decode step
+    compiled: both MoE layers detected and run on cuda.gmm (3 K4 launches
+    each), in f32 within 1e-4 of the uncompiled naive decode, and in bf16
+    each step's argmax the uncompiled one's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_map
+
+    cfg = get_arch("granite-moe-3b-a800m").replace(
+        n_layers=2, moe_decode_impl="naive_flat")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(cfg.replace(cache_dtype=dtype))
+        params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                            cuda)
+        if dtype == torch.float32:
+            params = tree_map(lambda a: a.float(), params)
+        fast = lilac.compile(model.decode, mode="host", device=cuda,
+                             plan_cache="off", bake=False)
+        cache = model.init_cache(2, 32, device=cuda)
+        ref_cache = tree_map(lambda a: a.clone(), cache)
+        for t in range(3):
+            tok = torch.full((2, 1), 5 + t, dtype=torch.int32, device=cuda)
+            pos = torch.tensor([t, t], dtype=torch.int32, device=cuda)
+            K4.reset_launches()
+            got, cache = fast(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            body = "gmm" if dtype == torch.bfloat16 else "gmm_f32"
+            assert K4.LAUNCHES[body] == 6
+            assert [n for _, n in fast.last_selections] == ["cuda.gmm"] * 2
+            want, ref_cache = model.decode(params, ref_cache, tok, pos)
+            if dtype == torch.float32:
+                assert _rel(got, want) <= 1e-4
+            else:
+                assert torch.equal(got.argmax(-1), want.argmax(-1))

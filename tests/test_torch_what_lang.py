@@ -101,7 +101,9 @@ def test_spec_compiler_refuses_what_it_cannot_serve():
 HARNESS t.bad implements spmv_csr
   marshal x = no_such_pack(a);
 """, {"t.bad": lambda b, c, x: None}, registry=lilac.HarnessRegistry())
-    with pytest.raises(lilac.SpecError, match="not supported"):
+    # a hook name that nothing registered fails at registration
+    with pytest.raises(lilac.SpecError,
+                       match="unknown BeforeFirstExecution hook"):
         lilac.register_spec("""
 HARNESS t.hooked implements spmv_csr
   BeforeFirstExecution setup;
