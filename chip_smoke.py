@@ -127,6 +127,16 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      serving 4 requests: what lilac.compile detects in its decode step,
      every signature baked, and each stream equal to the uncompiled decode
      teacher-forced at the engine's bucket;
+   * HuBERT-xlarge (48 layers, d_model 1,280, 16 heads of 80, attention
+     both ways) and InternVL2-2B (24 layers, d_model 2,048, 16 heads on 8
+     kv heads) at full width and depth from --seed, each fed 2 x 512
+     precomputed embeddings (their stub frontends): one bf16 and one f32
+     forward (ms, finite logits, the bf16 logits' relative L2 from the f32
+     ones), whether changing the last embedding moves the first
+     position's output (it must for HuBERT and must not for InternVL2),
+     and InternVL2's prefill on the embeddings and one decode step of a
+     token through its embedding table; no kernel runs here, nor in the
+     reference;
    every path above injects no fault and must show no containment event
    and no quarantine skip (each one warns) and leave the quarantine store,
    kept in the run's temporary directory, empty; then
@@ -203,6 +213,24 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      runs that OLMoE's phase makes (batched against solo, the faults, the
      second replica, moe_ffn_ragged), and K4's gate/up and down products
      at T = 1 and 8 in the kernels line;
+   * serving Jamba-v0.1, in a process of its own: full width (d_model
+     4,096, 32 heads on 8 kv heads of 128, 16 experts of d_ff 14,336,
+     top-2, d_state 16, vocab 65,536, bf16 from --seed) with its depth cut
+     from 32 to 16 layers (two 8-layer periods of 1 attention and 7 Mamba
+     layers, MoE on the 8 odd layers: 26,053,599,168 parameters, 52.1 GB;
+     the whole model is 103 GB), through granite's phase and checks (8
+     moe_ffn matches on cuda.gmm a signature and no other match, K4 3 x 8
+     times a decode step) but for the f32 teacher-forced comparison,
+     which runs after the bf16 model is freed at one period (8 layers,
+     53.2 GB in f32: the compiled decode on K4's f32 body against the
+     naive one, 1e-4); on the same bf16 parameters, each layer's residual
+     stream against an f32 copy's (its parameters cast a block at a time)
+     and each of the 14 Mamba layers' decode against its forward on the
+     layer's own inputs over 32 steps after a 512-token prefill (relative
+     L2 within 2e-3 in bf16, 1e-3 in f32), and the whole bf16 decode
+     against the bf16 forward over the longer sequence (printed); K4's
+     gate/up and down at T = 1 and 8 (top-2 of 16: Tp 2,048 rows, with
+     the used and tail row tiles) in the kernels line;
 4. holds each kernel against its plain torch version at the paths' shapes
    (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
    at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
@@ -265,6 +293,15 @@ MOE_F32_RTOL = 1e-4
 KERNEL_ATOL = KERNEL_RTOL = 1e-4   # K1-K3 against their plain versions
 # K4: f32 sums of 1,024 or 2,048 products, in another order than cuBLAS's
 GMM_ATOL = GMM_RTOL = 1e-3
+# K4 summing more products than that (Jamba: 4,096 and 14,336) of the
+# model's init scale, outputs up to ~2e4: two f32 orders of such a sum part
+# by more than GMM_ATOL + GMM_RTOL*|ref| where the sum crosses zero (two
+# CPU orders of the down product by 0.014, scaled 1.13), so there the
+# tolerance is the sum's own scale, |K4 - plain| <= GMM_ATOL +
+# GMM_SUM_RTOL * (|x| @ |w|) (the accumulated |terms|): 2^-16 of it, far
+# below a wrong expert's or a lost 64-product step's error
+GMM_SUM_RTOL = 2.0 ** -16
+GMM_SUM_MIN_K = 2048
 K1_LAYOUT_BYTES = 0.33e9       # K1's staged layout at NPB-C
 K2_LAYOUT_BYTES = 0.31e9       # K2's compacted layout at HPCG-104^3
 K3_LAYOUT_BYTES = 0.25e9       # K3's packed tiles at HPCG-104^3
@@ -597,17 +634,24 @@ def check_main_path(res, iters: int = CG_ITERS) -> None:
 
 
 def variant_numbers(run, plain, kernel_name, on_card, reps, nb, flops,
-                    dtype, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, what=""):
+                    dtype, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, what="",
+                    sum_scale=None):
     """Hold ``run()`` against ``plain()`` and time both: the numbers of one
-    kernel variant."""
+    kernel variant.  With ``sum_scale`` (each output's accumulated
+    |terms|) the tolerance is atol + GMM_SUM_RTOL * sum_scale, not
+    atol + rtol * |ref|."""
     got = run()
     want = plain()
     if on_card:
         import torch
         torch.cuda.synchronize()
     err, scaled = max_err(got, want, atol, rtol)
-    require(scaled <= 1.0, f"{what}: max |err| {err:.3g} within atol={atol} "
-            f"+ rtol={rtol}*|ref|")
+    tol = f"atol={atol} + rtol={rtol}*|ref|"
+    if sum_scale is not None:
+        diff = (got.float() - want.float()).abs()
+        scaled = float((diff / (atol + GMM_SUM_RTOL * sum_scale)).max())
+        tol = f"atol={atol} + {GMM_SUM_RTOL:.3g}*(|x|@|w|)"
+    require(scaled <= 1.0, f"{what}: max |err| {err:.3g} within {tol}")
     del got, want
     b_ms, b_by = bound_ms(nb, flops, dtype)
     ms, host_ms = cuda_ms(run, reps) if on_card else (None, None)
@@ -3058,22 +3102,85 @@ def _install(model, params, reqs, shape, device):
     return cache, firsts
 
 
-def teacher_forced(eng, model, params, reqs, device) -> dict:
-    """The compiled decode (the engine's baked plans) and the uncompiled
-    one fed the same tokens, the batched streams of ``reqs``, from the
-    same prefills in rows 0.. of a cache at the engine's bucket, each
-    carrying its own cache: per step the largest relative L2 error of an
-    active row's logits, each step's ms (host clock to a sync), and layer
-    0's router input at the first step (for K4's timing).  The same
-    against the uncompiled decode whose dense dispatch is computed by
-    cuda.gmm's function (``same_moe``: the plans' own arithmetic), and in
-    f32 (the parameters cast, a compiled decode of their own: K4's f32
-    body against the naive f32 dispatch); and each bf16 decode's logits
-    against the uncompiled f32 decode's, the oracle."""
+def _teacher_run(dec_c, dec_u, m, p, reqs, shape, device, record=False):
+    """``dec_c`` and ``dec_u`` fed the same tokens, the streams of ``reqs``
+    from the same prefills in rows 0.. of a ``shape`` cache, each carrying
+    its own cache: per step the largest relative L2 error of an active
+    row's logits and each step's ms (host clock to a sync); the logits;
+    with ``record`` the first MoE layer's router input at the first step
+    of ``dec_u``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.spec import tree_map
+
+    steps = min(len(r.tokens) for r in reqs) - 1
+    n = len(reqs)
+    cache_c, firsts = _install(m, p, reqs, shape, device)
+    cache_u = tree_map(lambda a: a.clone(), cache_c)
+    router, inputs = L.moe_router, []
+
+    def recording(pp, x, topk):
+        inputs.append(x.detach())
+        return router(pp, x, topk)
+
+    rel, ms_c, ms_u, logits = [], [], [], []
+    for t in range(steps):
+        tok, pos = _step_inputs(reqs, shape[0], t, device)
+        s0 = time.perf_counter()
+        lc, cache_c = dec_c(p, cache_c, tok, pos)
+        sync(device)
+        s1 = time.perf_counter()
+        L.moe_router = recording if record and t == 0 else router
+        try:
+            lu, cache_u = dec_u(p, cache_u, tok, pos)
+        finally:
+            L.moe_router = router
+        sync(device)
+        ms_c.append(1e3 * (s1 - s0))
+        ms_u.append(1e3 * (time.perf_counter() - s1))
+        rel.append(max(rel_l2(lc[i], lu[i]) for i in range(n)))
+        logits.append((lc[:n].float(), lu[:n].float()))
+    return {"first_token_agrees": firsts, "rel_l2": rel,
+            "max_rel_l2": max(rel), "ms_compiled": ms_c,
+            "ms_uncompiled": ms_u}, logits, inputs
+
+
+def compiled_f32(model, params, reqs, shape, device) -> dict:
+    """An f32 copy of ``model`` (``params`` already f32) compiled on its
+    own (K4's f32 body) against its uncompiled naive decode, teacher-forced
+    on the streams of ``reqs`` at ``shape`` (``_teacher_run``), with the
+    compiled decode's selections and launches."""
     import torch
     from repro_torch import lilac
-    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.common import COUNTERS
     from repro_torch.models import build_model
+
+    m32 = build_model(model.cfg.replace(param_dtype=torch.float32,
+                                        cache_dtype=torch.float32))
+    fast32 = lilac.compile(m32.decode, mode="host", device=device,
+                           plan_cache="off")
+    for c in COUNTERS:
+        c.update(dict.fromkeys(c, 0))
+    res, logits, _ = _teacher_run(fast32, m32.decode, m32, params, reqs,
+                                  shape, device)
+    res["launches"] = {k: v for c in COUNTERS for k, v in c.items() if v}
+    res["selections"] = sorted({n for _, n in fast32.last_selections})
+    return res, logits
+
+
+def teacher_forced(eng, model, params, reqs, device, f32: bool = True
+                   ) -> dict:
+    """The compiled decode (the engine's baked plans) and the uncompiled
+    one fed the same tokens, the batched streams of ``reqs``, from the
+    same prefills in rows 0.. of a cache at the engine's bucket
+    (``_teacher_run``), and the first MoE layer's router input at the
+    first step (for K4's timing).  The same against the uncompiled decode
+    whose dense dispatch is computed by cuda.gmm's function
+    (``same_moe``: the plans' own arithmetic), and with ``f32`` in f32
+    (the parameters cast, a compiled decode of their own: K4's f32 body
+    against the naive f32 dispatch) and each bf16 decode's logits against
+    the uncompiled f32 decode's, the oracle (a model too large to hold in
+    f32 beside its bf16 copy runs its f32 comparison apart)."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.models import layers as L
     from repro_torch.models.spec import tree_map
 
@@ -3083,34 +3190,7 @@ def teacher_forced(eng, model, params, reqs, device) -> dict:
     n = len(reqs)
 
     def run(dec_c, dec_u, m, p, record=False):
-        cache_c, firsts = _install(m, p, reqs, shape, device)
-        cache_u = tree_map(lambda a: a.clone(), cache_c)
-        router, inputs = L.moe_router, []
-
-        def recording(pp, x, topk):
-            inputs.append(x.detach())
-            return router(pp, x, topk)
-
-        rel, ms_c, ms_u, logits = [], [], [], []
-        for t in range(steps):
-            tok, pos = _step_inputs(reqs, shape[0], t, device)
-            s0 = time.perf_counter()
-            lc, cache_c = dec_c(p, cache_c, tok, pos)
-            sync(device)
-            s1 = time.perf_counter()
-            L.moe_router = recording if record and t == 0 else router
-            try:
-                lu, cache_u = dec_u(p, cache_u, tok, pos)
-            finally:
-                L.moe_router = router
-            sync(device)
-            ms_c.append(1e3 * (s1 - s0))
-            ms_u.append(1e3 * (time.perf_counter() - s1))
-            rel.append(max(rel_l2(lc[i], lu[i]) for i in range(n)))
-            logits.append((lc[:n].float(), lu[:n].float()))
-        return {"first_token_agrees": firsts, "rel_l2": rel,
-                "max_rel_l2": max(rel), "ms_compiled": ms_c,
-                "ms_uncompiled": ms_u}, logits, inputs
+        return _teacher_run(dec_c, dec_u, m, p, reqs, shape, device, record)
 
     res, bf16, inputs = run(eng._decode, model.decode, model, params,
                             record=True)
@@ -3126,18 +3206,33 @@ def teacher_forced(eng, model, params, reqs, device) -> dict:
             L._moe_naive_2d = naive
 
     res["same_moe"], _, _ = run(eng._decode, decode_k4, model, params)
-    m32 = build_model(model.cfg.replace(cache_dtype=torch.float32))
-    p32 = tree_map(lambda a: a.float(), params)
-    fast32 = lilac.compile(m32.decode, mode="host", device=device,
-                           plan_cache="off")
-    f32, oracle, _ = run(fast32, m32.decode, m32, p32)
-    del p32, fast32
-    to32 = {k: [max(rel_l2(b[j][i], o[1][i]) for i in range(n))
+    res.update(shape=shape, steps=steps, router_input=inputs[0])
+    if f32:
+        p32 = tree_map(lambda a: a.float(), params)
+        res["f32"], oracle = compiled_f32(model, p32, reqs, shape, device)
+        del p32
+        res["bf16_to_f32"] = {
+            k: [max(rel_l2(b[j][i], o[1][i]) for i in range(n))
                 for b, o in zip(bf16, oracle)]
             for j, k in enumerate(("compiled", "uncompiled"))}
-    res.update(shape=shape, steps=steps, f32=f32, bf16_to_f32=to32,
-               router_input=inputs[0])
     return res
+
+
+def moe_f32_oracle(x, gate, idx, wg, wu, wd):
+    """The dense dispatch on the same inputs in f32, one expert at a time
+    (a Jamba layer's three expert stacks in f32 are 11.3 GB)."""
+    import torch
+    from repro_torch.core.harness import one_hot
+
+    x = x.float()
+    combine = torch.einsum("tke,tk->te", one_hot(idx, wg.shape[0]).float(),
+                           gate.float())
+    out = torch.zeros((x.shape[0], wd.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for e in range(wg.shape[0]):
+        h = torch.nn.functional.silu(x @ wg[e].float()) * (x @ wu[e].float())
+        out += combine[:, e:e + 1] * (h @ wd[e].float())
+    return out
 
 
 def moe_layers(eng, model, params, reqs, device) -> dict:
@@ -3183,8 +3278,7 @@ def moe_layers(eng, model, params, reqs, device) -> dict:
     for _, b, out in calls:
         w = [b[k] for k in ("x", "gate", "idx", "wg", "wu", "wd")]
         naive = L._moe_naive_2d(*w)
-        oracle = L._moe_naive_2d(*[a.float() if a.is_floating_point()
-                                   else a for a in w])
+        oracle = moe_f32_oracle(*w)
         rel.append(rel_l2(out, naive))
         to32.append((rel_l2(out, oracle), rel_l2(naive, oracle)))
     return {"shape": shape, "plan": True,
@@ -3277,13 +3371,25 @@ def parting_op(model, params, req, solo_shape, device) -> dict:
     return {"rid": req.rid, "step": None}
 
 
-def _plan_rows(fn) -> list:
-    """Per baked decode plan: its bucket (the cache's (B, S)), CUDA graph
-    or eager, the bytes a replay copies, captures, times, hits."""
+def _k_leaf(model, params) -> int:
+    """The position of the first attention ``k`` cache leaf among the
+    decode step's tensor leaves (params..., cache..., tokens, pos): its
+    (B, S) is the bucket."""
+    from torch.utils._pytree import tree_flatten, tree_flatten_with_path
+
+    cache = model.init_cache(1, 1, device="meta")
+    names = [str(path[-1]) for path, _ in tree_flatten_with_path(cache)[0]]
+    return len(tree_flatten(params)[0]) + next(
+        i for i, n in enumerate(names) if "'k'" in n)
+
+
+def _plan_rows(fn, k_leaf: int) -> list:
+    """Per baked decode plan: its bucket (the (B, S) of tensor leaf
+    ``k_leaf``, an attention layer's k cache), CUDA graph or eager, the
+    bytes a replay copies, captures, times, hits."""
     out = []
     for p in fn.plan_info()["plans"]:
-        # (params..., cache..., tokens, pos): the last cache leaf's (B, S)
-        b, s = p["tensor_leaves"][-3][0][:2]
+        b, s = p["tensor_leaves"][k_leaf][0][:2]
         out.append({"bucket": [b, s], "cuda_graph": p["cuda_graph"],
                     "graph_copy_bytes": p["graph_copy_bytes"],
                     "recaptures": p["recaptures"], "replay_ms": p["replay_ms"],
@@ -3310,7 +3416,10 @@ def gmm_decode_phases(cfg, p0, routes: dict, device, reps: int = 20,
     rows of x times wg) and ``down`` (the rows of silu(x·wg)·(x·wu),
     computed by the plain version, times wd).  Bound: the touched experts'
     weights once, the routed rows in and out; library: torch._grouped_mm
-    over the same aligned rows."""
+    over the same aligned rows.  Each variant also names ``_route``'s row
+    tiles: those that hold routed rows (an expert's rows rounded up to
+    ``tm``) and the tail of the static Tp, which K4 computes on expert
+    E-1."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
@@ -3342,13 +3451,24 @@ def gmm_decode_phases(cfg, p0, routes: dict, device, reps: int = 20,
                 touched = int(torch.unique(idx).numel())
                 nb = touched * k_in * n_out * 2 + T * K * k_in * 2 \
                     + T * K * n_out * 4
+                sum_scale = GR.gmm_ref(xs.abs(), w.abs(), te, tm) \
+                    if k_in > GMM_SUM_MIN_K else None
                 v = variant_numbers(
                     lambda: G.gmm_cuda(xs, w, te, tm),
                     lambda: GR.gmm_ref(xs, w, te, tm), "gmm_tc_kernel",
                     on_card, reps, nb, 2 * T * K * k_in * n_out,
                     torch.bfloat16, GMM_ATOL, GMM_RTOL,
-                    what=f"gmm decode T={T} {prod} {name}")
-                v.update(touched_experts=touched, tp=tp, routed_rows=T * K)
+                    what=f"gmm decode T={T} {prod} {name}",
+                    sum_scale=sum_scale)
+                if sum_scale is not None:
+                    v.update(max_sum_scale=float(sum_scale.max()),
+                             tolerance="sum")
+                del sum_scale
+                counts = torch.bincount(idx.reshape(-1).long(), minlength=E)
+                used = int(((counts + tm - 1) // tm).sum())
+                v.update(touched_experts=touched, tp=tp, routed_rows=T * K,
+                         tiles=tp // tm, used_tiles=used,
+                         tail_tiles=tp // tm - used)
                 e["variants"][name] = v
                 grouped = getattr(torch, "_grouped_mm", None)
                 if on_card and grouped is not None \
@@ -3508,7 +3628,8 @@ def serve_ragged(res, cfg, p0, gen, device) -> None:
 
 
 def serve_path(seed: int, device, cfg=None, policy=None,
-               n_requests: int = SERVE_REQUESTS, light: bool = False) -> dict:
+               n_requests: int = SERVE_REQUESTS, light: bool = False,
+               f32: bool = True) -> dict:
     """A MoE model at full width served by repro_torch.serve (OLMoE-1B-7B
     unless ``cfg`` names another): the engine's prewarm over ``policy``'s
     grid, a closed burst of ``n_requests`` on baked plans (launches
@@ -3520,15 +3641,20 @@ def serve_path(seed: int, device, cfg=None, policy=None,
     and one decode step under torch.profiler.  ``light`` leaves out what
     does not depend on the model and OLMoE's phase shows: batched against
     solo, the faults, the second replica and moe_ffn_ragged; K4 at the
-    decode shapes then times the down product too."""
+    decode shapes then times the down product too.  Without ``f32`` the
+    teacher-forced comparison has no f32 part (``compiled_f32``), for a
+    model that cannot be held in f32 beside its bf16 copy."""
     import torch
     from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
     from repro_torch.core import resilience as R
     from repro_torch.kernels.common import COUNTERS
     from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
     from repro_torch.serve import BucketPolicy, Engine, ServeConfig
 
     cfg = (cfg or OLMOE).replace(moe_decode_impl="naive_flat")
+    moe_blocks = [f"b{i}" for i, (_, ff) in enumerate(T.arch_pattern(cfg))
+                  if ff == "moe"]
     policy = policy or BucketPolicy(batch=SERVE_BATCH, seq=SERVE_SEQ)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -3539,6 +3665,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
                       "d_model": cfg.d_model, "heads": cfg.n_heads,
                       "experts": cfg.moe_experts, "topk": cfg.moe_topk,
                       "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "moe_layers": len(moe_blocks) * T.n_periods(cfg),
                       "params": model.param_count(),
                       "grid": [list(g) for g in policy.grid()]},
            "init_s": time.perf_counter() - t0, "light": light,
@@ -3589,7 +3716,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
         buckets_used=sorted({b for r in reqs for b in r.decode_buckets}),
         failed=[r.failed for r in reqs if r.failed],
         streams=[list(r.tokens) for r in reqs],
-        plans=_plan_rows(eng._decode),
+        plans=_plan_rows(eng._decode, _k_leaf(model, params)),
         matches=[[m.computation for m in e.report.matches]
                  for e in eng._decode._compiled.values()],
         selections=sorted({n for _, n in eng._decode.last_selections}))
@@ -3612,7 +3739,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
 
     # (b) teacher-forced: compiled against uncompiled on two streams
     with fault_free("serving teacher-forced"):
-        tf = teacher_forced(eng, model, params, reqs[:2], device)
+        tf = teacher_forced(eng, model, params, reqs[:2], device, f32=f32)
         tf["moe_layers"] = moe_layers(eng, model, params, reqs[:2], device)
     router_input = tf.pop("router_input")
     res["teacher_forced"] = tf
@@ -3660,7 +3787,8 @@ def serve_path(seed: int, device, cfg=None, policy=None,
     del eng
     release(device)
 
-    p0 = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
+    # the first MoE layer's weights, whose router input teacher_forced kept
+    p0 = {k: v[0] for k, v in params["blocks"][moe_blocks[0]]["moe"].items()}
     gen = torch.Generator(device=device).manual_seed(seed + 19)
     if not light:
         serve_ragged(res, cfg, p0, gen, device)
@@ -3677,7 +3805,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
 
 
 def check_serve_path(res) -> None:
-    layers = res["config"]["layers"]
+    layers = res["config"]["moe_layers"]
     pw = res["prewarm"]
     grid = len(res["config"]["grid"])
     require(pw["baked"] == pw["n_signatures"] == grid,
@@ -3859,7 +3987,7 @@ def print_serve_path(sv, tag: str = "serving") -> None:
               f"{med(r['ms_compiled']):.2f}, uncompiled "
               f"{med(r['ms_uncompiled']):.2f} (median, host clock to a "
               f"sync)")
-    for k, v in tf["bf16_to_f32"].items():
+    for k, v in tf.get("bf16_to_f32", {}).items():
         print(f"{tag} teacher-forced bf16 {k} against the f32 oracle: "
               f"relative L2 max {max(v):.3g}, median {med(v):.3g}, first "
               f"{v[0]:.3g}")
@@ -3887,12 +4015,17 @@ def print_serve_path(sv, tag: str = "serving") -> None:
     for e in sv["gmm_decode"]:
         for name, v in e["variants"].items():
             print(f"gmm {e['path']} ({name}: {v['routed_rows']} routed rows "
-                  f"of Tp {v['tp']}, {v['touched_experts']} experts): "
+                  f"of Tp {v['tp']}, {v['touched_experts']} experts; "
+                  f"{v['used_tiles']} of {v['tiles']} row tiles used, "
+                  f"{v['tail_tiles']} tail): "
                   f"{_ms(v['ms'])} ms (host {_ms(v['host_ms'])} ms; "
                   f"profiler {v['profiler_ms']} ms), plain "
                   f"{_ms(v['plain_ms'])} ms, bound {v['bound_ms']:.5f} ms "
                   f"({v['bound_by']}: {v['bytes']} B), max|err| "
-                  f"{v['max_abs_err']:.3g}")
+                  f"{v['max_abs_err']:.3g}"
+                  + (f" (tol {GMM_ATOL} + {GMM_SUM_RTOL:.3g} x |x|@|w|, "
+                     f"at most {v['max_sum_scale']:.4g})"
+                     if "max_sum_scale" in v else ""))
         print(f"gmm {e['path']} library (torch._grouped_mm, same rows): "
               f"{_ms(e['library_ms'])} ms, max|err| vs plain "
               f"{e['library_err']}")
@@ -3944,6 +4077,103 @@ def rwkv_layers(cfg, p, tokens, prompt: int, steps: int):
         xs.append(y)
         x = y
     return xs, dist
+# Jamba's Mamba layers, each layer's bf16 decode against its forward on
+# the layer's own inputs (relative L2 over MAMBA_STEPS steps): between
+# what the bf16 rounding of one mixer reads at full width on the CPU
+# (port 6.4e-4-1.1e-3, reference 1.9e-4-4.6e-4) and what one extra bf16
+# rounding of the state between decode steps reads (2.8e-3-2.9e-3;
+# tests/test_torch_mamba.py, run as a script)
+MAMBA_BF16_LAYER_RTOL = 2e-3
+MAMBA_F32_LAYER_RTOL = 1e-3
+MAMBA_PROMPT, MAMBA_STEPS = 512, 32
+
+
+def mamba_layers(cfg, p, tokens, prompt: int, steps: int,
+                 f32: bool = False) -> dict:
+    """Layer by layer through the port's block functions (the forward's
+    MoE the naive dense dispatch, which the decode's ``naive_flat``
+    computes too): the residual stream after each layer (embedding
+    first), and each Mamba layer's mixer held against its forward on the
+    layer's own input, the normed stream ``ln1(x)``: the state from
+    ``mamba_block`` over the first ``prompt`` inputs, then ``steps``
+    one-token calls carrying ``(ssm, conv)`` as ``decode_block`` does,
+    against ``mamba_block`` over all the inputs from a zero state (the
+    relative L2 of the ``steps`` outputs).  With ``f32`` an f32 copy of
+    the model runs beside, each block's parameters cast when it runs (a
+    full-width Jamba MoE block is 11.8 GB in f32, the model 104 GB).
+    Returns {"model": run[, "f32": run]}, a run {"streams": [...],
+    "decode": {layer index: relative L2}}."""
+    import torch
+
+    from repro_torch.models import mamba as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.spec import tree_map
+
+    pattern = T.arch_pattern(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = p["embed"][tokens.long()]
+    runs = {"model": (cfg, lambda a: a, x)}
+    if f32:
+        runs["f32"] = (cfg.replace(param_dtype=torch.float32,
+                                   cache_dtype=torch.float32),
+                       lambda a: a.float(), x.float())
+    out = {k: {"streams": [x0], "decode": {}}
+           for k, (_, _, x0) in runs.items()}
+    for j in range(T.n_periods(cfg)):
+        for i, (mixer, ffn) in enumerate(pattern):
+            layer = j * len(pattern) + i
+            for name, (c, cast, _) in runs.items():
+                bp = tree_map(lambda a: cast(a[j]), p["blocks"][f"b{i}"])
+                x = out[name]["streams"][-1]
+                if mixer == "mamba":
+                    h = T._norm_apply(c, bp["ln1"], x)
+                    zero = (torch.zeros((B, 2 * c.d_model, c.d_state),
+                                        dtype=torch.float32, device=x.device),
+                            torch.zeros((B, M.CONV_K - 1, 2 * c.d_model),
+                                        dtype=torch.float32, device=x.device))
+                    full, _ = M.mamba_block(bp["mamba"], h, zero, c.d_state)
+                    _, state = M.mamba_block(bp["mamba"], h[:, :prompt], zero,
+                                             c.d_state)
+                    got = []
+                    for t in range(prompt, prompt + steps):
+                        y, state = M.mamba_block(bp["mamba"], h[:, t:t + 1],
+                                                 state, c.d_state)
+                        got.append(y)
+                    out[name]["decode"][layer] = rel_l2(
+                        torch.cat(got, 1), full[:, prompt:prompt + steps])
+                    del full, h
+                y, _, _ = T.apply_block(c, bp, x, mixer=mixer, ffn=ffn,
+                                        positions=positions, moe_impl="naive")
+                out[name]["streams"].append(y)
+                del bp
+    return out
+
+
+def decode_against_forward(m, p, tokens, prompt: int, steps: int,
+                           device):
+    """``Model.prefill`` on the first ``prompt`` tokens, then ``steps``
+    teacher-forced ``Model.decode`` steps; per step the decode's logits
+    and the full-sequence forward's at the same position (the forward's
+    MoE ``m.cfg.moe_impl``)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        x, _, _ = T.forward(m.cfg, p, {"tokens": tokens})
+        full = torch.einsum("bsd,dv->bsv", x[:, prompt - 1:].float(),
+                            p["unembed"].float())
+        del x
+        logits, caches = m.prefill(p, {"tokens": tokens[:, :prompt]})
+        cache = m.cache_from_prefill(caches, prompt, prompt + steps)
+        got = [logits]
+        for t in range(steps):
+            logits, cache = m.decode(p, cache, tokens[:, prompt + t:][:, :1],
+                                     torch.tensor(prompt + t, device=device))
+            got.append(logits)
+    return got, full
+
+
 RWKV_BURST = 4
 RWKV_BUCKETS = ((1, 4), (512,))
 
@@ -3985,23 +4215,7 @@ def rwkv_path(seed: int, device, cfg=None, prompt: int = RWKV_PROMPT,
                            generator=gen, dtype=torch.int32).to(device)
 
     def run(m, p):
-        """Per step: the decode's logits and the full forward's at the
-        same position."""
-        with torch.no_grad():
-            x, _, _ = T.forward(m.cfg, p, {"tokens": tokens})
-            full = torch.einsum("bsd,dv->bsv", x[:, prompt - 1:].float(),
-                                p["unembed"].float())
-            del x
-            logits, caches = m.prefill(p, {"tokens": tokens[:, :prompt]})
-            cache = m.cache_from_prefill(caches, prompt, prompt + steps)
-            got = [logits]
-            for t in range(steps):
-                logits, cache = m.decode(p, cache,
-                                         tokens[:, prompt + t:][:, :1],
-                                         torch.tensor(prompt + t,
-                                                      device=device))
-                got.append(logits)
-        return got, full
+        return decode_against_forward(m, p, tokens, prompt, steps, device)
 
     def agree(a, b):
         return bool(torch.equal(a.argmax(-1), b.argmax(-1)))
@@ -4188,6 +4402,262 @@ def print_rwkv_path(rw) -> None:
           f"teacher-forced at {tuple(e['shape'])}: {e['streams_equal']}")
 
 
+# ---------------------------------------------------------------------------
+# Jamba-v0.1 (52 B) at full width: Mamba, attention and MoE served on K4
+# ---------------------------------------------------------------------------
+
+# 32 layers are 51.6 B parameters, 103 GB in bf16, more than one card
+# holds: two periods are 26,053,599,168 (52.1 GB), one period in f32
+# 13,295,237,088 (53.2 GB); a depth stays a multiple of the 8-layer period
+JAMBA_LAYERS, JAMBA_F32_LAYERS = 16, 8
+
+
+def jamba_path(seed: int, device, cfg=None, f32_layers: int = JAMBA_F32_LAYERS,
+               prompt: int = MAMBA_PROMPT, steps: int = MAMBA_STEPS) -> dict:
+    """Jamba served by repro_torch.serve (``serve_path(light=True)``
+    without its f32 part: 16 layers in f32 are 104 GB), then on the same
+    parameters (drawn again from the seed): each layer by
+    ``mamba_layers`` (bf16, an f32 copy beside, a block at a time) and the
+    whole bf16 decode against the bf16 forward over the longer sequence
+    (``decode_against_forward``, the forward's MoE the naive dispatch);
+    then, the bf16 model freed, the f32 comparison at ``f32_layers``: the
+    compiled f32 decode (K4's f32 body) against the naive one, teacher-
+    forced on the burst's first two streams at their bucket
+    (``compiled_f32``), as the serving result's ``teacher_forced["f32"]``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = cfg or get_arch("jamba-v0.1-52b").replace(n_layers=JAMBA_LAYERS)
+    t_start = time.perf_counter()
+
+    def progress(what):        # on stderr: where a cut-off run stopped
+        print(f"jamba: {what} at {time.perf_counter() - t_start:.1f}s",
+              file=sys.stderr, flush=True)
+
+    res = serve_path(seed, device, cfg=cfg, light=True, f32=False)
+    release(device)
+    progress("served")
+
+    # the serving phase's parameters (its generator and seed)
+    model = build_model(cfg.replace(moe_impl="naive",
+                                    moe_decode_impl="naive_flat"))
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 17),
+                        device)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 37)
+    tokens = torch.randint(1, cfg.vocab, (2, prompt + steps), generator=gen,
+                           dtype=torch.int32).to(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lay = mamba_layers(model.cfg, params, tokens, prompt, steps, f32=True)
+    res["mamba_layers"] = {
+        "prompt": prompt, "steps": steps,
+        "bf16_to_f32": [rel_l2(b, f) for b, f in zip(
+            lay["model"]["streams"][1:], lay["f32"]["streams"][1:])],
+        "decode_bf16": lay["model"]["decode"],
+        "decode_f32": lay["f32"]["decode"],
+        "seconds": time.perf_counter() - t0}
+    del lay
+    release(device)
+    progress("layer by layer")
+    got, full = decode_against_forward(model, params, tokens, prompt, steps,
+                                       device)
+    res["decode_vs_forward"] = {
+        "rel_l2": [rel_l2(g, full[:, t]) for t, g in enumerate(got)],
+        "argmax_agree": [bool(torch.equal(g.argmax(-1), full[:, t].argmax(-1)))
+                         for t, g in enumerate(got)],
+        "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    del got, full, params, model
+    release(device)
+    progress("decode against forward")
+
+    # f32 at one period, after the bf16 model is gone
+    if device.type == "cuda":
+        res["f32_bytes_before"] = torch.cuda.memory_allocated(device)
+    from repro_torch.serve import Request
+
+    reqs = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                    rid=r.rid) for r in serve_requests(
+                        cfg, res["workload_seed"])[:2]]
+    for r, stream in zip(reqs, res["streams"]):
+        r.tokens = list(stream)
+    cfg32 = cfg.replace(n_layers=f32_layers, moe_decode_impl="naive_flat")
+    m32 = build_model(cfg32)
+    p32 = m32.init(torch.Generator(device=device).manual_seed(seed + 41),
+                   device)
+
+    def cast(tree):                      # leaf by leaf: 26 + 53 GB at once
+        for k, v in tree.items():        # would not fit
+            if isinstance(v, dict):
+                cast(v)
+            else:
+                tree[k] = v.float()
+
+    cast(p32)
+    progress("f32 model built")
+    t0 = time.perf_counter()
+    f32, _ = compiled_f32(m32, p32, reqs,
+                          tuple(res["teacher_forced"]["shape"]), device)
+    f32.update(layers=f32_layers, params=m32.param_count(),
+               seconds=time.perf_counter() - t0)
+    res["teacher_forced"]["f32"] = f32
+    del p32, m32
+    release(device)
+    return res
+
+
+def check_jamba_path(res) -> None:
+    check_serve_path(res)
+    f = res["teacher_forced"]["f32"]
+    require(f["selections"] == ["cuda.gmm"] and f["launches"].get("gmm_f32")
+            and not f["launches"].get("gmm"),
+            f"Jamba f32: the compiled f32 decode runs K4's f32 body in every "
+            f"MoE layer, got {f['selections']} and {f['launches']}")
+    lay = res["mamba_layers"]
+    n_mamba = res["config"]["layers"] * 7 // 8
+    require(len(lay["decode_bf16"]) == len(lay["decode_f32"]) == n_mamba
+            and max(lay["decode_bf16"].values()) <= MAMBA_BF16_LAYER_RTOL
+            and max(lay["decode_f32"].values()) <= MAMBA_F32_LAYER_RTOL,
+            f"Jamba: each of the {n_mamba} Mamba layers' decode within "
+            f"relative L2 {MAMBA_BF16_LAYER_RTOL} (bf16) and "
+            f"{MAMBA_F32_LAYER_RTOL} (f32) of its forward on its own inputs, "
+            f"got {lay['decode_bf16']} and {lay['decode_f32']}")
+    require(res["decode_vs_forward"]["finite"],
+            "Jamba: the bf16 decode's logits are finite")
+
+
+def print_jamba_path(jb) -> None:
+    tag = "jamba serving"
+    print_serve_path(jb, tag=tag)
+    f = jb["teacher_forced"]["f32"]
+    print(f"{tag} f32 at {f['layers']} layers ({f['params']} params; "
+          f"{jb.get('f32_bytes_before')} B allocated before it; another "
+          f"draw, teacher-forced on the bf16 streams, so its prefill's first "
+          f"tokens need not be theirs): compiled decode via "
+          f"{f['selections']}, launches {f['launches']}, {f['seconds']:.1f}s")
+    lay = jb["mamba_layers"]
+    med = lambda v: sorted(v)[len(v) // 2]
+    print(f"{tag} layer by layer ({lay['seconds']:.1f}s): bf16 residual "
+          f"stream against f32's (relative L2) "
+          f"{' '.join(f'{v:.3g}' for v in lay['bf16_to_f32'])}")
+    b, f = list(lay["decode_bf16"].values()), list(lay["decode_f32"].values())
+    print(f"{tag} each Mamba layer's decode against its forward on its own "
+          f"inputs, {lay['prompt']} + {lay['steps']} steps: bf16 "
+          + " ".join(f"{k}:{v:.3g}" for k, v in lay["decode_bf16"].items())
+          + f" (max {max(b):.3g}, median {med(b):.3g}; tol "
+          f"{MAMBA_BF16_LAYER_RTOL}); f32 max {max(f):.3g} (tol "
+          f"{MAMBA_F32_LAYER_RTOL})")
+    d = jb["decode_vs_forward"]
+    print(f"{tag} whole bf16 decode against the bf16 forward over the longer "
+          f"sequence: relative L2 max {max(d['rel_l2']):.3g} (median "
+          f"{med(d['rel_l2']):.3g}, first {d['rel_l2'][0]:.3g}), argmax agrees "
+          f"at {sum(d['argmax_agree'])} of {len(d['argmax_agree'])} steps")
+
+
+# ---------------------------------------------------------------------------
+# HuBERT-xlarge and InternVL2-2B: stub frontends, at full width and depth
+# ---------------------------------------------------------------------------
+
+STUB_BATCH, STUB_SEQ = 2, 512
+STUB_ARCHS = ("hubert-xlarge", "internvl2-2b")
+
+
+def stub_frontend_path(seed: int, device, cfgs=None) -> dict:
+    """Each stub-frontend model at full width and depth from ``--seed``:
+    one bf16 and one f32 forward over STUB_BATCH x STUB_SEQ precomputed
+    embeddings (the logits of every position, their ms by CUDA events and
+    the bf16 logits' relative L2 from the f32 ones); whether changing the
+    last position's embedding moves the first position's bf16 logits
+    (HuBERT attends both ways, InternVL2 causally); for InternVL2 a
+    prefill on the embeddings and one decode step of a token through its
+    embedding table (``cfgs`` replaces the registered configs).  These
+    reach no kernel, nor does the reference."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.spec import tree_map
+
+    out = {}
+    for k, cfg in enumerate(cfgs or [get_arch(a) for a in STUB_ARCHS]):
+        arch = cfg.name
+        model = build_model(cfg)
+        params = model.init(
+            torch.Generator(device=device).manual_seed(seed + 43 + k), device)
+        emb = torch.randn((STUB_BATCH, STUB_SEQ, cfg.d_model),
+                          generator=torch.Generator(device=device)
+                          .manual_seed(seed + 47 + k), device=device)
+
+        def logits(m, p, e):
+            x, _, _ = T.forward(m.cfg, p, {"embeds": e})
+            return torch.einsum("bsd,dv->bsv", x.float(), p["unembed"].float())
+
+        r = {"params": model.param_count(), "layers": cfg.n_layers,
+             "d_model": cfg.d_model, "head_dim": cfg.resolved_head_dim,
+             "causal": cfg.causal}
+        with torch.no_grad():
+            lb = logits(model, params, emb)
+            edited = emb.clone()
+            edited[:, -1] += 1.0
+            moved = float((logits(model, params, edited)[:, 0] - lb[:, 0])
+                          .abs().max())
+            r["ms_bf16"] = cuda_ms(lambda: T.forward(
+                cfg, params, {"embeds": emb}), 2)[0] \
+                if device.type == "cuda" else None
+            if cfg.family == "vlm":
+                _, caches = model.prefill(params, {"embeds": emb})
+                cache = model.cache_from_prefill(caches, STUB_SEQ,
+                                                 STUB_SEQ + 1)
+                tok = torch.ones((STUB_BATCH, 1), dtype=torch.int32,
+                                 device=device)
+                dl, _ = model.decode(params, cache, tok,
+                                     torch.tensor(STUB_SEQ, device=device))
+                r["decode"] = {"shape": list(dl.shape),
+                               "finite": bool(torch.isfinite(dl).all())}
+                del caches, cache, dl
+            m32 = build_model(cfg.replace(param_dtype=torch.float32))
+            p32 = tree_map(lambda a: a.float(), params)
+            del params
+            lf = logits(m32, p32, emb)
+            r["ms_f32"] = cuda_ms(lambda: T.forward(
+                m32.cfg, p32, {"embeds": emb}), 2)[0] \
+                if device.type == "cuda" else None
+        r.update(shape=list(lb.shape), rel_l2=rel_l2(lb, lf),
+                 finite=bool(torch.isfinite(lb).all()
+                             and torch.isfinite(lf).all()),
+                 first_moved_by_last=moved)
+        out[arch] = r
+        del p32, lb, lf, emb, edited
+        release(device)
+    return out
+
+
+def check_stub_frontend_path(res) -> None:
+    for arch, r in res.items():
+        require(r["finite"] and r["shape"][:2] == [STUB_BATCH, STUB_SEQ]
+                and (r["first_moved_by_last"] > 0) != r["causal"],
+                f"{arch}: finite bf16 and f32 logits of every position, the "
+                f"first position's moved by the last embedding only where "
+                f"attention runs both ways, got {r}")
+        require("decode" not in r or r["decode"]["finite"],
+                f"{arch}: a finite decode step after the prefill, got {r}")
+
+
+def print_stub_frontend_path(res) -> None:
+    for arch, r in res.items():
+        print(f"stub frontend {arch} ({r['layers']} layers, d_model "
+              f"{r['d_model']}, head_dim {r['head_dim']}, "
+              f"{'causal' if r['causal'] else 'bidirectional'}): "
+              f"{r['params']} params; forward {STUB_BATCH} x {STUB_SEQ} "
+              f"embeddings bf16 {_ms(r['ms_bf16'])} ms, f32 "
+              f"{_ms(r['ms_f32'])} ms (CUDA events); bf16 logits against "
+              f"f32 relative L2 {r['rel_l2']:.3g}; first position moved by "
+              f"the last embedding {r['first_moved_by_last']:.3g}; "
+              f"finite {r['finite']}"
+              + (f"; decode step after the prefill {r['decode']}"
+                 if "decode" in r else ""))
+
+
 REPLACES = {      # kernel body -> the TPU kernel it replaces
     "spmv_ell_staged": "src/repro/kernels/spmv_ell/kernel.py:57",
     "spmv_ell": "src/repro/kernels/spmv_ell/kernel.py:57",
@@ -4251,6 +4721,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the serving phase's process
     ap.add_argument("--serve-granite-phase", action="store_true",
                     help=argparse.SUPPRESS)   # granite-moe's serving process
+    ap.add_argument("--serve-jamba-phase", action="store_true",
+                    help=argparse.SUPPRESS)   # Jamba's serving process
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4289,6 +4761,10 @@ def main() -> int:
         from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
         print(json.dumps(serve_path(args.seed, torch.device("cuda"),
                                     cfg=GRANITE, light=True), default=str))
+        return 0
+    if args.serve_jamba_phase:
+        print(json.dumps(jamba_path(args.seed, torch.device("cuda")),
+                         default=str))
         return 0
     # the persistent stores (plans, tuner, quarantine) in a directory of
     # this run; no ambient fault plan or shadow rate
@@ -4614,6 +5090,15 @@ def run(args, work: str) -> int:
     record["rwkv_path"] = rw
     release(device)
 
+    # -- HuBERT-xlarge and InternVL2-2B, full width and depth ---------------
+    t0 = time.perf_counter()
+    stub = stub_frontend_path(args.seed, device)
+    print_stub_frontend_path(stub)
+    print(f"stub-frontend phase {time.perf_counter() - t0:.1f}s")
+    check_stub_frontend_path(stub)
+    record["stub_frontend_path"] = stub
+    release(device)
+
     # -- containment: faults injected on the card ---------------------------
     t0 = time.perf_counter()
     kr = kernel_raise_path(*mats["npb"], x_refs["npb"], device)
@@ -4758,6 +5243,20 @@ def run(args, work: str) -> int:
     kernels += [kernel_entry(e, "model routes", gr["launches"].get("gmm", 0))
                 for e in gr["gmm_decode"]]
     record["granite_serve_path"] = gr
+
+    # -- Jamba-v0.1 at full width, 16 layers (K4 in its MoE layers) ----------
+    jb = run_warm_start(args.seed, Path(work) / "autotune-jamba.json",
+                        "--serve-jamba-phase", timeout=900,
+                        CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                        LILAC_TORCH_PLAN_CACHE=str(
+                            Path(work) / "plans-jamba.json"),
+                        LILAC_TORCH_QUARANTINE_CACHE=str(
+                            Path(work) / "quarantine-jamba.json"))
+    print_jamba_path(jb)
+    check_jamba_path(jb)
+    kernels += [kernel_entry(e, "model routes", jb["launches"].get("gmm", 0))
+                for e in jb["gmm_decode"]]
+    record["jamba_serve_path"] = jb
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

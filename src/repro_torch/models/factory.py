@@ -1,12 +1,15 @@
 """Model factory: ArchConfig -> Model (spec, parameters, the loss,
-prefill, decode and the batched cache's slot hooks).
+prefill, decode, the batched cache's slot hooks and the inputs of each
+LM shape).
 
 Counterpart of ``repro.models.factory``; ``params_from_numpy`` carries the
 JAX package's parameter tree across, so that both packages compute the
 same model.  The reference's cache hooks return new caches (XLA copies or
 donates); here ``cache_set_slot`` and ``cache_move_slot`` are row copies
 into the cache they are given, which they return, and ``cache_resize``
-returns new contiguous buffers.
+returns new contiguous buffers.  ``input_specs`` returns tensors on the
+``meta`` device, the counterpart of ``jax.ShapeDtypeStruct``: a shape and
+a dtype, with no storage.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import spec as S
 from repro_torch.models import transformer as T
 
@@ -64,7 +67,10 @@ class Model:
 
     def cache_from_prefill(self, caches, prefill_len: int, max_seq: int):
         """The prefill's stacked, length-L caches as the per-layer decode
-        cache, k/v zero-padded to ``max_seq`` in ``cfg.cache_dtype``."""
+        cache, k/v zero-padded to ``max_seq`` in ``cfg.cache_dtype``; the
+        recurrent leaves as the prefill left them (a Mamba conv tail in
+        the activations' dtype, as in the reference: ``cache_set_slot``
+        casts it into the cache's f32)."""
         out = {}
         for j in range(T.n_periods(self.cfg)):
             period = {}
@@ -100,8 +106,9 @@ class Model:
                      max_seq: Optional[int] = None):
         """Re-bucket a cache into new contiguous buffers: the batch axis
         (axis 0 of every leaf) and the capacity axis of the k/v leaves
-        (axis 1, keyed by the leaf's name) padded with zeros or cut (the
-        engine cuts only what no active request uses)."""
+        (axis 1, keyed by the leaf's name: Mamba's 3-D conv tail has the
+        kernel width there) padded with zeros or cut (the engine cuts only
+        what no active request uses)."""
         def fix(a, name):
             if B is not None and a.shape[0] != B:
                 a = (F.pad(a, (0, 0) * (a.dim() - 1) + (0, B - a.shape[0]))
@@ -119,6 +126,35 @@ class Model:
                     for k, v in tree.items()}
 
         return walk(cache)
+
+    # -- the inputs of an LM shape ---------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` tensors standing in for every model input (no
+        allocation).
+
+        train:   {"tokens"/"embeds", "labels"}
+        prefill: {"tokens"/"embeds"}
+        decode:  {"tokens", "pos", "cache"}  (a cache of seq_len)
+        """
+        cfg = self.cfg
+        B, Sq = shape.global_batch, shape.seq_len
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            inp = ({"embeds": meta((B, Sq, cfg.d_model), cfg.param_dtype)}
+                   if cfg.frontend == "stub"
+                   else {"tokens": meta((B, Sq), torch.int32)})
+            if shape.kind == "train":
+                inp["labels"] = meta((B, Sq), torch.int32)
+            return inp
+        if shape.kind == "decode":
+            return {"tokens": meta((B, 1), torch.int32),
+                    "pos": meta((), torch.int32),
+                    "cache": self.init_cache(B, Sq, device="meta")}
+        raise ValueError(shape.kind)
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -2,18 +2,20 @@
 and the MoE expert FFN (naive dense dispatch, the same passed through
 LiLAC, and the capacity-bucket grouped dispatch).
 
-Counterpart of ``repro.models.layers`` for the dense and MoE transformer,
-with the one-token decode against a KV cache (``attention_decode_stacked``)
-and the flat MoE formulations of the decode step, and the chunked scan
-over time of the recurrent mixers (``chunked_scan``).
-All functions are pure; parameters are dicts of tensors built from the
-``*_spec`` trees (``models.spec.ParamSpec``).  ``moe_spec`` /
+Counterpart of ``repro.models.layers``, with the one-token decode
+against a KV cache (``attention_decode_stacked``), the flat MoE
+formulations of the decode step, and the chunked scan over time of the
+recurrent mixers (``chunked_scan``).  All functions are pure; parameters
+are dicts of tensors built from the ``*_spec`` trees
+(``models.spec.ParamSpec``).  A product of an activation and a weight
+runs at their promoted dtype (``promoted_einsum``), as JAX promotes: a
+stub frontend's f32 embeddings against bf16 weights compute in f32.  ``moe_spec`` /
 ``moe_params`` are the MoE layer's own (shape, dtype) table and its
 seeded draw, which the kernel tests and ``chip_smoke.py`` use;
 ``moe_params_from_numpy`` takes the JAX package's parameters as numpy
 arrays.  ``chunked_attention`` is the reference's online softmax over kv
 chunks as a plain loop (not ``scaled_dot_product_attention``), so that
-it computes the reference's sums.
+it computes the reference's sums, causal or (an encoder's) bidirectional.
 """
 from __future__ import annotations
 
@@ -50,6 +52,16 @@ def nonparam_layernorm(x, eps: float = 1e-5):
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def promoted_einsum(eq: str, *operands):
+    """``torch.einsum`` at the operands' promoted dtype (JAX's rule for a
+    product of mixed dtypes; operands of one dtype are passed as they
+    are)."""
+    dt = operands[0].dtype
+    for a in operands[1:]:
+        dt = torch.promote_types(dt, a.dtype)
+    return torch.einsum(eq, *(a.to(dt) for a in operands))
 
 
 def chunked_scan(step, init, xs, chunk: int = 128):
@@ -125,17 +137,18 @@ def attention_spec(d_model: int, n_heads: int, n_kv: int,
 
 
 def _qkv(p, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = promoted_einsum("bsd,dhk->bshk", x, p["wq"])
+    k = promoted_einsum("bsd,dhk->bshk", x, p["wk"])
+    v = promoted_einsum("bsd,dhk->bshk", x, p["wv"])
     return rope(q, positions), rope(k, positions), v
 
 
-def chunked_attention(q, k, v, *, kv_chunk: int = 1024, q_positions=None,
-                      kv_positions=None):
-    """Memory-efficient causal attention: a loop over kv chunks carrying
-    the running (max, denominator, accumulator), so O(S * kv_chunk) logits
-    live at once instead of O(S^2).
+def chunked_attention(q, k, v, *, causal: bool = True, kv_chunk: int = 1024,
+                      q_positions=None, kv_positions=None):
+    """Memory-efficient attention: a loop over kv chunks carrying the
+    running (max, denominator, accumulator), so O(S * kv_chunk) logits
+    live at once instead of O(S^2).  Without ``causal`` every query
+    attends to every (unpadded) key.
 
     q: (B, Sq, H, dh); k, v: (B, Skv, KV, dh) with H % KV == 0.
     """
@@ -162,8 +175,10 @@ def chunked_attention(q, k, v, *, kv_chunk: int = 1024, q_positions=None,
         sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
         kb, vb, pb = k[:, sl].float(), v[:, sl].float(), kv_positions[sl]
         logits = torch.einsum("bskgd,bckd->bskgc", qg, kb) * scale
-        mask = ((pb >= 0)[None, :] & (pb[None, :] <= q_positions[:, None])
-                )[None, :, None, None, :]
+        mask = (pb >= 0)[None, :]
+        if causal:
+            mask = mask & (pb[None, :] <= q_positions[:, None])
+        mask = mask[None, :, None, None, :]
         logits = torch.where(mask, logits, -1e30)
         m_new = torch.maximum(m, torch.amax(logits, dim=-1))
         alpha = torch.exp(m - m_new)
@@ -176,15 +191,16 @@ def chunked_attention(q, k, v, *, kv_chunk: int = 1024, q_positions=None,
     return out.reshape(B, Sq, H, dh)
 
 
-def attention_block(p, x, *, positions, kv_chunk: int = 1024,
-                    with_kv: bool = False):
-    """Full-sequence causal attention.  Returns y (B, S, D), or with
-    ``with_kv`` ``(y, k, v)``: the roped k and v a prefill caches."""
+def attention_block(p, x, *, positions, causal: bool = True,
+                    kv_chunk: int = 1024, with_kv: bool = False):
+    """Full-sequence attention (causal unless told otherwise).  Returns y
+    (B, S, D), or with ``with_kv`` ``(y, k, v)``: the roped k and v a
+    prefill caches."""
     q, k, v = _qkv(p, x, positions)
     pos = positions[0] if positions.dim() > 1 else positions
-    out = chunked_attention(q, k, v, kv_chunk=kv_chunk, q_positions=pos,
-                            kv_positions=pos)
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    out = chunked_attention(q, k, v, causal=causal, kv_chunk=kv_chunk,
+                            q_positions=pos, kv_positions=pos)
+    y = promoted_einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return (y, k, v) if with_kv else y
 
 
@@ -241,10 +257,10 @@ def mlp_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
 
 
 def mlp_block(p, x):
-    g = torch.einsum("bsd,df->bsf", x, p["wg"])
-    u = torch.einsum("bsd,df->bsf", x, p["wu"])
+    g = promoted_einsum("bsd,df->bsf", x, p["wg"])
+    u = promoted_einsum("bsd,df->bsf", x, p["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
-    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+    return promoted_einsum("bsf,fd->bsd", h, p["wd"])
 
 
 # ---------------------------------------------------------------------------

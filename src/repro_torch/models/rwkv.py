@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import chunked_scan, promoted_einsum
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -68,15 +69,12 @@ def _lerp(x, prev, mix):
 def _proj(x, w, eq: str = "bsd,de->bse"):
     """A product at the promoted dtype of its operands, as JAX promotes
     (a decode step's f32 carry against bf16 weights computes in f32)."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.einsum(eq, x.to(dt), w.to(dt))
+    return promoted_einsum(eq, x, w)
 
 
 def timemix(p, x, state, n_heads: int, x_prev=None):
     """x: (B, S, D); state: (B, H, dh, dh) f32.  Returns (out, new_state,
     last_x), last_x the carry of the next call's token shift."""
-    from repro_torch.models.layers import chunked_scan
-
     B, S, D = x.shape
     dh = D // n_heads
     prev = _token_shift(x, x_prev)

@@ -15,9 +15,9 @@ import numpy as np
 import torch
 
 
-#: the init kinds ``init_params`` draws; the reference's Mamba kinds
-#: (``arange_log``, ``dt_bias``) come with the Mamba port
-INIT_KINDS = ("normal", "zeros", "ones")
+#: the init kinds ``init_params`` draws (``arange_log`` and ``dt_bias``
+#: are Mamba's, the reference's values)
+INIT_KINDS = ("normal", "zeros", "ones", "arange_log", "dt_bias")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +71,16 @@ def init_params(spec_tree, generator: torch.Generator, device=None):
             return torch.zeros(s.shape, dtype=s.dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=s.dtype, device=device)
+        if s.init == "arange_log":
+            # S4D-real: A_log[..., n] = log(n + 1), so A = -[1..N] spreads
+            # the decay over the state dims
+            row = np.log(np.arange(1, s.shape[-1] + 1))
+            return torch.from_numpy(np.broadcast_to(row, s.shape).copy()).to(
+                device=device, dtype=s.dtype)
+        if s.init == "dt_bias":
+            # softplus^-1(scale): softplus(dt_bias) is Mamba's timestep
+            return torch.full(s.shape, float(np.log(np.expm1(s.scale))),
+                              dtype=s.dtype, device=device)
         shape = s.shape[1:] if s.axes[:1] == ("layers",) else s.shape
         fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
         std = s.scale / np.sqrt(max(fan_in, 1))

@@ -1,17 +1,22 @@
 """Block assembly and the generic LM: spec building, the forward over the
 stacked periods, the chunked LM loss, prefill and decode.
 
-Counterpart of ``repro.models.transformer`` for the ``dense``, ``moe`` and
-``ssm`` (RWKV-6) families.  A period is the repeating unit of the
-architecture (one block for these families); period parameters are
-stacked on a leading
-``layers`` axis, as in the reference, and ``forward`` loops over the
-stack where the reference scans it.  With ``cfg.remat`` each period runs
-under ``torch.utils.checkpoint`` (non-reentrant), whose backward replays
-the period's forward.  Decode carries a per-layer cache (``init_cache``:
-an attention layer's k/v, an RWKV layer's (dh, dh) f32 state per head and
-its two token-shift carries) through ``decode_step``, a loop over the
-layers with one cache entry each, as the reference unrolls it.
+Counterpart of ``repro.models.transformer`` for every family of the
+reference: ``dense`` and ``moe`` transformers, ``ssm`` (RWKV-6),
+``hybrid`` (Jamba: Mamba and attention mixers, MoE on every
+``moe_layer_period``-th layer), and the ``audio`` (HuBERT, bidirectional
+attention) and ``vlm`` (InternVL2) transformers behind a stub frontend,
+which take precomputed embeddings (``inputs["embeds"]``).  A period is
+the repeating unit of the architecture (one block, or Jamba's eight);
+period parameters are stacked on a leading ``layers`` axis, as in the
+reference, and ``forward`` loops over the stack where the reference
+scans it.  With ``cfg.remat`` each period runs under
+``torch.utils.checkpoint`` (non-reentrant), whose backward replays the
+period's forward.  Decode carries a per-layer cache (``init_cache``: an
+attention layer's k/v, a Mamba layer's f32 state and conv tail, an RWKV
+layer's (dh, dh) f32 state per head and its two token-shift carries)
+through ``decode_step``, a loop over the layers with one cache entry
+each, as the reference unrolls it.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
 from repro_torch.models.spec import ParamSpec, tree_map
 
@@ -36,10 +42,15 @@ def arch_pattern(cfg) -> List[Tuple[str, str]]:
     """[(mixer_kind, ffn_kind)] per layer within one period."""
     if cfg.family == "ssm":                       # rwkv6
         return [("rwkv", "channelmix")]
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
-            f"are)")
+    if cfg.family == "hybrid":                    # jamba: attn @ idx 4 of 8
+        period = cfg.attn_layer_period or 8
+        out = []
+        for i in range(period):
+            mixer = "attn" if i == (cfg.attn_layer_offset or 4) else "mamba"
+            ffn = "moe" if (cfg.moe_experts and i % (cfg.moe_layer_period or 2)
+                            == 1) else "mlp"
+            out.append((mixer, ffn))
+        return out
     return [("attn", "moe" if cfg.moe_experts else "mlp")]
 
 
@@ -63,7 +74,9 @@ def block_spec(cfg, mixer: str, ffn: str) -> Dict[str, Any]:
     spec: Dict[str, Any] = {"ln1": _norm_spec(cfg)}
     if mixer == "attn":
         spec["attn"] = L.attention_spec(d, cfg.n_heads, cfg.n_kv_heads,
-                                        d // cfg.n_heads)
+                                        cfg.resolved_head_dim)
+    elif mixer == "mamba":
+        spec["mamba"] = M.mamba_spec(d, d_state=cfg.d_state)
     elif mixer == "rwkv":
         spec["tm"] = R.timemix_spec(d, cfg.n_heads)
     else:
@@ -91,12 +104,16 @@ def model_spec(cfg) -> Dict[str, Any]:
     pattern = arch_pattern(cfg)
     period_spec = {f"b{i}": block_spec(cfg, mx, ff)
                    for i, (mx, ff) in enumerate(pattern)}
-    return {
+    spec: Dict[str, Any] = {
         "blocks": _stack_spec(period_spec, n_periods(cfg)),
         "final_norm": _norm_spec(cfg),
         "unembed": ParamSpec((d, cfg.vocab), ("embed", "vocab")),
-        "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed")),
     }
+    # a stub frontend feeds precomputed embeddings, so an encoder has no
+    # table; a vlm's decode still consumes tokens and keeps one
+    if cfg.frontend == "none" or cfg.family == "vlm":
+        spec["embed"] = ParamSpec((cfg.vocab, d), ("vocab", "embed"))
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +128,24 @@ def _norm_apply(cfg, p, x):
 def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
                 moe_impl: Optional[str] = None):
     """Full-sequence block application.  Returns (x, aux_loss,
-    cache_entry): an attention block's k and v in ``x.dtype``, an RWKV
-    block's state ``s`` after the sequence and its token-shift carries
-    ``last_tm`` / ``last_cm``."""
+    cache_entry): an attention block's k and v in ``x.dtype``, a Mamba
+    block's f32 state ``ssm`` and its conv tail ``conv`` (in ``x.dtype``),
+    an RWKV block's state ``s`` after the sequence and its token-shift
+    carries ``last_tm`` / ``last_cm``."""
     h = _norm_apply(cfg, bp["ln1"], x)
     if mixer == "attn":
         out, k, v = L.attention_block(bp["attn"], h, positions=positions,
+                                      causal=cfg.causal,
                                       kv_chunk=cfg.kv_chunk, with_kv=True)
         cache_entry = {"k": k.to(x.dtype), "v": v.to(x.dtype)}
+    elif mixer == "mamba":
+        B, di = x.shape[0], bp["mamba"]["in_proj"].shape[1] // 2
+        state = (torch.zeros((B, di, cfg.d_state), dtype=F32,
+                             device=x.device),
+                 torch.zeros((B, M.CONV_K - 1, di), dtype=F32,
+                             device=x.device))
+        out, (ssm, conv) = M.mamba_block(bp["mamba"], h, state, cfg.d_state)
+        cache_entry = {"ssm": ssm, "conv": conv}
     elif mixer == "rwkv":
         hd = cfg.d_model // cfg.n_heads
         state = torch.zeros((x.shape[0], cfg.n_heads, hd, hd), dtype=F32,
@@ -148,14 +175,19 @@ def forward(cfg, params, inputs: Dict[str, Any], *,
             collect_cache: bool = False):
     """Full-sequence forward (training / prefill).
 
-    inputs: {"tokens": (B,S) int}, optional "positions" (B,S).
+    inputs: {"tokens": (B,S) int} or, for a stub frontend, {"embeds":
+    (B,S,D)} (cast to ``cfg.param_dtype``); optional "positions" (B,S).
     Returns (x_final (B,S,D), aux_loss, cache or None): with
     ``collect_cache`` each block's cache entry stacked over the periods,
-    ``{"b0": {"k": (periods, B, S, KV, dh), "v": ...}}`` (RWKV:
+    ``{"b0": {"k": (periods, B, S, KV, dh), "v": ...}}`` (Mamba:
+    ``{"ssm": (periods, B, di, N), "conv": (periods, B, 3, di)}``; RWKV:
     ``{"s": (periods, B, H, dh, dh), "last_tm": (periods, B, D),
     "last_cm": ...}``)."""
     pattern = arch_pattern(cfg)
-    x = params["embed"][inputs["tokens"].long()]
+    if "embeds" in inputs:
+        x = inputs["embeds"].to(cfg.param_dtype)
+    else:
+        x = params["embed"][inputs["tokens"].long()]
     B, S = x.shape[0], x.shape[1]
     positions = inputs.get("positions")
     if positions is None:
@@ -231,10 +263,13 @@ def init_cache(cfg, B: int, max_seq: int, device=None) -> Dict[str, Any]:
     """Per-layer cache ``{"p{j}": {"b{i}": entries}}`` of zeros with no
     stacked periods axis: each layer's buffer is its own tensor, as in the
     reference.  An attention block's ``k`` / ``v`` are (B, max_seq, KV,
-    dh) in ``cfg.cache_dtype``; an RWKV block's state ``s`` is (B, H, dh,
-    dh) f32 and its carries ``last_tm`` / ``last_cm`` (B, D) in
-    ``cfg.param_dtype``, at any ``max_seq``."""
-    hd = cfg.d_model // cfg.n_heads
+    dh) in ``cfg.cache_dtype``; a Mamba block's state ``ssm`` is (B, di,
+    N) f32 and its conv tail ``conv`` (B, 3, di) f32, di = 2 d_model; an
+    RWKV block's state ``s`` is (B, H, dh, dh) f32 and its carries
+    ``last_tm`` / ``last_cm`` (B, D) in ``cfg.param_dtype``; the last two
+    kinds at any ``max_seq``."""
+    hd = cfg.resolved_head_dim
+    di = 2 * cfg.d_model
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -248,6 +283,9 @@ def init_cache(cfg, B: int, max_seq: int, device=None) -> Dict[str, Any]:
                 shape = (B, max_seq, cfg.n_kv_heads, hd)
                 ce = {"k": zeros(shape, cfg.cache_dtype),
                       "v": zeros(shape, cfg.cache_dtype)}
+            elif mx == "mamba":
+                ce = {"ssm": zeros((B, di, cfg.d_state), F32),
+                      "conv": zeros((B, M.CONV_K - 1, di), F32)}
             elif mx == "rwkv":
                 ce = {"s": zeros((B, cfg.n_heads, hd, hd), F32),
                       "last_tm": zeros((B, cfg.d_model), cfg.param_dtype)}
@@ -266,6 +304,13 @@ def decode_block(cfg, bp, x, ce, pos, *, mixer: str, ffn: str):
     if mixer == "attn":
         out, new_ce["k"], new_ce["v"] = L.attention_decode_stacked(
             bp["attn"], h, ce["k"], ce["v"], pos)
+    elif mixer == "mamba":
+        # the conv tail stays in the cache's dtype (exact: it holds
+        # activations), so a decode step's signature is the same at every
+        # step; the reference returns it in the activations' dtype
+        out, (new_ce["ssm"], conv) = M.mamba_block(
+            bp["mamba"], h, (ce["ssm"], ce["conv"]), cfg.d_state)
+        new_ce["conv"] = conv.to(ce["conv"].dtype)
     elif mixer == "rwkv":
         out, new_ce["s"], last = R.timemix(bp["tm"], h, ce["s"], cfg.n_heads,
                                            x_prev=ce["last_tm"])

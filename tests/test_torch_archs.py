@@ -1,17 +1,20 @@
-"""The port's seven registered architectures against the JAX package: the
+"""The port's ten registered architectures against the JAX package: the
 cases of ``tests/test_archs.py`` on ``repro_torch`` (a reduced same-family
 config: one forward and one AdamW step that moves the loss, three decode
 steps, a full prefill against the teacher-forced decode at the
-reference's tolerances with the argmax exact, the advertised parameter
-counts), then the parity of each smoke model with the reference on the
-reference's own parameters (``params_from_numpy``, cast to f32 on both
-sides): the forward's logits at every position, within 1e-4 of their
-largest magnitude (measured: 1.0e-6 for RWKV-6 to 1.7e-5 for the MoE
-models), with grouped-query (kv 2 of 4 heads) and multi-query (granite-34b,
-kv 1) attention among them; RWKV-6's prefill, one decode step and its
-cache hooks, its decode step's detection beside the reference's, the
-chunked scan's checkpointed gradient, and ``init_params`` refusing an init
-kind it does not know.
+reference's tolerances with the argmax exact, the shape-skip table, the
+advertised parameter counts), then the parity of each smoke model with
+the reference on the reference's own parameters (``params_from_numpy``,
+cast to f32 on both sides): the forward's logits at every position,
+within 1e-4 of their largest magnitude (measured: 1.0e-6 for RWKV-6 to
+5.2e-5 for Jamba), with grouped-query (kv 2 of 4 heads) and multi-query
+(granite-34b, kv 1) attention among them, HuBERT and InternVL2 from
+precomputed embeddings and HuBERT's attention bidirectional; every arch
+and LM shape's ``input_specs`` against the reference's
+``ShapeDtypeStruct``s; RWKV-6's prefill, one decode step and its cache
+hooks, its decode step's detection beside the reference's, the chunked
+scan's checkpointed gradient, and ``init_params`` refusing an init kind
+it does not know.  Jamba's own cases are in ``test_torch_mamba.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -20,11 +23,14 @@ import pytest
 import torch
 
 from repro import lilac as jlilac
-from repro.configs import get_arch as jget_arch, smoke_config as jsmoke
+from repro.configs import SHAPES as JSHAPES, all_archs as jall_archs
+from repro.configs import get_arch as jget_arch
+from repro.configs import shape_skips as jshape_skips, smoke_config as jsmoke
 from repro.models import build_model as jbuild_model
 from repro.models import transformer as JT
 from repro_torch import lilac
-from repro_torch.configs import all_archs, get_arch, smoke_config
+from repro_torch.configs import SHAPES, all_archs, get_arch, shape_skips
+from repro_torch.configs import smoke_config
 from repro_torch.core import faults
 from repro_torch.core import plan as P
 from repro_torch.core.harness import REGISTRY
@@ -38,15 +44,25 @@ from repro_torch.train.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.train.train_step import value_and_grad
 
 ARCHS = sorted(all_archs())
-ADVERTISED = {            # tests/test_archs.py:134, the port's archs
+ADVERTISED = {            # tests/test_archs.py:134
     "rwkv6-1.6b": (1.5e9, 1.9e9),
+    "internvl2-2b": (1.7e9, 2.2e9),
     "granite-moe-3b-a800m": (3.0e9, 3.7e9),
     "olmoe-1b-7b": (6.4e9, 7.4e9),
     "granite-8b": (7.5e9, 9.0e9),
     "mistral-large-123b": (118e9, 128e9),
     "granite-34b": (33e9, 50e9),
     "olmo-1b": (1.1e9, 1.5e9),
+    "jamba-v0.1-52b": (48e9, 56e9),
+    "hubert-xlarge": (0.9e9, 1.4e9),
 }
+# the reference skips decode for an encoder ("encoder-only: no decode
+# step"), and prefill against decode also for a stub frontend ("stub
+# frontends feed embeddings; decode consumes tokens"): those archs are
+# not among these cases
+DECODE_ARCHS = [a for a in ARCHS if get_arch(a).causal]
+PREFILL_DECODE_ARCHS = [a for a in DECODE_ARCHS
+                        if get_arch(a).frontend == "none"]
 LOGIT_RTOL = 1e-4
 
 
@@ -70,10 +86,18 @@ def _own_caches(tmp_path, monkeypatch):
 
 
 def _batch(cfg, B=2, S=16, seed=0):
+    """The reference's batch: f32 embeddings for a stub frontend, else
+    tokens, and labels."""
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
-                                .astype(np.int32))
-            for k in ("tokens", "labels")}
+    if cfg.frontend == "stub":
+        first = ("embeds", rng.standard_normal((B, S, cfg.d_model))
+                 .astype(np.float32))
+    else:
+        first = ("tokens", rng.integers(0, cfg.vocab, (B, S))
+                 .astype(np.int32))
+    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    return {first[0]: torch.from_numpy(first[1]),
+            "labels": torch.from_numpy(labels)}
 
 
 def _init(model, seed):
@@ -88,6 +112,11 @@ def test_smoke_forward_and_train_step(arch):
     model = build_model(cfg)
     params = _init(model, 0)
     batch = _batch(cfg)
+    if "embeds" in batch:
+        # a vlm's token table is its decode's: a forward from embeddings
+        # does not read it, and value_and_grad refuses a parameter that
+        # no gradient reaches (the reference gives it a zero gradient)
+        params.pop("embed", None)
     loss, grads = value_and_grad(model.loss_fn)(params, batch)
     assert torch.isfinite(loss), arch
     gn = sum(float(torch.sum(torch.square(g.float())))
@@ -102,7 +131,7 @@ def test_smoke_forward_and_train_step(arch):
     assert float(loss2) != float(loss), arch
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_smoke_decode(arch):
     cfg = smoke_config(get_arch(arch))
     model = build_model(cfg)
@@ -119,11 +148,13 @@ def test_smoke_decode(arch):
     assert bool(torch.isfinite(logits).all()), arch
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PREFILL_DECODE_ARCHS)
 def test_prefill_matches_decode(arch):
     """Teacher-forced decode agrees with a full prefill at the reference's
     tolerances (3e-1 for the recurrent and MoE families, 5e-2 dense), the
-    argmax exactly."""
+    argmax exactly.  Jamba too: the reference expects this case to fail
+    for XLA-CPU's fused logistic (ROADMAP R4), which eager torch does not
+    have."""
     cfg = smoke_config(get_arch(arch))
     if cfg.moe_experts:
         # the grouped dispatch's capacity drops depend on the dispatch
@@ -160,15 +191,67 @@ def test_param_counts_match_advertised_sizes():
 
 
 def test_configs_are_the_references():
-    """Every field the port keeps, and the source strings, verbatim."""
+    """Every field the port keeps, and the source strings, verbatim; the
+    head width, attention direction, frontend, Mamba state and hybrid
+    period compared with the reference's, and RoPE's base the constant
+    1e4 the port uses; the smoke reductions equal too."""
+    assert set(ARCHS) == set(jall_archs())
     for arch in ARCHS:
         cfg, ref = get_arch(arch), jget_arch(arch)
-        for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
-                  "d_ff", "vocab", "moe_experts", "moe_topk", "norm",
-                  "source", "kv_chunk"):
-            assert getattr(cfg, f) == getattr(ref, f), (arch, f)
-        assert ref.head_dim is None and ref.rope_theta == 1e4
-        assert ref.causal and ref.frontend == "none"
+        for c, r in ((cfg, ref), (smoke_config(cfg), jsmoke(ref))):
+            for f in ("family", "n_layers", "d_model", "n_heads",
+                      "n_kv_heads", "d_ff", "vocab", "moe_experts",
+                      "moe_topk", "norm", "source", "kv_chunk", "head_dim",
+                      "causal", "frontend", "d_state", "attn_layer_period",
+                      "attn_layer_offset", "moe_layer_period"):
+                assert getattr(c, f) == getattr(r, f), (arch, f)
+            assert c.resolved_head_dim == r.resolved_head_dim, arch
+        assert ref.rope_theta == 1e4
+
+
+def test_shape_skip_table():
+    """The skip table equals the reference's entry by entry (9 of 40
+    skipped: 500k decode for the full-attention archs, decode for the
+    encoder)."""
+    assert [(s.name, s.seq_len, s.global_batch, s.kind)
+            for s in SHAPES.values()] == \
+        [(s.name, s.seq_len, s.global_batch, s.kind)
+         for s in JSHAPES.values()]
+    skips = {(a, s): shape_skips(get_arch(a), SHAPES[s])
+             for a in ARCHS for s in SHAPES}
+    assert skips == {(a, s): jshape_skips(jget_arch(a), JSHAPES[s])
+                     for a in ARCHS for s in JSHAPES}
+    assert sum(1 for v in skips.values() if v) == 9
+    assert skips[("jamba-v0.1-52b", "long_500k")] is None
+    assert skips[("hubert-xlarge", "decode_32k")] is not None
+
+
+_JDTYPES = {"int32": torch.int32, "float32": torch.float32,
+            "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_match_the_reference(arch):
+    """Every LM shape's inputs, leaf for leaf: the reference's
+    ``ShapeDtypeStruct`` shapes and dtypes, as tensors on the ``meta``
+    device (no storage; the 32k decode caches of the large archs would
+    take terabytes)."""
+    model, jmodel = build_model(get_arch(arch)), jbuild_model(jget_arch(arch))
+    for name in SHAPES:
+        got = dict(leaves(model.input_specs(SHAPES[name])))
+        want = dict(leaves(_np_tree_specs(
+            jmodel.input_specs(JSHAPES[name]))))
+        assert got.keys() == want.keys(), (arch, name)
+        for k, (shape, dtype) in want.items():
+            assert got[k].device.type == "meta", (arch, name, k)
+            assert tuple(got[k].shape) == shape, (arch, name, k)
+            assert got[k].dtype == _JDTYPES[dtype], (arch, name, k)
+
+
+def _np_tree_specs(tree):
+    return {k: _np_tree_specs(v) if isinstance(v, dict)
+            else (tuple(v.shape), jnp.dtype(v.dtype).name)
+            for k, v in tree.items()}
 
 
 # -- parity with the reference on its parameters ------------------------------
@@ -197,19 +280,56 @@ FORWARD_CASES = [(a, {}) for a in ARCHS] + [
 ]
 
 
+def _inputs(cfg, seed=5, B=2, S=16):
+    """The same inputs for both packages: tokens, or f32 embeddings for a
+    stub frontend."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "stub":
+        a = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        return {"embeds": jnp.asarray(a)}, {"embeds": torch.from_numpy(a)}
+    a = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    return {"tokens": jnp.asarray(a)}, {"tokens": torch.from_numpy(a)}
+
+
+def _logits(jcfg, jp, jin, cfg, tp, tin):
+    jx, _, _ = JT.forward(jcfg, jp, jin)
+    want = np.asarray(jnp.einsum("bsd,dv->bsv", jx, jp["unembed"]))
+    with torch.no_grad():
+        tx, _, _ = T.forward(cfg, tp, tin)
+        got = torch.einsum("bsd,dv->bsv", tx, tp["unembed"]).numpy()
+    return got, want
+
+
 @pytest.mark.parametrize("arch,over", FORWARD_CASES,
                          ids=[a + ("-kv2" if o else "")
                               for a, o in FORWARD_CASES])
 def test_forward_logits_match_the_reference(arch, over):
+    """Tokens, or (HuBERT, InternVL2) precomputed embeddings, through
+    both forwards on the reference's parameters."""
     (jcfg, _, jp), (cfg, _, tp) = _pair(arch, **over)
-    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 16)) \
-        .astype(np.int32)
-    jx, _, _ = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
-    want = np.asarray(jnp.einsum("bsd,dv->bsv", jx, jp["unembed"]))
-    with torch.no_grad():
-        tx, _, _ = T.forward(cfg, tp, {"tokens": torch.from_numpy(toks)})
-        got = torch.einsum("bsd,dv->bsv", tx, tp["unembed"])
-    _close(got.numpy(), want, LOGIT_RTOL)
+    jin, tin = _inputs(cfg)
+    _close(*_logits(jcfg, jp, jin, cfg, tp, tin), LOGIT_RTOL)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-2b"])
+def test_attention_direction_matches_the_reference(arch):
+    """Changing the last position's embedding moves the first position's
+    output in HuBERT (bidirectional) and not in InternVL2 (causal), in
+    both packages, and the edited forwards still agree."""
+    (jcfg, _, jp), (cfg, _, tp) = _pair(arch)
+    jin, tin = _inputs(cfg)
+    got, want = _logits(jcfg, jp, jin, cfg, tp, tin)
+    edited = tin["embeds"].clone()
+    edited[:, -1] += 1.0
+    got2, want2 = _logits(jcfg, jp, {"embeds": jnp.asarray(edited.numpy())},
+                          cfg, tp, {"embeds": edited})
+    _close(got2, want2, LOGIT_RTOL)
+    for a, b in ((got, got2), (want, want2)):
+        moved = np.abs(a[:, 0] - b[:, 0]).max()
+        if cfg.causal:
+            assert moved == 0.0, (arch, moved)
+        else:
+            assert moved > 1e-3 * np.abs(a).max(), (arch, moved)
 
 
 def _np_tree(tree):
@@ -348,7 +468,7 @@ def test_rwkv_engine_streams_equal_the_teacher_forced_decode():
 
 def test_init_params_raises_on_an_unknown_init_kind():
     spec = {"a": ParamSpec((2, 3), (None, None)),
-            "b": ParamSpec((4,), (None,), init="arange_log")}
+            "b": ParamSpec((4,), (None,), init="xavier")}
     with pytest.raises(ValueError, match="unknown init kind"):
         init_params(spec, torch.Generator().manual_seed(0))
     got = init_params({"a": spec["a"]}, torch.Generator().manual_seed(0))

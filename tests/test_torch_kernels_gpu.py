@@ -1703,3 +1703,87 @@ def test_compiled_granite_moe_decode_runs_k4_in_both_layers(cuda):
                 assert _rel(got, want) <= 1e-4
             else:
                 assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# Jamba-v0.1's shapes: few, wide experts
+# ---------------------------------------------------------------------------
+
+JAMBA_D, JAMBA_F, JAMBA_E = 4096, 14336, 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("product", ["gate_up", "down"])
+@pytest.mark.parametrize("T", [1, 8])
+def test_gmm_at_jamba_decode_shapes(cuda, dtype, product, T):
+    """K4 at Jamba-v0.1's widths (D 4,096, F 14,336, 16 experts, top-2)
+    over the rows ``_route`` gives a decode step's T tokens (Tp 2,048:
+    at T = 1 two routed rows and 14 or more tail tiles on expert 15),
+    against its plain version; w at the model's scale."""
+    K, tm = 2, 128
+    k_in, n_out = (JAMBA_D, JAMBA_F) if product == "gate_up" \
+        else (JAMBA_F, JAMBA_D)
+    rng = np.random.default_rng(T + k_in)
+    idx = torch.from_numpy(np.stack([rng.choice(JAMBA_E, K, replace=False)
+                                     for _ in range(T)]).astype(np.int32))
+    dest, te, tp = gmm_ops._route(idx.to(cuda), T, K, JAMBA_E, tm)
+    assert tp == 2048
+    x = torch.from_numpy(rng.standard_normal((T, k_in)).astype(np.float32))
+    xs = torch.zeros((tp, k_in), device=cuda)
+    xs[dest] = x.to(cuda).repeat_interleave(K, dim=0)
+    w = (torch.randn((JAMBA_E, k_in, n_out), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(T))
+         / k_in ** 0.5)
+    xs, w = xs.to(dtype), w.to(dtype)
+    body = "gmm" if dtype == torch.bfloat16 else "gmm_f32"
+    before = dict(K4.LAUNCHES)
+    got = K4.gmm_cuda(xs, w, te, tm=tm)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == {**before, body: before[body] + 1}
+    torch.testing.assert_close(got, R4.gmm_ref(xs, w, te, tm),
+                               **(TOL if dtype == torch.float32
+                                  else GMM_BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_compiled_jamba_decode_runs_k4_in_its_moe_layers(cuda):
+    """Jamba at one period (1 attention + 7 Mamba layers, MoE on the 4
+    odd layers) at a reduced width (d_model 1,024, 16 experts of d_ff
+    2,048, top-2), its decode step compiled: the 4 MoE layers on cuda.gmm
+    (3 K4 launches each), the Mamba cache leaves kept in f32, in f32
+    within 1e-4 of the uncompiled naive decode, and in bf16 each step's
+    argmax the uncompiled one's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import leaves, tree_map
+
+    cfg = get_arch("jamba-v0.1-52b").replace(
+        n_layers=8, d_model=1024, n_heads=8, n_kv_heads=2, d_ff=2048,
+        moe_decode_impl="naive_flat")
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(cfg.replace(cache_dtype=dtype))
+        params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                            cuda)
+        if dtype == torch.float32:
+            params = tree_map(lambda a: a.float(), params)
+        fast = lilac.compile(model.decode, mode="host", device=cuda,
+                             plan_cache="off", bake=False)
+        cache = model.init_cache(2, 32, device=cuda)
+        ref_cache = tree_map(lambda a: a.clone(), cache)
+        for t in range(3):
+            tok = torch.full((2, 1), 5 + t, dtype=torch.int32, device=cuda)
+            pos = torch.tensor([t, t], dtype=torch.int32, device=cuda)
+            K4.reset_launches()
+            got, cache = fast(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            body = "gmm" if dtype == torch.bfloat16 else "gmm_f32"
+            assert K4.LAUNCHES[body] == 12
+            assert [n for _, n in fast.last_selections] == ["cuda.gmm"] * 4
+            assert all(a.dtype == torch.float32 for k, a in leaves(cache)
+                       if k.endswith(("ssm", "conv")))
+            want, ref_cache = model.decode(params, ref_cache, tok, pos)
+            if dtype == torch.float32:
+                assert _rel(got, want) <= 1e-4
+            else:
+                assert torch.equal(got.argmax(-1), want.argmax(-1))
