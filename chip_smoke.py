@@ -231,6 +231,24 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      against the bf16 forward over the longer sequence (printed); K4's
      gate/up and down at T = 1 and 8 (top-2 of 16: Tp 2,048 rows, with
      the used and tail row tiles) in the kernels line;
+   * distributed training, in four processes of their own under
+     ``torch.distributed.run`` (gloo; all four ranks on this one card, so
+     every collective copies its operand to the host and back): the
+     training phase's OLMoE-1B-7B (full width, 2 layers, bf16,
+     moe_impl="lilac", its parameters and batch) on a (data 2, model 2)
+     mesh with sequence parallelism (FSDP over data; tensor parallelism
+     over model for attention and the vocabulary; each rank's 32 of the
+     64 experts through lilac.compile's naive dispatch, K4 over the local
+     experts, other ranks' pairs at gate 0, the partial sums reduced over
+     model): the first step's loss against each rank's one-device step on
+     the same parameters and batch (1e-2) and every gradient leaf over
+     the mesh (relative L2 2e-2), the tokens whose top-k differs from the
+     one-device step's, each MoE layer against the naive dispatch on the
+     same input (2e-2), one K4 launch on each rank's experts against its
+     plain version, K4 launched on every rank in every one of 3 steps
+     (ms, loss, grad norm, collective payload, peak memory), and the
+     initial parameters saved from the mesh and restored onto a (4, 1)
+     mesh and onto one device bit for bit;
 4. holds each kernel against its plain torch version at the paths' shapes
    (every fused epilogue; f32 and bf16 for K3 and K4; K1's direct body
    at every rows_per_slab of SLAB_PROBE, at NPB-C and at SMALL_ROWS rows,
@@ -2712,6 +2730,420 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
             f"{res['restart_history']} against {res['history']}")
 
 
+# ---------------------------------------------------------------------------
+# Distributed training: OLMoE-1B-7B on a (data 2, model 2) mesh, 4 ranks
+# ---------------------------------------------------------------------------
+
+DIST_MESH = (2, 2)             # (data, model)
+DIST_STEPS = 3
+DIST_RANKS = DIST_MESH[0] * DIST_MESH[1]
+
+
+def _replicas(pspec, names) -> int:
+    """How many ranks of the current mesh hold the same block of a leaf
+    at ``pspec``."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.models.spec import pspec_axes
+
+    used = {a for e in pspec for a in pspec_axes(e)}
+    return C.axis_size(tuple(a for a in names if a not in used))
+
+
+def mesh_rel_l2(got, want, specs, names) -> dict:
+    """Each leaf's relative L2 error of the whole (gathered) tensor, from
+    the ranks' blocks: every block's squared error and squared norm over
+    its replica count, summed over the mesh."""
+    import torch
+    from repro_torch.launch import collectives as C
+    from repro_torch.models.spec import leaves
+
+    want, specs = dict(leaves(want)), dict(leaves(specs))
+    keys, sums = [], []
+    for k, g in leaves(got):
+        w = C.local_of(want[k], specs[k]).float()
+        reps = _replicas(specs[k], names)
+        keys.append(k)
+        sums.append(torch.stack([((g.float() - w) ** 2).sum() / reps,
+                                 (w ** 2).sum() / reps]))
+    tot = C.psum(torch.stack(sums), tuple(names))
+    return {k: float(torch.sqrt(n / d.clamp_min(1e-30)))
+            for k, (n, d) in zip(keys, tot)}
+
+
+def dist_path(seed: int, device, work: str, cfg=None,
+              layers: int = TRAIN_LAYERS, batch: int = TRAIN_BATCH,
+              seq: int = TRAIN_SEQ, steps: int = DIST_STEPS,
+              mesh_shape=DIST_MESH, reps: int = 5) -> dict:
+    """One rank's part of the distributed phase (the process group up):
+    OLMoE-1B-7B (full width, ``layers`` deep, moe_impl="lilac", no remat,
+    the training phase's parameters and batch) on a (data, model) mesh
+    with sequence parallelism.  The rank's one-device step on the same
+    parameters and batch is the oracle of the mesh's first step (loss,
+    every gradient leaf over the mesh); each MoE layer's mesh output is
+    held against the naive dispatch on the same input; one K4 launch over
+    the rank's experts against its plain version; ``steps`` steps of
+    make_train_step on the mesh (ms, loss, grad norm, K4 launches, peak);
+    and the initial parameters saved from the mesh and restored onto a
+    (ranks, 1) mesh and onto one device, bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.kernels.moe_gmm.ops import _route
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh, mesh_rules
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.spec import leaves
+    from repro_torch.train import optim as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import shard_params
+
+    t_start = time.perf_counter()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    D, M = mesh_shape
+    cfg = (cfg or OLMOE).replace(n_layers=layers, moe_impl="lilac",
+                                 remat=False)
+
+    def on_mesh(d, m):
+        return build_model(cfg.replace(
+            spmd_constraints=True, mesh_axis_sizes=(("data", d),
+                                                    ("model", m))))
+
+    model, mm = build_model(cfg), on_mesh(D, M)
+    params = model.init(torch.Generator(device=device).manual_seed(seed + 11),
+                        device)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                       seed=seed)
+    b0 = {k: torch.as_tensor(v, device=device)
+          for k, v in data.batch_at(0).items()}
+    res = {"rank": rank, "mesh": list(mesh_shape),
+           "config": {"name": cfg.name, "layers": layers,
+                      "d_model": cfg.d_model, "experts": cfg.moe_experts,
+                      "topk": cfg.moe_topk, "batch": batch, "seq": seq,
+                      "params": model.param_count()}}
+
+    routes, oracle_routes, moe_io = [], [], []
+    router, block = L.moe_router, L._moe_block_mesh
+
+    def recording_router(p, x, topk, shard_ctx=None):
+        out = router(p, x, topk, shard_ctx)
+        (oracle_routes if shard_ctx is None else routes).append(
+            out[1].detach())
+        return out
+
+    # the oracle: the one-device step on this rank
+    L.moe_router = recording_router
+    try:
+        t0 = time.perf_counter()
+        loss1, g1 = TS.value_and_grad(model.loss_fn)(params, b0)
+        sync(device)
+        res["oracle_s"] = time.perf_counter() - t0
+    finally:
+        L.moe_router = router
+
+    mesh = make_host_mesh(D, M)
+    rules = mesh_rules(False)
+    names = tuple(mesh.mesh_dim_names)
+
+    def recording_block(p, x, **kw):
+        out = block(p, x, **kw)
+        moe_io.append((x.detach(), out[0].detach()))
+        return out
+
+    with C.use_mesh(mesh):
+        psh = TS.param_shardings(mm, mesh, rules)
+        specs = TS.storage_pspecs(mm)
+        lp0 = shard_params(params, psh)
+        bspec = TS.batch_pspec(rules)
+
+        def local_batch(i):
+            return {k: C.local_of(torch.as_tensor(v, device=device), bspec)
+                    for k, v in data.batch_at(i).items()}
+
+        # the first step's loss and gradients against the oracle
+        L.moe_router, L._moe_block_mesh = recording_router, recording_block
+        try:
+            G.reset_launches()
+            C.reset_stats()
+            sync(device)
+            t0 = time.perf_counter()
+            ls, gs = TS.value_and_grad(mm.loss_fn)(lp0, local_batch(0))
+            gs = TS._grad_constraint(gs, specs)
+            loss = float(C.psum(ls.detach(), names))
+            sync(device)
+            res["first_step_s"] = time.perf_counter() - t0
+            res["first_step_launches"] = dict(G.LAUNCHES)
+            res["first_step_collectives"] = {k: dict(v)
+                                             for k, v in C.STATS.items()}
+        finally:
+            L.moe_router, L._moe_block_mesh = router, block
+        res["moe_selections"] = [
+            nm for _, nm in L._lilac_moe_2d(device.type).last_selections]
+        rel = mesh_rel_l2(gs, g1, specs, names)
+        res.update(loss_mesh=loss, loss_one_device=float(loss1),
+                   loss_rel=abs(loss - float(loss1)) / abs(float(loss1)),
+                   grad_rel_l2_max=max(rel.values()),
+                   grad_rel_l2_worst=max(rel, key=rel.get),
+                   grad_rel_l2_top=sorted(rel.items(),
+                                          key=lambda kv: -kv[1])[:4],
+                   grads_finite=all(bool(torch.isfinite(g).all())
+                                    for _, g in leaves(gs)))
+        del gs, g1
+        release(device)
+
+        # each MoE layer on the mesh against the naive dispatch on the
+        # same input (the layer's input gathered over the sequence)
+        E, K = cfg.moe_experts, cfg.moe_topk
+        E_loc = -(-E // M)
+        m = C.axis_index("model")
+        res["moe_layers"], res["routed_rows"] = [], []
+        for j, ((x_loc, out_loc), idx) in enumerate(zip(moe_io, routes)):
+            p_full = {k: v[j] for k, v in
+                      params["blocks"]["b0"]["moe"].items()}
+            sp = x_loc.shape[1] < seq       # the rank's sequence chunk
+            h = C.all_gather(x_loc, "model", 1) if sp else x_loc
+            with torch.no_grad():
+                want, _ = L.moe_block(p_full, h, topk=K, impl="naive")
+            want = (C.local_chunk(want, "model", 1) if sp else want).float()
+            w = 1.0 if sp else 1.0 / M      # model ranks' copies, once
+            sums = C.psum(torch.stack([
+                w * ((out_loc.float() - want) ** 2).sum(),
+                w * (want ** 2).sum()]), names)
+            res["moe_layers"].append(float(torch.sqrt(sums[0] / sums[1])))
+            local = (idx.long() >= m * E_loc) & (idx.long() < (m + 1) * E_loc)
+            res["routed_rows"].append([int(r) for r in
+                                       local.reshape(idx.shape[0], -1).sum(1)])
+            # tokens whose top-k set differs from the one-device step's
+            d = C.axis_index("data")
+            one = oracle_routes[j][d * idx.shape[0]:(d + 1) * idx.shape[0]]
+            res.setdefault("route_flips", []).append(int(
+                (idx.sort(-1).values != one.sort(-1).values).any(-1).sum()))
+            if j == 0:
+                h0, idx0, w0 = h[0], idx[0], p_full["wg"][
+                    m * E_loc:(m + 1) * E_loc]
+        tm = 128
+        res["tp"] = int(-(-seq * K // tm) * tm + (E_loc - 1) * tm)
+        del moe_io, routes
+        release(device)
+
+        # the mesh's training steps
+        opt = O.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+        step = TS.make_train_step(mm, opt)
+        lp, st = lp0, O.adamw_init(opt, lp0)
+        res["steps"] = []
+        for i in range(steps):
+            lb = local_batch(i)
+            G.reset_launches()
+            C.reset_stats()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            sync(device)
+            t0 = time.perf_counter()
+            lp, st, met = step(lp, st, lb)
+            sync(device)
+            ms = 1e3 * (time.perf_counter() - t0)
+            res["steps"].append({
+                "ms": ms, "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "launches": dict(G.LAUNCHES),
+                "collective_bytes": sum(v["bytes"]
+                                        for v in C.STATS.values()),
+                "peak_bytes": (torch.cuda.max_memory_allocated()
+                               if device.type == "cuda" else 0)})
+        del lp, st
+        release(device)
+
+        # K4 over this rank's experts against its plain version (the
+        # first layer's routes of the rank's first sequence, other ranks'
+        # pairs at local expert 0, as the mesh path hands them to K4)
+        lidx = idx0.long() - m * E_loc
+        mine = (lidx >= 0) & (lidx < E_loc)
+        lidx = torch.where(mine, lidx, 0)
+        dest, te, tp = _route(lidx, seq, K, E_loc, tm)
+        xs = torch.zeros((tp, cfg.d_model), dtype=h0.dtype, device=device)
+        xs[dest] = h0.repeat_interleave(K, dim=0)
+        routed = int(mine.sum())        # the rank's pairs: the work needed
+        nb = routed * cfg.d_model * 2 + nbytes(w0) + routed * cfg.d_ff * 4
+        res["gmm"] = {"name": "gmm", "tp": tp, "routed_rows": routed,
+                      "library_ms": None, "variants": {
+                          "gate_up": variant_numbers(
+                              lambda: G.gmm_cuda(xs, w0, te, tm),
+                              lambda: GR.gmm_ref(xs, w0, te, tm),
+                              "gmm_tc_kernel", device.type == "cuda", reps,
+                              nb, 2 * routed * cfg.d_model * cfg.d_ff,
+                              xs.dtype, GMM_ATOL, GMM_RTOL,
+                              what=f"gmm on rank {rank}'s experts",
+                              sum_scale=GR.gmm_ref(xs.abs(), w0.abs(), te,
+                                                   tm))}}
+        grouped = getattr(torch, "_grouped_mm", None)
+        if device.type == "cuda" and grouped is not None:
+            counts = torch.bincount(lidx.reshape(-1), minlength=E_loc)
+            offs = torch.cumsum((counts + tm - 1) // tm * tm, 0).to(
+                torch.int32)
+            res["gmm"]["library_ms"] = cuda_ms(
+                lambda: grouped(xs, w0, offs=offs), reps)[0]
+        del xs, h0, idx0, w0
+        release(device)
+
+    # the initial parameters saved from the mesh, restored onto (ranks, 1)
+    # and onto one device
+    ck = Checkpointer(os.path.join(work, "dist-ckpt"))
+    t0 = time.perf_counter()
+    with C.use_mesh(mesh):
+        ck.save(1, lp0, shardings=psh)
+    res["save_s"] = time.perf_counter() - t0
+    del lp0
+    mesh2 = make_host_mesh(n, 1)
+    mm2 = on_mesh(n, 1)
+    t0 = time.perf_counter()
+    with C.use_mesh(mesh2):
+        psh2 = TS.param_shardings(mm2, mesh2, rules)
+        want = shard_params(params, psh2)
+        got = ck.restore(1, want, psh2)
+        res["restore_mesh_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(leaves(got),
+                                                        leaves(want)))
+    del got, want
+    res["restore_s"] = time.perf_counter() - t0
+    if rank == 0:
+        one = ck.restore(1, params)
+        res["restore_one_device_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(leaves(one),
+                                                        leaves(params)))
+        del one
+    dist.barrier()
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if device.type == "cuda" else 0)
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
+def run_dist_phase(seed: int, work: str, timeout: int = 600) -> dict:
+    """The distributed phase: DIST_RANKS processes of this script under
+    torchrun (gloo, all on this card), the ranks' results in one JSON."""
+    out = Path(work) / "dist.json"
+    env = dict(os.environ, LILAC_TORCH_AUTOTUNE_CACHE=str(
+        Path(work) / "autotune-dist.json"),
+        LILAC_TORCH_PLAN_CACHE=str(Path(work) / "plans-dist.json"),
+        LILAC_TORCH_QUARANTINE_CACHE=str(Path(work) / "quarantine-dist.json"))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", str(DIST_RANKS),
+                        str(Path(__file__).resolve()), "--seed", str(seed),
+                        "--dist-phase", "--dist-out", str(out)],
+                       env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if p.returncode != 0:
+        raise RuntimeError(f"distributed phase failed:\n{p.stderr[-6000:]}")
+    ranks = json.loads(out.read_text())
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def dist_phase_main(seed: int, out: Path) -> int:
+    """A rank of the distributed phase (under torchrun)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+
+    rank = init_distributed("gloo", "cuda")
+    work = str(out.parent)
+    with fault_free(f"distributed training, rank {rank}"):
+        res = dist_path(seed, torch.device("cuda"), work)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, res)
+    if rank == 0:
+        out.write_text(json.dumps(ranks, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def print_dist_path(dr) -> None:
+    r0 = dr["ranks"][0]
+    c = r0["config"]
+    print(f"distributed {c['name']} (d_model {c['d_model']}, {c['experts']} "
+          f"experts top-{c['topk']}) cut to {c['layers']} layers, "
+          f"{c['params']} params, batch {c['batch']} x seq {c['seq']}, "
+          f"moe_impl=lilac via {r0['moe_selections']}, mesh (data, model) = "
+          f"{tuple(r0['mesh'])}, sequence parallel; gloo, {DIST_RANKS} ranks "
+          f"on one card, host-staged collectives")
+    print(f"distributed first step: loss {r0['loss_mesh']:.6f} against the "
+          f"one-device step's {r0['loss_one_device']:.6f} (rel "
+          f"{r0['loss_rel']:.3g}, tol {TRAIN_LOSS_RTOL}); worst gradient "
+          f"leaf relative L2 {r0['grad_rel_l2_max']:.3g} at "
+          f"{r0['grad_rel_l2_worst']} (tol {TRAIN_GRAD_RTOL}; the largest "
+          f"{r0['grad_rel_l2_top']}); tokens routed to another top-k set "
+          f"than in the one-device step, by rank and layer "
+          f"{[r['route_flips'] for r in dr['ranks']]} of {c['seq']} a "
+          f"sequence; MoE layers "
+          f"against the naive dispatch, relative L2 {r0['moe_layers']} (tol "
+          f"{MOE_RTOL})")
+    for r in dr["ranks"]:
+        v = r["gmm"]["variants"]["gate_up"]
+        print(f"distributed rank {r['rank']}: K4 launches first step "
+              f"{r['first_step_launches']}, by step "
+              f"{[s['launches'].get('gmm', 0) for s in r['steps']]}; routed "
+              f"rows of its experts by layer and sequence {r['routed_rows']} "
+              f"against K4's Tp {r['tp']} a sequence; K4 on its experts vs "
+              f"plain max|err| {v['max_abs_err']:.3g} (scaled "
+              f"{v['scaled_err']:.3g}), {_ms(v['ms'])} ms; peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; first step "
+              f"{r['first_step_s']:.2f}s, oracle {r['oracle_s']:.2f}s; "
+              f"save {r['save_s']:.1f}s, restore {r['restore_s']:.1f}s")
+    for i, st in enumerate(r0["steps"]):
+        print(f"distributed step {i}: {st['ms']:.1f} ms (gloo, {DIST_RANKS} "
+              f"ranks on one card, host-staged collectives), loss "
+              f"{st['loss']:.6f}, grad norm {st['grad_norm']:.4g}, "
+              f"collective payload {st['collective_bytes'] / 2**30:.2f} GiB "
+              f"a rank, peak {max(r['steps'][i]['peak_bytes'] for r in dr['ranks']) / 2**30:.2f} "
+              f"GiB (the largest rank's)")
+    print(f"distributed checkpoint: saved at {tuple(r0['mesh'])}, restored "
+          f"onto ({DIST_RANKS}, 1) bit for bit on every rank: "
+          f"{all(r['restore_mesh_equal'] for r in dr['ranks'])}, onto one "
+          f"device: {r0['restore_one_device_equal']}; phase "
+          f"{dr['seconds']:.1f}s")
+
+
+def check_dist_path(dr, steps: int = DIST_STEPS) -> None:
+    ranks = dr["ranks"]
+    require(len(ranks) == DIST_RANKS, f"distributed: {DIST_RANKS} ranks' "
+            f"results, got {len(ranks)}")
+    r0 = ranks[0]
+    require(r0["loss_rel"] <= TRAIN_LOSS_RTOL,
+            f"distributed: the first loss within {TRAIN_LOSS_RTOL} of the "
+            f"one-device step's, got {r0['loss_mesh']} against "
+            f"{r0['loss_one_device']}")
+    require(r0["grad_rel_l2_max"] <= TRAIN_GRAD_RTOL,
+            f"distributed: every gradient leaf within relative L2 "
+            f"{TRAIN_GRAD_RTOL} of the one-device step's, got "
+            f"{r0['grad_rel_l2_max']:.3g} at {r0['grad_rel_l2_worst']}")
+    require(max(r0["moe_layers"]) <= MOE_RTOL,
+            f"distributed: each MoE layer within relative L2 {MOE_RTOL} of "
+            f"the naive dispatch, got {r0['moe_layers']}")
+    for r in ranks:
+        require(r["grads_finite"] and r["moe_selections"] == ["cuda.gmm"],
+                f"distributed rank {r['rank']}: finite gradients and the "
+                f"inner MoE on cuda.gmm, got {r['moe_selections']}")
+        require(r["first_step_launches"].get("gmm", 0) > 0
+                and len(r["steps"]) == steps
+                and all(s["launches"].get("gmm", 0) > 0 for s in r["steps"]),
+                f"distributed rank {r['rank']}: K4 launched in every step, "
+                f"got {r['first_step_launches']} and "
+                f"{[s['launches'] for s in r['steps']]}")
+        require(all(abs(s["loss"]) < float("inf") for s in r["steps"]),
+                f"distributed rank {r['rank']}: finite losses")
+        require(r["restore_mesh_equal"],
+                f"distributed rank {r['rank']}: the (2, 2) checkpoint "
+                f"restored onto ({DIST_RANKS}, 1) bit for bit")
+    require(r0["restore_one_device_equal"],
+            "distributed: the (2, 2) checkpoint restored onto one device "
+            "bit for bit")
+
+
 def train_line(s) -> str:
     return (f"{s['ms']:.2f} ms, loss {s['loss']:.6f}, grad norm "
             f"{s['grad_norm']:.4g}, peak {s['peak_bytes'] / 2**30:.2f} GiB")
@@ -4723,6 +5155,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # granite-moe's serving process
     ap.add_argument("--serve-jamba-phase", action="store_true",
                     help=argparse.SUPPRESS)   # Jamba's serving process
+    ap.add_argument("--dist-phase", action="store_true",
+                    help=argparse.SUPPRESS)   # a rank of the mesh phase
+    ap.add_argument("--dist-out", type=Path, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4762,6 +5198,8 @@ def main() -> int:
         print(json.dumps(serve_path(args.seed, torch.device("cuda"),
                                     cfg=GRANITE, light=True), default=str))
         return 0
+    if args.dist_phase:
+        return dist_phase_main(args.seed, args.dist_out)
     if args.serve_jamba_phase:
         print(json.dumps(jamba_path(args.seed, torch.device("cuda")),
                          default=str))
@@ -5257,6 +5695,18 @@ def run(args, work: str) -> int:
     kernels += [kernel_entry(e, "model routes", jb["launches"].get("gmm", 0))
                 for e in jb["gmm_decode"]]
     record["jamba_serve_path"] = jb
+
+    # -- distributed training: OLMoE-1B-7B on a (2, 2) mesh, 4 ranks ---------
+    dr = run_dist_phase(args.seed, work)
+    print_dist_path(dr)
+    check_dist_path(dr)
+    g = dr["ranks"][0]["gmm"]
+    kernels.append(dict(kernel_entry(g, "gate_up", sum(
+        s["launches"].get("gmm", 0) for r in dr["ranks"] for s in r["steps"])),
+        path="distributed training on a (2, 2) mesh: every rank's local "
+             "experts (launches summed over the ranks' steps; times on "
+             "rank 0's experts)"))
+    record["dist_path"] = dr
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

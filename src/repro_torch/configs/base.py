@@ -13,8 +13,17 @@ the KV cache's and ``moe_decode_impl`` the MoE formulation of the
 one-token decode step (``"naive_flat"`` is the dense dispatch the
 detector matches, which the serving tier compiles).  ``ShapeConfig``,
 ``SHAPES`` and ``shape_skips`` are the reference's four LM shapes and
-which architecture skips which.  The sharding settings come with the
-distributed slice.
+which architecture skips which.  The distribution settings are the
+reference's: ``spmd_constraints`` turns on the mesh path of the models
+(the storage -> compute weight gathers, expert parallelism, tensor and
+sequence parallelism; ``launch.collectives``), ``mesh_axis_sizes`` names
+the mesh's axes and sizes, ``seq_parallel`` shards the residual stream
+over the model axis between blocks, ``decode_cache_seq_shard`` shards an
+MQA decode cache over the model axis on its sequence dim, and
+``moe_combine_bf16`` reduces the expert-parallel partial sums in the
+activations' dtype instead of f32.  ``capacity_factor`` is the grouped
+dispatch's slots an expert, over the mean load (2.0 in every registered
+config, as in the reference).
 """
 from __future__ import annotations
 
@@ -50,13 +59,27 @@ class ArchConfig:
     # canonical dense-dispatch form, so that a lilac-compiled decode step
     # exposes the MoE to the detector (the serving tier uses it)
     moe_decode_impl: str = "grouped_flat"
+    capacity_factor: float = 2.0
     kv_chunk: int = 1024
     remat: bool = True
     param_dtype: Any = torch.bfloat16
     cache_dtype: Any = torch.bfloat16
     source: str = ""              # provenance note ([arXiv/hf; tier])
+    # distribution: with spmd_constraints the models run their mesh path
+    # (launch.collectives' current mesh); mesh_axis_sizes is
+    # (("data", 16), ("model", 16), ...) and decides divisibility
+    spmd_constraints: bool = False
+    mesh_axis_sizes: tuple = ()
     # gradient accumulation: activation memory scales 1/microbatches
     microbatches: int = 1
+    # the residual stream sharded over the model axis on its sequence dim
+    # between blocks (off for the ssm and hybrid families)
+    seq_parallel: bool = True
+    # decode: an MQA cache (kv heads unshardable) sharded over the model
+    # axis on its sequence dim
+    decode_cache_seq_shard: bool = False
+    # the expert-parallel combine reduced in the activations' dtype
+    moe_combine_bf16: bool = False
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models import mamba as M
 from repro_torch.models import spec as S
 from repro_torch.models import transformer as T
 
@@ -47,9 +48,14 @@ class Model:
         return int(total - expert + expert * cfg.moe_topk // cfg.moe_experts)
 
     def loss_fn(self, params, batch: Dict[str, Any]):
-        """batch: tokens + labels -> scalar loss."""
+        """batch: tokens + labels -> scalar loss.  On the mesh
+        (``cfg.spmd_constraints``) params and batch are the rank's shards
+        and the result is the rank's share: the shares sum to the loss."""
         x, aux, _ = T.forward(self.cfg, params, batch)
-        return T.lm_loss(self.cfg, params, x, batch["labels"]) + 0.01 * aux
+        loss = T.lm_loss(self.cfg, params, x, batch["labels"])
+        if self.cfg.spmd_constraints:     # aux: the same on every rank
+            return loss + 0.01 * aux / T._n_ranks(self.cfg)
+        return loss + 0.01 * aux
 
     # -- prefill and decode ---------------------------------------------------
 
@@ -57,10 +63,14 @@ class Model:
         """(logits of the last position (B, V) f32, the caches stacked over
         the periods)."""
         x, _, caches = T.forward(self.cfg, params, batch, collect_cache=True)
-        return T.lm_logits_last(self.cfg, params, x), caches
+        seq = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+        return T.lm_logits_last(self.cfg, params, x, seq), caches
 
-    def decode(self, params, cache, tokens, pos):
-        return T.decode_step(self.cfg, params, cache, tokens, pos)
+    def decode(self, params, cache, tokens, pos, cache_specs=None):
+        """One decode step; on the mesh ``cache_specs`` is the cache's
+        partition-spec tree."""
+        return T.decode_step(self.cfg, params, cache, tokens, pos,
+                             cache_specs)
 
     def init_cache(self, B: int, max_seq: int, device=None):
         return T.init_cache(self.cfg, B, max_seq, device)
@@ -126,6 +136,39 @@ class Model:
                     for k, v in tree.items()}
 
         return walk(cache)
+
+    def prefill_cache_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` tensors of what ``prefill`` returns as caches at
+        ``shape`` (each block's entries stacked over the periods), from
+        the shapes alone: the counterpart of ``jax.eval_shape`` of the
+        prefill, which the dry-run's sharding trees read."""
+        cfg = self.cfg
+        P, B, Sq = T.n_periods(cfg), shape.global_batch, shape.seq_len
+        hd, di, D = cfg.resolved_head_dim, 2 * cfg.d_model, cfg.d_model
+        # the activations' dtype: the embedding table's, or a stub
+        # frontend's embeddings cast to param_dtype
+        act = (self.spec["embed"].dtype if cfg.frontend == "none"
+               else cfg.param_dtype)
+
+        def meta(shape, dtype):
+            return torch.empty((P,) + shape, dtype=dtype, device="meta")
+
+        out = {}
+        for i, (mx, ff) in enumerate(T.arch_pattern(cfg)):
+            if mx == "attn":
+                kv = (B, Sq, cfg.n_kv_heads, hd)
+                ce = {"k": meta(kv, act), "v": meta(kv, act)}
+            elif mx == "mamba":
+                ce = {"ssm": meta((B, di, cfg.d_state), torch.float32),
+                      "conv": meta((B, M.CONV_K - 1, di), act)}
+            else:
+                ce = {"s": meta((B, cfg.n_heads, D // cfg.n_heads,
+                                 D // cfg.n_heads), torch.float32),
+                      "last_tm": meta((B, D), act)}
+            if ff == "channelmix":
+                ce["last_cm"] = meta((B, D), act)
+            out[f"b{i}"] = ce
+        return out
 
     # -- the inputs of an LM shape ---------------------------------------------
 

@@ -19,7 +19,7 @@ it computes the reference's sums, causal or (an encoder's) bidirectional.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.harness import one_hot
+from repro_torch.launch import collectives as C
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -318,16 +319,25 @@ def moe_params_from_numpy(p: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
     return out
 
 
-def moe_router(p, x: torch.Tensor, topk: int):
-    """returns (gate (B,S,K) f32 normalized, idx (B,S,K) int32, aux_loss)."""
+def moe_router(p, x: torch.Tensor, topk: int, shard_ctx=None):
+    """returns (gate (B,S,K) f32 normalized, idx (B,S,K) int32, aux_loss).
+    With ``shard_ctx`` the rows of x are one batch shard and the
+    load-balancing means are taken over the global batch (psum over the
+    batch axes), as the reference's router sees the whole batch."""
     logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, topk, dim=-1)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     # load-balancing auxiliary loss (Switch-style)
     E = p["router"].shape[-1]
-    me = probs.mean(dim=(0, 1))
-    ce = one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    top1 = one_hot(idx[..., 0], E).float()
+    if shard_ctx is None:
+        me = probs.mean(dim=(0, 1))
+        ce = top1.mean(dim=(0, 1))
+    else:
+        n = x.shape[0] * x.shape[1] * C.axis_size(shard_ctx.batch_axes)
+        me = C.psum(probs.sum(dim=(0, 1)), shard_ctx.batch_axes) / n
+        ce = C.psum(top1.sum(dim=(0, 1)), shard_ctx.batch_axes) / n
     aux = E * torch.sum(me * ce)
     return gate, idx.to(torch.int32), aux
 
@@ -401,8 +411,68 @@ def _moe_grouped_batched(x, gate, idx, wg, wu, wd,
     return contrib.reshape(B, T, K, D).sum(dim=2).to(x.dtype)
 
 
+def _moe_grouped_shardmap(x, gate, idx, wg, wu, wd, *,
+                          capacity_factor: float, shard_ctx):
+    """Expert-parallel grouped MoE, the reference's per-rank function
+    (Megatron-style EP): this rank's (B_loc, T, D) tokens, replicated over
+    the model axis, dispatched into capacity buckets for its OWN E_loc
+    experts only (no collective), its experts' FFNs run locally.
+    Returns the rank's partial combine (f32, or the activations' dtype
+    with ``combine_bf16``); the caller reduces it over the model axis.
+    ``wg/wu/wd`` are the rank's experts of the zero-padded stack (E
+    padded to a multiple of the model axis, padded experts never routed
+    to), and C comes from the unpadded E, the router's width."""
+    Bl, T, D = x.shape
+    K = idx.shape[-1]
+    E_loc = wg.shape[0]
+    Cap = capacity(T, K, shard_ctx.experts, capacity_factor)
+    TK = T * K
+    dev = x.device
+    e0 = C.axis_index(shard_ctx.model) * E_loc
+    flat_e = idx.reshape(Bl, TK).long() - e0              # local expert ids
+    flat_g = gate.reshape(Bl, TK)
+    valid = (flat_e >= 0) & (flat_e < E_loc)
+    e_cl = flat_e.clamp(0, E_loc - 1)
+    onehot = one_hot(e_cl, E_loc) * valid[..., None].long()
+    pos = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2,
+                       e_cl[..., None])[..., 0]
+    keep = valid & (pos < Cap)
+    oob = E_loc * Cap + torch.arange(TK, device=dev)[None, :]
+    slot = torch.where(keep, e_cl * Cap + pos, oob)
+    xtok = x.repeat_interleave(K, dim=1)                  # (B_loc, TK, D)
+    bidx = torch.arange(Bl, device=dev)[:, None]
+    xb = torch.zeros((Bl, E_loc * Cap + TK, D), dtype=x.dtype, device=dev)
+    xb = xb.index_put((bidx, slot), xtok)[:, :E_loc * Cap].reshape(
+        Bl, E_loc, Cap, D)
+    g = torch.einsum("becd,edf->becf", xb, wg)
+    u = torch.einsum("becd,edf->becf", xb, wu)
+    h = F.silu(g.float()).to(x.dtype) * u
+    y = torch.einsum("becf,efd->becd", h, wd).reshape(Bl, E_loc * Cap, D)
+    y = torch.cat([y, torch.zeros((Bl, 1, D), dtype=y.dtype, device=dev)], 1)
+    back = y[bidx, torch.where(keep, slot, E_loc * Cap)]  # (B_loc, TK, D)
+    back = torch.where(keep[..., None], back, 0)
+    partial = (back.float() * flat_g[..., None]).reshape(Bl, T, K, D).sum(2)
+    return partial.to(x.dtype) if shard_ctx.combine_bf16 else partial
+
+
+def _moe_local_dense(fn, x, gate, idx, wg, wu, wd, *, shard_ctx):
+    """The dropless function (``naive``, or ``lilac``'s compiled naive
+    form) over this rank's E_loc experts: each sequence's pairs of other
+    ranks' experts are given gate 0 (and a local id of 0), so the rank's
+    partial sums over the model axis to the one-device result.  Returns
+    the partial in f32 (the activations' dtype with ``combine_bf16``)."""
+    E_loc = wg.shape[0]
+    local = idx.long() - C.axis_index(shard_ctx.model) * E_loc
+    valid = (local >= 0) & (local < E_loc)
+    lidx = torch.where(valid, local, 0).to(idx.dtype)
+    lgate = torch.where(valid, gate, 0)
+    out = torch.stack([fn(x[b], lgate[b], lidx[b], wg, wu, wd)
+                       for b in range(x.shape[0])])
+    return out if shard_ctx.combine_bf16 else out.float()
+
+
 def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
-              capacity_factor: float = 2.0):
+              capacity_factor: float = 2.0, shard_ctx=None):
     """x: (B, S, D).  Groups are sequences: ``naive`` and ``lilac`` run
     the expert FFN once per sequence, ``lilac`` through one compiled
     function (one trace for all sequences of a shape); ``grouped`` runs
@@ -411,7 +481,22 @@ def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
     impls take the B·S tokens as one group (decode): ``grouped_flat``
     one capacity-bucket dispatch, ``naive_flat`` one dense dispatch, the
     exact form the detector matches, so that compiling a decode step
-    exposes its MoE layers.  Returns (out, aux_loss)."""
+    exposes its MoE layers.  Returns (out, aux_loss).
+
+    With ``shard_ctx`` (a ``MeshCtx``: the reference's shard_map context)
+    x is this rank's residual stream, ``p["router"]`` the whole router and
+    ``p["wg"/"wu"/"wd"]`` the rank's experts of the padded stack: the
+    block gathers its input over the model axis under sequence
+    parallelism, routes over the global batch, runs the expert FFN of the
+    rank's experts (``grouped``: the capacity dispatch
+    ``_moe_grouped_shardmap``; ``naive`` / ``lilac``: the dropless
+    function, lilac's K4 launches over the local experts) and reduces the
+    partial sums over the model axis once (psum, or a reduce-scatter onto
+    the rank's sequence chunk)."""
+    if shard_ctx is not None:
+        return _moe_block_mesh(p, x, topk=topk, impl=impl,
+                               capacity_factor=capacity_factor,
+                               shard_ctx=shard_ctx)
     gate, idx, aux = moe_router(p, x, topk)
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
     B, S, D = x.shape
@@ -438,3 +523,182 @@ def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
     out = torch.stack([fn(x[b], gate[b], idx[b], wg, wu, wd)
                        for b in range(x.shape[0])])
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: tensor, sequence and expert parallelism
+# ---------------------------------------------------------------------------
+
+class MeshCtx(NamedTuple):
+    """What a block needs of the mesh (the reference's ``shard_ctx``):
+    the batch axes, the model axis, whether the residual stream is
+    sequence-parallel, the MoE combine's dtype and the unpadded expert
+    count (the grouped dispatch's capacity comes from it)."""
+    batch_axes: Tuple[str, ...]
+    model: str
+    sp: bool
+    combine_bf16: bool
+    experts: int = 0
+
+    def enter(self, x):
+        """A block's input over the whole sequence: the residual stream's
+        sequence chunks all-gathered under sequence parallelism."""
+        return C.all_gather(x, self.model, 1) if self.sp else x
+
+    def exit(self, y, partial: bool, upcast: bool = True):
+        """A block's output back to the residual stream's layout: a
+        partial sum reduced over the model axis (psum, or reduce-scatter
+        onto the rank's sequence chunk), in f32 unless ``upcast`` is off
+        (the caller casts the sum to its dtype); a replicated result as it
+        is, or the rank's chunk of it."""
+        if partial:
+            z = y.float() if upcast else y
+            return (C.reduce_scatter(z, self.model, 1) if self.sp
+                    else C.psum(z, self.model))
+        return C.local_chunk(y, self.model, 1) if self.sp else y
+
+
+def _kv_heads_of(n_heads: int, n_kv: int, lo_head: int, heads: int):
+    """The kv heads that q heads [lo_head, lo_head + heads) attend with:
+    a slice (lo, hi) when each of them serves the same number of local
+    q heads (the chunked attention's GQA reshape), else the index list
+    with one kv head a q head."""
+    group = n_heads // n_kv
+    kv = [(lo_head + j) // group for j in range(heads)]
+    lo, hi = kv[0], kv[-1] + 1
+    per = heads // (hi - lo)
+    if heads % (hi - lo) == 0 and kv == [lo + j // per for j in range(heads)]:
+        return slice(lo, hi)
+    return kv
+
+
+def attention_block_mesh(p, x, shard_ctx, *, n_heads: int, n_kv: int,
+                         positions, causal: bool = True,
+                         kv_chunk: int = 1024, with_kv: bool = False):
+    """``attention_block`` with the heads over the model axis (Megatron's
+    column-parallel q/k/v and row-parallel wo): ``p`` holds this rank's q
+    heads (all of them where the model axis does not divide them) and its
+    kv heads, or all kv heads where they are not sharded, in which case
+    the rank takes the kv heads its q heads use.  The output is the
+    rank's partial sum over its heads, reduced by ``shard_ctx.exit``; the
+    k and v returned are the rank's kv heads."""
+    h = shard_ctx.enter(x)
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    heads = wq.shape[1]
+    sharded = heads < n_heads
+    if sharded and wk.shape[1] == n_kv:
+        sel = _kv_heads_of(n_heads, n_kv,
+                           C.axis_index(shard_ctx.model) * heads, heads)
+        wk, wv = wk[:, sel], wv[:, sel]
+    q, k, v = _qkv({"wq": wq, "wk": wk, "wv": wv}, h, positions)
+    pos = positions[0] if positions.dim() > 1 else positions
+    out = chunked_attention(q, k, v, causal=causal, kv_chunk=kv_chunk,
+                            q_positions=pos, kv_positions=pos)
+    y = _row_parallel("bshk,hkd->bsd", out.to(h.dtype), p["wo"], sharded)
+    y = shard_ctx.exit(y, partial=sharded).to(
+        torch.promote_types(h.dtype, p["wo"].dtype))
+    return (y, k, v) if with_kv else y
+
+
+def _row_parallel(eq: str, a, w, partial: bool):
+    """A row-parallel product: a partial sum is kept in f32 (the
+    operands' exact products accumulated in f32), so that the reduction
+    over the model axis rounds to the activations' dtype once, as the
+    one-device product does; a whole product as ``promoted_einsum``."""
+    if not partial:
+        return promoted_einsum(eq, a, w)
+    return torch.einsum(eq, a.float(), w.float())
+
+
+def attention_decode_mesh(p, x, k_cache, v_cache, pos, shard_ctx, *,
+                          n_heads: int, n_kv: int, seq_axes=()):
+    """``attention_decode_stacked`` on a rank's blocks of the cache: its
+    kv heads (all of them where the model axis does not divide them) and
+    its chunk of the sequence where ``seq_axes`` shard it (the rank holding
+    position ``pos`` writes the new k/v; the softmax is combined over those
+    axes from each chunk's max, sum and weighted values, ring-style).  q
+    heads are the rank's own unless the model axis shards the sequence,
+    in which case every rank computes all heads on its chunk.  Returns
+    ``(y, k_cache, v_cache)``, y replicated over the model axis."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    rows = pos if pos.dim() == 1 else pos.expand(B)
+    wq, wo = p["wq"], p["wo"]
+    sharded = wq.shape[1] < n_heads
+    if sharded and shard_ctx.model in seq_axes:
+        wq, wo = C.all_gather(wq, shard_ctx.model, 1), \
+            C.all_gather(wo, shard_ctx.model, 0)
+        sharded = False
+    heads = wq.shape[1]
+    q, k, v = _qkv({"wq": wq, "wk": p["wk"], "wv": p["wv"]}, x, rows[:, None])
+    S_loc = k_cache.shape[1]
+    s0 = C.axis_index(seq_axes) * S_loc
+    local = rows.long() - s0
+    mine = ((local >= 0) & (local < S_loc))[:, None, None]
+    b = torch.arange(B, device=x.device)
+    at = (b, local.clamp(0, S_loc - 1))
+    k_cache = k_cache.index_put(at, torch.where(
+        mine, k[:, 0].to(k_cache.dtype), k_cache[at]))
+    v_cache = v_cache.index_put(at, torch.where(
+        mine, v[:, 0].to(v_cache.dtype), v_cache[at]))
+    kc, vc = k_cache, v_cache
+    if sharded and kc.shape[2] == n_kv:
+        sel = _kv_heads_of(n_heads, n_kv,
+                           C.axis_index(shard_ctx.model) * heads, heads)
+        kc, vc = kc[:, :, sel], vc[:, :, sel]
+    KV = kc.shape[2]
+    qg = q.reshape(B, 1, KV, heads // KV, -1)
+    logits = torch.einsum("bskgd,bckd->bskgc", qg.float(),
+                          kc.float()) / np.sqrt(q.shape[-1])
+    keys = s0 + torch.arange(S_loc, device=x.device)
+    mask = keys[None, :] <= rows[:, None]
+    logits = torch.where(mask[:, None, None, None, :], logits, -1e30)
+    m = C.pmax(logits.amax(-1), seq_axes)
+    e = torch.exp(logits - m[..., None])
+    l = C.psum(e.sum(-1), seq_axes)
+    acc = C.psum(torch.einsum("bskgc,bckd->bskgd", e, vc.float()), seq_axes)
+    out = (acc / l[..., None]).reshape(B, 1, heads, -1).to(x.dtype)
+    y = _row_parallel("bshk,hkd->bsd", out, wo, sharded)
+    y = shard_ctx.exit(y, partial=sharded).to(
+        torch.promote_types(x.dtype, wo.dtype))
+    return y, k_cache, v_cache
+
+
+def mlp_block_mesh(p, x, shard_ctx, *, d_ff: int):
+    """The SwiGLU MLP with d_ff over the model axis (column-parallel
+    wg/wu, row-parallel wd)."""
+    h = shard_ctx.enter(x)
+    g = promoted_einsum("bsd,df->bsf", h, p["wg"])
+    u = promoted_einsum("bsd,df->bsf", h, p["wu"])
+    a = F.silu(g.float()).to(h.dtype) * u
+    sharded = p["wg"].shape[1] < d_ff
+    y = _row_parallel("bsf,fd->bsd", a, p["wd"], sharded)
+    return shard_ctx.exit(y, partial=sharded).to(
+        torch.promote_types(h.dtype, p["wd"].dtype))
+
+
+def _moe_block_mesh(p, x, *, topk, impl, capacity_factor, shard_ctx):
+    h = shard_ctx.enter(x)
+    gate, idx, aux = moe_router(p, h, topk, shard_ctx)
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    B, S, D = h.shape
+    flat = impl.endswith("_flat")
+    if flat:        # one group of all the rank's tokens (decode)
+        h, gate, idx = (h.reshape(1, B * S, D), gate.reshape(1, B * S, -1),
+                        idx.reshape(1, B * S, -1))
+        impl = impl[:-len("_flat")]
+    if impl == "grouped":
+        partial = _moe_grouped_shardmap(h, gate, idx, wg, wu, wd,
+                                        capacity_factor=capacity_factor,
+                                        shard_ctx=shard_ctx)
+    elif impl in ("naive", "lilac"):
+        fn = (_moe_naive_2d if impl == "naive"
+              else _lilac_moe_2d(x.device.type))
+        partial = _moe_local_dense(fn, h, gate, idx, wg, wu, wd,
+                                   shard_ctx=shard_ctx)
+    else:
+        raise ValueError(f"impl {impl!r} has no mesh path")
+    if flat:
+        partial = partial.reshape(B, S, D)
+    return shard_ctx.exit(partial, partial=True,
+                          upcast=False).to(x.dtype), aux

@@ -1,6 +1,7 @@
-"""Atomic, asynchronous checkpoints that keep the last N.
+"""Atomic, asynchronous checkpoints that keep the last N, saved from a
+mesh and restored onto another.
 
-Counterpart of ``repro.train.checkpoint`` on one device:
+Counterpart of ``repro.train.checkpoint``:
 
   * atomic commit — writes go to ``step_N.tmp/`` and are renamed to
     ``step_N/`` only after every array file and the manifest are fsync'd,
@@ -9,10 +10,18 @@ Counterpart of ``repro.train.checkpoint`` on one device:
     consistency point) and written on a background thread; ``wait()``
     joins it before the next save or a restore;
   * the manifest stores each array's name, shape and dtype; tensors are
-    saved as numpy, bf16 as its 16-bit pattern, and ``restore`` puts each
-    one on the device and in the dtype of the caller's template tree.
-
-The sharded, resharding restore comes with the distributed slice.
+    saved as numpy, bf16 as its 16-bit records (the reference's ``V2``
+    arrays, which its restore reads back as bf16), and ``restore`` puts each
+    one on the device and in the dtype of the caller's template tree;
+  * sharded (``shardings=``, a tree of ``models.spec.NamedSharding``):
+    ``save`` gathers each leaf from the ranks' shards
+    (``DTensor.full_tensor()``), rank 0 writes the global arrays in the
+    one-device format (one ``.npy`` a leaf and ``manifest.json``, the
+    reference's files) and every rank waits at a barrier until the
+    rename is done; ``restore`` places each global array by the TARGET
+    placements (``distribute_tensor(..., src_data_rank=None)``: each
+    rank slices its own block, no scatter), so a checkpoint saved on a
+    (4, 2) mesh restores onto (2, 4) or onto one device.
 """
 from __future__ import annotations
 
@@ -35,13 +44,17 @@ def _flatten_with_names(tree):
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """bf16 as the reference writes it: its 16-bit records, a void ``V2``
+    array (what ``np.save`` makes of an ml_dtypes bfloat16 array)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy()
+        return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
 
 
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if arr.dtype.kind == "V":          # 16-bit records (older files: int16)
+        arr = arr.view(np.int16)
     t = torch.from_numpy(arr)
     return t.view(torch.bfloat16) if dtype == "torch.bfloat16" else t
 
@@ -55,11 +68,22 @@ class Checkpointer:
 
     # -- save ------------------------------------------------------------------
 
-    def save(self, step: int, tree, blocking: bool = False):
+    def save(self, step: int, tree, blocking: bool = False,
+             shardings=None):
         """Copy ``tree`` to host memory now, then write it to disk on a
-        background thread (or here, with ``blocking``)."""
+        background thread (or here, with ``blocking``).  With
+        ``shardings`` the leaves are the rank's shards: each is gathered,
+        rank 0 writes, and the call returns on every rank after the
+        commit."""
         self.wait()
         names, vals, _ = _flatten_with_names(tree)
+        if shardings is not None:
+            vals = [_gather(v, sh) for v, sh in
+                    zip(vals, _flatten_shardings(shardings, tree))]
+            if torch.distributed.get_rank() != 0:
+                torch.distributed.barrier()
+                return
+            blocking = True
         host = [_to_numpy(v) for v in vals]     # device -> host copy now
         meta = {"step": step,
                 "arrays": [{"name": n, "shape": list(v.shape),
@@ -87,6 +111,8 @@ class Checkpointer:
 
         if blocking:
             write()
+            if shardings is not None:
+                torch.distributed.barrier()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -116,17 +142,47 @@ class Checkpointer:
         steps = self.available_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, shardings=None):
         """Load into the structure of ``target_tree``: each array on its
-        template's device and in its dtype."""
+        template's device and in its dtype; with ``shardings`` each one is
+        this rank's block at the target placements (the elastic-restart
+        path), which must have the template's shape."""
         self.wait()
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             dtypes = {a["name"]: a["dtype"] for a in json.load(f)["arrays"]}
         names, tmpls, spec = _flatten_with_names(target_tree)
+        shards = (_flatten_shardings(shardings, target_tree)
+                  if shardings is not None else [None] * len(names))
         out = []
-        for n, tmpl in zip(names, tmpls):
+        for n, tmpl, sh in zip(names, tmpls, shards):
             arr = np.load(os.path.join(d, n.replace("/", "__") + ".npy"))
             t = _from_numpy(arr, dtypes[n])
+            if sh is not None:
+                t = _local_block(t, sh)
+                if tuple(t.shape) != tuple(tmpl.shape):
+                    raise ValueError(f"{n}: the block at {sh.spec} is "
+                                     f"{tuple(t.shape)}, the template "
+                                     f"{tuple(tmpl.shape)}")
             out.append(t.to(device=tmpl.device, dtype=tmpl.dtype))
         return pytree.tree_unflatten(out, spec)
+
+
+def _flatten_shardings(shardings, like) -> list:
+    """The sharding tree's leaves in ``like``'s leaf order."""
+    return pytree.tree_structure(like).flatten_up_to(shardings)
+
+
+def _gather(local: torch.Tensor, sh) -> torch.Tensor:
+    """The global tensor of a rank's block at ``sh``."""
+    from torch.distributed.tensor import DTensor
+    dt = DTensor.from_local(local.to(sh.mesh.device_type), sh.mesh,
+                            sh.placements, run_check=False)
+    return dt.full_tensor()
+
+
+def _local_block(full: torch.Tensor, sh) -> torch.Tensor:
+    """This rank's block of a global tensor at ``sh``, sliced locally."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full.to(sh.mesh.device_type), sh.mesh,
+                             sh.placements, src_data_rank=None).to_local()

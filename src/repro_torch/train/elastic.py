@@ -1,14 +1,16 @@
-"""Straggler mitigation hooks.
+"""Elastic resize and straggler mitigation hooks.
 
-Counterpart of ``repro.train.elastic``'s ``StragglerMonitor`` and
-``heartbeat``: a per-step wall-time EWMA, and steps slower than
-``factor`` times it counted and reported through a callback.  The
-elastic resize (``plan_remesh``) comes with the distributed slice.
+Counterpart of ``repro.train.elastic``: ``plan_remesh`` picks the largest
+(data, model) mesh that the surviving ranks hold while keeping the model
+axis, so that the restore (``train.checkpoint``, which reshards onto the
+target placements) is a pure reshard; ``StragglerMonitor`` keeps a
+per-step wall-time EWMA, and steps slower than ``factor`` times it are
+counted and reported through a callback.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -32,6 +34,15 @@ class StragglerMonitor:
         if not slow:
             self.ewma = (1 - self.alpha) * self.ewma + self.alpha * seconds
         return slow
+
+
+def plan_remesh(n_devices: int, model_parallel: int) -> Tuple[int, int]:
+    """Largest (data, model) grid for the surviving device count, keeping
+    the model axis (the weights' layout) intact so restore is a pure
+    reshard."""
+    if n_devices < model_parallel:
+        raise AssertionError((n_devices, model_parallel))
+    return n_devices // model_parallel, model_parallel
 
 
 def heartbeat(step: int, metrics, log_every: int = 10,

@@ -1,8 +1,14 @@
 """The training loop: the step, checkpoint/restart and the straggler
-hooks.
+hooks, on one device or on a mesh.
 
-Counterpart of ``repro.train.loop`` on one device, the driver of
-``repro_torch.examples.train_e2e`` and ``repro_torch.launch.train``.
+Counterpart of ``repro.train.loop``, the driver of
+``repro_torch.examples.train_e2e`` and ``repro_torch.launch.train``.  On
+a mesh (``mesh=``, ``rules=``; the model's config has
+``spmd_constraints``) every rank draws the same parameters from the seed
+and keeps its blocks at the parameter shardings, the optimizer state at
+the same placements, and takes its rows of each global batch; the
+checkpoints are sharded (``train.checkpoint``) and rank 0 alone emits
+the log.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch import collectives as C
 from repro_torch.models.factory import Model
 from repro_torch.train import optim as O
 from repro_torch.train import train_step as TS
@@ -46,20 +53,44 @@ def _deterministic(on: bool):
         torch.use_deterministic_algorithms(was)
 
 
+def shard_params(params, shardings):
+    """The rank's blocks of a global tree at ``shardings`` (under the
+    current mesh)."""
+    from repro_torch.models.spec import tree_map
+    return tree_map(lambda v, sh: C.local_of(v, sh.spec).clone(), params,
+                    shardings)
+
+
 def train_loop(model: Model, opt_cfg: O.AdamWConfig, loop_cfg: LoopConfig,
                batch_fn: Callable[[int], Dict[str, np.ndarray]], *,
                params=None, device="cuda", seed: int = 0,
-               step_fn: Optional[Callable] = None,
+               step_fn: Optional[Callable] = None, mesh=None, rules=None,
                emit: Callable[[str], None] = print) -> Dict[str, Any]:
     """Runs the loop from the latest checkpoint of ``loop_cfg.ckpt_dir``
-    (with ``resume``) or from ``params`` (drawn from ``seed`` when None),
-    each step by ``step_fn`` (default ``make_train_step(model, opt_cfg)``);
-    returns {params, opt_state, history, straggler, start_step}."""
+    (with ``resume``) or from ``params`` (global; drawn from ``seed`` when
+    None), each step by ``step_fn`` (default ``make_train_step(model,
+    opt_cfg)``); returns {params, opt_state, history, straggler,
+    start_step}, on a mesh the rank's blocks."""
+    if mesh is None:
+        return _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed,
+                    step_fn, None, None, emit)
+    with C.use_mesh(mesh):
+        return _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed,
+                    step_fn, TS.param_shardings(model, mesh, rules),
+                    TS.opt_state_shardings(model, opt_cfg, mesh, rules),
+                    emit if mesh.get_rank() == 0 else (lambda _: None),
+                    TS.batch_pspec(rules))
+
+
+def _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed, step_fn,
+         pshard, oshard, emit, bspec=None):
     device = torch.device(device)
     step_fn = step_fn or TS.make_train_step(model, opt_cfg)
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed),
                             device)
+    if pshard is not None:
+        params = shard_params(params, pshard)
     opt_state = O.adamw_init(opt_cfg, params)
     start_step = 0
     ckpt = None
@@ -67,11 +98,14 @@ def train_loop(model: Model, opt_cfg: O.AdamWConfig, loop_cfg: LoopConfig,
         ckpt = Checkpointer(loop_cfg.ckpt_dir)
         latest = ckpt.latest_step() if loop_cfg.resume else None
         if latest is not None:
-            state = ckpt.restore(latest, {"params": params,
-                                          "opt": opt_state})
+            state = ckpt.restore(
+                latest, {"params": params, "opt": opt_state},
+                None if pshard is None else {"params": pshard,
+                                             "opt": oshard})
             params, opt_state = state["params"], state["opt"]
             start_step = latest
             emit(f"[restart] restored checkpoint step {latest}")
+    shardings = None if pshard is None else {"params": pshard, "opt": oshard}
 
     mon = StragglerMonitor()
     history = []
@@ -79,6 +113,9 @@ def train_loop(model: Model, opt_cfg: O.AdamWConfig, loop_cfg: LoopConfig,
         for step in range(start_step, loop_cfg.steps):
             batch = {k: torch.as_tensor(v, device=device)
                      for k, v in batch_fn(step).items()}
+            if bspec is not None:
+                batch = {k: C.local_of(v, bspec[:v.dim()])
+                         for k, v in batch.items()}
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])      # waits for the step
@@ -88,12 +125,13 @@ def train_loop(model: Model, opt_cfg: O.AdamWConfig, loop_cfg: LoopConfig,
             heartbeat(step, {**metrics, "sec": dt},
                       log_every=loop_cfg.log_every, emit=emit)
             if ckpt and (step + 1) % loop_cfg.ckpt_every == 0:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state})
+                ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                          shardings=shardings)
     if ckpt and loop_cfg.steps % loop_cfg.ckpt_every == 0 \
             and loop_cfg.steps > start_step:
         ckpt.wait()             # the last step's save is the final one
     elif ckpt:
         ckpt.save(loop_cfg.steps, {"params": params, "opt": opt_state},
-                  blocking=True)
+                  blocking=True, shardings=shardings)
     return {"params": params, "opt_state": opt_state, "history": history,
             "straggler": mon, "start_step": start_step}

@@ -7,8 +7,18 @@ optimizer state are nested dicts of tensors (any pytree
 ``torch.utils._pytree`` reads); the functions are plain torch on them and
 return new trees.  The compression round trip quantizes each 256-element
 block to int8 and keeps the residual for the next step
-(arXiv:1712.01887-style); on one device it is the same arithmetic the
-reference applies before its data-axis all-reduce.
+(arXiv:1712.01887-style), on the reduced gradient, as the reference
+quantizes its global gradient.
+
+On a mesh (``mesh_specs``: each leaf's storage partition spec, under
+``launch.collectives``' current mesh) the parameters, gradients and
+optimizer state are the rank's shards at the parameters' placements:
+the update is elementwise on them; the global norm sums each leaf's
+squares once over the mesh; and the compression round trip quantizes the
+whole reduced gradient (gathered, the same 256-element blocks as on one
+device) and keeps the rank's shard of the result and of the residual.
+Its payload on the wire is still the f32 gradient: an int8 all-reduce is
+not built.
 """
 from __future__ import annotations
 
@@ -18,6 +28,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.launch import collectives as C
 
 F32 = torch.float32
 
@@ -93,22 +105,54 @@ def compress_roundtrip(g: torch.Tensor, err: torch.Tensor, block: int):
 
 # -- update --------------------------------------------------------------------
 
+def _compress_on_mesh(g, err, pspec, block: int):
+    """``compress_roundtrip`` of the whole gradient, on the rank's shards."""
+    full = tuple(None for _ in pspec)
+    deq, new_err = compress_roundtrip(C.reshard(g, pspec, full),
+                                      C.reshard(err, pspec, full), block)
+    return C.local_of(deq, pspec), C.local_of(new_err, pspec)
+
+
+def _norm_sq(grads, mesh_specs) -> torch.Tensor:
+    """The gradient's squared global norm; on a mesh each leaf's local
+    sum over its replication count, summed over every mesh axis."""
+    if mesh_specs is None:
+        return sum(torch.sum(torch.square(g.to(F32)))
+                   for g in pytree.tree_leaves(grads))
+    from repro_torch.models.spec import pspec_axes
+    names = C.current_mesh().mesh_dim_names
+
+    def leaf(g, ps):
+        used = {a for e in ps for a in pspec_axes(e)}
+        reps = C.axis_size(tuple(a for a in names if a not in used))
+        return torch.sum(torch.square(g.to(F32))) / reps
+    return C.psum(sum(pytree.tree_leaves(
+        pytree.tree_map(leaf, grads, mesh_specs))), tuple(names))
+
+
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state, params):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(cfg: AdamWConfig, grads, state, params, mesh_specs=None):
+    """Returns (new_params, new_state, metrics).  ``mesh_specs``: the
+    leaves' storage partition specs on the current mesh (the mesh
+    path)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     new_err = None
     if cfg.compress_grads:
-        pairs = pytree.tree_map(
-            lambda g, e: compress_roundtrip(g, e, cfg.compress_block),
-            grads, state["err"])
+        if mesh_specs is None:
+            pairs = pytree.tree_map(
+                lambda g, e: compress_roundtrip(g, e, cfg.compress_block),
+                grads, state["err"])
+        else:
+            pairs = pytree.tree_map(
+                lambda g, e, ps: _compress_on_mesh(g, e, ps,
+                                                   cfg.compress_block),
+                grads, state["err"], mesh_specs)
         is_pair = lambda x: isinstance(x, tuple)  # noqa: E731
         grads = pytree.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair)
         new_err = pytree.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair)
 
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
-                           for g in pytree.tree_leaves(grads)))
+    gnorm = torch.sqrt(_norm_sq(grads, mesh_specs))
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

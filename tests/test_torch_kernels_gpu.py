@@ -1389,6 +1389,62 @@ def test_func_grad_of_compiled_call_and_compiled_grad(cuda):
     _close_to_scale(got, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rank", [0, 1])
+def test_gmm_on_a_ranks_experts_with_other_pairs_at_gate_zero(cuda, rank):
+    """K4 as a rank of a (data, 2) mesh runs it (the lilac MoE's mesh
+    path, ``layers._moe_local_dense``): OLMoE widths, 64 experts top-8 on
+    256 tokens, the rank's 32 experts, every pair of the other rank's
+    experts given local expert 0 and gate 0.  Its gate/up launch against
+    the plain version (GMM_BF16_TOL), each row of a pair routed to the
+    rank against the same pair's row of the full-E launch (1e-6), and the
+    two ranks' moe_ffn summed in f32 against the full-E moe_ffn (bf16
+    rounding of each partial: 2e-2 relative L2)."""
+    E, D, F, K, T, tm = 64, 2048, 1024, 8, 256, 128
+    E_loc = E // 2
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    gate = torch.from_numpy(rng.random((T, K)).astype(np.float32))
+    idx = torch.from_numpy(np.stack([rng.choice(E, K, replace=False)
+                                     for _ in range(T)]).astype(np.int32))
+    ws = [torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[1]))
+                           .astype(np.float32)).to(cuda, torch.bfloat16)
+          for s in ((E, D, F), (E, D, F), (E, F, D))]
+    x, gate, idx = x.to(cuda, torch.bfloat16), gate.to(cuda), idx.to(cuda)
+
+    def local(r):
+        lo = r * E_loc
+        valid = (idx >= lo) & (idx < lo + E_loc)
+        return (torch.where(valid, idx - lo, 0), torch.where(valid, gate, 0),
+                [w[lo:lo + E_loc] for w in ws], valid)
+
+    lidx, lgate, lws, valid = local(rank)
+    dest, te, tp = gmm_ops._route(lidx, T, K, E_loc, tm)
+    assert tp == T * K + (E_loc - 1) * tm
+    xs = torch.zeros((tp, D), dtype=torch.bfloat16, device=cuda)
+    xs[dest] = x.repeat_interleave(K, dim=0)
+    before = dict(K4.LAUNCHES)
+    got = K4.gmm_cuda(xs, lws[0], te, tm=tm)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == {**before, "gmm": before["gmm"] + 1}
+    torch.testing.assert_close(got, R4.gmm_ref(xs, lws[0], te, tm),
+                               **GMM_BF16_TOL)
+    fdest, fte, ftp = gmm_ops._route(idx, T, K, E, tm)
+    fxs = torch.zeros((ftp, D), dtype=torch.bfloat16, device=cuda)
+    fxs[fdest] = x.repeat_interleave(K, dim=0)
+    full = K4.gmm_cuda(fxs, ws[0], fte, tm=tm)
+    mine = valid.reshape(-1)
+    torch.testing.assert_close(got[dest[mine]], full[fdest[mine]],
+                               atol=1e-6, rtol=1e-6)
+    parts = 0
+    for r in (0, 1):
+        r_idx, r_gate, r_ws, _ = local(r)
+        parts = parts + gmm_ops.moe_ffn(x, r_gate, r_idx, *r_ws,
+                                        tm=tm).float()
+    want = gmm_ops.moe_ffn(x, gate, idx, *ws, tm=tm).float()
+    assert float((parts - want).norm() / want.norm()) < 2e-2
+
+
 # ---------------------------------------------------------------------------
 # serving: K4 at decode shapes, the compiled decode across re-buckets
 # ---------------------------------------------------------------------------
