@@ -43,7 +43,22 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      gives the keyword form's bits, selection and baking; the call times
      of the hook-bearing harness, the baked cuda.ell plan and the
      ReadObject's change check;
-   * SpMM on BCSR (K3): a mesh-GNN aggregation, 15 steps (MeshGraphNets'
+   * scans (K1, K2), on the same matrices: the CG above written as one
+     torch scan (x0, r0, p0, then 25 steps over the naive SpMV, its dot
+     products detected too) and compiled whole in host mode with
+     policy="cuda.ell": one top-level spmv_csr match and one scan_body
+     holding another, 26 launches of K1's staged body (NPB-C) or K2
+     (HPCG) a call (counted, and by the profiler), 2 detections and one
+     repack on the first call and none on the second, no plan and no
+     plan-cache record, the iterate within 1e-3 of the per-iteration CG's
+     and of the uncompiled scan's, and the ms of one solve of the compiled
+     scan, the per-iteration CG (baked) and the uncompiled scan; then the
+     ELL layer iterated 8 times in a scan on NPB-C's ELL in trace mode:
+     one torch.ops.higher_order.scan in the rewritten graph whose body
+     holds lilac_torch::spmv_ell (K1's direct body, launched once each
+     time torch's eager scan calls the step: 9 times for 8 steps on torch
+     2.11, whose first call only infers the outputs' shapes), equal to
+     host mode and within the kernel tolerance of the uncompiled scan;
      message-passing steps) of H <- relu(A @ H + b) over the HPCG operator
      with H of 128 columns (MeshGraphNets' latent size), H rescaled by its
      largest magnitude after each step outside the compiled part, under
@@ -424,25 +439,32 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, 1e3 * host / reps
 
 
-def profiled_ms(fn, reps: int, kernel: str):
-    """Mean device time per launch of the CUDA kernels whose name holds
-    ``kernel``, from torch.profiler over ``reps`` calls of ``fn`` (None if
+def profiled_ms(fn, reps: int, kernel: str) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn``, after one unprofiled
+    call: ``ms``, the mean device time per launch of the CUDA kernels whose
+    name holds ``kernel``; ``launches``, their launches a call; and
+    ``device_ms``, the device time of every kernel a call (each None where
     the profiler records no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():     # "clears events" notice
-        warnings.simplefilter("ignore")
-        prof = profile(activities=[ProfilerActivity.CUDA])
-    with prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total / e.count for e in prof.key_averages()
-             if kernel in e.key and e.count and e.device_time_total > 0]
-    return sum(times) / 1e3 if times else None
+    with warnings.catch_warnings():
+        # the profiler's "clears events" notice, and no other warning
+        warnings.filterwarnings("ignore", message=".*clears events")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.count and e.device_time_total > 0]
+    ours = [e for e in events if kernel in e.key]
+    return {"ms": sum(e.device_time_total / e.count for e in ours) / 1e3
+            if ours else None,
+            "launches": sum(e.count for e in ours) / reps if ours else None,
+            "device_ms": sum(e.device_time_total for e in events) / 1e3 / reps
+            if events else None}
 
 
 def bound_ms(nbytes: int, flops: int, dtype="torch.float32"):
@@ -673,7 +695,7 @@ def variant_numbers(run, plain, kernel_name, on_card, reps, nb, flops,
     del got, want
     b_ms, b_by = bound_ms(nb, flops, dtype)
     ms, host_ms = cuda_ms(run, reps) if on_card else (None, None)
-    prof_ms = profiled_ms(run, max(2, reps // 2), kernel_name) \
+    prof_ms = profiled_ms(run, max(2, reps // 2), kernel_name)["ms"] \
         if on_card else None
     plain_ms = cuda_ms(plain, 2)[0] if on_card else None
     return {"max_abs_err": err, "scaled_err": scaled, "ms": ms,
@@ -3443,6 +3465,309 @@ def print_lifecycle_path(lc) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Scans: the CG compiled whole as one torch scan (K1, K2); an ELL layer's
+# loop in trace mode (K1's direct body inside the rewritten scan)
+# ---------------------------------------------------------------------------
+
+#: (matrix, the body K1/K2 takes there) of the scan phase's CGs
+SCAN_CASES = (("npb", "spmv_ell_staged"), ("hpcg", "spmv_ell_windowed"))
+SCAN_LAYER_STEPS = 8                # the ELL layer's loop in trace mode
+
+
+def cg_scan(val, col, row_ptr, b, iters: int = CG_ITERS):
+    """``cg`` written as one loop a compiler can take whole: x0, r0, p0,
+    then one torch scan of ``iters`` steps over the naive SpMV, whose step
+    closes over the matrix.  A carry may not alias another (p0 is a copy
+    of r0), nor a step return one of its inputs as it is."""
+    import torch
+    from torch._higher_order_ops.scan import scan
+
+    x = torch.zeros_like(b)
+    r = b - naive_spmv(val, col, row_ptr, x)
+    p = r.clone()
+    rs = torch.dot(r, r)
+
+    def step(carry, _):
+        x, r, p, rs = carry
+        ap = naive_spmv(val, col, row_ptr, p)
+        alpha = rs / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = torch.dot(r, r)
+        return (x, r, r + (rs_new / rs) * p, rs_new), ()
+
+    (x, _, _, _), _ = scan(step, (x, r, p, rs),
+                           torch.arange(iters, device=b.device))
+    return x
+
+
+def ell_scan(val, col, v0, bias, steps: int = SCAN_LAYER_STEPS):
+    """``ell_layer`` iterated ``steps`` times in a torch scan, each output
+    scaled by its largest magnitude and fed back as the next vector."""
+    import torch
+    from torch._higher_order_ops.scan import scan
+
+    def step(v, _):
+        y = ell_layer(val, col, v, bias)
+        return y / y.abs().max(), ()
+
+    out, _ = scan(step, v0, torch.arange(steps, device=v0.device))
+    return out
+
+
+def eager_scan_step_calls(length: int = 3) -> int:
+    """How many times ``torch.ops.higher_order.scan``, run eagerly, calls
+    its step for ``length`` steps: torch 2.11 calls it once more than the
+    length (its first call only infers the outputs' shapes), torch 2.13
+    ``length`` times.  A trace-mode graph runs its scan so."""
+    import torch
+
+    calls = [0]
+
+    def step(c, x):
+        calls[0] += 1
+        return [c + x]
+
+    torch.ops.higher_order.scan(step, [torch.zeros(())], [torch.ones(length)],
+                                ())
+    return calls[0]
+
+
+def _detect_spy():
+    """(calls, restore): ``Detector.detect`` counted until ``restore()``."""
+    from repro_torch.core import detect as D
+
+    calls = {"n": 0}
+    real = D.Detector.detect
+
+    def spy(self, *a, **kw):
+        calls["n"] += 1
+        return real(self, *a, **kw)
+
+    D.Detector.detect = spy
+    return calls, lambda: setattr(D.Detector, "detect", real)
+
+
+def _host_ms(fn, device, reps: int):
+    """Median ms of ``reps`` calls of ``fn``, each on the host's clock from
+    a sync to a sync, after one call."""
+    calls: list = []
+    call = timed(fn, calls, device)
+    for _ in range(reps + 1):
+        call()
+    return steady_ms(calls)
+
+
+def scan_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
+              steps: int = SCAN_LAYER_STEPS, reps: int = 3) -> dict:
+    """The CG of the main path written as one scan (``cg_scan``) and
+    compiled whole, in host mode under policy="cuda.ell", at NPB-C (K1's
+    staged body) and HPCG (K2): what it detects, the launches of the first
+    call (counts set to 0 just before it) and by the profiler on a later
+    one, the repacks and the detections of the first and the second call,
+    the iterate against the per-iteration CG's and the uncompiled scan's,
+    and the ms of one solve: the compiled scan, the main path's
+    per-iteration CG (baked plans) and the uncompiled scan.  Then
+    ``ell_scan`` on NPB-C's ELL in trace mode: the rewritten graph's scan
+    and what its body holds, the output against host mode's and the
+    uncompiled scan's, and K1's direct-body launches."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.sparse import ell_from_csr
+
+    on_card = device.type == "cuda"
+    out = {}
+    for name, body in SCAN_CASES:
+        a, b = mats[name]
+        args = (a.val, a.col_ind, a.row_ptr, b)
+        fast = lilac.compile(cg_scan, mode="host", policy="cuda.ell",
+                             device=device)
+        stores = fast.plan_info()["plan_cache_stats"]["stores"]
+        calls, restore = _detect_spy()
+        try:
+            K.reset_launches()
+            x = fast(*args)
+            sync(device)
+            launches = dict(K.LAUNCHES)
+            first = {"detects": calls["n"],
+                     "repacks": fast.cache.stats.misses}
+            fast(*args)
+            sync(device)
+            second = {"detects": calls["n"] - first["detects"],
+                      "repacks": fast.cache.stats.misses - first["repacks"]}
+        finally:
+            restore()
+        report = fast.last_report
+        r = {"body": body, "first": first, "second": second,
+             "launches": launches[body], "all_launches": launches,
+             "matches": [(m.computation, m.variant)
+                         for m in report.matches],
+             "inner": [[(i.computation, i.variant) for i in m.body[1]]
+                       for m in report.matches if m.body is not None],
+             "selections": [(m.computation, n)
+                            for m, n in fast.last_selections],
+             "plan_info": {k: v for k, v in fast.plan_info().items()
+                           if k in ("baked", "no_bake", "bake_errors")},
+             "persisted": fast.plan_info()["plan_cache_stats"]["stores"]
+             - stores}
+        x_naive = cg_scan(*args)
+        r.update(rel_to_cg=rel_l2(x, x_refs[name]),
+                 rel_to_naive_scan=rel_l2(x, x_naive),
+                 finite=bool(torch.isfinite(x).all()),
+                 shape=tuple(x.shape), rows=a.rows)
+        per_iter = lilac.compile(naive_spmv, mode="host", policy="cuda.ell",
+                                 device=device)
+        prof = profiled_ms(lambda: fast(*args), 1, body + "_kernel") \
+            if on_card else {}
+        r["profiled_launches"] = prof.get("launches")
+        r["device_ms"] = {
+            "compiled_scan": prof.get("device_ms"),
+            "per_iteration_cg": profiled_ms(
+                lambda: cg(per_iter, a, b, iters), 1, body + "_kernel")
+            ["device_ms"] if on_card else None}
+        r["ms"] = {"compiled_scan": _host_ms(lambda: fast(*args), device,
+                                             reps),
+                   "per_iteration_cg": _host_ms(
+                       lambda: cg(per_iter, a, b, iters), device, reps),
+                   "naive_scan": _host_ms(lambda: cg_scan(*args), device,
+                                          reps)}
+        out[name] = r
+        del fast, per_iter, x, x_naive
+        release(device)
+
+    # trace mode: the ELL layer's loop, K1's direct body as the custom op
+    a = mats["npb"][0]
+    ell = ell_from_csr(a, lane=128)
+    rng = torch.Generator(device="cpu").manual_seed(seed + 11)
+    v0 = torch.randn(a.cols, generator=rng).to(device)
+    bias = torch.randn(a.rows, generator=rng).to(device)
+    args = (ell.val, ell.col, v0, bias)
+    traced = lilac.compile(ell_scan, device=device)
+    host = lilac.compile(ell_scan, mode="host", device=device)
+    graph = traced.graph_for(*args)
+    scans = [n for n in graph.graph.nodes
+             if n.target is torch.ops.higher_order.scan]
+    body_ops = [str(n.target) for n in getattr(
+        graph, scans[0].args[0].target).graph.nodes
+        if n.op == "call_function"] if scans else []
+    K.reset_launches()
+    y = traced(*args)
+    sync(device)
+    launches = K.LAUNCHES["spmv_ell"]
+    step_calls = eager_scan_step_calls(steps)
+    y_host = host(*args)
+    y_naive = ell_scan(*args)
+    err, scaled = max_err(y, y_naive)
+    out["trace"] = {
+        "scans": len(scans), "custom_op_in_body":
+            sum("lilac_torch.spmv_ell" in t for t in body_ops),
+        "selections": [(m.computation, n) for m, n in traced.last_selections],
+        "host_selections": [(m.computation, n)
+                            for m, n in host.last_selections],
+        "launches": launches, "step_calls": step_calls,
+        "equal_to_host": bool(torch.equal(y, y_host)),
+        "max_abs_err": err, "within_tol": scaled <= 1.0,
+        "ms": _host_ms(lambda: traced(*args), device, reps)}
+    del traced, host, graph, ell
+    release(device)
+    return out
+
+
+def check_scan_path(res, iters: int = CG_ITERS,
+                    steps: int = SCAN_LAYER_STEPS) -> None:
+    calls = iters + 1                   # one SpMV for r0, one per iteration
+
+    def of(ms, comp):
+        return [tuple(m) for m in ms if m[0] == comp]
+
+    for name, body in SCAN_CASES:
+        r = res[name]
+        require(of(r["matches"], "spmv_csr") == [("spmv_csr", "vectorized")]
+                and of(r["matches"], "scan_body")
+                == [("scan_body", "scan_body")] and len(r["inner"]) == 1
+                and of(r["inner"][0], "spmv_csr")
+                == [("spmv_csr", "vectorized")],
+                f"{name} scan: one top-level spmv_csr match and one "
+                f"scan_body holding one more, got {r['matches']} / "
+                f"{r['inner']}")
+        require([n for c, n in r["selections"] if c == "spmv_csr"]
+                == ["cuda.ell"] * 2,
+                f"{name} scan: cuda.ell for both SpMVs, got "
+                f"{r['selections']}")
+        require(r["launches"] == calls,
+                f"{name} scan: {body} launched {calls} times a call, got "
+                f"{r['launches']}")
+        require(r["profiled_launches"] == calls,
+                f"{name} scan: {calls} launches of {body} a call by the "
+                f"profiler, got {r['profiled_launches']}")
+        require(r["first"] == {"detects": 2, "repacks": 1},
+                f"{name} scan: 2 detections and 1 repack on the first call, "
+                f"got {r['first']}")
+        require(r["second"] == {"detects": 0, "repacks": 0},
+                f"{name} scan: no detection and no repack on the second "
+                f"call, got {r['second']}")
+        require(r["plan_info"]["baked"] == 0 and r["plan_info"]["bake_errors"]
+                and r["persisted"] == 0,
+                f"{name} scan: no plan and no plan-cache record, got "
+                f"{r['plan_info']}, {r['persisted']} stores")
+        require(r["finite"] and r["shape"] == (r["rows"],),
+                f"{name} scan: finite iterate of shape ({r['rows']},)")
+        require(r["rel_to_cg"] <= CG_RTOL and r["rel_to_naive_scan"] <= CG_RTOL,
+                f"{name} scan: the iterate within {CG_RTOL} of the "
+                f"per-iteration CG's and the uncompiled scan's, got "
+                f"{r['rel_to_cg']:.3g} and {r['rel_to_naive_scan']:.3g}")
+    t = res["trace"]
+    require(t["scans"] == 1 and t["custom_op_in_body"] == 1,
+            f"ELL scan in trace mode: one scan whose body holds one "
+            f"lilac_torch::spmv_ell, got {t['scans']} scans, "
+            f"{t['custom_op_in_body']} in the body")
+    require([tuple(s) for s in t["selections"]] == [("spmv_ell", "cuda.ell")],
+            f"ELL scan: cuda.ell in trace mode, got {t['selections']}")
+    require(t["launches"] == t["step_calls"],
+            f"ELL scan: K1's direct body launched once each time the eager "
+            f"scan calls the step ({t['step_calls']} for {steps} steps), got "
+            f"{t['launches']}")
+    require(t["equal_to_host"], "ELL scan: trace mode equal to host mode")
+    require(t["within_tol"],
+            f"ELL scan: within atol={KERNEL_ATOL} + rtol={KERNEL_RTOL}*|ref| "
+            f"of the uncompiled scan, max |err| {t['max_abs_err']:.3g}")
+
+
+def print_scan_path(res, smi: str) -> None:
+    for name, body in SCAN_CASES:
+        r = res[name]
+        print(f"scan {name} (CG as one scan of {CG_ITERS} steps, host mode, "
+              f"cuda.ell): matches {r['matches']}, in the scan body "
+              f"{r['inner']}; selections {r['selections']}; {body} launched "
+              f"{r['launches']} times in the first call (all "
+              f"{r['all_launches']}), {r['profiled_launches']} a call by the "
+              f"profiler; first call {r['first']}, second {r['second']}; "
+              f"|x-x_cg|/|x_cg| = {r['rel_to_cg']:.3g}, |x-x_scan|/|x_scan| "
+              f"= {r['rel_to_naive_scan']:.3g} (tol {CG_RTOL}); "
+              f"{r['plan_info']}, {r['persisted']} plan-cache stores")
+        ms = r["ms"]
+        dev = r["device_ms"]
+        print(f"scan {name} times ({smi}, host clock from a sync to a sync, "
+              f"median a solve): compiled scan {ms['compiled_scan']:.3f} ms "
+              f"(its kernels' device time by the profiler, in ms: "
+              f"{_ms(dev['compiled_scan'])}), per-iteration CG (main path, "
+              f"baked) {ms['per_iteration_cg']:.3f} ms (kernels, in ms: "
+              f"{_ms(dev['per_iteration_cg'])}), uncompiled scan "
+              f"{ms['naive_scan']:.3f} ms")
+    t = res["trace"]
+    print(f"scan ELL layer x {SCAN_LAYER_STEPS} (npb, trace mode): "
+          f"{t['scans']} scan in the rewritten graph, "
+          f"{t['custom_op_in_body']} lilac_torch::spmv_ell in its body, "
+          f"selections {t['selections']} (host mode {t['host_selections']});"
+          f" K1 direct launches {t['launches']} (torch's eager scan calls "
+          f"the step {t['step_calls']} times for {SCAN_LAYER_STEPS} steps); "
+          f"equal to host mode "
+          f"{t['equal_to_host']}; max|err| against the uncompiled scan "
+          f"{t['max_abs_err']:.3g}; {t['ms']:.3f} ms a call ({smi})")
+
+
+# ---------------------------------------------------------------------------
 # Serving: OLMoE-1B-7B at full width through repro_torch.serve
 # ---------------------------------------------------------------------------
 
@@ -5312,6 +5637,24 @@ def run(args, work: str) -> int:
     print(f"npb in cuda.bcsr's packed 128x128 tiles: {t['tiles']} tiles, "
           f"{t['nnz']} entries, {t['bytes']} B (dense f32 tiles would take "
           f"{t['dense_tile_bytes']} B)")
+    release(device)
+
+    # -- scans: the CG compiled whole as one scan (K1, K2), trace mode ------
+    t0 = time.perf_counter()
+    with fault_free("scan"):
+        sc = scan_path(mats, x_refs, args.seed, device)
+    print_scan_path(sc, smi)
+    print(f"scan phase {time.perf_counter() - t0:.1f}s")
+    check_scan_path(sc)
+    rows = {e["name"]: e for e in ell_rows}
+    for name, body in SCAN_CASES:
+        kernels.append(dict(kernel_entry(rows[body], "main_path",
+                                         sc[name]["launches"]),
+                            path=f"scan: the {name} CG compiled as one scan"))
+    kernels.append(dict(kernel_entry(rows["spmv_ell"], "relu_bias",
+                                     sc["trace"]["launches"]),
+                        path="scan: the ELL layer's loop in trace mode"))
+    record["scan_path"] = sc
     release(device)
 
     # -- K1's rows_per_slab variants, the ELL layer in trace mode ------------

@@ -30,8 +30,22 @@ What-program's expressions to IR values one by one.  Here:
   the id as a Python int, which a fake-tensor trace refuses and a
   concrete trace bakes into the graph as a constant, and such a chain is
   no sparse matrix and does not match.  Tracing costs O(n), so this form
-  suits small programs, like the reference's tests; the scan-body matcher
-  is not ported.
+  suits small programs, like the reference's tests.
+* Scans — ``torch._higher_order_ops.scan.scan(step, init, xs)`` traces to
+  one ``torch.ops.higher_order.scan(body, init, xs, additional_inputs)``
+  node, its body a ``GraphModule`` whose placeholders are the carries,
+  the slices of ``xs`` and the tensors the step closes over, in that
+  order.  The ``fori_loop`` skeletons of the reference match on the scan
+  itself (``variant="loop"``, a trace of O(1) size in nnz): the step reads
+  element k of closed-over arrays as ``arr[k.reshape(1)]`` (or
+  ``index_select``), k being the scan's slice of ``torch.arange(n)`` or a
+  carried integer counter the step increments by one from zero, and
+  ``out.index_add(0, row[k], val[k] * vec[col[k]])`` from zeros is a COO
+  SpMV of nnz = n, ``acc + a[k] * b[k]`` from zero a dot product.  Any
+  other scan whose body holds a match becomes one ``variant="scan_body"``
+  match (``_detect_scan_bodies``): the body is detected once and the
+  rewriter runs the loop around the rewritten body, so the harnesses
+  selected for it serve every iteration.
 * Backtracking — pattern matching is generator-based: every commutative
   operand order, alternative idiom and candidate assignment is a backtrack
   point; the first complete, semantically validated assignment wins.
@@ -429,6 +443,10 @@ class Match:
     # bound as binding['bias']) | 'none' (bias only) | None (no epilogue).
     # The anchor is then the *final* epilogue node.
     epilogue: Optional[str] = None
+    # For variant='scan_body': (normalized body GraphModule, inner
+    # matches), the body detected once; the anchor is the scan node and
+    # the inner bindings name the body's placeholders.
+    body: Optional[Tuple[GraphModule, List["Match"]]] = None
 
     def __repr__(self):
         names = {k: (v if isinstance(v, (int, float)) else str(v))
@@ -436,6 +454,29 @@ class Match:
         ep = f" +{self.epilogue}" if self.epilogue else ""
         return (f"Match({self.computation}/{self.format} [{self.variant}]"
                 f"{ep} @ {self.anchor} {names})")
+
+
+def out_like(m) -> Any:
+    """The traced value a match's harness output stands for: its anchor's,
+    or, for a loop skeleton anchored at its scan, the accumulator's (the
+    scan's last carry)."""
+    v = m.anchor.meta["val"]
+    return v[-1] if isinstance(v, (tuple, list)) else v
+
+
+def anchor_value(m, out) -> Any:
+    """The anchor's value from the harness output ``out`` (shaped as
+    :func:`out_like`): ``out`` itself, or, for a loop skeleton anchored at
+    its scan, the scan's final carries: the accumulator, after the counter
+    where one is carried (from zero, so it ends at the scan's length)."""
+    v = m.anchor.meta["val"]
+    if not isinstance(v, (tuple, list)):
+        return out
+    if len(v) == 1:
+        return [out]
+    length = scan_parts(m.anchor.graph.owning_module, m.anchor).length
+    return [torch.full(v[0].shape, length, dtype=v[0].dtype,
+                       device=out.device), out]
 
 
 @dataclasses.dataclass
@@ -1038,11 +1079,12 @@ def _flat_sum(n: Node) -> bool:
 class DotMatcher(Matcher):
     """result = sum(i) a[i] * b[i]: the sum of a product of two vectors of
     one length (``(a * b).sum()``, ``torch.sum(a * b)``), ``aten.dot``
-    (``a @ b``, ``torch.dot``, ``torch.inner``), and the unrolled loop
-    ``acc = acc + a[k] * b[k]`` from zero (``variant="loop"``)."""
+    (``a @ b``, ``torch.dot``, ``torch.inner``), and the loop ``acc = acc
+    + a[k] * b[k]`` from zero, unrolled or as a scan (``variant="loop"``)."""
 
     anchor_targets = frozenset({aten.sum.default, aten.sum.dim_IntList,
-                                aten.dot.default, aten.add.Tensor})
+                                aten.dot.default, aten.add.Tensor,
+                                torch.ops.higher_order.scan})
 
     def __init__(self, comp: W.Computation):
         self.computation = comp.name
@@ -1057,6 +1099,8 @@ class DotMatcher(Matcher):
     def match_node(self, ctx, node):
         if node.target == aten.add.Tensor:
             return _match_unrolled_dot(ctx, node, self.computation)
+        if node.target is _SCAN:
+            return _match_scan_dot(ctx, node, self.computation)
         if _shape(node) != ():
             return None
         for env in self.vec_pat.match(ctx, node, {}):
@@ -1333,16 +1377,223 @@ def _match_unrolled_dot(ctx: Ctx, anchor: Node, computation: str):
                  claimed=tuple(x for x in chain if x is not anchor))
 
 
-class CooLoopMatcher(Matcher):
-    """The unrolled COO loop ``out[row[k]] += val[k] * vec[col[k]]``,
-    k = 0..nnz-1, from zeros: one ``variant="loop"`` COO SpMV."""
+# -- scan loops (the fori_loop skeleton on a torch scan) ---------------------
 
-    anchor_targets = frozenset(_STEPS)
+_SCAN = torch.ops.higher_order.scan
+_ARANGES = {aten.arange.default, aten.arange.start, aten.arange.start_step}
+
+
+@dataclasses.dataclass
+class ScanParts:
+    """A scan node's body and operands.  The body's placeholders are the
+    carries, the slices of ``xs`` and the closed-over ``extra`` values
+    (``additional_inputs``), in that order."""
+    body: GraphModule
+    init: List[Any]
+    xs: List[Any]
+    extra: List[Any]
+    placeholders: List[Node]
+
+    @property
+    def operands(self) -> List[Any]:
+        """The outer values in the order of the body's placeholders."""
+        return self.init + self.xs + self.extra
+
+    @property
+    def length(self) -> int:
+        return _shape(self.xs[0])[0]
+
+    def outer(self, ph) -> Optional[Node]:
+        """The outer node a loop-invariant placeholder (a closed-over
+        tensor) stands for, else None."""
+        i = self.placeholders.index(ph) if ph in self.placeholders else -1
+        if i < len(self.init) + len(self.xs):
+            return None
+        v = self.operands[i]
+        return v if isinstance(v, Node) else None
+
+
+def scan_parts(gm: GraphModule, node: Node) -> Optional[ScanParts]:
+    """The parts of a ``torch.ops.higher_order.scan`` node of ``gm``, or
+    None when ``node`` is no scan, or its body's placeholders do not line up
+    with its operands."""
+    if node.op != "call_function" or node.target is not _SCAN \
+            or len(node.args) < 4:
+        return None
+    fn, init, xs, extra = node.args[:4]
+    body = getattr(gm, fn.target, None) \
+        if isinstance(fn, Node) and fn.op == "get_attr" else None
+    if not isinstance(body, GraphModule) or not xs:
+        return None
+    phs = [n for n in body.graph.nodes if n.op == "placeholder"]
+    if len(phs) != len(init) + len(xs) + len(extra):
+        return None
+    return ScanParts(body, list(init), list(xs), list(extra), phs)
+
+
+def _scan_zero(ctx: Ctx, atom) -> bool:
+    """``atom`` is zeros, also through the ``detach`` that ``torch.tensor(0)``
+    traces to."""
+    n = ctx.prod(ctx.peel(atom))
+    if n is not None and n.target == aten.detach_copy.default:
+        atom = n.args[0]
+    return ctx.is_zeros(atom)
+
+
+def _scan_load(bctx: Ctx, parts: ScanParts, atom, counter: Node):
+    """The outer array when ``atom`` is element k of a closed-over 1-D
+    array at the body's counter k: ``arr[k.reshape(1)]`` (or ``k[None]``)
+    or ``arr.index_select(0, k...)``; else None."""
+    n = bctx.prod(bctx.peel(atom))
+    if n is None:
+        return None
+    if n.target == aten.index.Tensor and len(n.args[1]) == 1:
+        arr, idx = n.args[0], n.args[1][0]
+    elif n.target == aten.index_select.default and n.args[1] == 0:
+        arr, idx = n.args[0], n.args[2]
+    else:
+        return None
+    if idx is None or bctx.peel(idx) is not counter or _ndim(arr) != 1:
+        return None
+    return parts.outer(arr)
+
+
+def _scan_gathered(bctx: Ctx, parts: ScanParts, atom, counter: Node):
+    """(vec, col) when ``atom`` is ``vec[col[k]]`` on closed-over arrays."""
+    n = bctx.prod(bctx.peel(atom))
+    if n is None or n.target not in _GATHERS:
+        return None
+    if n.target == aten.index.Tensor:
+        if len(n.args[1]) != 1 or n.args[1][0] is None:
+            return None
+        vec, idx = n.args[0], n.args[1][0]
+    elif n.args[1] == 0:
+        vec, idx = n.args[0], n.args[2]
+    else:
+        return None
+    col = _scan_load(bctx, parts, idx, counter)
+    vec = parts.outer(vec) if _ndim(vec) == 1 else None
+    return None if col is None or vec is None else (vec, col)
+
+
+def _scan_loop(ctx: Ctx, node: Node):
+    """The loop frame of a scan: (parts, body ctx, counter, accumulator in,
+    accumulator out) when the scan carries an accumulator and possibly a
+    counter, returns no per-step outputs, and k runs 0..length-1 (the
+    slice of ``torch.arange(length)`` or a counter carried from zero and
+    incremented by one); else None."""
+    parts = scan_parts(ctx.gm, node)
+    if parts is None:
+        return None
+    bctx = Ctx(parts.body)
+    out = next(n for n in bctx.nodes if n.op == "output").args[0]
+    ncarry = len(parts.init)
+    if len(out) != ncarry or ncarry not in (1, 2):
+        return None
+    phs = parts.placeholders
+    if ncarry == 1:
+        if len(parts.xs) != 1:
+            return None
+        ar = ctx.prod(ctx.peel(parts.xs[0]))
+        if ar is None or ar.target not in _ARANGES:
+            return None
+        bounds = [a for a in ar.args if isinstance(a, int)]
+        if bounds not in ([parts.length], [0, parts.length],
+                          [0, parts.length, 1]):
+            return None
+        counter = phs[1]
+    else:
+        counter = phs[0]
+        step = bctx.prod(bctx.peel(out[0]))
+        if step is None or step.target != aten.add.Tensor \
+                or step.kwargs.get("alpha", 1) != 1 \
+                or bctx.peel(step.args[0]) is not counter \
+                or step.args[1] != 1 or not _is_int(counter) \
+                or not _scan_zero(ctx, parts.init[0]):
+            return None
+    if not _scan_zero(ctx, parts.init[-1]):
+        return None
+    return parts, bctx, counter, phs[ncarry - 1], out[-1]
+
+
+def _match_scan_coo(ctx: Ctx, node: Node, computation: str):
+    """``out = out.index_add(0, row[k], val[k] * vec[col[k]])`` (or
+    ``index_put(accumulate=True)`` / ``scatter_add``) over k = 0..nnz-1
+    from zeros: one ``variant="loop"`` COO SpMV anchored at the scan."""
+    frame = _scan_loop(ctx, node)
+    if frame is None:
+        return None
+    parts, bctx, counter, acc_in, acc_out = frame
+    upd = bctx.prod(bctx.peel(acc_out))
+    got = _row_scatter_add(upd) if upd is not None else None
+    if got is None or bctx.peel(got[0]) is not acc_in or _ndim(acc_in) != 1:
+        return None
+    _, indices, updates = got
+    row = _scan_load(bctx, parts, indices, counter)
+    prod = bctx.prod(bctx.peel(updates))
+    if row is None or prod is None or prod.target != aten.mul.Tensor:
+        return None
+    nnz = parts.length
+    for x, y in (prod.args, prod.args[::-1]):
+        val = _scan_load(bctx, parts, x, counter)
+        gathered = _scan_gathered(bctx, parts, y, counter)
+        if val is None or gathered is None:
+            continue
+        vec, col = gathered
+        if any(_shape(a) != (nnz,) for a in (row, val, col)) \
+                or not _is_int(row) or not _is_int(col):
+            return None
+        binding = {"a": val, "rowidx": row, "colidx": col, "iv": vec,
+                   "rows": _shape(acc_in)[0], "nnz": nnz}
+        return Match(computation, "loop", "COO", node, binding,
+                     notes="scan loop skeleton")
+    return None
+
+
+def _match_scan_dot(ctx: Ctx, node: Node, computation: str):
+    """``acc = acc + a[k] * b[k]`` (or ``+ (a[k] * b[k]).sum()``) over
+    k = 0..n-1 from zero: one ``variant="loop"`` dot product anchored at
+    the scan."""
+    frame = _scan_loop(ctx, node)
+    if frame is None:
+        return None
+    parts, bctx, counter, acc_in, acc_out = frame
+    v = _val(acc_in)
+    add = bctx.prod(bctx.peel(acc_out))
+    if not isinstance(v, torch.Tensor) or v.numel() != 1 or add is None \
+            or add.target != aten.add.Tensor or add.kwargs.get("alpha", 1) != 1:
+        return None
+    n = parts.length
+    for acc, p in (add.args, add.args[::-1]):
+        if bctx.peel(acc) is not acc_in:
+            continue
+        prod = bctx.prod(bctx.peel(p))
+        if prod is not None and prod.target == aten.sum.default:
+            prod = bctx.prod(bctx.peel(prod.args[0]))
+        if prod is None or prod.target != aten.mul.Tensor:
+            continue
+        a, b = (_scan_load(bctx, parts, x, counter) for x in prod.args)
+        if a is None or b is None or _shape(a) != (n,) or _shape(b) != (n,):
+            continue
+        return Match(computation, "loop", "DOT", node,
+                     {"a": a, "b": b, "length": n},
+                     notes="scan loop skeleton")
+    return None
+
+
+class CooLoopMatcher(Matcher):
+    """The COO loop ``out[row[k]] += val[k] * vec[col[k]]``, k =
+    0..nnz-1, from zeros, unrolled or as a scan: one ``variant="loop"``
+    COO SpMV."""
+
+    anchor_targets = frozenset(_STEPS | {_SCAN})
 
     def __init__(self, comp: W.Computation):
         self.computation = comp.name
 
     def match_node(self, ctx, node):
+        if node.target is _SCAN:
+            return _match_scan_coo(ctx, node, self.computation)
         return _match_unrolled_coo(ctx, node, self.computation)
 
 
@@ -1530,13 +1781,66 @@ class Detector:
                     matches.append(found)
                     claimed.add(n)
                     claimed.update(found.claimed)
+        matches += self._detect_scan_bodies(ctx, claimed)
         if self.fuse_epilogues:
             matches = [extend_epilogue(ctx, m) for m in matches]
         matches.sort(key=lambda mm: ctx.index[mm.anchor])
         return DetectionReport(matches=matches, n_eqns=len(ops), log=ctx.log)
 
+    def _detect_scan_bodies(self, ctx: Ctx, claimed: set) -> List[Match]:
+        """Descend into every unclaimed scan (a solver's iterations, a
+        training loop) and detect inside its body, once.  A scan whose
+        body holds a match becomes one ``variant="scan_body"`` match
+        carrying the normalized body and the inner matches, its binding
+        the scan's operands (so their producers stay live through the
+        rewrite); the rewriter runs the loop around the rewritten body, so
+        the harnesses selected for the inner matches serve every
+        iteration."""
+        out: List[Match] = []
+        for n in ctx.nodes:
+            if n in claimed:
+                continue
+            parts = scan_parts(ctx.gm, n)
+            if parts is None:
+                continue
+            body = normalize_graph(parts.body)
+            sub = self.detect(body)
+            if not sub.matches:
+                continue
+            binding = {f"scan_in{i}": v for i, v in enumerate(parts.operands)
+                       if isinstance(v, Node)}
+            out.append(Match(
+                "scan_body", "scan_body", "SCAN", n, binding,
+                notes=f"{len(sub.matches)} match(es) in scan body",
+                body=(body, sub.matches)))
+            claimed.add(n)
+        return out
+
     def detect_fn(self, fn: Callable, *example_args) -> DetectionReport:
         return self.detect(trace(fn, example_args))
+
+
+def flat_matches(matches: Sequence[Match],
+                 loop_invariant: bool = False) -> List[Match]:
+    """The matches with every ``scan_body`` wrapper replaced by its inner
+    matches, recursively: the matches that select a harness, in the order
+    the pass manager numbers them (pins, disabled matches, selections).
+    With ``loop_invariant`` an inner binding that names a closed-over
+    tensor of the scan names the outer node instead, so a cost model sees
+    that an inner match and an outer one marshal the same matrix."""
+    out: List[Match] = []
+    for m in matches:
+        if m.body is None:
+            out.append(m)
+            continue
+        inner = flat_matches(m.body[1], loop_invariant)
+        if loop_invariant:
+            parts = scan_parts(m.anchor.graph.owning_module, m.anchor)
+            inner = [dataclasses.replace(im, binding={
+                k: (parts.outer(v) or v) if isinstance(v, Node) else v
+                for k, v in im.binding.items()}) for im in inner]
+        out.extend(inner)
+    return out
 
 
 _default_detector: Optional[Detector] = None

@@ -643,6 +643,41 @@ class MarshalingCache:
         self._sources.clear()
 
 
+class LoopCache:
+    """A host loop's front for a marshaling cache or data plane (the steps
+    of a scan, ``rewrite._eval_scan_body``): a marshal clause whose key
+    values are the objects an earlier step keyed it on, at the same
+    :func:`version_token`, gets that step's value back with no fingerprint
+    read (the matrix a solver's step closes over); any other call goes to
+    the cache behind it.  It holds the key values it compares, so no other
+    tensor takes their address while it lives."""
+    __slots__ = ("_inner", "_last")
+
+    def __init__(self, inner):
+        self._inner = inner
+        self._last: Dict[Any, Tuple] = {}
+
+    def _served(self, clause, keys: Sequence, fetch: Callable[[], Any]):
+        tokens = tuple(version_token(k) for k in keys)
+        last = self._last.get(clause)
+        if last is not None and last[0] == tokens:
+            return last[2]
+        val = fetch()
+        self._last[clause] = (tokens, keys, val)
+        return val
+
+    def get(self, name, keys, compute):
+        return self._served(name, keys,
+                            lambda: self._inner.get(name, keys, compute))
+
+    def ensure(self, src, dst, keys, binding, fallback=None):
+        return self._served((src, dst), keys, lambda: self._inner.ensure(
+            src, dst, keys, binding, fallback=fallback))
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
 def _seconds(step) -> float:
     """A loader's or an edge's most recent seconds, else its estimate."""
     return step.last if step.last is not None else step.cost()

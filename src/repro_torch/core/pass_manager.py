@@ -55,6 +55,16 @@ A compiled function called while another trace runs (``make_fx``, a
 compiled step) traces and validates on its own, outside the ambient modes
 (``detect.own_trace``).
 
+**Scans** (docs/transforms.md, "scan: detect once, reuse every
+iteration").  A torch scan whose body holds a match is one ``scan_body``
+match: its body is detected once per signature, and the loop runs around
+the rewritten body (``rewrite.run_rewritten``).  Pins, selections,
+disabled matches, the tuner and the joint search number the inner matches
+with the others (``CompiledEntry.flat``).  A scan drops as a whole when
+containment disables an inner match, so it then runs plain.  Such an
+entry never bakes (``plan_info()["bake_errors"]`` says why) and never
+persists a plan-cache record: it stays in this process's memory.
+
 The compiled function runs on the card: ``platform="cuda"`` unless the
 caller passes ``platform="cpu"`` (or ``device="cpu"``).  Asking for CUDA
 where no card is present raises, and so do operands on another device —
@@ -129,8 +139,9 @@ class CompiledEntry:
     # joint assignment of the process that searched
     joint: Optional[Dict[str, Any]] = None
     joint_done: bool = False
-    # match indices whose every candidate failed under containment: their
-    # anchors run as plain graph nodes until the entry is rebuilt
+    # indices into flat() of the matches whose every candidate failed
+    # under containment: their anchors run as plain graph nodes until the
+    # entry is rebuilt, and a scan holding one runs plain as a whole
     disabled: set = dataclasses.field(default_factory=set)
     # per tensor leaf, whether it requires grad: such an entry carries
     # gradients (epilogues unfused, never baked)
@@ -147,18 +158,31 @@ class CompiledEntry:
             got = self._needed[key] = needed_nodes(self.gm, matches)
         return got
 
+    def flat(self) -> List[D.Match]:
+        """The matches that select a harness: the report's, each
+        ``scan_body`` wrapper replaced by its inner matches
+        (``detect.flat_matches``).  Pins, disabled matches and selections
+        are numbered in this order."""
+        return D.flat_matches(self.report.matches)
+
     def enabled(self) -> List[D.Match]:
-        """The report's matches minus the disabled ones."""
+        """The report's matches minus the disabled ones.  A ``scan_body``
+        wrapper drops as a whole when any of its inner matches is
+        disabled: no iteration mixes harnesses and the plain body."""
         if not self.disabled:
             return self.report.matches
-        return [m for i, m in enumerate(self.report.matches)
-                if i not in self.disabled]
+        off = {id(m) for i, m in enumerate(self.flat()) if i in self.disabled}
+        return [m for m in self.report.matches
+                if not any(id(f) in off for f in D.flat_matches([m]))]
 
     def index_of(self, m: D.Match) -> Optional[int]:
-        for i, mm in enumerate(self.report.matches):
+        for i, mm in enumerate(self.flat()):
             if mm is m:
                 return i
         return None
+
+    def has_scan(self) -> bool:
+        return any(m.body is not None for m in self.report.matches)
 
 
 def _leaf_key(x) -> Tuple:
@@ -376,7 +400,7 @@ class LilacFunction:
                               grad_inputs=tuple(leaves[i].requires_grad
                                                 for i in tensor_pos))
         self._reset_bake(entry)
-        complete = len(pins) == len(report.matches)
+        complete = len(pins) == len(entry.flat())
         # a served record with complete pins never re-persists; one whose
         # pins were dropped re-persists once this process resolves them
         entry.persisted = served is not None and (
@@ -386,14 +410,21 @@ class LilacFunction:
         return entry
 
     def _reset_bake(self, entry: CompiledEntry) -> None:
-        """Clear the entry's refusal to bake, except the standing one of an
-        entry whose calls carry gradients: a replay records no autograd
-        graph."""
-        entry.no_bake = any(entry.grad_inputs)
-        entry.bake_error = None if not entry.no_bake else (
-            "carries gradients (an input requires grad): runs the "
-            + ("rewritten graph" if self.mode == "trace" else "interpreter")
-            + " with autograd through the harnesses, never a plan")
+        """Clear the entry's refusal to bake, except the standing ones: an
+        entry whose calls carry gradients (a replay records no autograd
+        graph), and one that holds a ``scan_body`` rewrite."""
+        runs = "rewritten graph" if self.mode == "trace" else "interpreter"
+        entry.bake_error = None
+        if any(entry.grad_inputs):
+            entry.bake_error = (
+                f"carries gradients (an input requires grad): runs the "
+                f"{runs} with autograd through the harnesses, never a plan")
+        elif entry.has_scan():
+            entry.bake_error = (
+                f"scan-body rewrite: every call runs the {runs}, whose loop "
+                f"reuses the body's harnesses at each step; a plan's guards "
+                f"cannot cover the marshal sources inside the body")
+        entry.no_bake = entry.bake_error is not None
 
     @staticmethod
     def _unwrap(flat) -> List[Any]:
@@ -509,7 +540,7 @@ class LilacFunction:
         re-tunable on a later call."""
         if self.policy != "autotune":
             return self._select
-        index = {m.anchor: i for i, m in enumerate(entry.report.matches)}
+        index = {m.anchor: i for i, m in enumerate(entry.flat())}
         q = R.shared_quarantine()
 
         def select(m, binding, ctx):
@@ -612,7 +643,7 @@ class LilacFunction:
                     plans.append(entry.plan)
                 continue
             for i, (name, sched, fuse) in list(entry.pins.items()):
-                q.add(entry.report.matches[i].computation, name,
+                q.add(entry.flat()[i].computation, name,
                       variant_key(sched, None), reason=reason, site=name)
             if entry.pins:
                 self._unwind(entry, reason)
@@ -758,7 +789,7 @@ class LilacFunction:
                 recorder.begin(m, h, ctx.schedule, ctx.fuse)
 
         contain = self._containment(entry)
-        for _ in range(len(entry.report.matches) + 1):
+        for _ in range(len(entry.flat()) + 1):
             matches = entry.enabled()
             try:
                 outs = run_rewritten(entry.gm, matches, self._selector(entry),
@@ -789,7 +820,9 @@ class LilacFunction:
         tuner's recorded components and times nothing."""
         if entry.joint_done or self.policy != "autotune":
             return False
-        matches = entry.report.matches
+        # inner bindings on a scan's closed-over tensors name the outer
+        # nodes: an inner match and an outer one share a matrix
+        matches = D.flat_matches(entry.report.matches, loop_invariant=True)
         if len(matches) < 2:
             entry.joint_done = True     # nothing to couple
             return False
@@ -824,7 +857,7 @@ class LilacFunction:
         if self.policy != "autotune" or not entry.enabled():
             return True
         return autotune_disabled() or all(
-            i in entry.pins for i in range(len(entry.report.matches))
+            i in entry.pins for i in range(len(entry.flat()))
             if i not in entry.disabled)
 
     def _maybe_persist(self, entry: CompiledEntry) -> None:
@@ -833,6 +866,11 @@ class LilacFunction:
                 or not self._resolved(entry):
             return
         entry.persisted = True
+        if entry.has_scan():
+            # a scan_body match holds its body graph and inner matches as
+            # live objects, with no address in the outer graph: the entry
+            # stays in this process's memory
+            return
         try:
             ser = P.serialize_matches(entry.gm, entry.report.matches)
         except P.PlanBakeError:

@@ -75,7 +75,9 @@ to bake (pass such a matrix as an argument).  A closure-captured torch
 tensor cannot reach a plan: tracing refuses it.
 
 Not ported, with no counterpart here: ``donate_args`` (torch has no buffer
-donation) and the ``scan_body`` plans (the port has no scan matcher).
+donation).  As in the reference, an entry that holds a ``scan_body``
+rewrite never bakes and never persists a record (the pass manager keeps
+it in memory and ``plan_info()["bake_errors"]`` says why).
 
 Environment knobs:
 
@@ -299,11 +301,17 @@ def _constants(gm: GraphModule) -> List[Tuple[str, Any]]:
 def plan_key(gm: GraphModule, platform: str, mode: str, policy: str,
              reuse: float = 100.0) -> str:
     """Cache key of one compiled signature: a hash of the normalized
-    graph's code, each placeholder's and constant's shape and dtype, and
-    the constants' fingerprints, qualified by platform, mode, policy and
-    the declared marshal ``reuse`` (the tuner's amortized argmin depends on
-    it).  The registry fingerprint is the file's header."""
+    graph's code (a scan's body graph's too), each placeholder's and
+    constant's shape and dtype, and the constants' fingerprints, qualified
+    by platform, mode, policy and the declared marshal ``reuse`` (the
+    tuner's amortized argmin depends on it).  The registry fingerprint is
+    the file's header."""
     h = hashlib.blake2b(digest_size=16)
+    _hash_graph(h, gm)
+    return f"{h.hexdigest()}|{platform}|{mode}|{policy}|r{reuse:g}"
+
+
+def _hash_graph(h, gm: GraphModule) -> None:
     h.update(gm.code.encode())
     for n in gm.graph.nodes:
         if n.op == "placeholder":
@@ -314,7 +322,9 @@ def plan_key(gm: GraphModule, platform: str, mode: str, policy: str,
         if isinstance(c, torch.Tensor):
             h.update(repr((target, tuple(c.shape), str(c.dtype),
                            fingerprint(c))).encode())
-    return f"{h.hexdigest()}|{platform}|{mode}|{policy}|r{reuse:g}"
+        elif isinstance(c, GraphModule):        # a scan's body
+            h.update(target.encode())
+            _hash_graph(h, c)
 
 
 # ---------------------------------------------------------------------------

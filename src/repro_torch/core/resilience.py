@@ -60,7 +60,10 @@ device), so it runs only on the interpreter path: a first call, a
 ``bake=False`` call, a call a plan could not serve.  It never runs on a
 traced value (a fake or proxy output under ``make_fx`` is checked for
 size only), during a CUDA-graph capture, or on a baked plan's call,
-eager or replayed; the sampled shadow checks watch that path.
+eager or replayed; the sampled shadow checks watch that path.  A host-mode
+scan validates its first step's outputs; its later steps run the same
+harnesses under :class:`SteadySteps`, which keeps each output's largest
+magnitude on the device and syncs once after the loop.
 
 Environment knobs: ``LILAC_TORCH_QUARANTINE_CACHE`` (store path),
 ``LILAC_TORCH_QUARANTINE_TTL`` (seconds, default 3600; ``<= 0`` never
@@ -425,8 +428,9 @@ class Containment:
 
     def __call__(self, m, binding, ctx, select, attempt, on_select=None):
         from repro_torch.core.autotune import variant_key
+        from repro_torch.core.detect import out_like
 
-        like = m.anchor.meta["val"]
+        like = out_like(m)
         tried = set()
         h, c = self.pick(m, binding, ctx, select), ctx
         while True:
@@ -459,12 +463,14 @@ class Containment:
             self.stats.shape_mismatches += 1
             return (f"shape mismatch: got {tuple(out.shape)}, the anchor "
                     f"wants {tuple(like.shape)}")
-        if faults.traced(out) or not (out.is_floating_point() or out.is_complex()):
+        if not _readable(out):
             return None
-        if out.is_cuda and torch.cuda.is_current_stream_capturing():
-            return None
+        return self._finite(lambda: torch.isfinite(out).all())
+
+    def _finite(self, flag: Callable[[], Any]) -> Optional[str]:
+        """Read the device bool ``flag()`` (a sync): None when it holds."""
         try:
-            finite = bool(torch.isfinite(out).all())
+            finite = bool(flag())
         except Exception as e:
             if device_fault(e):
                 raise           # the card's fault, surfacing at this sync
@@ -473,6 +479,13 @@ class Containment:
             self.stats.nonfinite_outputs += 1
             return "non-finite output"
         return None
+
+    def give_up(self, m, harness: str, vkey: str, reason: str):
+        """Quarantine ``harness`` and fall back for ``m`` with no next
+        candidate."""
+        self._record(m, harness, vkey, reason)
+        self.stats.fallbacks += 1
+        raise ReferenceFallback(m, reason)
 
     def _sticky(self, m, harness: str, vkey: str, ctx, e: BaseException):
         """Record-then-raise for an error that poisons the CUDA context."""
@@ -506,6 +519,61 @@ class Containment:
         if h is None:
             return None
         return h, dataclasses.replace(ctx, schedule=None, fuse=None)
+
+
+def _readable(out) -> bool:
+    """Whether the validator reads ``out``'s values: a concrete float
+    tensor, outside a CUDA-graph capture."""
+    return (out.is_floating_point() or out.is_complex()) \
+        and not faults.traced(out) \
+        and not (out.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
+class SteadySteps:
+    """Containment for the steps of a host-mode scan after its first
+    (``rewrite._eval_scan_body``), whose ``select`` returns the harness
+    the first step settled on.  An output is not validated step by step:
+    its largest magnitude (one device reduction, which a NaN propagates
+    through) is kept on the device, and all of them are read once, after
+    the loop (:meth:`settle`).  A failure has no next candidate: the
+    harness is quarantined and its match falls back, so the scan runs
+    again as the plain graph node, whole; no replacement joins in the
+    middle of the loop."""
+
+    def __init__(self, contain: Containment):
+        self.contain = contain
+        # anchor -> (match, harness, variant, [largest magnitude a step])
+        self.peaks: Dict[Any, tuple] = {}
+
+    def __call__(self, m, binding, ctx, select, attempt, on_select=None):
+        from repro_torch.core.autotune import variant_key
+
+        c = self.contain
+        h = select(m, binding, ctx)
+        vkey = variant_key(ctx.schedule, ctx.fuse)
+        try:
+            out = attempt(h, ctx)
+            peak = torch.linalg.vector_norm(out, float("inf")) \
+                if _readable(out) and out.numel() else None
+        except Exception as e:  # the boundary: degrade, never die
+            c._sticky(m, h.name, vkey, ctx, e)
+            if kernel_fault(h.name, ctx.platform, e):
+                raise
+            c.stats.contained_exceptions += 1
+            c.give_up(m, h.name, vkey, _reason(e))
+        if peak is not None:
+            self.peaks.setdefault(m.anchor, (m, h.name, vkey, []))[3] \
+                .append(peak)
+        return out
+
+    def settle(self) -> None:
+        """After the loop: a match one of whose outputs was not finite
+        falls back (one sync a match)."""
+        for m, name, vkey, peaks in self.peaks.values():
+            reason = self.contain._finite(
+                lambda p=peaks: torch.isfinite(torch.stack(p)).all())
+            if reason is not None:
+                self.contain.give_up(m, name, vkey, reason)
 
 
 def next_candidate(registry, quarantine: QuarantineStore, m, platform: str,

@@ -13,6 +13,26 @@ the rest.  Two realizations, one per mode:
   jit-safe CUDA harness appears in it as one node of its custom op
   (``torch.ops.lilac_torch.*``), a plain-torch harness as its aten ops.
 
+**Scans.**  A ``scan_body`` match runs the loop around its rewritten body
+(the reference's ``_eval_scan_body``).  Host mode runs a plain Python
+loop of ``length`` steps, each one interpreting the body on the carries,
+the step's slices of ``xs`` and the closed-over tensors, and stacks the
+per-step outputs.  It does not call the user-level
+``torch._higher_order_ops.scan.scan``, which would compile the step with
+dynamo and trace into the data plane's host-side work.  The first step
+selects the harnesses, under containment as any anchor; the later steps
+run them as pinned and are not validated one by one
+(:class:`~repro_torch.core.resilience.SteadySteps`: their finiteness is
+read once after the loop, and a failure runs the whole scan plain).  The
+closed-over tensors are the same objects at every step, so a later step
+gets the marshaled matrix from a :class:`~repro_torch.core.marshal.
+LoopCache` without fingerprinting it, and the data plane is consulted
+once a call.  Trace mode rewrites the body into
+a ``GraphModule`` of its own and emits ``torch.ops.higher_order.scan`` on
+it, the selected custom op inside the body.  A ``loop`` match anchored at
+a scan writes its final accumulator, and the counter (``length``, from
+zero) where one is carried.
+
 **Differentiation** (docs/transforms.md).  A call whose binding holds a
 tensor that requires grad (under ``.backward()`` or ``torch.func.grad``)
 runs its harness with the detected epilogue unfused: the kernel without
@@ -39,8 +59,11 @@ import torch
 from torch.fx import GraphModule, Node
 from torch.fx.node import map_arg
 
-from repro_torch.core.detect import Match, normalize_graph, own_trace
+from repro_torch.core.detect import (Match, anchor_value, normalize_graph,
+                                     out_like, own_trace, scan_parts)
 from repro_torch.core.harness import CallCtx, Harness
+from repro_torch.core.marshal import LoopCache
+from repro_torch.core.resilience import SteadySteps
 from repro_torch.kernels.common import apply_epilogue_inregister
 
 #: The detected epilogue applied outside the harness — the unfused
@@ -95,10 +118,17 @@ def run_rewritten(gm: GraphModule,
                   on_select: Optional[Callable[[Match, Harness, CallCtx],
                                                None]] = None,
                   needed: Optional[frozenset] = None,
-                  contain: Optional[Callable] = None) -> List[Any]:
+                  contain: Optional[Callable] = None,
+                  bodies: Optional[Dict[Node, Any]] = None,
+                  last_use: Optional[Dict[Node, list]] = None) -> List[Any]:
     """Evaluate ``gm`` on ``args`` with matched anchors replaced by harness
     calls.  ``on_select`` observes every (match, harness, ctx) triple;
-    ``needed`` is a precomputed :func:`needed_nodes` for these matches.
+    ``needed`` and ``last_use`` are a precomputed :func:`needed_nodes`
+    and ``_last_uses`` for these matches (a scan's steps share them).
+    ``bodies`` maps a ``scan_body`` anchor to its rewritten body and the
+    inner selections to report (trace mode: the scan is emitted as
+    ``torch.ops.higher_order.scan`` on that body); a ``scan_body`` anchor
+    without one runs the host loop.
 
     ``contain`` (a :class:`repro_torch.core.resilience.Containment`)
     selects and runs every anchor, ``(m, binding, ctx, select, attempt,
@@ -115,14 +145,18 @@ def run_rewritten(gm: GraphModule,
     anchor_map = {m.anchor: m for m in matches}
     if needed is None:
         needed = needed_nodes(gm, matches)
-    last_use = _last_uses(gm, anchor_map, needed)
+    if last_use is None:
+        last_use = _last_uses(gm, anchor_map, needed)
     for n in gm.graph.nodes:
         if n.op == "output":
             return list(map_arg(n.args[0], env.__getitem__))
         m = anchor_map.get(n)
         if n.op == "placeholder":
             continue
-        if m is not None:
+        if m is not None and m.body is not None:
+            env[n] = _eval_scan_body(m, env, select, ctx_factory, on_select,
+                                     contain, (bodies or {}).get(n))
+        elif m is not None:
             env[n] = _eval_anchor(m, env, select, ctx_factory, on_select,
                                   contain)
         elif n.op == "get_attr":
@@ -201,7 +235,66 @@ def _eval_anchor(m: Match, env, select, ctx_factory, on_select,
         if on_select is not None:
             on_select(m, h, ctx)
         out = attempt(h, ctx)
-    return _coerce(out, m.anchor)
+    return anchor_value(m, _coerce(out, out_like(m)))
+
+
+def _eval_scan_body(m: Match, env, select, ctx_factory, on_select, contain,
+                    rewritten=None) -> List[Any]:
+    """The outputs of a ``scan_body`` match's scan: the final carries, then
+    the per-step outputs stacked.  ``rewritten`` = (body graph, inner
+    selections) emits the scan on the rewritten body (trace mode);
+    without it the loop runs here (host mode)."""
+    body, inner = m.body
+    parts = scan_parts(m.anchor.graph.owning_module, m.anchor)
+
+    def value(v):
+        return env[v] if isinstance(v, Node) else v
+
+    carry = [value(v) for v in parts.init]
+    xs = [value(v) for v in parts.xs]
+    extra = [value(v) for v in parts.extra]
+    if rewritten is not None:
+        graph, selected = rewritten
+        if on_select is not None:
+            for args in selected:
+                on_select(*args)
+        return list(torch.ops.higher_order.scan(graph, carry, xs,
+                                                tuple(extra)))
+    needed = needed_nodes(body, inner)
+    last_use = _last_uses(body, {mm.anchor: mm for mm in inner}, needed)
+    chosen: Dict[Node, tuple] = {}
+    fronts: Dict[Node, LoopCache] = {}
+
+    def loop_ctx(mm):
+        ctx = ctx_factory(mm)
+        if ctx.cache is not None:
+            if mm.anchor not in fronts:
+                fronts[mm.anchor] = LoopCache(ctx.cache)
+            ctx.cache = fronts[mm.anchor]
+        return ctx
+
+    def first(mm, h, ctx):
+        chosen[mm.anchor] = (h, ctx.schedule, ctx.fuse)
+        if on_select is not None:
+            on_select(mm, h, ctx)
+
+    def pinned(mm, binding, ctx):
+        h, ctx.schedule, ctx.fuse = chosen[mm.anchor]
+        return h
+
+    steady = SteadySteps(contain) if contain is not None else None
+    ys = []
+    for t in range(parts.length):
+        outs = run_rewritten(body, inner, select if t == 0 else pinned,
+                             carry + [x[t] for x in xs] + extra, loop_ctx,
+                             on_select=first if t == 0 else None,
+                             needed=needed, last_use=last_use,
+                             contain=contain if t == 0 else steady)
+        carry, y = outs[:len(carry)], outs[len(carry):]
+        ys.append(y)
+    if steady is not None:
+        steady.settle()
+    return carry + [torch.stack(col) for col in zip(*ys)]
 
 
 def _live(v) -> bool:
@@ -332,9 +425,8 @@ def call_harness(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
     return out
 
 
-def _coerce(val: torch.Tensor, node: Node) -> torch.Tensor:
+def _coerce(val: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The harness result in the dtype and shape the graph traced."""
-    like = node.meta["val"]
     if val.dtype != like.dtype:
         val = val.to(like.dtype)
     if tuple(val.shape) != tuple(like.shape):
@@ -349,9 +441,12 @@ def rewrite_graph(gm: GraphModule,
                   on_select: Optional[Callable[[Match, Harness, CallCtx],
                                                None]] = None,
                   needed: Optional[frozenset] = None,
-                  contain: Optional[Callable] = None) -> GraphModule:
+                  contain: Optional[Callable] = None,
+                  inputs: Optional[List[Any]] = None) -> GraphModule:
     """Trace mode: the rewritten program as a new ``GraphModule`` with the
-    traced graph's placeholders and outputs.  A graph for calls that carry
+    traced graph's placeholders and outputs, traced on ``inputs`` (by
+    default the placeholders' traced values; a scan body's closed-over
+    integers have none).  A graph for calls that carry
     gradients is traced with ``ctx.differentiable`` set: its harnesses
     appear as they run under differentiation (epilogues unfused).
 
@@ -360,8 +455,10 @@ def rewrite_graph(gm: GraphModule,
     and the choice is pinned into the graph: each anchor becomes the
     selected harness traced in place (one custom-op node for a jit-safe
     CUDA harness), an unfused epilogue aten nodes after it, and operators
-    that only fed an anchor are gone.  A harness that is not jit-safe
-    raises: it would marshal inside the graph.  Under ``contain`` a
+    that only fed an anchor are gone; a ``scan_body`` anchor becomes a
+    ``torch.ops.higher_order.scan`` on its body rewritten the same way.  A
+    harness that is not jit-safe raises: it would marshal inside the
+    graph.  Under ``contain`` a
     harness that fails to trace (or traces to the wrong size) is replaced
     by the next candidate; ``on_select`` observes what was traced in.
     """
@@ -371,7 +468,22 @@ def rewrite_graph(gm: GraphModule,
     if not matches:
         return gm               # nothing to replace: the traced graph
     chosen: Dict[Node, tuple] = {}
+    bodies: Dict[Node, tuple] = {}
     for m in matches:
+        if m.body is not None:
+            # the body rewritten once, its selections reported when the
+            # outer trace reaches the scan
+            parts = scan_parts(gm, m.anchor)
+            selected: List[tuple] = []
+            body = rewrite_graph(
+                m.body[0], m.body[1], select, ctx_factory,
+                on_select=lambda *a, s=selected: s.append(a),
+                contain=contain, inputs=[
+                    ph.meta.get("val", v.meta["val"] if isinstance(v, Node)
+                                else v)
+                    for ph, v in zip(parts.placeholders, parts.operands)])
+            bodies[m.anchor] = (body, selected)
+            continue
         binding = _binding(m, lambda v: v.meta["val"])
         ctx = ctx_factory(m)
         h = contain.pick(m, binding, ctx, select) if contain is not None \
@@ -389,9 +501,10 @@ def rewrite_graph(gm: GraphModule,
         return run_rewritten(gm, matches, pinned, list(args),
                              lambda m: chosen[m.anchor][1],
                              on_select=on_select, needed=needed,
-                             contain=contain)
+                             contain=contain, bodies=bodies)
 
-    fakes = [n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
+    fakes = inputs if inputs is not None else [
+        n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder"]
     with own_trace():
         out = make_fx(functionalize(interpret, remove="mutations_and_views"),
                       tracing_mode="fake", _allow_non_fake_inputs=True)(*fakes)

@@ -925,6 +925,110 @@ def test_trace_mode_graphs_equal_host_mode_and_replay(cuda):
 
 
 @pytest.mark.gpu
+def test_k1_inside_a_rewritten_scan_body_matches_plain(cuda):
+    """K1's direct body inside a rewritten scan body: relu(ELL SpMV +
+    bias) summed over 6 vectors in a torch scan, compiled in trace mode.
+    The rewritten graph holds one scan whose body holds
+    lilac_torch::spmv_ell, K1 launches once each time torch's eager scan
+    calls the step, and the output equals
+    host mode's and is within TOL of the same loop over K1's plain
+    version."""
+    from torch._higher_order_ops.scan import scan
+
+    val, col, _, _, bias = _ell(cuda, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    vs = torch.randn(6, 3000, generator=gen, device=cuda)
+
+    def loop(val, col, vs, bias):
+        def step(acc, v):
+            return acc + torch.relu((val * v[col]).sum(dim=1) + bias), ()
+
+        out, _ = scan(step, torch.zeros_like(bias), vs)
+        return out
+
+    fast = lilac.compile(loop)
+    gm = fast.graph_for(val, col, vs, bias)
+    scans = [n for n in gm.graph.nodes
+             if n.target is torch.ops.higher_order.scan]
+    assert len(scans) == 1
+    body = getattr(gm, scans[0].args[0].target)
+    assert torch.ops.lilac_torch.spmv_ell.default in [
+        n.target for n in body.graph.nodes]
+    calls = [0]
+
+    def count(c, x):
+        calls[0] += 1
+        return [c + x]
+
+    # torch 2.11's eager scan calls the step once more than its length
+    # (the first call infers the outputs' shapes), torch 2.13 does not
+    torch.ops.higher_order.scan(count, [torch.zeros(())], [torch.ones(6)], ())
+    K.reset_launches()
+    got = fast(val, col, vs, bias)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell"] == calls[0]
+    assert [n for _, n in fast.last_selections] == ["cuda.ell"]
+    assert torch.equal(got, lilac.compile(loop, mode="host")(val, col, vs,
+                                                              bias))
+    want = torch.zeros_like(bias)
+    for v in vs:
+        want = want + R.spmv_ell_plain(val, col, v, bias=bias,
+                                       epilogue="relu")
+    torch.testing.assert_close(got, want, **TOL)
+
+
+class _AtAttempt(faults.FaultPlan):
+    """A fault plan whose rules fire at one attempt of their site only."""
+
+    def __init__(self, spec: str, at: int):
+        super().__init__(faults.parse_spec(spec))
+        self.at = at
+
+    def fires(self, kind, site):
+        if self._rule_for(kind, site) is None:
+            return False
+        n = self.attempts(kind, site)
+        self._attempts[(kind, site)] = n + 1
+        if n != self.at:
+            return False
+        self.fired.append((kind, site, n))
+        return True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["kernel_raise", "nan_output"])
+def test_a_fault_at_a_later_scan_step_on_the_card_runs_the_scan_plain(
+        cuda, kind, monkeypatch):
+    """The same loop in host mode with K1 (``cuda.ell``) failing at step 2
+    only, by an injected raise or NaN output: the match is disabled and
+    the call runs again as the uncompiled scan, bit for bit; the NaN is
+    seen after the loop, from the outputs' largest magnitudes kept on the
+    card."""
+    from torch._higher_order_ops.scan import scan
+
+    val, col, _, _, bias = _ell(cuda, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    vs = torch.randn(6, 3000, generator=gen, device=cuda)
+
+    def loop(val, col, vs, bias):
+        def step(acc, v):
+            return acc + torch.relu((val * v[col]).sum(dim=1) + bias), ()
+
+        out, _ = scan(step, torch.zeros_like(bias), vs)
+        return out
+
+    monkeypatch.setattr(faults, "ACTIVE", _AtAttempt(f"{kind}:cuda.ell", 2))
+    fast = lilac.compile(loop, mode="host")
+    got = fast(val, col, vs, bias)
+    assert faults.ACTIVE.fired == [(kind, "cuda.ell", 2)]
+    info = fast.resilience_info()
+    assert info["disabled_matches"] == 1
+    assert info["containment"]["fallbacks"] == 1
+    assert fast.last_selections == []
+    assert torch.equal(got, loop(val, col, vs, bias))
+
+
+@pytest.mark.gpu
 def test_host_autotune_on_the_card_picks_the_least_amortized(cuda):
     csr = tf.from_numpy(tf.to_numpy(trandom.random_csr(3000, 3000, 0.01,
                                                        seed=3)),

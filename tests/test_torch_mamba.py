@@ -26,6 +26,7 @@ the reference, with and without an extra bf16 rounding of the state:
         --prompt 512 --steps 32
 """
 import argparse
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -108,8 +109,18 @@ def _block_params(d, seed=0):
 def test_mamba_block_matches_the_reference():
     """Over 150 steps (the reference's chunked scan takes two chunks), then
     from the state after 130 inputs one token at a time: each step's
-    output, state and conv tail within 2e-5 of the reference's (f32), and
-    the steps within 1e-5 of the port's own sequence output."""
+    output, state and conv tail within 2e-5 of the reference's (f32), the
+    tail's shift exact (rows 1.. of the tail before a step are rows 0..
+    after it, bit for bit), and the steps within 1e-5 of the port's own
+    sequence output.
+
+    After a step each package carries its own tail, whose new row is the
+    one-token ``in_proj`` product: torch's and XLA's CPU GEMMs round it
+    each their own way (on an AMD EPYC host the new rows part by up to
+    4.8e-7, in 3,489 of their 5,120 elements over the 20 steps, where the
+    reference's own eager and ``jit`` tails agree), so after a few steps
+    every row of the tail is such a product and is held at the test's
+    2e-5, not bit for bit."""
     d, B, S, pre = 64, 2, 150, 130
     jp, tp = _block_params(d)
     di = 2 * d
@@ -132,12 +143,14 @@ def test_mamba_block_matches_the_reference():
         for t in range(pre, S):
             jy, jstate = JM.mamba_block(jp, jnp.asarray(x[:, t:t + 1]),
                                         jstate)
+            tail = tstate[1]
             ty, tstate = M.mamba_block(tp, torch.from_numpy(x[:, t:t + 1]),
                                        tstate)
             _close(ty.numpy(), jy, 2e-5)
             _close(tstate[0].numpy(), jstate[0], 2e-5)
-            np.testing.assert_array_equal(tstate[1].numpy(),
-                                          np.asarray(jstate[1]))
+            _close(tstate[1].numpy(), jstate[1], 2e-5)
+            np.testing.assert_array_equal(tstate[1][:, :-1].numpy(),
+                                          tail[:, 1:].numpy())
             _close(ty[:, 0].numpy(), tout[:, t].numpy(), 1e-5)
 
 
@@ -175,12 +188,42 @@ def _pair(**over):
         cfg, jax.tree.map(np.asarray, jp)))
 
 
+@contextlib.contextmanager
+def _f64_upcasts():
+    """``Tensor.float()`` keeps a float64 tensor as it is: the models'
+    upcasts to f32 (the router's input, the norms, the logits) are "at
+    least f32", so the port runs wholly in f64 on f64 parameters."""
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: \
+        t if t.dtype == torch.float64 else real(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+def _to_f64(tree):
+    return tree_map(lambda a: a.double() if a.is_floating_point() else a,
+                    tree)
+
+
 def test_jamba_prefill_decode_and_cache_hooks_match_the_reference():
     """The prefill's logits and every cache leaf (Mamba's ``ssm`` / ``conv``,
     the attention layers' ``k`` / ``v``), then one decode step from the
     reference's cache, within 5e-5 of the largest magnitude (f32); the
     cache hooks on the reference's bf16 prefill caches bit for bit, the
-    dtypes included."""
+    dtypes included.
+
+    The decode's logits part from the reference's by f32 rounding that
+    grows layer by layer through the residual stream (magnitudes up to
+    ~850; each of the 16 layers adds ~1e-6 of it, to 4.5e-5 after the
+    last on an AMD EPYC host, 7.8e-5 of the largest logit).  The reference
+    spreads as far from itself: its eager and ``jax.jit`` decodes part by
+    5.7e-5 on that host.  So the logits are held to the larger of 5e-5 and
+    twice that spread, measured here; the port run in f64 must be within
+    that bound of both f32 results, and the port's f32 result no farther
+    from it than twice the farther of the reference's two (a fault would
+    put it orders of magnitude farther)."""
     (jcfg, jm, jp, raw), (cfg, tm, tp) = _pair()
     toks = np.random.default_rng(6).integers(1, 256, (2, 7)).astype(np.int32)
     jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
@@ -196,10 +239,29 @@ def test_jamba_prefill_decode_and_cache_hooks_match_the_reference():
     jcache = jm.cache_from_prefill(jc, 7, 16)
     step = np.array([[3], [5]], np.int32)
     jlo, jnc = jm.decode(jp, jcache, jnp.asarray(step), jnp.int32(7))
+    tcache = _torch_tree(_np_tree(jcache))
     with torch.no_grad():
-        tlo, tnc = tm.decode(tp, _torch_tree(_np_tree(jcache)),
-                             torch.from_numpy(step), torch.tensor(7))
-    _close(tlo.numpy(), jlo, 5e-5)
+        tlo, tnc = tm.decode(tp, tcache, torch.from_numpy(step),
+                             torch.tensor(7))
+        with _f64_upcasts():
+            tlo64, _ = tm.decode(_to_f64(tp), _to_f64(tcache),
+                                 torch.from_numpy(step), torch.tensor(7))
+    assert tlo64.dtype == torch.float64
+    jlo_jit, _ = jax.jit(jm.decode)(jp, jcache, jnp.asarray(step),
+                                    jnp.int32(7))
+    scale = np.abs(np.asarray(jlo, np.float64)).max()
+
+    def dist(a, b):
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max() / scale)
+
+    tol = max(5e-5, 2 * dist(jlo_jit, jlo))
+    _close(tlo.numpy(), jlo, tol)
+    truth = tlo64.numpy()
+    assert dist(tlo.numpy(), truth) <= tol
+    assert dist(jlo, truth) <= tol
+    assert dist(tlo.numpy(), truth) <= 2 * max(dist(jlo, truth),
+                                               dist(jlo_jit, truth))
     tnflat = dict(leaves(tnc))
     for k, a in dict(leaves(_np_tree(jnc))).items():
         _close(tnflat[k].numpy(), a, 5e-5)

@@ -132,7 +132,7 @@ def k1_probe(parent_lib, seed: int, device, reps: int = 20):
         v.update(in_turns(fns, lambda f: cs.cuda_ms(f, reps)[0]))
         for n, f in fns.items():
             v[n]["profiler_ms"] = cs.profiled_ms(f, reps // 2,
-                                                 "spmv_ell_kernel")
+                                                 "spmv_ell_kernel")["ms"]
     # the first SMALL_ROWS rows: fewer slabs than SMs at 32 rows a slab
     rows = min(a.rows, cs.SMALL_ROWS)
     kw = dict(bias=bias[:rows], epilogue="relu")
@@ -144,7 +144,7 @@ def k1_probe(parent_lib, seed: int, device, reps: int = 20):
     for n, f in fns.items():
         small[n + " scaled_err"] = cs.max_err(f(), plain)[1]
     small.update(in_turns(fns, lambda f: cs.profiled_ms(
-        f, 2 * reps, "spmv_ell_kernel")))
+        f, 2 * reps, "spmv_ell_kernel")["ms"]))
     csr_t = cs.sparse_csr(a)
     res["cusparse_ms"] = cs.cuda_ms(lambda: csr_t @ vec, reps)[0]
     io = cs.nbytes(vec, ell.perm) + a.rows * 4
@@ -200,7 +200,7 @@ def k4_probe(parent_lib, seed: int, device, reps: int = 10):
     res.update(in_turns(fns, lambda f: cs.cuda_ms(f, reps)[0]))
     for n in ("parent", "tree"):
         res[n]["profiler_ms"] = cs.profiled_ms(fns[n], reps // 2,
-                                               "gmm_simt_kernel")
+                                               "gmm_simt_kernel")["ms"]
     flops = 2 * T * K * D * F
     nb = T * K * D * 4 + w.numel() * 4 + T * K * F * 4
     res["bound_ms"], res["bound_by"] = cs.bound_ms(nb, flops)
