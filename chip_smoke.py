@@ -59,6 +59,22 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      time torch's eager scan calls the step: 9 times for 8 steps on torch
      2.11, whose first call only infers the outputs' shapes), equal to
      host mode and within the kernel tolerance of the uncompiled scan;
+   * torch.func.vmap over compiled functions, on the same matrices: the
+     CG above over 8 right-hand sides at once (the naive SpMV written out
+     of place, compiled in host mode with policy="cuda.ell"): 26 launches
+     a solve of K1's staged body (NPB-C) or K2 (HPCG), each for all 8
+     vectors (counted, and by the profiler), one repack then none, no
+     plan (bake_errors names the vmap) while solo calls afterwards hit
+     theirs, each iterate against its solo compiled CG (1e-5, or twice
+     the uncompiled CG's own vmapped-against-solo spread: torch's vmap of
+     torch.dot rounds apart from torch.dot) and against the vmapped
+     uncompiled CG (1e-3); the ELL layer over 8 vectors in trace mode (one
+     K1 direct launch a call, equal to host mode); the cuda.bcsr SpMV over
+     8 vectors at HPCG (one K3 narrow launch, the vectors as its
+     operand's columns, within 1e-4 of the plain version); for each, one
+     batched launch at B = 8 against its 8 solo launches (bit for bit)
+     and the plain version, timed beside them with its bound (the stored
+     entries once, the 8 vectors and outputs) and its share;
      message-passing steps) of H <- relu(A @ H + b) over the HPCG operator
      with H of 128 columns (MeshGraphNets' latent size), H rescaled by its
      largest magnitude after each step outside the compiled part, under
@@ -74,11 +90,16 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    * MoE (K4): one OLMoE-1B-7B expert layer (d_model 2048, 64 experts of
      d_ff 1024, top-8, bf16; seeded weights) over two sequences of 4,096
      tokens through moe_block(impl="lilac") — trace mode, as the reference
-     compiles it — under the default policy: one moe_ffn/MOE match traced
-     once, cuda.gmm as the custom op lilac_torch::moe_ffn, 6 launches (3 a
-     sequence), and the output and the naive bf16 block's, each as
-     relative L2 error against the f32 plain oracle on the same bf16
-     inputs;
+     compiles it, under torch.func.vmap over the sequences as the
+     reference vmaps it — under the default policy: one moe_ffn/MOE match
+     traced once, cuda.gmm as the custom op lilac_torch::moe_ffn, whose
+     vmap rule runs both sequences' tokens as one call: 3 launches (the
+     per-sequence loop it replaced, run after for comparison only, makes 6
+     and must give the same bits), and the output and the naive bf16
+     block's, each as relative L2 error against the f32 plain oracle on
+     the same bf16 inputs; K4's gate/up product over both sequences'
+     routed rows timed against the two sequences' launches, each token's
+     row bit for bit;
    * MoE in f32 (K4's f32 body): one sequence of 4,096 tokens of the
      same layer with its parameters and input cast to f32 through
      moe_block(impl="lilac"): cuda.gmm, 3 launches of the f32 body and
@@ -164,7 +185,9 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      nan_output:cuda.bcsr on 3 GNN steps: the NaN caught, the output
      within 1e-4 of the naive loop; shadow checks at rate 1 on the NPB-C
      CG's 25 plan calls (f32 tolerance) and on two MoE blocks (bf16
-     tolerance) with no divergence, and shadow_diverge:dispatch on the
+     tolerance; a vmapped call is shadowed an element at a time, so each
+     block counts its 2 sequences) with no divergence, and
+     shadow_diverge:dispatch on the
      BCSR CG: the naive answer served, the plan torn down, cuda.bcsr
      quarantined and the next call without it; the combined fault spec of
      tools/chaos_smoke_torch.py under policy="autotune" at NPB-C and HPCG
@@ -183,7 +206,9 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      mean load; the port's backward drops none), 4 steps of
      train_loop through make_train_step with a checkpoint every 2, a
      restart from step 2 whose losses must equal the uninterrupted run's
-     bit for bit, K4's 3 x layers x sequences launches a step, and per
+     bit for bit, K4's 3 x layers launches a step (the MoE block vmaps the
+     batch's sequences into one call; the per-sequence loop made 3 x
+     layers x sequences), and per
      step its CUDA-event ms, loss, grad norm and peak memory beside 3 steps
      of the naive model, and one step of each under torch.profiler (device
      time by kernel class, the top kernels, the device's idle share);
@@ -440,25 +465,30 @@ def cuda_ms(fn, reps: int):
 
 
 def profiled_ms(fn, reps: int, kernel: str) -> dict:
-    """torch.profiler over ``reps`` calls of ``fn``, after one unprofiled
-    call: ``ms``, the mean device time per launch of the CUDA kernels whose
-    name holds ``kernel``; ``launches``, their launches a call; and
-    ``device_ms``, the device time of every kernel a call (each None where
-    the profiler records no device time)."""
+    """torch.profiler over ``reps`` calls of ``fn``, after one call in its
+    warm-up step (the profiler can miss the first launches of its window
+    otherwise): ``ms``, the mean device time per launch of the CUDA
+    kernels whose name holds ``kernel``; ``launches``, their launches a
+    call; and ``device_ms``, the device time of every kernel a call (each
+    None where the profiler records no device time)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
+    got: list = []
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         # the profiler's "clears events" notice, and no other warning
         warnings.filterwarnings("ignore", message=".*clears events")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps,
+                                       repeat=1),
+                     on_trace_ready=lambda p: got.extend(
+                         p.key_averages())) as prof:
+            for _ in range(reps + 1):
                 fn()
-            torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.count and e.device_time_total > 0]
+                torch.cuda.synchronize()
+                prof.step()
+    events = [e for e in got if e.count and e.device_time_total > 0]
     ours = [e for e in events if kernel in e.key]
     return {"ms": sum(e.device_time_total / e.count for e in ours) / 1e3
             if ours else None,
@@ -1069,9 +1099,12 @@ def moe_inputs(cfg, seed: int, device, batch: int = MOE_BATCH,
 
 
 def moe_path(cfg, p, x, device):
-    """One expert layer through moe_block(impl='lilac'), then the naive
-    block, each against the f32 plain oracle; ``launches`` counts each K4
-    body's launches in the first call."""
+    """One expert layer through moe_block(impl='lilac') (the compiled MoE
+    under ``torch.func.vmap`` over the sequences), then the naive block,
+    each against the f32 plain oracle; ``launches`` counts each K4 body's
+    launches in the first call.  For comparison only, after the counts
+    are read: the compiled MoE called on each sequence in a loop, as the
+    block ran it before it vmapped."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
@@ -1113,6 +1146,60 @@ def moe_path(cfg, p, x, device):
     res["rel_l2"] = rel_l2(out, ref)
     res["naive_rel_l2"] = rel_l2(naive, ref)
     res["rel_to_naive"] = rel_l2(out, naive)
+    G.reset_launches()
+
+    def per_sequence():
+        return torch.stack([fast(x[b], gate[b], idx[b], p["wg"], p["wu"],
+                                 p["wd"]) for b in range(x.shape[0])])
+
+    loop = per_sequence()
+    sync(device)
+    res["loop_launches"] = dict(G.LAUNCHES)
+    calls = []
+    for _ in range(3):
+        timed(per_sequence, calls, device)()
+    res["loop_call_ms"] = 1e3 * sorted(calls)[1]
+    res["loop_equal"] = bool(torch.equal(out, loop))
+    res["rel_to_loop"] = rel_l2(out, loop)
+    res["bake_errors"] = fast.plan_info()["bake_errors"]
+    return res
+
+
+def moe_batched_numbers(cfg, p, x, device, reps: int = 10) -> dict:
+    """K4's gate/up product as the vmapped block runs it, over both
+    sequences' routed rows at once, against the same product a sequence
+    at a time (each token's row bit for bit) and the plain version, timed
+    with its bound (the weights once, the routed rows in and out)."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.kernels.moe_gmm.ops import _route
+    from repro_torch.models import layers as L
+
+    gate, idx, _ = L.moe_router(p, x, cfg.moe_topk)
+    E, D, F = p["wg"].shape
+    K, tm = idx.shape[-1], 128
+
+    def routed(tokens, ids):
+        dest, te, tp = _route(ids, ids.shape[0], K, E, tm)
+        xs = torch.zeros((tp, D), dtype=x.dtype, device=device).index_put(
+            (dest,), tokens.repeat_interleave(K, dim=0))
+        return xs, te, dest
+
+    xs, te, dest = routed(x.reshape(-1, D), idx.reshape(-1, K))
+    solo = [routed(x[b], idx[b]) for b in range(x.shape[0])]
+    rows = dest.shape[0]
+    res = batched_numbers(
+        lambda: G.gmm_cuda(xs, p["wg"], te, tm)[dest],
+        lambda: torch.cat([G.gmm_cuda(s, p["wg"], t, tm)[d]
+                           for s, t, d in solo]),
+        lambda: GR.gmm_ref(xs, p["wg"], te, tm)[dest],
+        "gmm_tc_kernel", device.type == "cuda", reps,
+        rows * D * x.element_size() + nbytes(p["wg"]) + rows * F * 4,
+        2 * rows * D * F, x.dtype, GMM_ATOL, GMM_RTOL,
+        what="vmap gmm gate_up")
+    res.update(routed_rows=rows, tp=xs.shape[0],
+               solo_tp=[s.shape[0] for s, _, _ in solo], library_ms=None)
     return res
 
 
@@ -1124,9 +1211,18 @@ def check_moe_path(res, batch: int = MOE_BATCH) -> None:
     require(res["selections"] == ["cuda.gmm"],
             f"MoE: cuda.gmm under the default policy, got "
             f"{res['selections']}")
-    require(res["launches"] == {"gmm": 3 * batch, "gmm_f32": 0},
-            f"K4's bf16 body launched 3 times a sequence ({3 * batch}), "
-            f"got {res['launches']}")
+    require(res["launches"] == {"gmm": 3, "gmm_f32": 0},
+            f"K4's bf16 body launched 3 times for the {batch} sequences "
+            f"(vmapped: one moe_ffn over their tokens), got "
+            f"{res['launches']}")
+    require(res["loop_launches"] == {"gmm": 3 * batch, "gmm_f32": 0}
+            and res["loop_equal"],
+            f"MoE: the vmapped block equal bit for bit to the compiled MoE "
+            f"called a sequence at a time ({3 * batch} launches), got "
+            f"{res['loop_launches']}, relative L2 {res['rel_to_loop']:.3g}")
+    require(any("vmap" in e for e in res["bake_errors"]),
+            f"MoE: the vmapped entry names the vmap in bake_errors, got "
+            f"{res['bake_errors']}")
     require(res["finite"], "MoE: finite output")
     require(res["rel_l2"] <= MOE_RTOL and res["naive_rel_l2"] <= MOE_RTOL,
             f"MoE: relative L2 error against the f32 oracle within "
@@ -1962,7 +2058,8 @@ def check_nan_output_path(res) -> None:
 
 def shadow_path(mats, x_ref, cfg, p, x, device, iters: int = CG_ITERS):
     """Shadow checks at rate 1: the NPB-C CG's plan calls (cuda.ell) and
-    two MoE blocks (cuda.gmm, bf16) against the uncompiled program, then
+    two MoE blocks (cuda.gmm, bf16; each block's vmapped call checks its
+    sequences) against the uncompiled program, then
     ``shadow_diverge:dispatch`` on the BCSR CG at HPCG."""
     import torch
     from repro_torch import lilac
@@ -2663,12 +2760,14 @@ def train_path(seed: int, device, work: str, cfg=None,
         p, s, _ = naive_step(p, s, batch_i)
     res["naive_steps"] = list(log)
     if device.type == "cuda":
-        res["naive_profile"] = step_breakdown(naive_step, p, s, b0, device)
+        res["naive_profile"] = step_breakdown(
+            lambda: naive_step(p, s, b0), device)
         del p, s
         release(device)
         st = O.adamw_init(opt, params)
+        lilac_step = make_train_step(model, opt)
         res["lilac_profile"] = step_breakdown(
-            make_train_step(model, opt), params, st, b0, device)
+            lambda: lilac_step(params, st, b0), device)
     res["heartbeat"] = heartbeat
     res["tuner"] = REGISTRY.autotuner.stats.as_dict()
     return res
@@ -2690,9 +2789,9 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def step_breakdown(step, params, opt_state, batch, device, top: int = 8):
-    """One call of ``step`` under torch.profiler: device time by kernel
-    class and the ``top`` kernels, the step's wall ms and the device's
+def step_breakdown(fn, device, top: int = 8):
+    """One call of ``fn()`` under torch.profiler: device time by kernel
+    class and the ``top`` kernels, the call's wall ms and the device's
     idle share of it (1 - kernel time / wall time)."""
     import torch
     from torch.autograd import DeviceType
@@ -2705,7 +2804,7 @@ def step_breakdown(step, params, opt_state, batch, device, top: int = 8):
                                    ProfilerActivity.CUDA])
     with prof:
         t0 = time.perf_counter()
-        step(params, opt_state, batch)
+        fn()
         sync(device)
         wall = 1e3 * (time.perf_counter() - t0)
     kernels = [(e.key, e.device_time_total / 1e3, e.count)
@@ -2728,12 +2827,14 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
     require(res["moe_selections"] == ["cuda.gmm"],
             f"training: the inner MoE on cuda.gmm, got "
             f"{res['moe_selections']}")
-    per_step = 3 * layers * batch
+    # the block vmaps over the batch's sequences: one moe_ffn a layer
+    per_step = 3 * layers
     require(res["oracle_launches"]["gmm"] == per_step
             and res["loop_launches"]["gmm"] == per_step * steps,
             f"training: {per_step} K4 bf16 launches a step (3 x {layers} "
-            f"layers x {batch} sequences), got {res['oracle_launches']} for "
-            f"one step and {res['loop_launches']} for {steps}")
+            f"layers, the {batch} sequences vmapped), got "
+            f"{res['oracle_launches']} for one step and "
+            f"{res['loop_launches']} for {steps}")
     require(res["loss_rel"] <= TRAIN_LOSS_RTOL,
             f"training: the first loss within {TRAIN_LOSS_RTOL} of the "
             f"naive step's, got {res['loss_lilac']} against "
@@ -3108,7 +3209,9 @@ def print_dist_path(dr) -> None:
         v = r["gmm"]["variants"]["gate_up"]
         print(f"distributed rank {r['rank']}: K4 launches first step "
               f"{r['first_step_launches']}, by step "
-              f"{[s['launches'].get('gmm', 0) for s in r['steps']]}; routed "
+              f"{[s['launches'].get('gmm', 0) for s in r['steps']]} (the "
+              f"block vmaps its sequences; the per-sequence loop: "
+              f"{3 * c['layers'] * (c['batch'] // DIST_MESH[0])} a step); routed "
               f"rows of its experts by layer and sequence {r['routed_rows']} "
               f"against K4's Tp {r['tp']} a sequence; K4 on its experts vs "
               f"plain max|err| {v['max_abs_err']:.3g} (scaled "
@@ -3765,6 +3868,383 @@ def print_scan_path(res, smi: str) -> None:
           f"equal to host mode "
           f"{t['equal_to_host']}; max|err| against the uncompiled scan "
           f"{t['max_abs_err']:.3g}; {t['ms']:.3f} ms a call ({smi})")
+
+
+# ---------------------------------------------------------------------------
+# torch.func.vmap over lilac.compile: several right-hand sides at once
+# ---------------------------------------------------------------------------
+
+VMAP_RHS = 8                   # the right-hand sides of one vmapped solve
+VMAP_CASES = (("npb", "spmv_ell_staged"), ("hpcg", "spmv_ell_windowed"))
+# each vmapped iterate against its own solo compiled CG: each SpMV is bit
+# for bit a solo launch's, but torch's vmap of torch.dot (a bmm) rounds
+# apart from torch.dot: 2.6e-5 against 2.0e-7 relative over 1.1 M f32
+# terms on the CPU.  So the bound is 1e-5 or twice the uncompiled
+# program's own vmapped-against-solo spread on the same right-hand sides,
+# the larger
+VMAP_SOLO_RTOL = 1e-5
+
+
+def naive_spmv_oop(val, col, row_ptr, v):
+    """``naive_spmv`` written out of place, as a vmapped program must be:
+    eager ``torch.func.vmap`` cannot add a batch into an unbatched buffer
+    in place (the detector matches both forms)."""
+    import torch
+
+    rows = row_ptr.shape[0] - 1
+    row = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                  torch.diff(row_ptr), output_size=val.shape[0])
+    out = torch.zeros(rows, dtype=val.dtype, device=val.device)
+    return out.index_add(0, row, val * v[col])
+
+
+def rhs_batch(b, k: int, seed: int):
+    """``k`` right-hand sides: ``b``, then ``b`` scaled and perturbed."""
+    import torch
+
+    gen = torch.Generator(device=b.device).manual_seed(seed + 17)
+    noise = torch.rand((k - 1, b.shape[0]), generator=gen, device=b.device)
+    scale = torch.arange(2, k + 1, device=b.device, dtype=b.dtype)[:, None]
+    return torch.cat([b[None], b[None] * scale / 2 + 0.1 * noise])
+
+
+def batched_numbers(run, solo, plain, kernel: str, on_card: bool, reps: int,
+                    nb: int, flops: int, dtype="torch.float32",
+                    atol=KERNEL_ATOL, rtol=KERNEL_RTOL, what=""):
+    """One batched launch ``run()`` held against the same batch launched
+    element by element (``solo()``, its rows stacked: bit for bit) and
+    against its plain version, then timed beside the solo launches, with
+    its bound (the matrix's stored entries read once, plus the B vectors
+    and the B outputs) and its share of that bound."""
+    import torch
+
+    got, each, want = run(), solo(), plain()
+    if on_card:
+        torch.cuda.synchronize()
+    err, scaled = max_err(got, want, atol, rtol)
+    require(scaled <= 1.0, f"{what}: batched launch within atol={atol} + "
+            f"rtol={rtol}*|ref| of the plain version, max |err| {err:.3g}")
+    res = {"equal_to_solo": bool(torch.equal(got, each)), "max_abs_err": err,
+           "bytes": nb, "flops": flops}
+    del got, each, want
+    res["bound_ms"], res["bound_by"] = bound_ms(nb, flops, dtype)
+    res["ms"], res["host_ms"] = cuda_ms(run, reps) if on_card else (None,
+                                                                    None)
+    res["solo_ms"] = cuda_ms(solo, reps)[0] if on_card else None
+    res["profiler_ms"] = profiled_ms(run, max(2, reps // 2), kernel)["ms"] \
+        if on_card else None
+    res["plain_ms"] = cuda_ms(plain, 2)[0] if on_card else None
+    res["share"] = res["bound_ms"] / res["ms"] if res["ms"] else None
+    return res
+
+
+def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
+              rhs: int = VMAP_RHS, reps: int = 10) -> dict:
+    """``torch.func.vmap`` over compiled functions at the main path's
+    shapes: the CG of ``rhs`` right-hand sides at NPB-C (K1 staged) and
+    HPCG (K2), the naive SpMV compiled in host mode under
+    policy="cuda.ell"; the ELL layer in trace mode over ``rhs`` vectors at
+    NPB-C (K1 direct, lilac_torch::spmv_ell's vmap rule); the cuda.bcsr
+    SpMV over ``rhs`` vectors at HPCG (K3, the vectors as the operand's
+    columns).  For each: the launches of the vmapped call (counts set to 0
+    just before it), the answer against its solo and uncompiled forms, and
+    one batched launch against the solo launches and the plain version,
+    timed with its bound."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.kernels.bsr_spmm import kernel as B
+    from repro_torch.kernels.bsr_spmm import ref as BR
+    from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.kernels.spmv_ell import ref as R
+    from repro_torch.sparse import PackedBCSR, WindowedELL, ell_from_csr
+
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    out = {}
+    for name, body in VMAP_CASES:
+        a, b = mats[name]
+        bs = rhs_batch(b, rhs, seed)
+        fast = lilac.compile(naive_spmv_oop, mode="host", policy="cuda.ell",
+                             device=device)
+
+        def solve(f=fast, a=a, bs=bs):
+            return torch.func.vmap(lambda bb: cg(f, a, bb, iters))(bs)
+
+        K.reset_launches()
+        xs = solve()
+        sync(device)
+        launches = dict(K.LAUNCHES)
+        repacks = [fast.cache.stats.misses]
+        solve()
+        repacks.append(fast.cache.stats.misses - repacks[0])
+        prof = profiled_ms(solve, 1, body + "_kernel") if on_card else {}
+        r = {"body": body, "launches": launches[body],
+             "all_launches": launches, "profiled_launches":
+                 prof.get("launches"), "repacks": repacks,
+             "breakdown": step_breakdown(solve, device, top=4)
+             if on_card else None,
+             "selections": [n for _, n in fast.last_selections],
+             "matches": [(m.computation, m.format)
+                         for m in fast.last_report.matches],
+             "shape": tuple(xs.shape), "finite": bool(torch.isfinite(xs)
+                                                      .all())}
+        # each right-hand side alone through the same compiled function:
+        # an unbatched entry, which bakes and then serves its plan
+        x_solo = torch.stack([cg(fast, a, bs[j], iters) for j in range(rhs)])
+        info = fast.plan_info()
+        r.update(bake_errors=info["bake_errors"], baked=info["baked"],
+                 solo_plan_hits=info["plan_hits"],
+                 solo_repacks=fast.cache.stats.misses - sum(repacks))
+        x_naive = torch.func.vmap(
+            lambda bb: cg(naive_spmv_oop, a, bb, iters))(bs)
+        x_naive_solo = [cg(naive_spmv_oop, a, bs[j], iters)
+                        for j in range(rhs)]
+        r["rel_to_solo"] = max(rel_l2(xs[j], x_solo[j]) for j in range(rhs))
+        r["rel_to_naive"] = max(rel_l2(xs[j], x_naive[j])
+                                for j in range(rhs))
+        r["naive_spread"] = max(rel_l2(x_naive[j], x_naive_solo[j])
+                                for j in range(rhs))
+        r["rel_to_main_path"] = rel_l2(xs[0], x_refs[name])
+        r["ms"] = {"vmapped_solve": _host_ms(solve, device, 2),
+                   f"{rhs}_solo_solves": _host_ms(
+                       lambda: [cg(fast, a, bs[j], iters)
+                                for j in range(rhs)], device, 2)}
+        # one batched launch of the body against its rhs solo launches
+        (layout,) = marshaled(fast, WindowedELL)
+        vecs = torch.randn((rhs, a.cols), generator=gen, device=device)
+        wrapper = getattr(K, body + "_cuda")
+        kw = dict(perm=layout.perm, out_rows=a.rows)
+        csr_t = sparse_csr(a)
+        vt = vecs.T.contiguous()
+        r["kernel"] = batched_numbers(
+            lambda: wrapper(layout, vecs, **kw),
+            lambda: torch.stack([wrapper(layout, v, **kw) for v in vecs]),
+            lambda: torch.func.vmap(lambda v: R.spmv_ell_windowed_plain(
+                layout, v, **kw))(vecs),
+            body + "_kernel", on_card, reps,
+            # the stored entries once (a value and a 16-bit id), the B
+            # vectors, the permutation, the B outputs
+            a.nnz * (layout.val.element_size() + layout.col.element_size())
+            + nbytes(vecs, layout.perm) + rhs * a.rows * 4,
+            2 * a.nnz * rhs, what=f"vmap {body}")
+        r["kernel"]["library_ms"] = cuda_ms(lambda: csr_t @ vt, reps)[0] \
+            if on_card else None
+        out[name] = r
+        del fast, xs, x_solo, x_naive, x_naive_solo, layout, csr_t, vt
+        release(device)
+
+    # trace mode: the ELL layer over rhs vectors, K1's direct body
+    a = mats["npb"][0]
+    ell = ell_from_csr(a, lane=128)
+    vecs = torch.randn((rhs, a.cols), generator=gen, device=device)
+    bias = torch.randn(a.rows, generator=gen, device=device)
+    traced = lilac.compile(ell_layer, device=device)
+    host = lilac.compile(ell_layer, mode="host", device=device)
+
+    def layer(f):
+        return torch.func.vmap(lambda v: f(ell.val, ell.col, v, bias))(vecs)
+
+    K.reset_launches()
+    y = layer(traced)
+    sync(device)
+    first = K.LAUNCHES["spmv_ell"]
+    K.reset_launches()
+    layer(traced)
+    sync(device)
+    second = K.LAUNCHES["spmv_ell"]
+    y_host = layer(host)
+    y_plain = layer(ell_layer)
+    err, scaled = max_err(y, y_plain)
+    kw = dict(bias=bias, epilogue="relu")
+    out["trace"] = {
+        "launches": [first, second],
+        "selections": [(m.computation, n) for m, n in traced.last_selections],
+        "host_selections": [(m.computation, n)
+                            for m, n in host.last_selections],
+        "equal_to_host": bool(torch.equal(y, y_host)),
+        "max_abs_err": err, "within_tol": scaled <= 1.0,
+        "bake_errors": traced.plan_info()["bake_errors"],
+        "ms": _host_ms(lambda: layer(traced), device, 3)}
+    csr_t = sparse_csr(a)
+    vt = vecs.T.contiguous()
+    out["trace"]["kernel"] = batched_numbers(
+        lambda: K.spmv_ell_cuda(ell.val, ell.col, vecs, **kw),
+        lambda: torch.stack([K.spmv_ell_cuda(ell.val, ell.col, v, **kw)
+                             for v in vecs]),
+        lambda: torch.func.vmap(lambda v: R.spmv_ell_plain(
+            ell.val, ell.col, v, **kw))(vecs),
+        "spmv_ell_kernel", on_card, reps,
+        a.nnz * (ell.val.element_size() + ell.col.element_size())
+        + nbytes(vecs, bias) + rhs * a.rows * 4, 2 * a.nnz * rhs,
+        what="vmap spmv_ell")
+    out["trace"]["kernel"]["library_ms"] = cuda_ms(
+        lambda: csr_t @ vt, reps)[0] if on_card else None
+    del traced, host, ell, csr_t, vt, y, y_host, y_plain
+    release(device)
+
+    # K3: the cuda.bcsr SpMV over rhs vectors, the operand's columns
+    a = mats["hpcg"][0]
+    vecs = torch.randn((rhs, a.cols), generator=gen, device=device)
+    fast = lilac.compile(naive_spmv_oop, mode="host", policy="cuda.bcsr",
+                         device=device)
+    B.reset_launches()
+    y = torch.func.vmap(lambda v: fast(a.val, a.col_ind, a.row_ptr, v))(vecs)
+    sync(device)
+    launches = dict(B.LAUNCHES)
+    (packed,) = marshaled(fast, PackedBCSR)
+    vt = vecs.T.contiguous()
+    cols = [vt[:, j:j + 1].contiguous() for j in range(rhs)]
+    plain = BR.bsr_spmm_plain(packed, vt, out_rows=a.rows).T
+    err, scaled = max_err(y, plain)
+    csr_t = sparse_csr(a)
+    out["bcsr"] = {
+        "launches": launches, "selections": [n for _, n in
+                                             fast.last_selections],
+        "max_abs_err": err, "within_tol": scaled <= 1.0,
+        "rel_to_naive": rel_l2(y, torch.func.vmap(lambda v: naive_spmv_oop(
+            a.val, a.col_ind, a.row_ptr, v))(vecs)),
+        "kernel": batched_numbers(
+            lambda: B.bsr_spmm_cuda(packed, vt, out_rows=a.rows),
+            lambda: torch.cat([B.bsr_spmm_cuda(packed, c, out_rows=a.rows)
+                               for c in cols], 1),
+            lambda: BR.bsr_spmm_plain(packed, vt, out_rows=a.rows),
+            "bsr_spmm_narrow", on_card, reps,
+            packed.nnz * (packed.val.element_size() + 2) + nbytes(vt)
+            + rhs * a.rows * 4, 2 * packed.nnz * rhs, what="vmap bsr_spmm")}
+    out["bcsr"]["kernel"]["library_ms"] = cuda_ms(
+        lambda: csr_t @ vt, reps)[0] if on_card else None
+    del fast, packed, csr_t, vt, cols, y, plain
+    release(device)
+    return out
+
+
+def check_vmap_path(res, iters: int = CG_ITERS) -> None:
+    calls = iters + 1                   # one SpMV for r0, one per iteration
+    for name, body in VMAP_CASES:
+        r = res[name]
+        require([tuple(m) for m in r["matches"]] == [("spmv_csr", "CSR")]
+                and r["selections"] == ["cuda.ell"],
+                f"vmap {name}: one spmv_csr/CSR match on cuda.ell, got "
+                f"{r['matches']} via {r['selections']}")
+        require(r["launches"] == calls and r["profiled_launches"] == calls,
+                f"vmap {name}: {body} launched once a batched SpMV ({calls} "
+                f"a solve), got {r['launches']} (profiler "
+                f"{r['profiled_launches']})")
+        require(r["repacks"] == [1, 0] and r["solo_repacks"] == 0,
+                f"vmap {name}: one repack, then none (solo calls too), got "
+                f"{r['repacks']}, {r['solo_repacks']}")
+        require(r["baked"] == 1 and any("vmap" in e for e in
+                                        r["bake_errors"]),
+                f"vmap {name}: the vmapped entry names the vmap and never "
+                f"bakes, the solo one bakes: {r['bake_errors']}, baked "
+                f"{r['baked']}")
+        require(r["solo_plan_hits"] > 0,
+                f"vmap {name}: solo calls afterwards hit their plan, got "
+                f"{r['solo_plan_hits']} hits")
+        solo_tol = max(VMAP_SOLO_RTOL, 2 * r["naive_spread"])
+        require(r["finite"] and r["rel_to_solo"] <= solo_tol
+                and r["rel_to_naive"] <= CG_RTOL,
+                f"vmap {name}: each iterate within {solo_tol:.3g} of its "
+                f"solo compiled CG (the uncompiled CG's own vmapped-solo "
+                f"spread {r['naive_spread']:.3g}) and within {CG_RTOL} of "
+                f"the vmapped uncompiled CG, got {r['rel_to_solo']:.3g} and "
+                f"{r['rel_to_naive']:.3g}")
+        require(r["kernel"]["equal_to_solo"],
+                f"vmap {name}: one batched {body} launch equal bit for bit "
+                f"to its {VMAP_RHS} solo launches")
+    t = res["trace"]
+    require(t["launches"] == [1, 1] and t["equal_to_host"]
+            and t["within_tol"]
+            and [tuple(s) for s in t["selections"] + t["host_selections"]]
+            == [("spmv_ell", "cuda.ell")] * 2,
+            f"vmap ELL layer (trace mode): one K1 direct launch a call, equal "
+            f"to host mode, within tolerance of the uncompiled layer, got "
+            f"{t['launches']} launches, selections {t['selections']}, "
+            f"equal {t['equal_to_host']}")
+    require(t["kernel"]["equal_to_solo"],
+            "vmap ELL layer: one batched K1 direct launch equal bit for bit "
+            "to its solo launches")
+    k3 = res["bcsr"]
+    require(k3["launches"] == {"bsr_spmm_wide": 0, "bsr_spmm_narrow": 1}
+            and k3["selections"] == ["cuda.bcsr"] and k3["within_tol"],
+            f"vmap cuda.bcsr: one K3 (narrow) launch for {VMAP_RHS} vectors "
+            f"within tolerance of the plain version, got {k3['launches']}, "
+            f"{k3['selections']}, max |err| {k3['max_abs_err']:.3g}")
+
+
+def print_vmap_path(res, smi: str) -> None:
+    def kernel_line(k) -> str:
+        share = f"{k['share']:.3f}" if k["share"] is not None else "n/a"
+        return (f"one launch at B = {VMAP_RHS}: {_ms(k['ms'])} ms (profiler "
+                f"{_ms(k['profiler_ms'])} ms a launch, host "
+                f"{_ms(k['host_ms'])} ms to enqueue), {VMAP_RHS} solo "
+                f"launches {_ms(k['solo_ms'])} ms, bound "
+                f"{k['bound_ms']:.4f} ms by {k['bound_by']} (share {share}), "
+                f"plain {_ms(k['plain_ms'])} ms, cuSPARSE SpMM "
+                f"{_ms(k['library_ms'])} ms; equal to the solo launches bit "
+                f"for bit: {k['equal_to_solo']}; max|err| vs plain "
+                f"{k['max_abs_err']:.3g} ({smi})")
+
+    for name, body in VMAP_CASES:
+        r = res[name]
+        print(f"vmap {name} CG x {VMAP_RHS} right-hand sides (host mode, "
+              f"cuda.ell): {body} launched {r['launches']} times a solve "
+              f"(profiler {r['profiled_launches']}; all {r['all_launches']})"
+              f"; repacks {r['repacks']}; selections {r['selections']}; "
+              f"iterates against their solo compiled CGs "
+              f"{r['rel_to_solo']:.3g} (tol max({VMAP_SOLO_RTOL}, twice the "
+              f"uncompiled CG's vmapped-solo spread {r['naive_spread']:.3g}))"
+              f", against the "
+              f"vmapped uncompiled CG {r['rel_to_naive']:.3g} (tol "
+              f"{CG_RTOL}), the first against the main path's naive CG "
+              f"{r['rel_to_main_path']:.3g}; bake_errors {r['bake_errors']};"
+              f" solo calls after it: {r['solo_plan_hits']} plan hits")
+        print(f"vmap {name} times ({smi}, host clock from a sync to a sync, "
+              f"median): one vmapped solve {r['ms']['vmapped_solve']:.3f} "
+              f"ms, {VMAP_RHS} solo solves (baked plans) "
+              f"{r['ms'][f'{VMAP_RHS}_solo_solves']:.3f} ms; one vmapped "
+              f"solve profiled: {r['breakdown']}")
+        print(f"vmap {body} ({name}): {kernel_line(r['kernel'])}")
+    t = res["trace"]
+    print(f"vmap ELL layer x {VMAP_RHS} vectors (npb, trace mode): K1 direct "
+          f"launches a call {t['launches']}, selections {t['selections']} "
+          f"(host mode {t['host_selections']}), equal to host mode "
+          f"{t['equal_to_host']}, max|err| against the uncompiled layer "
+          f"{t['max_abs_err']:.3g}, {t['ms']:.3f} ms a call; bake_errors "
+          f"{t['bake_errors']}")
+    print(f"vmap spmv_ell (npb ELL, relu+bias): {kernel_line(t['kernel'])}")
+    k3 = res["bcsr"]
+    print(f"vmap cuda.bcsr SpMV x {VMAP_RHS} vectors (hpcg): launches "
+          f"{k3['launches']}, selections {k3['selections']}, max|err| vs "
+          f"plain {k3['max_abs_err']:.3g}, |y-y_naive|/|y_naive| "
+          f"{k3['rel_to_naive']:.3g}")
+    print(f"vmap bsr_spmm_narrow (hpcg, the vectors as {VMAP_RHS} columns):"
+          f" {kernel_line(k3['kernel'])}")
+
+
+def vmap_entries(res) -> list:
+    """The kernels line's entries of the vmap phase: each body's batched
+    launch, with the launches of the vmapped call."""
+    def entry(name, path, launches, k):
+        return {"name": name, "path": path, "route": "cuda",
+                "source": SOURCES[name], "replaces": REPLACES[name],
+                "launches": launches, "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"]}
+
+    out = [entry(body, f"vmap: the {name} CG over {VMAP_RHS} right-hand "
+                       f"sides (one launch for the {VMAP_RHS})",
+                 res[name]["launches"], res[name]["kernel"])
+           for name, body in VMAP_CASES]
+    out.append(entry("spmv_ell", f"vmap: the ELL layer over {VMAP_RHS} "
+                                 f"vectors in trace mode",
+                     res["trace"]["launches"][0], res["trace"]["kernel"]))
+    out.append(entry("bsr_spmm_narrow", f"vmap: the cuda.bcsr SpMV over "
+                                        f"{VMAP_RHS} vectors as columns",
+                     res["bcsr"]["launches"]["bsr_spmm_narrow"],
+                     res["bcsr"]["kernel"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4488,8 +4968,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
         for _ in range(2):
             _, c = eng._decode(params, c, tok, pos)
         res["decode_profile"] = step_breakdown(
-            lambda p, s, b: eng._decode(p, c, tok, pos), params, None, None,
-            device)
+            lambda: eng._decode(params, c, tok, pos), device)
         res["decode_profile"]["bucket"] = list(big)
         del c
     release(device)
@@ -5657,6 +6136,17 @@ def run(args, work: str) -> int:
     record["scan_path"] = sc
     release(device)
 
+    # -- torch.func.vmap over compiled functions (K1, K2, K3) ---------------
+    t0 = time.perf_counter()
+    with fault_free("vmap"):
+        vm = vmap_path(mats, x_refs, args.seed, device)
+    print_vmap_path(vm, smi)
+    print(f"vmap phase {time.perf_counter() - t0:.1f}s")
+    check_vmap_path(vm)
+    kernels += vmap_entries(vm)
+    record["vmap_path"] = vm
+    release(device)
+
     # -- K1's rows_per_slab variants, the ELL layer in trace mode ------------
     with fault_free("slab variants and the ELL layer in trace mode"):
         slabs = slab_variants(mats["npb"][0], args.seed, device)
@@ -5802,9 +6292,33 @@ def run(args, work: str) -> int:
           f"error vs the f32 oracle {moe['rel_l2']:.3g} (naive bf16 "
           f"{moe['naive_rel_l2']:.3g}; tol {MOE_RTOL}), vs naive "
           f"{moe['rel_to_naive']:.3g}; peak {moe['peak_bytes'] / 2**30:.2f} "
-          f"GiB; K4 launches {moe['launches']}")
+          f"GiB; K4 launches {moe['launches']} under torch.func.vmap (the "
+          f"per-sequence loop it replaced: {moe['loop_launches']}, "
+          f"{moe['loop_call_ms']:.3f} ms a block from its plans; equal to "
+          f"the loop bit for bit {moe['loop_equal']}, relative L2 "
+          f"{moe['rel_to_loop']:.3g})")
     check_moe_path(moe)
     record["moe_path"] = moe
+    mb = moe_batched_numbers(OLMOE, p, x, device)
+    print(f"vmap gmm gate_up ({x.shape[0]} sequences' {mb['routed_rows']} "
+          f"routed rows in Tp {mb['tp']}; alone Tp {mb['solo_tp']}): one "
+          f"launch {_ms(mb['ms'])} ms (profiler {_ms(mb['profiler_ms'])} "
+          f"ms), the sequences one launch each {_ms(mb['solo_ms'])} ms, "
+          f"bound {mb['bound_ms']:.4f} ms by {mb['bound_by']} (share "
+          f"{_ms(mb['share'])}), plain {_ms(mb['plain_ms'])} ms; each "
+          f"token's row equal to the solo launches' bit for bit: "
+          f"{mb['equal_to_solo']}; max|err| vs plain {mb['max_abs_err']:.3g}"
+          f" ({smi})")
+    require(mb["equal_to_solo"], "vmap gmm: each token's row of the batched "
+            "launch equal bit for bit to its sequence's solo launch")
+    kernels.append({
+        "name": "gmm", "path": f"vmap: moe_block(impl='lilac') over "
+        f"{x.shape[0]} sequences, the gate/up product over their tokens",
+        "route": "cuda", "source": SOURCES["gmm"], "replaces": REPLACES["gmm"],
+        "launches": moe["launches"]["gmm"],
+        **{k: mb[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}})
+    record["moe_batched"] = mb
     gmm, gmm32 = gmm_kernel_phases(OLMOE, p, x, device)
     print(f"gmm Tp {gmm['tp']} rows for {gmm['routed_rows']} routed")
     print_variants(gmm, f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
@@ -5907,7 +6421,7 @@ def run(args, work: str) -> int:
     print(f"shadow rate 1: npb CG {sh['npb']['info']['containment']}, "
           f"{sh['npb']['steady_call_ms']:.3f} ms a call with its check, "
           f"|x-x_naive|/|x_naive| = {sh['npb']['rel_to_naive']:.3g}; MoE "
-          f"{sh['moe']} (blocks with their checks, ms)")
+          f"{sh['moe']} (the sequences, each with its check, twice, ms)")
     print(f"shadow_diverge:dispatch (hpcg BCSR CG): {sh['bcsr']}")
     check_shadow_path(sh)
     del p, x
@@ -5980,7 +6494,8 @@ def run(args, work: str) -> int:
     for i, st in enumerate(tr["naive_steps"]):
         print(f"training naive step {i}: {train_line(st)}")
     print(f"training: K4 launches over {TRAIN_STEPS} steps "
-          f"{tr['loop_launches']}; checkpoints {tr['checkpoints']}; restart "
+          f"{tr['loop_launches']} (the per-sequence loop: "
+          f"{3 * TRAIN_LAYERS * TRAIN_BATCH * TRAIN_STEPS}); checkpoints {tr['checkpoints']}; restart "
           f"from step {tr['restart_start_step']} in "
           f"{tr['restart_seconds']:.1f}s, losses {tr['restart_history']} "
           f"against {tr['history']}; the process took {tr['seconds']:.1f}s")

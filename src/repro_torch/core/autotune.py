@@ -79,7 +79,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import faults, levels
 from repro_torch.core import resilience as R
 from repro_torch.core.jsonstore import JsonStore, cache_dir
 
@@ -379,11 +379,14 @@ def synthesize_operands(binding: Dict[str, Any], seed: int = 0,
 
 
 def _is_concrete(v: Any) -> bool:
-    """A tensor that holds data: not fake, not on the meta device."""
+    """A tensor that holds data: not fake, not on the meta device, not
+    batched (under ``torch.func.vmap`` the tuner times stand-ins of the
+    per-element shapes, as in a trace: the decision is the per-element
+    program's, which unbatched calls share)."""
     from torch._subclasses.fake_tensor import FakeTensor
 
     return (isinstance(v, torch.Tensor) and not isinstance(v, FakeTensor)
-            and v.device.type != "meta")
+            and v.device.type != "meta" and not levels.batched(v))
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import faults, levels
 from repro_torch.core.marshal import DataPlane
 
 Binding = Dict[str, Any]
@@ -147,10 +147,27 @@ class Harness:
         if self.setup is not None and not self._is_up():
             self.setup(self.persistent)
             self._mark(True)
-        out = self.fn(binding, ctx)
+        key = self._batched_source(binding)
+        if key is None:
+            out = self.fn(binding, ctx)
+        else:
+            out = levels.per_element(lambda b: self.fn(b, ctx), binding, key)
         if faults.ACTIVE is not None:
             out = faults.corrupt("nan_output", self.name, out)
         return out
+
+    def _batched_source(self, binding: Binding) -> Optional[str]:
+        """The key of a marshal source that is batched at its outermost
+        ``torch.func`` level (a ``vmap`` over the matrix), or None.  A
+        repack reads the matrix's data, so such a call runs once an
+        element (``levels.per_element``): one repack and one launch an
+        element, each as an unbatched call would run them."""
+        for cl in self.marshal:
+            for alts in cl.keys:
+                key = next((k for k in alts if k in binding), None)
+                if key is not None and levels.outer_batched(binding[key]):
+                    return key
+        return None
 
     def release(self) -> None:
         """AfterLastExecution: tear the backend down if it is up (a later
@@ -304,7 +321,9 @@ REGISTRY = HarnessRegistry()
 # ---------------------------------------------------------------------------
 # Builtin torch.* kernel bodies.  Marshaled inputs (ell/dense keyword args)
 # are produced by the repack clauses declared in the spec texts and injected
-# by the generated wrapper (repro_torch.core.spec).
+# by the generated wrapper (repro_torch.core.spec).  The forward bodies
+# write out of place (``zeros(...).index_add(...)``, ``.index_put(...)``
+# on a fresh buffer), so that under ``torch.func.vmap`` their ops batch.
 # ---------------------------------------------------------------------------
 
 def _row_ids(binding: Binding) -> torch.Tensor:
@@ -320,14 +339,13 @@ def _row_ids(binding: Binding) -> torch.Tensor:
 def _spmv_segment(b: Binding, ctx: CallCtx):
     prod = b["a"] * b["iv"][b["colidx"]]
     out = torch.zeros(b["rows"], dtype=prod.dtype, device=prod.device)
-    return out.index_add_(0, _row_ids(b), prod)
+    return out.index_add(0, _row_ids(b), prod)
 
 
 def _ell_spmv(val, col, perm, vec):
     acc = torch.sum(val * vec[col], dim=1)
     out = torch.zeros(val.shape[0], dtype=acc.dtype, device=acc.device)
-    out[perm.long()] = acc
-    return out
+    return out.index_put((perm.long(),), acc)
 
 
 def _spmv_ell_host(b: Binding, ctx: CallCtx, *, ell):
@@ -378,7 +396,7 @@ def _spmm_segment(b: Binding, ctx: CallCtx):
     prod = b["a"][:, None] * b["dense"][b["colidx"]]
     out = torch.zeros((b["rows"], prod.shape[1]), dtype=prod.dtype,
                       device=prod.device)
-    return out.index_add_(0, _row_ids(b), prod)
+    return out.index_add(0, _row_ids(b), prod)
 
 
 def _spmm_bcsr_host(b: Binding, ctx: CallCtx, *, bcsr):
@@ -402,8 +420,7 @@ def _spmv_ell_direct(b: Binding, ctx: CallCtx):
     if perm is None:
         return acc
     out = torch.zeros(b["rows"], dtype=acc.dtype, device=acc.device)
-    out[perm] = acc
-    return out
+    return out.index_put((perm,), acc)
 
 
 def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -436,8 +453,7 @@ def _moe_capacity(b: Binding, ctx: CallCtx, capacity_factor: float = 2.0):
     keep = pos < C
     slot = torch.where(keep, flat_e * C + pos, E * C)           # overflow
     xb = torch.zeros((E * C + 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    xb[slot] = x[flat_t]
-    xb = xb[:-1].reshape(E, C, x.shape[1])
+    xb = xb.index_put((slot,), x[flat_t])[:-1].reshape(E, C, x.shape[1])
     g = torch.einsum("ecd,edf->ecf", xb, wg)
     u = torch.einsum("ecd,edf->ecf", xb, wu)
     h = torch.nn.functional.silu(g) * u
@@ -446,7 +462,7 @@ def _moe_capacity(b: Binding, ctx: CallCtx, capacity_factor: float = 2.0):
                                   device=y.device)])
     contrib = y[slot] * flat_g[:, None]
     out = torch.zeros((T, contrib.shape[1]), dtype=contrib.dtype,
-                      device=x.device).index_add_(0, flat_t, contrib)
+                      device=x.device).index_add(0, flat_t, contrib)
     return out.to(x.dtype)
 
 
@@ -457,7 +473,7 @@ def _spmv_csr_bwd(b: Binding, ctx: CallCtx, primal, ct):
     r = _row_ids(b)
     return {
         "a": ct[r] * b["iv"][b["colidx"]],
-        "iv": torch.zeros_like(b["iv"]).index_add_(
+        "iv": torch.zeros_like(b["iv"]).index_add(
             0, b["colidx"], b["a"] * ct[r]),
     }
 
@@ -471,7 +487,7 @@ def _spmv_ell_bwd(b: Binding, ctx: CallCtx, primal, ct):
     col = b["col_ind"].reshape(-1)
     return {
         "val": dacc[:, None] * b["vector"][b["col_ind"]],
-        "vector": torch.zeros_like(b["vector"]).index_add_(
+        "vector": torch.zeros_like(b["vector"]).index_add(
             0, col, (b["val"] * dacc[:, None]).reshape(-1)),
     }
 
@@ -484,7 +500,11 @@ def _spmm_csr_bwd(b: Binding, ctx: CallCtx, primal, ct):
     """CSR SpMM backward: ``d_dense = Aᵀ·ct`` as an O(nnz·N) scatter,
     ``d_a`` the per-entry row dot.  The reference's body, taken over the
     entries in chunks of ``SPMM_BWD_CHUNK`` gathered values, so that no
-    (nnz, N) gather exists whole (15 GB for HPCG-104³ x 128)."""
+    (nnz, N) gather exists whole (15 GB for HPCG-104³ x 128).  It adds
+    into ``d_dense`` in place, chunk by chunk (an out-of-place add would
+    copy the whole operand a chunk): under ``torch.func.vmap`` it runs only
+    where the operand is batched itself, so ``zeros_like`` is batched
+    too."""
     r, a, col, dense = _row_ids(b), b["a"], b["colidx"], b["dense"]
     step = max(1, SPMM_BWD_CHUNK // max(dense.shape[1], 1))
     da, dd = [], torch.zeros_like(dense)
@@ -502,12 +522,14 @@ def _moe_ffn_bwd(b: Binding, ctx: CallCtx, primal, ct):
     over its expert-sorted rows) drop nothing either, and this is the
     exact gradient of what they compute.  The capacity is the largest
     load (one host read), E·max_load rows; in a trace, where routes have
-    no values, the token count, E·T rows as in the dense dispatch."""
+    no values, and under ``torch.func.vmap``, where a batched route has no
+    one largest load, the token count, E·T rows as in the dense
+    dispatch."""
     from torch._subclasses.fake_tensor import is_fake
 
     idx, E = b["idx"], b["experts"]
     top = idx.shape[0]
-    if not is_fake(idx):
+    if not is_fake(idx) and not levels.batched(idx):
         flat = idx.reshape(-1).long()
         top = int(torch.zeros(E, dtype=torch.long, device=flat.device)
                   .index_add_(0, flat, torch.ones_like(flat)).max())

@@ -53,7 +53,24 @@ backward too, so the backward's sparse products (the SpMVᵀ, a COO SpMV of
 the matrix's entries) are detected like any other and the entry bakes.
 A compiled function called while another trace runs (``make_fx``, a
 compiled step) traces and validates on its own, outside the ambient modes
-(``detect.own_trace``).
+(``detect.own_trace``).  Vmap-of-compile: ``torch.func.vmap(compile(f))``
+traces ``f`` on the per-element shapes (a batched tensor hides its batch
+axis), so detection fires on the per-element program, and the call runs
+that program on the batched tensors: trace mode its rewritten graph, each
+custom op once for the batch through its ``register_vmap`` rule (K1, K2
+and K4 as one launch, K3 with the vectors as columns), host mode the
+interpreter, each harness once on the batched binding.  A harness with a
+marshal clause whose marshal source (the matrix) is batched runs once an
+element (``levels.per_element``: a repack and a launch each).  Such a
+call keys an entry of its own (``levels.grad_state``), never serves or
+bakes a plan (``bake_errors`` names the vmap), and a later unbatched
+call still serves its plan.  The validator reads a batched output (a
+sync) until a call of the entry runs clean; later calls are checked as
+plan calls are, by the sampled shadow check against the uncompiled
+function under the same vmap (``_maybe_shadow_batched``).
+A call under ``torch.func.grad`` as well (the training step's vmapped
+MoE) interprets, each ``vjp`` clause in a
+:class:`~repro_torch.core.rewrite.HarnessCall`, which batches.
 
 **Scans** (docs/transforms.md, "scan: detect once, reuse every
 iteration").  A torch scan whose body holds a match is one ``scan_body``
@@ -97,11 +114,13 @@ import time
 from typing import Any, Callable, Dict, FrozenSet, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import detect as D
 from repro_torch.core import faults
 from repro_torch.core import harness as H
+from repro_torch.core import levels
 from repro_torch.core import plan as P
 from repro_torch.core import plan_search as PS
 from repro_torch.core import resilience as R
@@ -146,6 +165,12 @@ class CompiledEntry:
     # per tensor leaf, whether it requires grad: such an entry carries
     # gradients (epilogues unfused, never baked)
     grad_inputs: Tuple[bool, ...] = ()
+    # a leaf carries a vmap level: the calls run batched, never a plan
+    batched: bool = False
+    # a batched entry's call ran clean under the validator: later calls
+    # are not validated (no sync), the shadow check samples them as it
+    # samples plan calls; a quarantine or divergence clears it
+    validated: bool = False
     # rewrite.needed_nodes per set of matches evaluated (containment can
     # disable single matches)
     _needed: Dict[FrozenSet[int], frozenset] = dataclasses.field(
@@ -193,11 +218,13 @@ def _leaf_key(x) -> Tuple:
     return ("py", t[1].__name__, t[2])
 
 
-def _func_wrapped(t) -> bool:
-    """A ``torch.func`` transform's tensor: a custom op's
-    ``register_autograd`` formula cannot run under it (``torch.library``
-    gives it no ``setup_context``), so such a call interprets."""
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+def _interprets(t) -> bool:
+    """A tensor of a ``torch.func`` transform other than ``vmap``: a custom
+    op's ``register_autograd`` formula cannot run under it
+    (``torch.library`` gives it no ``setup_context``), so a trace-mode call
+    with one interprets.  Under ``vmap`` alone the rewritten graph runs,
+    each custom op through its ``register_vmap`` rule."""
+    return not levels.only_batched(t)
 
 
 def resolve_platform(platform: Optional[str], device=None) -> str:
@@ -397,8 +424,10 @@ class LilacFunction:
         self.stats["detect_seconds"] += time.perf_counter() - t1
         entry = CompiledEntry(gm, report, tensor_pos, out_spec[-1],
                               pins=pins, cache_key=key,
-                              grad_inputs=tuple(leaves[i].requires_grad
-                                                for i in tensor_pos))
+                              grad_inputs=tuple(levels.requires_grad(leaves[i])
+                                                for i in tensor_pos),
+                              batched=any(levels.batched(leaves[i])
+                                          for i in tensor_pos))
         self._reset_bake(entry)
         complete = len(pins) == len(entry.flat())
         # a served record with complete pins never re-persists; one whose
@@ -411,11 +440,17 @@ class LilacFunction:
 
     def _reset_bake(self, entry: CompiledEntry) -> None:
         """Clear the entry's refusal to bake, except the standing ones: an
-        entry whose calls carry gradients (a replay records no autograd
-        graph), and one that holds a ``scan_body`` rewrite."""
+        entry whose calls run under ``vmap`` or carry gradients (a replay
+        neither batches nor records an autograd graph), and one that holds
+        a ``scan_body`` rewrite."""
         runs = "rewritten graph" if self.mode == "trace" else "interpreter"
         entry.bake_error = None
-        if any(entry.grad_inputs):
+        if entry.batched:
+            entry.bake_error = (
+                f"vmapped call (a tensor carries a torch.func.vmap level): "
+                f"runs the {runs} on the batched tensors, each harness once "
+                f"for the batch, never a plan")
+        elif any(entry.grad_inputs):
             entry.bake_error = (
                 f"carries gradients (an input requires grad): runs the "
                 f"{runs} with autograd through the harnesses, never a plan")
@@ -595,10 +630,66 @@ class LilacFunction:
         rate r, call n is checked iff the integer part of n*r advances, so
         every window of 1/r calls holds one check.  ``r`` is the adaptive
         effective rate."""
-        self._shadow_ctr = n = self._shadow_ctr + 1
-        if int(n * r) == int((n - 1) * r):
+        if not self._sampled(1, r):
             return out
-        self.resilience_stats.shadow_checks += 1
+        ref = self._shadow_ref(flat, spec, out, 1)
+        if ref is out:
+            return out
+        # the plan's answer is wrong: serve the uncompiled one for this
+        # call, quarantine what the plan selected and tear it down, so the
+        # next call selects, tunes and bakes again
+        self._shadow_divergence(plan, "shadow divergence")
+        return ref
+
+    def _maybe_shadow_batched(self, entry: CompiledEntry, flat, spec, out,
+                              tensors):
+        """The sampled shadow check of a vmapped call, which serves no
+        plan: the uncompiled function runs on the same batched tensors
+        (``vmap`` of ``f``) and each element is held to the plan shadow's
+        bound (``outputs_close`` reads a batched verdict).  The call stands
+        for one call an element, so the sampling counter and
+        ``shadow_checks`` advance by the batch size.  A divergence
+        quarantines what the call selected, as a plan's does.  A call
+        traced into another graph, or captured into a CUDA graph, is not
+        checked: the check would be recorded with it."""
+        r = self._shadow.effective()
+        if r <= 0.0 or self._in_shadow \
+                or any(faults.traced(levels.base(t)) for t in tensors) \
+                or _get_current_dispatch_mode() is not None \
+                or (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+            return out
+        k = levels.batch_size(tensors)
+        if not self._sampled(k, r):
+            return out
+        ref = self._shadow_ref(flat, spec, out, k)
+        if ref is out:
+            return out
+        reason = "shadow divergence (vmapped call)"
+        self._shadow.spike(reason)
+        q = R.shared_quarantine()
+        for (m, name), sched in zip(self.last_selections,
+                                    self.last_schedules):
+            q.add(m.computation, name, variant_key(sched, None),
+                  reason=reason, site=name)
+            i = entry.index_of(m)
+            if i is not None and entry.pins.get(i, (None,))[0] == name:
+                del entry.pins[i]
+        self._unwind(entry, reason)
+        return ref
+
+    def _sampled(self, k: int, r: float) -> bool:
+        """Advance the shadow counter by ``k`` calls: whether a sample at
+        rate ``r`` falls among them."""
+        n0 = self._shadow_ctr
+        self._shadow_ctr = n = n0 + k
+        return int(n * r) != int(n0 * r)
+
+    def _shadow_ref(self, flat, spec, out, k: int):
+        """One shadow check of ``k`` calls' output ``out``: ``out`` itself
+        when the uncompiled program agrees (or fails: ours is kept), else
+        the uncompiled program's answer, with the divergence counted."""
+        self.resilience_stats.shadow_checks += k
         args, kwargs = tree_unflatten(self._unwrap(flat), spec)
         self._in_shadow = True
         try:
@@ -611,11 +702,7 @@ class LilacFunction:
                 and not faults.check("shadow_diverge", "dispatch"):
             self._shadow.clean()
             return out
-        # the plan's answer is wrong: serve the uncompiled one for this
-        # call, quarantine what the plan selected and tear it down, so the
-        # next call selects, tunes and bakes again
         self.resilience_stats.shadow_divergences += 1
-        self._shadow_divergence(plan, "shadow divergence")
         return ref
 
     def _shadow_divergence(self, plan: P.ExecutablePlan, reason: str):
@@ -717,14 +804,18 @@ class LilacFunction:
             if got is not None:
                 self._note_hot(plan)
                 return self._serve(plan, got, flat, spec)
-        if self.mode == "trace" and not any(map(_func_wrapped, tensors)):
+        if self.mode == "trace" and not any(map(_interprets, tensors)):
             outs = list(entry.rewritten(*tensors))
             self.last_selections = list(entry.selections)
             self.last_schedules = list(entry.schedules)
             if self.bake_enabled and not entry.no_bake:
                 self._maybe_bake_graph(entry, flat, tensors, spec)
-            return tree_unflatten(outs, entry.out_spec)
-        return self._interpret(entry, flat, tensors, spec)
+            out = tree_unflatten(outs, entry.out_spec)
+        else:
+            out = self._interpret(entry, flat, tensors, spec)
+        if entry.batched:
+            out = self._maybe_shadow_batched(entry, flat, spec, out, tensors)
+        return out
 
     def _containment(self, entry: CompiledEntry) -> R.Containment:
         def on_quarantine(m, harness, vkey, reason):
@@ -738,7 +829,8 @@ class LilacFunction:
 
         return R.Containment(self.registry, R.shared_quarantine(),
                              on_quarantine=on_quarantine,
-                             stats=self.resilience_stats)
+                             stats=self.resilience_stats,
+                             read_batched=not entry.validated)
 
     def _unwind(self, entry: CompiledEntry, reason: str) -> None:
         """A quarantine or divergence made the entry's resolution stale:
@@ -746,6 +838,7 @@ class LilacFunction:
         persisted plan record and its joint result, so the next call
         selects, tunes and bakes again.  Pins still valid stay."""
         entry.rewritten = None      # trace mode rebuilds its graph
+        entry.validated = False
         entry.persisted = False
         entry.joint_done = False
         entry.joint = None
@@ -802,6 +895,7 @@ class LilacFunction:
                 self._disable(entry, rf)
                 selections.clear()
                 schedules.clear()
+        entry.validated = entry.batched
         self.last_selections = selections
         self.last_schedules = schedules
         moved = self._maybe_joint(entry)

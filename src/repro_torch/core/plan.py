@@ -101,6 +101,7 @@ from torch.fx import GraphModule, Node
 
 from repro_torch.core import faults
 from repro_torch.core.jsonstore import JsonStore, cache_dir
+from repro_torch.core.levels import grad_state
 from repro_torch.core.marshal import (TrackedArray, checksum, fingerprint,
                                       has_version, unwrap, version_token)
 from repro_torch.kernels.common import COUNTERS
@@ -562,7 +563,8 @@ class _ConstGuard:
 def leaf_templates(flat) -> Tuple:
     """The per-leaf keying shared by every dispatch layer: a tensor (or a
     TrackedArray's tensor) keys as ``("t", shape, dtype, device,
-    requires_grad)``; any
+    grad_state)`` (``levels.grad_state``: ``requires_grad``, or the
+    ``torch.func`` levels of a wrapped tensor); any
     other leaf by its type and value, since the trace bakes Python values
     into the graph.  The compile-dict key, the last-entry fast path and a
     plan's guard templates all derive from this function."""
@@ -570,7 +572,7 @@ def leaf_templates(flat) -> Tuple:
     for a in map(unwrap, flat):
         if isinstance(a, torch.Tensor):
             out.append(("t", tuple(a.shape), a.dtype, a.device,
-                        a.requires_grad))
+                        grad_state(a)))
         else:
             out.append(("py", type(a), a))
     return tuple(out)
@@ -585,7 +587,7 @@ def leaves_match(templates: Tuple, flat) -> bool:
         if t[0] == "t":
             if (not isinstance(a, torch.Tensor) or a.shape != t[1]
                     or a.dtype != t[2] or a.device != t[3]
-                    or a.requires_grad != t[4]):
+                    or grad_state(a) != t[4]):
                 return False
         elif type(a) is not t[1] or a != t[2]:
             return False

@@ -87,7 +87,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.core import faults
+from repro_torch.core import faults, levels
 from repro_torch.core.jsonstore import JsonStore, cache_dir
 
 _ENV_PATH = "LILAC_TORCH_QUARANTINE_CACHE"
@@ -394,15 +394,19 @@ class Containment:
     ``(computation, harness, variant)`` is quarantined and the next
     candidate runs.  A success returns the output unchanged.  On the card
     a ``cuda.*`` harness's own exception (:func:`kernel_fault`) is not a
-    failure to contain: it propagates, and nothing is quarantined."""
+    failure to contain: it propagates, and nothing is quarantined.
+    ``read_batched=False`` leaves a batched output unread (the steady
+    calls of a vmapped entry, which the shadow check samples instead)."""
 
     def __init__(self, registry, quarantine: QuarantineStore,
                  on_quarantine: Optional[Callable[..., None]] = None,
-                 stats: Optional[ContainmentStats] = None):
+                 stats: Optional[ContainmentStats] = None,
+                 read_batched: bool = True):
         self.registry = registry
         self.quarantine = quarantine
         self.on_quarantine = on_quarantine
         self.stats = stats if stats is not None else ContainmentStats()
+        self.read_batched = read_batched
 
     def pick(self, m, binding, ctx, select):
         """``select(m, binding, ctx)``, contained: a tuner race that one
@@ -463,9 +467,12 @@ class Containment:
             self.stats.shape_mismatches += 1
             return (f"shape mismatch: got {tuple(out.shape)}, the anchor "
                     f"wants {tuple(like.shape)}")
-        if not _readable(out):
+        if not _readable(out) \
+                or (not self.read_batched and levels.batched(out)):
             return None
-        return self._finite(lambda: torch.isfinite(out).all())
+        # under vmap the bool is batched: read it below the levels
+        return self._finite(
+            lambda: levels.base(torch.isfinite(out).all()).all())
 
     def _finite(self, flag: Callable[[], Any]) -> Optional[str]:
         """Read the device bool ``flag()`` (a sync): None when it holds."""
@@ -523,9 +530,9 @@ class Containment:
 
 def _readable(out) -> bool:
     """Whether the validator reads ``out``'s values: a concrete float
-    tensor, outside a CUDA-graph capture."""
+    tensor (batched or not), outside a CUDA-graph capture."""
     return (out.is_floating_point() or out.is_complex()) \
-        and not faults.traced(out) \
+        and not faults.traced(levels.base(out)) \
         and not (out.is_cuda and torch.cuda.is_current_stream_capturing())
 
 
@@ -617,7 +624,11 @@ def outputs_close(got, want, rtol: float = 1e-4, atol: float = 1e-5) -> bool:
     package's numbers).  A bf16 or f16 leaf is held to a relative L2 error
     of at most ``HALF_REL_L2``: its kernels sum in another order than the
     uncompiled program, and elementwise half-precision rounding would
-    report false divergences."""
+    report false divergences.
+
+    Under ``torch.func.vmap`` the leaves are batched and each element is
+    held to its own bound: the verdict is a batched bool, read from the
+    tensor below the levels (``levels.base``)."""
     g_leaves, w_leaves = tree_leaves(got), tree_leaves(want)
     if len(g_leaves) != len(w_leaves):
         return False
@@ -627,23 +638,28 @@ def outputs_close(got, want, rtol: float = 1e-4, atol: float = 1e-5) -> bool:
             return False
         ga = ga.reshape(wa.shape).to(wa.device)
         if wa.is_floating_point() or wa.is_complex():
-            if torch.isnan(ga).any() and not torch.isnan(wa).any():
-                return False
+            ok = torch.isnan(wa).any() | ~torch.isnan(ga).any()
             if wa.dtype in (torch.bfloat16, torch.float16):
                 gf, wf = ga.float(), wa.float()
                 both = torch.isnan(gf) & torch.isnan(wf)
                 gf, wf = gf.masked_fill(both, 0), wf.masked_fill(both, 0)
                 den = torch.linalg.vector_norm(wf)
                 err = torch.linalg.vector_norm(gf - wf)
-                if not bool(err <= HALF_REL_L2 * den):
-                    return False
-                continue
-            if not torch.allclose(ga.to(wa.dtype), wa, rtol=rtol, atol=atol,
-                                  equal_nan=True):
-                return False
-        elif not torch.equal(ga.to(wa.dtype), wa):
+                ok = ok & (err <= HALF_REL_L2 * den)
+            else:
+                ok = ok & _isclose(ga.to(wa.dtype), wa, rtol, atol).all()
+        else:
+            ok = (ga.to(wa.dtype) == wa).all()
+        if not bool(levels.base(ok).all()):
             return False
     return True
+
+
+def _isclose(a, b, rtol: float, atol: float) -> torch.Tensor:
+    """``torch.isclose(a, b, rtol, atol, equal_nan=True)`` from ops that
+    batch under ``vmap`` (``aten::isclose`` has no batching rule)."""
+    return (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+        | ((a - b).abs() <= atol + rtol * b.abs())
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,12 @@ formula serves ``.backward()``; ``torch.library`` gives it no
 trace-mode function runs the interpreter).  A harness that would lose a
 gradient raises ``ValueError`` naming the key; a gradient is never
 silently ``None`` or zero.
+
+**Batching** (``torch.func.vmap`` of a compiled function).  Either
+realization runs on batched tensors as it stands: the graph's aten ops
+batch, a harness's body is written out of place so that its ops batch too,
+and each custom op batches through its ``register_vmap`` rule, one launch
+for the batch.  :class:`HarnessCall` carries a generated vmap rule.
 """
 from __future__ import annotations
 
@@ -56,9 +62,11 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch._C import _functorch as F
 from torch.fx import GraphModule, Node
 from torch.fx.node import map_arg
 
+from repro_torch.core import levels
 from repro_torch.core.detect import (Match, anchor_value, normalize_graph,
                                      out_like, own_trace, scan_parts)
 from repro_torch.core.harness import CallCtx, Harness
@@ -298,12 +306,13 @@ def _eval_scan_body(m: Match, env, select, ctx_factory, on_select, contain,
 
 
 def _live(v) -> bool:
-    return isinstance(v, torch.Tensor) and v.requires_grad
+    return levels.requires_grad(v)
 
 
 def differentiating(binding: Dict[str, Any]) -> bool:
     """Whether a call must carry gradients: grad mode is on and a binding
-    value requires grad (a ``torch.func.grad`` input does too)."""
+    value requires grad at some level (a ``torch.func.grad`` input does
+    too, and so does a batched tensor over one)."""
     return torch.is_grad_enabled() and any(map(_live, binding.values()))
 
 
@@ -317,12 +326,13 @@ def _traced(binding: Dict[str, Any]) -> bool:
 
 
 def _plain(v):
-    """A ``torch.func`` wrapper of a value that does not require grad,
-    unwrapped to the tensor it holds: a repack may read its data."""
-    from torch._C import _functorch as F
-
+    """A ``torch.func.grad`` wrapper of a value that does not require grad,
+    unwrapped to the tensor it holds: a repack may read its data.  A
+    ``vmap`` level is never unwrapped: below it lies the whole batch, not
+    the element, so a batched value stays batched (and a harness that
+    would repack it runs once an element, ``levels.per_element``)."""
     while isinstance(v, torch.Tensor) and not v.requires_grad \
-            and F.is_functorch_wrapped_tensor(v):
+            and F.is_gradtrackingtensor(v):
         v = F.get_unwrapped(v)
     return v
 
@@ -331,7 +341,12 @@ class HarnessCall(torch.autograd.Function):
     """One harness call with a ``vjp`` clause as an autograd node:
     ``forward`` runs the harness, ``backward`` the clause's body.  A
     separate ``setup_context`` lets ``torch.func.grad`` / ``vjp`` compose
-    with it, not only ``.backward()``."""
+    with it, not only ``.backward()``; ``generate_vmap_rule`` lets
+    ``torch.func.vmap`` compose with it: under a batch level ``forward``
+    and ``backward`` run on the batched values, so the harness's own ops
+    (or its custom op's vmap rule) batch them."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(run, pull, *dv):
@@ -398,7 +413,7 @@ def _call_differentiable(h: Harness, binding: Dict[str, Any], ctx: CallCtx,
             else h({k: _plain(v) for k, v in binding.items()}, ctx)
     else:
         out = h(binding, ctx)
-        if live and not (isinstance(out, torch.Tensor) and out.requires_grad):
+        if live and not levels.requires_grad(out):
             raise ValueError(
                 f"harness {h.name!r} returned no gradient for {live}: its "
                 f"body leaves autograd; declare a vjp clause")

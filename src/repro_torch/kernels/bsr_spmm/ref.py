@@ -4,7 +4,8 @@
 (dense tiles).  ``bsr_spmm_plain`` computes exactly what the CUDA kernel
 (K3) computes from the packed tiles, epilogue included: the wrapper in
 ``kernel.py`` runs it for CPU tensors, and the kernel is held against it
-on the card.
+on the card.  Both write out of place, so that they batch under
+``torch.func.vmap``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def bsr_spmm_ref(blocks: torch.Tensor, block_col: torch.Tensor,
     prod = torch.einsum("kij,kjn->kin", blocks.float(), rhs.float())
     out = torch.zeros((num_block_rows, bm, n), dtype=torch.float32,
                       device=blocks.device)
-    out.index_add_(0, block_row.long(), prod)
+    out = out.index_add(0, block_row.long(), prod)
     return out.reshape(num_block_rows * bm, n)
 
 
@@ -66,7 +67,7 @@ def bsr_spmm_plain(packed: PackedBCSR, dense: torch.Tensor, *,
         inside = k < d.shape[0]
         row = brow[t] * bm + torch.div(loc, bk, rounding_mode="floor")
         prod = packed.val[s:s + _CHUNK].float()[inside, None] * d[k[inside]]
-        out.index_add_(0, row[inside], prod)
+        out = out.index_add(0, row[inside], prod)
         del prod
     out = out[:rows]
     if bias is not None:

@@ -5,7 +5,9 @@ has two forms: this plain torch function, and the ``__device__`` function
 ``epilogue_inregister`` in each CUDA source, which applies the same chain
 to the accumulator before the kernel's single store.  ``EPILOGUE_CODES``
 is the integer a wrapper passes for the chain; ``check_tensor`` and
-``launched`` are the checks every kernel wrapper makes around a launch.  The Mosaic-only
+``launched`` are the checks every kernel wrapper makes around a launch;
+``vmap_over_vectors`` and ``vmap_by_loop`` are the custom ops'
+``torch.func.vmap`` rules.  The Mosaic-only
 ``compiler_params`` has no counterpart: a CUDA kernel's launch shape is set
 by its wrapper.  ``COUNTERS`` holds every kernel's launch counter.
 """
@@ -44,6 +46,32 @@ def apply_epilogue_inregister(acc: torch.Tensor, bias, epilogue: Optional[str]):
     elif epilogue == "silu":
         acc = acc * torch.sigmoid(acc)
     return acc
+
+
+def vmap_by_loop(op, info, in_dims, args):
+    """A ``register_vmap`` rule's fallback: ``op`` once per batch element
+    (a batched matrix, bias or routing table: one launch an element),
+    stacked on a leading batch axis."""
+    outs = [op(*(a.select(d, i) if d is not None else a
+                 for a, d in zip(args, in_dims)))
+            for i in range(info.batch_size)]
+    return torch.stack(outs), 0
+
+
+def vmap_over_vectors(op, info, in_dims, args, pos: int):
+    """The ``register_vmap`` rule of an SpMV custom op whose argument
+    ``pos`` is the vector and which takes a batch of them ``(B, cols)``:
+    with only the vector batched, one call on the batch (the kernel's batch
+    axis: one launch); with anything else batched, one call an element.
+    A vector batched twice (nested vmaps) is flattened into one batch."""
+    if any(d is not None for i, d in enumerate(in_dims) if i != pos):
+        return vmap_by_loop(op, info, in_dims, args)
+    vec = args[pos].movedim(in_dims[pos], 0)
+    lead = vec.shape[:-1]
+    a = list(args)
+    a[pos] = vec.reshape(-1, vec.shape[-1]).contiguous()
+    out = op(*a)
+    return out.reshape(lead + out.shape[-1:]), 0
 
 
 def check_tensor(name: str, t, device, dtype, shape=None) -> None:

@@ -14,7 +14,9 @@ no host sync, so ``make_fx``, ``torch.compile`` and CUDA-graph capture
 pass through it.  Its autograd formula (``register_autograd``) is the
 ``vjp`` clause's body, ``harness.BUILTIN_VJPS["moe_ffn_bwd"]``: the
 capacity-bucket dispatch recomputed under ``torch.func.vjp`` at a capacity
-no expert's load exceeds, nothing dropped (K4 has no backward).
+no expert's load exceeds, nothing dropped (K4 has no backward).  Its
+``register_vmap`` rule runs a batch of token groups (the MoE block's
+``torch.func.vmap`` over sequences) as one call over all their tokens.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.common import vmap_by_loop
 from repro_torch.kernels.moe_gmm.kernel import gmm_cuda
 from repro_torch.kernels.moe_gmm.ref import moe_ffn_ref
 
@@ -118,6 +121,26 @@ def _moe_ffn_backward(ctx, ct):
 
 
 moe_ffn_op.register_autograd(_moe_ffn_backward, setup_context=_moe_ffn_setup)
+
+
+@moe_ffn_op.register_vmap
+def _moe_ffn_vmap(info, in_dims, x, gate, idx, wg, wu, wd, tm):
+    """A batch of token groups (``torch.func.vmap`` over sequences) as one
+    call over the flattened tokens: the function is per token, so each
+    token's row is the same arithmetic, and K4 launches 3 times, not 3·B.
+    Batched weights: one call an element."""
+    args = (x, gate, idx, wg, wu, wd, tm)
+    if any(d is not None for d in in_dims[3:]):
+        return vmap_by_loop(moe_ffn_op, info, in_dims, args)
+    b = info.batch_size
+
+    def tokens(t, d):
+        t = t.movedim(d, 0) if d is not None else t.expand(b, *t.shape)
+        return t.reshape(-1, t.shape[-1])
+
+    x2, g2, i2 = (tokens(t, d) for t, d in zip(args[:3], in_dims[:3]))
+    out = moe_ffn_op(x2, g2, i2, wg, wu, wd, tm)
+    return out.reshape(b, -1, out.shape[-1]), 0
 
 
 def moe_ffn_oracle(x, gate, idx, wg, wu, wd):

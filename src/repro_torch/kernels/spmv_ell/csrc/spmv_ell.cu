@@ -86,6 +86,14 @@
 // the output block across grid steps) does not carry over: the warp loops
 // over its slab's segments.
 //
+// A batch of vectors (torch.func.vmap over a compiled SpMV, the wrappers'
+// (B, cols) vector) is one launch: grid axis y indexes the batch element,
+// and the vector and output pointers stride by `vec_stride` and
+// `out_stride` elements.  Each element's CTAs do exactly what one
+// unbatched launch's CTAs do, so element b is bit for bit the launch of
+// vector b alone.  The matrix is read once per element: a body that reads
+// each slab once for all B vectors (an ELL SpMM) is later work.
+//
 // C interface for ctypes: each entry point launches on the given stream
 // and returns cudaGetLastError(), so a refused launch is reported.
 
@@ -96,6 +104,18 @@
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps a block
+
+// A launch's batch: `count` vectors, element b's vector at
+// vec + b*vec_stride and its output at out + b*out_stride (elements).
+struct Batch {
+  unsigned int count;
+  int64_t vec_stride;
+  int64_t out_stride;
+};
+
+inline Batch batch_of(int count, int vec_stride, int out_stride) {
+  return Batch{static_cast<unsigned int>(count), vec_stride, out_stride};
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -142,7 +162,10 @@ spmv_ell_windowed_kernel(const T* __restrict__ val,
                          const float* __restrict__ bias,
                          const int* __restrict__ perm,
                          float* __restrict__ out, int rows, int n_slabs,
-                         int window, int epilogue) {
+                         int window, int epilogue, int64_t vec_stride,
+                         int64_t out_stride) {
+  vec += blockIdx.y * vec_stride;
+  out += blockIdx.y * out_stride;
   const int lane = threadIdx.x & 31;
   const int64_t slab =
       static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
@@ -205,9 +228,12 @@ spmv_ell_staged_kernel(const T* __restrict__ val,
                        const float* __restrict__ bias,
                        const int* __restrict__ perm, float* __restrict__ out,
                        int rows, int cols, int n_slabs, int window,
-                       int per_cta, int parts, int epilogue) {
+                       int per_cta, int parts, int epilogue,
+                       int64_t vec_stride, int64_t out_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* vs = reinterpret_cast<T*>(smem_raw);
+  vec += blockIdx.y * vec_stride;
+  out += blockIdx.y * out_stride;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int slab0 = blockIdx.x * per_cta;
@@ -382,9 +408,11 @@ spmv_ell_kernel(const T* __restrict__ val, const int* __restrict__ col,
                 const T* __restrict__ vec, const float* __restrict__ bias,
                 const int* __restrict__ perm, float* __restrict__ out,
                 int rows, int width, int rows_per_slab, int stage,
-                int epilogue) {
+                int epilogue, int64_t vec_stride, int64_t out_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* vs = reinterpret_cast<T*>(smem_raw);
+  vec += blockIdx.y * vec_stride;
+  out += blockIdx.y * out_stride;
   if (stage > 0) stage_window(vs, vec, stage);
   const int hl = threadIdx.x & 15;
   for (int64_t t = threadIdx.x >> 4;; t += kDirectThreads / 16) {
@@ -417,7 +445,7 @@ template <typename T, bool kVec>
 int launch_direct_body(const void* val, const void* col, const void* vec,
                        const void* bias, const void* perm, void* out, int rows,
                        int width, int rows_per_slab, int epilogue, int stage,
-                       int grid, void* stream) {
+                       int grid, Batch batch, void* stream) {
   const int smem = stage * static_cast<int>(sizeof(T));
   static int attribute_bytes = -1;
   if (smem > attribute_bytes) {
@@ -434,12 +462,12 @@ int launch_direct_body(const void* val, const void* col, const void* vec,
     if (err != cudaSuccess) return static_cast<int>(err);
     attribute_bytes = smem;
   }
-  spmv_ell_kernel<T, kVec><<<grid, kDirectThreads, smem,
+  spmv_ell_kernel<T, kVec><<<dim3(grid, batch.count), kDirectThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(val), static_cast<const int*>(col),
       static_cast<const T*>(vec), static_cast<const float*>(bias),
       static_cast<const int*>(perm), static_cast<float*>(out), rows, width,
-      rows_per_slab, stage, epilogue);
+      rows_per_slab, stage, epilogue, batch.vec_stride, batch.out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -450,7 +478,7 @@ template <typename T>
 int launch_direct(const void* val, const void* col, const void* vec,
                   const void* bias, const void* perm, void* out, int rows,
                   int width, int cols, int rows_per_slab, int epilogue,
-                  int vec_path, void* stream) {
+                  int vec_path, Batch batch, void* stream) {
   int sms = 0;
   const int err = sm_count(&sms);
   if (err != 0) return err;
@@ -465,11 +493,11 @@ int launch_direct(const void* val, const void* col, const void* vec,
              ? launch_direct_body<T, true>(val, col, vec, bias, perm, out,
                                            rows, width, rows_per_slab,
                                            epilogue, static_cast<int>(s), grid,
-                                           stream)
+                                           batch, stream)
              : launch_direct_body<T, false>(val, col, vec, bias, perm, out,
                                             rows, width, rows_per_slab,
                                             epilogue, static_cast<int>(s),
-                                            grid, stream);
+                                            grid, batch, stream);
 }
 
 template <typename T>
@@ -477,14 +505,17 @@ int launch_windowed(const void* val, const void* col, const void* seg_ptr,
                     const void* seg_window, const void* seg_offset,
                     const void* vec, const void* bias, const void* perm,
                     void* out, int rows, int n_slabs, int window,
-                    int epilogue, void* stream) {
-  spmv_ell_windowed_kernel<T><<<blocks_for(n_slabs, kThreads / 32), kThreads,
-                                0, static_cast<cudaStream_t>(stream)>>>(
+                    int epilogue, Batch batch, void* stream) {
+  spmv_ell_windowed_kernel<T><<<dim3(blocks_for(n_slabs, kThreads / 32),
+                                     batch.count),
+                                kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(val), static_cast<const uint16_t*>(col),
       static_cast<const int*>(seg_ptr), static_cast<const int*>(seg_window),
       static_cast<const int64_t*>(seg_offset), static_cast<const T*>(vec),
       static_cast<const float*>(bias), static_cast<const int*>(perm),
-      static_cast<float*>(out), rows, n_slabs, window, epilogue);
+      static_cast<float*>(out), rows, n_slabs, window, epilogue,
+      batch.vec_stride, batch.out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -501,7 +532,7 @@ int launch_staged(const void* val, const void* col, const void* seg_ptr,
                   const void* seg_window, const void* seg_offset,
                   const void* vec, const void* bias, const void* perm,
                   void* out, int rows, int cols, int n_slabs, int window,
-                  int epilogue, void* stream) {
+                  int epilogue, Batch batch, void* stream) {
   int sms = 0;
   cudaError_t err = static_cast<cudaError_t>(sm_count(&sms));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -523,14 +554,14 @@ int launch_staged(const void* val, const void* col, const void* seg_ptr,
     if (err != cudaSuccess) return static_cast<int>(err);
     attribute_bytes = smem;
   }
-  spmv_ell_staged_kernel<T><<<ctas, kStagedWarps * 32, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  spmv_ell_staged_kernel<T><<<dim3(ctas, batch.count), kStagedWarps * 32,
+                              smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(val), static_cast<const uint16_t*>(col),
       static_cast<const int*>(seg_ptr), static_cast<const int*>(seg_window),
       static_cast<const int64_t*>(seg_offset), static_cast<const T*>(vec),
       static_cast<const float*>(bias), static_cast<const int*>(perm),
       static_cast<float*>(out), rows, cols, n_slabs, window, per_cta, parts,
-      epilogue);
+      epilogue, batch.vec_stride, batch.out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -538,25 +569,34 @@ int launch_staged(const void* val, const void* col, const void* seg_ptr,
 
 extern "C" {
 
+// Every entry point ends with the batch: `batch` vectors (1 for one), the
+// element strides of the vector and the output (ignored for one vector),
+// then the stream.
+//
 // vec_path != 0: val and col 16-byte aligned and width a multiple of 4
 // (f32) or 8 (bf16), so that every row starts 16-byte aligned (the wrapper
 // decides); otherwise the body's scalar loads.
 int spmv_ell_f32(const void* val, const void* col, const void* vec,
                  const void* bias, const void* perm, void* out, int rows,
                  int width, int cols, int rows_per_slab, int epilogue,
-                 int vec_path, void* stream) {
+                 int vec_path, int batch, int vec_stride, int out_stride,
+                 void* stream) {
   return launch_direct<float>(val, col, vec, bias, perm, out, rows, width,
                               cols, rows_per_slab, epilogue, vec_path,
+                              batch_of(batch, vec_stride, out_stride),
                               stream);
 }
 
 int spmv_ell_bf16(const void* val, const void* col, const void* vec,
                   const void* bias, const void* perm, void* out, int rows,
                   int width, int cols, int rows_per_slab, int epilogue,
-                  int vec_path, void* stream) {
+                  int vec_path, int batch, int vec_stride, int out_stride,
+                  void* stream) {
   return launch_direct<__nv_bfloat16>(val, col, vec, bias, perm, out, rows,
                                       width, cols, rows_per_slab, epilogue,
-                                      vec_path, stream);
+                                      vec_path,
+                                      batch_of(batch, vec_stride, out_stride),
+                                      stream);
 }
 
 int spmv_ell_windowed_f32(const void* val, const void* col,
@@ -564,10 +604,13 @@ int spmv_ell_windowed_f32(const void* val, const void* col,
                           const void* seg_offset, const void* vec,
                           const void* bias, const void* perm, void* out,
                           int rows, int n_slabs, int window, int epilogue,
+                          int batch, int vec_stride, int out_stride,
                           void* stream) {
   return launch_windowed<float>(val, col, seg_ptr, seg_window, seg_offset,
                                 vec, bias, perm, out, rows, n_slabs, window,
-                                epilogue, stream);
+                                epilogue,
+                                batch_of(batch, vec_stride, out_stride),
+                                stream);
 }
 
 int spmv_ell_windowed_bf16(const void* val, const void* col,
@@ -575,21 +618,25 @@ int spmv_ell_windowed_bf16(const void* val, const void* col,
                            const void* seg_offset, const void* vec,
                            const void* bias, const void* perm, void* out,
                            int rows, int n_slabs, int window, int epilogue,
+                           int batch, int vec_stride, int out_stride,
                            void* stream) {
-  return launch_windowed<__nv_bfloat16>(val, col, seg_ptr, seg_window,
-                                        seg_offset, vec, bias, perm, out,
-                                        rows, n_slabs, window, epilogue,
-                                        stream);
+  return launch_windowed<__nv_bfloat16>(
+      val, col, seg_ptr, seg_window, seg_offset, vec, bias, perm, out, rows,
+      n_slabs, window, epilogue, batch_of(batch, vec_stride, out_stride),
+      stream);
 }
 
 int spmv_ell_staged_f32(const void* val, const void* col, const void* seg_ptr,
                         const void* seg_window, const void* seg_offset,
                         const void* vec, const void* bias, const void* perm,
                         void* out, int rows, int cols, int n_slabs,
-                        int window, int epilogue, void* stream) {
+                        int window, int epilogue, int batch, int vec_stride,
+                        int out_stride, void* stream) {
   return launch_staged<float>(val, col, seg_ptr, seg_window, seg_offset, vec,
                               bias, perm, out, rows, cols, n_slabs, window,
-                              epilogue, stream);
+                              epilogue,
+                              batch_of(batch, vec_stride, out_stride),
+                              stream);
 }
 
 int spmv_ell_staged_bf16(const void* val, const void* col,
@@ -597,10 +644,12 @@ int spmv_ell_staged_bf16(const void* val, const void* col,
                          const void* seg_offset, const void* vec,
                          const void* bias, const void* perm, void* out,
                          int rows, int cols, int n_slabs, int window,
-                         int epilogue, void* stream) {
-  return launch_staged<__nv_bfloat16>(val, col, seg_ptr, seg_window,
-                                      seg_offset, vec, bias, perm, out, rows,
-                                      cols, n_slabs, window, epilogue, stream);
+                         int epilogue, int batch, int vec_stride,
+                         int out_stride, void* stream) {
+  return launch_staged<__nv_bfloat16>(
+      val, col, seg_ptr, seg_window, seg_offset, vec, bias, perm, out, rows,
+      cols, n_slabs, window, epilogue,
+      batch_of(batch, vec_stride, out_stride), stream);
 }
 
 }  // extern "C"

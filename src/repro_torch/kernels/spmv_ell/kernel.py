@@ -55,10 +55,10 @@ def reset_launches() -> None:
 
 def _fn(name: str):
     if "windowed" in name:
-        return build.entry_point(SOURCE, name, 9, 4)
+        return build.entry_point(SOURCE, name, 9, 7)
     if "staged" in name:
-        return build.entry_point(SOURCE, name, 9, 5)
-    return build.entry_point(SOURCE, name, 6, 6)
+        return build.entry_point(SOURCE, name, 9, 8)
+    return build.entry_point(SOURCE, name, 6, 9)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -74,7 +74,8 @@ def ell_vector_path(val: torch.Tensor, col: torch.Tensor) -> bool:
 
 
 def _prepare(val, vec, bias, perm, rows, out_rows, epilogue):
-    """Check the operands both kernels share; allocate the output."""
+    """Check the operands every kernel shares; allocate the output: (rows,)
+    or, for a batch of vectors ``(B, cols)``, (B, rows)."""
     dev = val.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
@@ -84,19 +85,38 @@ def _prepare(val, vec, bias, perm, rows, out_rows, epilogue):
         raise ValueError(f"unknown epilogue {epilogue!r}")
     check_tensor("val", val, dev, val.dtype)
     check_tensor("vec", vec, dev, val.dtype)
-    if vec.dim() != 1:
-        raise ValueError("vec must be 1-D")
+    if vec.dim() not in (1, 2):
+        raise ValueError("vec must be (cols,) or a batch (B, cols)")
+    if vec.dim() == 2 and not 0 < vec.shape[0] < 1 << 16:
+        raise ValueError(f"a batch of {vec.shape[0]} vectors: the grid's "
+                         f"batch axis takes 1 to 65,535")
+    lead = tuple(vec.shape[:-1])
     if perm is None:
         out_rows = rows
-        out = torch.empty(rows, dtype=torch.float32, device=dev)
+        out = torch.empty(lead + (rows,), dtype=torch.float32, device=dev)
     else:
         check_tensor("perm", perm, dev, torch.int32, (rows,))
         out_rows = rows if out_rows is None else out_rows
         # rows no perm entry names must read 0
-        out = torch.zeros(out_rows, dtype=torch.float32, device=dev)
+        out = torch.zeros(lead + (out_rows,), dtype=torch.float32,
+                          device=dev)
     if bias is not None:
         check_tensor("bias", bias, dev, torch.float32, (out_rows,))
     return out
+
+
+def _batch(vec: torch.Tensor, out: torch.Tensor):
+    """The C entry points' batch arguments: count, vector stride, output
+    stride (elements)."""
+    if vec.dim() == 1:
+        return 1, 0, 0
+    return vec.shape[0], vec.shape[1], out.shape[1]
+
+
+def _plain(fn, vec: torch.Tensor):
+    """A plain version on one vector, or on each of a batch ``(B, cols)``
+    (it writes out of place, so it batches under ``torch.func.vmap``)."""
+    return fn(vec) if vec.dim() == 1 else torch.func.vmap(fn)(vec)
 
 
 def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
@@ -117,10 +137,13 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
     vector's first min(cols, 192 KB, a quarter of its slots) elements in
     shared memory, which moves where a gather reads, not what it reads.
     Every slot is read and gathered, padding included, so ``0 * inf``
-    gives NaN as in the plain version."""
+    gives NaN as in the plain version.  A batch of vectors ``(B, cols)``
+    is one launch (a grid axis a vector) and gives ``(B, out rows)``, each
+    row of it bit for bit the launch of that vector alone."""
     if val.device.type == "cpu":
-        return spmv_ell_plain(val, col, vec, bias=bias, perm=perm,
-                              out_rows=out_rows, epilogue=epilogue)
+        return _plain(lambda v: spmv_ell_plain(
+            val, col, v, bias=bias, perm=perm, out_rows=out_rows,
+            epilogue=epilogue), vec)
     if val.dim() != 2:
         raise ValueError(f"val must be (rows, width), got {tuple(val.shape)}")
     if rows_per_slab <= 0:
@@ -133,9 +156,9 @@ def spmv_ell_cuda(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor, *,
     with torch.cuda.device(val.device):
         err = _fn(f"spmv_ell_{_SUFFIX[val.dtype]}")(
             val.data_ptr(), col.data_ptr(), vec.data_ptr(), _ptr(bias),
-            _ptr(perm), out.data_ptr(), rows, width, vec.shape[0],
+            _ptr(perm), out.data_ptr(), rows, width, vec.shape[-1],
             rows_per_slab, EPILOGUE_CODES[epilogue],
-            int(ell_vector_path(val, col)),
+            int(ell_vector_path(val, col)), *_batch(vec, out),
             torch.cuda.current_stream().cuda_stream)
     launched(LAUNCHES, "spmv_ell", err)
     return out
@@ -149,8 +172,8 @@ def _check_layout(layout: WindowedELL, vec: torch.Tensor) -> None:
     check_tensor("seg_window", layout.seg_window, dev, torch.int32, (n_seg,))
     check_tensor("seg_offset", layout.seg_offset, dev, torch.int64,
                  (n_seg + 1,))
-    if vec.shape[0] < layout.shape[1]:
-        raise ValueError(f"vec of {vec.shape[0]} elements does not cover "
+    if vec.shape[-1] < layout.shape[1]:
+        raise ValueError(f"vec of {vec.shape[-1]} elements does not cover "
                          f"the layout's {layout.shape[1]} columns")
 
 
@@ -167,11 +190,13 @@ def spmv_ell_staged_cuda(layout: WindowedELL, vec: torch.Tensor, *,
                          epilogue: Optional[str] = None) -> torch.Tensor:
     """K1 on the marshaled path: the sum of :func:`spmv_ell_windowed_cuda`
     over a layout whose window of ``vec`` fits ``STAGE_BYTES`` of shared
-    memory; each CTA stages the vector window by window."""
+    memory; each CTA stages the vector window by window.  A batch of
+    vectors ``(B, cols)`` is one launch, as for :func:`spmv_ell_cuda`."""
     val = layout.val
     if val.device.type == "cpu":
-        return spmv_ell_windowed_plain(layout, vec, bias=bias, perm=perm,
-                                       out_rows=out_rows, epilogue=epilogue)
+        return _plain(lambda v: spmv_ell_windowed_plain(
+            layout, v, bias=bias, perm=perm, out_rows=out_rows,
+            epilogue=epilogue), vec)
     rows, cols = layout.shape
     out = _prepare(val, vec, bias, perm, rows, out_rows, epilogue)
     _check_layout(layout, vec)
@@ -185,7 +210,8 @@ def spmv_ell_staged_cuda(layout: WindowedELL, vec: torch.Tensor, *,
         err = _fn(f"spmv_ell_staged_{_SUFFIX[val.dtype]}")(
             *_layout_ptrs(layout), vec.data_ptr(), _ptr(bias), _ptr(perm),
             out.data_ptr(), rows, cols, layout.n_slabs, layout.window,
-            EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream)
+            EPILOGUE_CODES[epilogue], *_batch(vec, out),
+            torch.cuda.current_stream().cuda_stream)
     launched(LAUNCHES, "spmv_ell_staged", err)
     return out
 
@@ -197,11 +223,13 @@ def spmv_ell_windowed_cuda(layout: WindowedELL, vec: torch.Tensor, *,
                            epilogue: Optional[str] = None) -> torch.Tensor:
     """K2: the same sum over the slab-compacted column-window layout of
     ``formats.ell_windows``; ``vec`` covers the layout's columns.  The
-    layout bounded its segments when it was built (``WindowedELL``)."""
+    layout bounded its segments when it was built (``WindowedELL``).  A
+    batch of vectors ``(B, cols)`` is one launch."""
     val = layout.val
     if val.device.type == "cpu":
-        return spmv_ell_windowed_plain(layout, vec, bias=bias, perm=perm,
-                                       out_rows=out_rows, epilogue=epilogue)
+        return _plain(lambda v: spmv_ell_windowed_plain(
+            layout, v, bias=bias, perm=perm, out_rows=out_rows,
+            epilogue=epilogue), vec)
     rows = layout.shape[0]
     out = _prepare(val, vec, bias, perm, rows, out_rows, epilogue)
     _check_layout(layout, vec)
@@ -211,6 +239,7 @@ def spmv_ell_windowed_cuda(layout: WindowedELL, vec: torch.Tensor, *,
         err = _fn(f"spmv_ell_windowed_{_SUFFIX[val.dtype]}")(
             *_layout_ptrs(layout), vec.data_ptr(), _ptr(bias), _ptr(perm),
             out.data_ptr(), rows, layout.n_slabs, layout.window,
-            EPILOGUE_CODES[epilogue], torch.cuda.current_stream().cuda_stream)
+            EPILOGUE_CODES[epilogue], *_batch(vec, out),
+            torch.cuda.current_stream().cuda_stream)
     launched(LAUNCHES, "spmv_ell_windowed", err)
     return out

@@ -22,6 +22,13 @@ formula is the ``vjp`` clause's body (``harness.BUILTIN_VJPS
 ["spmv_ell_bwd"]``) behind the derivative of a fused epilogue, recomputed
 from the pre-activation (the rewriter unfuses the epilogue under
 differentiation, so a rewritten graph reaches it only without one).
+``lilac_torch::spmv_ell_layout`` is the marshaled path's launch
+(``spmv_ell_packed``) as a custom op on the layout's tensors, taken for a
+vector of a ``torch.func`` transform.  Both take
+a batch of vectors ``(B, cols)`` as one launch, and both carry a
+``register_vmap`` rule (``common.vmap_over_vectors``): under
+``torch.func.vmap`` a batched vector is one launch of the batch, a batched
+matrix one launch an element.
 """
 from __future__ import annotations
 
@@ -30,14 +37,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import apply_epilogue_inregister
+from repro_torch.kernels.common import (apply_epilogue_inregister,
+                                        vmap_over_vectors)
 from repro_torch.kernels.spmv_ell.ref import acc_dtype
 from repro_torch.kernels.spmv_ell.kernel import (STAGE_BYTES, spmv_ell_cuda,
                                                  spmv_ell_staged_cuda,
                                                  spmv_ell_windowed_cuda)
 from repro_torch.sparse.convert import csr_to_ell
 from repro_torch.sparse.formats import (CSR, SEG_WIDTH, WINDOW,
-                                        WindowedELL, ell_windows)
+                                        WindowedELL, ell_windows, rebuilt)
 
 # Vector sizes above this use the column-windowed kernel.
 RESIDENT_VEC_LIMIT = 1 << 20  # 1M elements (4 MiB f32)
@@ -70,7 +78,8 @@ def spmv_ell(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
     """ELL SpMV: ``out[o(i)] = epilogue(sum_j val[i,j]*vec[col[i,j]] +
     bias)``, ``o = perm`` or the identity.  A bias the kernels cannot index
     per output row (scalar, broadcast-shaped) applies after the kernel:
-    still right, just unfused."""
+    still right, just unfused.  ``vec`` may be a batch ``(B, cols)``: one
+    launch, ``(B, out rows)`` out."""
     rows = val.shape[0]
     n_out = rows if perm is None or out_rows is None else out_rows
     if bias is not None and not _fusable(bias, n_out):
@@ -79,7 +88,7 @@ def spmv_ell(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
         return apply_epilogue_inregister(out, bias, epilogue)
     if bias is not None:
         bias = bias.to(acc_dtype(val.dtype)).contiguous()
-    if vec.shape[0] <= RESIDENT_VEC_LIMIT:
+    if vec.shape[-1] <= RESIDENT_VEC_LIMIT:
         rows_per_slab, _ = slab_geometry(rows, rows_per_slab)
         return spmv_ell_cuda(val, col, vec, bias=bias, perm=perm,
                              out_rows=out_rows, epilogue=epilogue,
@@ -94,7 +103,8 @@ def spmv_ell_op(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
                 out_rows: Optional[int], epilogue: Optional[str],
                 rows_per_slab: int) -> torch.Tensor:
     """:func:`spmv_ell` as a custom op: f32 out of ``(rows,)``, or
-    ``(out_rows,)`` with a ``perm``; a ``bias`` must be a 1-D tensor of that
+    ``(out_rows,)`` with a ``perm``, behind a leading batch axis for a
+    batch of vectors ``(B, cols)``; a ``bias`` must be a 1-D tensor of that
     length (the fused one)."""
     n_out = _out_rows(val, perm, out_rows)
     if not _fusable(bias, n_out):
@@ -107,7 +117,8 @@ def spmv_ell_op(val: torch.Tensor, col: torch.Tensor, vec: torch.Tensor,
 @spmv_ell_op.register_fake
 def _spmv_ell_fake(val, col, vec, bias, perm, out_rows, epilogue,
                    rows_per_slab):
-    return val.new_empty((_out_rows(val, perm, out_rows),),
+    return val.new_empty(tuple(vec.shape[:-1])
+                         + (_out_rows(val, perm, out_rows),),
                          dtype=acc_dtype(val.dtype))
 
 
@@ -133,19 +144,33 @@ def _spmv_ell_backward(ctx, ct):
             dz = ct * (sg * (1 + z * (1 - sg)))
     b = {"val": val, "col_ind": col, "vector": vec,
          "perm": None if perm is None else perm.long()}
-    g = BUILTIN_VJPS["spmv_ell_bwd"](b, None, None, dz)
+    body = BUILTIN_VJPS["spmv_ell_bwd"]
+    if vec.dim() == 1:
+        g = body(b, None, None, dz)
+        dval = g["val"]
+    else:
+        # a batch of vectors: each its own cotangent, the matrix's summed
+        g = torch.func.vmap(lambda v, c: body(dict(b, vector=v), None, None,
+                                              c))(vec, dz)
+        dval = g["val"].sum(0)
+        dz = dz.sum(0)
     dbias = None
     if bias is not None and ctx.needs_input_grad[3]:
         # a row that no perm entry names is stored as 0, bias or not
-        dbias = dz if perm is None else torch.zeros_like(dz).index_copy_(
+        dbias = dz if perm is None else torch.zeros_like(dz).index_copy(
             0, perm.long(), dz[perm.long()])
         dbias = dbias.to(bias.dtype)
-    return (g["val"].to(val.dtype), None, g["vector"].to(vec.dtype), dbias,
+    return (dval.to(val.dtype), None, g["vector"].to(vec.dtype), dbias,
             None, None, None, None)
 
 
 spmv_ell_op.register_autograd(_spmv_ell_backward,
                               setup_context=_spmv_ell_setup)
+
+
+@spmv_ell_op.register_vmap
+def _spmv_ell_vmap(info, in_dims, *args):
+    return vmap_over_vectors(spmv_ell_op, info, in_dims, args, pos=2)
 
 
 def _out_rows(val, perm, out_rows: Optional[int]) -> int:
@@ -162,7 +187,7 @@ def _windowed(val, col, vec, rows_per_slab, window: int = WINDOW,
     warp's 32 rows (``formats.SLAB``), and the kernel masks a ragged
     last slab itself."""
     if layout is None:
-        layout = ell_windows(val, col, vec.shape[0], window)
+        layout = ell_windows(val, col, vec.shape[-1], window)
     return spmv_ell_windowed_cuda(layout, vec, bias=bias, perm=perm,
                                   out_rows=out_rows, epilogue=epilogue)
 
@@ -196,14 +221,58 @@ def spmv_ell_packed(packed: WindowedELL, vec: torch.Tensor,
                     bias=None) -> torch.Tensor:
     """SpMV with a :func:`pack_ell128` value: K1's staged body within
     ``RESIDENT_VEC_LIMIT`` columns, K2 beyond; the kernel un-permutes the
-    JDS row sort in its store."""
+    JDS row sort in its store.  A vector of a ``torch.func`` transform
+    goes through the custom op ``lilac_torch::spmv_ell_layout``, so that
+    under ``torch.func.vmap`` a batch is one launch; a plain one calls the
+    wrapper directly, sparing the host the op's dispatch."""
     rows = packed.shape[0]
     if bias is not None and not _fusable(bias, rows):
         out = spmv_ell_packed(packed, vec)
         return apply_epilogue_inregister(out, bias, epilogue)
     if bias is not None:
         bias = bias.float().contiguous()
-    run = spmv_ell_staged_cuda if packed.shape[1] <= RESIDENT_VEC_LIMIT \
+    if not torch._C._functorch.is_functorch_wrapped_tensor(vec):
+        return _packed_launch(packed, vec, bias, epilogue)
+    return spmv_ell_layout_op(packed.val, packed.col, packed.seg_ptr,
+                              packed.seg_window, packed.seg_offset,
+                              packed.perm, vec, bias, packed.window, rows,
+                              packed.shape[1], epilogue)
+
+
+def _packed_launch(layout: WindowedELL, vec, bias, epilogue):
+    run = spmv_ell_staged_cuda if layout.shape[1] <= RESIDENT_VEC_LIMIT \
         else spmv_ell_windowed_cuda
-    return run(packed, vec, bias=bias, perm=packed.perm, out_rows=rows,
-               epilogue=epilogue)
+    return run(layout, vec, bias=bias, perm=layout.perm,
+               out_rows=layout.shape[0], epilogue=epilogue)
+
+
+@torch.library.custom_op("lilac_torch::spmv_ell_layout", mutates_args=())
+def spmv_ell_layout_op(val: torch.Tensor, col: torch.Tensor,
+                       seg_ptr: torch.Tensor, seg_window: torch.Tensor,
+                       seg_offset: torch.Tensor, perm: Optional[torch.Tensor],
+                       vec: torch.Tensor, bias: Optional[torch.Tensor],
+                       window: int, rows: int, cols: int,
+                       epilogue: Optional[str]) -> torch.Tensor:
+    """The staged or windowed launch on a :func:`pack_ell128` layout given
+    by its tensors (the layout was checked when it was built), f32 out of
+    ``(rows,)`` behind a leading batch axis for a batch of vectors ``(B,
+    cols)``.  Its vmap rule runs a batched vector as one launch and a
+    batched layout or bias as one launch an element.  It has no autograd
+    formula: the harness that calls it runs inside its ``vjp`` clause's
+    Function."""
+    layout = rebuilt(WindowedELL, val=val, col=col, seg_ptr=seg_ptr,
+                     seg_window=seg_window, seg_offset=seg_offset,
+                     window=window, shape=(rows, cols), perm=perm)
+    return _packed_launch(layout, vec, bias, epilogue)
+
+
+@spmv_ell_layout_op.register_fake
+def _spmv_ell_layout_fake(val, col, seg_ptr, seg_window, seg_offset, perm,
+                          vec, bias, window, rows, cols, epilogue):
+    return vec.new_empty(tuple(vec.shape[:-1]) + (rows,),
+                         dtype=torch.float32)
+
+
+@spmv_ell_layout_op.register_vmap
+def _spmv_ell_layout_vmap(info, in_dims, *args):
+    return vmap_over_vectors(spmv_ell_layout_op, info, in_dims, args, pos=6)

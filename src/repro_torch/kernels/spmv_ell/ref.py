@@ -4,7 +4,9 @@
 ``spmv_ell_plain`` and ``spmv_ell_windowed_plain`` compute exactly what
 the two CUDA kernels compute, row permutation and epilogue included: the
 wrappers in ``kernel.py`` run them for CPU tensors, and the kernels are
-held against them on the card.
+held against them on the card.  They write out of place, so that they
+batch under ``torch.func.vmap`` (a batched vector, or a batch of
+matrices), which is how the wrappers run a batch of vectors on the CPU.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def spmv_ell_windowed_ref(layout: WindowedELL,
     row = slab[seg] * SLAB + slot % SLAB
     gcol = layout.seg_window[seg].long() * layout.window + layout.col.long()
     acc = torch.zeros(layout.n_slabs * SLAB, dtype=torch.float32, device=dev)
-    acc.index_add_(0, row, layout.val.float() * vec.float()[gcol])
+    acc = acc.index_add(0, row, layout.val.float() * vec.float()[gcol])
     return acc[:layout.shape[0]]
 
 
@@ -60,8 +62,7 @@ def _store(acc: torch.Tensor, bias, perm, out_rows: Optional[int],
     p = perm.long()
     out = torch.zeros(rows, dtype=acc.dtype, device=acc.device)
     b = None if bias is None else bias[p]
-    out[p] = apply_epilogue_inregister(acc, b, epilogue)
-    return out
+    return out.index_put((p,), apply_epilogue_inregister(acc, b, epilogue))
 
 
 def spmv_ell_plain(val, col, vec, *, bias=None, perm=None,

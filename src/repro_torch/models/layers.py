@@ -466,16 +466,35 @@ def _moe_local_dense(fn, x, gate, idx, wg, wu, wd, *, shard_ctx):
     valid = (local >= 0) & (local < E_loc)
     lidx = torch.where(valid, local, 0).to(idx.dtype)
     lgate = torch.where(valid, gate, 0)
-    out = torch.stack([fn(x[b], lgate[b], lidx[b], wg, wu, wd)
-                       for b in range(x.shape[0])])
+    out = _per_sequence(fn, x, lgate, lidx, wg, wu, wd)
     return out if shard_ctx.combine_bf16 else out.float()
+
+
+def _per_sequence(fn, x, gate, idx, wg, wu, wd):
+    """The dropless ``fn`` on each sequence's tokens.  The naive form is a
+    function of each token alone, so the B·S tokens run as one call: the
+    same values as the reference's ``jax.vmap`` over sequences, without
+    the copy of the expert weights a sequence that torch's batch rule of
+    its ``etf,efd->etd`` einsum makes.  lilac's compiled form runs under
+    ``torch.func.vmap``, as the reference's does: detected on one sequence,
+    each harness called once for the batch (K4: 3 launches a layer, not 3
+    a sequence)."""
+    if fn is _moe_naive_2d:
+        B, S, D = x.shape
+        return fn(x.reshape(B * S, D), gate.reshape(B * S, -1),
+                  idx.reshape(B * S, -1), wg, wu, wd).reshape(B, S, D)
+    return torch.func.vmap(lambda xx, gg, ii: fn(xx, gg, ii, wg, wu, wd))(
+        x, gate, idx)
 
 
 def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
               capacity_factor: float = 2.0, shard_ctx=None):
     """x: (B, S, D).  Groups are sequences: ``naive`` and ``lilac`` run
-    the expert FFN once per sequence, ``lilac`` through one compiled
-    function (one trace for all sequences of a shape); ``grouped`` runs
+    the dropless expert FFN of each sequence (``_per_sequence``: ``naive``
+    over the B·S tokens at once, the same per-token function; ``lilac``
+    through one compiled function under ``torch.func.vmap``, detected on
+    one sequence, each harness called once for the batch: K4 launches 3
+    times a layer); ``grouped`` runs
     the capacity-bucket dispatch over all sequences at once, dropping a
     pair past ``capacity_factor`` times an expert's mean load.  The flat
     impls take the B·S tokens as one group (decode): ``grouped_flat``
@@ -509,20 +528,14 @@ def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
                                    idx.reshape(1, B * S, -1), wg, wu, wd,
                                    capacity_factor=capacity_factor)
         return out.reshape(B, S, D), aux
-    if impl == "naive_flat":
-        out = _moe_naive_2d(x.reshape(B * S, D), gate.reshape(B * S, -1),
-                            idx.reshape(B * S, -1), wg, wu, wd)
-        return out.reshape(B, S, D), aux
-    if impl == "naive":
+    if impl in ("naive", "naive_flat"):
         fn = _moe_naive_2d
     elif impl == "lilac":
         fn = _lilac_moe_2d(x.device.type)
     else:
         raise ValueError(f"impl must be 'naive', 'lilac', 'grouped', "
                          f"'naive_flat' or 'grouped_flat', got {impl!r}")
-    out = torch.stack([fn(x[b], gate[b], idx[b], wg, wu, wd)
-                       for b in range(x.shape[0])])
-    return out, aux
+    return _per_sequence(fn, x, gate, idx, wg, wu, wd), aux
 
 
 # ---------------------------------------------------------------------------

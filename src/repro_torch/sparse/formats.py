@@ -50,6 +50,16 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
 
 
+def rebuilt(cls, **fields):
+    """A layout (``WindowedELL``, ``PackedBCSR``) from the fields of one
+    that was checked when it was built, without checking it again: a
+    custom op receives the tensors one by one, and the check syncs."""
+    obj = object.__new__(cls)
+    for f in dataclasses.fields(cls):
+        object.__setattr__(obj, f.name, fields.get(f.name, f.default))
+    return obj
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class CSR:
     """Compressed sparse row. row_ptr has length rows+1."""

@@ -1,7 +1,9 @@
 """Reference sparse ops in plain torch.
 
 Counterpart of ``repro.sparse.ops``: the semantic oracles for the kernels
-and for the plain ``torch.*`` harness bodies.
+and for the plain ``torch.*`` harness bodies.  They write out of place
+(``zeros(...).index_add(...)``), so that they batch under
+``torch.func.vmap``.
 """
 from __future__ import annotations
 
@@ -23,21 +25,20 @@ def spmv_csr_ref(csr: CSR, vec: torch.Tensor) -> torch.Tensor:
     row = row_ids_from_row_ptr(csr.row_ptr, csr.nnz)
     prod = csr.val * vec[csr.col_ind]
     return torch.zeros(csr.rows, dtype=prod.dtype,
-                       device=prod.device).index_add_(0, row, prod)
+                       device=prod.device).index_add(0, row, prod)
 
 
 def spmv_coo_ref(coo: COO, vec: torch.Tensor) -> torch.Tensor:
     prod = coo.val * vec[coo.col]
     return torch.zeros(coo.shape[0], dtype=prod.dtype,
-                       device=prod.device).index_add_(0, coo.row, prod)
+                       device=prod.device).index_add(0, coo.row, prod)
 
 
 def spmv_ell_ref(ell: ELL, vec: torch.Tensor) -> torch.Tensor:
     """Padded-row SpMV; un-permutes at the end."""
     acc = torch.sum(ell.val * vec[ell.col], dim=1)
-    out = torch.zeros(ell.shape[0], dtype=acc.dtype, device=acc.device)
-    out[ell.perm.long()] = acc
-    return out
+    return torch.zeros(ell.shape[0], dtype=acc.dtype,
+                       device=acc.device).index_put((ell.perm.long(),), acc)
 
 
 def bcsr_spmm_ref(bcsr: BCSR, dense: torch.Tensor) -> torch.Tensor:
@@ -49,6 +50,6 @@ def bcsr_spmm_ref(bcsr: BCSR, dense: torch.Tensor) -> torch.Tensor:
     rhs = dense.reshape(cols // bk, bk, n)[bcsr.block_col.long()]
     prod = torch.einsum("kij,kjn->kin", bcsr.blocks, rhs)
     out = torch.zeros((bcsr.block_rows, bm, n), dtype=prod.dtype,
-                      device=prod.device).index_add_(0, brow, prod)
+                      device=prod.device).index_add(0, brow, prod)
     return out.reshape(rows, n)
 

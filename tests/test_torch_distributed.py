@@ -263,6 +263,8 @@ with C.use_mesh(mesh):
                            capacity_factor=2.0, shard_ctx=ctx)
 if rank == 0:
     np.savez(sys.argv[2], out=out.numpy(), aux=aux.numpy())
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 """
 
 

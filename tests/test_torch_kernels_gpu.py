@@ -8,7 +8,10 @@ inf under padding, zero tail rows); every declared ``tune`` value of K1
 graph; trace mode and the autotuner on the card; gradients through every
 ``cuda.*`` harness (their ``vjp`` clauses) and through the custom ops'
 autograd formulas against plain autograd, ``torch.func.grad`` of a
-compiled call and of a compiled gradient; and serving: K4 under
+compiled call and of a compiled gradient; a batch of vectors (the
+custom ops' ``torch.func.vmap`` rules): K1's two bodies and K2 at B = 1, 3
+and 8 against B solo launches bit for bit, K3 with the vectors as its
+operand's columns, K4's rule against the loop; and serving: K4 under
 ``moe_ffn`` at a decode step's shapes, the compiled decode inside the
 engine across re-buckets and slot moves teacher-forced against the
 uncompiled decode, and a decode plan on a cache at a new address.
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch import lilac
 from repro_torch.kernels.bsr_spmm import kernel as K3
+from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.kernels.common import apply_epilogue_inregister
 from repro_torch.kernels.bsr_spmm import ref as R3
 from repro_torch.kernels.moe_gmm import kernel as K4
@@ -718,7 +722,8 @@ def test_k3_k4_wrappers_refuse_bad_operands(cuda):
 @pytest.mark.gpu
 def test_compiled_spmm_and_moe_run_their_kernels(cuda):
     """The default policy on the card: spmm_csr on cuda.bcsr (one repack,
-    one K3 launch a call), moe_ffn on cuda.gmm (three K4 launches a call)."""
+    one K3 launch a call), moe_ffn on cuda.gmm (three K4 launches a call:
+    the block vmaps its two sequences into one call)."""
     csr = tf.from_numpy(tf.to_numpy(trandom.random_csr(300, 200, 0.05,
                                                        seed=2)),
                         kind="CSR", device=cuda)
@@ -750,7 +755,7 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
     before = K4.LAUNCHES["gmm_f32"]
     got, _ = tlayers.moe_block(p, x, topk=2, impl="lilac")
     torch.cuda.synchronize()
-    assert K4.LAUNCHES["gmm_f32"] == before + 6
+    assert K4.LAUNCHES["gmm_f32"] == before + 3
     fast = tlayers._lilac_moe_2d("cuda")
     assert [n for _, n in fast.last_selections] == ["cuda.gmm"]
     want, _ = tlayers.moe_block(p, x, topk=2, impl="naive")
@@ -760,15 +765,16 @@ def test_compiled_spmm_and_moe_run_their_kernels(cuda):
 @pytest.mark.gpu
 def test_compiled_bf16_moe_runs_the_tensor_core_kernel(cuda):
     """The MoE path in bf16, as OLMoE runs it: moe_ffn on cuda.gmm, three
-    launches of K4's tensor-core body a sequence, within bf16 rounding of
-    the f32 oracle (relative L2 error, as chip_smoke.py states it)."""
+    launches of K4's tensor-core body for both sequences (vmapped into one
+    call), within bf16 rounding of the f32 oracle (relative L2 error, as
+    chip_smoke.py states it)."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     p = tlayers.moe_params(tlayers.moe_spec(64, 32, 8, torch.bfloat16), gen)
     x = torch.randn(2, 40, 64, generator=gen, device=cuda).bfloat16()
     before = K4.LAUNCHES["gmm"]
     got, _ = tlayers.moe_block(p, x, topk=2, impl="lilac")
     torch.cuda.synchronize()
-    assert K4.LAUNCHES["gmm"] == before + 6
+    assert K4.LAUNCHES["gmm"] == before + 3
     fast = tlayers._lilac_moe_2d("cuda")
     assert [n for _, n in fast.last_selections] == ["cuda.gmm"]
     gate, idx, _ = tlayers.moe_router(p, x, 2)
@@ -1947,3 +1953,147 @@ def test_compiled_jamba_decode_runs_k4_in_its_moe_layers(cuda):
                 assert _rel(got, want) <= 1e-4
             else:
                 assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# a batch of vectors (torch.func.vmap over a compiled function)
+# ---------------------------------------------------------------------------
+
+def _vecs(cuda, dtype, b, cols, seed=3):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((b, cols)).astype(
+        np.float32)).to(cuda, dtype)
+
+
+def _batched_against_solo(kernel, counter, run, vecs, plain, dtype):
+    """One launch for the batch, each row bit for bit its vector's solo
+    launch, and the batch within tolerance of the plain version."""
+    before = K.LAUNCHES[counter]
+    got = run(vecs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[counter] == before + 1, kernel
+    solo = torch.stack([run(v) for v in vecs])
+    assert torch.equal(got, solo)
+    torch.testing.assert_close(
+        got, torch.stack([plain(v) for v in vecs]),
+        **(TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("epilogue,with_bias,with_perm", EPILOGUES)
+def test_k1_direct_batch_equals_solo_launches(cuda, dtype, b, epilogue,
+                                              with_bias, with_perm):
+    val, col, perm, _, bias = _ell(cuda, dtype)
+    kw = dict(bias=bias if with_bias else None,
+              perm=perm if with_perm else None, epilogue=epilogue)
+    _batched_against_solo(
+        "K1 direct", "spmv_ell",
+        lambda v: K.spmv_ell_cuda(val, col, v, **kw),
+        _vecs(cuda, dtype, b, 3000),
+        lambda v: R.spmv_ell_plain(val, col, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("body,window", [("spmv_ell_staged", 512),
+                                         ("spmv_ell_staged", 3000),
+                                         ("spmv_ell_windowed", 512)])
+@pytest.mark.parametrize("epilogue,with_bias,with_perm", EPILOGUES)
+def test_k1_staged_and_k2_batch_equal_solo_launches(
+        cuda, dtype, b, body, window, epilogue, with_bias, with_perm):
+    val, col, perm, _, bias = _ell(cuda, dtype)
+    w = tf.ell_windows(val, col, 3000, window=window)
+    kw = dict(bias=bias if with_bias else None,
+              perm=perm if with_perm else None, epilogue=epilogue)
+    wrapper = getattr(K, body + "_cuda")
+    _batched_against_solo(
+        body, body, lambda v: wrapper(w, v, **kw),
+        _vecs(cuda, dtype, b, 3000),
+        lambda v: R.spmv_ell_windowed_plain(w, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [3, 8])
+def test_vmapped_custom_ops_launch_once_for_the_batch(cuda, b):
+    """lilac_torch::spmv_ell and ::spmv_ell_layout under torch.func.vmap:
+    one launch for the batch, equal to the loop bit for bit; a batched
+    matrix launches once an element."""
+    val, col, perm, _, bias = _ell(cuda, torch.float32)
+    vecs = _vecs(cuda, torch.float32, b, 3000)
+    f = lambda v: ell_ops.spmv_ell_op(val, col, v, bias, None, None, "relu",
+                                      32)
+    before = K.LAUNCHES["spmv_ell"]
+    got = torch.func.vmap(f)(vecs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell"] == before + 1
+    assert torch.equal(got, torch.stack([f(v) for v in vecs]))
+    vals = torch.stack([val * (j + 1) for j in range(b)])
+    g = lambda a: ell_ops.spmv_ell_op(a, col, vecs[0], None, None, None,
+                                      None, 32)
+    before = K.LAUNCHES["spmv_ell"]
+    torch.func.vmap(g)(vals)
+    assert K.LAUNCHES["spmv_ell"] == before + b
+    csr = trandom.random_csr(777, 3000, 0.02, seed=9, skew=1.0)
+    packed = ell_ops.pack_ell128(tf.CSR(csr.val.to(cuda), csr.col_ind.to(cuda),
+                                        csr.row_ptr.to(cuda), csr.shape))
+    h = lambda v: ell_ops.spmv_ell_packed(packed, v)
+    before = K.LAUNCHES["spmv_ell_staged"]
+    got = torch.func.vmap(h)(vecs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell_staged"] == before + 1
+    assert torch.equal(got, torch.stack([h(v) for v in vecs]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 8, 40])
+@pytest.mark.parametrize("epilogue,bias_kind", [(None, None),
+                                                ("relu", "row")])
+def test_k3_batch_of_vectors_as_columns(cuda, b, epilogue, bias_kind):
+    """lilac_torch::bsr_spmm under vmap over vectors: one launch with the
+    vectors as the operand's b columns (the narrow body up to 8, the wide
+    one past it), within tolerance of the plain version."""
+    packed = _packed(cuda, torch.float32)
+    vecs = _vecs(cuda, torch.float32, b, 600)
+    bias = torch.linspace(-1, 1, 700, device=cuda) if bias_kind else None
+    f = lambda v: bsr_ops.bsr_spmm(packed, v[:, None], epilogue=epilogue,
+                                   bias=bias, bias_kind=bias_kind,
+                                   out_rows=700)[:, 0]
+    body = _k3_body(b)
+    before = K3.LAUNCHES[body]
+    got = torch.func.vmap(f)(vecs)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES[body] == before + 1
+    want = R3.bsr_spmm_plain(packed, vecs.T.contiguous(), out_rows=700,
+                             bias=bias, bias_kind=bias_kind,
+                             epilogue=epilogue).T
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_vmap_rule_against_the_loop(cuda, dtype):
+    """lilac_torch::moe_ffn under vmap over 3 token groups: one call over
+    their tokens (3 K4 launches, not 9), each token's row bit for bit the
+    group's own call."""
+    rng = np.random.default_rng(12)
+    B, T, D, F, E, K_ = 3, 200, 128, 256, 8, 2
+    x = torch.from_numpy(rng.standard_normal((B, T, D)).astype(
+        np.float32)).to(cuda, dtype)
+    gate = torch.from_numpy(rng.random((B, T, K_)).astype(np.float32)).to(
+        cuda)
+    idx = torch.from_numpy(rng.integers(0, E, (B, T, K_)).astype(
+        np.int32)).to(cuda)
+    w = [torch.from_numpy((rng.standard_normal(s) * .05).astype(
+        np.float32)).to(cuda, dtype)
+         for s in ((E, D, F), (E, D, F), (E, F, D))]
+    f = lambda a, g, i: gmm_ops.moe_ffn_op(a, g, i, *w, 128)
+    key = "gmm" if dtype == torch.bfloat16 else "gmm_f32"
+    before = K4.LAUNCHES[key]
+    got = torch.func.vmap(f)(x, gate, idx)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES[key] == before + 3
+    loop = torch.stack([f(x[j], gate[j], idx[j]) for j in range(B)])
+    assert torch.equal(got, loop)
