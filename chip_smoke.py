@@ -61,17 +61,23 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      host mode and within the kernel tolerance of the uncompiled scan;
    * torch.func.vmap over compiled functions, on the same matrices: the
      CG above over 8 right-hand sides at once (the naive SpMV written out
-     of place, compiled in host mode with policy="cuda.ell"): 26 launches
-     a solve of K1's staged body (NPB-C) or K2 (HPCG), each for all 8
-     vectors (counted, and by the profiler), one repack then none, no
-     plan (bake_errors names the vmap) while solo calls afterwards hit
-     theirs, each iterate against its solo compiled CG (1e-5, or twice
-     the uncompiled CG's own vmapped-against-solo spread: torch's vmap of
-     torch.dot rounds apart from torch.dot) and against the vmapped
-     uncompiled CG (1e-3); the ELL layer over 8 vectors in trace mode (one
-     K1 direct launch a call, equal to host mode); the cuda.bcsr SpMV over
-     8 vectors at HPCG (one K3 narrow launch, the vectors as its
-     operand's columns, within 1e-4 of the plain version); for each, one
+     of place, compiled in host mode with policy="cuda.ell"): the first
+     vmapped call bakes a batched plan (the program traced once under
+     torch.func.vmap on the tensors below the batch level, its CUDA graph
+     or its eager run, as its timing decides), and the second vmapped
+     solve is 26 of 26 plan hits with 26 launches of K1's staged body
+     (NPB-C) or K2 (HPCG), each for all 8 vectors (counted, and by the
+     profiler), no repack and no detection, while solo calls afterwards
+     hit their own plan; each iterate against its solo compiled CG (1e-5,
+     or twice the uncompiled CG's own vmapped-against-solo spread: torch's
+     vmap of torch.dot rounds apart from torch.dot) and against the
+     vmapped uncompiled CG (1e-3); one vmapped solve on plans timed beside
+     the unplanned vmapped solve (bake=False) and 8 solo solves on plans;
+     the ELL layer over 8 vectors in trace mode (one K1 direct launch a
+     call, the second call a plan hit, equal to host mode); the cuda.bcsr
+     SpMV over 8 vectors at HPCG (one K3 narrow launch, the vectors as its
+     operand's columns, within 1e-4 of the plain version; the second call
+     a plan hit, equal to the first bit for bit); for each, one
      batched launch at B = 8 against its 8 solo launches (bit for bit)
      and the plain version, timed beside them with its bound (the stored
      entries once, the 8 vectors and outputs) and its share;
@@ -93,9 +99,11 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      compiles it, under torch.func.vmap over the sequences as the
      reference vmaps it — under the default policy: one moe_ffn/MOE match
      traced once, cuda.gmm as the custom op lilac_torch::moe_ffn, whose
-     vmap rule runs both sequences' tokens as one call: 3 launches (the
-     per-sequence loop it replaced, run after for comparison only, makes 6
-     and must give the same bits), and the output and the naive bf16
+     vmap rule runs both sequences' tokens as one call: 3 launches; the
+     next call is a hit on the batched plan the first baked, 3 launches,
+     each token's row bit for bit the first call's (the per-sequence loop
+     it replaced, run after for comparison only, makes 6 and must give the
+     same bits), and the output and the naive bf16
      block's, each as relative L2 error against the f32 plain oracle on
      the same bf16 inputs; K4's gate/up product over both sequences'
      routed rows timed against the two sequences' launches, each token's
@@ -152,8 +160,8 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      selections and ms;
    * RWKV-6 1.6B at full width and depth (24 layers, d_model 2,048, 32
      heads of 64, d_ff 7,168, vocab 65,536, bf16 from --seed): prefill on
-     2 x 512 tokens and 32 teacher-forced decode steps against the
-     forward over the 544 tokens (f32: relative L2 within 1e-3 at every
+     2 x 512 tokens and 16 teacher-forced decode steps against the
+     forward over the 528 tokens (f32: relative L2 within 1e-3 at every
      step; bf16: the decode no further from the f32 forward than twice
      the bf16 forward is, each step's argmax agreement printed), each
      layer's decode against its forward on the layer's own inputs
@@ -209,15 +217,20 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      bit for bit, K4's 3 x layers launches a step (the MoE block vmaps the
      batch's sequences into one call; the per-sequence loop made 3 x
      layers x sequences), and per
-     step its CUDA-event ms, loss, grad norm and peak memory beside 3 steps
-     of the naive model, and one step of each under torch.profiler (device
-     time by kernel class, the top kernels, the device's idle share);
+     step its CUDA-event ms, loss, grad norm, peak memory and the compiled
+     MoE's plan hits (from step 2 each layer's MoE call is a hit on a
+     gradient-carrying batched plan, run eagerly) beside 2 steps of the
+     unplanned route (the MoE's plans dropped and baking off: the planned
+     steps' loss and grad norm within 1e-2 and 2e-2 of its) and 3 steps of
+     the naive model, and one step of lilac and naive under torch.profiler
+     (device time by kernel class, the top kernels, the device's idle
+     share);
    * serving, in a process of its own (cuBLAS's workspace fixed):
      OLMoE-1B-7B at full width and depth (16 layers, bf16 parameters from
      --seed, moe_decode_impl="naive_flat") in repro_torch.serve's Engine
      (continuous batching, host-mode lilac on the decode step, baked
      plans) over the bucket grid batch (1, 8) x seq (256, 512): prewarm
-     bakes the four signatures (seconds each), then a closed burst of 12
+     bakes the four signatures (seconds each), then a closed burst of 8
      SyntheticWorkload requests (prompts 32-200, 16-64 new tokens; the
      first workload seed from --seed whose burst needs both seq buckets)
      runs with no detection and no bucket miss, one moe_ffn match a layer
@@ -227,8 +240,8 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      copies, captures), one decode step under torch.profiler; checks each
      MoE layer of one compiled bf16 decode step (cuda.gmm) against the
      naive dense dispatch on the layer's own input (relative L2 2e-2),
-     and two streams teacher-forced through the compiled and the
-     uncompiled decode (bf16 against the uncompiled decode computing K4's
+     and two streams teacher-forced (16 steps) through the compiled and
+     the uncompiled decode (bf16 against the uncompiled decode computing K4's
      function, 2e-2; f32 against the naive one, 1e-4; the prefill's first
      tokens equal),
      prints each stream against a fresh engine's solo run and, where they
@@ -285,7 +298,7 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      the mesh (relative L2 2e-2), the tokens whose top-k differs from the
      one-device step's, each MoE layer against the naive dispatch on the
      same input (2e-2), one K4 launch on each rank's experts against its
-     plain version, K4 launched on every rank in every one of 3 steps
+     plain version, K4 launched on every rank in its step
      (ms, loss, grad norm, collective payload, peak memory), and the
      initial parameters saved from the mesh and restored onto a (4, 1)
      mesh and onto one device bit for bit;
@@ -1102,9 +1115,11 @@ def moe_path(cfg, p, x, device):
     """One expert layer through moe_block(impl='lilac') (the compiled MoE
     under ``torch.func.vmap`` over the sequences), then the naive block,
     each against the f32 plain oracle; ``launches`` counts each K4 body's
-    launches in the first call.  For comparison only, after the counts
-    are read: the compiled MoE called on each sequence in a loop, as the
-    block ran it before it vmapped."""
+    launches in the first call, which bakes a batched plan, and
+    ``plan_launches`` those of the second, which the plan serves (each
+    token's row bit for bit the first call's).  For comparison only,
+    after the counts are read: the compiled MoE called on each sequence
+    in a loop, as the block ran it before it vmapped."""
     import torch
     from repro_torch.kernels.moe_gmm import kernel as G
     from repro_torch.kernels.moe_gmm import ref as GR
@@ -1121,7 +1136,18 @@ def moe_path(cfg, p, x, device):
     peak, _ = memory_read(device, before)
     fast = L._lilac_moe_2d(device.type)
     (m,) = fast.last_report.matches
-    res = {"match": (m.computation, m.format),
+    hits = fast.plan_info()["plan_hits"]
+    G.reset_launches()
+    planned, _ = L.moe_block(p, x, topk=cfg.moe_topk, impl="lilac")
+    sync(device)
+    info = fast.plan_info()
+    res = {"plan_launches": dict(G.LAUNCHES),
+           "plan_hits": info["plan_hits"] - hits,
+           "plan_equal": bool(torch.equal(out, planned)),
+           "plans": [{k: q[k] for k in ("transform", "runs", "eager_reason",
+                                         "replay_ms", "eager_ms")}
+                     for q in info["plans"]],
+           "match": (m.computation, m.format),
            "selections": [n for _, n in fast.last_selections],
            "traces": fast.stats["traces"],
            "trace_seconds": fast.stats["trace_seconds"],
@@ -1162,6 +1188,7 @@ def moe_path(cfg, p, x, device):
     res["loop_equal"] = bool(torch.equal(out, loop))
     res["rel_to_loop"] = rel_l2(out, loop)
     res["bake_errors"] = fast.plan_info()["bake_errors"]
+    del planned
     return res
 
 
@@ -1220,9 +1247,16 @@ def check_moe_path(res, batch: int = MOE_BATCH) -> None:
             f"MoE: the vmapped block equal bit for bit to the compiled MoE "
             f"called a sequence at a time ({3 * batch} launches), got "
             f"{res['loop_launches']}, relative L2 {res['rel_to_loop']:.3g}")
-    require(any("vmap" in e for e in res["bake_errors"]),
-            f"MoE: the vmapped entry names the vmap in bake_errors, got "
-            f"{res['bake_errors']}")
+    require(res["plan_hits"] == 1 and res["plan_equal"]
+            and res["plan_launches"] == {"gmm": 3, "gmm_f32": 0}
+            and not res["bake_errors"]
+            and any(q["transform"] and q["transform"]["vmap"]
+                    for q in res["plans"]),
+            f"MoE: the second vmapped block served by its batched plan with "
+            f"3 K4 launches, each token's row bit for bit the unplanned "
+            f"call's, got {res['plan_hits']} hits, launches "
+            f"{res['plan_launches']}, equal {res['plan_equal']}, plans "
+            f"{res['plans']}, bake_errors {res['bake_errors']}")
     require(res["finite"], "MoE: finite output")
     require(res["rel_l2"] <= MOE_RTOL and res["naive_rel_l2"] <= MOE_RTOL,
             f"MoE: relative L2 error against the f32 oracle within "
@@ -2493,6 +2527,9 @@ TRAIN_LAYERS = 2               # of OLMoE-1B-7B's 16
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
 NAIVE_TRAIN_STEPS = 3
+# steps of the lilac model with the MoE's plans dropped and baking off
+# (the route before plans under transforms), for its ms and its numbers
+UNPLANNED_TRAIN_STEPS = 2
 # the lilac step's first loss and gradients against the naive step's from
 # the same parameters and batch: bf16 parameters and activations, the
 # MoE layer's tolerance (MOE_RTOL) for every gradient leaf
@@ -2594,8 +2631,10 @@ def train_path(seed: int, device, work: str, cfg=None,
     same parameters and batch, the token-expert pairs past the backward's
     capacity, ``steps`` steps with a checkpoint every TRAIN_CKPT_EVERY
     (deterministic algorithms), a restart from the first checkpoint run
-    to the end, and NAIVE_TRAIN_STEPS steps of the naive model for
-    timing.  Each step: CUDA-event ms, loss, grad norm, peak memory."""
+    to the end, UNPLANNED_TRAIN_STEPS steps with the MoE's plans dropped
+    and baking off (the unplanned route) and NAIVE_TRAIN_STEPS steps of
+    the naive model for timing.  Each step: CUDA-event ms, loss, grad
+    norm, peak memory and the compiled MoE's plan hits."""
     import shutil as _shutil
 
     import torch
@@ -2687,10 +2726,12 @@ def train_path(seed: int, device, work: str, cfg=None,
     opt = O.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     ckdir = Path(work) / "ckpt"
     log: list = []
+    fast = L._lilac_moe_2d(device.type)
 
     def timed_step(fn):
         """``fn`` timed by CUDA events (a host clock on the CPU)."""
         def run(p, s, b):
+            hits = fast.plan_info()["plan_hits"]
             before = memory_mark(device)
             if device.type == "cuda":
                 e0 = torch.cuda.Event(enable_timing=True)
@@ -2707,7 +2748,8 @@ def train_path(seed: int, device, work: str, cfg=None,
             peak, _ = memory_read(device, before)
             log.append({"ms": ms, "loss": float(out[2]["loss"]),
                         "grad_norm": float(out[2]["grad_norm"]),
-                        "peak_bytes": peak or 0})
+                        "peak_bytes": peak or 0,
+                        "plan_hits": fast.plan_info()["plan_hits"] - hits})
             return out
         return run
 
@@ -2746,6 +2788,9 @@ def train_path(seed: int, device, work: str, cfg=None,
     res.update(restart_start_step=r2["start_step"],
                restart_history=r2["history"], restart_steps=list(log),
                restart_seconds=time.perf_counter() - t0)
+    res["moe_plans"] = [{k: q[k] for k in ("transform", "runs",
+                                           "eager_reason", "hits")}
+                        for q in fast.plan_info()["plans"]]
     del r2
     _shutil.rmtree(ckdir, ignore_errors=True)
     release(device)
@@ -2768,6 +2813,29 @@ def train_path(seed: int, device, work: str, cfg=None,
         lilac_step = make_train_step(model, opt)
         res["lilac_profile"] = step_breakdown(
             lambda: lilac_step(params, st, b0), device)
+        del st
+        release(device)
+
+    # the unplanned route (after the profiles, which time planned steps):
+    # baking off, so each MoE call runs its rewritten graph under vmap
+    log.clear()
+    fast.invalidate_plans()
+    fast.bake_enabled = False
+    try:
+        p, s = params, O.adamw_init(opt, params)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)       # as the loop ran
+        try:
+            for i in range(UNPLANNED_TRAIN_STEPS):
+                batch_i = {k: torch.as_tensor(v, device=device)
+                           for k, v in data.batch_at(i).items()}
+                p, s, _ = step(p, s, batch_i)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        del p, s
+    finally:
+        fast.bake_enabled = True
+    res["unplanned_steps"] = list(log)
     res["heartbeat"] = heartbeat
     res["tuner"] = REGISTRY.autotuner.stats.as_dict()
     return res
@@ -2851,6 +2919,26 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
             f"training: the restart from step {TRAIN_CKPT_EVERY} repeats the "
             f"uninterrupted losses bit for bit, got "
             f"{res['restart_history']} against {res['history']}")
+    hits = [st["plan_hits"] for st in res["steps"]]
+    require(all(h == layers for h in hits[1:])
+            and any(q["transform"] and q["transform"]["grad"]
+                    and q["transform"]["vmap"] and q["runs"] == "eager"
+                    for q in res["moe_plans"]),
+            f"training: from step 2 each layer's MoE call a hit on a "
+            f"gradient-carrying batched plan run eagerly ({layers} a step), "
+            f"got {hits} hits by step, plans {res['moe_plans']}")
+    un = res["unplanned_steps"]
+    require(len(un) == UNPLANNED_TRAIN_STEPS
+            and all(st["plan_hits"] == 0 for st in un)
+            and all(abs(u["loss"] - st["loss"]) <= TRAIN_LOSS_RTOL
+                    * abs(st["loss"])
+                    and abs(u["grad_norm"] - st["grad_norm"])
+                    <= TRAIN_GRAD_RTOL * abs(st["grad_norm"])
+                    for u, st in zip(un, res["steps"])),
+            f"training: the planned steps' loss and grad norm within "
+            f"{TRAIN_LOSS_RTOL} and {TRAIN_GRAD_RTOL} of the unplanned "
+            f"route's, got {[(u['loss'], u['grad_norm']) for u in un]} "
+            f"against {[(st['loss'], st['grad_norm']) for st in res['steps']]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2858,7 +2946,7 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
 # ---------------------------------------------------------------------------
 
 DIST_MESH = (2, 2)             # (data, model)
-DIST_STEPS = 3
+DIST_STEPS = 1
 DIST_RANKS = DIST_MESH[0] * DIST_MESH[1]
 
 
@@ -3947,9 +4035,10 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
     NPB-C (K1 direct, lilac_torch::spmv_ell's vmap rule); the cuda.bcsr
     SpMV over ``rhs`` vectors at HPCG (K3, the vectors as the operand's
     columns).  For each: the launches of the vmapped call (counts set to 0
-    just before it), the answer against its solo and uncompiled forms, and
-    one batched launch against the solo launches and the plain version,
-    timed with its bound."""
+    just before it; the CGs' second solve, served by the batched plan the
+    first call baked), the answer against its solo and uncompiled forms,
+    and one batched launch against the solo launches and the plain
+    version, timed with its bound."""
     import torch
     from repro_torch import lilac
     from repro_torch.kernels.bsr_spmm import kernel as B
@@ -3970,17 +4059,28 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
         def solve(f=fast, a=a, bs=bs):
             return torch.func.vmap(lambda bb: cg(f, a, bb, iters))(bs)
 
+        xs = solve()                    # bakes the batched plan
+        sync(device)
+        repacks = [fast.cache.stats.misses]
+        hits, detects = fast.plan_info()["plan_hits"], fast.stats["detects"]
         K.reset_launches()
-        xs = solve()
+        again = solve()
         sync(device)
         launches = dict(K.LAUNCHES)
-        repacks = [fast.cache.stats.misses]
-        solve()
         repacks.append(fast.cache.stats.misses - repacks[0])
+        info = fast.plan_info()
+        batched_plans = [q for q in info["plans"] if q["transform"]]
         prof = profiled_ms(solve, 1, body + "_kernel") if on_card else {}
         r = {"body": body, "launches": launches[body],
              "all_launches": launches, "profiled_launches":
                  prof.get("launches"), "repacks": repacks,
+             "plan_hits": info["plan_hits"] - hits,
+             "detects": fast.stats["detects"] - detects,
+             "equal_to_first_solve": bool(torch.equal(xs, again)),
+             "batched_plans": [{k: q[k] for k in (
+                 "transform", "runs", "eager_reason", "replay_ms",
+                 "eager_ms", "graph_copy_bytes", "recaptures")}
+                 for q in batched_plans],
              "breakdown": step_breakdown(solve, device, top=4)
              if on_card else None,
              "selections": [n for _, n in fast.last_selections],
@@ -3990,10 +4090,11 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
                                                       .all())}
         # each right-hand side alone through the same compiled function:
         # an unbatched entry, which bakes and then serves its plan
+        hits = fast.plan_info()["plan_hits"]
         x_solo = torch.stack([cg(fast, a, bs[j], iters) for j in range(rhs)])
         info = fast.plan_info()
         r.update(bake_errors=info["bake_errors"], baked=info["baked"],
-                 solo_plan_hits=info["plan_hits"],
+                 solo_plan_hits=info["plan_hits"] - hits,
                  solo_repacks=fast.cache.stats.misses - sum(repacks))
         x_naive = torch.func.vmap(
             lambda bb: cg(naive_spmv_oop, a, bb, iters))(bs)
@@ -4005,10 +4106,19 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
         r["naive_spread"] = max(rel_l2(x_naive[j], x_naive_solo[j])
                                 for j in range(rhs))
         r["rel_to_main_path"] = rel_l2(xs[0], x_refs[name])
-        r["ms"] = {"vmapped_solve": _host_ms(solve, device, 2),
+        # the unplanned route beside it: the same program with bake=False (on
+        # the same data plane, so no second repack)
+        unplanned = lilac.compile(naive_spmv_oop, mode="host",
+                                  policy="cuda.ell", device=device,
+                                  bake=False, cache=fast.cache)
+        r["unplanned_equal"] = bool(torch.equal(
+            xs, solve(f=unplanned)))
+        r["ms"] = {"vmapped_solve": _host_ms(solve, device, 3),
+                   "unplanned_vmapped_solve": _host_ms(
+                       lambda: solve(f=unplanned), device, 3),
                    f"{rhs}_solo_solves": _host_ms(
                        lambda: [cg(fast, a, bs[j], iters)
-                                for j in range(rhs)], device, 2)}
+                                for j in range(rhs)], device, 3)}
         # one batched launch of the body against its rhs solo launches
         (layout,) = marshaled(fast, WindowedELL)
         vecs = torch.randn((rhs, a.cols), generator=gen, device=device)
@@ -4030,7 +4140,8 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
         r["kernel"]["library_ms"] = cuda_ms(lambda: csr_t @ vt, reps)[0] \
             if on_card else None
         out[name] = r
-        del fast, xs, x_solo, x_naive, x_naive_solo, layout, csr_t, vt
+        del fast, unplanned, xs, again, x_solo, x_naive, x_naive_solo
+        del layout, csr_t, vt
         release(device)
 
     # trace mode: the ELL layer over rhs vectors, K1's direct body
@@ -4049,7 +4160,7 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
     sync(device)
     first = K.LAUNCHES["spmv_ell"]
     K.reset_launches()
-    layer(traced)
+    y2 = layer(traced)
     sync(device)
     second = K.LAUNCHES["spmv_ell"]
     y_host = layer(host)
@@ -4063,7 +4174,9 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
                             for m, n in host.last_selections],
         "equal_to_host": bool(torch.equal(y, y_host)),
         "max_abs_err": err, "within_tol": scaled <= 1.0,
-        "bake_errors": traced.plan_info()["bake_errors"],
+        "plan_equal": bool(torch.equal(y, y2)),
+        "plan_info": {k: traced.plan_info()[k]
+                      for k in ("baked", "plan_hits", "bake_errors")},
         "ms": _host_ms(lambda: layer(traced), device, 3)}
     csr_t = sparse_csr(a)
     vt = vecs.T.contiguous()
@@ -4079,7 +4192,7 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
         what="vmap spmv_ell")
     out["trace"]["kernel"]["library_ms"] = cuda_ms(
         lambda: csr_t @ vt, reps)[0] if on_card else None
-    del traced, host, ell, csr_t, vt, y, y_host, y_plain
+    del traced, host, ell, csr_t, vt, y, y2, y_host, y_plain
     release(device)
 
     # K3: the cuda.bcsr SpMV over rhs vectors, the operand's columns
@@ -4091,6 +4204,11 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
     y = torch.func.vmap(lambda v: fast(a.val, a.col_ind, a.row_ptr, v))(vecs)
     sync(device)
     launches = dict(B.LAUNCHES)
+    B.reset_launches()
+    y2 = torch.func.vmap(lambda v: fast(a.val, a.col_ind, a.row_ptr, v))(
+        vecs)
+    sync(device)
+    plan_launches = dict(B.LAUNCHES)
     (packed,) = marshaled(fast, PackedBCSR)
     vt = vecs.T.contiguous()
     cols = [vt[:, j:j + 1].contiguous() for j in range(rhs)]
@@ -4100,6 +4218,9 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
     out["bcsr"] = {
         "launches": launches, "selections": [n for _, n in
                                              fast.last_selections],
+        "plan_launches": plan_launches, "plan_equal": bool(torch.equal(y, y2)),
+        "plan_info": {k: fast.plan_info()[k]
+                      for k in ("baked", "plan_hits", "bake_errors")},
         "max_abs_err": err, "within_tol": scaled <= 1.0,
         "rel_to_naive": rel_l2(y, torch.func.vmap(lambda v: naive_spmv_oop(
             a.val, a.col_ind, a.row_ptr, v))(vecs)),
@@ -4113,7 +4234,7 @@ def vmap_path(mats, x_refs, seed: int, device, iters: int = CG_ITERS,
             + rhs * a.rows * 4, 2 * packed.nnz * rhs, what="vmap bsr_spmm")}
     out["bcsr"]["kernel"]["library_ms"] = cuda_ms(
         lambda: csr_t @ vt, reps)[0] if on_card else None
-    del fast, packed, csr_t, vt, cols, y, plain
+    del fast, packed, csr_t, vt, cols, y, y2, plain
     release(device)
     return out
 
@@ -4133,11 +4254,19 @@ def check_vmap_path(res, iters: int = CG_ITERS) -> None:
         require(r["repacks"] == [1, 0] and r["solo_repacks"] == 0,
                 f"vmap {name}: one repack, then none (solo calls too), got "
                 f"{r['repacks']}, {r['solo_repacks']}")
-        require(r["baked"] == 1 and any("vmap" in e for e in
-                                        r["bake_errors"]),
-                f"vmap {name}: the vmapped entry names the vmap and never "
-                f"bakes, the solo one bakes: {r['bake_errors']}, baked "
-                f"{r['baked']}")
+        require(r["plan_hits"] == calls and r["detects"] == 0
+                and r["equal_to_first_solve"] and r["unplanned_equal"]
+                and len(r["batched_plans"]) == 1,
+                f"vmap {name}: the second vmapped solve is {calls} of "
+                f"{calls} plan hits with no detection, bit for bit the "
+                f"first solve's and the unplanned solve's, got "
+                f"{r['plan_hits']} hits, {r['detects']} detections, equal "
+                f"{r['equal_to_first_solve']} / {r['unplanned_equal']}, "
+                f"batched plans {r['batched_plans']}")
+        require(r["baked"] == 2 and not r["bake_errors"],
+                f"vmap {name}: the vmapped entry and the solo one each bake "
+                f"a plan, got baked {r['baked']}, bake_errors "
+                f"{r['bake_errors']}")
         require(r["solo_plan_hits"] > 0,
                 f"vmap {name}: solo calls afterwards hit their plan, got "
                 f"{r['solo_plan_hits']} hits")
@@ -4153,6 +4282,12 @@ def check_vmap_path(res, iters: int = CG_ITERS) -> None:
                 f"vmap {name}: one batched {body} launch equal bit for bit "
                 f"to its {VMAP_RHS} solo launches")
     t = res["trace"]
+    require(t["plan_equal"] and t["plan_info"]["baked"] == 1
+            and t["plan_info"]["plan_hits"] >= 1
+            and not t["plan_info"]["bake_errors"],
+            f"vmap ELL layer (trace mode): the second call a hit on the "
+            f"batched plan, equal to the first bit for bit, got "
+            f"{t['plan_info']}, equal {t['plan_equal']}")
     require(t["launches"] == [1, 1] and t["equal_to_host"]
             and t["within_tol"]
             and [tuple(s) for s in t["selections"] + t["host_selections"]]
@@ -4165,6 +4300,13 @@ def check_vmap_path(res, iters: int = CG_ITERS) -> None:
             "vmap ELL layer: one batched K1 direct launch equal bit for bit "
             "to its solo launches")
     k3 = res["bcsr"]
+    require(k3["plan_launches"] == k3["launches"] and k3["plan_equal"]
+            and k3["plan_info"]["plan_hits"] == 1
+            and not k3["plan_info"]["bake_errors"],
+            f"vmap cuda.bcsr: the second call a hit on the batched plan, one "
+            f"K3 narrow launch, equal to the first bit for bit, got "
+            f"{k3['plan_info']}, {k3['plan_launches']}, equal "
+            f"{k3['plan_equal']}")
     require(k3["launches"] == {"bsr_spmm_wide": 0, "bsr_spmm_narrow": 1}
             and k3["selections"] == ["cuda.bcsr"] and k3["within_tol"],
             f"vmap cuda.bcsr: one K3 (narrow) launch for {VMAP_RHS} vectors "
@@ -4197,27 +4339,36 @@ def print_vmap_path(res, smi: str) -> None:
               f", against the "
               f"vmapped uncompiled CG {r['rel_to_naive']:.3g} (tol "
               f"{CG_RTOL}), the first against the main path's naive CG "
-              f"{r['rel_to_main_path']:.3g}; bake_errors {r['bake_errors']};"
-              f" solo calls after it: {r['solo_plan_hits']} plan hits")
+              f"{r['rel_to_main_path']:.3g}; the second solve "
+              f"{r['plan_hits']} plan hits, {r['detects']} detections, "
+              f"equal to the first {r['equal_to_first_solve']} and to the "
+              f"unplanned solve {r['unplanned_equal']}; batched plan "
+              f"{r['batched_plans']}; baked {r['baked']}, bake_errors "
+              f"{r['bake_errors']}; solo calls after it: "
+              f"{r['solo_plan_hits']} plan hits")
         print(f"vmap {name} times ({smi}, host clock from a sync to a sync, "
-              f"median): one vmapped solve {r['ms']['vmapped_solve']:.3f} "
-              f"ms, {VMAP_RHS} solo solves (baked plans) "
+              f"median of 3): one vmapped solve on plans "
+              f"{r['ms']['vmapped_solve']:.3f} ms, unplanned (bake=False) "
+              f"{r['ms']['unplanned_vmapped_solve']:.3f} ms, {VMAP_RHS} solo "
+              f"solves (baked plans) "
               f"{r['ms'][f'{VMAP_RHS}_solo_solves']:.3f} ms; one vmapped "
-              f"solve profiled: {r['breakdown']}")
+              f"solve on plans profiled: {r['breakdown']}")
         print(f"vmap {body} ({name}): {kernel_line(r['kernel'])}")
     t = res["trace"]
     print(f"vmap ELL layer x {VMAP_RHS} vectors (npb, trace mode): K1 direct "
           f"launches a call {t['launches']}, selections {t['selections']} "
           f"(host mode {t['host_selections']}), equal to host mode "
           f"{t['equal_to_host']}, max|err| against the uncompiled layer "
-          f"{t['max_abs_err']:.3g}, {t['ms']:.3f} ms a call; bake_errors "
-          f"{t['bake_errors']}")
+          f"{t['max_abs_err']:.3g}, {t['ms']:.3f} ms a call on its plan; "
+          f"plan {t['plan_info']}, the plan's call equal to the first "
+          f"{t['plan_equal']}")
     print(f"vmap spmv_ell (npb ELL, relu+bias): {kernel_line(t['kernel'])}")
     k3 = res["bcsr"]
     print(f"vmap cuda.bcsr SpMV x {VMAP_RHS} vectors (hpcg): launches "
-          f"{k3['launches']}, selections {k3['selections']}, max|err| vs "
-          f"plain {k3['max_abs_err']:.3g}, |y-y_naive|/|y_naive| "
-          f"{k3['rel_to_naive']:.3g}")
+          f"{k3['launches']} (on the plan {k3['plan_launches']}), selections "
+          f"{k3['selections']}, max|err| vs plain {k3['max_abs_err']:.3g}, "
+          f"|y-y_naive|/|y_naive| {k3['rel_to_naive']:.3g}; plan "
+          f"{k3['plan_info']}, equal to the first call {k3['plan_equal']}")
     print(f"vmap bsr_spmm_narrow (hpcg, the vectors as {VMAP_RHS} columns):"
           f" {kernel_line(k3['kernel'])}")
 
@@ -4252,7 +4403,10 @@ def vmap_entries(res) -> list:
 # ---------------------------------------------------------------------------
 
 SERVE_BATCH, SERVE_SEQ = (1, 8), (256, 512)
-SERVE_REQUESTS = 12
+SERVE_REQUESTS = 8
+# the teacher-forced comparisons' decode steps (at most; a stream's own
+# length bounds them)
+SERVE_TEACHER_STEPS = 16
 SERVE_PROMPTS, SERVE_NEW = (32, 200), (16, 64)
 # the fault runs: one batch of requests that all end on the same step and
 # fit the smallest seq bucket, so every step, with a fault or without,
@@ -4280,7 +4434,7 @@ def serve_requests(cfg, seed: int, n: int = SERVE_REQUESTS,
 def serve_seed(cfg, seed: int, policy, n: int = SERVE_REQUESTS) -> int:
     """The first workload seed from ``seed`` on (in steps of 1,000) whose
     burst needs both seq buckets: at SERVE_PROMPTS and SERVE_NEW a request
-    needs at most 264 positions, so most bursts of 12 fit 256."""
+    needs at most 264 positions, so most bursts of SERVE_REQUESTS fit 256."""
     s = seed
     while not any(r.prompt_len + r.max_new_tokens > policy.seq[0]
                   for r in serve_requests(cfg, s, n)):
@@ -4339,6 +4493,12 @@ def _install(model, params, reqs, shape, device):
     return cache, firsts
 
 
+def teacher_steps(reqs) -> int:
+    """The teacher-forced decode steps of ``reqs``' streams: as many as
+    the shortest stream holds, at most SERVE_TEACHER_STEPS."""
+    return min(SERVE_TEACHER_STEPS, min(len(r.tokens) for r in reqs) - 1)
+
+
 def _teacher_run(dec_c, dec_u, m, p, reqs, shape, device, record=False):
     """``dec_c`` and ``dec_u`` fed the same tokens, the streams of ``reqs``
     from the same prefills in rows 0.. of a ``shape`` cache, each carrying
@@ -4349,7 +4509,7 @@ def _teacher_run(dec_c, dec_u, m, p, reqs, shape, device, record=False):
     from repro_torch.models import layers as L
     from repro_torch.models.spec import tree_map
 
-    steps = min(len(r.tokens) for r in reqs) - 1
+    steps = teacher_steps(reqs)
     n = len(reqs)
     cache_c, firsts = _install(m, p, reqs, shape, device)
     cache_u = tree_map(lambda a: a.clone(), cache_c)
@@ -4423,7 +4583,7 @@ def teacher_forced(eng, model, params, reqs, device, f32: bool = True
 
     shape = (eng.buckets.batch_bucket(len(reqs)), eng.buckets.seq_bucket(
         max(r.prompt_len + r.max_new_tokens for r in reqs)))
-    steps = min(len(r.tokens) for r in reqs) - 1
+    steps = teacher_steps(reqs)
     n = len(reqs)
 
     def run(dec_c, dec_u, m, p, record=False):
@@ -4495,9 +4655,10 @@ def moe_layers(eng, model, params, reqs, device) -> dict:
     args = (params, cache, tok, pos)
     plan = eng._decode.executable_plan(*args)
     flat, spec = tree_flatten((args, {}))
-    tensors = plan.match(spec, flat) if plan is not None else None
-    if tensors is None:
+    got = plan.match(spec, flat) if plan is not None else None
+    if got is None:
         return {"shape": shape, "plan": False}
+    tensors, _ = got
     calls, call = [], rewrite.call_harness
 
     def recording(h, binding, ctx, epilogue):
@@ -5271,7 +5432,7 @@ def print_serve_path(sv, tag: str = "serving") -> None:
 # RWKV-6 1.6B at full width and depth: a recurrent decode state
 # ---------------------------------------------------------------------------
 
-RWKV_BATCH, RWKV_PROMPT, RWKV_STEPS = 2, 512, 32
+RWKV_BATCH, RWKV_PROMPT, RWKV_STEPS = 2, 512, 16
 RWKV_F32_RTOL = 1e-3      # decode after prefill against the longer prefill
 RWKV_BF16_SPREAD = 2.0    # bf16 decode's error from f32 over the prefill's
 RWKV_BF16_LAYER_RTOL = 3e-3   # a layer's bf16 decode against its forward
@@ -5673,7 +5834,9 @@ def jamba_path(seed: int, device, cfg=None, f32_layers: int = JAMBA_F32_LAYERS,
 
     res = serve_path(seed, device, cfg=cfg, light=True, f32=False)
     release(device)
-    progress("served")
+    progress(f"served, {torch.cuda.memory_reserved(device) / 2**30:.2f} GiB "
+             f"reserved, {torch.cuda.mem_get_info(device)[0] / 2**30:.2f} "
+             f"GiB free on the card")
 
     # the serving phase's parameters (its generator and seed)
     model = build_model(cfg.replace(moe_impl="naive",
@@ -6061,6 +6224,7 @@ def run(args, work: str) -> int:
     print(f"generated in {time.perf_counter() - t0:.1f}s")
 
     # -- SpMV on ELL (K1, K2) ------------------------------------------------
+    t0 = time.perf_counter()
     with fault_free("SpMV path"):
         res = main_path(mats, args.seed, device)
     x_refs = res.pop("x_ref")
@@ -6100,6 +6264,7 @@ def run(args, work: str) -> int:
                for e in ell_rows]
     record["kernels"] = ell_rows
     release(device)
+    print(f"SpMV phase {time.perf_counter() - t0:.1f}s")
 
     # -- the How language's lifecycle: a hook-bearing harness on K1 ---------
     t0 = time.perf_counter()
@@ -6148,6 +6313,7 @@ def run(args, work: str) -> int:
     release(device)
 
     # -- K1's rows_per_slab variants, the ELL layer in trace mode ------------
+    t0 = time.perf_counter()
     with fault_free("slab variants and the ELL layer in trace mode"):
         slabs = slab_variants(mats["npb"][0], args.seed, device)
     print_tune_variants(slabs["variants"], "spmv_ell rows_per_slab",
@@ -6157,8 +6323,10 @@ def run(args, work: str) -> int:
     check_trace(slabs["trace"], "ELL layer")
     record["slab_variants"] = slabs
     release(device)
+    print(f"slab-variant phase {time.perf_counter() - t0:.1f}s")
 
     # -- host-mode autotune at NPB-C and HPCG, then a warm start ------------
+    t0 = time.perf_counter()
     store = Path(work) / "autotune.json"
     os.environ["LILAC_TORCH_AUTOTUNE_CACHE"] = str(store)
     with fault_free("autotune"):
@@ -6186,8 +6354,10 @@ def run(args, work: str) -> int:
     check_warm_start(warm, tuned)
     record.update(autotune_path=tuned, warm_start=warm)
     release(device)
+    print(f"autotune phase {time.perf_counter() - t0:.1f}s")
 
     # -- executable plans: the CGs replayed from one CUDA graph -------------
+    t0 = time.perf_counter()
     with fault_free("plans"):
         plans = plan_path(mats, device)
     for key, r in plans.items():
@@ -6228,8 +6398,10 @@ def run(args, work: str) -> int:
     # its compiled functions, whose layouts the data plane holds
     a_hpcg, b_hpcg = mats["hpcg"]
     release(device)
+    print(f"plan phase {time.perf_counter() - t0:.1f}s")
 
     # -- SpMM and SpMV on BCSR (K3) -----------------------------------------
+    t0 = time.perf_counter()
     with fault_free("SpMM path"):
         spmm = spmm_path(a_hpcg, args.seed, device)
     print(f"SpMM path hpcg x {GNN_WIDTH}: match {spmm['match']} via "
@@ -6278,8 +6450,10 @@ def run(args, work: str) -> int:
                              else bcg)["launches"][e["name"]]))
     del a_hpcg, b_hpcg
     release(device)
+    print(f"BCSR phase {time.perf_counter() - t0:.1f}s")
 
     # -- MoE (K4) ------------------------------------------------------------
+    t0 = time.perf_counter()
     p, x = moe_inputs(OLMOE, args.seed, device)
     with fault_free("MoE path"):
         moe = moe_path(OLMOE, p, x, device)
@@ -6292,7 +6466,10 @@ def run(args, work: str) -> int:
           f"error vs the f32 oracle {moe['rel_l2']:.3g} (naive bf16 "
           f"{moe['naive_rel_l2']:.3g}; tol {MOE_RTOL}), vs naive "
           f"{moe['rel_to_naive']:.3g}; peak {moe['peak_bytes'] / 2**30:.2f} "
-          f"GiB; K4 launches {moe['launches']} under torch.func.vmap (the "
+          f"GiB; K4 launches {moe['launches']} under torch.func.vmap, "
+          f"{moe['plan_launches']} in the next call on its batched plan "
+          f"({moe['plan_hits']} hit, equal to the unplanned call bit for bit "
+          f"{moe['plan_equal']}; plans {moe['plans']}) (the "
           f"per-sequence loop it replaced: {moe['loop_launches']}, "
           f"{moe['loop_call_ms']:.3f} ms a block from its plans; equal to "
           f"the loop bit for bit {moe['loop_equal']}, relative L2 "
@@ -6362,6 +6539,7 @@ def run(args, work: str) -> int:
     kernels.append(kernel_entry(gmm32, "gate_up_f32",
                                 m32["launches"]["gmm_f32"]))
     record["moe_f32_path"] = m32
+    print(f"MoE phase {time.perf_counter() - t0:.1f}s")
 
     # -- gradients through the kernels --------------------------------------
     t0 = time.perf_counter()
@@ -6451,11 +6629,24 @@ def run(args, work: str) -> int:
               f"{k} {plans[k + ' bake=True']['steady_call_ms']:.3f} / "
               f"{plans[k + ' bake=False']['steady_call_ms']:.3f} "
               f"(199bd38 {v[0]} / {v[1]})" for k, v in at_parent.items()))
+    # the child phases below need the card: let go of what this process
+    # still holds (the module's compiled MoE, whose batched plan keeps its
+    # CUDA graph's pool and the tensors it reads in place, and the
+    # matrices)
+    from repro_torch.models import layers as L
+
+    L._LILAC_MOE.clear()
+    del mats, x_refs, x_ref
+    release(device)
+    print(f"this process holds {torch.cuda.memory_reserved(device) / 2**30:.2f}"
+          f" GiB reserved ({torch.cuda.memory_allocated(device) / 2**30:.2f} "
+          f"GiB allocated) before the child phases")
 
     # -- training: OLMoE-1B-7B, full width, 2 layers -------------------------
     # a process of its own: deterministic algorithms need cuBLAS's
     # workspace fixed before its first call, and the earlier phases' memory
     # is gone
+    t0 = time.perf_counter()
     tr = run_warm_start(args.seed, Path(work) / "autotune-train.json",
                         "--train-phase", timeout=900,
                         CUBLAS_WORKSPACE_CONFIG=":4096:8",
@@ -6491,6 +6682,12 @@ def run(args, work: str) -> int:
     for i, st in enumerate(tr["restart_steps"]):
         print(f"training restart step {tr['restart_start_step'] + i}: "
               f"{train_line(st)}")
+    for i, st in enumerate(tr["unplanned_steps"]):
+        print(f"training unplanned step {i} (the MoE's plans dropped, "
+              f"baking off): {train_line(st)}")
+    print(f"training: the compiled MoE's plan hits by step "
+          f"{[st['plan_hits'] for st in tr['steps']]}; plans "
+          f"{tr['moe_plans']}")
     for i, st in enumerate(tr["naive_steps"]):
         print(f"training naive step {i}: {train_line(st)}")
     print(f"training: K4 launches over {TRAIN_STEPS} steps "
@@ -6508,11 +6705,13 @@ def run(args, work: str) -> int:
               f"top {pr['top']}")
     check_train_path(tr)
     record["train_path"] = tr
+    print(f"training phase {time.perf_counter() - t0:.1f}s")
 
     # -- serving: OLMoE-1B-7B, full width and depth ---------------------------
     # a process of its own: the earlier phases' memory is gone, and cuBLAS's
     # workspace is fixed before its first call, so a row's bits depend on
     # the shapes it runs at and on nothing else
+    t0 = time.perf_counter()
     sv = run_warm_start(args.seed, Path(work) / "autotune-serve.json",
                         "--serve-phase", timeout=900,
                         CUBLAS_WORKSPACE_CONFIG=":4096:8",
@@ -6525,8 +6724,10 @@ def run(args, work: str) -> int:
     kernels += [kernel_entry(e, "model routes", sv["launches"].get("gmm", 0))
                 for e in sv["gmm_decode"]]
     record["serve_path"] = sv
+    print(f"serving phase {time.perf_counter() - t0:.1f}s")
 
     # -- serving granite-moe-3b-a800m, full width and depth (K4) -------------
+    t0 = time.perf_counter()
     gr = run_warm_start(args.seed, Path(work) / "autotune-granite.json",
                         "--serve-granite-phase", timeout=900,
                         CUBLAS_WORKSPACE_CONFIG=":4096:8",
@@ -6539,8 +6740,10 @@ def run(args, work: str) -> int:
     kernels += [kernel_entry(e, "model routes", gr["launches"].get("gmm", 0))
                 for e in gr["gmm_decode"]]
     record["granite_serve_path"] = gr
+    print(f"granite serving phase {time.perf_counter() - t0:.1f}s")
 
     # -- Jamba-v0.1 at full width, 16 layers (K4 in its MoE layers) ----------
+    t0 = time.perf_counter()
     jb = run_warm_start(args.seed, Path(work) / "autotune-jamba.json",
                         "--serve-jamba-phase", timeout=900,
                         CUBLAS_WORKSPACE_CONFIG=":4096:8",
@@ -6553,8 +6756,10 @@ def run(args, work: str) -> int:
     kernels += [kernel_entry(e, "model routes", jb["launches"].get("gmm", 0))
                 for e in jb["gmm_decode"]]
     record["jamba_serve_path"] = jb
+    print(f"Jamba serving phase {time.perf_counter() - t0:.1f}s")
 
     # -- distributed training: OLMoE-1B-7B on a (2, 2) mesh, 4 ranks ---------
+    t0 = time.perf_counter()
     dr = run_dist_phase(args.seed, work)
     print_dist_path(dr)
     check_dist_path(dr)
@@ -6565,6 +6770,7 @@ def run(args, work: str) -> int:
              "experts (launches summed over the ranks' steps; times on "
              "rank 0's experts)"))
     record["dist_path"] = dr
+    print(f"distributed phase {time.perf_counter() - t0:.1f}s")
 
     if args.record is not None:
         args.record.parent.mkdir(parents=True, exist_ok=True)

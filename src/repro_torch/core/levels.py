@@ -13,7 +13,8 @@ the outermost ``vmap`` level, as a batching rule's loop would.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import torch
 from torch._C import _functorch as F
@@ -42,12 +43,6 @@ def outer_batched(v: Any) -> bool:
     """Whether ``v``'s outermost ``torch.func`` level is a ``vmap``
     level."""
     return isinstance(v, torch.Tensor) and F.is_batchedtensor(v)
-
-
-def only_batched(v: Any) -> bool:
-    """Whether every ``torch.func`` level of ``v`` is a ``vmap`` level (a
-    plain tensor has none)."""
-    return all(F.is_batchedtensor(w) for w in layers(v))
 
 
 def requires_grad(v: Any) -> bool:
@@ -109,3 +104,110 @@ def batch_size(values) -> int:
     for s in sizes.values():
         n *= s
     return n
+
+
+class Peeled(NamedTuple):
+    """A call's tensors below its outermost ``vmap`` levels.
+
+    ``tensors``: what lies below those levels (a plain tensor, one that
+    requires grad, or a tensor of an inner ``grad`` level); ``levels``:
+    one ``(level, batch size, dims)`` a peeled level, outermost first,
+    ``dims`` holding each tensor's batch dim at that level (None where the
+    tensor is not batched there).  A level's id differs from one
+    ``torch.func.vmap`` call to the next; :meth:`structure` is what a
+    plan guards."""
+    tensors: List[torch.Tensor]
+    levels: Tuple[Tuple[int, int, Tuple[Optional[int], ...]], ...]
+
+    def structure(self) -> Tuple:
+        """Each peeled level's batch size and batch dims (outermost
+        first), and each tensor's shape and strides below the levels."""
+        return (tuple((b, dims) for _, b, dims in self.levels),
+                tuple((tuple(t.shape), t.stride()) for t in self.tensors))
+
+
+def peel(tensors: Sequence[torch.Tensor]) -> Peeled:
+    """Take every ``vmap`` level above the call's outermost level of any
+    other kind off ``tensors``, outermost first: a nested ``vmap`` gives
+    two levels, ``torch.func.grad`` outside a ``vmap`` leaves the grad
+    level on the tensors below, ``vmap`` outside ``grad`` (a grad level
+    outermost) peels nothing.  :func:`program` rebuilds the call on the
+    tensors below, :func:`rewrap` its outputs."""
+    ts = list(tensors)
+    vmaps, other = set(), -1
+    for t in ts:
+        for w in layers(t):
+            lv = F.maybe_get_level(w)
+            if F.is_batchedtensor(w):
+                vmaps.add(lv)
+            else:
+                other = max(other, lv)
+    peeled = []
+    for level in sorted((lv for lv in vmaps if lv > other), reverse=True):
+        dims, size = [], 0
+        for i, t in enumerate(ts):
+            if F.is_batchedtensor(t) and F.maybe_get_level(t) == level:
+                ts[i], d = F._unwrap_batched(t, level)
+                size = ts[i].shape[d]
+                dims.append(d)
+            else:
+                dims.append(None)
+        peeled.append((level, size, tuple(dims)))
+    return Peeled(ts, tuple(peeled))
+
+
+def program(fn: Callable, levels: Sequence[Tuple]) -> Callable:
+    """``fn`` of the per-element tensors as a function of the tensors
+    below ``levels`` (:func:`peel`'s): one ``torch.func.vmap`` a level,
+    the outermost level's innermost, every output batched at dim 0 of each
+    level (the innermost peeled level's first)."""
+    for _, _, dims in levels:
+        fn = torch.func.vmap(fn, in_dims=tuple(dims))
+    return fn
+
+
+def rewrap(outs: List[Any], levels: Sequence[Tuple]) -> List[Any]:
+    """:func:`program`'s outputs wrapped back at the caller's ``levels``,
+    innermost first: the per-element values the call returns."""
+    ids = [lv for lv, _, _ in levels][::-1]
+
+    def wrap(o):
+        if not isinstance(o, torch.Tensor):
+            return o
+        for lv in ids:
+            o = F._add_batch_dim(o, 0, lv)
+        return o
+
+    return [wrap(o) for o in outs]
+
+
+def map_outer(fn: Callable[[List[Any]], Any], leaves: Sequence[Any]):
+    """``fn(leaves)`` once an element of the ``vmap`` level outermost
+    among ``leaves``' tensors, the results stacked and wrapped back at
+    that level (a pytree of tensors), as a loop over the batch would give
+    them: no batching rule of ``fn``'s own runs at that level.  None when
+    no tensor carries a ``vmap`` level outermost, or a ``grad`` level
+    lies above it (its elements cannot be taken apart)."""
+    from torch.utils._pytree import tree_map
+
+    outer = [(F.maybe_get_level(t), F.is_batchedtensor(t)) for t in leaves
+             if isinstance(t, torch.Tensor)
+             and F.is_functorch_wrapped_tensor(t)]
+    if not outer:
+        return None
+    level = max(lv for lv, _ in outer)
+    if not all(b for lv, b in outer if lv == level):
+        return None
+    size, parts = 0, []
+    for t in leaves:
+        if isinstance(t, torch.Tensor) and F.is_batchedtensor(t) \
+                and F.maybe_get_level(t) == level:
+            t, d = F._unwrap_batched(t, level)
+            size = t.shape[d]
+            parts.append((t, d))
+        else:
+            parts.append((t, None))
+    outs = [fn([t if d is None else t.select(d, i) for t, d in parts])
+            for i in range(size)]
+    return tree_map(lambda *xs: F._add_batch_dim(torch.stack(xs), 0, level),
+                    *outs)

@@ -42,35 +42,43 @@ pins from ``plans.json``, so it runs no detection and times nothing.
 
 **Transforms** (docs/transforms.md).  Grad-of-compile: a call whose
 tensors require grad (``.backward()``, or inside ``torch.func.grad``) keys
-an entry of its own and runs the interpreter (host mode, and trace mode
-under ``torch.func``) or its own rewritten graph (trace mode) with
-autograd through every harness
+an entry of its own and runs the interpreter (host mode) or its own
+rewritten graph (trace mode) with autograd through every harness
 (``rewrite.call_harness``: epilogues unfused, ``vjp`` clauses as
-``torch.autograd.Function``s); it never hits or bakes a plan, and
-``plan_info()["bake_errors"]`` says so.  Compile-of-grad:
+``torch.autograd.Function``s, each custom op through its differentiable
+call, ``kernels.common.differentiable``, which runs under a ``torch.func``
+grad level as under ``.backward()``).  Compile-of-grad:
 ``compile(torch.func.grad(f))`` traces to a plain graph holding the
 backward too, so the backward's sparse products (the SpMVᵀ, a COO SpMV of
 the matrix's entries) are detected like any other and the entry bakes.
 A compiled function called while another trace runs (``make_fx``, a
 compiled step) traces and validates on its own, outside the ambient modes
-(``detect.own_trace``).  Vmap-of-compile: ``torch.func.vmap(compile(f))``
-traces ``f`` on the per-element shapes (a batched tensor hides its batch
-axis), so detection fires on the per-element program, and the call runs
-that program on the batched tensors: trace mode its rewritten graph, each
-custom op once for the batch through its ``register_vmap`` rule (K1, K2
-and K4 as one launch, K3 with the vectors as columns), host mode the
-interpreter, each harness once on the batched binding.  A harness with a
-marshal clause whose marshal source (the matrix) is batched runs once an
-element (``levels.per_element``: a repack and a launch each).  Such a
-call keys an entry of its own (``levels.grad_state``), never serves or
-bakes a plan (``bake_errors`` names the vmap), and a later unbatched
-call still serves its plan.  The validator reads a batched output (a
-sync) until a call of the entry runs clean; later calls are checked as
-plan calls are, by the sampled shadow check against the uncompiled
-function under the same vmap (``_maybe_shadow_batched``).
-A call under ``torch.func.grad`` as well (the training step's vmapped
-MoE) interprets, each ``vjp`` clause in a
-:class:`~repro_torch.core.rewrite.HarnessCall`, which batches.
+(``detect.own_trace``), and its custom ops trace into the outer graph
+with their formulas.  Vmap-of-compile:
+``torch.func.vmap(compile(f))`` traces ``f`` on the per-element shapes (a
+batched tensor hides its batch axis), so detection fires on the
+per-element program, and an unplanned call runs that program on the
+batched tensors: trace mode its rewritten graph, each custom op once for
+the batch through its ``register_vmap`` rule (K1, K2 and K4 as one
+launch, K3 with the vectors as columns), host mode the interpreter, each
+harness once on the batched binding.  A harness with a marshal clause
+whose marshal source (the matrix) is batched runs once an element
+(``levels.per_element``: a repack and a launch each).  Such a call keys
+an entry of its own (``levels.grad_state``).
+
+**Plans under transforms** (:mod:`repro_torch.core.plan`, "Plans under
+transforms").  A vmapped call, a gradient-carrying call and a call under
+``torch.func.grad`` each bake a plan on their entry's first resolved call
+and are served by it after: a guard check and one replay (a batched
+program of one launch a custom op; eager where gradients flow), with no
+detection, fingerprint or selection.  What stays refused is stated in
+``bake_errors``: a batched marshal source, a marshal source that requires
+grad, a ``scan_body`` entry; a call under an ambient trace neither bakes
+nor serves.  The validator reads a batched output (a sync) until a call of
+the entry runs clean; later calls, planned or not, are checked as plan
+calls are, by the sampled shadow check against the uncompiled function
+(``_maybe_shadow_batched``), which counts each element and runs the
+uncompiled function once an element of the outermost ``vmap`` level.
 
 **Scans** (docs/transforms.md, "scan: detect once, reuse every
 iteration").  A torch scan whose body holds a match is one ``scan_body``
@@ -127,6 +135,7 @@ from repro_torch.core import resilience as R
 from repro_torch.core.autotune import autotune_disabled, variant_key
 from repro_torch.core.marshal import DataPlane, MarshalPolicy, unwrap
 from repro_torch.core.rewrite import needed_nodes, rewrite_graph, run_rewritten
+from repro_torch.kernels.common import differentiable_graph
 
 
 @dataclasses.dataclass
@@ -138,8 +147,11 @@ class CompiledEntry:
     # autotune pins: match index -> (harness, schedule, fuse); after the
     # joint search, the jointly optimal assignment
     pins: Dict[int, Tuple] = dataclasses.field(default_factory=dict)
-    # trace mode: the rewritten graph and what was selected into it
+    # trace mode: the rewritten graph and what was selected into it, and
+    # the graph a call runs (for calls that carry gradients, the rewritten
+    # graph with the custom ops' differentiable calls)
     rewritten: Any = None
+    runs: Any = None
     selections: List[Tuple[D.Match, str]] = dataclasses.field(
         default_factory=list)
     schedules: List[Optional[Dict[str, Any]]] = dataclasses.field(
@@ -163,9 +175,9 @@ class CompiledEntry:
     # entry is rebuilt, and a scan holding one runs plain as a whole
     disabled: set = dataclasses.field(default_factory=set)
     # per tensor leaf, whether it requires grad: such an entry carries
-    # gradients (epilogues unfused, never baked)
+    # gradients (epilogues unfused; its plan runs eagerly)
     grad_inputs: Tuple[bool, ...] = ()
-    # a leaf carries a vmap level: the calls run batched, never a plan
+    # a leaf carries a vmap level: the calls run batched
     batched: bool = False
     # a batched entry's call ran clean under the validator: later calls
     # are not validated (no sync), the shadow check samples them as it
@@ -216,15 +228,6 @@ def _leaf_key(x) -> Tuple:
     if t[0] == "t":
         return ("t", t[1], str(t[2]), t[3].type, t[4])
     return ("py", t[1].__name__, t[2])
-
-
-def _interprets(t) -> bool:
-    """A tensor of a ``torch.func`` transform other than ``vmap``: a custom
-    op's ``register_autograd`` formula cannot run under it
-    (``torch.library`` gives it no ``setup_context``), so a trace-mode call
-    with one interprets.  Under ``vmap`` alone the rewritten graph runs,
-    each custom op through its ``register_vmap`` rule."""
-    return not levels.only_batched(t)
 
 
 def resolve_platform(platform: Optional[str], device=None) -> str:
@@ -439,22 +442,13 @@ class LilacFunction:
         return entry
 
     def _reset_bake(self, entry: CompiledEntry) -> None:
-        """Clear the entry's refusal to bake, except the standing ones: an
-        entry whose calls run under ``vmap`` or carry gradients (a replay
-        neither batches nor records an autograd graph), and one that holds
-        a ``scan_body`` rewrite."""
+        """Clear the entry's refusal to bake, except the standing one of an
+        entry that holds a ``scan_body`` rewrite.  (A batched marshal
+        source and one that requires grad are refused at the bake, where
+        the selected harnesses name the marshal sources.)"""
         runs = "rewritten graph" if self.mode == "trace" else "interpreter"
         entry.bake_error = None
-        if entry.batched:
-            entry.bake_error = (
-                f"vmapped call (a tensor carries a torch.func.vmap level): "
-                f"runs the {runs} on the batched tensors, each harness once "
-                f"for the batch, never a plan")
-        elif any(entry.grad_inputs):
-            entry.bake_error = (
-                f"carries gradients (an input requires grad): runs the "
-                f"{runs} with autograd through the harnesses, never a plan")
-        elif entry.has_scan():
+        if entry.has_scan():
             entry.bake_error = (
                 f"scan-body rewrite: every call runs the {runs}, whose loop "
                 f"reuses the body's harnesses at each step; a plan's guards "
@@ -523,6 +517,8 @@ class LilacFunction:
                 continue
             entry.selections, entry.schedules, entry.fuses = \
                 selections, schedules, fuses
+            entry.runs = differentiable_graph(entry.rewritten) if grad \
+                else entry.rewritten
             if joint_moves or not self._maybe_joint(entry):
                 break
             joint_moves += 1
@@ -609,20 +605,35 @@ class LilacFunction:
 
     # -- execution -----------------------------------------------------------
 
-    def _dispatch_plan(self, plan: P.ExecutablePlan, tensors):
+    def _dispatch_plan(self, plan: P.ExecutablePlan, got):
+        """``plan``'s program on the tensors ``plan.match`` returned in
+        ``got``, its outputs wrapped back at the call's ``vmap`` levels
+        there (``levels.rewrap``)."""
+        tensors, outer = got
         self.last_report = plan.report
         self.last_selections = list(plan.selections)
         self.last_schedules = list(plan.schedules)
-        return tree_unflatten(plan.run(tensors), plan.out_spec)
+        outs = plan.run(tensors)
+        if outer:
+            outs = levels.rewrap(outs, outer)
+        return tree_unflatten(outs, plan.out_spec)
 
-    def _serve(self, plan: P.ExecutablePlan, tensors, flat, spec):
-        """One plan call; no validation runs on it (no sync), but a
-        sampled shadow check may."""
-        out = self._dispatch_plan(plan, tensors)
-        if not self._in_shadow:
-            r = self._shadow.effective()
-            if r > 0.0:
-                out = self._maybe_shadow(plan, flat, spec, out, r)
+    def _serve(self, plan: P.ExecutablePlan, got, flat, spec):
+        """One plan call (``got``: what ``plan.match`` returned); no
+        validation runs on it (no sync), but a sampled shadow check may:
+        a batched call's counted by element, as an unplanned one's."""
+        out = self._dispatch_plan(plan, got)
+        if self._in_shadow:
+            return out
+        if plan.transform is not None and any(
+                levels.batched(unwrap(flat[p])) for p in plan.tensor_pos):
+            return self._maybe_shadow_batched(
+                flat, spec, out,
+                [unwrap(flat[p]) for p in plan.tensor_pos],
+                lambda reason: self._shadow_divergence(plan, reason))
+        r = self._shadow.effective()
+        if r > 0.0:
+            out = self._maybe_shadow(plan, flat, spec, out, r)
         return out
 
     def _maybe_shadow(self, plan, flat, spec, out, r):
@@ -641,17 +652,19 @@ class LilacFunction:
         self._shadow_divergence(plan, "shadow divergence")
         return ref
 
-    def _maybe_shadow_batched(self, entry: CompiledEntry, flat, spec, out,
-                              tensors):
-        """The sampled shadow check of a vmapped call, which serves no
-        plan: the uncompiled function runs on the same batched tensors
-        (``vmap`` of ``f``) and each element is held to the plan shadow's
-        bound (``outputs_close`` reads a batched verdict).  The call stands
-        for one call an element, so the sampling counter and
-        ``shadow_checks`` advance by the batch size.  A divergence
-        quarantines what the call selected, as a plan's does.  A call
-        traced into another graph, or captured into a CUDA graph, is not
-        checked: the check would be recorded with it."""
+    def _maybe_shadow_batched(self, flat, spec, out, tensors,
+                              on_divergence: Callable[[str], None]):
+        """The sampled shadow check of a vmapped call, planned or not: the
+        uncompiled function runs on the same batched values, once an
+        element of the outermost ``vmap`` level (``_shadow_ref``), and each
+        element is held to the plan shadow's bound (``outputs_close``
+        reads a batched verdict).  The call stands for one call an
+        element, so the sampling counter and ``shadow_checks`` advance by
+        the batch size.  A divergence serves the uncompiled answer and
+        calls ``on_divergence`` (a plan's teardown, or the unplanned
+        entry's), as a plan's does.  A call traced into another graph, or
+        captured into a CUDA graph, is not checked: the check would be
+        recorded with it."""
         r = self._shadow.effective()
         if r <= 0.0 or self._in_shadow \
                 or any(faults.traced(levels.base(t)) for t in tensors) \
@@ -663,9 +676,13 @@ class LilacFunction:
         if not self._sampled(k, r):
             return out
         ref = self._shadow_ref(flat, spec, out, k)
-        if ref is out:
-            return out
-        reason = "shadow divergence (vmapped call)"
+        if ref is not out:
+            on_divergence("shadow divergence (vmapped call)")
+        return ref
+
+    def _entry_divergence(self, entry: CompiledEntry, reason: str) -> None:
+        """An unplanned call of ``entry`` diverged: quarantine what it
+        selected (``last_selections``) and unwind the entry."""
         self._shadow.spike(reason)
         q = R.shared_quarantine()
         for (m, name), sched in zip(self.last_selections,
@@ -676,7 +693,6 @@ class LilacFunction:
             if i is not None and entry.pins.get(i, (None,))[0] == name:
                 del entry.pins[i]
         self._unwind(entry, reason)
-        return ref
 
     def _sampled(self, k: int, r: float) -> bool:
         """Advance the shadow counter by ``k`` calls: whether a sample at
@@ -687,17 +703,31 @@ class LilacFunction:
 
     def _shadow_ref(self, flat, spec, out, k: int):
         """One shadow check of ``k`` calls' output ``out``: ``out`` itself
-        when the uncompiled program agrees (or fails: ours is kept), else
-        the uncompiled program's answer, with the divergence counted."""
-        self.resilience_stats.shadow_checks += k
-        args, kwargs = tree_unflatten(self._unwrap(flat), spec)
+        when the uncompiled program agrees, else the uncompiled program's
+        answer, with the divergence counted.  A vmapped call's uncompiled
+        program runs once an element of its outermost ``vmap`` level
+        (``levels.map_outer``), as a loop over the batch: a batching rule
+        of the user's program (torch's for an ``etf,efd->etd`` einsum
+        copies its weights once an element) cannot make the check fail.
+        One that fails all the same checks nothing: ours is kept, and it
+        counts in ``shadow_errors``, not ``shadow_checks``."""
+        leaves = self._unwrap(flat)
+
+        def uncompiled(vals):
+            args, kwargs = tree_unflatten(vals, spec)
+            return self.fn(*args, **kwargs)
+
         self._in_shadow = True
         try:
-            ref = self.fn(*args, **kwargs)
+            ref = levels.map_outer(uncompiled, leaves)
+            if ref is None:
+                ref = uncompiled(leaves)
         except Exception:
+            self.resilience_stats.shadow_errors += 1
             return out          # the uncompiled program failed; keep ours
         finally:
             self._in_shadow = False
+        self.resilience_stats.shadow_checks += k
         if R.outputs_close(out, ref) \
                 and not faults.check("shadow_diverge", "dispatch"):
             self._shadow.clean()
@@ -791,10 +821,10 @@ class LilacFunction:
         for plan in candidates:
             if plan.registry_epoch != epoch:
                 continue
-            tensors = plan.match(spec, flat)
-            if tensors is not None:
+            got = plan.match(spec, flat)
+            if got is not None:
                 self._note_hot(plan)
-                return self._serve(plan, tensors, flat, spec)
+                return self._serve(plan, got, flat, spec)
         leaves = self._unwrap(flat)
         entry = self._entry_for(leaves, spec)
         tensors = [leaves[i] for i in entry.tensor_pos]
@@ -804,8 +834,8 @@ class LilacFunction:
             if got is not None:
                 self._note_hot(plan)
                 return self._serve(plan, got, flat, spec)
-        if self.mode == "trace" and not any(map(_interprets, tensors)):
-            outs = list(entry.rewritten(*tensors))
+        if self.mode == "trace":
+            outs = list(entry.runs(*tensors))
             self.last_selections = list(entry.selections)
             self.last_schedules = list(entry.schedules)
             if self.bake_enabled and not entry.no_bake:
@@ -814,7 +844,9 @@ class LilacFunction:
         else:
             out = self._interpret(entry, flat, tensors, spec)
         if entry.batched:
-            out = self._maybe_shadow_batched(entry, flat, spec, out, tensors)
+            out = self._maybe_shadow_batched(
+                flat, spec, out, tensors,
+                lambda reason: self._entry_divergence(entry, reason))
         return out
 
     def _containment(self, entry: CompiledEntry) -> R.Containment:
@@ -837,7 +869,7 @@ class LilacFunction:
         drop its plan (freeing a CUDA graph's pool and buffers), its
         persisted plan record and its joint result, so the next call
         selects, tunes and bakes again.  Pins still valid stay."""
-        entry.rewritten = None      # trace mode rebuilds its graph
+        entry.rewritten = entry.runs = None     # trace mode rebuilds
         entry.validated = False
         entry.persisted = False
         entry.joint_done = False
@@ -989,8 +1021,11 @@ class LilacFunction:
         may)."""
         if entry.no_bake or not self._resolved(entry):
             return False
-        if not all(P.plain_tensor(t) for t in tensors):
-            return False            # a later call with plain tensors may
+        if not all(map(P.real_tensor, tensors)) or (
+                torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            # under an ambient trace or capture: a later call may bake
+            return False
         if self.cache is None and any(h.marshal for h in harnesses):
             # marshal_policy='off' promises a repack every call: hoisting
             # one into a plan would quietly bring caching back
@@ -1045,13 +1080,14 @@ class LilacFunction:
         if not self._bakeable(entry, harnesses, tensors):
             return
         plan = entry.plan
-        if (plan is not None and plan.consts_ok()
+        got = plan.fits(spec, flat) if plan is not None else None
+        if (got is not None and plan.consts_ok()
                 and plan.registry_epoch == self.registry.epoch
                 and plan.same_hoisted(recorder)):
             # content-identical operands under new identities: the data
             # plane served the same buffers, so only the guards move
             try:
-                plan.refresh_guards(flat, tensors)
+                plan.refresh_guards(flat, got[0])
             except Exception as e:
                 self._disable_bake(entry, repr(e))
                 return

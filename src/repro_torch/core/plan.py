@@ -34,13 +34,43 @@ source with no version counter (an inference tensor) is guarded by its
 :func:`~repro_torch.core.marshal.checksum` as well, one pass on the card
 each call, since no version moves when it is written.  A
 ``TrackedArray`` operand is guarded by its version too.  A leaf that is a
-fake or functional tensor, a tensor subclass, a ``torch.func`` wrapper or
-one that requires grad never hits a plan: a replay records no autograd
-graph, so a call that carries gradients runs the interpreter (host mode)
-or the rewritten graph (trace mode), where autograd sees the harnesses
-(``rewrite.call_harness``), and its entry is never baked (``plan_info()``
-says so).  A compiled gradient (``lilac.compile(torch.func.grad(f))``)
-traces to a plain graph and bakes like any other.
+fake or functional tensor, or a tensor subclass, never hits a plan, nor
+does a call under an ambient trace (``make_fx``): the call runs the
+interpreter (host mode) or the rewritten graph (trace mode).
+
+**Plans under transforms** (docs/transforms.md).  A call under
+``torch.func.vmap``, one whose tensors require grad (``.backward()``) and
+one under ``torch.func.grad`` each bake a plan of their own (the leaf
+templates key a ``torch.func`` level's kind and ``requires_grad``) and are
+then served by it, with no detection, fingerprint or selection:
+
+* a **batched** plan (the call's outermost levels are ``vmap`` levels)
+  guards each level's batch size and each leaf's batch dim, and the
+  shapes and strides below the levels (``levels.peel``); a different B or
+  batch dim is a guard miss and a new bake.  Its program is ``make_fx``
+  of ``torch.func.vmap`` of the per-element program, traced once on the
+  tensors below the levels (:func:`batched_program`), so each custom op is
+  one node for the batch (K1/K2/K4 one launch, K3 the vectors as
+  columns).  A call unwraps its leaves, runs the program and wraps the
+  outputs back at the call's own levels (``levels.rewrap``);
+* a **gradient-carrying** plan (a leaf requires grad at any level) runs
+  its program eagerly, with the hoisted buffers, autograd recording
+  through the harnesses: a host-mode ``vjp`` clause's
+  ``rewrite.HarnessCall``, a custom op's differentiable call
+  (``kernels.common.differentiable``: trace-mode graphs and batched
+  programs are retargeted to it).  A CUDA-graph replay records no
+  autograd graph, so such a plan takes no CUDA graph (``plan_info()``
+  says so: ``runs`` "eager" and its reason).  The training step's MoE call
+  is both: the batched program, run eagerly on tensors that require
+  grad;
+* a call whose outermost level is a ``grad`` level over a ``vmap`` level
+  (``vmap(grad(f))``) runs the per-element program eagerly on its leaves
+  as they are, each op batching by its rule.
+
+The refusals the reference keeps stand, each stated in ``bake_errors``: a
+batched marshal source (``levels.per_element`` repacks it element by
+element), a marshal source that requires grad (a plan hoists what
+autograd would differentiate), and a ``scan_body`` entry.
 
 **The CUDA graph.**  The capture reads the caller's own tensors at the
 guarded positions, so the matrix is never copied per call.  A leaf the
@@ -98,13 +128,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.fx import GraphModule, Node
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-from repro_torch.core import faults
+from repro_torch.core import faults, levels
 from repro_torch.core.jsonstore import JsonStore, cache_dir
 from repro_torch.core.levels import grad_state
 from repro_torch.core.marshal import (TrackedArray, checksum, fingerprint,
                                       has_version, unwrap, version_token)
-from repro_torch.kernels.common import COUNTERS
+from repro_torch.kernels.common import COUNTERS, differentiable_graph
 
 SCHEMA_VERSION = 1
 _ENV_PATH = "LILAC_TORCH_PLAN_CACHE"
@@ -603,6 +634,24 @@ def plain_tensor(x) -> bool:
             and not torch._C._functorch.is_functorch_wrapped_tensor(x))
 
 
+def real_tensor(x) -> bool:
+    """A tensor a plan under a transform may serve: below its
+    ``torch.func`` levels a plain ``torch.Tensor`` (not fake, not
+    functional, not a subclass; it may require grad), and no ambient trace
+    records the call."""
+    b = levels.base(x)
+    return (type(b) is torch.Tensor and not torch._is_functional_tensor(b)
+            and _get_current_dispatch_mode() is None)
+
+
+def transformed(tensors) -> bool:
+    """A call a plain plan cannot serve: a tensor carries a ``torch.func``
+    level or requires grad."""
+    return any(x.requires_grad or
+               torch._C._functorch.is_functorch_wrapped_tensor(x)
+               for x in tensors)
+
+
 def _closure(gm: GraphModule, nodes) -> set:
     """``nodes`` and every node they transitively read."""
     need = set(nodes)
@@ -777,13 +826,21 @@ class ExecutablePlan:
 
     ``tensor_pos`` maps program inputs to flat-leaf positions; ``guards``
     are the marshal sources' (by flat position); ``pinned`` the program
-    positions a CUDA graph reads in place without a marshal guard."""
+    positions a CUDA graph reads in place without a marshal guard.
+
+    A plan under transforms (:class:`Transform`) serves calls whose
+    tensors carry ``torch.func`` levels or require grad: a batched one
+    runs on the tensors below the call's ``vmap`` levels, which its
+    ``structure`` guards, and a gradient-carrying one runs eagerly."""
 
     def __init__(self, runner, in_spec, out_spec, templates, tensor_pos,
                  guards, const_guards, report, selections, schedules, fuses,
                  hoisted, registry_epoch: int, platform: str,
-                 read: frozenset = frozenset()):
+                 read: frozenset = frozenset(),
+                 transform: Optional["Transform"] = None):
+        self.program = runner           # a GraphModule, or the interpreter
         self.runner = _unfaulted(runner)
+        self.transform = transform
         self.in_spec = in_spec
         self.out_spec = out_spec
         self.templates = templates
@@ -814,13 +871,33 @@ class ExecutablePlan:
 
     # -- dispatch ------------------------------------------------------------
 
-    def match(self, in_spec, flat) -> Optional[List[torch.Tensor]]:
-        """The per-call guard: the program's tensor inputs when this plan
-        can serve the call, else None.  One loop over the arity."""
+    def fits(self, in_spec, flat) -> Optional[Tuple[List[torch.Tensor],
+                                                    Tuple]]:
+        """The tensors the program runs on and the ``vmap`` levels its
+        outputs go back to (``levels.peel``), when the call has this plan's
+        leaf templates and level structure, else None.  Reads no guard."""
         if in_spec != self.in_spec or not leaves_match(self.templates, flat):
             return None
         tensors = [unwrap(flat[p]) for p in self.tensor_pos]
-        if not all(map(plain_tensor, tensors)):
+        tf = self.transform
+        if tf is None:
+            return (tensors, ()) if all(map(plain_tensor, tensors)) else None
+        if _get_current_dispatch_mode() is not None or not all(
+                type(levels.base(t)) is torch.Tensor for t in tensors):
+            return None
+        if tf.structure is None:
+            return tensors, ()
+        peeled = levels.peel(tensors)
+        if peeled.structure() != tf.structure:
+            return None
+        return peeled.tensors, peeled.levels
+
+    def match(self, in_spec, flat) -> Optional[Tuple[List[torch.Tensor],
+                                                     Tuple]]:
+        """The per-call guard: :meth:`fits`' tensors and levels when this
+        plan can serve the call, else None.  One loop over the arity."""
+        got = self.fits(in_spec, flat)
+        if got is None:
             return None
         for g in self.guards:
             if not g.ok(flat[g.pos]):
@@ -828,7 +905,7 @@ class ExecutablePlan:
         for g in self.const_guards:
             if not g.ok():
                 return None
-        return tensors
+        return got
 
     def run(self, tensors: List[torch.Tensor]) -> List[Any]:
         self.hits += 1
@@ -836,7 +913,8 @@ class ExecutablePlan:
         if moved:
             # another tensor at a position read in place: give it a static
             # buffer (once), the other pinned positions stay in place
-            self._recapture(tensors, self._static | frozenset(moved))
+            with _outside_transforms(self.transform):
+                self._recapture(tensors, self._static | frozenset(moved))
         if self._capture is None:
             return list(self.runner(*tensors))
         return self._capture.replay(tensors)
@@ -883,7 +961,8 @@ class ExecutablePlan:
         for g in self.guards:
             g.rebind(raw_flat[g.pos])
         if self._capture is not None:
-            self._recapture(tensors, self._static)
+            with _outside_transforms(self.transform):
+                self._recapture(tensors, self._static)
 
     def consts_ok(self) -> bool:
         """True while no guarded closure capture has changed: a changed
@@ -927,6 +1006,16 @@ class ExecutablePlan:
         if self.platform == "cuda":
             torch.cuda.empty_cache()
 
+    def _eager_reason(self) -> Optional[str]:
+        if self._capture is not None:
+            return None
+        if self.transform is not None and self.transform.eager is not None:
+            return self.transform.eager
+        if self.platform != "cuda":
+            return "the CPU runs the program eagerly"
+        return "the CUDA graph's copies cost more than the host work it " \
+               "saves (replay_ms > eager_ms)"
+
     def describe(self) -> Dict[str, Any]:
         """JSON-able summary (``plan_info``)."""
         return {
@@ -939,6 +1028,10 @@ class ExecutablePlan:
             "guards": len(self.guards),
             "const_guards": len(self.const_guards),
             "hoisted_nbytes": self.hoisted_nbytes(),
+            "transform": None if self.transform is None
+            else self.transform.describe(),
+            "runs": "cuda_graph" if self._capture is not None else "eager",
+            "eager_reason": self._eager_reason(),
             "cuda_graph": self._capture is not None,
             "graph_copy_bytes": self.copy_bytes,
             "replay_ms": self.replay_ms,
@@ -950,11 +1043,134 @@ class ExecutablePlan:
         }
 
 
+class Transform:
+    """What a plan under transforms serves (:func:`transform_for`).
+
+    ``structure``: the peeled ``vmap`` levels' batch sizes and batch dims
+    and the shapes and strides below them (``levels.Peeled.structure``),
+    None when the program runs on the leaves as they are; ``grad``: the
+    call carries gradients; ``eager``: why the program runs eagerly (None:
+    it may take a CUDA graph).  It holds no tensor of the call."""
+    __slots__ = ("structure", "grad", "eager")
+
+    def __init__(self, structure, grad: bool, eager: Optional[str]):
+        self.structure = structure
+        self.grad = grad
+        self.eager = eager
+
+    def describe(self) -> Dict[str, Any]:
+        return {"vmap": [] if self.structure is None
+                else [[b, list(d)] for b, d in self.structure[0]],
+                "grad": self.grad}
+
+
+def transform_for(tensors) -> Tuple[Optional[Transform],
+                                     Optional[levels.Peeled]]:
+    """The transform a call on ``tensors`` stands under (None for plain
+    tensors), and the call's tensors below its peeled ``vmap`` levels.
+    The outermost ``vmap`` levels are peeled where the tensors below carry
+    no ``vmap`` level of their own; otherwise (a ``grad`` level over a
+    ``vmap`` one) the per-element program runs on the leaves as they
+    are, and nothing is peeled."""
+    if not transformed(tensors):
+        return None, None
+    grad = any(map(levels.requires_grad, tensors))
+    peeled = levels.peel(tensors)
+    if not peeled.levels or any(map(levels.batched, peeled.tensors)):
+        peeled = None
+    if grad:
+        eager = ("carries gradients: a CUDA-graph replay records no "
+                 "autograd graph, so the program runs eagerly")
+    elif peeled is None or any(map(torch._C._functorch.
+                                   is_functorch_wrapped_tensor,
+                                   peeled.tensors)):
+        eager = ("the call's tensors keep a torch.func level: the "
+                 "program runs eagerly on them")
+    else:
+        eager = None
+    return Transform(None if peeled is None else peeled.structure(), grad,
+                     eager), peeled
+
+
+def batched_program(runner: Callable, peeled: levels.Peeled,
+                    grad: bool) -> GraphModule:
+    """``make_fx`` of ``torch.func.vmap`` of the per-element ``runner``
+    over the peeled levels (``levels.program``), traced once on fakes of
+    the tensors below the levels, outside the caller's transforms: each
+    custom op batches by its vmap rule into one node (one launch for the
+    batch), the hoisted buffers become the graph's constants.  A program
+    for calls that carry gradients calls the ops' differentiable forms
+    (``kernels.common.differentiable_graph``)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core.detect import normalize_graph, own_trace
+
+    run = _unfaulted(runner)
+    prog = levels.program(lambda *t: list(run(*t)), peeled.levels)
+    try:
+        with own_trace():   # no op here may lift a tensor to a caller's level
+            bases = [levels.base(t).detach() for t in peeled.tensors]
+            gm = make_fx(prog, tracing_mode="fake",
+                         _allow_non_fake_inputs=True)(*bases)
+    except Exception as e:
+        raise PlanBakeError(f"the batched program did not trace: {e!r}") \
+            from e
+    gm = normalize_graph(gm)
+    return differentiable_graph(gm) if grad else gm
+
+
+def _program(runner: Callable, tf: Optional[Transform],
+             peeled: Optional[levels.Peeled]) -> Callable:
+    """The program a plan runs: ``runner`` itself, its batched form, or
+    (for calls that carry gradients) its graph with the custom ops'
+    differentiable calls."""
+    if tf is None:
+        return runner
+    if peeled is not None:
+        return batched_program(runner, peeled, tf.grad)
+    if tf.grad and isinstance(runner, GraphModule):
+        return differentiable_graph(runner)
+    return runner
+
+
+def _refuse_marshal_sources(raw_flat, tensor_pos, guard_pos) -> None:
+    """The refusals the reference keeps: a plan guards and hoists a
+    marshal source's contents, so a batched one (repacked element by
+    element) or one that requires grad (which autograd differentiates)
+    never bakes."""
+    for i in sorted(guard_pos):
+        leaf = unwrap(raw_flat[tensor_pos[i]])
+        if levels.batched(leaf):
+            raise PlanBakeError(
+                "vmapped call with a batched marshal source (the matrix "
+                "carries a torch.func.vmap level): levels.per_element "
+                "repacks and launches once an element, and a plan cannot "
+                "hoist or guard the elements' layouts; never a plan")
+        if levels.requires_grad(leaf):
+            raise PlanBakeError(
+                "carries gradients into a marshal source (the matrix's "
+                "values require grad): a plan would hoist what autograd "
+                "differentiates; runs the interpreter, never a plan")
+
+
 def _finish(plan: ExecutablePlan, tensors,
             static_leaves: frozenset) -> ExecutablePlan:
-    if plan.platform == "cuda":
-        plan.capture(tensors, static_leaves)
+    tf = plan.transform
+    if plan.platform == "cuda" and (tf is None or tf.eager is None):
+        with _outside_transforms(tf):
+            plan.capture(tensors, static_leaves)
     return plan
+
+
+def _outside_transforms(tf):
+    """The caller's ``torch.func`` levels set aside while a batched plan
+    captures its program on the tensors below them."""
+    import contextlib
+
+    if tf is None:
+        return contextlib.nullcontext()
+    from repro_torch.core.detect import own_trace
+    return own_trace()
 
 
 def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
@@ -979,7 +1195,11 @@ def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
     slots = {id(m.anchor): recorder.slots[id(m.anchor)] for m in matches}
     guard_pos = marshal_guard_positions(
         gm, [(m, slots[id(m.anchor)].harness) for m in matches])
+    tf, peeled = transform_for(tensors)
+    if tf is not None:
+        _refuse_marshal_sources(raw_flat, tensor_pos, guard_pos)
     const_guards = const_guards_for(gm)
+    grad = tf is not None and tf.grad
 
     def select(m, binding=None, ctx=None):
         s = slots[id(m.anchor)]
@@ -992,14 +1212,18 @@ def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
         s = slots[id(m.anchor)]
         return CallCtx(mode=mode, cache=_PlanBuffers(s.buffers),
                        format=m.format, platform=platform,
-                       schedule=s.schedule, epilogue=m.epilogue, fuse=s.fuse)
+                       schedule=s.schedule, epilogue=m.epilogue, fuse=s.fuse,
+                       differentiable=grad)
 
     def runner(*leaves):
         return run_rewritten(gm, matches, select, list(leaves), ctx_factory,
                              needed=needed)
 
+    program = _program(runner, tf, peeled)
+    read = read_positions(gm, matches, needed) if peeled is None \
+        else _graph_reads(program)
     plan = ExecutablePlan(
-        runner, in_spec, out_spec, leaf_templates(raw_flat), tensor_pos,
+        program, in_spec, out_spec, leaf_templates(raw_flat), tensor_pos,
         [_Guard(tensor_pos[i], raw_flat[tensor_pos[i]], contents=True)
          for i in sorted(guard_pos)],
         const_guards, report,
@@ -1007,8 +1231,14 @@ def bake_plan(*, gm: GraphModule, matches, needed, recorder: PlanRecorder,
         [slots[id(m.anchor)].schedule for m in matches],
         [slots[id(m.anchor)].fuse for m in matches],
         {aid: tuple(s.buffers) for aid, s in slots.items()},
-        registry_epoch, platform, read=read_positions(gm, matches, needed))
-    return _finish(plan, tensors, static_leaves)
+        registry_epoch, platform, read=read, transform=tf)
+    return _finish(plan, tensors if peeled is None else peeled.tensors,
+                   static_leaves)
+
+
+def _graph_reads(gm: GraphModule) -> frozenset:
+    return read_positions(gm, [], frozenset(
+        n for n in gm.graph.nodes if n.op == "call_function"))
 
 
 def bake_graph_plan(*, gm: GraphModule, raw_flat, tensors, tensor_pos,
@@ -1019,11 +1249,11 @@ def bake_graph_plan(*, gm: GraphModule, raw_flat, tensors, tensor_pos,
     program (no marshaling, so no marshal guards)."""
     if faults.ACTIVE is not None:
         faults.fail("bake_raise", "bake")
-    read = read_positions(gm, [], frozenset(
-        n for n in gm.graph.nodes if n.op == "call_function"))
+    tf, peeled = transform_for(tensors)
+    program = _program(gm, tf, peeled)
     plan = ExecutablePlan(
-        gm, in_spec, out_spec, leaf_templates(raw_flat), tensor_pos, [],
+        program, in_spec, out_spec, leaf_templates(raw_flat), tensor_pos, [],
         const_guards_for(gm), report, selections, schedules, fuses, {},
-        registry_epoch, platform, read=read)
-    return _finish(plan, tensors, static_leaves)
-
+        registry_epoch, platform, read=_graph_reads(program), transform=tf)
+    return _finish(plan, tensors if peeled is None else peeled.tensors,
+                   static_leaves)

@@ -375,6 +375,7 @@ class ContainmentStats:
     fallbacks: int = 0       # anchors that exhausted every candidate
     shadow_checks: int = 0
     shadow_divergences: int = 0
+    shadow_errors: int = 0   # shadows whose uncompiled run raised: unchecked
     sticky_faults: int = 0   # CUDA errors recorded and raised, not contained
     quarantine_skips: int = 0  # selections that passed over a quarantine
 

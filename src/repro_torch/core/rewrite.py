@@ -42,13 +42,14 @@ activation.  Run on real tensors (the interpreter), a harness with a
 (:class:`HarnessCall`) whose backward is the clause's body; only the
 binding values that require grad are its inputs, everything else stays
 captured, so marshal sources still fingerprint.  Traced into a graph, the
-harness appears as its aten ops or its custom op, whose
-``torch.library.register_autograd`` formula is the same body (such a
-formula serves ``.backward()``; ``torch.library`` gives it no
-``setup_context`` for ``torch.func``, so a ``torch.func`` call of a
-trace-mode function runs the interpreter).  A harness that would lose a
-gradient raises ``ValueError`` naming the key; a gradient is never
-silently ``None`` or zero.
+harness appears as its aten ops or its custom op, whose formula is the
+same body: ``torch.library.register_autograd``'s serves ``.backward()``
+through the op's node, and a graph that runs for calls that carry
+gradients calls the op's differentiable form instead
+(``kernels.common.differentiable_graph``), which runs under a
+``torch.func`` grad level too.  A harness that would lose a gradient
+raises ``ValueError`` naming the key; a gradient is never silently
+``None`` or zero.
 
 **Batching** (``torch.func.vmap`` of a compiled function).  Either
 realization runs on batched tensors as it stands: the graph's aten ops

@@ -19,13 +19,16 @@ host the op's dispatch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
 
 from repro_torch.kernels.bsr_spmm.kernel import bsr_spmm_cuda
-from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
-from repro_torch.kernels.common import apply_epilogue_inregister, vmap_by_loop
+from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_plain, bsr_spmm_ref
+from repro_torch.kernels.common import (apply_epilogue_inregister,
+                                        differentiable, epilogue_cotangent,
+                                        vmap_by_loop)
 from repro_torch.sparse.formats import BCSR, PackedBCSR, pack_bcsr, rebuilt
 from repro_torch.sparse.ops import row_ids_from_row_ptr
 
@@ -88,8 +91,11 @@ def bsr_spmm_op(val: torch.Tensor, local: torch.Tensor,
     it was built): ``(out_rows, N)`` f32.  Its vmap rule takes a batch of
     dense operands as one launch, the batch laid side by side as columns
     (``(K, B·N)``, a batch of vectors ``(K, B)``), and a batched matrix or
-    bias as one launch an element.  It has no autograd formula: the
-    harnesses that call it run inside their ``vjp`` clause's Function."""
+    bias as one launch an element.  Its autograd formula differentiates
+    the dense operand and the bias (Aᵀ·ct through the tiles' plain
+    version); the tiles are a marshaled buffer, and a harness that
+    differentiates the matrix's own values does so in its ``vjp`` clause's
+    Function."""
     packed = rebuilt(PackedBCSR, val=val, local=local, tile_ptr=tile_ptr,
                      row_start=row_start, col_mask=col_mask,
                      block_col=block_col, block_rowptr=block_rowptr,
@@ -105,18 +111,60 @@ def _bsr_spmm_fake(val, local, tile_ptr, row_start, col_mask, block_col,
     return dense.new_empty((out_rows, dense.shape[1]), dtype=torch.float32)
 
 
-@bsr_spmm_op.register_vmap
-def _bsr_spmm_vmap(info, in_dims, *args):
+def _bsr_spmm_batch(fn, info, in_dims, *args):
     if any(d is not None for i, d in enumerate(in_dims) if i != 7):
-        return vmap_by_loop(bsr_spmm_op, info, in_dims, args)
+        return vmap_by_loop(fn, info, in_dims, args)
     a = list(args)
     dense = args[7].movedim(in_dims[7], 0)              # (B, K, N)
     b, k, n = dense.shape
     a[7] = dense.permute(1, 0, 2).reshape(k, b * n).contiguous()
     if a[8] is not None and a[14] == "col":
         a[8] = a[8].repeat(b)                           # a bias a column
-    out = bsr_spmm_op(*a)                               # (rows, B·N)
+    out = fn(*a)                                        # (rows, B·N)
     return out.reshape(out.shape[0], b, n).movedim(1, 0), 0
+
+
+bsr_spmm_op.register_vmap(functools.partial(_bsr_spmm_batch, bsr_spmm_op))
+
+
+def _bsr_spmm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:9])
+    ctx.args = inputs[9:]
+
+
+def _bsr_spmm_backward(ctx, ct):
+    (val, local, tile_ptr, row_start, col_mask, block_col, block_rowptr,
+     dense, bias) = ctx.saved_tensors
+    rows, cols, bm, bk, out_rows, bias_kind, epilogue = ctx.args
+    if ctx.needs_input_grad[0]:
+        raise NotImplementedError(
+            "lilac_torch::bsr_spmm differentiates its dense operand and "
+            "bias, not the marshaled tiles' values")
+    dz = ct
+    if epilogue in ("relu", "silu"):
+        with torch.no_grad():
+            z = bsr_spmm_op(val, local, tile_ptr, row_start, col_mask,
+                            block_col, block_rowptr, dense, bias, rows, cols,
+                            bm, bk, out_rows, bias_kind, None)
+        dz = epilogue_cotangent(z, ct, epilogue)
+    packed = rebuilt(PackedBCSR, val=val, local=local, tile_ptr=tile_ptr,
+                     row_start=row_start, col_mask=col_mask,
+                     block_col=block_col, block_rowptr=block_rowptr,
+                     shape=(rows, cols), block_shape=(bm, bk))
+    _, pull = torch.func.vjp(
+        lambda d: bsr_spmm_plain(packed, d, out_rows=out_rows), dense)
+    (ddense,) = pull(dz.to(torch.float32))
+    dbias = None
+    if bias is not None and ctx.needs_input_grad[8]:
+        dbias = dz.sum(1) if bias_kind == "row" else dz.sum(0)
+        dbias = dbias.to(bias.dtype)
+    return (None,) * 7 + (ddense.to(dense.dtype), dbias) + (None,) * 7
+
+
+bsr_spmm_op.register_autograd(_bsr_spmm_backward, setup_context=_bsr_spmm_setup)
+#: ``bsr_spmm_op`` differentiable under every transform
+bsr_spmm_call = differentiable(bsr_spmm_op, _bsr_spmm_setup,
+                               _bsr_spmm_backward, _bsr_spmm_batch)
 
 
 def bsr_spmm_oracle(bcsr: BCSR, dense: torch.Tensor) -> torch.Tensor:

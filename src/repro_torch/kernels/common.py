@@ -10,12 +10,32 @@ is the integer a wrapper passes for the chain; ``check_tensor`` and
 ``torch.func.vmap`` rules.  The Mosaic-only
 ``compiler_params`` has no counterpart: a CUDA kernel's launch shape is set
 by its wrapper.  ``COUNTERS`` holds every kernel's launch counter.
+
+**Differentiating a custom op under every transform.**  A
+``torch.library`` custom op's ``register_autograd`` formula serves
+``.backward()`` only: under a ``torch.func`` grad level torch refuses it
+(its generated ``autograd.Function`` has no ``setup_context``), and a
+Python autograd kernel at the dispatcher cannot take its place, since
+``torch.func`` dispatches an ``autograd.Function`` before the
+dispatcher.  So each custom op also has a differentiable call
+(:func:`differentiable`): the op inside an ``autograd.Function`` with
+``setup_context`` and a generated vmap rule, whose backward is the op's
+formula, taken whenever a tensor argument carries gradients at any level.
+A graph that runs under differentiation has its custom-op nodes
+retargeted to these calls (:func:`differentiable_graph`).  And
+``torch.func.functionalize`` (the level ``make_fx`` traces a program
+under, as ``lilac.compile`` does) has no rule for an
+``autograd.Function`` (torch raises "NYI: Functionalize rule for
+custom_function_call"): :func:`_functionalize_custom_function` supplies
+the plain one, since these Functions mutate nothing, so that a compiled
+gradient traces through them.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+from torch._C import _functorch as _F
 
 #: Every kernel module's launch counter (its ``LAUNCHES``), registered by
 #: :func:`counter`: an executable plan reads them around a CUDA-graph
@@ -94,3 +114,115 @@ def launched(launches: dict, name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+
+
+#: custom op overload -> its differentiable call (:func:`differentiable`)
+DIFFERENTIABLE: Dict[Any, Callable] = {}
+
+
+def carries_grad(args) -> bool:
+    """Whether grad mode is on and a tensor of ``args`` requires grad at
+    any ``torch.func`` level (a batched tensor over one that requires grad
+    reports ``requires_grad`` False itself)."""
+    if not torch.is_grad_enabled():
+        return False
+    for a in args:
+        while isinstance(a, torch.Tensor):
+            if a.requires_grad:
+                return True
+            if not _F.is_functorch_wrapped_tensor(a):
+                break
+            a = _F.get_unwrapped(a)
+    return False
+
+
+def differentiable(op, setup_context: Callable, backward: Callable,
+                   batch: Callable) -> Callable:
+    """The call of custom op ``op`` that differentiates under
+    ``.backward()``, ``torch.func.grad`` and ``torch.func.vmap`` alike:
+    the op itself when no argument carries gradients, else the op inside
+    an ``autograd.Function`` whose ``setup_context`` and ``backward`` are
+    the op's formula (the one ``register_autograd`` gives it too).
+    ``batch(fn, info, in_dims, *args)`` is the op's vmap rule with ``fn``
+    in the op's place: the Function batches by it with this call in the
+    op's place, so a batch is one call (one launch) at the level below,
+    and the backward sees the whole batch there too (the MoE formula reads
+    the largest expert load of all the tokens, not a per-sequence
+    bound)."""
+    name = op._name.split("::")[-1]
+
+    def call(*args):
+        if carries_grad(args):
+            return fn.apply(*args)
+        return op(*args)
+
+    fn = type(f"{name}_grad", (torch.autograd.Function,), {
+        "forward": staticmethod(lambda *args: op(*args)),
+        "setup_context": staticmethod(setup_context),
+        "backward": staticmethod(backward),
+        "vmap": staticmethod(
+            lambda info, in_dims, *args: batch(call, info, in_dims, *args)),
+    })
+    call.__name__ = call.__qualname__ = f"{name}_call"
+    DIFFERENTIABLE[op._opoverload] = call
+    return call
+
+
+def differentiable_graph(gm):
+    """A copy of ``gm`` whose custom-op nodes call the ops' differentiable
+    calls (``DIFFERENTIABLE``): the graph a call that carries gradients
+    runs, under ``.backward()`` or a ``torch.func`` grad level."""
+    import copy
+
+    from torch.fx import GraphModule
+
+    if not any(n.op == "call_function" and n.target in DIFFERENTIABLE
+               for n in gm.graph.nodes):
+        return gm
+    graph = copy.deepcopy(gm.graph)
+    for n in graph.nodes:
+        if n.op == "call_function" and n.target in DIFFERENTIABLE:
+            n.target = DIFFERENTIABLE[n.target]
+    return GraphModule(gm, graph)
+
+
+def epilogue_cotangent(z: torch.Tensor, ct: torch.Tensor,
+                       epilogue: Optional[str]) -> torch.Tensor:
+    """The cotangent of the pre-activation ``z`` given the output's:
+    ``relu``'s and ``silu``'s derivative (``torch.clamp_min``'s at 0)."""
+    if epilogue == "relu":
+        return ct * (z >= 0)
+    if epilogue == "silu":
+        sg = torch.sigmoid(z)
+        return ct * (sg * (1 + z * (1 - sg)))
+    return ct
+
+
+def _functionalize_custom_function(interpreter, function, *operands):
+    """``torch.func.functionalize``'s rule for an ``autograd.Function``
+    (torch's own raises "NYI"): the operands' functional wrappers taken
+    off, the Function applied at the level below, its outputs wrapped
+    again.  Right for a Function that mutates none of its operands, as
+    the port's (its custom ops' and ``rewrite.HarnessCall``) do not."""
+    from torch._functorch.autograd_function import custom_function_call
+    from torch._subclasses.functional_tensor import FunctorchFunctionalizeAPI
+
+    api = FunctorchFunctionalizeAPI(interpreter)
+    inner = api.unwrap_tensors(operands)
+    with api.redispatch_to_next():
+        out = custom_function_call(function, *inner)
+    return api.wrap_tensors(out)
+
+
+def _register_functionalize_rule() -> None:
+    from torch._C._functorch import TransformType
+    from torch._functorch.autograd_function import custom_function_call
+
+    table = custom_function_call.functorch_table
+    rule = table.get(TransformType.Functionalize)
+    if rule is None or getattr(rule, "__name__", "") == \
+            "custom_function_call_functionalize":
+        table[TransformType.Functionalize] = _functionalize_custom_function
+
+
+_register_functionalize_rule()

@@ -20,12 +20,13 @@ no expert's load exceeds, nothing dropped (K4 has no backward).  Its
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import vmap_by_loop
+from repro_torch.kernels.common import differentiable, vmap_by_loop
 from repro_torch.kernels.moe_gmm.kernel import gmm_cuda
 from repro_torch.kernels.moe_gmm.ref import moe_ffn_ref
 
@@ -123,15 +124,14 @@ def _moe_ffn_backward(ctx, ct):
 moe_ffn_op.register_autograd(_moe_ffn_backward, setup_context=_moe_ffn_setup)
 
 
-@moe_ffn_op.register_vmap
-def _moe_ffn_vmap(info, in_dims, x, gate, idx, wg, wu, wd, tm):
+def _moe_ffn_batch(fn, info, in_dims, x, gate, idx, wg, wu, wd, tm):
     """A batch of token groups (``torch.func.vmap`` over sequences) as one
     call over the flattened tokens: the function is per token, so each
     token's row is the same arithmetic, and K4 launches 3 times, not 3·B.
     Batched weights: one call an element."""
     args = (x, gate, idx, wg, wu, wd, tm)
     if any(d is not None for d in in_dims[3:]):
-        return vmap_by_loop(moe_ffn_op, info, in_dims, args)
+        return vmap_by_loop(fn, info, in_dims, args)
     b = info.batch_size
 
     def tokens(t, d):
@@ -139,8 +139,14 @@ def _moe_ffn_vmap(info, in_dims, x, gate, idx, wg, wu, wd, tm):
         return t.reshape(-1, t.shape[-1])
 
     x2, g2, i2 = (tokens(t, d) for t, d in zip(args[:3], in_dims[:3]))
-    out = moe_ffn_op(x2, g2, i2, wg, wu, wd, tm)
+    out = fn(x2, g2, i2, wg, wu, wd, tm)
     return out.reshape(b, -1, out.shape[-1]), 0
+
+
+moe_ffn_op.register_vmap(functools.partial(_moe_ffn_batch, moe_ffn_op))
+#: ``moe_ffn_op`` differentiable under every transform
+moe_ffn_call = differentiable(moe_ffn_op, _moe_ffn_setup, _moe_ffn_backward,
+                              _moe_ffn_batch)
 
 
 def moe_ffn_oracle(x, gate, idx, wg, wu, wd):

@@ -32,14 +32,17 @@ matrix one launch an element.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.common import (apply_epilogue_inregister,
+                                        differentiable, epilogue_cotangent,
                                         vmap_over_vectors)
-from repro_torch.kernels.spmv_ell.ref import acc_dtype
+from repro_torch.kernels.spmv_ell.ref import (acc_dtype,
+                                              spmv_ell_windowed_plain)
 from repro_torch.kernels.spmv_ell.kernel import (STAGE_BYTES, spmv_ell_cuda,
                                                  spmv_ell_staged_cuda,
                                                  spmv_ell_windowed_cuda)
@@ -135,13 +138,10 @@ def _spmv_ell_backward(ctx, ct):
     out_rows, epilogue, rows_per_slab = ctx.args
     dz = ct
     if epilogue in ("relu", "silu"):
-        z = spmv_ell_op(val, col, vec, bias, perm, out_rows, None,
-                        rows_per_slab)
-        if epilogue == "relu":
-            dz = ct * (z >= 0)          # torch.clamp_min's derivative
-        else:
-            sg = torch.sigmoid(z)
-            dz = ct * (sg * (1 + z * (1 - sg)))
+        with torch.no_grad():       # the pre-activation, a constant here
+            z = spmv_ell_op(val, col, vec, bias, perm, out_rows, None,
+                            rows_per_slab)
+        dz = epilogue_cotangent(z, ct, epilogue)
     b = {"val": val, "col_ind": col, "vector": vec,
          "perm": None if perm is None else perm.long()}
     body = BUILTIN_VJPS["spmv_ell_bwd"]
@@ -156,21 +156,30 @@ def _spmv_ell_backward(ctx, ct):
         dz = dz.sum(0)
     dbias = None
     if bias is not None and ctx.needs_input_grad[3]:
-        # a row that no perm entry names is stored as 0, bias or not
-        dbias = dz if perm is None else torch.zeros_like(dz).index_copy(
-            0, perm.long(), dz[perm.long()])
-        dbias = dbias.to(bias.dtype)
+        dbias = _bias_cotangent(dz, perm).to(bias.dtype)
     return (dval.to(val.dtype), None, g["vector"].to(vec.dtype), dbias,
             None, None, None, None)
+
+
+def _bias_cotangent(dz, perm):
+    """A per-row bias's cotangent: a row that no perm entry names is
+    stored as 0, bias or not."""
+    return dz if perm is None else torch.zeros_like(dz).index_copy(
+        0, perm.long(), dz[perm.long()])
 
 
 spmv_ell_op.register_autograd(_spmv_ell_backward,
                               setup_context=_spmv_ell_setup)
 
 
-@spmv_ell_op.register_vmap
-def _spmv_ell_vmap(info, in_dims, *args):
-    return vmap_over_vectors(spmv_ell_op, info, in_dims, args, pos=2)
+def _spmv_ell_batch(fn, info, in_dims, *args):
+    return vmap_over_vectors(fn, info, in_dims, args, pos=2)
+
+
+spmv_ell_op.register_vmap(functools.partial(_spmv_ell_batch, spmv_ell_op))
+#: ``spmv_ell_op`` differentiable under every transform
+spmv_ell_call = differentiable(spmv_ell_op, _spmv_ell_setup,
+                               _spmv_ell_backward, _spmv_ell_batch)
 
 
 def _out_rows(val, perm, out_rows: Optional[int]) -> int:
@@ -257,9 +266,11 @@ def spmv_ell_layout_op(val: torch.Tensor, col: torch.Tensor,
     by its tensors (the layout was checked when it was built), f32 out of
     ``(rows,)`` behind a leading batch axis for a batch of vectors ``(B,
     cols)``.  Its vmap rule runs a batched vector as one launch and a
-    batched layout or bias as one launch an element.  It has no autograd
-    formula: the harness that calls it runs inside its ``vjp`` clause's
-    Function."""
+    batched layout or bias as one launch an element.  Its autograd formula
+    differentiates the vector and the bias (Aᵀ·ct through the layout's
+    plain version); the layout is a marshaled buffer, and a harness that
+    differentiates the matrix's own values does so in its ``vjp``
+    clause's Function."""
     layout = rebuilt(WindowedELL, val=val, col=col, seg_ptr=seg_ptr,
                      seg_window=seg_window, seg_offset=seg_offset,
                      window=window, shape=(rows, cols), perm=perm)
@@ -273,6 +284,58 @@ def _spmv_ell_layout_fake(val, col, seg_ptr, seg_window, seg_offset, perm,
                          dtype=torch.float32)
 
 
-@spmv_ell_layout_op.register_vmap
-def _spmv_ell_layout_vmap(info, in_dims, *args):
-    return vmap_over_vectors(spmv_ell_layout_op, info, in_dims, args, pos=6)
+def _spmv_ell_layout_batch(fn, info, in_dims, *args):
+    return vmap_over_vectors(fn, info, in_dims, args, pos=6)
+
+
+spmv_ell_layout_op.register_vmap(
+    functools.partial(_spmv_ell_layout_batch, spmv_ell_layout_op))
+
+
+def _spmv_ell_layout_setup(ctx, inputs, output):
+    (val, col, seg_ptr, seg_window, seg_offset, perm, vec, bias, window,
+     rows, cols, epilogue) = inputs
+    ctx.save_for_backward(val, col, seg_ptr, seg_window, seg_offset, perm,
+                          vec, bias)
+    ctx.args = (window, rows, cols, epilogue)
+
+
+def _spmv_ell_layout_backward(ctx, ct):
+    val, col, seg_ptr, seg_window, seg_offset, perm, vec, bias = \
+        ctx.saved_tensors
+    window, rows, cols, epilogue = ctx.args
+    if ctx.needs_input_grad[0]:
+        raise NotImplementedError(
+            "lilac_torch::spmv_ell_layout differentiates its vector and "
+            "bias, not the marshaled layout's values")
+    dz = ct
+    if epilogue in ("relu", "silu"):
+        with torch.no_grad():
+            z = spmv_ell_layout_op(val, col, seg_ptr, seg_window,
+                                   seg_offset, perm, vec, bias, window, rows,
+                                   cols, None)
+        dz = epilogue_cotangent(z, ct, epilogue)
+    layout = rebuilt(WindowedELL, val=val, col=col, seg_ptr=seg_ptr,
+                     seg_window=seg_window, seg_offset=seg_offset,
+                     window=window, shape=(rows, cols), perm=perm)
+    def linear(v):
+        return spmv_ell_windowed_plain(layout, v, perm=perm, out_rows=rows)
+
+    if vec.dim() > 1:                   # a batch of vectors (B, cols)
+        linear = torch.func.vmap(linear)
+    _, pull = torch.func.vjp(linear, vec)
+    (dvec,) = pull(dz.to(torch.float32))
+    dbias = None
+    if bias is not None and ctx.needs_input_grad[7]:
+        dbias = _bias_cotangent(dz.reshape(-1, rows).sum(0), perm)
+        dbias = dbias.to(bias.dtype)
+    return (None, None, None, None, None, None, dvec.to(vec.dtype), dbias,
+            None, None, None, None)
+
+
+spmv_ell_layout_op.register_autograd(_spmv_ell_layout_backward,
+                                     setup_context=_spmv_ell_layout_setup)
+#: ``spmv_ell_layout_op`` differentiable under every transform
+spmv_ell_layout_call = differentiable(
+    spmv_ell_layout_op, _spmv_ell_layout_setup, _spmv_ell_layout_backward,
+    _spmv_ell_layout_batch)

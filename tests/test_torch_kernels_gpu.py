@@ -11,7 +11,10 @@ autograd formulas against plain autograd, ``torch.func.grad`` of a
 compiled call and of a compiled gradient; a batch of vectors (the
 custom ops' ``torch.func.vmap`` rules): K1's two bodies and K2 at B = 1, 3
 and 8 against B solo launches bit for bit, K3 with the vectors as its
-operand's columns, K4's rule against the loop; and serving: K4 under
+operand's columns, K4's rule against the loop; plans under transforms
+(a vmapped call's batched plan replaying K1 staged, K2, K3 narrow and K4
+bit for bit as the unplanned call computes, and K4's gradient-carrying
+batched plan run eagerly); and serving: K4 under
 ``moe_ffn`` at a decode step's shapes, the compiled decode inside the
 engine across re-buckets and slot moves teacher-forced against the
 uncompiled decode, and a decode plan on a cache at a new address.
@@ -2097,3 +2100,116 @@ def test_k4_vmap_rule_against_the_loop(cuda, dtype):
     assert K4.LAUNCHES[key] == before + 3
     loop = torch.stack([f(x[j], gate[j], idx[j]) for j in range(B)])
     assert torch.equal(got, loop)
+
+
+# ---------------------------------------------------------------------------
+# plans under transforms: a vmapped call served by its batched plan
+# ---------------------------------------------------------------------------
+
+def _naive_spmv_oop(val, col, row_ptr, v):
+    rows = row_ptr.shape[0] - 1
+    row = torch.repeat_interleave(torch.arange(rows, device=val.device),
+                                  torch.diff(row_ptr), output_size=val.shape[0])
+    return torch.zeros(rows, dtype=val.dtype, device=val.device).index_add(
+        0, row, val * v[col])
+
+
+def _moe_groups(cuda, B=3, T=200, D=128, F=256, E=8, K_=2, seed=13):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, T, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    gate = torch.from_numpy(rng.random((B, T, K_)).astype(np.float32)).to(
+        cuda)
+    idx = torch.from_numpy(rng.integers(0, E, (B, T, K_)).astype(
+        np.int32)).to(cuda)
+    w = [torch.from_numpy((rng.standard_normal(s) * .05).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+         for s in ((E, D, F), (E, D, F), (E, F, D))]
+    return x, gate, idx, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["K1 staged", "K2", "K3 narrow", "K4"])
+def test_batched_plan_replay_equals_the_unplanned_vmapped_call(
+        cuda, case, monkeypatch):
+    """A vmapped call bakes a batched plan; the next call is a plan hit
+    whose replay (a CUDA graph, or its program run eagerly, as the bake's
+    timing chose) launches the kernel once for the batch (K4 3 times) and
+    equals, bit for bit, the same call through a function compiled with
+    bake=False."""
+    if case == "K2":
+        # a vector past the limit: the windowed body's layout and launch
+        monkeypatch.setattr(ell_ops, "RESIDENT_VEC_LIMIT", 1000)
+    if case == "K4":
+        x, gate, idx, w = _moe_groups(cuda)
+        counters, body = K4.LAUNCHES, "gmm"
+
+        def call(f):
+            return torch.func.vmap(lambda a, g, i: f(a, g, i, *w))(
+                x, gate, idx)
+
+        kw = dict(policy="cuda.gmm")
+        fn = tlayers._moe_naive_2d
+    else:
+        csr = trandom.random_csr(777, 3000, 0.02, seed=9, skew=1.0)
+        val, col, ptr = (t.to(cuda) for t in (csr.val, csr.col_ind,
+                                              csr.row_ptr))
+        vecs = _vecs(cuda, torch.float32, 8, 3000)
+        counters, body = {"K1 staged": (K.LAUNCHES, "spmv_ell_staged"),
+                          "K2": (K.LAUNCHES, "spmv_ell_windowed"),
+                          "K3 narrow": (K3.LAUNCHES, "bsr_spmm_narrow")}[case]
+
+        def call(f):
+            return torch.func.vmap(lambda v: f(val, col, ptr, v))(vecs)
+
+        kw = dict(mode="host", policy="cuda.bcsr" if case == "K3 narrow"
+                  else "cuda.ell")
+        fn = _naive_spmv_oop
+    fast = lilac.compile(fn, device=cuda, **kw)
+    slow = lilac.compile(fn, device=cuda, bake=False, **kw)
+    first = call(fast)
+    before = counters[body]
+    served = call(fast)
+    torch.cuda.synchronize()
+    assert counters[body] - before == (3 if case == "K4" else 1)
+    info = fast.plan_info()
+    assert info["plan_hits"] == 1 and not info["bake_errors"], info
+    (plan,) = info["plans"]
+    assert plan["transform"]["vmap"] and not plan["transform"]["grad"]
+    want = call(slow)
+    assert slow.plan_info()["baked"] == 0
+    assert torch.equal(served, want) and torch.equal(first, want)
+
+
+@pytest.mark.gpu
+def test_gradient_carrying_batched_plan_on_k4(cuda):
+    """The training step's MoE call: vmapped over token groups, its
+    activations and weights requiring grad.  The second call is a hit on
+    a batched plan run eagerly (no CUDA graph: a replay records no
+    autograd graph), with 3 K4 launches, and its value and gradients equal
+    the bake=False function's bit for bit."""
+    x, gate, idx, w = _moe_groups(cuda)
+
+    def run(f):
+        xs = x.detach().clone().requires_grad_()
+        ws = [t.detach().clone().requires_grad_() for t in w]
+        out = torch.func.vmap(lambda a, g, i: f(a, g, i, *ws))(xs, gate, idx)
+        out.float().square().sum().backward()
+        return [out.detach(), xs.grad] + [t.grad for t in ws]
+
+    fast = lilac.compile(tlayers._moe_naive_2d, policy="cuda.gmm",
+                         device=cuda)
+    slow = lilac.compile(tlayers._moe_naive_2d, policy="cuda.gmm",
+                         device=cuda, bake=False)
+    run(fast)
+    before = K4.LAUNCHES["gmm"]
+    got = run(fast)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["gmm"] - before == 3
+    info = fast.plan_info()
+    (plan,) = info["plans"]
+    assert info["plan_hits"] == 1 and plan["runs"] == "eager"
+    assert plan["transform"]["grad"] and plan["transform"]["vmap"]
+    want = run(slow)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The bf16 MoE block's call time on one NVIDIA GPU: the compiled MoE
-vmapped over the sequences against the per-sequence loop on plans, in
-alternating rounds.
+vmapped over the sequences, unplanned and on its batched plan, against
+the per-sequence loop on plans, in alternating rounds.
 
     python3 tools/moe_block_probe.py [--rounds 12] [--calls 20] [--out PATH]
 
@@ -10,11 +10,13 @@ toolkit.  At ``chip_smoke.py``'s MoE path (OLMoE-1B-7B's expert layer,
 2 sequences of 4,096 bf16 tokens, ``cuda.gmm``), each call from a sync to
 a sync, router included:
 
-* ``vmap``: ``moe_block(impl="lilac")``, the compiled MoE under
-  ``torch.func.vmap`` (3 K4 launches, the rewritten graph run eagerly);
-* ``vmap_no_shadow_hook``: the same with the vmapped call's shadow hook
-  (``LilacFunction._maybe_shadow_batched``) replaced by the identity, to
-  size what the hook costs at shadow rate 0;
+* ``vmap``: ``moe_block(impl="lilac")`` with the MoE compiled with
+  ``bake=False``: under ``torch.func.vmap`` each call runs the rewritten
+  graph eagerly (3 K4 launches);
+* ``vmap_plan``: ``moe_block(impl="lilac")`` as it runs by default, each
+  vmapped call a hit on the batched plan the first baked (3 K4
+  launches, the program a CUDA graph or eager, as its bake's timing
+  chose; ``plan_info()`` printed);
 * ``loop``: the router, then the compiled MoE on each sequence (each
   call a baked plan: 6 K4 launches).
 
@@ -62,8 +64,8 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke as C
+    from repro_torch import lilac
     from repro_torch.configs.olmoe_1b_7b import CONFIG
-    from repro_torch.core import pass_manager as PM
     from repro_torch.models import layers as L
 
     print(f"card: {C.smi_line()}")
@@ -71,30 +73,34 @@ def main() -> int:
     p, x = C.moe_inputs(CONFIG, 0, device)
     topk = CONFIG.moe_topk
     fast = L._lilac_moe_2d("cuda")
-    hook = PM.LilacFunction._maybe_shadow_batched
+    unplanned = lilac.compile(L._moe_naive_2d, platform="cuda", bake=False)
 
-    def vmapped():
-        return L.moe_block(p, x, topk=topk, impl="lilac")[0]
+    def block(fn):
+        def run():
+            L._LILAC_MOE["cuda"] = fn
+            try:
+                return L.moe_block(p, x, topk=topk, impl="lilac")[0]
+            finally:
+                L._LILAC_MOE["cuda"] = fast
+        return run
 
     def loop():
         gate, idx, _ = L.moe_router(p, x, topk)
         return torch.stack([fast(x[b], gate[b], idx[b], p["wg"], p["wu"],
                                  p["wd"]) for b in range(x.shape[0])])
 
-    def no_hook():
-        PM.LilacFunction._maybe_shadow_batched = \
-            lambda self, entry, flat, spec, out, tensors: out
-        try:
-            return vmapped()
-        finally:
-            PM.LilacFunction._maybe_shadow_batched = hook
-
-    variants = {"vmap": vmapped, "vmap_no_shadow_hook": no_hook,
+    variants = {"vmap": block(unplanned), "vmap_plan": block(fast),
                 "loop": loop}
     outs = {name: [fn() for _ in range(5)][-1]         # build, bake, warm
             for name, fn in variants.items()}
     assert torch.equal(outs["vmap"], outs["loop"])
-    assert fast.plan_info()["baked"] >= 1
+    assert torch.equal(outs["vmap_plan"], outs["loop"])
+    plans = [{k: q[k] for k in ("transform", "runs", "eager_reason",
+                                "replay_ms", "eager_ms", "hits")}
+             for q in fast.plan_info()["plans"]]
+    assert any(q["transform"] and q["transform"]["vmap"] for q in plans)
+    assert unplanned.plan_info()["baked"] == 0
+    print(f"plans of the compiled MoE: {plans}")
     names = list(variants)
     rounds = []
     for i in range(args.rounds):
@@ -114,8 +120,8 @@ def main() -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": C.smi_line(),
-                                        "rounds": rounds, "median_ms": med},
-                                       indent=1))
+                                        "rounds": rounds, "median_ms": med,
+                                        "plans": plans}, indent=1))
     return 0
 
 
