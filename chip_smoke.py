@@ -145,6 +145,24 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      call, with the per-call times of host mode, trace mode, the graph and
      the replay; and policy="autotune" in trace mode on the MoE layer,
      sweeping cuda.gmm's tm;
+   * a compiled function inside a user's torch.compile (inductor), after
+     the plan phase: NPB-C's ELL layer (relu + bias) in trace mode on
+     cuda.ell inside torch.compile(step, fullgraph=True) with the user's
+     own elementwise work around it (K1's direct body once a call from
+     the compiled program, the entry baked under the trace and the next
+     eager call a plan hit, an in-place edit seen); the MoE phase's OLMoE
+     block (2 x 4,096 bf16 tokens) with its router and residual inside
+     torch.compile(fullgraph=True) (K4's bf16 body 3 times a call, against
+     the f32 oracle within 2e-2), then one forward and backward of it
+     compiled, its gradients within 2e-2 of the uncompiled step's; and
+     NPB-C's CG step around the host-mode cuda.ell SpMV inside
+     torch.compile (a graph break: 26 launches of K1's staged body from the
+     plan, the iterate within 1e-3 of the naive CG, an in-place edit of the
+     values repacked and seen); at most one detection each (none where
+     the run's plan cache holds the signature) and none after the first
+     call, the compile seconds and the steady ms of each step (CUDA
+     events, median of 10) beside the same step run eagerly around the
+     call on its plan;
    * gradients, on the same matrices: (sum of squares of the NPB-C SpMV)
      differentiated through lilac.compile(naive SpMV, mode="host") under
      the default policy and cuda.ell (K1 staged forward, the backward its
@@ -456,17 +474,30 @@ def release(device) -> None:
         torch.cuda.empty_cache()
 
 
-def cuda_ms(fn, reps: int):
+def cuda_ms(fn, reps: int, median: bool = False):
     """(device ms, host ms) per call of ``fn`` over ``reps`` back-to-back
     calls, after one warm-up call: the device time from CUDA events, the
     host time to enqueue them.  Where the host takes as long as the
-    device, the events time the host's gaps, not the kernel."""
+    device, the events time the host's gaps, not the kernel.  With
+    ``median``, each call runs between its own events and is waited for,
+    and the medians of the ``reps`` calls come back."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if median:
+        dev, host = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            host.append(1e3 * (time.perf_counter() - t0))
+            end.synchronize()
+            dev.append(start.elapsed_time(end))
+        return sorted(dev)[reps // 2], sorted(host)[reps // 2]
     t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
@@ -1919,6 +1950,340 @@ def check_moe_trace(res) -> None:
             f"trace autotune: relative L2 error vs the f32 oracle within "
             f"{MOE_RTOL}, got {a['rel_l2']:.3g} ({a['winner']})")
     check_variants(res["variants"], "moe_ffn tm")
+
+
+# ---------------------------------------------------------------------------
+# A compiled function inside a user's torch.compile (K1 direct, K1 staged, K4)
+# ---------------------------------------------------------------------------
+
+USER_COMPILE_CALLS = 10        # steady calls of each compiled step timed
+
+
+def user_compile_path(mats, x_ref, cfg, seed: int, device) -> dict:
+    """Compiled functions called inside a user's ``torch.compile`` (the
+    default inductor backend), the reference's user ``jax.jit`` row:
+
+    * ``ell``: NPB-C's ELL layer (relu + bias) compiled in trace mode with
+      policy="cuda.ell", inside ``torch.compile(fullgraph=True)`` with the
+      user's own elementwise work around it: the call is one opaque node
+      that AOT autograd traces, so ``lilac_torch::spmv_ell`` (K1 direct
+      with the fused epilogue) runs from the compiled program, once a
+      call; the entry bakes under the trace and the next eager call is a
+      plan hit, which takes the deferred CUDA-graph capture;
+    * ``moe``: the MoE phase's OLMoE block (``moe_block(impl="lilac")``,
+      the compiled MoE under ``torch.func.vmap``) with its router and the
+      residual inside ``torch.compile(fullgraph=True)``: K4's bf16 body 3
+      times a call from the compiled program; then one forward and
+      backward of the same step compiled, its gradients against the
+      uncompiled step's;
+    * ``cg``: NPB-C's CG step around the host-mode cuda.ell SpMV inside
+      ``torch.compile`` (no fullgraph): a graph break at the call, which
+      runs concretely on its plan (K1 staged, 26 launches a solve); an
+      in-place edit of the values between two compiled calls is seen.
+
+    Each compiled step's first call (the compile) on the host's clock, its
+    steady ms beside the same step run eagerly around the compiled
+    function on its plan, its launches and its values.  A signature
+    detects at most once, and not at all where an earlier phase's record
+    in the run's plan cache serves it (the CG's SpMV)."""
+    import torch
+    from repro_torch import lilac
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.kernels.spmv_ell import kernel as K
+    from repro_torch.models import layers as L
+    from repro_torch.sparse import ell_from_csr
+
+    torch._dynamo.reset()
+    res = {}
+    a, b = mats["npb"]
+    calls = USER_COMPILE_CALLS
+
+    def ms(fn):                 # the median device ms of one call
+        return cuda_ms(fn, calls, median=True)[0]
+
+    # -- the ELL layer, fullgraph -------------------------------------------
+    ell = ell_from_csr(a, lane=128)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 5)
+    vec = torch.randn(a.cols, generator=gen).to(device)
+    bias = torch.randn(a.rows, generator=gen).to(device)
+    layer = lilac.compile(ell_layer, device=device, policy="cuda.ell")
+
+    def ell_step(val, col, v, bias):
+        return torch.tanh(layer(val, col, v * 0.5, bias)) + 1
+
+    def ell_plain(val, col, v, bias):
+        return torch.tanh(ell_layer(val, col, v * 0.5, bias)) + 1
+
+    args = (ell.val, ell.col, vec, bias)
+    step = torch.compile(ell_step, fullgraph=True)
+    K.reset_launches()
+    first_s: list = []
+    y = timed(step, first_s, device)(*args)
+    first = dict(K.LAUNCHES)
+    traced = layer.plan_info()
+    detects = layer.stats["detects"]
+    K.reset_launches()
+    for _ in range(calls):
+        step(*args)
+    steady = dict(K.LAUNCHES)
+    want = ell_plain(*args)
+    eager = ell_step(*args)             # the plan's first concrete call
+    info = layer.plan_info()
+    r = {"compile_s": first_s[0], "first_launches": first,
+         "launches": steady, "calls": calls,
+         "max_abs_err": max_err(y, want)[0],
+         "within_tol": max_err(y, want)[1] <= 1.0,
+         "eager_within_tol": max_err(eager, want)[1] <= 1.0,
+         "detects": detects, "detects_after": layer.stats["detects"],
+         "baked_under_trace": traced["baked"],
+         "traced_calls": traced["traced_calls"],
+         "bake_errors": info["bake_errors"],
+         "plan_hits": info["plan_hits"], "rebakes": info["rebakes"],
+         "plan": {k: info["plans"][0][k] for k in (
+             "runs", "eager_reason", "trace_serves", "capture_deferred")}
+         if info["plans"] else None,
+         "selections": [n for _, n in layer.last_selections],
+         "ms": ms(lambda: step(*args)),
+         "eager_ms": ms(lambda: ell_step(*args))}
+    val = ell.val.clone()
+    step(val, ell.col, vec, bias)
+    val.mul_(2)
+    got = step(val, ell.col, vec, bias)
+    r["edit_within_tol"] = max_err(got, ell_plain(val, ell.col, vec,
+                                                  bias))[1] <= 1.0
+    res["ell"] = r
+    del ell, val, got, want, eager, y, layer, step
+    release(device)
+
+    # -- the OLMoE block, fullgraph; then forward and backward --------------
+    p, x = moe_inputs(cfg, seed, device)
+    L._LILAC_MOE.clear()
+
+    def moe_step(p, x):
+        out, aux = L.moe_block(p, x, topk=cfg.moe_topk, impl="lilac")
+        return x + out, out, aux
+
+    step = torch.compile(moe_step, fullgraph=True)
+    G.reset_launches()
+    first_s = []
+    y, out, aux = timed(step, first_s, device)(p, x)
+    first = dict(G.LAUNCHES)
+    fast = L._lilac_moe_2d(device.type)
+    traced = fast.plan_info()
+    detects = fast.stats["detects"]
+    G.reset_launches()
+    for _ in range(calls):
+        step(p, x)
+    steady = dict(G.LAUNCHES)
+    gate, idx, _ = L.moe_router(p, x, cfg.moe_topk)
+    ref = torch.stack([GR.moe_ffn_ref(x[i], gate[i], idx[i], p["wg"],
+                                      p["wu"], p["wd"])
+                       for i in range(x.shape[0])])
+    eager = moe_step(p, x)
+    r = {"compile_s": first_s[0], "first_launches": first,
+         "launches": steady, "calls": calls, "shape": tuple(y.shape),
+         "finite": bool(torch.isfinite(y).all()),
+         "rel_l2": rel_l2(out, ref), "eager_rel_l2": rel_l2(eager[1], ref),
+         "rel_to_eager": rel_l2(y, eager[0]),
+         "detects": detects, "detects_after": fast.stats["detects"],
+         "traced_calls": traced["traced_calls"],
+         "selections": [n for _, n in fast.last_selections],
+         "ms": ms(lambda: step(p, x)),
+         "eager_ms": ms(lambda: moe_step(p, x))}
+    info = fast.plan_info()
+    r.update(plan_hits=info["plan_hits"], bake_errors=info["bake_errors"])
+    del y, out, aux, eager, step
+    release(device)
+    train = ("router", "wg", "wu", "wd")
+    ct = torch.randn(x.shape, generator=torch.Generator(device=device)
+                     .manual_seed(seed + 6), device=device)
+
+    def loss_of(p, x):
+        return (moe_step(p, x)[0].float() * ct).sum()
+
+    def grads(fn):
+        q = {k: v.detach().clone().requires_grad_(k in train)
+             for k, v in p.items()}
+        loss = fn(q, x)
+        loss.backward()
+        return float(loss.detach()), [q[k].grad for k in train]
+
+    step = torch.compile(loss_of, fullgraph=True)
+    G.reset_launches()
+    grad_s: list = []
+    loss, got = timed(grads, grad_s, device)(step)
+    grad_launches = dict(G.LAUNCHES)
+    loss_ref, want = grads(loss_of)
+    r.update(grad_compile_s=grad_s[0], grad_launches=grad_launches,
+             loss=loss, loss_eager=loss_ref,
+             grad_rel_l2={k: rel_l2(g, w)
+                          for k, g, w in zip(train, got, want)},
+             grads_finite=all(bool(torch.isfinite(g).all()) for g in got),
+             detects_after_grad=fast.stats["detects"])
+    res["moe"] = r
+    del p, x, ct, got, want, step, fast
+    L._LILAC_MOE.clear()
+    release(device)
+
+    # -- NPB-C's CG step around a host-mode call: a graph break -------------
+    spmv = lilac.compile(naive_spmv, mode="host", policy="cuda.ell",
+                         device=device)
+
+    def cg_step(val, col, ptr, x, r, p, rs):
+        ap = spmv(val, col, ptr, p)
+        alpha = rs / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = torch.dot(r, r)
+        return x, r, r + (rs_new / rs) * p, rs_new, ap
+
+    step = torch.compile(cg_step)
+    K.reset_launches()
+    xk = torch.zeros_like(b)
+    rk = b - spmv(a.val, a.col_ind, a.row_ptr, xk)
+    state = (xk, rk, rk, torch.dot(rk, rk))
+    first_s = []
+    state = timed(step, first_s, device)(a.val, a.col_ind, a.row_ptr,
+                                         *state)[:4]
+    detects = spmv.stats["detects"]
+    for _ in range(CG_ITERS - 1):
+        state = step(a.val, a.col_ind, a.row_ptr, *state)[:4]
+    sync(device)
+    launches = dict(K.LAUNCHES)
+    info = spmv.plan_info()
+    r = {"compile_s": first_s[0], "launches": launches,
+         "rel_to_naive": rel_l2(state[0], x_ref),
+         "finite": bool(torch.isfinite(state[0]).all()),
+         "detects": detects, "detects_after": spmv.stats["detects"],
+         "plan_hits": info["plan_hits"], "rebakes": info["rebakes"],
+         "plan": {k: info["plans"][0][k] for k in ("runs", "eager_reason")}
+         if info["plans"] else None,
+         "selections": [n for _, n in spmv.last_selections],
+         "ms": ms(lambda: step(a.val, a.col_ind, a.row_ptr, *state)),
+         "eager_ms": ms(lambda: cg_step(a.val, a.col_ind, a.row_ptr,
+                                        *state))}
+    val = a.val.clone()
+    step(val, a.col_ind, a.row_ptr, *state)
+    misses = spmv.cache.stats.misses
+    val.mul_(2)
+    ap = step(val, a.col_ind, a.row_ptr, *state)[4]
+    r["edit_repacks"] = spmv.cache.stats.misses - misses
+    r["edit_within_tol"] = max_err(ap, naive_spmv(
+        val, a.col_ind, a.row_ptr, state[2]))[1] <= 1.0
+    res["cg"] = r
+    torch._dynamo.reset()
+    return res
+
+
+def print_user_compile_path(uc, smi: str) -> None:
+    e, m, c = uc["ell"], uc["moe"], uc["cg"]
+    print(f"user compile ELL layer (npb, trace mode, cuda.ell, "
+          f"torch.compile(fullgraph=True), inductor): compiled in "
+          f"{e['compile_s']:.2f}s, K1 launches {e['first_launches']} on the "
+          f"first call, {e['launches']} over {e['calls']} calls; max|err| vs "
+          f"plain {e['max_abs_err']:.3g} (tol atol={KERNEL_ATOL} + "
+          f"rtol={KERNEL_RTOL}*|ref|); detects {e['detects']} -> "
+          f"{e['detects_after']}; baked under the trace "
+          f"{e['baked_under_trace']}, traced calls {e['traced_calls']}, then "
+          f"{e['plan_hits']} eager plan hits, {e['rebakes']} rebakes, plan "
+          f"{e['plan']}; steady {e['ms']:.4f} ms a step compiled, "
+          f"{e['eager_ms']:.4f} ms eager around the call on its plan "
+          f"({smi})")
+    print(f"user compile OLMoE block (moe_block(impl='lilac') with router "
+          f"and residual, torch.compile(fullgraph=True), inductor): compiled "
+          f"in {m['compile_s']:.2f}s, K4 launches {m['first_launches']} on "
+          f"the first call, {m['launches']} over {m['calls']} calls; "
+          f"selections {m['selections']}, relative L2 vs the f32 oracle "
+          f"{m['rel_l2']:.3g} (eager {m['eager_rel_l2']:.3g}; tol "
+          f"{MOE_RTOL}), the step vs eager {m['rel_to_eager']:.3g}; detects "
+          f"{m['detects']} -> {m['detects_after']} -> "
+          f"{m['detects_after_grad']}; traced calls {m['traced_calls']}; "
+          f"steady {m['ms']:.4f} ms a step compiled, {m['eager_ms']:.4f} ms "
+          f"eager around the call on its plan ({smi})")
+    print(f"user compile OLMoE block forward+backward: compiled and run in "
+          f"{m['grad_compile_s']:.2f}s, K4 launches {m['grad_launches']}, "
+          f"loss {m['loss']:.6g} (eager {m['loss_eager']:.6g}), gradients' "
+          f"relative L2 vs the uncompiled step's "
+          f"{ {k: round(v, 6) for k, v in m['grad_rel_l2'].items()} } (tol "
+          f"{TRAIN_GRAD_RTOL})")
+    print(f"user compile CG step (npb, host-mode cuda.ell behind a graph "
+          f"break, torch.compile, inductor): compiled in "
+          f"{c['compile_s']:.2f}s, launches over the solve {c['launches']}, "
+          f"|x-x_naive|/|x_naive| = {c['rel_to_naive']:.3g} (tol {CG_RTOL});"
+          f" detects {c['detects']} -> {c['detects_after']}; "
+          f"{c['plan_hits']} plan hits, {c['rebakes']} rebakes, plan "
+          f"{c['plan']}; in-place val.mul_(2): {c['edit_repacks']} repack, "
+          f"within tol {c['edit_within_tol']}; steady {c['ms']:.4f} ms a "
+          f"step compiled, {c['eager_ms']:.4f} ms eager ({smi})")
+
+
+def check_user_compile_path(uc, iters: int = CG_ITERS) -> None:
+    e, m, c = uc["ell"], uc["moe"], uc["cg"]
+    require(e["selections"] == ["cuda.ell"]
+            and e["first_launches"]["spmv_ell"] == 1
+            and e["launches"] == {"spmv_ell": e["calls"],
+                                  "spmv_ell_staged": 0,
+                                  "spmv_ell_windowed": 0},
+            f"user compile ELL layer: K1's direct body once a call from the "
+            f"compiled program, got {e['first_launches']} then "
+            f"{e['launches']} over {e['calls']} calls")
+    require(e["within_tol"] and e["eager_within_tol"]
+            and e["edit_within_tol"],
+            f"user compile ELL layer: within the kernel tolerance of the "
+            f"plain step, eagerly and after an in-place edit, got max|err| "
+            f"{e['max_abs_err']:.3g}")
+    require(e["detects"] == e["detects_after"] <= 1
+            and e["baked_under_trace"] == 1 and not e["bake_errors"]
+            and e["plan_hits"] >= 1 and e["rebakes"] == 0,
+            f"user compile ELL layer: at most one detection, a plan baked "
+            f"under the trace and hit by the eager calls with no rebake, got "
+            f"detects "
+            f"{e['detects']} -> {e['detects_after']}, baked "
+            f"{e['baked_under_trace']}, {e['plan_hits']} hits, "
+            f"{e['rebakes']} rebakes, bake_errors {e['bake_errors']}")
+    require(m["selections"] == ["cuda.gmm"]
+            and m["first_launches"] == {"gmm": 3, "gmm_f32": 0}
+            and m["launches"] == {"gmm": 3 * m["calls"], "gmm_f32": 0}
+            and m["grad_launches"] == {"gmm": 3, "gmm_f32": 0},
+            f"user compile OLMoE block: K4's bf16 body 3 times a call from "
+            f"the compiled program, got {m['first_launches']}, then "
+            f"{m['launches']} over {m['calls']} calls, forward+backward "
+            f"{m['grad_launches']}")
+    require(m["finite"] and m["rel_l2"] <= MOE_RTOL
+            and m["eager_rel_l2"] <= MOE_RTOL,
+            f"user compile OLMoE block: relative L2 error vs the f32 oracle "
+            f"within {MOE_RTOL}, got {m['rel_l2']:.3g} (eager "
+            f"{m['eager_rel_l2']:.3g})")
+    require(m["grads_finite"] and max(m["grad_rel_l2"].values())
+            <= TRAIN_GRAD_RTOL,
+            f"user compile OLMoE block: gradients within {TRAIN_GRAD_RTOL} "
+            f"of the uncompiled step's, got {m['grad_rel_l2']}")
+    require(m["detects"] == m["detects_after"] <= 1
+            and m["detects_after_grad"] <= m["detects"] + 1
+            and not m["bake_errors"],
+            f"user compile OLMoE block: at most one detection a signature, "
+            f"got {m['detects']} -> {m['detects_after']} -> "
+            f"{m['detects_after_grad']}, bake_errors {m['bake_errors']}")
+    require(c["selections"] == ["cuda.ell"]
+            and c["launches"]["spmv_ell_staged"] == iters + 1
+            and c["launches"]["spmv_ell"] == 0
+            and c["launches"]["spmv_ell_windowed"] == 0,
+            f"user compile CG step: K1's staged body once an SpMV "
+            f"({iters + 1}) behind the graph break, got {c['launches']}")
+    require(c["finite"] and c["rel_to_naive"] <= CG_RTOL,
+            f"user compile CG step: the iterate within {CG_RTOL} of the "
+            f"naive CG, got {c['rel_to_naive']:.3g}")
+    require(c["detects"] == c["detects_after"] <= 1
+            and c["plan_hits"] >= iters and c["rebakes"] == 0,
+            f"user compile CG step: at most one detection and the plan "
+            f"serving the calls, got detects {c['detects']} -> "
+            f"{c['detects_after']}, "
+            f"{c['plan_hits']} hits, {c['rebakes']} rebakes")
+    require(c["edit_repacks"] == 1 and c["edit_within_tol"],
+            f"user compile CG step: an in-place edit of the values repacks "
+            f"once and gives the edited matrix's SpMV, got "
+            f"{c['edit_repacks']} repacks, within tol {c['edit_within_tol']}")
 
 
 # ---------------------------------------------------------------------------
@@ -6400,6 +6765,23 @@ def run(args, work: str) -> int:
     release(device)
     print(f"plan phase {time.perf_counter() - t0:.1f}s")
 
+    # -- a compiled function inside a user's torch.compile (K1, K4) ---------
+    t0 = time.perf_counter()
+    with fault_free("user compile"):
+        uc = user_compile_path(mats, x_refs["npb"], OLMOE, args.seed, device)
+    print_user_compile_path(uc, smi)
+    print(f"user-compile phase {time.perf_counter() - t0:.1f}s")
+    check_user_compile_path(uc)
+    kernels.append(dict(kernel_entry(rows["spmv_ell"], "relu_bias",
+                                     uc["ell"]["launches"]["spmv_ell"]),
+                        path="user compile: the ELL layer inside "
+                             "torch.compile(fullgraph=True)"))
+    kernels.append(dict(kernel_entry(
+        staged, "main_path", uc["cg"]["launches"]["spmv_ell_staged"]),
+        path="user compile: the NPB-C CG step behind a graph break"))
+    record["user_compile_path"] = uc
+    release(device)
+
     # -- SpMM and SpMV on BCSR (K3) -----------------------------------------
     t0 = time.perf_counter()
     with fault_free("SpMM path"):
@@ -6513,6 +6895,10 @@ def run(args, work: str) -> int:
         if "witness" in v:
             print(f"gmm/{vname} witnesses, max|err| vs plain: {v['witness']}")
     kernels.append(kernel_entry(gmm, "gate_up", moe["launches"]["gmm"]))
+    kernels.append(dict(kernel_entry(gmm, "gate_up",
+                                     uc["moe"]["launches"]["gmm"]),
+                        path="user compile: the OLMoE block inside "
+                             "torch.compile(fullgraph=True)"))
     record["kernels"] += bsr + [gmm, gmm32]
     release(device)
     with fault_free("MoE trace mode"):

@@ -97,7 +97,11 @@ def trace(fn: Callable, args: Sequence[torch.Tensor]) -> GraphModule:
     with own_trace():
         mode = FakeTensorMode()
         with mode:
-            fakes = [torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+            # int(): a size or stride symbolic in an outer trace is
+            # specialized to this call's
+            fakes = [torch.empty_strided(tuple(map(int, a.shape)),
+                                         tuple(map(int, a.stride())),
+                                         dtype=a.dtype,
                                          device=a.device) for a in args]
         gm = make_fx(functionalize(fn, remove="mutations_and_views"),
                      tracing_mode="fake")(*fakes)

@@ -52,9 +52,9 @@ grad level as under ``.backward()``).  Compile-of-grad:
 backward too, so the backward's sparse products (the SpMVᵀ, a COO SpMV of
 the matrix's entries) are detected like any other and the entry bakes.
 A compiled function called while another trace runs (``make_fx``, a
-compiled step) traces and validates on its own, outside the ambient modes
-(``detect.own_trace``), and its custom ops trace into the outer graph
-with their formulas.  Vmap-of-compile:
+compiled step) traces, detects and selects on its own, outside the
+ambient modes (``detect.own_trace``), and its custom ops trace into the
+outer graph with their formulas (next paragraph but one).  Vmap-of-compile:
 ``torch.func.vmap(compile(f))`` traces ``f`` on the per-element shapes (a
 batched tensor hides its batch axis), so detection fires on the
 per-element program, and an unplanned call runs that program on the
@@ -73,12 +73,33 @@ and are served by it after: a guard check and one replay (a batched
 program of one launch a custom op; eager where gradients flow), with no
 detection, fingerprint or selection.  What stays refused is stated in
 ``bake_errors``: a batched marshal source, a marshal source that requires
-grad, a ``scan_body`` entry; a call under an ambient trace neither bakes
-nor serves.  The validator reads a batched output (a sync) until a call of
-the entry runs clean; later calls, planned or not, are checked as plan
-calls are, by the sampled shadow check against the uncompiled function
-(``_maybe_shadow_batched``), which counts each element and runs the
-uncompiled function once an element of the outermost ``vmap`` level.
+grad, a ``scan_body`` entry.  The validator reads a batched output (a
+sync) until a call of the entry runs clean; later calls, planned or not,
+are checked as plan calls are, by the sampled shadow check against the
+uncompiled function (``_maybe_shadow_batched``), which counts each element
+and runs the uncompiled function once an element of the outermost
+``vmap`` level.
+
+**Inside a user's trace** (docs/transforms.md, the user ``jax.jit`` row;
+:mod:`repro_torch.core.plan`, "Plans under a user's trace").  Dynamo
+never traces this object's Python (:func:`_dynamo_entry`): in trace mode
+the call is one opaque node of the caller's graph, which AOT autograd's
+trace runs on its fake tensors, so the entry's program and its custom-op
+nodes land in the caller's graph (``torch.compile(step, fullgraph=True)``
+launches K1 or K4 from its compiled program); in host mode dynamo stops
+at the call (a graph break), which then runs concretely through its plan.
+A call traced into another graph (``make_fx``, AOT's trace; ``traced``
+in :meth:`LilacFunction._call`) detects and selects once a signature,
+bakes under the trace with its CUDA-graph capture deferred to the first
+concrete call, and is served into later traces by its plan's program
+(``plan_info()["trace_serves"]``).  A host-mode match whose harness does
+host-side work runs as the plain program in such a call on the CPU, and
+raises on the card (:func:`_concrete_only`); no plan that hoists a
+marshaled layout serves a trace.  A symbolic size (a dynamic dim of a
+``torch.compile``'d caller) is specialized to the call's, so each size
+is a signature of its own.  What a harness does inside the caller's
+compiled program is out of containment's reach: no validator, shadow
+check, quarantine or plan guard runs there.
 
 **Scans** (docs/transforms.md, "scan: detect once, reuse every
 iteration").  A torch scan whose body holds a match is one ``scan_body``
@@ -117,12 +138,13 @@ tears the plan down.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable, Dict, FrozenSet, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import _get_current_dispatch_mode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.core import detect as D
@@ -319,6 +341,20 @@ class LilacFunction:
         self._shadow = R.AdaptiveShadowRate(R.ENV_SHADOW)
         self._shadow_ctr = 0
         self._in_shadow = False
+        # calls traced into another graph that no plan served (a plan's
+        # serves are its ``trace_serves``), by what they traced: the
+        # rewritten graph (trace mode), the interpreter (host); and the
+        # anchors such calls ran as the plain program on the CPU, their
+        # harness's host-side work (a marshal clause, a lifecycle hook)
+        # having no concrete matrix to read
+        self.traced_calls = {"rewritten_graph": 0, "interpreter": 0,
+                             "plain_anchors": 0}
+        # harness outputs containment could check for size only: traced
+        # values (the rewritten graph's own trace, or a traced call's)
+        self.unread_traced = 0
+        # what dynamo meets when a torch.compile'd caller reaches this
+        # function (it never traces this object's own Python)
+        self._dynamo_call = _dynamo_entry(self)
 
     def _make_plan_cache(self, opt) -> Optional[P.PlanCache]:
         if opt is False or opt in ("off", "none", "disabled"):
@@ -460,7 +496,20 @@ class LilacFunction:
         """The leaves with TrackedArray operands unwrapped."""
         return [unwrap(x) for x in flat]
 
-    def _entry_for(self, leaves, spec) -> CompiledEntry:
+    def _entry_for(self, leaves, spec, traced: bool = False) -> CompiledEntry:
+        """The entry of this signature, its rewritten graph built (trace
+        mode); ``traced``: the call is traced into another graph, so the
+        selection (the tuner's measurements included) runs outside the
+        ambient modes."""
+        entry = self._lookup(leaves, spec)
+        if self.mode == "trace" and entry.rewritten is None:
+            with D.own_trace() if traced else contextlib.nullcontext():
+                self._build_graph(entry)
+        return entry
+
+    def _lookup(self, leaves, spec) -> CompiledEntry:
+        """The entry of this signature (traced and detected on first use,
+        or rehydrated from the plan cache); selects nothing."""
         last = self._last_compiled
         if last is not None and last[1] == spec \
                 and P.leaves_match(last[2], leaves):
@@ -478,9 +527,14 @@ class LilacFunction:
                 entry = self._compiled[key] = self._build_entry(leaves, spec)
             self._last_compiled = (entry, spec, P.leaf_templates(leaves))
         self.last_report = entry.report
-        if self.mode == "trace" and entry.rewritten is None:
-            self._build_graph(entry)
         return entry
+
+    def report_for(self, *args, **kwargs) -> D.DetectionReport:
+        """The detection report of this call signature, without running the
+        function or selecting a harness (the signature is traced and
+        detected once, as a call would)."""
+        leaves, spec = tree_flatten((args, kwargs))
+        return self._lookup(self._unwrap(leaves), spec).report
 
     def _build_graph(self, entry: CompiledEntry) -> None:
         """Trace mode: select once per match and pin the winners into the
@@ -605,15 +659,17 @@ class LilacFunction:
 
     # -- execution -----------------------------------------------------------
 
-    def _dispatch_plan(self, plan: P.ExecutablePlan, got):
-        """``plan``'s program on the tensors ``plan.match`` returned in
-        ``got``, its outputs wrapped back at the call's ``vmap`` levels
-        there (``levels.rewrap``)."""
+    def _dispatch_plan(self, plan: P.ExecutablePlan, got,
+                       traced: bool = False):
+        """``plan``'s program on the tensors ``plan.match`` (or, for a
+        ``traced`` call, ``plan.traces``) returned in ``got``, its outputs
+        wrapped back at the call's ``vmap`` levels there
+        (``levels.rewrap``)."""
         tensors, outer = got
         self.last_report = plan.report
         self.last_selections = list(plan.selections)
         self.last_schedules = list(plan.schedules)
-        outs = plan.run(tensors)
+        outs = plan.trace(tensors) if traced else plan.run(tensors)
         if outer:
             outs = levels.rewrap(outs, outer)
         return tree_unflatten(outs, plan.out_spec)
@@ -667,8 +723,7 @@ class LilacFunction:
         recorded with it."""
         r = self._shadow.effective()
         if r <= 0.0 or self._in_shadow \
-                or any(faults.traced(levels.base(t)) for t in tensors) \
-                or _get_current_dispatch_mode() is not None \
+                or P.under_trace(tensors) \
                 or (torch.cuda.is_available()
                     and torch.cuda.is_current_stream_capturing()):
             return out
@@ -776,6 +831,7 @@ class LilacFunction:
         q = R.shared_quarantine()
         return {
             "containment": self.resilience_stats.as_dict(),
+            "unread_traced": self.unread_traced,
             "tuner_quarantine_skips":
                 self.registry.autotuner.stats.quarantine_skips,
             "quarantine": q.stats.as_dict(),
@@ -809,6 +865,16 @@ class LilacFunction:
         plan.release()
 
     def __call__(self, *args, **kwargs):
+        if torch.compiler.is_dynamo_compiling():
+            # dynamo traces a torch.compile'd caller: the call is one
+            # opaque node (trace mode) or a graph break (host mode); the
+            # baseline's own program is traced as the caller's code
+            if not self.enabled:
+                return self.fn(*args, **kwargs)
+            return self._dynamo_call(*args, **kwargs)
+        return self._call(*args, **kwargs)
+
+    def _call(self, *args, **kwargs):
         if not self.enabled:
             return self.fn(*args, **kwargs)
         flat, spec = tree_flatten((args, kwargs))
@@ -826,15 +892,25 @@ class LilacFunction:
                 self._note_hot(plan)
                 return self._serve(plan, got, flat, spec)
         leaves = self._unwrap(flat)
-        entry = self._entry_for(leaves, spec)
+        # a call traced into another graph (a user's make_fx, AOT
+        # autograd's trace of a torch.compile step) detects and selects
+        # outside the ambient modes, once a signature; a plan that can
+        # serve a trace traces its program into the graph, else the call
+        # traces its rewritten graph or the interpreter, and a resolved
+        # entry bakes under the trace (its capture deferred)
+        traced = P.under_trace(leaves)
+        entry = self._entry_for(leaves, spec, traced)
         tensors = [leaves[i] for i in entry.tensor_pos]
         plan = entry.plan
         if plan is not None and plan.registry_epoch == epoch:
-            got = plan.match(spec, flat)
+            got = plan.traces(spec, flat) if traced else plan.match(spec, flat)
             if got is not None:
+                if traced:
+                    return self._dispatch_plan(plan, got, traced=True)
                 self._note_hot(plan)
                 return self._serve(plan, got, flat, spec)
         if self.mode == "trace":
+            self.traced_calls["rewritten_graph"] += traced
             outs = list(entry.runs(*tensors))
             self.last_selections = list(entry.selections)
             self.last_schedules = list(entry.schedules)
@@ -842,7 +918,8 @@ class LilacFunction:
                 self._maybe_bake_graph(entry, flat, tensors, spec)
             out = tree_unflatten(outs, entry.out_spec)
         else:
-            out = self._interpret(entry, flat, tensors, spec)
+            self.traced_calls["interpreter"] += traced
+            out = self._interpret(entry, flat, tensors, spec, traced)
         if entry.batched:
             out = self._maybe_shadow_batched(
                 flat, spec, out, tensors,
@@ -859,10 +936,14 @@ class LilacFunction:
                 del entry.pins[i]
             self._unwind(entry, reason)
 
+        def on_unread():
+            self.unread_traced += 1
+
         return R.Containment(self.registry, R.shared_quarantine(),
                              on_quarantine=on_quarantine,
                              stats=self.resilience_stats,
-                             read_batched=not entry.validated)
+                             read_batched=not entry.validated,
+                             on_unread=on_unread)
 
     def _unwind(self, entry: CompiledEntry, reason: str) -> None:
         """A quarantine or divergence made the entry's resolution stale:
@@ -886,11 +967,18 @@ class LilacFunction:
             raise rf        # not this entry's match: nothing to disable
         entry.disabled.add(i)
 
-    def _interpret(self, entry: CompiledEntry, flat, tensors, spec):
+    def _interpret(self, entry: CompiledEntry, flat, tensors, spec,
+                   traced: bool = False):
         """Host mode: run the traced graph with harness calls under
         containment, recording what a plan needs.  A ReferenceFallback
-        disables one match and the call runs again, so the loop is bounded
-        by the match count + 1."""
+        disables one match and the call runs again.  ``traced``: the call
+        is traced into another graph, where a harness with host-side work
+        (a marshal clause or a lifecycle hook) has no concrete matrix to
+        read: on the CPU its match runs as the plain graph node for this
+        call only (nothing is quarantined, and the call records no plan);
+        on the card the call raises (:func:`_concrete_only`).  Each
+        retry drops one match, so the loop is bounded by twice the match
+        count + 1."""
         recorder = (P.PlanRecorder()
                     if self.bake_enabled and not entry.no_bake else None)
 
@@ -914,10 +1002,14 @@ class LilacFunction:
                 recorder.begin(m, h, ctx.schedule, ctx.fuse)
 
         contain = self._containment(entry)
-        for _ in range(len(entry.flat()) + 1):
-            matches = entry.enabled()
+        select = self._selector(entry)
+        if traced:
+            select = _concrete_only(select)
+        plain: set = set()      # ids of the matches run plain this call
+        for _ in range(2 * len(entry.flat()) + 1):
+            matches = [m for m in entry.enabled() if id(m) not in plain]
             try:
-                outs = run_rewritten(entry.gm, matches, self._selector(entry),
+                outs = run_rewritten(entry.gm, matches, select,
                                      tensors, ctx_factory,
                                      on_select=on_select,
                                      needed=entry.needed_for(matches),
@@ -925,8 +1017,13 @@ class LilacFunction:
                 break
             except R.ReferenceFallback as rf:
                 self._disable(entry, rf)
-                selections.clear()
-                schedules.clear()
+            except _HostSideWork as hw:
+                # the top-level match holding it (a scan runs plain whole)
+                plain.update(id(m) for m in matches
+                             if hw.match in D.flat_matches([m]))
+                self.traced_calls["plain_anchors"] += 1
+            selections.clear()
+            schedules.clear()
         entry.validated = entry.batched
         self.last_selections = selections
         self.last_schedules = schedules
@@ -1021,11 +1118,9 @@ class LilacFunction:
         may)."""
         if entry.no_bake or not self._resolved(entry):
             return False
-        if not all(map(P.real_tensor, tensors)) or (
-                torch.cuda.is_available()
-                and torch.cuda.is_current_stream_capturing()):
-            # under an ambient trace or capture: a later call may bake
-            return False
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            return False                # under a capture: a later call may
         if self.cache is None and any(h.marshal for h in harnesses):
             # marshal_policy='off' promises a repack every call: hoisting
             # one into a plan would quietly bring caching back
@@ -1043,6 +1138,13 @@ class LilacFunction:
                            f"baking (bakeable=False / lifecycle hooks / "
                            f"persistent)")
                 return False
+        if P.under_trace(tensors):
+            # baking under a trace hoists nothing traced (a traced call
+            # selects no marshaling harness: ``_concrete_only``); vmap
+            # levels (a batched program traced on traced tensors) defer
+            # the bake to a concrete call, and a plan already baked stays
+            return entry.plan is None \
+                and not any(map(levels.batched, tensors))
         return True
 
     def _keep_or_rebake(self, entry: CompiledEntry) -> bool:
@@ -1207,7 +1309,76 @@ class LilacFunction:
             "plan_cache_stats": pc.stats.as_dict() if pc is not None
             else None,
             "plans": [p.describe() for p in plans],
+            "trace_serves": sum(p.trace_serves for p in plans),
+            "traced_calls": dict(self.traced_calls),
         }
+
+
+class _HostSideWork(Exception):
+    """Raised by :func:`_concrete_only`'s selection: ``match``'s harness
+    does host-side work that a traced call cannot feed."""
+
+    def __init__(self, match):
+        super().__init__(match.computation)
+        self.match = match
+
+
+def _concrete_only(select: Callable) -> Callable:
+    """``select`` for a host-mode call traced into another graph, where a
+    harness that marshals on the host or has lifecycle hooks has no
+    concrete matrix to read (``ell_from_csr`` is numpy).  On the CPU its
+    match runs as the plain graph node for the call (it raises
+    :class:`_HostSideWork`), as the reference's traced call falls back for
+    a position that feeds a marshal clause.  On the card no plain program
+    stands in for a kernel: the call raises, naming ``mode='trace'``."""
+    def pick(m, binding, ctx):
+        h = select(m, binding, ctx)
+        if h.marshal or h.setup is not None or h.persistent:
+            if any(isinstance(v, torch.Tensor) and v.device.type == "cuda"
+                   for v in binding.values()):
+                raise RuntimeError(
+                    f"lilac.compile(mode='host') traced into another graph "
+                    f"(make_fx, a torch.compile trace) on the card: "
+                    f"{h.name} does host-side work on the matrix, which a "
+                    f"trace cannot feed, and no plain program stands in for "
+                    f"its kernel; compile with mode='trace' to put the "
+                    f"call into the trace")
+            raise _HostSideWork(m)
+        return h
+
+    return pick
+
+
+_HOST_GRAPH_BREAK = (
+    "lilac.compile(mode='host') runs on concrete tensors (its harnesses "
+    "marshal the matrix on the host, which a traced matrix cannot feed), so "
+    "a torch.compile'd caller breaks its graph at the call; compile with "
+    "mode='trace' to put the call into the caller's graph "
+    "(fullgraph=True)")
+
+
+def _dynamo_entry(fn: LilacFunction) -> Callable:
+    """The call dynamo meets for ``fn`` inside a ``torch.compile``'d
+    caller, never inlined.  Trace mode: one opaque node of the caller's
+    graph (``torch.compiler.allow_in_graph``), which AOT autograd's trace
+    then runs on its fake tensors, so the entry's program (its
+    ``lilac_torch::*`` custom-op nodes) lands in the caller's graph.  Host
+    mode: a graph break (``torch.compiler.disable``), the call running on
+    concrete tensors through its plan; under ``fullgraph=True`` dynamo's
+    error names :data:`_HOST_GRAPH_BREAK`.  It holds ``fn`` weakly, so
+    that ``fn`` is freed when its last user lets go (its plans and
+    layouts with it), not at the next garbage collection."""
+    ref = weakref.ref(fn)
+
+    def call(*args, **kwargs):
+        return ref()._call(*args, **kwargs)
+
+    if fn.mode == "trace":
+        return torch.compiler.allow_in_graph(call)
+    try:
+        return torch.compiler.disable(call, reason=_HOST_GRAPH_BREAK)
+    except TypeError:               # a torch whose disable takes no reason
+        return torch.compiler.disable(call)
 
 
 @dataclasses.dataclass

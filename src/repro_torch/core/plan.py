@@ -34,9 +34,29 @@ source with no version counter (an inference tensor) is guarded by its
 :func:`~repro_torch.core.marshal.checksum` as well, one pass on the card
 each call, since no version moves when it is written.  A
 ``TrackedArray`` operand is guarded by its version too.  A leaf that is a
-fake or functional tensor, or a tensor subclass, never hits a plan, nor
-does a call under an ambient trace (``make_fx``): the call runs the
-interpreter (host mode) or the rewritten graph (trace mode).
+fake or functional tensor, or a tensor subclass, never hits a plan by its
+guards, nor does a call under an ambient trace (:func:`under_trace`).
+
+**Plans under a user's trace** (docs/transforms.md, "serving under a
+trace": the reference's user ``jax.jit`` row).  A call traced into a
+user's graph (``make_fx``, or AOT autograd's trace of a ``torch.compile``
+step) bakes and serves as the reference's does under ``jax.jit``:
+
+* **baking under a trace** -- a resolved entry's first traced call bakes
+  its plan, with the CUDA-graph capture deferred to the first concrete
+  call (:meth:`ExecutablePlan.run`).  Nothing derived from a traced
+  tensor is hoisted: a host-mode selection that marshals defers the bake
+  to a later concrete call, and so does a call whose ``vmap`` levels a
+  batched program would have to trace on traced tensors (neither sets
+  ``bake_errors``);
+* **serving into a trace** -- a plan that hoists nothing (a trace-mode
+  program of custom ops, or a host-mode one whose harnesses marshal
+  nothing) whose leaf templates fit traces its program into the user's
+  graph (:meth:`ExecutablePlan.trace`, counted in ``trace_serves``);
+  otherwise the call traces its rewritten graph (trace mode) or runs the
+  interpreter (host mode), as unplanned.  A plan that hoists a marshaled
+  layout never serves a trace: the layout would enter the user's graph
+  as a constant that an in-place edit of the matrix could not reach.
 
 **Plans under transforms** (docs/transforms.md).  A call under
 ``torch.func.vmap``, one whose tensors require grad (``.backward()``) and
@@ -128,7 +148,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.fx import GraphModule, Node
-from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.core import faults, levels
 from repro_torch.core.jsonstore import JsonStore, cache_dir
@@ -495,6 +514,10 @@ class _RecordingCache:
         return val
 
     def __getattr__(self, name):
+        # only names the slots do not hold reach here: an unset ``_inner``
+        # (a copy or an unpickled proxy) is missing, not a recursion
+        if name in _RecordingCache.__slots__:
+            raise AttributeError(name)
         return getattr(self._inner, name)
 
 
@@ -602,7 +625,9 @@ def leaf_templates(flat) -> Tuple:
     out = []
     for a in map(unwrap, flat):
         if isinstance(a, torch.Tensor):
-            out.append(("t", tuple(a.shape), a.dtype, a.device,
+            # int(): a symbolic size (a torch.compile'd caller's dynamic
+            # dim) is specialized, so that each size is its own signature
+            out.append(("t", tuple(map(int, a.shape)), a.dtype, a.device,
                         grad_state(a)))
         else:
             out.append(("py", type(a), a))
@@ -634,14 +659,26 @@ def plain_tensor(x) -> bool:
             and not torch._C._functorch.is_functorch_wrapped_tensor(x))
 
 
-def real_tensor(x) -> bool:
-    """A tensor a plan under a transform may serve: below its
-    ``torch.func`` levels a plain ``torch.Tensor`` (not fake, not
-    functional, not a subclass; it may require grad), and no ambient trace
-    records the call."""
-    b = levels.base(x)
-    return (type(b) is torch.Tensor and not torch._is_functional_tensor(b)
-            and _get_current_dispatch_mode() is None)
+def tracing() -> bool:
+    """Whether a tracing dispatch mode is active: ``make_fx``'s proxy
+    mode, or a fake or functional mode (AOT autograd's trace of a
+    ``torch.compile`` step).  A mode that only watches the ops run
+    (``FlopCounterMode``, a debug mode) is not one: under it a call runs
+    on the card as under no mode."""
+    keys = torch._C._TorchDispatchModeKey
+    return any(torch._C._get_dispatch_mode(k) is not None
+               for k in (keys.PROXY, keys.FAKE, keys.FUNCTIONAL))
+
+
+def under_trace(tensors) -> bool:
+    """Whether a call on ``tensors`` is traced into another graph: a
+    tracing mode records it (:func:`tracing`), or a tensor below its
+    ``torch.func`` levels is a fake, functional or subclass tensor.  Such
+    a call computes no values a plan could hoist or a validator could
+    read."""
+    return tracing() or any(
+        faults.traced(levels.base(t)) for t in tensors
+        if isinstance(t, torch.Tensor))
 
 
 def transformed(tensors) -> bool:
@@ -857,7 +894,11 @@ class ExecutablePlan:
         self.registry_epoch = registry_epoch
         self.platform = platform
         self.hits = 0
+        self.trace_serves = 0
         self.recaptures = 0
+        # baked under a trace: the static leaves its capture will take at
+        # the first concrete call (None: captured, or never captured)
+        self._deferred: Optional[frozenset] = None
         self._capture: Optional[_Capture] = None
         self.copy_bytes = 0
         self.replay_ms: Optional[float] = None
@@ -878,12 +919,13 @@ class ExecutablePlan:
         leaf templates and level structure, else None.  Reads no guard."""
         if in_spec != self.in_spec or not leaves_match(self.templates, flat):
             return None
+        if tracing():
+            return None                 # traced calls: :meth:`traces`
         tensors = [unwrap(flat[p]) for p in self.tensor_pos]
         tf = self.transform
         if tf is None:
             return (tensors, ()) if all(map(plain_tensor, tensors)) else None
-        if _get_current_dispatch_mode() is not None or not all(
-                type(levels.base(t)) is torch.Tensor for t in tensors):
+        if not all(type(levels.base(t)) is torch.Tensor for t in tensors):
             return None
         if tf.structure is None:
             return tensors, ()
@@ -907,8 +949,37 @@ class ExecutablePlan:
                 return None
         return got
 
+    def traces(self, in_spec, flat) -> Optional[Tuple[List[torch.Tensor],
+                                                       Tuple]]:
+        """The tensors of a traced call this plan can serve into the
+        user's graph, with no ``vmap`` levels to rewrap (:meth:`fits`'s
+        form), else None: a plan that hoists nothing (a trace-mode program,
+        or a host-mode one whose harnesses marshal nothing), not batched,
+        whose leaf templates fit.  Reads no guard: a traced tensor has no
+        version."""
+        if self.guards or any(self.hoisted.values()) \
+                or in_spec != self.in_spec \
+                or not leaves_match(self.templates, flat):
+            return None
+        if self.transform is not None and self.transform.structure is not None:
+            return None
+        return [unwrap(flat[p]) for p in self.tensor_pos], ()
+
+    def trace(self, tensors: List[torch.Tensor]) -> List[Any]:
+        """The program traced into the ambient graph on ``tensors`` (its
+        custom-op nodes and the ops around them; never the CUDA graph,
+        whose replay a trace cannot see)."""
+        self.trace_serves += 1
+        return list(self.runner(*tensors))
+
     def run(self, tensors: List[torch.Tensor]) -> List[Any]:
         self.hits += 1
+        if self._deferred is not None:
+            # baked under a trace: the warm-up and capture wait for the
+            # first concrete call, this one
+            static, self._deferred = self._deferred, None
+            with _outside_transforms(self.transform):
+                self.capture(tensors, static)
         moved = [i for i, g in self._pinned.items() if not g.ok(tensors[i])]
         if moved:
             # another tensor at a position read in place: give it a static
@@ -1013,6 +1084,9 @@ class ExecutablePlan:
             return self.transform.eager
         if self.platform != "cuda":
             return "the CPU runs the program eagerly"
+        if self._deferred is not None:
+            return "baked under a trace: the capture waits for the first " \
+                   "concrete call"
         return "the CUDA graph's copies cost more than the host work it " \
                "saves (replay_ms > eager_ms)"
 
@@ -1039,7 +1113,9 @@ class ExecutablePlan:
             "static_inputs": sorted(self._static),
             "in_place_inputs": sorted(self._pinned),
             "recaptures": self.recaptures,
+            "capture_deferred": self._deferred is not None,
             "hits": self.hits,
+            "trace_serves": self.trace_serves,
         }
 
 
@@ -1157,6 +1233,9 @@ def _finish(plan: ExecutablePlan, tensors,
             static_leaves: frozenset) -> ExecutablePlan:
     tf = plan.transform
     if plan.platform == "cuda" and (tf is None or tf.eager is None):
+        if under_trace(tensors):
+            plan._deferred = static_leaves
+            return plan
         with _outside_transforms(tf):
             plan.capture(tensors, static_leaves)
     return plan

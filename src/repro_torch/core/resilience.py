@@ -57,10 +57,15 @@ the card.
 
 The validator syncs (``bool(torch.isfinite(out).all())`` waits for the
 device), so it runs only on the interpreter path: a first call, a
-``bake=False`` call, a call a plan could not serve.  It never runs on a
-traced value (a fake or proxy output under ``make_fx`` is checked for
-size only), during a CUDA-graph capture, or on a baked plan's call,
-eager or replayed; the sampled shadow checks watch that path.  A host-mode
+``bake=False`` call, a call a plan could not serve.  It never reads a
+traced value (a fake or functional output under ``make_fx`` or a
+``torch.compile`` trace is checked for size only, and the pass manager
+counts it in ``resilience_info()["unread_traced"]``), and it reads a
+concrete one outside the ambient dispatch modes, as ``detect.own_trace``
+detects, so a call under a real-mode ``make_fx`` records no check in the
+caller's graph.  It never runs during a CUDA-graph capture, or on a baked
+plan's call, eager or replayed; the sampled shadow checks watch that
+path.  A host-mode
 scan validates its first step's outputs; its later steps run the same
 harnesses under :class:`SteadySteps`, which keeps each output's largest
 magnitude on the device and syncs once after the loop.
@@ -397,17 +402,22 @@ class Containment:
     a ``cuda.*`` harness's own exception (:func:`kernel_fault`) is not a
     failure to contain: it propagates, and nothing is quarantined.
     ``read_batched=False`` leaves a batched output unread (the steady
-    calls of a vmapped entry, which the shadow check samples instead)."""
+    calls of a vmapped entry, which the shadow check samples instead);
+    ``on_unread()`` is called for each traced output, whose values no
+    check can read (a graph's own trace, or a call traced into a user's
+    graph)."""
 
     def __init__(self, registry, quarantine: QuarantineStore,
                  on_quarantine: Optional[Callable[..., None]] = None,
                  stats: Optional[ContainmentStats] = None,
-                 read_batched: bool = True):
+                 read_batched: bool = True,
+                 on_unread: Optional[Callable[[], None]] = None):
         self.registry = registry
         self.quarantine = quarantine
         self.on_quarantine = on_quarantine
         self.stats = stats if stats is not None else ContainmentStats()
         self.read_batched = read_batched
+        self.on_unread = on_unread
 
     def pick(self, m, binding, ctx, select):
         """``select(m, binding, ctx)``, contained: a tuner race that one
@@ -468,6 +478,10 @@ class Containment:
             self.stats.shape_mismatches += 1
             return (f"shape mismatch: got {tuple(out.shape)}, the anchor "
                     f"wants {tuple(like.shape)}")
+        if faults.traced(levels.base(out)):
+            if self.on_unread is not None:
+                self.on_unread()
+            return None
         if not _readable(out) \
                 or (not self.read_batched and levels.batched(out)):
             return None
@@ -476,9 +490,13 @@ class Containment:
             lambda: levels.base(torch.isfinite(out).all()).all())
 
     def _finite(self, flag: Callable[[], Any]) -> Optional[str]:
-        """Read the device bool ``flag()`` (a sync): None when it holds."""
+        """Read the device bool ``flag()`` (a sync): None when it holds.
+        It is computed outside any ambient dispatch mode, so that a
+        concrete call under a real-mode ``make_fx`` records no check in the
+        caller's graph."""
         try:
-            finite = bool(flag())
+            with _outside_modes():
+                finite = bool(flag())
         except Exception as e:
             if device_fault(e):
                 raise           # the card's fault, surfacing at this sync
@@ -529,6 +547,15 @@ class Containment:
         return h, dataclasses.replace(ctx, schedule=None, fuse=None)
 
 
+def _outside_modes():
+    """The ambient dispatch modes (``make_fx``'s proxy mode, a fake or
+    functional mode) set aside; the ``torch.func`` levels stay, so a
+    batched output is read below them as before."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    return _disable_current_modes()
+
+
 def _readable(out) -> bool:
     """Whether the validator reads ``out``'s values: a concrete float
     tensor (batched or not), outside a CUDA-graph capture."""
@@ -561,8 +588,10 @@ class SteadySteps:
         vkey = variant_key(ctx.schedule, ctx.fuse)
         try:
             out = attempt(h, ctx)
-            peak = torch.linalg.vector_norm(out, float("inf")) \
-                if _readable(out) and out.numel() else None
+            peak = None
+            if _readable(out) and out.numel():
+                with _outside_modes():
+                    peak = torch.linalg.vector_norm(out, float("inf"))
         except Exception as e:  # the boundary: degrade, never die
             c._sticky(m, h.name, vkey, ctx, e)
             if kernel_fault(h.name, ctx.platform, e):

@@ -369,6 +369,16 @@ def _lilac_moe_2d(platform: str):
     return _LILAC_MOE[platform]
 
 
+@torch.compiler.allow_in_graph
+def _lilac_moe(x, gate, idx, wg, wu, wd):
+    """The platform's compiled MoE (:func:`_lilac_moe_2d`) on one token
+    group.  Inside a ``torch.compile``'d caller it is one opaque node that
+    AOT autograd's trace runs (the compiled function is made there, never
+    traced by dynamo), so its ``lilac_torch::moe_ffn`` lands in the
+    caller's graph."""
+    return _lilac_moe_2d(x.device.type)(x, gate, idx, wg, wu, wd)
+
+
 def capacity(T: int, K: int, E: int, capacity_factor: float) -> int:
     """The grouped dispatch's slots an expert (the reference's rule)."""
     return max(4, min(int(np.ceil(T * K / E * capacity_factor)), T * K))
@@ -531,7 +541,7 @@ def moe_block(p, x: torch.Tensor, *, topk: int, impl: str = "naive",
     if impl in ("naive", "naive_flat"):
         fn = _moe_naive_2d
     elif impl == "lilac":
-        fn = _lilac_moe_2d(x.device.type)
+        fn = _lilac_moe
     else:
         raise ValueError(f"impl must be 'naive', 'lilac', 'grouped', "
                          f"'naive_flat' or 'grouped_flat', got {impl!r}")

@@ -2213,3 +2213,147 @@ def test_gradient_carrying_batched_plan_on_k4(cuda):
     want = run(slow)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# a compiled function inside a user's torch.compile (inductor)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_user_compile_trace_mode_launches_k1_from_the_compiled_program(cuda):
+    """The ELL layer compiled in trace mode on cuda.ell, inside the user's
+    ``torch.compile(step, fullgraph=True)``: K1's direct body launches once
+    a call from the compiled program, within the kernel tolerance of the
+    plain step; the plan baked under the trace serves the next eager call,
+    which takes the deferred CUDA-graph capture."""
+    val, col, _, vec, bias = _ell(cuda, torch.float32)
+    layer = lilac.compile(lambda v, c, x, b: torch.relu(
+        (v * x[c]).sum(dim=1) + b), policy="cuda.ell", device=cuda)
+    torch._dynamo.reset()
+    step = torch.compile(lambda *a: torch.tanh(layer(*a)) + 1,
+                         fullgraph=True)
+    got = step(val, col, vec, bias)
+    torch.cuda.synchronize()
+    before = K.LAUNCHES["spmv_ell"]
+    again = step(val, col, vec, bias)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell"] == before + 1
+    want = torch.tanh(R.spmv_ell_plain(val, col, vec, bias=bias,
+                                       epilogue="relu")) + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    info = layer.plan_info()
+    assert info["baked"] == 1 and info["plans"][0]["capture_deferred"]
+    eager = torch.tanh(layer(val, col, vec, bias)) + 1
+    info = layer.plan_info()
+    assert info["plan_hits"] == 1 and info["rebakes"] == 0
+    assert not info["plans"][0]["capture_deferred"]
+    assert layer.stats["detects"] == 1
+    torch.testing.assert_close(eager, want, **TOL)
+    torch._dynamo.reset()
+
+
+def _user_csr_spmv(cuda):
+    """A naive CSR SpMV on the card (777 x 3000, skewed rows) and its
+    operands."""
+    csr = trandom.random_csr(777, 3000, 0.02, seed=9, skew=1.0)
+    val, col, ptr = (t.to(cuda) for t in (csr.val, csr.col_ind, csr.row_ptr))
+    vec = torch.randn(3000, generator=torch.Generator().manual_seed(2)) \
+        .to(cuda)
+
+    def naive(val, col, ptr, v):
+        row = torch.repeat_interleave(torch.arange(777, device=cuda),
+                                      torch.diff(ptr),
+                                      output_size=val.shape[0])
+        return torch.zeros(777, device=cuda).index_add(0, row, val * v[col])
+
+    return naive, (val, col, ptr, vec)
+
+
+@pytest.mark.gpu
+def test_user_compile_host_mode_breaks_the_graph_at_k1_staged(cuda):
+    """A host-mode cuda.ell SpMV inside the user's ``torch.compile``
+    (no fullgraph): the step breaks at the call, which runs concretely on
+    its plan, one launch of K1's staged body a call; an in-place edit of
+    the values between two compiled calls repacks and is seen."""
+    naive, (val, col, ptr, vec) = _user_csr_spmv(cuda)
+    fast = lilac.compile(naive, mode="host", policy="cuda.ell", device=cuda)
+    torch._dynamo.reset()
+    step = torch.compile(lambda *a: fast(*a) * 2 + 1)
+    val = val.clone()
+    step(val, col, ptr, vec)
+    before = K.LAUNCHES["spmv_ell_staged"]
+    got = step(val, col, ptr, vec)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell_staged"] == before + 1
+    torch.testing.assert_close(got, naive(val, col, ptr, vec) * 2 + 1, **TOL)
+    assert fast.plan_info()["plan_hits"] >= 1
+    val.mul_(2)
+    got = step(val, col, ptr, vec)
+    torch.testing.assert_close(got, naive(val, col, ptr, vec) * 2 + 1, **TOL)
+    assert fast.cache.stats.misses == 2
+    torch._dynamo.reset()
+
+
+@pytest.mark.gpu
+def test_user_compile_moe_block_launches_k4_from_the_compiled_program(cuda):
+    """The compiled MoE on cuda.gmm under ``torch.func.vmap`` over token
+    groups, with the user's residual, inside ``torch.compile(fullgraph=
+    True)``: one ``moe_ffn`` for the groups, K4's bf16 body 3 times a
+    call, equal to the same step run eagerly within the bf16 tolerance;
+    one detection."""
+    x, gate, idx, w = _moe_groups(cuda)
+    fast = lilac.compile(tlayers._moe_naive_2d, policy="cuda.gmm",
+                         device=cuda)
+
+    def block(x, gate, idx, wg, wu, wd):
+        return x + torch.func.vmap(lambda a, g, i: fast(a, g, i, wg, wu, wd))(
+            x, gate, idx)
+
+    torch._dynamo.reset()
+    step = torch.compile(block, fullgraph=True)
+    step(x, gate, idx, *w)
+    torch.cuda.synchronize()
+    before = K4.LAUNCHES["gmm"]
+    got = step(x, gate, idx, *w)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["gmm"] - before == 3
+    torch.testing.assert_close(got, block(x, gate, idx, *w), **BF16_TOL)
+    assert fast.stats["detects"] == 1
+    torch._dynamo.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_user_make_fx_of_a_host_mode_marshal_raises_on_the_card(cuda, warm):
+    """A real-mode ``make_fx`` over a host-mode cuda.ell SpMV on the card
+    (cold, or after two eager calls baked its plan): the harness marshals
+    on the host, which a trace cannot feed, and no plain program stands in
+    for K1, so the call raises, naming ``mode='trace'``; no launch is
+    made and nothing is quarantined (the traced call counts as the
+    interpreter's).  Under ``FlopCounterMode``, which records nothing, the
+    call is no trace: it launches K1's staged body, counts as no traced
+    call, and its values are the naive SpMV's."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from torch.utils.flop_counter import FlopCounterMode
+
+    naive, args = _user_csr_spmv(cuda)
+    fast = lilac.compile(naive, mode="host", policy="cuda.ell", device=cuda)
+    if warm:
+        fast(*args)
+        fast(*args)
+    torch.cuda.synchronize()
+    before = K.LAUNCHES["spmv_ell_staged"]
+    with pytest.raises(RuntimeError, match="mode='trace'"):
+        make_fx(lambda *a: fast(*a) * 2 + 1)(*args)
+    assert K.LAUNCHES["spmv_ell_staged"] == before
+    assert fast.resilience_info()["containment"]["contained_exceptions"] == 0
+    traced = fast.plan_info()["traced_calls"]
+    assert traced == {"rewritten_graph": 0, "interpreter": 1,
+                      "plain_anchors": 0}
+    with FlopCounterMode(display=False):
+        got = fast(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmv_ell_staged"] == before + 1
+    assert fast.plan_info()["traced_calls"] == traced
+    torch.testing.assert_close(got, naive(*args), **TOL)
