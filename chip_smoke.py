@@ -223,35 +223,43 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    * training, in a process of its own (deterministic algorithms, cuBLAS's
      workspace fixed): OLMoE-1B-7B at full width (d_model 2048, 16 heads,
      64 experts of d_ff 1024, top-8, vocab 50,304, bf16 parameters, f32
-     AdamW master) with its depth cut from 16 to 2 layers, moe_impl="lilac"
+     AdamW master) with its depth cut from 16 to TRAIN_LAYERS = 1 layer,
+     moe_impl="lilac"
      (the expert layer of each sequence in trace mode on cuda.gmm, its
      backward ``moe_ffn_bwd``), SyntheticLM at batch 2 x seq 1,024: the
      first step's loss and every gradient leaf against moe_impl="naive"
      from the same parameters and batch (1e-2 and relative L2 2e-2), the
      token-expert pairs past the reference's backward capacity (twice the
      mean load; the port's backward drops none), 4 steps of
-     train_loop through make_train_step with a checkpoint every 2, a
-     restart from step 2 whose losses must equal the uninterrupted run's
-     bit for bit, K4's 3 x layers launches a step (the MoE block vmaps the
-     batch's sequences into one call; the per-sequence loop made 3 x
-     layers x sequences), and per
-     step its CUDA-event ms, loss, grad norm, peak memory and the compiled
-     MoE's plan hits (from step 2 each layer's MoE call is a hit on a
-     gradient-carrying batched plan, run eagerly) beside 2 steps of the
-     unplanned route (the MoE's plans dropped and baking off: the planned
-     steps' loss and grad norm within 1e-2 and 2e-2 of its) and 3 steps of
-     the naive model, and one step of lilac and naive under torch.profiler
-     (device time by kernel class, the top kernels, the device's idle
-     share);
+     train_loop on its inductor-compiled step (train.loop.compile_step:
+     one graph, no break, compiled once; its compile seconds, steady ms
+     a step, graph breaks and peak memory) with a checkpoint every 2, a
+     restart from step 2 on the same graph whose losses must equal the
+     uninterrupted run's bit for bit, K4's 3 x layers launches a step
+     from inductor's program (the MoE block vmaps the batch's sequences
+     into one call), the compiled first loss within 1e-2 of the
+     uncompiled step's and the naive step's; 2 steps of the same step
+     uncompiled with their CUDA-event ms, loss, grad norm, peak memory
+     and the compiled MoE's plan hits (from step 2 each layer's MoE call
+     is a hit on a gradient-carrying batched plan, run eagerly) beside 2
+     steps of the unplanned route (the MoE's plans dropped and baking
+     off: the planned steps' loss and grad norm within 1e-2 and 2e-2 of
+     its) and 3 steps of the naive model, and one compiled and one
+     uncompiled lilac step under torch.profiler (device time by kernel
+     class, the top kernels, the device's idle share);
    * serving, in a process of its own (cuBLAS's workspace fixed):
      OLMoE-1B-7B at full width and depth (16 layers, bf16 parameters from
      --seed, moe_decode_impl="naive_flat") in repro_torch.serve's Engine
      (continuous batching, host-mode lilac on the decode step, baked
      plans) over the bucket grid batch (1, 8) x seq (256, 512): prewarm
-     bakes the four signatures (seconds each), then a closed burst of 8
-     SyntheticWorkload requests (prompts 32-200, 16-64 new tokens; the
-     first workload seed from --seed whose burst needs both seq buckets)
-     runs with no detection and no bucket miss, one moe_ffn match a layer
+     bakes the four signatures (seconds each) and compiles the prefill
+     (aot_eager) at each prompt length of the grid (64, 200), the
+     cache-row install and the slot move at each bucket (jit_prefill),
+     then a closed burst of 8 SyntheticWorkload requests (prompts from
+     that grid, 16-64 new tokens; the first workload seed from --seed
+     whose burst needs both seq buckets and ends in the smaller) runs
+     with no detection, no bucket miss and no compile on the request
+     path, one moe_ffn match a layer
      on cuda.gmm in every plan and K4 launched 3 x 16 times a decode step;
      prints TTFT, prefill and decode-step percentiles, tokens/s, peak
      memory, each bucket's plan (CUDA graph or eager, the bytes a replay
@@ -261,7 +269,13 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      and two streams teacher-forced (16 steps) through the compiled and
      the uncompiled decode (bf16 against the uncompiled decode computing K4's
      function, 2e-2; f32 against the naive one, 1e-4; the prefill's first
-     tokens equal),
+     tokens equal); the engine's default prefill (inductor) of the model
+     cut to SERVE_INDUCTOR_LAYERS = 2 layers at the burst's first prompt
+     length, compiled apart as one graph, its logits on two prompts
+     within 2x the eager prefill's relative L2 from the f32 oracle (at
+     least 2e-2) of the eager prefill's (its compile seconds, ms beside the
+     eager prefill's, the top-2 margins and, where a greedy token differs,
+     the gap between the two tokens printed),
      prints each stream against a fresh engine's solo run and, where they
      part, the step and the first operator whose row differs, and requires
      0 divergences of the request shadow at rate 1 (replays at the batched
@@ -274,11 +288,12 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      without it; moe_ffn_ragged on K4 at 1, 7, 33 and 200 tokens and the
      padded baseline within relative L2 2e-2 of the f32 oracle; and K4 at
      the decode shapes (T = 1 and 8 tokens x top-8) in the kernels line;
-   * serving granite-moe-3b-a800m, in a process of its own: full width
-     and depth (32 layers, d_model 1,536, 24 heads on 8 kv heads, 40
-     experts of d_ff 512, top-8, vocab 49,155, bf16 from --seed) through
-     the same phase and checks on the same grid (32 moe_ffn matches a
-     signature, K4 3 x 32 times a decode step, each MoE layer of one
+   * serving granite-moe-3b-a800m, in a process of its own: full width,
+     depth cut from 32 to GRANITE_SERVE_LAYERS = 4 layers (d_model
+     1,536, 24 heads on 8 kv heads, 40 experts of d_ff 512, top-8, vocab
+     49,155, bf16 from --seed) through the same phase and checks on the
+     same grid (4 moe_ffn matches a signature, K4 3 x 4 times a decode
+     step, each MoE layer of one
      compiled step against the naive dispatch, teacher-forced in bf16 and
      f32, the request shadow at rate 1), without the model-independent
      runs that OLMoE's phase makes (batched against solo, the faults, the
@@ -287,10 +302,10 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    * serving Jamba-v0.1, in a process of its own: full width (d_model
      4,096, 32 heads on 8 kv heads of 128, 16 experts of d_ff 14,336,
      top-2, d_state 16, vocab 65,536, bf16 from --seed) with its depth cut
-     from 32 to 16 layers (two 8-layer periods of 1 attention and 7 Mamba
-     layers, MoE on the 8 odd layers: 26,053,599,168 parameters, 52.1 GB;
-     the whole model is 103 GB), through granite's phase and checks (8
-     moe_ffn matches on cuda.gmm a signature and no other match, K4 3 x 8
+     from 32 to JAMBA_LAYERS = 8 layers (one 8-layer period of 1 attention
+     and 7 Mamba layers, MoE on the 4 odd layers; the whole model is
+     103 GB), through granite's phase and checks (4
+     moe_ffn matches on cuda.gmm a signature and no other match, K4 3 x 4
      times a decode step) but for the f32 teacher-forced comparison,
      which runs after the bf16 model is freed at one period (8 layers,
      53.2 GB in f32: the compiled decode on K4's f32 body against the
@@ -305,7 +320,7 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
    * distributed training, in four processes of their own under
      ``torch.distributed.run`` (gloo; all four ranks on this one card, so
      every collective copies its operand to the host and back): the
-     training phase's OLMoE-1B-7B (full width, 2 layers, bf16,
+     training phase's OLMoE-1B-7B (full width, TRAIN_LAYERS layers, bf16,
      moe_impl="lilac", its parameters and batch) on a (data 2, model 2)
      mesh with sequence parallelism (FSDP over data; tensor parallelism
      over model for attention and the vocabulary; each rank's 32 of the
@@ -317,7 +332,10 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      one-device step's, each MoE layer against the naive dispatch on the
      same input (2e-2), one K4 launch on each rank's experts against its
      plain version, K4 launched on every rank in its step
-     (ms, loss, grad norm, collective payload, peak memory), and the
+     (ms, loss, grad norm, collective payload, peak memory), 1 step of
+     the same mesh step compiled (aot_eager; the host-staged collectives
+     and torch.autograd.grad are graph breaks, counted; the first loss
+     within 1e-2 of the uncompiled step's, K4 launched as there), and the
      initial parameters saved from the mesh and restored onto a (4, 1)
      mesh and onto one device bit for bit;
 4. holds each kernel against its plain torch version at the paths' shapes
@@ -2885,12 +2903,19 @@ def check_grad_path(res) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Training: OLMoE-1B-7B at full width, its depth cut to 2 layers
+# Training: OLMoE-1B-7B at full width, its depth cut to TRAIN_LAYERS
 # ---------------------------------------------------------------------------
 
-TRAIN_LAYERS = 2               # of OLMoE-1B-7B's 16
+# of OLMoE-1B-7B's 16: one, for the script's time limit (at 2 layers the
+# whole script took 1,340.5 s on a slow host, an NVIDIA H100 80GB HBM3 at
+# 700 W)
+TRAIN_LAYERS = 1
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2
+# the loop's step runs compiled (train.loop.compile_step); the same step
+# uncompiled runs EAGER_TRAIN_STEPS steps beside it
+TRAIN_BACKEND = "inductor"
+EAGER_TRAIN_STEPS = 2
 NAIVE_TRAIN_STEPS = 3
 # steps of the lilac model with the MoE's plans dropped and baking off
 # (the route before plans under transforms), for its ms and its numbers
@@ -2989,17 +3014,22 @@ def moe_layer_timing(cfg, p, hidden: dict, reps: int = 3) -> dict:
 
 def train_path(seed: int, device, work: str, cfg=None,
                layers: int = TRAIN_LAYERS, batch: int = TRAIN_BATCH,
-               seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS) -> dict:
+               seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS,
+               backend: str = TRAIN_BACKEND) -> dict:
     """OLMoE-1B-7B (full width, ``layers`` deep, moe_impl="lilac", no
     remat) trained through make_train_step / train_loop on SyntheticLM:
     the first step's loss and gradients against moe_impl="naive" from the
     same parameters and batch, the token-expert pairs past the backward's
-    capacity, ``steps`` steps with a checkpoint every TRAIN_CKPT_EVERY
-    (deterministic algorithms), a restart from the first checkpoint run
-    to the end, UNPLANNED_TRAIN_STEPS steps with the MoE's plans dropped
-    and baking off (the unplanned route) and NAIVE_TRAIN_STEPS steps of
-    the naive model for timing.  Each step: CUDA-event ms, loss, grad
-    norm, peak memory and the compiled MoE's plan hits."""
+    capacity, ``steps`` steps of the loop's compiled step (``backend``)
+    with a checkpoint every TRAIN_CKPT_EVERY (deterministic algorithms;
+    each step's host wall time to its loss, the K4 launches of inductor's
+    program, the graph breaks, the peak memory), a restart from the first
+    checkpoint run to the end on the same compiled entry,
+    EAGER_TRAIN_STEPS steps of the same step uncompiled, UNPLANNED_TRAIN_STEPS
+    of it with the MoE's plans dropped and baking off (the unplanned
+    route) and NAIVE_TRAIN_STEPS steps of the naive model for timing.
+    Each uncompiled step: CUDA-event ms, loss, grad norm, peak memory and
+    the compiled MoE's plan hits."""
     import shutil as _shutil
 
     import torch
@@ -3010,8 +3040,10 @@ def train_path(seed: int, device, work: str, cfg=None,
     from repro_torch.models import layers as L
     from repro_torch.train import optim as O
     from repro_torch.train.data import SyntheticLM
-    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.loop import (LoopConfig, _deterministic,
+                                        compile_step, train_loop)
     from repro_torch.train.train_step import make_train_step, value_and_grad
+    from torch._subclasses.fake_tensor import is_fake
 
     cfg = (cfg or OLMOE).replace(n_layers=layers, moe_impl="lilac",
                                  remat=False)
@@ -3037,7 +3069,8 @@ def train_path(seed: int, device, work: str, cfg=None,
 
     def recording_router(p, x, topk):
         gate, idx, aux = router(p, x, topk)
-        routes.append(idx.detach())
+        if not is_fake(idx):    # not the gradient check's fake trace
+            routes.append(idx.detach())
         return gate, idx, aux
 
     L.moe_router = recording_router
@@ -3086,8 +3119,9 @@ def train_path(seed: int, device, work: str, cfg=None,
     del inputs
     release(device)
 
-    # the loop, with a checkpoint every TRAIN_CKPT_EVERY steps, then the
-    # restart from the first checkpoint
+    # the loop through its compiled step (inductor; one graph: forward,
+    # backward, AdamW), with a checkpoint every TRAIN_CKPT_EVERY steps,
+    # then the restart from the first checkpoint on the same compiled entry
     opt = O.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
     ckdir = Path(work) / "ckpt"
     log: list = []
@@ -3121,23 +3155,16 @@ def train_path(seed: int, device, work: str, cfg=None,
     lc = LoopConfig(steps=steps, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
                     ckpt_dir=str(ckdir), deterministic=True)
     heartbeat: list = []
-    step = timed_step(make_train_step(model, opt))
+    entry = compile_step(make_train_step(model, opt), backend)
     G.reset_launches()
-    routes.clear()
-    L.moe_router = recording_router
-    try:
-        r1 = train_loop(model, opt, lc, data.batch_at, params=params,
-                        device=device, step_fn=step, emit=heartbeat.append)
-    finally:
-        L.moe_router = router
-    # the largest expert load of each step's layers (the router runs once
-    # a layer in a step's forward)
-    res["step_max_loads"] = [
-        [int(expert_loads(r, E).max()) for r in routes[i:i + layers]]
-        for i in range(0, len(routes), layers)]
-    routes.clear()
+    before = memory_mark(device)
+    r1 = train_loop(model, opt, lc, data.batch_at, params=params,
+                    device=device, step_fn=entry, emit=heartbeat.append)
+    peak, _ = memory_read(device, before)
     res.update(loop_launches=dict(G.LAUNCHES), history=r1["history"],
-               steps=list(log), disk_free_bytes=_shutil.disk_usage(work).free,
+               step_seconds=r1["step_seconds"], compiled=r1["compiled"],
+               compiled_peak_bytes=peak or 0,
+               disk_free_bytes=_shutil.disk_usage(work).free,
                checkpoints=sorted(int(d.name[5:]) for d in ckdir.iterdir()
                                   if d.is_dir() and not d.name.endswith(
                                       ".tmp")))
@@ -3146,18 +3173,43 @@ def train_path(seed: int, device, work: str, cfg=None,
     for s in res["checkpoints"]:
         if s > TRAIN_CKPT_EVERY:
             _shutil.rmtree(ckdir / f"step_{s}")
-    log.clear()
     t0 = time.perf_counter()
     r2 = train_loop(model, opt, lc, data.batch_at, params=params,
-                    device=device, step_fn=step, emit=heartbeat.append)
+                    device=device, step_fn=entry, emit=heartbeat.append)
     res.update(restart_start_step=r2["start_step"],
-               restart_history=r2["history"], restart_steps=list(log),
+               restart_history=r2["history"],
+               restart_step_seconds=r2["step_seconds"],
+               restart_compiled=r2["compiled"],
                restart_seconds=time.perf_counter() - t0)
+    del r2
+    _shutil.rmtree(ckdir, ignore_errors=True)
+    release(device)
+
+    # the same step uncompiled (backend=None), timed: its ms, loss, memory
+    # and the MoE's plan hits, with the routes recorded on the way
+    step = timed_step(make_train_step(model, opt))
+    routes.clear()
+    L.moe_router = recording_router
+    try:
+        r0 = train_loop(model, opt, LoopConfig(steps=EAGER_TRAIN_STEPS,
+                                               log_every=1,
+                                               deterministic=True),
+                        data.batch_at, params=params, device=device,
+                        step_fn=step, backend=None, emit=heartbeat.append)
+    finally:
+        L.moe_router = router
+    # the largest expert load of each step's layers (the router runs once
+    # a layer in a step's forward)
+    res["step_max_loads"] = [
+        [int(expert_loads(r, E).max()) for r in routes[i:i + layers]]
+        for i in range(0, len(routes), layers)]
+    routes.clear()
+    res.update(steps=list(log), eager_history=r0["history"],
+               eager_step_seconds=r0["step_seconds"])
     res["moe_plans"] = [{k: q[k] for k in ("transform", "runs",
                                            "eager_reason", "hits")}
                         for q in fast.plan_info()["plans"]]
-    del r2
-    _shutil.rmtree(ckdir, ignore_errors=True)
+    del r0
     release(device)
 
     # the naive step, for its time
@@ -3172,9 +3224,13 @@ def train_path(seed: int, device, work: str, cfg=None,
     if device.type == "cuda":
         res["naive_profile"] = step_breakdown(
             lambda: naive_step(p, s, b0), device)
-        del p, s
-        release(device)
+    del p, s
+    release(device)
+    if device.type == "cuda":
         st = O.adamw_init(opt, params)
+        with _deterministic(True):      # the state the loop compiled under
+            res["compiled_profile"] = step_breakdown(
+                lambda: entry(params, st, b0), device)
         lilac_step = make_train_step(model, opt)
         res["lilac_profile"] = step_breakdown(
             lambda: lilac_step(params, st, b0), device)
@@ -3254,6 +3310,86 @@ def step_breakdown(fn, device, top: int = 8):
                     sorted(kernels, key=lambda k: -k[1])[:top]]}
 
 
+def _median_ms(seconds) -> float:
+    """The median of a list of host seconds, in ms."""
+    v = sorted(seconds)
+    return 1e3 * v[len(v) // 2] if v else float("nan")
+
+
+def print_train_path(tr) -> None:
+    c = tr["config"]
+    print(f"training {c['name']} (d_model {c['d_model']}, {c['experts']} "
+          f"experts top-{c['topk']}, vocab {c['vocab']}) cut to "
+          f"{c['layers']} layers: {c['params']} params ({c['active_params']} "
+          f"active), batch {c['batch']} x seq {c['seq']}, moe_impl=lilac via "
+          f"{tr['moe_selections']}")
+    print(f"training oracle, first step: loss {tr['loss_lilac']:.6f} "
+          f"(naive {tr['loss_naive']:.6f}, rel {tr['loss_rel']:.3g}, tol "
+          f"{TRAIN_LOSS_RTOL}); worst gradient leaf relative L2 "
+          f"{tr['grad_rel_l2_max']:.3g} at {tr['grad_rel_l2_worst']} (tol "
+          f"{TRAIN_GRAD_RTOL}); token-expert pairs past capacity "
+          f"{tr['pairs_past_capacity']} (capacity {tr['capacity']}, mean "
+          f"load {tr['mean_load']:g}, max load {tr['max_load']}); first "
+          f"lilac forward+backward {tr['oracle_lilac_first_s']:.2f}s; K4 "
+          f"launches {tr['oracle_launches']}")
+    for j, lr in enumerate(tr["routing_at_init"]["layers"]):
+        print(f"training routing at init, layer {j}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in lr.items()))
+    for name, row in tr.get("moe_layer_timing", {}).items():
+        print(f"training MoE layer 0 fwd+bwd at the routes of {name}: "
+              f"max load {row['max_load']} (mean {row['mean_load']:g}); "
+              f"lilac {row['lilac fwd+bwd ms']}, naive "
+              f"{row['naive fwd+bwd ms']} (device ms, host ms)")
+    cs = tr["compiled"]
+    first, eager = tr["history"][0], tr["eager_history"][0]
+    print(f"training compiled step ({cs['backend']}, fullgraph "
+          f"{cs['fullgraph']}): {cs['compiles']} graph, {cs['graph_breaks']} "
+          f"graph breaks; first step (its compile) {cs['compile_seconds']:.1f}s; "
+          f"steady {_median_ms(tr['step_seconds'][1:]):.2f} ms a step "
+          f"(host wall to the loss, median of {len(tr['step_seconds']) - 1}) "
+          f"against the uncompiled step's "
+          f"{_median_ms(tr['eager_step_seconds'][1:]):.2f} ms; K4 launches "
+          f"{tr['loop_launches']['gmm'] / len(tr['history']):g} a step from "
+          f"inductor's program ({tr['loop_launches']} over "
+          f"{len(tr['history'])}); first loss {first:.6f} against the "
+          f"uncompiled step's {eager:.6f} (rel "
+          f"{abs(first - eager) / abs(eager):.3g}) and naive's "
+          f"{tr['loss_naive']:.6f} (rel "
+          f"{abs(first - tr['loss_naive']) / abs(tr['loss_naive']):.3g}, "
+          f"tol {TRAIN_LOSS_RTOL}); peak {tr['compiled_peak_bytes'] / 2**30:.2f}"
+          f" GiB over the compiled loop against "
+          f"{max(st['peak_bytes'] for st in tr['steps']) / 2**30:.2f} GiB "
+          f"an uncompiled step (no buffer donation in torch)")
+    print(f"training compiled losses {tr['history']}, step seconds "
+          f"{[round(t, 4) for t in tr['step_seconds']]}; restart from step "
+          f"{tr['restart_start_step']} on the same graph "
+          f"({tr['restart_compiled']['compiles']} compile in all) in "
+          f"{tr['restart_seconds']:.1f}s, losses {tr['restart_history']}; "
+          f"checkpoints {tr['checkpoints']}")
+    print(f"training: the largest expert load of each uncompiled step's "
+          f"layers {tr['step_max_loads']}")
+    for i, st in enumerate(tr["steps"]):
+        print(f"training uncompiled step {i}: {train_line(st)}")
+    for i, st in enumerate(tr["unplanned_steps"]):
+        print(f"training unplanned step {i} (the MoE's plans dropped, "
+              f"baking off): {train_line(st)}")
+    print(f"training: the uncompiled step's MoE plan hits by step "
+          f"{[st['plan_hits'] for st in tr['steps']]}; plans "
+          f"{tr['moe_plans']}")
+    for i, st in enumerate(tr["naive_steps"]):
+        print(f"training naive step {i}: {train_line(st)}")
+    print(f"training: the process took {tr.get('seconds', 0.0):.1f}s")
+    for name in ("compiled_profile", "lilac_profile", "naive_profile"):
+        pr = tr.get(name)
+        if pr is None:
+            continue
+        print(f"training {name.split('_')[0]} step profiled: "
+              f"{pr['wall_ms']:.1f} ms wall, {pr['kernel_ms']:.1f} ms of "
+              f"kernels (idle share {pr['idle_share']:.3f}); by kind "
+              f"{ {k: round(v, 2) for k, v in pr['by_kind_ms'].items()} }; "
+              f"top {pr['top']}")
+
+
 def check_train_path(res, steps: int = TRAIN_STEPS,
                      layers: int = TRAIN_LAYERS,
                      batch: int = TRAIN_BATCH) -> None:
@@ -3265,13 +3401,26 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
     require(res["oracle_launches"]["gmm"] == per_step
             and res["loop_launches"]["gmm"] == per_step * steps,
             f"training: {per_step} K4 bf16 launches a step (3 x {layers} "
-            f"layers, the {batch} sequences vmapped), got "
-            f"{res['oracle_launches']} for one step and "
-            f"{res['loop_launches']} for {steps}")
+            f"layers, the {batch} sequences vmapped), the loop's from its "
+            f"compiled program, got {res['oracle_launches']} for one step "
+            f"and {res['loop_launches']} for {steps}")
+    c = res["compiled"]
+    require(c["fullgraph"] and c["compiles"] == 1 and c["graph_breaks"] == 0
+            and res["restart_compiled"]["compiles"] == 1,
+            f"training: the step compiled once, as one graph with no break, "
+            f"the restart on the same graph, got {c} and "
+            f"{res['restart_compiled']}")
     require(res["loss_rel"] <= TRAIN_LOSS_RTOL,
             f"training: the first loss within {TRAIN_LOSS_RTOL} of the "
             f"naive step's, got {res['loss_lilac']} against "
             f"{res['loss_naive']}")
+    first, eager = res["history"][0], res["eager_history"][0]
+    require(abs(first - eager) <= TRAIN_LOSS_RTOL * abs(eager)
+            and abs(first - res["loss_naive"])
+            <= TRAIN_LOSS_RTOL * abs(res["loss_naive"]),
+            f"training: the compiled step's first loss within "
+            f"{TRAIN_LOSS_RTOL} of the uncompiled step's and the naive "
+            f"step's, got {first} against {eager} and {res['loss_naive']}")
     require(res["grads_finite"] and res["grad_rel_l2_max"] <= TRAIN_GRAD_RTOL,
             f"training: every gradient leaf within relative L2 "
             f"{TRAIN_GRAD_RTOL} of the naive step's, got "
@@ -3285,13 +3434,15 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
             f"uninterrupted losses bit for bit, got "
             f"{res['restart_history']} against {res['history']}")
     hits = [st["plan_hits"] for st in res["steps"]]
-    require(all(h == layers for h in hits[1:])
+    require(len(hits) == EAGER_TRAIN_STEPS
+            and all(h == layers for h in hits[1:])
             and any(q["transform"] and q["transform"]["grad"]
                     and q["transform"]["vmap"] and q["runs"] == "eager"
                     for q in res["moe_plans"]),
-            f"training: from step 2 each layer's MoE call a hit on a "
-            f"gradient-carrying batched plan run eagerly ({layers} a step), "
-            f"got {hits} hits by step, plans {res['moe_plans']}")
+            f"training: the uncompiled step's MoE calls from its second "
+            f"step a hit each on a gradient-carrying batched plan run "
+            f"eagerly ({layers} a step), got {hits} hits by step, plans "
+            f"{res['moe_plans']}")
     un = res["unplanned_steps"]
     require(len(un) == UNPLANNED_TRAIN_STEPS
             and all(st["plan_hits"] == 0 for st in un)
@@ -3312,6 +3463,12 @@ def check_train_path(res, steps: int = TRAIN_STEPS,
 
 DIST_MESH = (2, 2)             # (data, model)
 DIST_STEPS = 1
+# the mesh step compiled, one step (its compile and its run).  Its
+# ~35 graphs between the host-staged collectives compile with aot_eager:
+# at inductor's 12-31 s a small graph on this card (the serving phase's)
+# they would take minutes a rank
+DIST_BACKEND = "aot_eager"
+DIST_COMPILED_STEPS = 1
 DIST_RANKS = DIST_MESH[0] * DIST_MESH[1]
 
 
@@ -3349,7 +3506,8 @@ def mesh_rel_l2(got, want, specs, names) -> dict:
 def dist_path(seed: int, device, work: str, cfg=None,
               layers: int = TRAIN_LAYERS, batch: int = TRAIN_BATCH,
               seq: int = TRAIN_SEQ, steps: int = DIST_STEPS,
-              mesh_shape=DIST_MESH, reps: int = 5) -> dict:
+              mesh_shape=DIST_MESH, reps: int = 5,
+              backend: str = DIST_BACKEND) -> dict:
     """One rank's part of the distributed phase (the process group up):
     OLMoE-1B-7B (full width, ``layers`` deep, moe_impl="lilac", no remat,
     the training phase's parameters and batch) on a (data, model) mesh
@@ -3359,8 +3517,10 @@ def dist_path(seed: int, device, work: str, cfg=None,
     held against the naive dispatch on the same input; one K4 launch over
     the rank's experts against its plain version; ``steps`` steps of
     make_train_step on the mesh (ms, loss, grad norm, K4 launches, peak);
-    and the initial parameters saved from the mesh and restored onto a
-    (ranks, 1) mesh and onto one device, bit for bit."""
+    DIST_COMPILED_STEPS of the same step compiled with ``backend`` (its
+    graphs and graph breaks counted); and the initial parameters saved
+    from the mesh and restored onto a (ranks, 1) mesh and onto one device,
+    bit for bit."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
@@ -3376,7 +3536,7 @@ def dist_path(seed: int, device, work: str, cfg=None,
     from repro_torch.train import train_step as TS
     from repro_torch.train.checkpoint import Checkpointer
     from repro_torch.train.data import SyntheticLM
-    from repro_torch.train.loop import shard_params
+    from repro_torch.train.loop import compile_step, shard_params
 
     t_start = time.perf_counter()
     rank, n = dist.get_rank(), dist.get_world_size()
@@ -3533,6 +3693,27 @@ def dist_path(seed: int, device, work: str, cfg=None,
         del lp, st
         release(device)
 
+        # the same mesh step compiled (train.loop.compile_step): the
+        # host-staged collectives and torch.autograd.grad are graph breaks
+        centry = compile_step(TS.make_train_step(mm, opt), backend)
+        lp, st = lp0, O.adamw_init(opt, lp0)
+        res["compiled_steps"] = []
+        for i in range(DIST_COMPILED_STEPS):
+            lb = local_batch(i)
+            G.reset_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            lp, st, met = centry(lp, st, lb)
+            sync(device)
+            res["compiled_steps"].append({
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "launches": dict(G.LAUNCHES)})
+        res["compiled"] = centry.stats()
+        del lp, st, centry
+        release(device)
+
         # K4 over this rank's experts against its plain version (the
         # first layer's routes of the rank's first sequence, other ranks'
         # pairs at local expert 0, as the mesh path hands them to K4)
@@ -3679,6 +3860,18 @@ def print_dist_path(dr) -> None:
               f"collective payload {st['collective_bytes'] / 2**30:.2f} GiB "
               f"a rank, peak {max(r['steps'][i]['peak_bytes'] for r in dr['ranks']) / 2**30:.2f} "
               f"GiB (the largest rank's)")
+    cs = r0["compiled"]
+    first = r0["compiled_steps"][0]["loss"]
+    print(f"distributed compiled step ({cs['backend']}): {cs['compiles']} "
+          f"graphs, {cs['graph_breaks']} graph breaks (the host-staged "
+          f"collectives and torch.autograd.grad), by rank "
+          f"{[(r['compiled']['compiles'], r['compiled']['graph_breaks']) for r in dr['ranks']]}; "
+          f"first step (its compile and run) {cs['compile_seconds']:.1f}s; "
+          f"losses {[st['loss'] for st in r0['compiled_steps']]}, the first "
+          f"against the uncompiled mesh step's {r0['steps'][0]['loss']:.6f} "
+          f"(rel {abs(first - r0['steps'][0]['loss']) / abs(r0['steps'][0]['loss']):.3g}); "
+          f"K4 launches by step "
+          f"{[st['launches'].get('gmm', 0) for st in r0['compiled_steps']]}")
     print(f"distributed checkpoint: saved at {tuple(r0['mesh'])}, restored "
           f"onto ({DIST_RANKS}, 1) bit for bit on every rank: "
           f"{all(r['restore_mesh_equal'] for r in dr['ranks'])}, onto one "
@@ -3720,6 +3913,19 @@ def check_dist_path(dr, steps: int = DIST_STEPS) -> None:
     require(r0["restore_one_device_equal"],
             "distributed: the (2, 2) checkpoint restored onto one device "
             "bit for bit")
+    for r in ranks:
+        c, cst = r["compiled"], r["compiled_steps"]
+        first, eager = cst[0]["loss"], r["steps"][0]["loss"]
+        require(len(cst) == DIST_COMPILED_STEPS and c["graph_breaks"] > 0
+                and c["calls"] == DIST_COMPILED_STEPS
+                and all(s["launches"].get("gmm", 0)
+                        == r["steps"][0]["launches"].get("gmm", 0)
+                        for s in cst)
+                and abs(first - eager) <= TRAIN_LOSS_RTOL * abs(eager),
+                f"distributed rank {r['rank']}: the compiled mesh step, its "
+                f"breaks counted, K4 launched as the uncompiled step does, "
+                f"its first loss within {TRAIN_LOSS_RTOL} of the uncompiled "
+                f"step's, got {c}, {cst} against {r['steps'][0]}")
 
 
 def train_line(s) -> str:
@@ -4773,6 +4979,27 @@ SERVE_REQUESTS = 8
 # length bounds them)
 SERVE_TEACHER_STEPS = 16
 SERVE_PROMPTS, SERVE_NEW = (32, 200), (16, 64)
+# the prompt lengths OLMoE's serving phase draws (the workload's prompt
+# grid): its engine compiles its prefill at each (jit_prefill) in its
+# prewarm, so no compile lands on the request path; the phases whose
+# prefill runs eagerly draw lengths across SERVE_PROMPTS
+SERVE_PROMPT_GRID = (64, 200)
+# the served engine's entries compile with aot_eager here: inductor took
+# 151-183 s for each length's full-depth prefill and 12-31 s for each
+# install and move graph (an NVIDIA H100 80GB HBM3 at 700 W), 565 s of
+# prewarm that the script's time limit cannot hold.  The engine's default
+# (inductor) compiles the prefill at one length of the burst apart
+# (``inductor_prefill``), on OLMoE-1B-7B at full width with its depth cut
+# to SERVE_INDUCTOR_LAYERS (at 16 layers its compile took 231.7 s, on
+# the same card), held against the eager prefill and the f32 oracle: its
+# logits' distance from the eager ones within SERVE_PREFILL_FACTOR times
+# the eager prefill's own distance from the f32 oracle, and at least the
+# bf16 limit SERVE_LOGIT_RTOL (two bf16 roundings of one function, each
+# about as far from the exact one as the eager rounding; at 16 layers
+# the three logits lay 0.25-0.89 apart)
+SERVE_BACKEND = "aot_eager"
+SERVE_INDUCTOR_LAYERS = 2
+SERVE_PREFILL_FACTOR = 2.0
 # the fault runs: one batch of requests that all end on the same step and
 # fit the smallest seq bucket, so every step, with a fault or without,
 # runs at (8, 256) and a survivor's row sees the shapes it sees unfaulted
@@ -4784,25 +5011,39 @@ SERVE_FAULT_P = 0.1
 SERVE_LOGIT_RTOL = MOE_RTOL
 SERVE_F32_RTOL = 1e-4
 SERVE_RAGGED = (1, 7, 33, 200)
+# granite-moe-3b-a800m's depth in its serving phase, cut from 32 for the
+# script's time limit (the compiled entry points' compiles took its room)
+GRANITE_SERVE_LAYERS = 4
 
 
 def serve_requests(cfg, seed: int, n: int = SERVE_REQUESTS,
-                   prompt=SERVE_PROMPTS, new=SERVE_NEW):
-    """A closed burst of the SyntheticWorkload (fresh Request objects)."""
+                   prompt=SERVE_PROMPTS, new=SERVE_NEW, grid=()):
+    """A closed burst of the SyntheticWorkload (fresh Request objects),
+    its prompt lengths drawn from ``grid`` within ``prompt`` (no grid:
+    across ``prompt``)."""
     from repro_torch.serve import SyntheticWorkload
 
+    grid = tuple(L for L in grid if prompt[0] <= L <= prompt[1])
     return [r for _, r in SyntheticWorkload(
         n_requests=n, vocab=cfg.vocab, prompt_len=prompt, new_tokens=new,
-        seed=seed).requests()]
+        seed=seed, prompt_grid=grid).requests()]
 
 
-def serve_seed(cfg, seed: int, policy, n: int = SERVE_REQUESTS) -> int:
+def serve_seed(cfg, seed: int, policy, n: int = SERVE_REQUESTS,
+               grid=()) -> int:
     """The first workload seed from ``seed`` on (in steps of 1,000) whose
-    burst needs both seq buckets: at SERVE_PROMPTS and SERVE_NEW a request
-    needs at most 264 positions, so most bursts of SERVE_REQUESTS fit 256."""
+    burst needs both seq buckets and ends in the smaller: a request needs
+    more than the first seq bucket's positions, and those with the most
+    new tokens (the last to finish, alone in the batch) fit it."""
+    def fits(reqs):
+        last = max(r.max_new_tokens for r in reqs)
+        need = [r.prompt_len + r.max_new_tokens for r in reqs]
+        return (max(need) > policy.seq[0]
+                and all(r.prompt_len + r.max_new_tokens <= policy.seq[0]
+                        for r in reqs if r.max_new_tokens == last))
+
     s = seed
-    while not any(r.prompt_len + r.max_new_tokens > policy.seq[0]
-                  for r in serve_requests(cfg, s, n)):
+    while not fits(serve_requests(cfg, s, n, grid=grid)):
         s += 1000
     return s
 
@@ -4816,7 +5057,8 @@ def fault_requests(cfg, seed: int, policy, replicas: int = 2,
 
     hi = min(SERVE_PROMPTS[1], policy.seq[0] - SERVE_FAULT_NEW)
     base = serve_requests(cfg, seed + 29, n, (SERVE_PROMPTS[0], hi),
-                          (SERVE_FAULT_NEW, SERVE_FAULT_NEW))
+                          (SERVE_FAULT_NEW, SERVE_FAULT_NEW),
+                          SERVE_PROMPT_GRID)
     rids, want = [], {k: n // replicas for k in range(replicas)}
     rid = 10_000_000 + 1000 * seed
     while len(rids) < n:
@@ -5390,9 +5632,86 @@ def serve_ragged(res, cfg, p0, gen, device) -> None:
                      "padding_waste": padding_waste(SERVE_RAGGED)}
 
 
+def inductor_prefill(cfg, seed: int, policy, reqs, device,
+                     layers: int = SERVE_INDUCTOR_LAYERS) -> dict:
+    """The engine's default compiled prefill (``jit_prefill`` with no
+    ``compile_backend``: inductor on the card) of ``cfg`` cut to
+    ``layers`` (parameters from ``seed``) at the prompt length of
+    ``reqs[0]``, on the first two prompts of ``reqs`` at that length,
+    against the eager prefill and the f32 oracle (the eager prefill of
+    the parameters cast to f32): per prompt the relative L2 of the
+    logits between each pair, the greedy token under each, the top-2
+    margin of each, and, where the compiled token differs from the eager
+    one, the gap between the two tokens under each; the entry's compile
+    seconds and the median ms of each prefill (host clock to a sync)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_map
+    from repro_torch.serve import Engine, ServeConfig
+
+    model = build_model(cfg.replace(n_layers=layers))
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device)
+    L = reqs[0].prompt_len
+    prompts = [r.prompt for r in reqs if r.prompt_len == L][:2]
+    eng = Engine(model, params, ServeConfig(buckets=policy, use_lilac=False,
+                                            prewarm_on_start=False))
+
+    def ms(fn):
+        out = []
+        for _ in range(5):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            out.append(1e3 * (time.perf_counter() - t0))
+        return sorted(out)[2]
+
+    def tokens(q):
+        return torch.as_tensor(q[None], device=device)
+
+    got = [eng._prefill(q)[0].float() for q in prompts]
+    info = eng.compile_info()
+    eager = [model.prefill(params, {"tokens": tokens(q)})[0].float()
+             for q in prompts]
+    res = {"layers": layers, "length": L, "prompts": len(prompts),
+           "backend": info["by_entry"][0]["backend"],
+           "compiles": info["compiles"], "graph_breaks": info["graph_breaks"],
+           "compile_s": info["compile_seconds"],
+           "ms": ms(lambda: eng._prefill(prompts[0])),
+           "eager_ms": ms(lambda: model.prefill(
+               params, {"tokens": tokens(prompts[0])}))}
+    del eng
+    m32 = build_model(model.cfg.replace(param_dtype=torch.float32,
+                                        cache_dtype=torch.float32))
+    p32 = tree_map(lambda a: a.float(), params)
+    oracle = [m32.prefill(p32, {"tokens": tokens(q)})[0].float()
+              for q in prompts]
+    del p32, params
+    release(device)
+
+    def top2(x):
+        v = x.reshape(-1).topk(2).values
+        return float(v[0] - v[1])
+
+    rows = []
+    for g, e, o in zip(got, eager, oracle):
+        tg, te, to = (int(x.reshape(-1).argmax()) for x in (g, e, o))
+        row = {"compiled_eager": rel_l2(g, e), "compiled_f32": rel_l2(g, o),
+               "eager_f32": rel_l2(e, o), "tokens": [tg, te, to],
+               "margins": [top2(g), top2(e), top2(o)]}
+        if tg != te:
+            row["gaps"] = [float(x.reshape(-1)[tg] - x.reshape(-1)[te])
+                           for x in (g, e, o)]
+        rows.append(row)
+    res["rows"] = rows
+    return res
+
+
 def serve_path(seed: int, device, cfg=None, policy=None,
                n_requests: int = SERVE_REQUESTS, light: bool = False,
-               f32: bool = True) -> dict:
+               f32: bool = True, jit_prefill: bool = False,
+               backend: str = SERVE_BACKEND) -> dict:
     """A MoE model at full width served by repro_torch.serve (OLMoE-1B-7B
     unless ``cfg`` names another): the engine's prewarm over ``policy``'s
     grid, a closed burst of ``n_requests`` on baked plans (launches
@@ -5406,7 +5725,11 @@ def serve_path(seed: int, device, cfg=None, policy=None,
     solo, the faults, the second replica and moe_ffn_ragged; K4 at the
     decode shapes then times the down product too.  Without ``f32`` the
     teacher-forced comparison has no f32 part (``compiled_f32``), for a
-    model that cannot be held in f32 beside its bf16 copy."""
+    model that cannot be held in f32 beside its bf16 copy.  With
+    ``jit_prefill`` the served engine compiles its prefill, cache-row
+    install and slot move (``backend``) at SERVE_PROMPT_GRID in its
+    prewarm, and the compiles on the request path are counted; the other
+    engines (the uncompiled run's, the second replica) prefill eagerly."""
     import torch
     from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
     from repro_torch.core import resilience as R
@@ -5434,7 +5757,9 @@ def serve_path(seed: int, device, cfg=None, policy=None,
            "init_s": time.perf_counter() - t0, "light": light,
            "cache_bytes": {f"{b}x{s}": cache_bytes(model, (b, s))
                            for b, s in policy.grid()}}
-    scfg = ServeConfig(mode="continuous", buckets=policy)
+    scfg = ServeConfig(mode="continuous", buckets=policy, jit_prefill=False)
+    ecfg = scfg.replace(jit_prefill=True, prefill_lengths=SERVE_PROMPT_GRID,
+                        compile_backend=backend) if jit_prefill else scfg
 
     def reset_counts():
         for c in COUNTERS:
@@ -5446,16 +5771,20 @@ def serve_path(seed: int, device, cfg=None, policy=None,
     # (a) prewarm, then the burst on baked plans
     t0 = time.perf_counter()
     with fault_free("serving prewarm"):
-        eng = Engine(model, params, scfg)
+        eng = Engine(model, params, ecfg)
     res["prewarm_s"] = time.perf_counter() - t0
+    res["jit_prefill"] = jit_prefill
+    res["prefill_compile_prewarm"] = eng.compile_info()
     res["prewarm"] = eng.metrics.prewarm
     res["prewarm_bake_errors"] = eng._decode.plan_info()["bake_errors"]
     res["prewarm_bytes"] = (torch.cuda.memory_allocated(device),
                             torch.cuda.max_memory_allocated(device)) \
         if device.type == "cuda" else None
     detects = eng._decode.stats["detects"]
-    wseed = res["workload_seed"] = serve_seed(cfg, seed, policy, n_requests)
-    reqs = serve_requests(cfg, wseed, n_requests)
+    grid = SERVE_PROMPT_GRID if jit_prefill else ()
+    wseed = res["workload_seed"] = serve_seed(cfg, seed, policy, n_requests,
+                                              grid)
+    reqs = serve_requests(cfg, wseed, n_requests, grid=grid)
     before = memory_mark(device)
     reset_counts()
     with fault_free("serving"):
@@ -5482,7 +5811,8 @@ def serve_path(seed: int, device, cfg=None, policy=None,
         plans=_plan_rows(eng._decode, _k_leaf(model, params)),
         matches=[[m.computation for m in e.report.matches]
                  for e in eng._decode._compiled.values()],
-        selections=sorted({n for _, n in eng._decode.last_selections}))
+        selections=sorted({n for _, n in eng._decode.last_selections}),
+        prefill_compile_run=eng.compile_info())
 
     # one decode step at the largest bucket under torch.profiler
     if device.type == "cuda":
@@ -5505,6 +5835,10 @@ def serve_path(seed: int, device, cfg=None, policy=None,
         tf["moe_layers"] = moe_layers(eng, model, params, reqs[:2], device)
     router_input = tf.pop("router_input")
     res["teacher_forced"] = tf
+    if jit_prefill:
+        with fault_free("serving inductor prefill"):
+            res["inductor_prefill"] = inductor_prefill(cfg, seed + 23, policy,
+                                                       reqs, device)
 
     # (c) batched against solo, then the request shadow at rate 1
     if not light:
@@ -5514,7 +5848,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
     os.environ[R.ENV_REQUEST_SHADOW] = "1"
     try:
         with fault_free("serving request shadow"):
-            again = serve_requests(cfg, wseed, n_requests)
+            again = serve_requests(cfg, wseed, n_requests, grid=grid)
             eng.run([(0.0, r) for r in again])
     finally:
         os.environ.pop(R.ENV_REQUEST_SHADOW, None)
@@ -5530,7 +5864,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
 
     # the same burst on an uncompiled engine (the naive dense dispatch)
     ueng = Engine(model, params, scfg.replace(use_lilac=False))
-    plain = serve_requests(cfg, wseed, n_requests)
+    plain = serve_requests(cfg, wseed, n_requests, grid=grid)
     sync(device)
     t0 = time.perf_counter()
     usnap = ueng.run([(0.0, r) for r in plain])
@@ -5546,6 +5880,7 @@ def serve_path(seed: int, device, cfg=None, policy=None,
 
     if not light:
         serve_faults(res, eng, model, params, scfg, seed, policy, device)
+    res["prefill_compile_end"] = eng.compile_info()
     del eng
     release(device)
 
@@ -5572,6 +5907,32 @@ def check_serve_path(res) -> None:
     grid = len(res["config"]["grid"])
     require(pw["baked"] == pw["n_signatures"] == grid,
             f"serving: prewarm bakes every grid point, got {pw}")
+    if res.get("jit_prefill"):
+        w = res["prefill_compile_prewarm"]
+        require(pw["prefill_warmed"] == list(SERVE_PROMPT_GRID)
+                and w["compiles"] >= w["entries"] > 0
+                and res["prefill_compile_run"]["request_path_compiles"] == 0
+                and res["prefill_compile_end"]["request_path_compiles"] == 0,
+                f"serving: the prefill, install and move compiled in the "
+                f"prewarm at {SERVE_PROMPT_GRID}, none on the request path, "
+                f"got {pw['prefill_warmed']}, {w['compiles']} graphs, "
+                f"{res['prefill_compile_run']['request_path_compiles']} and "
+                f"{res['prefill_compile_end']['request_path_compiles']} "
+                f"request-path compiles")
+        ip = res["inductor_prefill"]
+        require(ip["backend"] == "inductor" and ip["compiles"] == 1
+                and ip["graph_breaks"] == 0 and all(
+                    r["compiled_eager"] <= max(SERVE_LOGIT_RTOL,
+                                               SERVE_PREFILL_FACTOR
+                                               * r["eager_f32"])
+                    for r in ip["rows"]),
+                f"serving: the engine's default prefill compiles with "
+                f"inductor as one graph and its logits are within "
+                f"{SERVE_PREFILL_FACTOR}x the eager prefill's distance from "
+                f"the f32 oracle (at least {SERVE_LOGIT_RTOL}) of the eager "
+                f"ones, got {ip['backend']}, "
+                f"{ip['compiles']} graphs, {ip['graph_breaks']} breaks, "
+                f"{ip['rows']}")
     require(res["request_detects"] == 0 and res["bucket_misses"] == 0,
             f"serving: no detection and no bucket miss on the request "
             f"path, got {res['request_detects']} detects and "
@@ -5713,6 +6074,39 @@ def print_serve_path(sv, tag: str = "serving") -> None:
           f"{sv['peak_bytes'] / 2**30:.2f} GiB; request-path detections "
           f"{sv['request_detects']}, bucket misses {sv['bucket_misses']}; "
           f"launches {sv['launches']}")
+    if sv.get("jit_prefill"):
+        w, r, e = (sv["prefill_compile_prewarm"], sv["prefill_compile_run"],
+                   sv["prefill_compile_end"])
+        print(f"{tag} compiled admission (jit_prefill, "
+              f"{w['by_entry'][0]['backend'] if w['by_entry'] else '-'}): "
+              f"prefill warmed at {pw['prefill_warmed']} in "
+              f"{pw.get('prefill_warm_seconds', 0.0):.1f}s of the prewarm's "
+              f"{sv['prewarm_s']:.1f}s, {w['entries']} entries, "
+              f"{w['compiles']} graphs, {w['graph_breaks']} graph breaks; "
+              f"compiles on the request path at prewarmed lengths: "
+              f"{r['request_path_compiles']} in the run, "
+              f"{e['request_path_compiles']} by the phase's end; by entry "
+              + ", ".join(f"{'/'.join(map(str, x['key']))} "
+                          f"{x['compile_seconds']:.1f}s"
+                          for x in w["by_entry"]))
+        ip = sv["inductor_prefill"]
+        rels = lambda k: [float(f"{r[k]:.3g}") for r in ip["rows"]]
+        print(f"{tag} default prefill ({ip['backend']}, {ip['layers']} "
+              f"layers, length {ip['length']}, {ip['prompts']} prompts): "
+              f"{ip['compiles']} "
+              f"graph, {ip['graph_breaks']} breaks, compiled in "
+              f"{ip['compile_s']:.1f}s; {ip['ms']:.2f} ms a prefill against "
+              f"the eager {ip['eager_ms']:.2f} ms (median of 5); relative L2 "
+              f"of the logits, compiled against eager "
+              f"{rels('compiled_eager')} (tol {SERVE_PREFILL_FACTOR}x eager "
+              f"against f32, at least {SERVE_LOGIT_RTOL}), against f32 "
+              f"{rels('compiled_f32')}, eager "
+              f"against f32 {rels('eager_f32')}; "
+              f"tokens (compiled, eager, f32) "
+              f"{[r['tokens'] for r in ip['rows']]}; top-2 margins "
+              f"{[[round(m, 4) for m in r['margins']] for r in ip['rows']]}"
+              f"; gaps where the token differs "
+              f"{[r.get('gaps') for r in ip['rows']]}")
     u = sv["uncompiled"]
     print(f"{tag} uncompiled engine: {u['steps']} steps in "
           f"{u['run_s']:.2f}s; streams equal to the compiled run's: "
@@ -6041,7 +6435,8 @@ def rwkv_path(seed: int, device, cfg=None, prompt: int = RWKV_PROMPT,
     with fault_free("RWKV-6 engine"):
         eng = build_engine(cfg.name, smoke=False, seed=seed + 23,
                            device=device, config=ServeConfig(
-                               buckets=policy, mode="continuous"))
+                               buckets=policy, mode="continuous",
+                               jit_prefill=False))
         res["engine_prewarm_s"] = time.perf_counter() - t0
         rng = torch.Generator(device="cpu").manual_seed(seed + 31)
         reqs = [Request(prompt=torch.randint(
@@ -6171,13 +6566,15 @@ def print_rwkv_path(rw) -> None:
 # 32 layers are 51.6 B parameters, 103 GB in bf16, more than one card
 # holds: two periods are 26,053,599,168 (52.1 GB), one period in f32
 # 13,295,237,088 (53.2 GB); a depth stays a multiple of the 8-layer period
-JAMBA_LAYERS, JAMBA_F32_LAYERS = 16, 8
+# (one period, for the script's time limit)
+JAMBA_LAYERS, JAMBA_F32_LAYERS = 8, 8
 
 
 def jamba_path(seed: int, device, cfg=None, f32_layers: int = JAMBA_F32_LAYERS,
                prompt: int = MAMBA_PROMPT, steps: int = MAMBA_STEPS) -> dict:
     """Jamba served by repro_torch.serve (``serve_path(light=True)``
-    without its f32 part: 16 layers in f32 are 104 GB), then on the same
+    without its f32 part, which a model past one period cannot hold beside
+    its bf16 copy), then on the same
     parameters (drawn again from the seed): each layer by
     ``mamba_layers`` (bf16, an f32 copy beside, a block at a time) and the
     whole bf16 decode against the bf16 forward over the longer sequence
@@ -6522,13 +6919,15 @@ def main() -> int:
         print(json.dumps(res))
         return 0
     if args.serve_phase:
-        print(json.dumps(serve_path(args.seed, torch.device("cuda")),
-                         default=str))
+        print(json.dumps(serve_path(args.seed, torch.device("cuda"),
+                                    jit_prefill=True), default=str))
         return 0
     if args.serve_granite_phase:
         from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
-        print(json.dumps(serve_path(args.seed, torch.device("cuda"),
-                                    cfg=GRANITE, light=True), default=str))
+        print(json.dumps(serve_path(
+            args.seed, torch.device("cuda"),
+            cfg=GRANITE.replace(n_layers=GRANITE_SERVE_LAYERS), light=True),
+            default=str))
         return 0
     if args.dist_phase:
         return dist_phase_main(args.seed, args.dist_out)
@@ -7028,7 +7427,7 @@ def run(args, work: str) -> int:
           f" GiB reserved ({torch.cuda.memory_allocated(device) / 2**30:.2f} "
           f"GiB allocated) before the child phases")
 
-    # -- training: OLMoE-1B-7B, full width, 2 layers -------------------------
+    # -- training: OLMoE-1B-7B, full width, TRAIN_LAYERS deep ----------------
     # a process of its own: deterministic algorithms need cuBLAS's
     # workspace fixed before its first call, and the earlier phases' memory
     # is gone
@@ -7038,57 +7437,7 @@ def run(args, work: str) -> int:
                         CUBLAS_WORKSPACE_CONFIG=":4096:8",
                         LILAC_TORCH_QUARANTINE_CACHE=str(
                             Path(work) / "quarantine-train.json"))
-    c = tr["config"]
-    print(f"training {c['name']} (d_model {c['d_model']}, {c['experts']} "
-          f"experts top-{c['topk']}, vocab {c['vocab']}) cut to "
-          f"{c['layers']} layers: {c['params']} params ({c['active_params']} "
-          f"active), batch {c['batch']} x seq {c['seq']}, moe_impl=lilac via "
-          f"{tr['moe_selections']}")
-    print(f"training oracle, first step: loss {tr['loss_lilac']:.6f} "
-          f"(naive {tr['loss_naive']:.6f}, rel {tr['loss_rel']:.3g}, tol "
-          f"{TRAIN_LOSS_RTOL}); worst gradient leaf relative L2 "
-          f"{tr['grad_rel_l2_max']:.3g} at {tr['grad_rel_l2_worst']} (tol "
-          f"{TRAIN_GRAD_RTOL}); token-expert pairs past capacity "
-          f"{tr['pairs_past_capacity']} (capacity {tr['capacity']}, mean "
-          f"load {tr['mean_load']:g}, max load {tr['max_load']}); first "
-          f"lilac forward+backward {tr['oracle_lilac_first_s']:.2f}s; K4 "
-          f"launches {tr['oracle_launches']}")
-    for j, lr in enumerate(tr["routing_at_init"]["layers"]):
-        print(f"training routing at init, layer {j}: " + ", ".join(
-            f"{k} {v:.4g}" for k, v in lr.items()))
-    for name, row in tr["moe_layer_timing"].items():
-        print(f"training MoE layer 0 fwd+bwd at the routes of {name}: "
-              f"max load {row['max_load']} (mean {row['mean_load']:g}); "
-              f"lilac {row['lilac fwd+bwd ms']}, naive "
-              f"{row['naive fwd+bwd ms']} (device ms, host ms)")
-    print(f"training: the largest expert load of each step's layers "
-          f"{tr['step_max_loads']}")
-    for i, st in enumerate(tr["steps"]):
-        print(f"training step {i}: {train_line(st)}")
-    for i, st in enumerate(tr["restart_steps"]):
-        print(f"training restart step {tr['restart_start_step'] + i}: "
-              f"{train_line(st)}")
-    for i, st in enumerate(tr["unplanned_steps"]):
-        print(f"training unplanned step {i} (the MoE's plans dropped, "
-              f"baking off): {train_line(st)}")
-    print(f"training: the compiled MoE's plan hits by step "
-          f"{[st['plan_hits'] for st in tr['steps']]}; plans "
-          f"{tr['moe_plans']}")
-    for i, st in enumerate(tr["naive_steps"]):
-        print(f"training naive step {i}: {train_line(st)}")
-    print(f"training: K4 launches over {TRAIN_STEPS} steps "
-          f"{tr['loop_launches']} (the per-sequence loop: "
-          f"{3 * TRAIN_LAYERS * TRAIN_BATCH * TRAIN_STEPS}); checkpoints {tr['checkpoints']}; restart "
-          f"from step {tr['restart_start_step']} in "
-          f"{tr['restart_seconds']:.1f}s, losses {tr['restart_history']} "
-          f"against {tr['history']}; the process took {tr['seconds']:.1f}s")
-    for name in ("lilac_profile", "naive_profile"):
-        pr = tr[name]
-        print(f"training {name.split('_')[0]} step profiled: "
-              f"{pr['wall_ms']:.1f} ms wall, {pr['kernel_ms']:.1f} ms of "
-              f"kernels (idle share {pr['idle_share']:.3f}); by kind "
-              f"{ {k: round(v, 2) for k, v in pr['by_kind_ms'].items()} }; "
-              f"top {pr['top']}")
+    print_train_path(tr)
     check_train_path(tr)
     record["train_path"] = tr
     print(f"training phase {time.perf_counter() - t0:.1f}s")
@@ -7112,7 +7461,7 @@ def run(args, work: str) -> int:
     record["serve_path"] = sv
     print(f"serving phase {time.perf_counter() - t0:.1f}s")
 
-    # -- serving granite-moe-3b-a800m, full width and depth (K4) -------------
+    # -- serving granite-moe-3b-a800m, full width, depth cut (K4) ------------
     t0 = time.perf_counter()
     gr = run_warm_start(args.seed, Path(work) / "autotune-granite.json",
                         "--serve-granite-phase", timeout=900,
@@ -7128,7 +7477,7 @@ def run(args, work: str) -> int:
     record["granite_serve_path"] = gr
     print(f"granite serving phase {time.perf_counter() - t0:.1f}s")
 
-    # -- Jamba-v0.1 at full width, 16 layers (K4 in its MoE layers) ----------
+    # -- Jamba-v0.1 at full width, JAMBA_LAYERS deep (K4 in its MoE layers) --
     t0 = time.perf_counter()
     jb = run_warm_start(args.seed, Path(work) / "autotune-jamba.json",
                         "--serve-jamba-phase", timeout=900,

@@ -253,6 +253,16 @@ def nbytes_of(x) -> int:
     return 0
 
 
+def tree_nbytes(val) -> int:
+    """``nbytes_of`` summed over a container of tensors (marshaled values
+    are often tuples of buffers — ELL/BCSR packs)."""
+    if isinstance(val, (tuple, list)):
+        return sum(tree_nbytes(v) for v in val)
+    if isinstance(val, dict):
+        return sum(tree_nbytes(v) for v in val.values())
+    return nbytes_of(val)
+
+
 # ---------------------------------------------------------------------------
 # Format registry
 # ---------------------------------------------------------------------------

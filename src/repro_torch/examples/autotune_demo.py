@@ -10,8 +10,8 @@ signature and persists the winner to the autotune store
 (~/.cache/lilac-torch/autotune.json, or $LILAC_TORCH_AUTOTUNE_CACHE).  The
 second run — a fresh process — selects the same winner from disk: zero
 candidates re-timed.  ``--fresh`` deletes the store first; ``--trace``
-also tunes the trace-mode path, where the winner is pinned into the
-rewritten graph when it is built.
+also tunes the trace-mode path inside ``torch.compile``, where the winner
+is pinned into the rewritten graph when it is built.
 """
 import os
 
@@ -20,8 +20,9 @@ import torch
 from repro_torch import lilac
 from repro_torch.core import REGISTRY
 from repro_torch.core.autotune import default_cache_path
-from repro_torch.examples.common import naive_spmv, parser, seconds
-from repro_torch.sparse.random import random_spd_csr
+from repro_torch.examples.common import (compiled, naive_spmv, parser,
+                                         seconds)
+from repro_torch.sparse.random import random_graph_csr
 
 
 def main():
@@ -39,7 +40,8 @@ def main():
     if args.fresh and path.exists():
         os.unlink(path)
         print(f"removed {path}")
-    csr = random_spd_csr(args.n, args.degree, seed=0, device=device)
+    csr = random_graph_csr(args.n, avg_degree=args.degree, seed=0,
+                           device=device)
     gen = torch.Generator().manual_seed(1)
     operands = (csr.val, csr.col_ind, csr.row_ptr,
                 torch.randn(args.n, generator=gen).to(device))
@@ -70,11 +72,18 @@ def main():
           f"{args.calls} calls")
 
     if args.trace:
+        # trace mode inside a user's torch.compile, as the reference runs
+        # it under jax.jit: the winner is pinned when the graph is built
         opt = lilac.compile(naive_spmv, policy=args.policy, device=device)
-        opt(*operands)
-        print(f"trace mode: winner {opt.last_selections[0][1]} pinned into "
-              f"the rewritten graph ({len(opt.graph_for(*operands).graph.nodes)}"
-              f" nodes)")
+
+        def application(val, col, row_ptr, v):
+            return opt(val, col, row_ptr, v)
+
+        jopt = compiled(application, device)
+        jopt(*operands)
+        print(f"trace mode under torch.compile ({jopt.backend}, "
+              f"{jopt.compiles} graph): winner {opt.last_selections[0][1]} "
+              f"pinned at lowering")
     print(f"tuner stats: {s.as_dict()}")
 
 

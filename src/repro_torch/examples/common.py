@@ -1,5 +1,6 @@
 """What the examples share: the application's naive CSR SpMV, the
-command-line options, and a synchronised wall clock."""
+command-line options, the compiled naive baseline, and a synchronised
+wall clock."""
 from __future__ import annotations
 
 import argparse
@@ -24,6 +25,15 @@ def parser(doc: str, policy: str = "default") -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     return ap
+
+
+def compiled(fn, device):
+    """``fn`` under ``torch.compile`` (one graph), as the reference jits
+    its baseline: inductor on the card, aot_eager on the CPU."""
+    from repro_torch.core import jit
+
+    return jit.Entry(fn, jit.backend_for(device),
+                     name=f"{fn.__name__} (compiled)")
 
 
 def seconds(fn, device) -> tuple:

@@ -31,8 +31,10 @@ def main(argv=None):
     # admit_deadline_s: a full queue is retried with bounded backoff
     # (Scheduler.try_admit) before rejecting; deadline_s evicts requests
     # that overstay their latency budget instead of pinning a slot
+    grid = (4, 8, 12)            # prompt lengths -> prewarmed prefills
     cfg = ServeConfig(buckets=BucketPolicy(batch=(1, 2, 4), seq=(32, 64)),
-                      mode=args.mode, admit_deadline_s=0.05,
+                      mode=args.mode, prefill_lengths=grid,
+                      admit_deadline_s=0.05,
                       deadline_s=120.0)
     eng = build_engine(args.arch, smoke=True, config=cfg, device=args.device)
     pw = eng.metrics.prewarm
@@ -40,7 +42,7 @@ def main(argv=None):
           f"({pw['plan_cache_hits']} rehydrated from the plan cache)")
 
     wl = SyntheticWorkload(n_requests=args.requests,
-                           vocab=eng.model.cfg.vocab, prompt_grid=(4, 8, 12),
+                           vocab=eng.model.cfg.vocab, prompt_grid=grid,
                            new_tokens=(2, args.tokens), rate_rps=0.0, seed=0)
     pairs = wl.requests()
     snap = eng.run(pairs)
@@ -56,6 +58,11 @@ def main(argv=None):
           f"fault_evictions={res['fault_evictions']} "
           f"admission_retries={res['admission_retries']}")
     print(f"selections: {[n for _, n in eng._decode.last_selections]}")
+    ci = eng.compile_info()
+    backend = ci["by_entry"][0]["backend"] if ci["by_entry"] else "-"
+    print(f"compiled admission ({backend}): prefill warmed at "
+          f"{pw['prefill_warmed']}, {ci['compiles']} graphs, "
+          f"{ci['request_path_compiles']} on the request path")
     first = pairs[0][1]
     print("first request tokens:", json.dumps(first.tokens[:10]))
     return snap

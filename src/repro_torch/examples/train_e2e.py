@@ -14,6 +14,7 @@ import argparse
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core import jit
 from repro_torch.models import build_model
 from repro_torch.train.data import SyntheticLM
 from repro_torch.train.loop import LoopConfig, train_loop
@@ -57,11 +58,14 @@ def main():
     opt = AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=args.steps)
     loop = LoopConfig(steps=args.steps, ckpt_every=max(args.steps // 3, 1),
                       log_every=10, ckpt_dir=args.ckpt_dir)
-    res = train_loop(model, opt, loop, data.batch_at, device=args.device)
+    res = train_loop(model, opt, loop, data.batch_at, device=args.device,
+                     backend=jit.backend_for(args.device))
     h = res["history"]
     print(f"loss: {h[0]:.4f} -> {h[-1]:.4f} over {len(h)} steps "
           f"({'DECREASED' if h[-1] < h[0] else 'no improvement'})")
     print(f"stragglers observed: {res['straggler'].slow_steps}")
+    if res["compiled"]:
+        print(f"compiled step: {res['compiled']}")
 
 
 if __name__ == "__main__":

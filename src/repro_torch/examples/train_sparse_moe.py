@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import lilac
+from repro_torch.examples.common import compiled
 from repro_torch.models.layers import _moe_naive_2d
 
 T, D, F, E, K = 512, 32, 64, 8, 1
@@ -64,7 +65,9 @@ def main():
 
     fast = lilac.compile(train_step, device=dev)
     _, w_fast = fast(*w, *data)
-    _, w_ref = train_step(*w, *data)
+    # the gradient oracle: the plain step under torch.compile, as the
+    # reference jits its step
+    _, w_ref = compiled(train_step, dev)(*w, *data)
     err = max(float((a - b).abs().max()) for a, b in zip(w_fast, w_ref))
     print("detection:", fast.last_report.summary())
     print(f"selections: {[n for _, n in fast.last_selections]}")

@@ -212,23 +212,34 @@ class _Psum(torch.autograd.Function):
         return _psum(g, ctx.axis), None
 
 
+@torch.compiler.disable
+def _collective(fn, *args) -> torch.Tensor:
+    """``fn.apply(*args)`` outside ``torch.compile``: a collective staged
+    through the host is a graph break in a compiled step (its count and
+    its bytes, too, are host state), and nothing it runs is traced."""
+    return fn.apply(*args)
+
+
 def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` concatenated on ``dim`` (tiled);
     backward reduce-scatters."""
-    return _AllGather.apply(x, axis, dim) if axis_size(axis) > 1 else x
+    return _collective(_AllGather, x, axis, dim) if axis_size(axis) > 1 \
+        else x
 
 
 def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """The sum over ``axis`` of ``x``, this rank's chunk of ``dim``;
     backward all-gathers."""
-    return _ReduceScatter.apply(x, axis, dim) if axis_size(axis) > 1 else x
+    return _collective(_ReduceScatter, x, axis, dim) if axis_size(axis) > 1 \
+        else x
 
 
 def psum(x: torch.Tensor, axis) -> torch.Tensor:
     """The sum over ``axis``; backward is the same sum."""
-    return _Psum.apply(x, axis) if axis_size(axis) > 1 else x
+    return _collective(_Psum, x, axis) if axis_size(axis) > 1 else x
 
 
+@torch.compiler.disable
 def pmax(x: torch.Tensor, axis) -> torch.Tensor:
     """The elementwise max over ``axis`` (no gradient: callers use it on
     detached values, as the shift of a log-sum-exp)."""

@@ -138,8 +138,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     cfg = cfg.replace(spmd_constraints=True,
                       mesh_axis_sizes=tuple(sizes.items()))
     model = build_model(cfg)
-    params = S.tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
-                                              device="meta"), model.spec)
+    params = model.abstract_params()
     pshard = TS.param_shardings(model, sizes, rules)
     inputs = model.input_specs(shape)
     cell = {"status": "lowered", "cfg": cfg, "shape": shape, "model": model,

@@ -10,10 +10,12 @@
         --smoke --mesh-data 2 --mesh-model 2 --device cpu --backend gloo
 
 Counterpart of ``repro.launch.train``; ``--smoke`` takes the reduced
-config, ``--layers`` cuts the depth.  With a mesh of more than one rank
-it runs under torchrun, data x model processes: each starts the process
-group (``launch.mesh.init_distributed``: ``--backend`` nccl by default
-on cuda, gloo on cpu), builds the mesh, and trains its shards
+config, ``--layers`` cuts the depth; the step runs under
+``torch.compile`` (inductor on cuda, aot_eager on cpu).  With a mesh of
+more than one rank it runs under torchrun, data x model processes: each
+starts the process group (``launch.mesh.init_distributed``: ``--backend``
+nccl by default on cuda, gloo on cpu), builds the mesh, and trains its
+shards
 (``train.loop`` with ``mesh=``); rank 0 prints.  A mesh of 1 is the
 one-device path.
 """
@@ -21,6 +23,7 @@ import argparse
 
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.launch.mesh import init_distributed, make_host_mesh, mesh_rules
+from repro_torch.core import jit
 from repro_torch.models import build_model
 from repro_torch.train.data import MemmapCorpus, SyntheticLM
 from repro_torch.train.loop import LoopConfig, train_loop
@@ -85,7 +88,9 @@ def main():
     loop = LoopConfig(steps=args.steps, ckpt_every=max(args.steps // 4, 1),
                       log_every=10, ckpt_dir=args.ckpt_dir)
     res = train_loop(model, opt, loop, data.batch_at, device=args.device,
-                     seed=args.seed, mesh=mesh, rules=rules, emit=say)
+                     seed=args.seed, mesh=mesh, rules=rules,
+                     backend=jit.backend_for(args.device),
+                     emit=say)
     h = res["history"]
     if not h:               # resumed from a checkpoint of the last step
         say(f"final: nothing to run, resumed at step {res['start_step']} "
@@ -93,6 +98,11 @@ def main():
         return
     say(f"final: loss {h[0]:.4f} -> {h[-1]:.4f}; "
         f"stragglers={res['straggler'].slow_steps}")
+    c = res["compiled"]
+    if c:
+        say(f"compiled step ({c['backend']}): {c['compiles']} graph(s), "
+            f"{c['graph_breaks']} graph break(s), first step "
+            f"{c['compile_seconds']:.1f}s")
 
 
 if __name__ == "__main__":

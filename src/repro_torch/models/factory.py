@@ -34,6 +34,9 @@ class Model:
     def init(self, generator: torch.Generator, device=None):
         return S.init_params(self.spec, generator, device)
 
+    def abstract_params(self):
+        return S.abstract_params(self.spec)
+
     def param_count(self) -> int:
         return S.count_params(self.spec)
 

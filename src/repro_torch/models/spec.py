@@ -67,11 +67,23 @@ def leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts of the same structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
+    """``fn`` over the leaves of nested dicts of the same structure.  A
+    loop, not a comprehension: under ``torch.compile`` ``fn`` may be a
+    graph break (a mesh collective), and torch 2.11's dynamo fails on a
+    break inside a comprehension (``InternalTorchDynamoError``)."""
+    if not isinstance(tree, dict):
+        return fn(tree, *rest)
+    out = {}
+    for k, v in tree.items():
+        out[k] = tree_map(fn, v, *[r[k] for r in rest])
+    return out
+
+
+def abstract_params(spec_tree):
+    """``meta`` tensors of the parameters' shapes and dtypes: the dry-run
+    path, no allocation (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
 
 
 def init_params(spec_tree, generator: torch.Generator, device=None):

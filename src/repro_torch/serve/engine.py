@@ -24,11 +24,23 @@ advances it one decode step at a time:
 
 What differs from the reference, which jits around its compiled decode:
 
-* Eager torch compiles nothing per prompt length, so the reference's
-  ``jit_prefill`` and ``prefill_lengths`` have no counterpart: prefill
-  runs eagerly at any length (no prefill is prewarmed), and the cache-row
-  install and the slot move are row copies into the engine's cache
-  (``Model.cache_set_slot`` / ``cache_move_slot``).
+* ``jit_prefill`` compiles the admission plumbing with ``torch.compile``
+  (``core.jit.Entry``, the backend ``compile_backend`` names, by default
+  inductor on the card and aot_eager on the CPU): the prefill at each
+  prompt length, the cache-row install at each (length, bucket) and the
+  slot move at each bucket are entries of their own, each one graph at
+  static shapes (``fullgraph``: a model whose prefill breaks the graph
+  raises), the slot a tensor, so one graph serves every slot.
+  ``prewarm()`` compiles them at ``prefill_lengths``; a request at
+  another length compiles its prefill and installs on the request path,
+  as the reference's jit does, and its entries stay for the engine's
+  life (inductor took 151-232 s for OLMoE-1B-7B's full-depth prefill on
+  an H100 80GB HBM3 at 700 W: list the traffic's lengths).  An entry
+  raises past dynamo's recompile limit and never runs uncompiled.  The
+  install and the move write the rows of the engine's cache in place.
+  Without ``jit_prefill`` they are the model's ``cache_set_slot`` /
+  ``cache_move_slot`` row copies and the prefill runs eagerly; a model
+  without tensors (the tests' mock) runs that way.
 * The decode keeps the reference's functional signature: it returns a new
   cache, which the engine keeps.  Its baked plan clones its outputs out
   of the CUDA graph's pool, and the first call that brings another cache
@@ -66,7 +78,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import faults
+from repro_torch.core import faults, jit
 from repro_torch.core import resilience as R
 from repro_torch.models.spec import leaves as tree_leaves, tree_map
 from repro_torch.serve.buckets import BucketError, BucketPolicy, \
@@ -88,7 +100,19 @@ class ServeConfig:
     lilac_mode: str = "host"
     policy: str = "default"
     plan_cache: Any = None                   # forwarded to lilac.compile
+    # compile the admission/eviction tensor plumbing (prefill, cache-row
+    # install, slot moves) with torch.compile.  True requires a model with
+    # tensors; mock models in tests turn it off and the engine calls the
+    # model's cache hooks directly.
+    jit_prefill: bool = True
     prewarm_on_start: bool = True
+    # prompt lengths whose prefill (and install) graphs are compiled during
+    # prewarm — requests at other lengths still work, they just pay a
+    # first-occurrence compile on the request path
+    prefill_lengths: Tuple[int, ...] = ()
+    # the torch.compile backend of those graphs; None: inductor on the
+    # card, aot_eager on the CPU (jit.backend_for)
+    compile_backend: Optional[str] = None
     # default per-request deadline (seconds from arrival): a request past
     # it is evicted with failed="deadline" instead of holding a slot;
     # None = no deadline unless the Request carries its own
@@ -169,6 +193,15 @@ class Engine:
             self.metrics.set_resilience_provider(self._decode.resilience_info)
         else:
             self._decode = model.decode
+        if self.config.jit_prefill and self.device is None:
+            raise ValueError("jit_prefill compiles the model's prefill: "
+                             "a model without tensors runs with "
+                             "jit_prefill=False")
+        # (kind, shape...) -> jit.Entry: the compiled prefill at each
+        # length, install at each (length, batch, seq) and move at each
+        # (batch, seq)
+        self._entries: Dict[Tuple, jit.Entry] = {}
+        self._warm_compiles = 0
         if self.config.prewarm_on_start and self.config.use_lilac:
             self.prewarm()
 
@@ -194,8 +227,42 @@ class Engine:
         report = self._decode.prewarm(*sigs)
         report["grid"] = [list(g) for g in self.buckets.grid()]
         self._prewarmed = set(self.buckets.grid())
+        # admission warmup: compile the prefill at each prewarmed length,
+        # the cache-row install and the slot move at each bucket now, so
+        # that admission and eviction at a prewarmed shape run compiled
+        # graphs only
+        lengths = list(self.config.prefill_lengths)
+        if lengths and self.config.jit_prefill:
+            t0 = time.perf_counter()
+            prefills = {L: self._prefill(np.zeros(L, np.int32))[1]
+                        for L in lengths}
+            for (b, s) in self.buckets.grid():
+                cache = self.model.init_cache(b, s, device=self.device)
+                for L in lengths:
+                    if L <= s:
+                        self._install(cache, prefills[L], 0, L, (b, s))
+                self._move(cache, 0, b - 1, (b, s))
+            del prefills, cache
+            report["prefill_warm_seconds"] = time.perf_counter() - t0
+        report["prefill_warmed"] = lengths
+        self._warm_compiles = self.compile_info()["compiles"]
         self.metrics.record_prewarm(report)
         return report
+
+    def compile_info(self) -> Dict[str, Any]:
+        """The compiled admission entries (``jit_prefill``): how many, the
+        graphs they compiled, their graph breaks and compile seconds, and
+        the graphs compiled since ``prewarm()`` ended (on the request
+        path), with each entry's counts."""
+        stats = [e.stats() | {"key": list(k)}
+                 for k, e in self._entries.items()]
+        total = sum(st["compiles"] for st in stats)
+        return {"entries": len(stats), "compiles": total,
+                "request_path_compiles": total - self._warm_compiles,
+                "graph_breaks": sum(st["graph_breaks"] for st in stats),
+                "compile_seconds": sum(st["compile_seconds"]
+                                       for st in stats),
+                "by_entry": stats}
 
     # -- request intake --------------------------------------------------
 
@@ -348,9 +415,59 @@ class Engine:
         return a if self.device is None else \
             torch.from_numpy(a).to(self.device)
 
+    def _entry(self, key: Tuple, fn) -> jit.Entry:
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = jit.Entry(
+                fn, self.config.compile_backend
+                or jit.backend_for(self.device),
+                name="/".join(map(str, key)))
+        return entry
+
     def _prefill(self, prompt: np.ndarray):
-        return self.model.prefill(
-            self.params, {"tokens": self._as_input(prompt[None, :])})
+        tokens = self._as_input(prompt[None, :])
+        if not self.config.jit_prefill:
+            return self.model.prefill(self.params, {"tokens": tokens})
+        model = self.model
+
+        def prefill(params, tokens):
+            return model.prefill(params, {"tokens": tokens})
+        return self._entry(("prefill", len(prompt)), prefill)(self.params,
+                                                              tokens)
+
+    def _slot(self, i: int) -> torch.Tensor:
+        return torch.tensor([i], dtype=torch.long, device=self.device)
+
+    def _install(self, cache, caches, slot: int, L: int,
+                 bucket: Tuple[int, int]):
+        """Write the prefill's caches (length ``L``) into row ``slot`` of
+        ``cache`` (at ``bucket``, its (batch, seq capacity)); returns
+        ``cache``."""
+        model, S = self.model, bucket[1]
+        if not self.config.jit_prefill:
+            return model.cache_set_slot(cache, slot,
+                                        model.cache_from_prefill(caches, L, S))
+
+        def install(cache, caches, slot):
+            row = model.cache_from_prefill(caches, L, S)
+            tree_map(lambda full, one: full.index_copy_(
+                0, slot, one.to(full.dtype)), cache, row)
+        self._entry(("install", L) + tuple(bucket), install)(
+            cache, caches, self._slot(slot))
+        return cache
+
+    def _move(self, cache, src: int, dst: int, bucket: Tuple[int, int]):
+        """Copy row ``src`` over row ``dst`` of ``cache`` (at ``bucket``);
+        returns ``cache``."""
+        if not self.config.jit_prefill:
+            return self.model.cache_move_slot(cache, src, dst)
+
+        def move(cache, src, dst):
+            tree_map(lambda a: a.index_copy_(0, dst, a.index_select(0, src)),
+                     cache)
+        self._entry(("move",) + tuple(bucket), move)(
+            cache, self._slot(src), self._slot(dst))
+        return cache
 
     def _solo(self, prompt, n: int, shapes, *, eos_id=None) -> List[int]:
         """``n`` greedy tokens of ``prompt`` decoded alone in row 0, step
@@ -358,9 +475,8 @@ class Engine:
         ``eos_id``."""
         B, S = shapes[0]
         logits, caches = self._prefill(prompt)
-        cache = self.model.cache_set_slot(
-            self.model.init_cache(B, S, device=self.device), 0,
-            self.model.cache_from_prefill(caches, len(prompt), S))
+        cache = self._install(self.model.init_cache(B, S, device=self.device),
+                              caches, 0, len(prompt), (B, S))
         toks = [int(_greedy(logits)[0][0])]
         while len(toks) < n and (eos_id is None or toks[-1] != eos_id):
             b, s = shapes[min(len(toks) - 1, len(shapes) - 1)]
@@ -397,9 +513,8 @@ class Engine:
             slot = self.scheduler.active.index(req)
             t0 = self.clock()
             logits, caches = self._prefill(req.prompt)
-            self._cache = self.model.cache_set_slot(
-                self._cache, slot, self.model.cache_from_prefill(
-                    caches, req.prompt_len, self._shape[1]))
+            self._cache = self._install(self._cache, caches, slot,
+                                        req.prompt_len, self._shape)
             req.tokens.append(int(_greedy(logits)[0][0]))
             req.prefill_s = self.clock() - t0
             req.ttft_s = self.clock() - req.arrival_t
@@ -488,7 +603,7 @@ class Engine:
     def _evict(self) -> List[Request]:
         finished, moves = self.scheduler.evict_finished()
         for src, dst in moves:
-            self._cache = self.model.cache_move_slot(self._cache, src, dst)
+            self._cache = self._move(self._cache, src, dst, self._shape)
         now = self.clock()
         for r in finished:
             r.finish_t = now

@@ -28,8 +28,9 @@ class SyntheticWorkload:
     rate_rps: float = 0.0                        # <= 0: closed burst at t=0
     seed: int = 0
     # when set, prompt lengths are drawn from this grid instead of the
-    # prompt_len range (the reference prewarms a jitted prefill per length;
-    # the port's eager prefill takes any length, and the draws are the same)
+    # prompt_len range — a small length set lets the engine prewarm every
+    # prefill shape (ServeConfig.prefill_lengths) so no compile lands on
+    # the request path
     prompt_grid: Tuple[int, ...] = ()
 
     def _gap(self, j: int) -> float:

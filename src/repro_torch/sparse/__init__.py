@@ -23,14 +23,18 @@ from repro_torch.sparse.formats import (
     pack_bcsr,
     to_numpy,
 )
-from repro_torch.sparse.ops import (bcsr_spmm_ref, spmv_coo_ref, spmv_csr_ref,
-                                    spmv_ell_ref)
-from repro_torch.sparse.random import random_csr, random_spd_csr, stencil27_csr
+from repro_torch.sparse.ops import (bcsr_spmm_ref, spmm_csr_ref, spmv_coo_ref,
+                                    spmv_csr_ref, spmv_ell_ref, spmv_jds_ref)
+from repro_torch.sparse.random import (random_bcsr, random_csr,
+                                       random_graph_csr, random_spd_csr,
+                                       stencil27_csr)
 
 __all__ = [
     "CSR", "COO", "ELL", "JDS", "WindowedELL", "BCSR", "PackedBCSR",
     "csr_from_dense", "coo_from_dense", "ell_from_csr", "ell_windows",
     "jds_from_csr", "bcsr_from_dense", "pack_bcsr", "from_numpy", "to_numpy",
-    "spmv_csr_ref", "spmv_coo_ref", "spmv_ell_ref", "bcsr_spmm_ref",
-    "random_csr", "random_spd_csr", "stencil27_csr",
+    "spmv_csr_ref", "spmv_coo_ref", "spmv_ell_ref", "spmv_jds_ref",
+    "bcsr_spmm_ref", "spmm_csr_ref",
+    "random_csr", "random_bcsr", "random_graph_csr", "random_spd_csr",
+    "stencil27_csr",
 ]

@@ -6,11 +6,23 @@ memoizes them keyed on the source arrays' fingerprints.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.sparse.formats import (BCSR, CSR, ELL, JDS, PackedBCSR,
                                         ell_from_csr, jds_from_csr,
                                         packed_bcsr)
+
+
+def infer_cols(col_ind, explicit_cols: int | None = None) -> int:
+    """The paper's `cols = max(col_ind)+1` invariant (Fig. 7 lines 2-5 /
+    Fig. 9 `Maximum` INPUT)."""
+    if explicit_cols is not None:
+        return int(explicit_cols)
+    if isinstance(col_ind, torch.Tensor):
+        return int(col_ind.max()) + 1 if col_ind.numel() else 0
+    c = np.asarray(col_ind)
+    return int(c.max()) + 1 if c.size else 0
 
 
 def csr_to_ell(csr: CSR, **kw) -> ELL:
@@ -131,3 +143,14 @@ def csr_to_packed_bcsr(csr: CSR, block_shape=(128, 128)) -> PackedBCSR:
     return packed_bcsr(val, tile, local, block_col,
                        block_rowptr.to(torch.int32),
                        (block_rows * bm, block_cols * bk), (bm, bk))
+
+
+def csr_to_dense(csr: CSR) -> torch.Tensor:
+    return csr.todense()
+
+
+def pad_vector(vec, to: int) -> torch.Tensor:
+    v = torch.as_tensor(vec)
+    if v.shape[0] < to:
+        v = torch.nn.functional.pad(v, (0, to - v.shape[0]))
+    return v

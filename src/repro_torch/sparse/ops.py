@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sparse.formats import BCSR, COO, CSR, ELL
+from repro_torch.sparse.formats import BCSR, COO, CSR, ELL, JDS
 
 
 def row_ids_from_row_ptr(row_ptr: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -41,6 +41,26 @@ def spmv_ell_ref(ell: ELL, vec: torch.Tensor) -> torch.Tensor:
                        device=acc.device).index_put((ell.perm.long(),), acc)
 
 
+def spmv_jds_ref(jds: JDS, vec: torch.Tensor) -> torch.Tensor:
+    """Paper Fig. 5 semantics:
+
+    output[perm[i]] = sum(0 <= j < nzcnt[i])
+        val[jd_ptr[j] + i] * vector[col_ind[jd_ptr[j] + i]]
+    """
+    rows = jds.shape[0]
+    max_nnz = jds.jd_ptr.shape[0] - 1
+    acc = torch.zeros(rows, dtype=jds.val.dtype, device=jds.val.device)
+    if max_nnz == 0 or jds.val.shape[0] == 0:   # all-zero matrix
+        return acc
+    i = torch.arange(rows, device=jds.val.device)
+    for j in range(max_nnz):
+        live = jds.nzcnt > j
+        idx = torch.where(live, jds.jd_ptr[j] + i, 0).long()
+        acc = acc + torch.where(live, jds.val[idx] * vec[jds.col_ind[idx]],
+                                0.0).to(acc.dtype)
+    return torch.zeros_like(acc).index_put((jds.perm.long(),), acc)
+
+
 def bcsr_spmm_ref(bcsr: BCSR, dense: torch.Tensor) -> torch.Tensor:
     """(rows, cols) block-sparse @ (cols, n) dense -> (rows, n)."""
     bm, bk = bcsr.block_shape
@@ -53,3 +73,10 @@ def bcsr_spmm_ref(bcsr: BCSR, dense: torch.Tensor) -> torch.Tensor:
                       device=prod.device).index_add(0, brow, prod)
     return out.reshape(rows, n)
 
+
+def spmm_csr_ref(csr: CSR, dense: torch.Tensor) -> torch.Tensor:
+    """CSR @ dense (cols, n) -> (rows, n)."""
+    row = row_ids_from_row_ptr(csr.row_ptr, csr.nnz)
+    prod = csr.val[:, None] * dense[csr.col_ind]
+    return torch.zeros((csr.rows, dense.shape[1]), dtype=prod.dtype,
+                       device=prod.device).index_add(0, row, prod)

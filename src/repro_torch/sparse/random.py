@@ -1,17 +1,20 @@
 """Deterministic sparse matrix generators (host-side numpy).
 
-``random_dense_sparse`` / ``random_csr`` are the counterparts of
-``repro.sparse.random`` and give the same bytes from the same seed.  They
-build a dense ``rows x cols`` array first, so they serve small sizes only;
-``random_spd_csr`` and ``stencil27_csr`` build CSR directly and reach the
-sizes sparse solvers run (a symmetric diagonally dominant matrix at the NAS
-CG benchmark's sizes, and HPCG's 27-point operator).
+``random_dense_sparse``, ``random_csr``, ``random_bcsr`` and
+``random_graph_csr`` are the counterparts of ``repro.sparse.random`` and
+give the same bytes from the same seed.  The first three build a dense
+``rows x cols`` array first, so they serve small sizes only;
+``random_graph_csr`` draws the reference's stream a block of rows at a
+time, and ``random_spd_csr`` and ``stencil27_csr`` build CSR directly and
+reach the sizes sparse solvers run (a symmetric diagonally dominant matrix
+at the NAS CG benchmark's sizes, and HPCG's 27-point operator).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.sparse.formats import CSR, _t, csr_from_dense
+from repro_torch.sparse.formats import (BCSR, CSR, _t, bcsr_from_dense,
+                                        csr_from_dense)
 
 
 def random_dense_sparse(rows: int, cols: int, density: float, seed: int = 0,
@@ -34,6 +37,50 @@ def random_csr(rows: int, cols: int, density: float = 0.05, seed: int = 0,
                dtype=np.float32, skew: float = 0.0, device="cpu") -> CSR:
     return csr_from_dense(
         random_dense_sparse(rows, cols, density, seed, dtype, skew), device)
+
+
+def random_bcsr(rows: int, cols: int, block_shape=(8, 128),
+                block_density: float = 0.2, seed: int = 0,
+                dtype=np.float32, device="cpu") -> BCSR:
+    rng = np.random.default_rng(seed)
+    bm, bn = block_shape
+    mask = rng.random((rows // bm, cols // bn)) < block_density
+    d = rng.standard_normal((rows, cols)).astype(dtype)
+    d = d * np.kron(mask, np.ones((bm, bn))).astype(dtype)
+    return bcsr_from_dense(d, block_shape, device)
+
+
+#: rows of the (rows, nodes) float64 draw random_graph_csr holds at once
+GRAPH_DRAW_ELEMENTS = 1 << 24
+
+
+def random_graph_csr(nodes: int, avg_degree: float = 8.0, seed: int = 0,
+                     dtype=np.float32, device="cpu") -> CSR:
+    """Erdos-Renyi-ish adjacency in CSR, no self-loops, each column's
+    entries summing to one (column-stochastic: PageRank's links).  The
+    reference draws one (nodes, nodes) float64 matrix; the same stream is
+    drawn here a block of rows at a time (``Generator.random`` fills row
+    by row), so the bytes are the reference's with ~128 MB held at once
+    instead of 8·nodes² bytes."""
+    rng = np.random.default_rng(seed)
+    density = min(1.0, avg_degree / nodes)
+    step = max(1, GRAPH_DRAW_ELEMENTS // max(nodes, 1))
+    rs, cs = [], []
+    for r0 in range(0, nodes, step):
+        mask = rng.random((min(step, nodes - r0), nodes)) < density
+        r, c = np.nonzero(mask)          # row-major: CSR order
+        keep = r + r0 != c
+        rs.append(r[keep] + r0)
+        cs.append(c[keep])
+    r = np.concatenate(rs) if rs else np.zeros(0, np.int64)
+    c = np.concatenate(cs) if cs else np.zeros(0, np.int64)
+    deg = np.bincount(c, minlength=nodes).astype(dtype)
+    val = np.divide(np.ones(c.shape[0], dtype), np.maximum(deg, 1.0)[c],
+                    dtype=dtype)
+    row_ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(r, minlength=nodes))]).astype(np.int32)
+    return CSR(val=_t(val, device), col_ind=_t(c.astype(np.int32), device),
+               row_ptr=_t(row_ptr, device), shape=(nodes, nodes))
 
 
 def _csr_from_triplets(r, c, v, n, device) -> CSR:

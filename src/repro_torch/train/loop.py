@@ -1,8 +1,22 @@
-"""The training loop: the step, checkpoint/restart and the straggler
-hooks, on one device or on a mesh.
+"""The training loop: the compiled step, checkpoint/restart and the
+straggler hooks, on one device or on a mesh.
 
 Counterpart of ``repro.train.loop``, the driver of
-``repro_torch.examples.train_e2e`` and ``repro_torch.launch.train``.  On
+``repro_torch.examples.train_e2e`` and ``repro_torch.launch.train``.  The
+reference always runs its step under ``jax.jit``; here the step runs
+under ``torch.compile`` (``core.jit.Entry``) with the backend the caller
+names, ``"inductor"`` by default; the CPU tests pass ``"aot_eager"``, and
+``backend=None`` runs the step uncompiled.  On one device the whole step
+(forward, backward by ``torch.func.grad_and_value``, AdamW) is one graph
+(``fullgraph=True``; an unrolled loop with microbatches), and the
+``lilac`` MoE's ``lilac_torch::moe_ffn`` lands in it; under ``cfg.remat``
+the gradient is ``torch.autograd.grad`` (``torch.func`` takes no
+checkpoint), a graph break.  Torch has no
+buffer donation, so the compiled step holds its inputs and its outputs
+at once, as the eager step does.  On a mesh the collectives are graph
+breaks (``launch.collectives``: gloo, staged through the host), and so is
+``torch.autograd.grad``: the forward compiles between the collectives and
+autograd runs the compiled pieces' backward.  On
 a mesh (``mesh=``, ``rules=``; the model's config has
 ``spmd_constraints``) every rank draws the same parameters from the seed
 and keeps its blocks at the parameter shardings, the optimizer state at
@@ -20,6 +34,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import jit
 from repro_torch.launch import collectives as C
 from repro_torch.models.factory import Model
 from repro_torch.train import optim as O
@@ -61,31 +76,60 @@ def shard_params(params, shardings):
                     shardings)
 
 
+#: dynamo's recompile limit for a step with graph breaks (the mesh's):
+#: each Python frame that runs between two breaks compiles on its own
+#: (a tree_map's per-leaf lambda at every leaf's shape and dtype), where
+#: dynamo's default, 8, would raise
+BROKEN_RECOMPILE_LIMIT = 64
+
+
+def compile_step(step_fn: Callable, backend) -> jit.Entry:
+    """``step_fn`` under ``torch.compile`` with ``backend``: one graph
+    (``fullgraph``) where the step says it traces whole (``one_graph``:
+    ``make_train_step`` on one device without remat), else with graph
+    breaks, which the entry counts."""
+    one = getattr(step_fn, "one_graph", False)
+    return jit.Entry(step_fn, backend, fullgraph=one,
+                     recompile_limit=None if one else BROKEN_RECOMPILE_LIMIT,
+                     name="train_step")
+
+
 def train_loop(model: Model, opt_cfg: O.AdamWConfig, loop_cfg: LoopConfig,
                batch_fn: Callable[[int], Dict[str, np.ndarray]], *,
                params=None, device="cuda", seed: int = 0,
                step_fn: Optional[Callable] = None, mesh=None, rules=None,
+               backend=jit.DEFAULT_BACKEND,
                emit: Callable[[str], None] = print) -> Dict[str, Any]:
     """Runs the loop from the latest checkpoint of ``loop_cfg.ckpt_dir``
     (with ``resume``) or from ``params`` (global; drawn from ``seed`` when
     None), each step by ``step_fn`` (default ``make_train_step(model,
-    opt_cfg)``); returns {params, opt_state, history, straggler,
-    start_step}, on a mesh the rank's blocks."""
+    opt_cfg)``) compiled with ``backend`` (:func:`compile_step`; None runs
+    it uncompiled; a ``step_fn`` that is already a ``core.jit.Entry`` runs
+    as it is, so that a second loop reuses its compiled graphs); returns
+    {params, opt_state, history, step_seconds (each step's wall time to
+    its loss on the host), straggler, start_step, compiled: the entry's
+    counts or None}, on a mesh the rank's blocks."""
     if mesh is None:
         return _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed,
-                    step_fn, None, None, emit)
+                    step_fn, backend, None, None, emit)
     with C.use_mesh(mesh):
         return _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed,
-                    step_fn, TS.param_shardings(model, mesh, rules),
+                    step_fn, backend, TS.param_shardings(model, mesh, rules),
                     TS.opt_state_shardings(model, opt_cfg, mesh, rules),
                     emit if mesh.get_rank() == 0 else (lambda _: None),
                     TS.batch_pspec(rules))
 
 
 def _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed, step_fn,
-         pshard, oshard, emit, bspec=None):
+         backend, pshard, oshard, emit, bspec=None):
     device = torch.device(device)
     step_fn = step_fn or TS.make_train_step(model, opt_cfg)
+    if not isinstance(step_fn, jit.Entry) and backend is not None:
+        step_fn = compile_step(step_fn, backend)
+    entry = step_fn if isinstance(step_fn, jit.Entry) else None
+    # a compiled step skips the check that every parameter gets a
+    # gradient inside its trace: it runs once here, on fake tensors
+    check = entry and getattr(entry.fn, "check_gradients", None)
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed),
                             device)
@@ -108,7 +152,7 @@ def _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed, step_fn,
     shardings = None if pshard is None else {"params": pshard, "opt": oshard}
 
     mon = StragglerMonitor()
-    history = []
+    history, seconds = [], []
     with _deterministic(loop_cfg.deterministic):
         for step in range(start_step, loop_cfg.steps):
             batch = {k: torch.as_tensor(v, device=device)
@@ -116,12 +160,15 @@ def _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed, step_fn,
             if bspec is not None:
                 batch = {k: C.local_of(v, bspec[:v.dim()])
                          for k, v in batch.items()}
+            if check is not None:
+                check(params, batch)
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])      # waits for the step
             dt = time.perf_counter() - t0
             mon.observe(step, dt)
             history.append(loss)
+            seconds.append(dt)
             heartbeat(step, {**metrics, "sec": dt},
                       log_every=loop_cfg.log_every, emit=emit)
             if ckpt and (step + 1) % loop_cfg.ckpt_every == 0:
@@ -134,4 +181,5 @@ def _run(model, opt_cfg, loop_cfg, batch_fn, params, device, seed, step_fn,
         ckpt.save(loop_cfg.steps, {"params": params, "opt": opt_state},
                   blocking=True, shardings=shardings)
     return {"params": params, "opt_state": opt_state, "history": history,
-            "straggler": mon, "start_step": start_step}
+            "step_seconds": seconds, "straggler": mon, "start_step": start_step,
+            "compiled": entry.stats() if entry is not None else None}

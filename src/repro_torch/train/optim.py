@@ -175,8 +175,10 @@ def adamw_update(cfg: AdamWConfig, grads, state, params, mesh_specs=None):
     new_mu = pytree.tree_map(lambda t: t[0], triples, is_leaf=is_triple)
     new_nu = pytree.tree_map(lambda t: t[1], triples, is_leaf=is_triple)
     new_master = pytree.tree_map(lambda t: t[2], triples, is_leaf=is_triple)
-    new_params = pytree.tree_map(lambda m, p: m.to(p.dtype), new_master,
-                                 params)
+    # a copy also at f32, so that no parameter aliases its master weight (a
+    # compiled step would otherwise see its inputs alias from step 2 on)
+    new_params = pytree.tree_map(lambda m, p: m.to(p.dtype, copy=True),
+                                 new_master, params)
     new_state = {"step": step, "mu": new_mu, "nu": new_nu,
                  "master": new_master}
     if new_err is not None:

@@ -27,6 +27,84 @@ from repro_torch.models.factory import Model
 from repro_torch.train import optim as O
 
 
+class ValueAndGrad:
+    """The one-device step's ``(params, batch) -> (loss, grads)`` by
+    ``torch.func.grad_and_value``
+    over the floating leaves of ``params`` (``torch.utils.checkpoint``,
+    custom ops and ``torch.autograd.Function``s with ``setup_context``
+    all take part); other leaves, and the top-level entries named in
+    ``unread`` (which the loss does not read by construction), get zeros.
+    The functional transform traces whole under ``torch.compile``
+    (``torch.autograd.grad`` is a graph break there), so the eager step
+    and the compiled step compute the same bits.
+
+    A floating leaf that the loss does not reach raises ``ValueError``
+    naming it: a harness that lost autograd history must not train its
+    parameters with a zero gradient.  :meth:`check` runs
+    :func:`value_and_grad`, which finds such leaves, on fake copies of
+    the inputs (the graph's structure, no device work), once for each
+    structure of the inputs; an eager call checks before it computes,
+    and a compiled caller calls :meth:`check` before its first call
+    (inside the trace the check is skipped)."""
+
+    def __init__(self, loss_fn: Callable, unread=()):
+        self.loss_fn = loss_fn
+        self.unread = tuple(unread)
+        self._checked: set = set()
+
+    @staticmethod
+    def _key(params, batch):
+        def sig(t):
+            return (tuple(t.shape), t.dtype, t.device.type) \
+                if isinstance(t, torch.Tensor) else repr(t)
+        return repr([(pytree.keystr(p), sig(t)) for p, t in
+                     pytree.tree_flatten_with_path((params, batch))[0]])
+
+    def check(self, params, batch) -> None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        key = self._key(params, batch)
+        if key in self._checked:
+            return
+        mode = FakeTensorMode()
+
+        def fake(t):
+            return mode.from_tensor(t) if isinstance(t, torch.Tensor) else t
+        with mode:
+            value_and_grad(self.loss_fn, self.unread)(
+                pytree.tree_map(fake, params), pytree.tree_map(fake, batch))
+        self._checked.add(key)
+
+    def __call__(self, params, batch):
+        if not torch.compiler.is_compiling():
+            self.check(params, batch)
+        leaves, spec = pytree.tree_flatten_with_path(params)
+        mask = [t.is_floating_point()
+                and getattr(path[0], "key", None) not in self.unread
+                for path, t in leaves]
+        wrt = [t for (_, t), m in zip(leaves, mask) if m]
+
+        def loss_of(wrt):
+            it = iter(wrt)
+            full = [next(it) if m else t for (_, t), m in zip(leaves, mask)]
+            return self.loss_fn(pytree.tree_unflatten(full, spec), batch)
+
+        got, loss = torch.func.grad_and_value(loss_of)(wrt)
+        got = iter(got)
+        grads = [next(got) if m else torch.zeros_like(t)
+                 for (_, t), m in zip(leaves, mask)]
+        return loss.detach(), pytree.tree_unflatten(grads, spec)
+
+
+@torch.compiler.disable
+def _autograd_grad(loss, wrt):
+    """``torch.autograd.grad`` outside ``torch.compile``: a graph break in
+    a compiled step, where it runs the compiled pieces' backward; no
+    Python frame of the backward (an autograd Function's, a
+    collective's) is traced."""
+    return torch.autograd.grad(loss, wrt, allow_unused=True)
+
+
 def value_and_grad(loss_fn: Callable, unread=()) -> Callable:
     """``(params, batch) -> (loss, grads)`` by autograd: the floating
     leaves of ``params`` are differentiated (``torch.utils.checkpoint``,
@@ -35,7 +113,15 @@ def value_and_grad(loss_fn: Callable, unread=()) -> Callable:
     naming it: a harness that lost autograd history must not train its
     parameters with a zero gradient.  Other leaves, and the top-level
     entries named in ``unread`` (which the loss does not read by
-    construction), get zeros."""
+    construction), get zeros.
+
+    The step's route on a mesh, whose collectives are autograd Functions
+    that stage through the host (``launch.collectives``) and take no
+    functional transform, and under ``cfg.remat``, whose
+    ``torch.utils.checkpoint`` saved-tensor hooks ``torch.func`` refuses.
+    Under ``torch.compile`` ``torch.autograd.grad`` is a graph break: the
+    forward compiles (between the collectives) and autograd runs the
+    compiled pieces' backward."""
     def run(params, batch):
         leaves, spec = pytree.tree_flatten_with_path(params)
         live = [t.detach().requires_grad_(
@@ -44,7 +130,7 @@ def value_and_grad(loss_fn: Callable, unread=()) -> Callable:
                 for path, t in leaves]
         loss = loss_fn(pytree.tree_unflatten(live, spec), batch)
         wrt = [t for t in live if t.requires_grad]
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        got = iter(_autograd_grad(loss, wrt))
         grads = []
         for (path, _), t in zip(leaves, live):
             if not t.requires_grad:
@@ -120,8 +206,9 @@ def make_train_step(model: Model, opt_cfg: O.AdamWConfig, *,
     else:
         # a stub frontend's training reads embeddings, not the token table
         # its decode keeps (the reference gives the table a zero gradient)
-        vg = value_and_grad(model.loss_fn, unread=(
-            ("embed",) if model.cfg.frontend == "stub" else ()))
+        unread = ("embed",) if model.cfg.frontend == "stub" else ()
+        vg = (ValueAndGrad if specs is None and not model.cfg.remat
+              else value_and_grad)(model.loss_fn, unread=unread)
 
     def train_step(params, opt_state, batch):
         if mb == 1:
@@ -148,6 +235,12 @@ def make_train_step(model: Model, opt_cfg: O.AdamWConfig, *,
             opt_cfg, grads, opt_state, params, mesh_specs=specs)
         return new_params, new_state, dict(metrics, loss=loss)
 
+    # a step that traces as one graph (torch.func's gradient; a Python
+    # loop over the microbatches unrolls), and what a compiled caller runs
+    # before its first call (train.loop)
+    train_step.one_graph = isinstance(vg, ValueAndGrad)
+    if train_step.one_graph:
+        train_step.check_gradients = vg.check
     return train_step
 
 

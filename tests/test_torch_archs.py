@@ -447,7 +447,7 @@ def test_rwkv_engine_streams_equal_the_teacher_forced_decode():
              for p, n in ((5, 4), (3, 6), (7, 3))]
     eng = Engine(model, params, ServeConfig(
         buckets=BucketPolicy(batch=(1, 2), seq=(16,)),
-        prewarm_on_start=False, plan_cache="off"))
+        prewarm_on_start=False, plan_cache="off", jit_prefill=False))
     reqs = [Request(prompt=p, max_new_tokens=n) for p, n in specs]
     for r in reqs:
         assert eng.submit(r)

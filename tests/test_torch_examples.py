@@ -74,3 +74,35 @@ def test_serve_example_on_the_cpu(capsys):
     assert snap["prewarm"]["baked"] == snap["prewarm"]["n_signatures"] == 6
     out = capsys.readouterr().out
     assert "selections: ['torch.capacity', 'torch.capacity']" in out
+
+
+@pytest.mark.parametrize("name,args,says", [
+    ("quickstart", [], "(torch.compile, aot_eager)"),
+    ("cg_solver", ["--n", "1500", "--iters", "20"],
+     "naive: the SpMV under torch.compile (aot_eager, 1 graph)"),
+    ("bfs", ["--nodes", "500"], "naive (torch.compile, aot_eager)"),
+    ("pagerank", ["--nodes", "500"], "naive (compiled) "),
+    ("autotune_demo", ["--n", "500", "--trace"],
+     "trace mode under torch.compile (aot_eager, 1 graph): winner"),
+])
+def test_examples_compile_their_baselines_on_the_cpu(name, args, says,
+                                                     monkeypatch, capsys):
+    """Each SpMV example times its naive baseline under torch.compile, as
+    the reference jits it (aot_eager on the CPU), and autotune_demo runs
+    trace mode inside torch.compile; each agrees with its naive run."""
+    import importlib
+    import sys
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(sys, "argv", [name, "--device", "cpu", *args])
+    mod.main()
+    out = capsys.readouterr().out
+    assert says in out, out
+    if name == "quickstart":
+        assert "max |lilac - naive| = 0.0" in out
+    if name == "pagerank":
+        assert "|x_lilac - x_naive|_inf = 0.00e+00" in out
+    if name == "bfs":
+        reached = [ln for ln in out.splitlines() if ln.startswith("reached")]
+        a, b = (int(w) for w in reached[0].split() if w.isdigit())
+        assert a == b

@@ -43,7 +43,7 @@ from test_torch_serve import MockModel, _mock_engine, _own_store, \
 
 def _mock_fleet(n=3, *, fault_streak=8, request_shadow_rate=None, **kw):
     cfg = ServeConfig(buckets=BucketPolicy(batch=(1, 2, 4), seq=(32, 64)),
-                      use_lilac=False,
+                      use_lilac=False, jit_prefill=False,
                       request_shadow_rate=request_shadow_rate, **kw)
     engines = [Engine(MockModel(), params=None, config=cfg)
                for _ in range(n)]
@@ -144,7 +144,7 @@ def test_all_replicas_lost_fails_loudly():
 def test_past_deadline_request_lost_at_failover():
     t = [0.0]
     cfg = ServeConfig(buckets=BucketPolicy(batch=(1, 2), seq=(32,)),
-                      use_lilac=False)
+                      use_lilac=False, jit_prefill=False)
     engines = [Engine(MockModel(), params=None, config=cfg,
                       clock=lambda: t[0]) for _ in range(2)]
     fd = FrontDoor(engines, clock=lambda: t[0])
@@ -173,7 +173,7 @@ def test_health_check_retires_fault_streak_replica():
             raise RuntimeError("hardware gone")
 
     cfg = ServeConfig(buckets=BucketPolicy(batch=(1, 2, 4), seq=(32,)),
-                      use_lilac=False)
+                      use_lilac=False, jit_prefill=False)
     healthy = Engine(MockModel(), params=None, config=cfg)
     broken = Engine(BrokenModel(), params=None, config=cfg)
     fd = FrontDoor([healthy, broken], fault_streak=2)
@@ -204,7 +204,7 @@ def test_a_fault_of_the_card_raises_through_engine_and_front_door():
             raise RuntimeError("gmm launch failed: cudaError 9")
 
     cfg = ServeConfig(buckets=BucketPolicy(batch=(2,), seq=(32,)),
-                      use_lilac=False)
+                      use_lilac=False, jit_prefill=False)
     eng = Engine(KernelBroken(), params=None, config=cfg)
     eng.device = torch.device("cuda")       # as an engine on the card
     eng._as_input = lambda a: a             # (its inputs stay numpy here)
@@ -285,7 +285,7 @@ def test_request_shadow_clean_streak():
 def test_request_shadow_forced_divergence_spikes_then_decays():
     eng = Engine(MockModel(), params=None, config=ServeConfig(
         buckets=BucketPolicy(batch=(1, 2), seq=(32,)),
-        use_lilac=False, request_shadow_rate=1.0))
+        use_lilac=False, jit_prefill=False, request_shadow_rate=1.0))
     assert eng.submit(_req([1, 2, 3], 4))
     with faults.inject("shadow_diverge:request"):
         eng.run_until_idle()
@@ -303,7 +303,7 @@ def test_request_shadow_forced_divergence_spikes_then_decays():
 def test_request_shadow_sampling_is_stratified():
     eng = Engine(MockModel(), params=None, config=ServeConfig(
         buckets=BucketPolicy(batch=(1, 2), seq=(32,)),
-        use_lilac=False, request_shadow_rate=0.25))
+        use_lilac=False, jit_prefill=False, request_shadow_rate=0.25))
     for i in range(8):
         assert eng.submit(_req([i + 1, 2, 3], 3))
     eng.run_until_idle()
@@ -470,7 +470,7 @@ def test_deadline_evicts_active_and_waiting():
     waiting: dropped from the queue) and counted separately."""
     now = {"t": 1.0}
     cfg = ServeConfig(buckets=BucketPolicy(batch=(1,), seq=(64,)),
-                      use_lilac=False, deadline_s=5.0)
+                      use_lilac=False, jit_prefill=False, deadline_s=5.0)
     eng = Engine(MockModel(), params=None, config=cfg,
                  clock=lambda: now["t"])
     r_active = Request(prompt=np.array([1, 2], np.int32),
@@ -561,6 +561,7 @@ def test_compiled_engine_request_shadow_clean_then_forced(smoke_model):
     next decode runs without it."""
     model, params = smoke_model
     eng = Engine(model, params, ServeConfig(buckets=_POLICY,
+                                            jit_prefill=False,
                                             request_shadow_rate=1.0))
     reqs = _requests()
     for r in reqs:
@@ -592,7 +593,7 @@ def test_compiled_fleet_survives_a_replica_crash(smoke_model):
     prewarm detects nothing (shared plan cache); replica_crash loses no
     request and every stream equals the fault-free run's."""
     model, params = smoke_model
-    cfg = ServeConfig(buckets=_POLICY)
+    cfg = ServeConfig(buckets=_POLICY, jit_prefill=False)
     first = Engine(model, params, cfg)
     second = Engine(model, params, cfg)
     assert first.metrics.prewarm["detect_calls"] == len(_POLICY.grid())
@@ -617,7 +618,7 @@ def test_compiled_fleet_survives_a_replica_crash(smoke_model):
 def test_build_fleet_on_the_cpu():
     fd = build_fleet("olmoe-1b-7b", n_replicas=2, device="cpu",
                      config=ServeConfig(buckets=BucketPolicy(
-                         batch=(1, 2), seq=(16,))))
+                         batch=(1, 2), seq=(16,)), jit_prefill=False))
     assert len(fd.replicas) == 2
     assert fd.replicas[1].engine.model is fd.replicas[0].engine.model
     assert fd.replicas[1].engine.metrics.prewarm["detect_calls"] == 0

@@ -820,20 +820,22 @@ def test_every_declared_slab_matches_plain_bit_for_bit(cuda, dtype,
 
 @pytest.mark.gpu
 def test_pagerank_on_unnormalized_links_differs_by_rounding_only(cuda):
-    """PageRank over the example's graph with its raw link values (not
-    split among out-links) through cuda.ell on the card: the iterate grows
-    past 1e24 in 40 steps, and the compiled SpMV still agrees with the
-    naive one to f32 rounding relative to it, so a large absolute
-    difference there is the iterate's size, not a wrong kernel."""
+    """PageRank over the example's graph with unnormalized links (each
+    0.5, not split among out-links) through cuda.ell on the card: the
+    iterate grows past 1e24 in 40 steps (~1e30), and the compiled SpMV
+    still agrees with the naive one to f32 rounding relative to it, so a
+    large absolute difference there is the iterate's size, not a wrong
+    kernel."""
     from repro_torch.examples import pagerank
     from repro_torch.examples.common import naive_spmv
 
     g, _ = pagerank.links(4096, cuda)
+    raw = torch.full_like(g.val, 0.5)
     spmv = lilac.compile(naive_spmv, mode="host", policy="cuda.ell",
                          device=cuda)
     before = K.LAUNCHES["spmv_ell_staged"]
-    x = pagerank.pagerank(spmv, g, g.val, 40)
-    want = pagerank.pagerank(naive_spmv, g, g.val, 40)
+    x = pagerank.pagerank(spmv, g, raw, 40)
+    want = pagerank.pagerank(naive_spmv, g, raw, 40)
     scale = float(want.abs().max())
     assert scale > 1e24
     assert float((x - want).abs().max()) <= 1e-5 * scale
@@ -1625,7 +1627,8 @@ def test_compiled_engine_across_rebuckets_and_slot_moves(cuda):
 
     model, params = _serving_model(cuda)
     eng = Engine(model, params, ServeConfig(
-        buckets=BucketPolicy(batch=(1, 2, 4), seq=(16, 32))))
+        buckets=BucketPolicy(batch=(1, 2, 4), seq=(16, 32)),
+        jit_prefill=False))
     compiled, steps = eng._decode, []
 
     def checked(p, cache, tokens, pos):
@@ -2357,3 +2360,75 @@ def test_user_make_fx_of_a_host_mode_marshal_raises_on_the_card(cuda, warm):
     assert K.LAUNCHES["spmv_ell_staged"] == before + 1
     assert fast.plan_info()["traced_calls"] == traced
     torch.testing.assert_close(got, naive(*args), **TOL)
+
+
+@pytest.mark.gpu
+def test_compiled_train_loop_launches_k4_from_inductors_program(cuda):
+    """``train_loop`` on the card compiles its step with inductor as one
+    graph (forward, ``torch.func`` backward, AdamW): the smoke OLMoE with
+    ``moe_impl="lilac"`` (cuda.gmm, K4's f32 body on f32 parameters)
+    launches K4 3 times a layer a step from the compiled program, and its
+    losses are the uncompiled loop's within 1e-2, the training phase's
+    tolerance: inductor fuses and reorders the f32 arithmetic around K4,
+    and a router logit that moves by a rounding flips a near-tied top-k
+    choice (the first loss read 0.36 % apart on an H100; bit for bit
+    under aot_eager on the CPU)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import optim as O
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import LoopConfig, train_loop
+
+    cfg = smoke_config(get_arch("olmoe-1b-7b")).replace(moe_impl="lilac")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=1)
+    opt = O.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    tlayers._LILAC_MOE.pop("cuda", None)
+    before = sum(K4.LAUNCHES.values())
+    got = train_loop(model, opt, LoopConfig(steps=2, log_every=100),
+                     data.batch_at, params=params, device=cuda,
+                     backend="inductor", emit=lambda s: None)
+    torch.cuda.synchronize()
+    assert sum(K4.LAUNCHES.values()) - before == 3 * cfg.n_layers * 2
+    stats = got["compiled"]
+    assert stats["fullgraph"] and stats["compiles"] == 1
+    assert stats["graph_breaks"] == 0
+    want = train_loop(model, opt, LoopConfig(steps=2, log_every=100),
+                      data.batch_at, params=params, device=cuda,
+                      backend=None, emit=lambda s: None)
+    np.testing.assert_allclose(got["history"], want["history"], rtol=1e-2)
+    tlayers._LILAC_MOE.pop("cuda", None)
+
+
+@pytest.mark.gpu
+def test_jit_prefill_engine_on_the_card(cuda):
+    """The engine's compiled admission with inductor on the card: the
+    prefill at each prewarmed length, the install and the move compile in
+    the prewarm, none on the request path, and the streams are the eager
+    prefill's."""
+    from repro_torch.serve import BucketPolicy, Request, ServeConfig, \
+        build_engine
+
+    rng = np.random.default_rng(3)
+    specs = [(rng.integers(1, 256, L).astype(np.int32), n)
+             for L, n in ((5, 4), (9, 3), (5, 2))]
+
+    def run(**kw):
+        eng = build_engine("olmoe-1b-7b", seed=2, device=cuda,
+                           config=ServeConfig(buckets=BucketPolicy(
+                               batch=(1, 2), seq=(16,)), **kw))
+        reqs = [Request(prompt=p, max_new_tokens=n) for p, n in specs]
+        for r in reqs:
+            assert eng.submit(r)
+        eng.run_until_idle()
+        return eng, [list(r.tokens) for r in reqs]
+
+    eng, got = run(jit_prefill=True, prefill_lengths=(5, 9))
+    info = eng.compile_info()
+    assert eng.metrics.prewarm["prefill_warmed"] == [5, 9]
+    assert info["compiles"] >= info["entries"] == 2 + 4 + 2
+    assert info["request_path_compiles"] == 0
+    assert {e["backend"] for e in info["by_entry"]} == {"inductor"}
+    _, want = run(jit_prefill=False)
+    assert got == want

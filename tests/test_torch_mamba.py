@@ -340,7 +340,7 @@ def test_jamba_engine_streams_equal_the_teacher_forced_decode():
     policy = BucketPolicy(batch=(4,), seq=(32,))
     eng = build_engine(ARCH, seed=2, device="cpu", config=ServeConfig(
         buckets=policy, prewarm_on_start=False, plan_cache="off",
-        policy="dense"))
+        policy="dense", jit_prefill=False))
     model, params = eng.model, eng.params
     rng = np.random.default_rng(3)
     reqs = [Request(prompt=rng.integers(1, model.cfg.vocab, p)

@@ -142,7 +142,8 @@ class MockModel:
 def _mock_engine(mode="continuous", batch=(1, 2, 4), seq=(16, 32, 64),
                  **kw):
     cfg = ServeConfig(buckets=BucketPolicy(batch=batch, seq=seq),
-                      mode=mode, use_lilac=False, **kw)
+                      mode=mode, use_lilac=False, jit_prefill=False,
+                      **kw)
     return Engine(MockModel(), params=None, config=cfg)
 
 
@@ -606,7 +607,7 @@ def test_engine_streams_match_the_reference_engine(small_lm, use_lilac):
     def run(serve, m, p):
         eng = serve.Engine(m, p, serve.ServeConfig(
             buckets=serve.BucketPolicy(batch=(1, 2), seq=(16,)),
-            use_lilac=use_lilac, prewarm_on_start=False))
+            use_lilac=use_lilac, prewarm_on_start=False, jit_prefill=False))
         reqs = [serve.Request(prompt=pr, max_new_tokens=n)
                 for pr, n in specs]
         for r in reqs:
@@ -627,7 +628,7 @@ def test_real_model_engine_matches_solo(small_lm):
     policy = BucketPolicy(batch=(1, 2), seq=(16,))
     eng = Engine(model, params,
                  ServeConfig(buckets=policy, use_lilac=False,
-                             prewarm_on_start=False))
+                             jit_prefill=False, prewarm_on_start=False))
     rng = np.random.default_rng(1)
     reqs = [Request(prompt=rng.integers(1, 256, size=p)
                     .astype(np.int32), max_new_tokens=n)
@@ -644,7 +645,8 @@ def test_real_model_engine_matches_solo(small_lm):
 def test_real_model_prewarm_bakes_grid(small_lm):
     _, _, model, params = small_lm
     policy = BucketPolicy(batch=(1, 2), seq=(16,))
-    eng = Engine(model, params, ServeConfig(buckets=policy))
+    eng = Engine(model, params, ServeConfig(buckets=policy,
+                                            jit_prefill=False))
     pw = eng.metrics.prewarm
     assert pw["n_signatures"] == len(policy.grid())
     assert pw["baked"] == len(policy.grid())
@@ -658,7 +660,8 @@ def test_real_model_prewarm_bakes_grid(small_lm):
     assert eng._decode.stats["detects"] == len(policy.grid())
     assert eng._decode.plan_info()["plan_hits"] >= 2
     # a second replica on the shared plan cache detects nothing
-    eng2 = Engine(model, params, ServeConfig(buckets=policy))
+    eng2 = Engine(model, params, ServeConfig(buckets=policy,
+                                             jit_prefill=False))
     assert eng2.metrics.prewarm["detect_calls"] == 0
     assert eng2.metrics.prewarm["baked"] == len(policy.grid())
 

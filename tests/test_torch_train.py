@@ -190,11 +190,11 @@ def test_train_restart_resumes(tmp_path):
     lc = LoopConfig(steps=6, ckpt_every=3, log_every=100,
                     ckpt_dir=str(tmp_path))
     train_loop(model, O.AdamWConfig(total_steps=10), lc, data.batch_at,
-               device="cpu", emit=lambda s: None)
+               device="cpu", backend="aot_eager", emit=lambda s: None)
     lc2 = LoopConfig(steps=8, ckpt_every=100, log_every=100,
                      ckpt_dir=str(tmp_path))
     r2 = train_loop(model, O.AdamWConfig(total_steps=10), lc2, data.batch_at,
-                    device="cpu", emit=lambda s: None)
+                    device="cpu", backend="aot_eager", emit=lambda s: None)
     assert len(r2["history"]) == 2      # resumed at 6, ran 6..8
 
 
@@ -208,13 +208,13 @@ def test_restart_repeats_the_uninterrupted_losses_bit_for_bit(tmp_path):
     lc = LoopConfig(steps=4, ckpt_every=2, log_every=100,
                     ckpt_dir=str(tmp_path), deterministic=True)
     r1 = train_loop(model, opt, lc, data.batch_at, device="cpu",
-                    emit=lambda s: None)
+                    backend="aot_eager", emit=lambda s: None)
     ck = Checkpointer(str(tmp_path))
     assert ck.available_steps() == [2, 4]
     import shutil
     shutil.rmtree(tmp_path / "step_4")
     r2 = train_loop(model, opt, lc, data.batch_at, device="cpu",
-                    emit=lambda s: None)
+                    backend="aot_eager", emit=lambda s: None)
     assert r2["start_step"] == 2
     assert r2["history"] == r1["history"][2:]
     for k, a in _flat(r1["params"]).items():
