@@ -176,7 +176,8 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      other's): each gradient within 1e-4 of its scale (max |ref|) plus
      1e-4 of itself of the uncompiled program's autograd, with launches,
      selections and ms;
-   * RWKV-6 1.6B at full width and depth (24 layers, d_model 2,048, 32
+   * RWKV-6 1.6B at full width, depth cut from 24 to RWKV_LAYERS = 6
+     (d_model 2,048, 32
      heads of 64, d_ff 7,168, vocab 65,536, bf16 from --seed): prefill on
      2 x 512 tokens and 16 teacher-forced decode steps against the
      forward over the 528 tokens (f32: relative L2 within 1e-3 at every
@@ -248,8 +249,9 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      uncompiled lilac step under torch.profiler (device time by kernel
      class, the top kernels, the device's idle share);
    * serving, in a process of its own (cuBLAS's workspace fixed):
-     OLMoE-1B-7B at full width and depth (16 layers, bf16 parameters from
-     --seed, moe_decode_impl="naive_flat") in repro_torch.serve's Engine
+     OLMoE-1B-7B at full width, depth cut from 16 to SERVE_LAYERS = 2
+     (bf16 parameters from --seed, moe_decode_impl="naive_flat") in
+     repro_torch.serve's Engine
      (continuous batching, host-mode lilac on the decode step, baked
      plans) over the bucket grid batch (1, 8) x seq (256, 512): prewarm
      bakes the four signatures (seconds each) and compiles the prefill
@@ -260,7 +262,7 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      whose burst needs both seq buckets and ends in the smaller) runs
      with no detection, no bucket miss and no compile on the request
      path, one moe_ffn match a layer
-     on cuda.gmm in every plan and K4 launched 3 x 16 times a decode step;
+     on cuda.gmm in every plan and K4 launched 3 x 2 times a decode step;
      prints TTFT, prefill and decode-step percentiles, tokens/s, peak
      memory, each bucket's plan (CUDA graph or eager, the bytes a replay
      copies, captures), one decode step under torch.profiler; checks each
@@ -270,7 +272,7 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      the uncompiled decode (bf16 against the uncompiled decode computing K4's
      function, 2e-2; f32 against the naive one, 1e-4; the prefill's first
      tokens equal); the engine's default prefill (inductor) of the model
-     cut to SERVE_INDUCTOR_LAYERS = 2 layers at the burst's first prompt
+     cut to SERVE_INDUCTOR_LAYERS = 1 layer at the burst's first prompt
      length, compiled apart as one graph, its logits on two prompts
      within 2x the eager prefill's relative L2 from the f32 oracle (at
      least 2e-2) of the eager prefill's (its compile seconds, ms beside the
@@ -289,10 +291,10 @@ toolkit.  It imports nothing of JAX or of the JAX package, and:
      padded baseline within relative L2 2e-2 of the f32 oracle; and K4 at
      the decode shapes (T = 1 and 8 tokens x top-8) in the kernels line;
    * serving granite-moe-3b-a800m, in a process of its own: full width,
-     depth cut from 32 to GRANITE_SERVE_LAYERS = 4 layers (d_model
+     depth cut from 32 to GRANITE_SERVE_LAYERS = 2 layers (d_model
      1,536, 24 heads on 8 kv heads, 40 experts of d_ff 512, top-8, vocab
      49,155, bf16 from --seed) through the same phase and checks on the
-     same grid (4 moe_ffn matches a signature, K4 3 x 4 times a decode
+     same grid (2 moe_ffn matches a signature, K4 3 x 2 times a decode
      step, each MoE layer of one
      compiled step against the naive dispatch, teacher-forced in bf16 and
      f32, the request shadow at rate 1), without the model-independent
@@ -527,9 +529,10 @@ def cuda_ms(fn, reps: int, median: bool = False):
 
 
 def profiled_ms(fn, reps: int, kernel: str) -> dict:
-    """torch.profiler over ``reps`` calls of ``fn``, after one call in its
-    warm-up step (the profiler can miss the first launches of its window
-    otherwise): ``ms``, the mean device time per launch of the CUDA
+    """torch.profiler over ``reps`` calls of ``fn``, after two calls in its
+    warm-up steps (the profiler can miss the first launches of its window
+    otherwise; after one it once saw 24 of a solve's 26 replayed
+    launches): ``ms``, the mean device time per launch of the CUDA
     kernels whose name holds ``kernel``; ``launches``, their launches a
     call; and ``device_ms``, the device time of every kernel a call (each
     None where the profiler records no device time)."""
@@ -542,11 +545,11 @@ def profiled_ms(fn, reps: int, kernel: str) -> dict:
         # the profiler's "clears events" notice, and no other warning
         warnings.filterwarnings("ignore", message=".*clears events")
         with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=reps,
+                     schedule=schedule(wait=0, warmup=2, active=reps,
                                        repeat=1),
                      on_trace_ready=lambda p: got.extend(
                          p.key_averages())) as prof:
-            for _ in range(reps + 1):
+            for _ in range(reps + 2):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -3779,25 +3782,457 @@ def dist_path(seed: int, device, work: str, cfg=None,
     return res
 
 
-def run_dist_phase(seed: int, work: str, timeout: int = 600) -> dict:
+# the recurrent mixers on the same mesh, tensor-parallel over model
+MESH_RWKV_LAYERS, MESH_RWKV_SEQ = 2, 512
+MESH_JAMBA_LAYERS = 2          # one period of Mamba + MLP, Mamba + MoE
+MESH_JAMBA_PROMPT, MESH_JAMBA_STEPS = 64, 8
+MESH_F32_RTOL = 1e-4           # the mesh against one device, f32
+# the f32 check's decode steps: one f32 decode step gathers the MoE
+# layer's 5.6 GB of experts a rank through the host (19.3 s on the card)
+MESH_F32_STEPS = 1
+# a rank's measured peak against the dry-run's, at most this factor either
+# way: the dry-run bakes no plan and stages nothing (its docstring), and
+# the measured peaks stood 0.93-1.95 times its own on an NVIDIA H100 80GB
+# HBM3 at 700 W (this script's distributed phase, PERF.md)
+DRYRUN_PEAK_FACTOR = 2.5
+
+
+def _mesh_cfgs(D: int, M: int):
+    """The phase's recurrent configurations: RWKV-6-1.6B and Jamba-v0.1 at
+    full width, depth cut (Jamba to one period of two Mamba layers: its
+    MLP layer, then its MoE layer on K4), for one device and the mesh."""
+    from repro_torch.configs import get_arch
+
+    rwkv = get_arch("rwkv6-1.6b").replace(n_layers=MESH_RWKV_LAYERS,
+                                          remat=False)
+    jamba = get_arch("jamba-v0.1-52b").replace(
+        n_layers=MESH_JAMBA_LAYERS, attn_layer_period=MESH_JAMBA_LAYERS,
+        moe_impl="lilac", moe_decode_impl="lilac")
+    on_mesh = dict(spmd_constraints=True,
+                   mesh_axis_sizes=(("data", D), ("model", M)))
+    return {"rwkv": (rwkv, rwkv.replace(**on_mesh)),
+            "jamba": (jamba.replace(moe_impl="naive",
+                                    moe_decode_impl="naive_flat"),
+                      jamba.replace(**on_mesh))}
+
+
+def dist_recurrent_path(seed: int, device, mesh_shape=DIST_MESH) -> dict:
+    """The recurrent mixers on the mesh, one rank's part: RWKV-6-1.6B's
+    training step (its time mix by heads and its channel mix by d_ff over
+    the model axis) in bf16 and in f32, each against the one-device step
+    (rank 0's, loss and grad norm; the f32 one is held); Jamba-v0.1's
+    prefill of one prompt a data rank and MESH_JAMBA_STEPS decode steps
+    (Mamba by its inner dim, the MoE layer by experts on K4 through
+    moe_impl="lilac"), in bf16 with K4's launches counted and each layer
+    held on its own input (a MoE layer against the naive dispatch, a Mamba
+    layer's prefill against the one-device block on rank 0), then in f32
+    over the prefill and MESH_F32_STEPS decode steps, the logits and every
+    new cache leaf against the one-device model (rank 0's, its results
+    broadcast).  Each step's peak memory, ms and collectives by mesh
+    axis.  Rank 0 keeps the full Jamba parameters on the host, so that
+    every rank's peak is its mesh step's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh, mesh_rules
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as Mb
+    from repro_torch.models.spec import leaves, tree_map
+    from repro_torch.train import optim as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.loop import shard_params
+
+    t_start = time.perf_counter()
+    rank = dist.get_rank()
+    D, M = mesh_shape
+    mesh = make_host_mesh(D, M)
+    # the training part's compiled MoE (its plans' CUDA graph pools and
+    # the tensors they read in place) and compiled step let go
+    L._LILAC_MOE.clear()
+    torch._dynamo.reset()
+    release(device)
+
+    def progress(what):        # on stderr: where a cut-off run stopped
+        if rank == 0:
+            print(f"distributed recurrent: {what} at "
+                  f"{time.perf_counter() - t_start:.1f}s", file=sys.stderr,
+                  flush=True)
+    rules = mesh_rules(False)
+    names = tuple(mesh.mesh_dim_names)
+    cfgs = _mesh_cfgs(D, M)
+    cuda = device.type == "cuda"
+    res = {"rank": rank, "allocated_at_start": (
+        torch.cuda.memory_allocated() if device.type == "cuda" else 0)}
+
+    def fresh_peak():
+        release(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sync(device)
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    def by_axis():
+        return {a: {k: dict(v) for k, v in kinds.items()}
+                for a, kinds in C.BY_AXIS.items()}
+
+    # -- RWKV-6-1.6B: one training step on the mesh -------------------------
+    cfg, cfg_m = cfgs["rwkv"]
+    one, mm = build_model(cfg), build_model(cfg_m)
+    params = one.init(torch.Generator(device=device).manual_seed(seed + 13),
+                      device)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=MESH_RWKV_SEQ,
+                       global_batch=TRAIN_BATCH, seed=seed)
+    b0 = {k: torch.as_tensor(v, device=device)
+          for k, v in data.batch_at(0).items()}
+    opt = O.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+
+    def one_device_step(p):
+        t0 = time.perf_counter()
+        met = TS.make_train_step(one, opt)(p, O.adamw_init(opt, p), b0)[2]
+        return {"loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "s": time.perf_counter() - t0}
+
+    # the one-device steps (rank 0's): the f32 oracle, and bf16 beside it
+    oracle = [None]
+    if rank == 0:
+        oracle[0] = {"bf16": one_device_step(params), "f32": one_device_step(
+            tree_map(lambda a: a.float(), params))}
+    dist.broadcast_object_list(oracle, src=0)
+    progress("RWKV-6 one-device steps")
+    runs = {}
+    with C.use_mesh(mesh):
+        psh = TS.param_shardings(mm, mesh, rules)
+        lb = {k: C.local_of(v, TS.batch_pspec(rules)) for k, v in b0.items()}
+        for name, dtype in (("bf16", None), ("f32", torch.float32)):
+            lp = shard_params(params if dtype is None else tree_map(
+                lambda a: a.to(dtype), params), psh)
+            st = O.adamw_init(opt, lp)
+            step = TS.make_train_step(mm, opt)
+            C.reset_stats()
+            fresh_peak()
+            t0 = time.perf_counter()
+            lp, st, met = step(lp, st, lb)
+            sync(device)
+            runs[name] = {"ms": 1e3 * (time.perf_counter() - t0),
+                          "loss": float(met["loss"]),
+                          "grad_norm": float(met["grad_norm"]),
+                          "oracle": oracle[0][name], "peak_bytes": peak(),
+                          "collectives": by_axis()}
+            del lp, st, met, step
+    res["rwkv"] = {
+        "config": {"name": cfg.name, "layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "heads": cfg.n_heads,
+                   "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                   "batch": TRAIN_BATCH, "seq": MESH_RWKV_SEQ,
+                   "params": one.param_count()},
+        "heads_local": cfg.n_heads // M, **runs}
+    del params, b0, lb
+    release(device)
+    progress("RWKV-6 mesh steps")
+
+    # -- Jamba-v0.1: prefill and decode on the mesh ------------------------
+    cfg, cfg_m = cfgs["jamba"]
+    one, mm = build_model(cfg), build_model(cfg_m)
+    P, T = MESH_JAMBA_PROMPT, MESH_JAMBA_STEPS
+    T32 = MESH_F32_STEPS
+    gen = torch.Generator(device="cpu").manual_seed(seed + 29)
+    tokens = torch.randint(1, cfg.vocab, (D, P + T), generator=gen,
+                           dtype=torch.int32).to(device)
+    with C.use_mesh(mesh):
+        psh = TS.param_shardings(mm, mesh, rules)
+        shape = ShapeConfig("mesh", P + T, D, "decode")
+        bsh = TS.batch_shardings(mm, shape, mesh, rules)
+        specs = tree_map(lambda sh: sh.spec, bsh["cache"])
+        tspec = bsh["tokens"].spec
+        tok = C.local_of(tokens, tspec)
+    # each rank draws the whole model in turn and keeps its blocks; rank 0
+    # keeps the whole model on the host
+    full, lp = None, None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            p = one.init(torch.Generator(device=device).manual_seed(
+                seed + 23), device)
+            with C.use_mesh(mesh):
+                lp = shard_params(p, psh)
+            if rank == 0:
+                full = tree_map(lambda a: a.cpu(), p)
+            del p
+            release(device)
+        dist.barrier()
+    progress("Jamba drawn")
+
+    def run_mesh(params, steps):
+        """The prefill and ``steps`` decode steps on the mesh: the logits
+        of each, the last cache, ms and peaks."""
+        out = {"logits": [], "step_ms": []}
+        with C.use_mesh(mesh), torch.no_grad():
+            fresh_peak()
+            t0 = time.perf_counter()
+            logits, caches = mm.prefill(params, {"tokens": tok[:, :P]})
+            sync(device)
+            out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            out["prefill_peak_bytes"] = peak()
+            out["logits"].append(logits)
+            cache = mm.cache_from_prefill(caches, P, P + T)
+            del caches
+            fresh_peak()
+            for t in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = mm.decode(params, cache,
+                                          tok[:, P + t:P + t + 1], P + t,
+                                          specs)
+                sync(device)
+                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                out["logits"].append(logits)
+            out["decode_peak_bytes"] = peak()
+        out["cache"] = cache
+        return out
+
+    # bf16, K4 counted, each layer on its own input
+    moe_io, mamba_io = [], []
+    block, mixer = L._moe_block_mesh, Mb.mamba_block
+
+    def recording_block(p, x, **kw):
+        o = block(p, x, **kw)
+        moe_io.append((x.detach(), o[0].detach()))
+        return o
+
+    def recording_mixer(p, x, state, d_state=16, shard_ctx=None):
+        o = mixer(p, x, state, d_state, shard_ctx=shard_ctx)
+        if x.shape[1] > 1:                 # the prefill: zero state
+            mamba_io.append((x.detach().cpu(), o[0].detach().cpu()))
+        return o
+
+    L._moe_block_mesh, Mb.mamba_block = recording_block, recording_mixer
+    try:
+        G.reset_launches()
+        C.reset_stats()
+        bf = run_mesh(lp, T)
+        launches = dict(G.LAUNCHES)
+        collectives = by_axis()
+    finally:
+        L._moe_block_mesh, Mb.mamba_block = block, mixer
+    jb = {"config": {"name": cfg.name, "layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "d_inner": 2 * cfg.d_model,
+                     "d_state": cfg.d_state, "experts": cfg.moe_experts,
+                     "topk": cfg.moe_topk, "d_ff": cfg.d_ff,
+                     "prompt": P, "steps": T, "batch": D,
+                     "params": one.param_count()},
+          "launches": launches, "collectives": collectives,
+          "bf16": {k: bf[k] for k in ("prefill_ms", "step_ms",
+                                      "prefill_peak_bytes",
+                                      "decode_peak_bytes")},
+          "finite": all(bool(torch.isfinite(x).all())
+                        for x in bf["logits"]),
+          "state_shapes": sorted({str(list(v.shape)) for k, v in
+                                  leaves(bf["cache"])})}
+    del bf
+    release(device)
+    # each MoE layer against the naive dispatch on its input (every rank,
+    # over its batch rows; the rank's experts' weights gathered), each
+    # Mamba layer's prefill against the one-device block (rank 0)
+    moe_rel, mamba_rel = [], []
+    if rank == 0:
+        pm = {k: v[0].to(device)
+              for k, v in full["blocks"]["b1"]["moe"].items()}
+        for x, o in moe_io:
+            with torch.no_grad():
+                want, _ = L.moe_block(pm, x, topk=cfg.moe_topk, impl="naive")
+            moe_rel.append(rel_l2(o, want))
+        jb["gmm"] = mesh_gmm_check(cfg, pm, moe_io[0][0], M, device)
+        del pm
+        for i, (x, o) in enumerate(mamba_io):
+            pb = {k: v[0].to(device) for k, v in
+                  full["blocks"][f"b{i % MESH_JAMBA_LAYERS}"]["mamba"].items()}
+            B, di = x.shape[0], pb["in_proj"].shape[1] // 2
+            zero = (torch.zeros((B, di, cfg.d_state), device=device),
+                    torch.zeros((B, Mb.CONV_K - 1, di), device=device))
+            with torch.no_grad():
+                want, _ = mixer(pb, x.to(device), zero, cfg.d_state)
+            mamba_rel.append(rel_l2(o.to(device), want))
+            del pb
+    jb["moe_layers_bf16"], jb["mamba_layers_bf16"] = moe_rel, mamba_rel
+    progress("Jamba bf16")
+    del moe_io, mamba_io
+    release(device)
+
+    # f32: the mesh against one device (rank 0's, broadcast).  Its
+    # compiled MoE does not bake: a plan keeps a static copy of the
+    # experts it reads, which each layer gathers anew (5.6 GB a rank in
+    # f32), and four ranks' copies beside their working sets do not fit
+    # the card
+    from repro_torch import lilac
+
+    L._LILAC_MOE.clear()                 # the bf16 plans and their pools
+    L._LILAC_MOE[device.type] = lilac.compile(
+        L._moe_naive_2d, platform=device.type, bake=False)
+    lp = tree_map(lambda a: a.float(), lp)
+    release(device)
+    want = [None]
+    if rank == 0:
+        def to_card(tree):                       # leaf by leaf
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    to_card(v)
+                else:
+                    tree[k] = v.to(device).float()
+
+        to_card(full)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = one.prefill(full, {"tokens": tokens[:, :P]})
+            ref = {"logits": [logits.cpu()]}
+            cache = one.cache_from_prefill(caches, P, P + T)
+            for t in range(T32):
+                logits, cache = one.decode(full, cache,
+                                           tokens[:, P + t:P + t + 1], P + t)
+                ref["logits"].append(logits.cpu())
+        ref["cache"] = tree_map(lambda a: a.float().cpu(), cache)
+        ref["s"] = time.perf_counter() - t0
+        want[0] = ref
+        del full, cache, caches, logits
+        release(device)
+    dist.broadcast_object_list(want, src=0)
+    want = want[0]
+    progress("Jamba one-device f32")
+    G.reset_launches()
+    f32 = run_mesh(lp, T32)
+    with C.use_mesh(mesh):
+        logit_rel = [mesh_rel_l2({"l": g}, {"l": w.to(device)},
+                                 {"l": tspec}, names)["l"]
+                     for g, w in zip(f32["logits"], want["logits"])]
+        cache_rel = mesh_rel_l2(f32["cache"], tree_map(
+            lambda a: a.to(device), want["cache"]), specs, names)
+    jb["f32"] = {"logits_rel_l2": logit_rel, "cache_rel_l2": cache_rel,
+                 "launches": dict(G.LAUNCHES), "oracle_s": want["s"],
+                 **{k: f32[k] for k in ("prefill_ms", "step_ms")}}
+    res["jamba"] = jb
+    del lp, f32, want
+    L._LILAC_MOE.clear()
+    release(device)
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
+def mesh_gmm_check(cfg, p, x, M: int, device, reps: int = 5) -> dict:
+    """K4 on rank 0's experts at the Jamba mesh prefill's shapes (the MoE
+    layer's input, its routes by the whole router, other ranks' pairs at
+    local expert 0, as the mesh path hands them to K4) against its plain
+    version, timed, with torch._grouped_mm beside it."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel as G
+    from repro_torch.kernels.moe_gmm import ref as GR
+    from repro_torch.kernels.moe_gmm.ops import _route
+    from repro_torch.models import layers as L
+
+    E, K, tm = cfg.moe_experts, cfg.moe_topk, 128
+    E_loc = -(-E // M)
+    seq = x.shape[1]
+    with torch.no_grad():
+        _, idx, _ = L.moe_router(p, x, K)
+    lidx = idx[0].long()
+    mine = lidx < E_loc                  # rank 0: experts [0, E_loc)
+    lidx = torch.where(mine, lidx, 0)
+    dest, te, tp = _route(lidx, seq, K, E_loc, tm)
+    xs = torch.zeros((tp, cfg.d_model), dtype=x.dtype, device=device)
+    xs[dest] = x[0].repeat_interleave(K, dim=0)
+    w0 = p["wg"][:E_loc]
+    routed = int(mine.sum())
+    nb = routed * cfg.d_model * 2 + nbytes(w0) + routed * cfg.d_ff * 4
+    out = {"name": "gmm", "tp": tp, "routed_rows": routed,
+           "library_ms": None, "variants": {
+               "gate_up": variant_numbers(
+                   lambda: G.gmm_cuda(xs, w0, te, tm),
+                   lambda: GR.gmm_ref(xs, w0, te, tm), "gmm_tc_kernel",
+                   device.type == "cuda", reps, nb,
+                   2 * routed * cfg.d_model * cfg.d_ff, xs.dtype, GMM_ATOL,
+                   GMM_RTOL, what="gmm on rank 0's Jamba experts",
+                   sum_scale=GR.gmm_ref(xs.abs(), w0.abs(), te, tm))}}
+    grouped = getattr(torch, "_grouped_mm", None)
+    if device.type == "cuda" and grouped is not None:
+        counts = torch.bincount(lidx.reshape(-1), minlength=E_loc)
+        offs = torch.cumsum((counts + tm - 1) // tm * tm, 0).to(torch.int32)
+        out["library_ms"] = cuda_ms(lambda: grouped(xs, w0, offs=offs),
+                                    reps)[0]
+    return out
+
+
+def dist_dryrun_cells(mesh_shape=DIST_MESH) -> dict:
+    """The dry-run's accounting of rank 0 of the recurrent phase's steps,
+    at the same configurations and local shapes: peak memory, and each
+    mixer's forward FLOPs as the step runs them and as the replicated
+    route ran them before their partition (the same cell at a model axis
+    of 1: each model rank computed the whole mixer on its data shard)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+
+    D, M = mesh_shape
+    cfgs = _mesh_cfgs(D, M)
+    cells = {"rwkv train": ("rwkv", ShapeConfig("mesh", MESH_RWKV_SEQ,
+                                                TRAIN_BATCH, "train")),
+             "jamba prefill": ("jamba", ShapeConfig(
+                 "mesh", MESH_JAMBA_PROMPT, D, "prefill")),
+             "jamba decode": ("jamba", ShapeConfig(
+                 "mesh", MESH_JAMBA_PROMPT + MESH_JAMBA_STEPS, D, "decode"))}
+    out = {}
+    for name, (fam, shape) in cells.items():
+        cfg = cfgs[fam][1]
+        over = {k: getattr(cfg, k) for k in (
+            "n_layers", "attn_layer_period", "moe_impl", "moe_decode_impl",
+            "remat")}
+        row = {}
+        for route, m in (("partitioned", M), ("replicated", 1)):
+            r = DR.analyze_cell(cfg.name, "train_4k", False,
+                                arch_overrides=dict(over, microbatches=1),
+                                axis_sizes={"data": D, "model": m},
+                                shape=shape)
+            row[route] = {"flops": r["flops"], "memory": r["memory"],
+                          "mixer_forward_flops": r["mixer_forward_flops"]}
+        out[name] = row
+    return out
+
+
+def run_dist_phase(seed: int, work: str, timeout: int = 900) -> dict:
     """The distributed phase: DIST_RANKS processes of this script under
-    torchrun (gloo, all on this card), the ranks' results in one JSON."""
+    torchrun (gloo, all on this card), the ranks' results in one JSON,
+    and the dry-run's cells (``dist_dryrun_cells``) computed here while
+    the ranks run."""
     out = Path(work) / "dist.json"
-    env = dict(os.environ, LILAC_TORCH_AUTOTUNE_CACHE=str(
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               LILAC_TORCH_AUTOTUNE_CACHE=str(
         Path(work) / "autotune-dist.json"),
         LILAC_TORCH_PLAN_CACHE=str(Path(work) / "plans-dist.json"),
         LILAC_TORCH_QUARANTINE_CACHE=str(Path(work) / "quarantine-dist.json"))
     t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "torch.distributed.run",
-                        "--standalone", "--nproc-per-node", str(DIST_RANKS),
-                        str(Path(__file__).resolve()), "--seed", str(seed),
-                        "--dist-phase", "--dist-out", str(out)],
-                       env=env, capture_output=True, text=True,
-                       timeout=timeout)
+    p = subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc-per-node", str(DIST_RANKS),
+                          str(Path(__file__).resolve()), "--seed", str(seed),
+                          "--dist-phase", "--dist-out", str(out)],
+                         env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+    try:
+        # the dry-run's accounting of the same cells, on the host meanwhile
+        cells = dist_dryrun_cells()
+        _, stderr = p.communicate(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
     if p.returncode != 0:
-        raise RuntimeError(f"distributed phase failed:\n{p.stderr[-6000:]}")
+        # the ranks' first traceback, before torchrun's own report
+        first = max(stderr.find("Traceback"), 0)
+        raise RuntimeError(f"distributed phase failed:\n"
+                           f"{stderr[first:first + 6000]}")
     ranks = json.loads(out.read_text())
-    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+    return {"ranks": ranks, "cells": cells,
+            "seconds": time.perf_counter() - t0}
 
 
 def dist_phase_main(seed: int, out: Path) -> int:
@@ -3810,6 +4245,9 @@ def dist_phase_main(seed: int, out: Path) -> int:
     work = str(out.parent)
     with fault_free(f"distributed training, rank {rank}"):
         res = dist_path(seed, torch.device("cuda"), work)
+    release(torch.device("cuda"))
+    with fault_free(f"distributed recurrent mixers, rank {rank}"):
+        res["recurrent"] = dist_recurrent_path(seed, torch.device("cuda"))
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, res)
     if rank == 0:
@@ -3926,6 +4364,139 @@ def check_dist_path(dr, steps: int = DIST_STEPS) -> None:
                 f"breaks counted, K4 launched as the uncompiled step does, "
                 f"its first loss within {TRAIN_LOSS_RTOL} of the uncompiled "
                 f"step's, got {c}, {cst} against {r['steps'][0]}")
+
+
+def print_dist_recurrent(dr, cells, smi: str) -> None:
+    rs = [r["recurrent"] for r in dr["ranks"]]
+    r0 = rs[0]
+    w, c = r0["rwkv"], r0["rwkv"]["config"]
+
+    def vs(run, key):
+        got, want = run[key], run["oracle"][key]
+        return (f"{key.replace('_', ' ')} {got:.6g} against {want:.6g} "
+                f"(rel {abs(got - want) / abs(want):.3g})")
+    b, f = w["bf16"], w["f32"]
+    print(f"distributed {c['name']} (d_model {c['d_model']}, {c['heads']} "
+          f"heads, d_ff {c['d_ff']}, vocab {c['vocab']}) cut to "
+          f"{c['layers']} layers, {c['params']} params, batch {c['batch']} x "
+          f"seq {c['seq']}, mesh {DIST_MESH}: the time mix by heads "
+          f"({w['heads_local']} a rank), the channel mix by d_ff; one mesh "
+          f"step against rank 0's one-device step, f32: {f['ms']:.1f} ms, "
+          f"{vs(f, 'loss')}, {vs(f, 'grad_norm')} (tol {TRAIN_LOSS_RTOL}, "
+          f"{TRAIN_GRAD_RTOL}); bf16: {b['ms']:.1f} ms, {vs(b, 'loss')}, "
+          f"{vs(b, 'grad_norm')}; the one-device bf16 step's grad norm "
+          f"against its f32 step's: rel "
+          f"{abs(b['oracle']['grad_norm'] - f['oracle']['grad_norm']) / f['oracle']['grad_norm']:.3g}"
+          f" ({smi}); collectives by axis (bf16) {b['collectives']}")
+    j, c = r0["jamba"], r0["jamba"]["config"]
+    f = j["f32"]
+    med = lambda v: sorted(v)[len(v) // 2]
+    print(f"distributed {c['name']} (d_model {c['d_model']}, d_inner "
+          f"{c['d_inner']}, d_state {c['d_state']}, {c['experts']} experts "
+          f"top-{c['topk']}, d_ff {c['d_ff']}) cut to {c['layers']} layers "
+          f"(Mamba + MLP, Mamba + MoE), {c['params']} params, one prompt of "
+          f"{c['prompt']} a data rank, {c['steps']} decode steps, mesh "
+          f"{DIST_MESH}: Mamba by its inner dim, the MoE by experts on K4; "
+          f"bf16 prefill {j['bf16']['prefill_ms']:.1f} ms, decode step p50 "
+          f"{med(j['bf16']['step_ms']):.1f} ms ({smi}); K4 launches by rank "
+          f"{[r['jamba']['launches'] for r in rs]}; state blocks a rank "
+          f"{j['state_shapes']}; each MoE layer against the naive dispatch "
+          f"(bf16) {[f'{v:.3g}' for v in j['moe_layers_bf16']]}, each Mamba "
+          f"layer's prefill against the one-device block "
+          f"{[f'{v:.3g}' for v in j['mamba_layers_bf16']]} (tol {MOE_RTOL}); "
+          f"f32 against the one-device model over the prefill and "
+          f"{MESH_F32_STEPS} decode steps: logits relative L2 max "
+          f"{max(f['logits_rel_l2']):.3g} (prefill "
+          f"{f['logits_rel_l2'][0]:.3g}), cache leaves max "
+          f"{max(f['cache_rel_l2'].values()):.3g} (tol {MESH_F32_RTOL}), K4 "
+          f"f32 launches {f['launches']}, prefill {f['prefill_ms']:.1f} ms, "
+          f"decode step p50 {med(f['step_ms']):.1f} ms; collectives by axis "
+          f"(bf16) {j['collectives']}")
+    g = j["gmm"]
+    print_variants(g, f"tol atol={GMM_ATOL} + rtol={GMM_RTOL}*|ref|")
+    print(f"gmm at the Jamba mesh prefill (rank 0's {c['experts'] // DIST_MESH[1]}"
+          f" experts, {g['routed_rows']} routed rows in Tp {g['tp']}): "
+          f"torch._grouped_mm {g['library_ms']} ms")
+    gib = 2.0 ** 30
+    for r in rs:
+        print(f"distributed rank {r['rank']} peak memory, measured "
+              f"(torch.cuda.max_memory_allocated) against the dry-run's "
+              f"peak_memory_in_bytes: RWKV-6 bf16 step "
+              f"{r['rwkv']['bf16']['peak_bytes'] / gib:.3f} against "
+              f"{cells['rwkv train']['partitioned']['memory']['peak_memory_in_bytes'] / gib:.3f} GiB, "
+              f"Jamba prefill {r['jamba']['bf16']['prefill_peak_bytes'] / gib:.3f}"
+              f" against {cells['jamba prefill']['partitioned']['memory']['peak_memory_in_bytes'] / gib:.3f}"
+              f", decode {r['jamba']['bf16']['decode_peak_bytes'] / gib:.3f} "
+              f"against {cells['jamba decode']['partitioned']['memory']['peak_memory_in_bytes'] / gib:.3f}"
+              f"; mixer forward FLOPs of the rank, replicated (before the "
+              f"partition) -> partitioned: " + "; ".join(
+                  f"{cell} " + ", ".join(
+                      f"{k} {row['replicated']['mixer_forward_flops'][k]:.4g}"
+                      f" -> {v:.4g}"
+                      for k, v in row["partitioned"][
+                          "mixer_forward_flops"].items())
+                  for cell, row in cells.items()))
+    print(f"distributed recurrent mixers: rank 0's part "
+          f"{r0['seconds']:.1f}s")
+
+
+def check_dist_recurrent(dr, cells) -> None:
+    for r in (x["recurrent"] for x in dr["ranks"]):
+        w = r["rwkv"]["f32"]
+        o = w["oracle"]
+        require(abs(w["loss"] - o["loss"]) <= TRAIN_LOSS_RTOL * abs(o["loss"])
+                and abs(w["grad_norm"] - o["grad_norm"])
+                <= TRAIN_GRAD_RTOL * abs(o["grad_norm"]),
+                f"distributed RWKV-6 rank {r['rank']}: the f32 mesh step's "
+                f"loss within {TRAIN_LOSS_RTOL} and grad norm within "
+                f"{TRAIN_GRAD_RTOL} of the one-device step's, got "
+                f"{w['loss']}, {w['grad_norm']} against {o}")
+        require(all("all_gather" not in r["rwkv"][k]["collectives"].get(
+                    "model", {}) for k in ("bf16", "f32")),
+                f"distributed RWKV-6 rank {r['rank']}: nothing gathered "
+                f"over the model axis, got {r['rwkv']}")
+        j = r["jamba"]
+        require(j["launches"].get("gmm", 0) > 0
+                and j["f32"]["launches"].get("gmm_f32", 0) > 0 and j["finite"],
+                f"distributed Jamba rank {r['rank']}: K4 launched in bf16 "
+                f"and in f32, finite logits, got {j['launches']} and "
+                f"{j['f32']['launches']}")
+        require(max(j["f32"]["logits_rel_l2"]) <= MESH_F32_RTOL
+                and max(j["f32"]["cache_rel_l2"].values()) <= MESH_F32_RTOL,
+                f"distributed Jamba rank {r['rank']}: the f32 logits and "
+                f"every new cache leaf within {MESH_F32_RTOL} of the "
+                f"one-device model, got {j['f32']['logits_rel_l2']} and "
+                f"{j['f32']['cache_rel_l2']}")
+        c = j["config"]
+        di = c["d_inner"] // DIST_MESH[1]
+        require(j["state_shapes"] == sorted({f"[1, 3, {di}]",
+                                             f"[1, {di}, {c['d_state']}]"}),
+                f"distributed Jamba rank {r['rank']}: the state the rank's "
+                f"block of d_inner, got {j['state_shapes']}")
+        for cell, got in (("rwkv train", r["rwkv"]["bf16"]["peak_bytes"]),
+                          ("jamba prefill", j["bf16"]["prefill_peak_bytes"]),
+                          ("jamba decode", j["bf16"]["decode_peak_bytes"])):
+            want = cells[cell]["partitioned"]["memory"]["peak_memory_in_bytes"]
+            require(want / DRYRUN_PEAK_FACTOR <= got
+                    <= want * DRYRUN_PEAK_FACTOR,
+                    f"distributed rank {r['rank']} {cell}: the measured peak "
+                    f"within a factor of {DRYRUN_PEAK_FACTOR} of the "
+                    f"dry-run's, got {got} against {want} bytes")
+    j = dr["ranks"][0]["recurrent"]["jamba"]
+    require(len(j["moe_layers_bf16"]) == 1 + MESH_JAMBA_STEPS
+            and len(j["mamba_layers_bf16"]) == MESH_JAMBA_LAYERS
+            and max(j["moe_layers_bf16"] + j["mamba_layers_bf16"]) <= MOE_RTOL,
+            f"distributed Jamba: each bf16 layer on its own input within "
+            f"{MOE_RTOL}, got {j['moe_layers_bf16']} and "
+            f"{j['mamba_layers_bf16']}")
+    for name, row in cells.items():
+        mem = row["partitioned"]["memory"]
+        require(mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"]
+                and all(v < row["replicated"]["mixer_forward_flops"][k]
+                        for k, v in row["partitioned"][
+                            "mixer_forward_flops"].items()),
+                f"dry-run {name}: a peak of at least the arguments, each "
+                f"mixer's FLOPs below its replicated count, got {row}")
 
 
 def train_line(s) -> str:
@@ -4996,9 +5567,14 @@ SERVE_PROMPT_GRID = (64, 200)
 # the eager prefill's own distance from the f32 oracle, and at least the
 # bf16 limit SERVE_LOGIT_RTOL (two bf16 roundings of one function, each
 # about as far from the exact one as the eager rounding; at 16 layers
-# the three logits lay 0.25-0.89 apart)
+# the three logits lay 0.25-0.89 apart); cut to 1 layer from 2 (57.1 s of
+# compile there) for the script's time limit
 SERVE_BACKEND = "aot_eager"
-SERVE_INDUCTOR_LAYERS = 2
+SERVE_INDUCTOR_LAYERS = 1
+# the served OLMoE's depth, cut from 16: the distributed phase's recurrent
+# mixers (~180 s) took the script to 1,028.1 s at 16, 1,069.4 s at 8 and
+# 1,170.3 s at 4 on a slower host (the same card)
+SERVE_LAYERS = 2
 SERVE_PREFILL_FACTOR = 2.0
 # the fault runs: one batch of requests that all end on the same step and
 # fit the smallest seq bucket, so every step, with a fault or without,
@@ -5012,8 +5588,9 @@ SERVE_LOGIT_RTOL = MOE_RTOL
 SERVE_F32_RTOL = 1e-4
 SERVE_RAGGED = (1, 7, 33, 200)
 # granite-moe-3b-a800m's depth in its serving phase, cut from 32 for the
-# script's time limit (the compiled entry points' compiles took its room)
-GRANITE_SERVE_LAYERS = 4
+# script's time limit (the compiled entry points' compiles, then the
+# recurrent mixers on the mesh, took its room)
+GRANITE_SERVE_LAYERS = 2
 
 
 def serve_requests(cfg, seed: int, n: int = SERVE_REQUESTS,
@@ -6188,10 +6765,13 @@ def print_serve_path(sv, tag: str = "serving") -> None:
 
 
 # ---------------------------------------------------------------------------
-# RWKV-6 1.6B at full width and depth: a recurrent decode state
+# RWKV-6 1.6B at full width, RWKV_LAYERS deep: a recurrent decode state
 # ---------------------------------------------------------------------------
 
 RWKV_BATCH, RWKV_PROMPT, RWKV_STEPS = 2, 512, 16
+# cut from 24: the distributed phase's recurrent mixers (~180 s) took the
+# script to 1,069.4 s at 24, 1,170.3 s at 12 on a slower host
+RWKV_LAYERS = 6
 RWKV_F32_RTOL = 1e-3      # decode after prefill against the longer prefill
 RWKV_BF16_SPREAD = 2.0    # bf16 decode's error from f32 over the prefill's
 RWKV_BF16_LAYER_RTOL = 3e-3   # a layer's bf16 decode against its forward
@@ -6354,7 +6934,7 @@ def rwkv_path(seed: int, device, cfg=None, prompt: int = RWKV_PROMPT,
     from repro_torch.models.spec import tree_map
     from repro_torch.serve import BucketPolicy, ServeConfig, build_engine
 
-    cfg = cfg or get_arch("rwkv6-1.6b")
+    cfg = cfg or get_arch("rwkv6-1.6b").replace(n_layers=RWKV_LAYERS)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(seed + 23),
@@ -6919,8 +7499,11 @@ def main() -> int:
         print(json.dumps(res))
         return 0
     if args.serve_phase:
-        print(json.dumps(serve_path(args.seed, torch.device("cuda"),
-                                    jit_prefill=True), default=str))
+        from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE
+        print(json.dumps(serve_path(
+            args.seed, torch.device("cuda"),
+            cfg=OLMOE.replace(n_layers=SERVE_LAYERS), jit_prefill=True),
+            default=str))
         return 0
     if args.serve_granite_phase:
         from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE
@@ -7337,7 +7920,7 @@ def run(args, work: str) -> int:
     record["grad_path"] = gp
     release(device)
 
-    # -- RWKV-6 1.6B, full width and depth: a recurrent decode state ---------
+    # -- RWKV-6 1.6B, full width, RWKV_LAYERS deep: a recurrent decode state -
     # (before the containment phase, whose quarantine records stay)
     t0 = time.perf_counter()
     rw = rwkv_path(args.seed, device)
@@ -7442,7 +8025,7 @@ def run(args, work: str) -> int:
     record["train_path"] = tr
     print(f"training phase {time.perf_counter() - t0:.1f}s")
 
-    # -- serving: OLMoE-1B-7B, full width and depth ---------------------------
+    # -- serving: OLMoE-1B-7B, full width, SERVE_LAYERS deep -----------------
     # a process of its own: the earlier phases' memory is gone, and cuBLAS's
     # workspace is fixed before its first call, so a row's bits depend on
     # the shapes it runs at and on nothing else
@@ -7504,7 +8087,17 @@ def run(args, work: str) -> int:
         path="distributed training on a (2, 2) mesh: every rank's local "
              "experts (launches summed over the ranks' steps; times on "
              "rank 0's experts)"))
-    record["dist_path"] = dr
+    cells = dr["cells"]
+    print_dist_recurrent(dr, cells, smi)
+    check_dist_recurrent(dr, cells)
+    kernels.append(dict(kernel_entry(
+        dr["ranks"][0]["recurrent"]["jamba"]["gmm"], "gate_up", sum(
+            r["recurrent"]["jamba"]["launches"].get("gmm", 0)
+            for r in dr["ranks"])),
+        path="distributed Jamba-v0.1 prefill and decode on a (2, 2) mesh: "
+             "every rank's local experts (launches summed over the ranks' "
+             "bf16 run; times on rank 0's experts at the prefill)"))
+    record["dist_path"], record["dist_dryrun"] = dr, cells
     print(f"distributed phase {time.perf_counter() - t0:.1f}s")
 
     if args.record is not None:

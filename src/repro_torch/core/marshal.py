@@ -16,7 +16,8 @@ and, for a tensor the data plane has seen before, with its version.
   intermediate to the requested format, never through ``DENSE`` (see
   ``NO_TRANSIT``).
 * ``MarshalingCache`` — memoizes derived values keyed on the fingerprints
-  of their source arrays, least recently used out first.
+  of their source arrays; past capacity, the cheapest to recompute of the
+  least recently used goes first (cost-aware LRU).
 * ``DataPlane`` — ``ensure(src, dst, ...)`` walks the conversion graph, so
   harnesses targeting one format share one cached buffer;
   ``estimate_marshal_seconds`` is what the autotuner amortizes.
@@ -490,7 +491,8 @@ class MarshalPolicy:
     ``reuse``        declared call frequency: expected harness calls per
                      matrix change.  The autotuner folds repack cost in at
                      this rate (amortized cost = kernel + marshal / reuse).
-    ``max_entries``  data-plane capacity; least recently used out first.
+    ``max_entries``  data-plane capacity; past it the cheapest to
+                     recompute of the least recently used goes first.
     ``enabled``      False: no data plane, every call repacks (the paper's
                      "naive library call").
     """
@@ -549,7 +551,17 @@ class PlanStats:
 
 class MarshalingCache:
     """Memoizes marshaled INPUTs (paper Fig. 8/9/10), at most
-    ``max_entries`` of them: the least recently used goes first."""
+    ``max_entries`` of them.
+
+    Eviction is cost-aware LRU, as in the reference: entries are kept in
+    recency order (a hit refreshes), and past capacity the entry cheapest
+    to recompute (its measured build seconds) among the ``EVICT_WINDOW``
+    least recently used goes first, so a hot or costly repack (the CSR ->
+    ELL128 one takes seconds) outlives cheap entries of the same age.
+    The most recent entry is never a candidate."""
+
+    #: how many of the least recently used entries compete on cost
+    EVICT_WINDOW = 8
 
     def __init__(self, max_entries: int = 64):
         self.max_entries = max_entries
@@ -600,7 +612,10 @@ class MarshalingCache:
         self._store.move_to_end(key)
         self._cost[key] = cost
         while len(self._store) > self.max_entries:
-            victim, _ = self._store.popitem(last=False)
+            window = min(self.EVICT_WINDOW, len(self._store) - 1)
+            tail = itertools.islice(iter(self._store), window)
+            victim = min(tail, key=lambda k: self._cost.get(k, 0.0))
+            self._store.pop(victim)
             self._cost.pop(victim, None)
             self._forget(victim)
             self.stats.evictions += 1

@@ -11,6 +11,7 @@ that sum:
   all_gather      -> reduce-scatter of the cotangents
   reduce_scatter  -> all-gather
   psum            -> psum (every rank's output depends on every input)
+  pair_halves     -> the inverse all-to-all
 
 and a local slice of a replicated tensor has the zero-padding backward
 that autograd gives it.  So an activation's gradient on one rank may be a
@@ -30,7 +31,7 @@ reference's ambient mesh).  A mesh's device type says where its process
 group computes: a gloo mesh is a CPU mesh, and a CUDA operand is copied
 to the host for the collective and back (explicitly, every call; that is
 how several ranks share one card).  ``STATS`` counts each kind's calls
-and payload bytes in this process.
+and payload bytes in this process, ``BY_AXIS`` the same by mesh axis.
 """
 from __future__ import annotations
 
@@ -46,16 +47,21 @@ _MESHES: list = []
 
 #: calls and payload bytes by kind, in this process (reset_stats zeroes)
 STATS: Dict[str, Dict[str, int]] = {}
+#: the same by mesh axis: {axis: {kind: {"calls", "bytes"}}}
+BY_AXIS: Dict[str, Dict[str, Dict[str, int]]] = {}
 
 
 def reset_stats() -> None:
     STATS.clear()
+    BY_AXIS.clear()
 
 
-def _count(kind: str, x: torch.Tensor) -> None:
-    s = STATS.setdefault(kind, {"calls": 0, "bytes": 0})
-    s["calls"] += 1
-    s["bytes"] += x.numel() * x.element_size()
+def _count(kind: str, x: torch.Tensor, axis: str) -> None:
+    for s in (STATS.setdefault(kind, {"calls": 0, "bytes": 0}),
+              BY_AXIS.setdefault(axis, {}).setdefault(
+                  kind, {"calls": 0, "bytes": 0})):
+        s["calls"] += 1
+        s["bytes"] += x.numel() * x.element_size()
 
 
 @contextlib.contextmanager
@@ -105,31 +111,38 @@ def axis_index(axis) -> int:
 
 def _staged(fn, x: torch.Tensor, axis: str) -> torch.Tensor:
     """``fn(x_on_mesh_device, group)`` with a CUDA operand copied to a CPU
-    mesh's host and the result back."""
+    mesh's host through a page-locked buffer and the result back (``fn``
+    may allocate its result page-locked, as ``xs.is_pinned()`` says)."""
     mesh = current_mesh()
     group = mesh.get_group(axis)
     if x.device.type == mesh.device_type:
         return fn(x.contiguous(), group)
-    return fn(x.to(mesh.device_type).contiguous(), group).to(x.device)
+    xs = torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+    return fn(xs, group).to(x.device, non_blocking=True)
 
 
 def _gather1(x, axis: str, dim: int):
+    """The ranks' blocks gathered into one buffer along dim 0, then laid
+    out along ``dim`` on the operand's device."""
     n = axis_size(axis)
     if n == 1:
         return x
-    _count("all_gather", x)
+    _count("all_gather", x, axis)
 
     def run(xs, group):
-        parts = [torch.empty_like(xs) for _ in range(n)]
-        dist.all_gather(parts, xs, group=group)
-        return torch.cat(parts, dim)
-    return _staged(run, x, axis)
+        out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
+                          dtype=xs.dtype, device=xs.device,
+                          pin_memory=xs.is_pinned())
+        dist.all_gather_into_tensor(out, xs, group=group)
+        return out
+    out = _staged(run, x, axis)
+    return torch.cat(out.chunk(n), dim) if dim else out
 
 
 def _reduce1(x, axis: str, op=dist.ReduceOp.SUM):
     if axis_size(axis) == 1:
         return x
-    _count("all_reduce", x)
+    _count("all_reduce", x, axis)
 
     def run(xs, group):
         y = xs.clone()
@@ -142,7 +155,7 @@ def _scatter1(x, axis: str, dim: int):
     n = axis_size(axis)
     if n == 1:
         return x
-    _count("reduce_scatter", x)
+    _count("reduce_scatter", x, axis)
     i = axis_index(axis)
     chunk = x.shape[dim] // n
 
@@ -157,6 +170,32 @@ def _scatter1(x, axis: str, dim: int):
         dist.all_reduce(y, group=group)
         return y.narrow(dim, i * chunk, chunk).contiguous()
     return _staged(run, x, axis)
+
+
+def _exchange1(x, axis: str, dim: int, sends, recvs):
+    """Units of ``dim`` (its local size over ``len(sends)``, each) sent
+    to the ranks of one axis: local unit i to rank ``sends[i]``, output
+    unit j from rank ``recvs[j]``; a pair of ranks exchanges one unit at
+    most.  One ``all_to_all_single`` with uneven splits."""
+    n = axis_size(axis)
+    _count("all_to_all", x, axis)
+    w = x.shape[dim] // len(sends)
+    src = x.movedim(dim, 0)
+    order = sorted(range(len(sends)), key=lambda i: sends[i])
+    inp = torch.cat([src[i * w:(i + 1) * w] for i in order])
+    in_splits = [w * sends.count(r) for r in range(n)]
+    out_splits = [w * recvs.count(r) for r in range(n)]
+    by_src = sorted(range(len(recvs)), key=lambda j: recvs[j])
+
+    def run(xs, group):
+        out = xs.new_empty((w * len(recvs),) + tuple(xs.shape[1:]))
+        dist.all_to_all_single(out, xs, out_splits, in_splits, group=group)
+        return out
+    got = _staged(run, inp, axis)
+    units = [None] * len(recvs)
+    for k, j in enumerate(by_src):
+        units[j] = got[k * w:(k + 1) * w]
+    return torch.cat(units).movedim(0, dim)
 
 
 def _gather(x, axis, dim):
@@ -212,6 +251,18 @@ class _Psum(torch.autograd.Function):
         return _psum(g, ctx.axis), None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, sends, recvs):
+        ctx.axis, ctx.dim, ctx.sends, ctx.recvs = axis, dim, sends, recvs
+        return _exchange1(x, axis, dim, sends, recvs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange1(g, ctx.axis, ctx.dim, ctx.recvs, ctx.sends),
+                None, None, None, None)
+
+
 @torch.compiler.disable
 def _collective(fn, *args) -> torch.Tensor:
     """``fn.apply(*args)`` outside ``torch.compile``: a collective staged
@@ -237,6 +288,21 @@ def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
 def psum(x: torch.Tensor, axis) -> torch.Tensor:
     """The sum over ``axis``; backward is the same sum."""
     return _collective(_Psum, x, axis) if axis_size(axis) > 1 else x
+
+
+def pair_halves(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """A dimension made of two halves (a fused projection's ``x | z``
+    columns), sharded over ``axis`` as one contiguous dimension, as this
+    rank's block of each half side by side: rank r of n holds units 2r and
+    2r+1 of the 2n, and gets unit r of the first half and unit r of the
+    second (one all-to-all; backward the inverse exchange)."""
+    n = axis_size(axis)
+    if n == 1:
+        return x
+    r = axis_index(axis)
+    return _collective(_Exchange, x, axis, dim,
+                       [(2 * r) % n, (2 * r + 1) % n],
+                       [r // 2, (n + r) // 2])
 
 
 @torch.compiler.disable

@@ -23,15 +23,33 @@ ranks: it is accounting, not a measurement.
     the grouped or naive MoE.  A recurrent mixer's scan over time
     (``layers.chunked_scan``) runs two steps and counts the others as
     their multiples, their backward as twice their forward (exact for
-    products whose operands all take gradients).  The mixers that run
-    replicated over the model axis (RWKV-6's time and channel mix,
-    Mamba) are counted in full on every rank, and named with their
-    forward FLOPs (``replicated_mixer_forward_flops``: every model rank
-    repeats them); so is attention where the model axis does not divide
-    the heads.
+    products whose operands all take gradients).  The recurrent mixers
+    count at their share of the model axis (RWKV-6's heads and d_ff,
+    Mamba's inner dim; ``models.transformer.mixer_partitioned``), each
+    named with its forward FLOPs (``mixer_forward_flops``); one that the
+    model axis does not divide runs replicated, is counted in full on
+    every rank and named apart (``replicated_mixer_forward_flops``: every
+    model rank repeats them), and so is attention where the model axis
+    does not divide the heads.  A cell at a model axis of 1 counts what
+    each model rank of the replicated route computes.
   * collectives: the payload bytes and calls of ``launch.collectives``
-    by kind, as the rank's step issues them.
-  * peak memory: not given (see ROADMAP).
+    by kind, and by mesh axis, as the rank's step calls them.
+  * peak memory: ``peak_memory_in_bytes``, the most bytes live at once
+    in rank 0's fake step (``torch.distributed._tools.mem_tracker``'s
+    ``MemTracker`` over the step, its arguments tracked beside the
+    tensors the step makes), and ``temp_size_in_bytes``, that peak less
+    the argument bytes.  The step donates nothing (torch has no buffer
+    donation), so a train step's new parameters and optimizer state are
+    live beside the old ones where the reference's donated buffers
+    alias; a scan's steps that the count does not run hold no memory,
+    so a recurrent model's peak is low by one chunk's saved
+    activations; a baked lilac plan's static copies of the operands it
+    reads (on a mesh, the MoE's gathered experts: a decode plan keeps
+    them beside the ones each step gathers anew) are not counted, since
+    the fake step bakes no plan; nor is the staging of a collective on a
+    CPU mesh (a CUDA operand's result copied back to the card and laid
+    out along its dimension there).  A rank's measured peak on the card
+    can so stand well above the dry-run's.
 
     python -m repro_torch.launch.dryrun --arch olmoe-1b-7b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all [--mesh both] [--jobs-dir DIR]
@@ -218,13 +236,14 @@ def fake_world(sizes: Dict[str, int]):
 
 
 class _Accounting:
-    """The dry-run's additions to the FLOP counter: a scan's unrun steps
-    and the FLOPs of the mixers that run replicated over the model
-    axis."""
+    """The dry-run's additions to the FLOP counter: a scan's unrun steps,
+    each recurrent mixer's forward FLOPs, and those of a mixer that runs
+    replicated over the model axis."""
 
     def __init__(self, counter, sizes):
         self.counter, self.sizes = counter, sizes
         self.scan_flops = 0
+        self.mixers: Dict[str, int] = {}
         self.replicated: Dict[str, int] = {}
 
     def total(self) -> int:
@@ -253,26 +272,27 @@ class _Accounting:
         return carry, torch.cat([ys, ys[-1:].expand(
             (steps - run,) + tuple(ys.shape[1:]))])
 
-    def named(self, name: str, fn):
-        """``fn`` with its forward FLOPs counted under ``name`` (a remat
-        replay inside backward is not counted again)."""
+    def named(self, name: str, fn, into: Dict[str, int]):
+        """``fn`` with its forward FLOPs counted under ``name`` in
+        ``into`` (a remat replay inside backward is not counted again)."""
         def run(*args, **kwargs):
             before = self.total()
             out = fn(*args, **kwargs)
             if torch._C._current_graph_task_id() == -1:
-                self.replicated[name] = self.replicated.get(name, 0) + \
-                    self.total() - before
+                into[name] = into.get(name, 0) + self.total() - before
             return out
         return run
 
 
 @contextlib.contextmanager
 def _patched(acc: "_Accounting", cfg):
-    """The scan accounting in the recurrent mixers, and the replicated
-    mixers named."""
+    """The scan accounting in the recurrent mixers, each mixer's forward
+    FLOPs named, and those of the mixers that run replicated over the
+    model axis named apart."""
     from repro_torch.models import layers as L
     from repro_torch.models import mamba as M
     from repro_torch.models import rwkv as R
+    from repro_torch.models import transformer as T
 
     saved = [(L, "chunked_scan"), (M, "chunked_scan"), (R, "chunked_scan"),
              (R, "timemix"), (R, "channelmix"), (M, "mamba_block"),
@@ -280,14 +300,19 @@ def _patched(acc: "_Accounting", cfg):
     old = [getattr(m, n) for m, n in saved]
     for mod in (L, M, R):
         mod.chunked_scan = acc.scan
-    R.timemix = acc.named("rwkv6 time mix", old[3])
-    R.channelmix = acc.named("rwkv6 channel mix", old[4])
-    M.mamba_block = acc.named("mamba mixer", old[5])
+    for (mod, fn), kind, name in (
+            ((R, "timemix"), "rwkv", "rwkv6 time mix"),
+            ((R, "channelmix"), "channelmix", "rwkv6 channel mix"),
+            ((M, "mamba_block"), "mamba", "mamba mixer")):
+        named = acc.named(name, getattr(mod, fn), acc.mixers)
+        if not T.mixer_partitioned(cfg, kind):
+            named = acc.named(name, named, acc.replicated)
+        setattr(mod, fn, named)
     if cfg.n_heads % acc.sizes.get("model", 1):
         L.attention_block_mesh = acc.named("attention (heads unsharded)",
-                                           old[6])
+                                           old[6], acc.replicated)
         L.attention_decode_mesh = acc.named("attention (heads unsharded)",
-                                            old[7])
+                                            old[7], acc.replicated)
     try:
         yield
     finally:
@@ -295,9 +320,35 @@ def _patched(acc: "_Accounting", cfg):
             setattr(m, n, f)
 
 
+class _NoModules:
+    """A module tracker that tracks no module, for ``MemTracker``: the
+    step's memory is read whole, and a compiled function's fx module runs
+    on vmap's batched tensors, which have no storage for its per-module
+    bookkeeping to read."""
+    is_bw = False
+    parents: set = set()
+
+    def register_user_hooks(self, *hooks) -> None:
+        pass
+
+    def clear_user_hooks(self) -> None:
+        pass
+
+    def get_known_fqn(self, module) -> str:
+        return ""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args) -> None:
+        pass
+
+
 def rank_step(cell) -> dict:
-    """FLOPs and collectives of rank 0's step of a lowered cell."""
+    """FLOPs, collectives and peak memory of rank 0's step of a lowered
+    cell."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch import collectives as C
 
@@ -313,7 +364,10 @@ def rank_step(cell) -> dict:
 
         args = {k: local(*v) for k, v in cell["args"].items()}
         C.reset_stats()
-        with FlopCounterMode(display=False) as counter:
+        memory = MemTracker()
+        memory._mod_tracker = _NoModules()
+        memory.track_external(*pytree.tree_leaves(args))
+        with memory, FlopCounterMode(display=False) as counter:
             acc = _Accounting(counter, sizes)
             with _patched(acc, cell["cfg"]):
                 if shape.kind == "train":
@@ -328,9 +382,16 @@ def rank_step(cell) -> dict:
                     with torch.no_grad():
                         model.decode(args["params"], args["cache"],
                                      args["tokens"], args["pos"], specs)
+        peak = memory.get_tracker_snapshot("peak")
         return {"flops": acc.total(), "scan_flops": acc.scan_flops,
+                "mixer_forward_flops": acc.mixers,
                 "replicated_mixer_forward_flops": acc.replicated,
-                "collectives": {k: dict(v) for k, v in C.STATS.items()}}
+                "collectives": {k: dict(v) for k, v in C.STATS.items()},
+                "collectives_by_axis": {
+                    a: {k: dict(v) for k, v in kinds.items()}
+                    for a, kinds in C.BY_AXIS.items()},
+                "peak_bytes": max((d["Total"] for d in peak.values()),
+                                  default=0)}
 
 
 def analyze_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -347,6 +408,7 @@ def analyze_cell(arch: str, shape_name: str, multi_pod: bool,
                 "status": "skip", "reason": cell["reason"]}
     sizes, model = cell["sizes"], cell["model"]
     step = rank_step(cell)
+    args = sum(local_bytes(t, sh, sizes) for t, sh in cell["args"].values())
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "status": "ok",
@@ -359,16 +421,19 @@ def analyze_cell(arch: str, shape_name: str, multi_pod: bool,
         "params_active": model.active_param_count(),
         "flops": step["flops"],
         "scan_flops": step["scan_flops"],
-        "replicated_mixer_forward_flops":
-            step["replicated_mixer_forward_flops"],
+        "mixer_forward_flops": step["mixer_forward_flops"],
+        **({"replicated_mixer_forward_flops":
+            step["replicated_mixer_forward_flops"]}
+           if step["replicated_mixer_forward_flops"] else {}),
         "collectives": step["collectives"],
+        "collectives_by_axis": step["collectives_by_axis"],
         "memory": {
-            "argument_size_in_bytes": sum(
-                local_bytes(t, sh, sizes)
-                for t, sh in cell["args"].values()),
+            "argument_size_in_bytes": args,
             "output_size_in_bytes": sum(
                 local_bytes(t, sh, sizes)
                 for t, sh in cell["outputs"].values()),
+            "temp_size_in_bytes": step["peak_bytes"] - args,
+            "peak_memory_in_bytes": step["peak_bytes"],
             "arguments_by_kind": {k: local_bytes(t, sh, sizes)
                                   for k, (t, sh) in cell["args"].items()},
         },

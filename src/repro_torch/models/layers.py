@@ -633,6 +633,16 @@ def _row_parallel(eq: str, a, w, partial: bool):
     return torch.einsum(eq, a.float(), w.float())
 
 
+def out_projection(eq: str, a, w, shard_ctx=None):
+    """A block's output projection: whole, or on the mesh row-parallel,
+    its f32 partial sum reduced by ``shard_ctx.exit`` and rounded once to
+    the operands' promoted dtype (the dtype of the one-device product)."""
+    if shard_ctx is None:
+        return promoted_einsum(eq, a, w)
+    y = shard_ctx.exit(_row_parallel(eq, a, w, True), partial=True)
+    return y.to(torch.promote_types(a.dtype, w.dtype))
+
+
 def attention_decode_mesh(p, x, k_cache, v_cache, pos, shard_ctx, *,
                           n_heads: int, n_kv: int, seq_axes=()):
     """``attention_decode_stacked`` on a rank's blocks of the cache: its

@@ -22,7 +22,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import chunked_scan, promoted_einsum
+from repro_torch.launch import collectives as C
+from repro_torch.models.layers import (_row_parallel, chunked_scan,
+                                      out_projection, promoted_einsum)
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -72,17 +74,29 @@ def _causal_conv(x, w, b, tail):
     return out + b.to(x.dtype), xp[:, -(CONV_K - 1):, :]
 
 
-def mamba_block(p, x, state: Tuple, d_state: int = 16):
+def _reduced(shard_ctx, eq: str, a, w):
+    """A row-parallel product over the model axis: the f32 partial sums
+    reduced, then rounded once to the operands' promoted dtype, as the
+    one-device product rounds."""
+    y = C.psum(_row_parallel(eq, a, w, True), shard_ctx.model)
+    return y.to(torch.promote_types(a.dtype, w.dtype))
+
+
+def mamba_block(p, x, state: Tuple, d_state: int = 16, shard_ctx=None):
     """x: (B, S, D); state = (ssm (B, di, N) f32, conv tail (B, K-1, di)).
-    Returns (out (B, S, D), (ssm, conv tail in ``x.dtype``))."""
+    Returns (out (B, S, D), (ssm, conv tail in ``x.dtype``)).  On the mesh
+    ``p`` and ``state`` hold the rank's channels (di/M of them)."""
     ssm, conv_tail = state
+    if shard_ctx is not None:
+        x = shard_ctx.enter(x)
     di = p["in_proj"].shape[1] // 2
     dt_rank = p["dt_proj"].shape[0]
     xz = promoted_einsum("bsd,de->bse", x, p["in_proj"])
     xi, z = xz[..., :di], xz[..., di:]
     xi, new_tail = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_tail)
     xi = F.silu(xi.float()).to(x.dtype)
-    dbc = promoted_einsum("bse,ef->bsf", xi, p["wx_dbc"]).float()
+    dbc = (promoted_einsum("bse,ef->bsf", xi, p["wx_dbc"]) if shard_ctx is None
+           else _reduced(shard_ctx, "bse,ef->bsf", xi, p["wx_dbc"])).float()
     dt_in = _rms(dbc[..., :dt_rank]) * p["dt_norm"]
     dt = F.softplus(torch.einsum("bsr,re->bse", dt_in, p["dt_proj"])
                     + p["dt_bias"])                             # (B,S,di)
@@ -101,4 +115,5 @@ def mamba_block(p, x, state: Tuple, d_state: int = 16):
     ssm, ys = chunked_scan(step, ssm, xs)
     y = ys.transpose(0, 1) + xf * p["d_skip"]
     y = (y * F.silu(z.float())).to(x.dtype)
-    return promoted_einsum("bse,ed->bsd", y, p["out_proj"]), (ssm, new_tail)
+    return (out_projection("bse,ed->bsd", y, p["out_proj"], shard_ctx),
+            (ssm, new_tail))

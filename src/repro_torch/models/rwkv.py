@@ -11,6 +11,16 @@ depth of the sequence.
 ``timemix`` scans the recurrence over time with ``layers.chunked_scan``
 (a loop over time, each chunk under ``torch.utils.checkpoint`` when grad
 is on), as the reference scans it with ``lax.scan``.
+
+On the mesh (``shard_ctx``, a ``layers.MeshCtx``) both mixers are
+tensor-parallel over the model axis, as the reference's compute rules
+split them: the time mix by heads (``wr``/``wk``/``wv``/``ww``/``wg``
+column-parallel, ``u``/``w_bias``/``ln_scale`` and the state the rank's
+heads, ``wo`` row-parallel), the channel mix by ``d_ff`` (``wk``
+column-parallel, ``wv`` row-parallel, ``wr`` whole); a row-parallel
+product's f32 partial sum is reduced by ``shard_ctx.exit`` and rounded
+once.  The token shift reads the whole ``x``, which the recurrent
+families keep replicated over the model axis.
 """
 from __future__ import annotations
 
@@ -19,7 +29,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import chunked_scan, promoted_einsum
+from repro_torch.models.layers import (chunked_scan, out_projection,
+                                      promoted_einsum)
 from repro_torch.models.spec import ParamSpec
 
 F32 = torch.float32
@@ -72,11 +83,17 @@ def _proj(x, w, eq: str = "bsd,de->bse"):
     return promoted_einsum(eq, x, w)
 
 
-def timemix(p, x, state, n_heads: int, x_prev=None):
+def timemix(p, x, state, n_heads: int, x_prev=None, shard_ctx=None):
     """x: (B, S, D); state: (B, H, dh, dh) f32.  Returns (out, new_state,
-    last_x), last_x the carry of the next call's token shift."""
+    last_x), last_x the carry of the next call's token shift.  On the mesh
+    ``p`` holds the rank's heads (the projections' columns, ``wo``'s rows,
+    ``u``/``w_bias``/``ln_scale``) and ``state`` is (B, H_loc, dh, dh)."""
     B, S, D = x.shape
     dh = D // n_heads
+    if shard_ctx is not None:
+        x = shard_ctx.enter(x)
+        S = x.shape[1]
+    n_heads = p["wr"].shape[1] // dh          # the rank's heads
     prev = _token_shift(x, x_prev)
     r = _proj(_lerp(x, prev, p["mix_r"]), p["wr"])
     k = _proj(_lerp(x, prev, p["mix_k"]), p["wk"])
@@ -104,17 +121,21 @@ def timemix(p, x, state, n_heads: int, x_prev=None):
     mu = torch.mean(oh, dim=-1, keepdim=True)
     var = torch.var(oh, dim=-1, keepdim=True, unbiased=False)
     oh = (oh - mu) * torch.rsqrt(var + 64e-5)
-    out = (oh.reshape(B, S, D) * p["ln_scale"]).to(x.dtype)
+    out = (oh.reshape(B, S, n_heads * dh) * p["ln_scale"]).to(x.dtype)
     out = out * F.silu(g.float()).to(x.dtype)
-    return _proj(out, p["wo"]), state, x[:, -1, :]
+    return (out_projection("bsd,de->bse", out, p["wo"], shard_ctx), state,
+            x[:, -1, :])
 
 
-def channelmix(p, x, x_prev=None):
-    """Returns (out, last_x)."""
+def channelmix(p, x, x_prev=None, shard_ctx=None):
+    """Returns (out, last_x).  On the mesh ``p["wk"]`` / ``p["wv"]`` are
+    the rank's columns / rows of d_ff and ``wr`` is whole."""
+    if shard_ctx is not None:
+        x = shard_ctx.enter(x)
     prev = _token_shift(x, x_prev)
     xk = _lerp(x, prev, p["mix_k"])
     xr = _lerp(x, prev, p["mix_r"])
     k = torch.square(torch.relu(_proj(xk, p["wk"]).float())).to(x.dtype)
-    kv = _proj(k, p["wv"], "bsf,fd->bsd")
+    kv = out_projection("bsf,fd->bsd", k, p["wv"], shard_ctx)
     r = torch.sigmoid(_proj(xr, p["wr"]).float())
     return r.to(x.dtype) * kv, x[:, -1, :]

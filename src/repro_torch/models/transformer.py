@@ -36,9 +36,15 @@ batch shard, the reference's constraints made explicit:
   * sequence parallelism (``_use_sp``): the residual stream is the rank's
     chunk of the sequence between blocks, a block's input all-gathered
     and its output reduce-scattered;
-  * the RWKV-6 and Mamba mixers (and RWKV's channel mix) run with their
-    weights gathered to replicated over "model": every model rank
-    computes the same mixer on its batch shard.
+  * the recurrent mixers tensor-parallel over "model", as the
+    reference's compute rules split them (``mixer_partitioned``): RWKV-6's
+    time mix by heads and its channel mix by d_ff, Mamba by its inner dim
+    (``in_proj``'s contiguous storage block exchanged to the rank's x and
+    z columns at compute time, ``collectives.pair_halves``), each with its
+    recurrent state the rank's block, never gathered (a decode's cache
+    entry stays at its partition spec); a mixer that the model axis does
+    not divide runs replicated, its weights (and a decode's state)
+    gathered over "model".
 
 ``Model.loss_fn`` there returns the rank's share of the loss; the shares
 sum to the one-device loss (``launch.collectives`` says how gradients
@@ -235,10 +241,54 @@ def _without_model(pspec) -> S.PSpec:
 
 
 def _replicated_over_model(cfg, spec_tree, params):
-    """Compute-time weights gathered over the model axis (the mixers that
-    run replicated on every model rank)."""
+    """Compute-time weights gathered over the model axis (a recurrent
+    mixer that the model axis does not divide runs replicated on every
+    model rank)."""
     return tree_map(lambda ps, v: C.reshard(v, ps, _without_model(ps)),
                     _compute_pspecs(cfg, spec_tree), params)
+
+
+#: the width each recurrent mixer is split by over the model axis
+_SPLIT_BY = {"rwkv": lambda cfg: cfg.n_heads,
+             "channelmix": lambda cfg: cfg.d_ff,
+             "mamba": lambda cfg: 2 * cfg.d_model}
+
+
+def mixer_partitioned(cfg, kind: str) -> bool:
+    """Whether the model axis divides a recurrent mixer (``rwkv``: its
+    heads, ``channelmix``: d_ff, ``mamba``: its inner dim), so that each
+    model rank computes its share; otherwise the mixer runs replicated."""
+    return _SPLIT_BY[kind](cfg) % _axis_sizes(cfg).get("model", 1) == 0
+
+
+_SPEC_KEY = {"rwkv": "tm", "mamba": "mamba", "channelmix": "cm"}
+
+
+def _mixer_weights(cfg, bspec, bp, kind: str):
+    """A recurrent mixer's weights as the mesh path computes with them:
+    tensor-parallel where the model axis divides it (RWKV's per-head
+    vectors cut to the rank's heads; Mamba's ``in_proj``, stored as one
+    contiguous ``2·di`` block a rank, exchanged to the rank's x and z
+    columns), else gathered to replicated over the model axis."""
+    key = _SPEC_KEY[kind]
+    p = bp[key]
+    if not mixer_partitioned(cfg, kind):
+        p = _replicated_over_model(cfg, bspec[key], p)
+    elif kind == "rwkv":
+        p = dict(p, **{k: C.local_chunk(p[k], "model", 0)
+                       for k in ("u", "w_bias", "ln_scale")})
+    elif kind == "mamba":
+        p = dict(p, in_proj=C.pair_halves(p["in_proj"], "model", 1))
+    return dict(bp, **{key: p})
+
+
+def _mixer_ctx(cfg, ctx, kind: str) -> Dict[str, Any]:
+    """The keyword that puts a recurrent mixer on its mesh route: the
+    mesh context where it is partitioned, nothing (the one-device
+    computation) off the mesh or where it runs replicated."""
+    if ctx is not None and mixer_partitioned(cfg, kind):
+        return {"shard_ctx": ctx}
+    return {}
 
 
 def _ep_weights(cfg, p):
@@ -292,12 +342,9 @@ def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
     if shard_ctx is not None:
         bspec = block_spec(cfg, mixer, ffn)
         if mixer in ("mamba", "rwkv"):
-            key = "mamba" if mixer == "mamba" else "tm"
-            bp = dict(bp, **{key: _replicated_over_model(cfg, bspec[key],
-                                                         bp[key])})
+            bp = _mixer_weights(cfg, bspec, bp, mixer)
         if ffn == "channelmix":
-            bp = dict(bp, cm=_replicated_over_model(cfg, bspec["cm"],
-                                                    bp["cm"]))
+            bp = _mixer_weights(cfg, bspec, bp, "channelmix")
         elif ffn == "moe":
             bp = dict(bp, moe=_ep_weights(cfg, bp["moe"]))
     h = _norm_apply(cfg, bp["ln1"], x)
@@ -318,13 +365,18 @@ def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
                              device=x.device),
                  torch.zeros((B, M.CONV_K - 1, di), dtype=F32,
                              device=x.device))
-        out, (ssm, conv) = M.mamba_block(bp["mamba"], h, state, cfg.d_state)
+        out, (ssm, conv) = M.mamba_block(
+            bp["mamba"], h, state, cfg.d_state,
+            **_mixer_ctx(cfg, shard_ctx, "mamba"))
         cache_entry = {"ssm": ssm, "conv": conv}
     elif mixer == "rwkv":
         hd = cfg.d_model // cfg.n_heads
-        state = torch.zeros((x.shape[0], cfg.n_heads, hd, hd), dtype=F32,
+        heads = bp["tm"]["wr"].shape[1] // hd        # the rank's heads
+        state = torch.zeros((x.shape[0], heads, hd, hd), dtype=F32,
                             device=x.device)
-        out, state, last_x = R.timemix(bp["tm"], h, state, cfg.n_heads)
+        out, state, last_x = R.timemix(
+            bp["tm"], h, state, cfg.n_heads,
+            **_mixer_ctx(cfg, shard_ctx, "rwkv"))
         cache_entry = {"s": state, "last_tm": last_x}
     else:
         raise ValueError(mixer)
@@ -342,7 +394,8 @@ def apply_block(cfg, bp, x, *, mixer: str, ffn: str, positions,
                                shard_ctx=shard_ctx)
         x = x + out
     elif ffn == "channelmix":
-        out, cache_entry["last_cm"] = R.channelmix(bp["cm"], h)
+        out, cache_entry["last_cm"] = R.channelmix(
+            bp["cm"], h, **_mixer_ctx(cfg, shard_ctx, "channelmix"))
         x = x + out
     else:
         raise ValueError(ffn)
@@ -360,7 +413,10 @@ def forward(cfg, params, inputs: Dict[str, Any], *,
     ``{"b0": {"k": (periods, B, S, KV, dh), "v": ...}}`` (Mamba:
     ``{"ssm": (periods, B, di, N), "conv": (periods, B, 3, di)}``; RWKV:
     ``{"s": (periods, B, H, dh, dh), "last_tm": (periods, B, D),
-    "last_cm": ...}``)."""
+    "last_cm": ...}``).  On the mesh each entry is the rank's block: its
+    batch rows, its kv heads, a partitioned mixer's state its heads or
+    channels (the decode cache's layout, so ``cache_from_prefill`` gives
+    the rank's decode cache with no collective)."""
     pattern = arch_pattern(cfg)
     B, Sq = inputs["embeds" if "embeds" in inputs else "tokens"].shape[:2]
     ctx = _moe_shard_ctx(cfg, Sq)
@@ -568,19 +624,21 @@ def _decode_block_mesh(cfg, bp, x, ce, pos, specs, ctx, *, mixer: str,
                        ffn: str):
     """``decode_block`` on the mesh: ``bp`` at its compute sharding, ``ce``
     the rank's blocks of the cache entry at ``specs`` (a partition spec by
-    leaf name, ``train_step.batch_shardings``' rules).  The recurrent
-    mixers' states are gathered over the model axis, the mixer computed
-    replicated and the new state cut back to the rank's block."""
+    leaf name, ``train_step.batch_shardings``' rules).  A partitioned
+    recurrent mixer computes on the rank's block of its state (its heads
+    or channels), which stays where it is; one that the model axis does
+    not divide has its state gathered over the model axis, computed
+    replicated and cut back to the rank's block."""
     bspec = block_spec(cfg, mixer, ffn)
-    full = {n: _without_model(ps) for n, ps in specs.items()}
-    state = {n: C.reshard(v, specs[n], full[n]) for n, v in ce.items()
+    gather = mixer in ("mamba", "rwkv") and not mixer_partitioned(cfg, mixer)
+    run = {n: _without_model(ps) if gather else ps
+           for n, ps in specs.items()}
+    state = {n: C.reshard(v, specs[n], run[n]) for n, v in ce.items()
              if n not in ("k", "v")}
     if mixer in ("mamba", "rwkv"):
-        key = "mamba" if mixer == "mamba" else "tm"
-        bp = dict(bp, **{key: _replicated_over_model(cfg, bspec[key],
-                                                     bp[key])})
+        bp = _mixer_weights(cfg, bspec, bp, mixer)
     if ffn == "channelmix":
-        bp = dict(bp, cm=_replicated_over_model(cfg, bspec["cm"], bp["cm"]))
+        bp = _mixer_weights(cfg, bspec, bp, "channelmix")
     elif ffn == "moe":
         bp = dict(bp, moe=_ep_weights(cfg, bp["moe"]))
     h = _norm_apply(cfg, bp["ln1"], x)
@@ -591,11 +649,13 @@ def _decode_block_mesh(cfg, bp, x, ce, pos, specs, ctx, *, mixer: str,
             n_kv=cfg.n_kv_heads, seq_axes=S.pspec_axes(specs["k"][1]))
     elif mixer == "mamba":
         out, (new["ssm"], conv) = M.mamba_block(
-            bp["mamba"], h, (state["ssm"], state["conv"]), cfg.d_state)
+            bp["mamba"], h, (state["ssm"], state["conv"]), cfg.d_state,
+            **_mixer_ctx(cfg, ctx, "mamba"))
         new["conv"] = conv.to(ce["conv"].dtype)
     else:
-        out, new["s"], last = R.timemix(bp["tm"], h, state["s"], cfg.n_heads,
-                                        x_prev=state["last_tm"])
+        out, new["s"], last = R.timemix(
+            bp["tm"], h, state["s"], cfg.n_heads, x_prev=state["last_tm"],
+            **_mixer_ctx(cfg, ctx, "rwkv"))
         new["last_tm"] = last.to(ce["last_tm"].dtype)
     x = x + out
     h = _norm_apply(cfg, bp["ln2"], x)
@@ -608,10 +668,11 @@ def _decode_block_mesh(cfg, bp, x, ce, pos, specs, ctx, *, mixer: str,
                              shard_ctx=ctx)
         x = x + out
     else:
-        out, last = R.channelmix(bp["cm"], h, x_prev=state["last_cm"])
+        out, last = R.channelmix(bp["cm"], h, x_prev=state["last_cm"],
+                                 **_mixer_ctx(cfg, ctx, "channelmix"))
         x = x + out
         new["last_cm"] = last.to(ce["last_cm"].dtype)
-    return x, {n: v if n in ("k", "v") else C.reshard(v, full[n], specs[n])
+    return x, {n: v if n in ("k", "v") else C.reshard(v, run[n], specs[n])
                for n, v in new.items()}
 
 

@@ -10,7 +10,8 @@ names, ``"inductor"`` by default; the CPU tests pass ``"aot_eager"``, and
 (forward, backward by ``torch.func.grad_and_value``, AdamW) is one graph
 (``fullgraph=True``; an unrolled loop with microbatches), and the
 ``lilac`` MoE's ``lilac_torch::moe_ffn`` lands in it; under ``cfg.remat``
-the gradient is ``torch.autograd.grad`` (``torch.func`` takes no
+and for the recurrent families (whose scan checkpoints its chunks) the
+gradient is ``torch.autograd.grad`` (``torch.func`` takes no
 checkpoint), a graph break.  Torch has no
 buffer donation, so the compiled step holds its inputs and its outputs
 at once, as the eager step does.  On a mesh the collectives are graph

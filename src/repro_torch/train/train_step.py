@@ -117,8 +117,9 @@ def value_and_grad(loss_fn: Callable, unread=()) -> Callable:
 
     The step's route on a mesh, whose collectives are autograd Functions
     that stage through the host (``launch.collectives``) and take no
-    functional transform, and under ``cfg.remat``, whose
-    ``torch.utils.checkpoint`` saved-tensor hooks ``torch.func`` refuses.
+    functional transform, and under ``cfg.remat`` or with a recurrent
+    mixer (``_checkpoints``), whose ``torch.utils.checkpoint`` saved-tensor
+    hooks ``torch.func`` refuses.
     Under ``torch.compile`` ``torch.autograd.grad`` is a graph break: the
     forward compiles (between the collectives) and autograd runs the
     compiled pieces' backward."""
@@ -174,6 +175,13 @@ def _grad_constraint(grads, specs):
         return pytree.tree_map(fix, grads, specs)
 
 
+def _checkpoints(cfg) -> bool:
+    """Whether the loss runs ``torch.utils.checkpoint``, whose saved-tensor
+    hooks ``torch.func`` refuses: under ``cfg.remat``, and in a recurrent
+    mixer's scan (``layers.chunked_scan``, past one chunk of steps)."""
+    return cfg.remat or cfg.family in ("ssm", "hybrid")
+
+
 def make_train_step(model: Model, opt_cfg: O.AdamWConfig, *,
                     lilac_grad: bool = False,
                     lilac_options: Optional[Dict[str, Any]] = None):
@@ -207,7 +215,7 @@ def make_train_step(model: Model, opt_cfg: O.AdamWConfig, *,
         # a stub frontend's training reads embeddings, not the token table
         # its decode keeps (the reference gives the table a zero gradient)
         unread = ("embed",) if model.cfg.frontend == "stub" else ()
-        vg = (ValueAndGrad if specs is None and not model.cfg.remat
+        vg = (ValueAndGrad if specs is None and not _checkpoints(model.cfg)
               else value_and_grad)(model.loss_fn, unread=unread)
 
     def train_step(params, opt_state, batch):

@@ -320,13 +320,18 @@ def test_fingerprint_samples_large_tensors():
 
 
 def test_data_plane_keeps_the_most_recent_entries():
-    """The data plane holds at most max_entries marshaled values and lets
-    the least recently used go first."""
+    """The data plane holds at most max_entries marshaled values; past
+    capacity the cheapest to recompute of the least recently used goes
+    first (entries 2-8 take 2 ms to build, so of the window keys[1] is the
+    cheapest), and a refreshed entry stays."""
+    import time
+
     plane = lilac.DataPlane()
     n = plane.max_entries
     keys = [torch.full((4,), float(i)) for i in range(n + 1)]
     for i, k in enumerate(keys[:n]):
-        plane.get("pack", (k,), lambda i=i: i)
+        plane.get("pack", (k,), lambda i=i: (
+            time.sleep(0.002) if 2 <= i <= plane.EVICT_WINDOW else None, i)[1])
     assert plane.get("pack", (keys[0],), lambda: -1) == 0    # a hit: recent
     plane.get("pack", (keys[n],), lambda: n)                 # evicts keys[1]
     assert plane.stats.evictions == 1
